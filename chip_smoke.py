@@ -1,0 +1,344 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch package (src/repro_torch) on one CUDA card.
+
+Run from the root of a checkout, on a machine with one NVIDIA H100:
+
+    python3 chip_smoke.py
+
+Phases, each printing its lines; any failed check raises and the script
+exits non-zero (nothing is caught):
+
+1. environment — ``nvidia-smi`` name and power limit, torch and CUDA versions;
+2. build — compiles every CUDA kernel from ``src/repro_torch/kernels/csrc``
+   with nvcc (one process per source, started together);
+3. kernel vs plain — K1 against ``tilted_fusion_plain`` on the card at the
+   design point (the 6 bands of a 360x640 frame under zero and replicate,
+   the 74-row halo slabs with bounds, the anchor) in fp32 (max abs diff
+   <= 5e-4) and bf16 (<= 5e-2), on ABPN x3 weights from seed 0 with
+   seeded non-zero biases (``init_abpn`` zeroes them);
+4. main path — ``SRServer.open("abpn_x3", backend="kernel", precision=p,
+   layers=...)`` at full ABPN x3 width (the stack of phase 3) serves a 4-frame
+   360x640 request, two 2-frame requests that coalesce into one dispatch,
+   and a 180x320 frame, for fp32/bf16/int8 (zero) and fp32 (halo); every HR
+   result is held against the package's ``tilted`` backend on the card
+   (TF32 off) at 5e-4 (fp32, int8) / 5e-2 (bf16), a frame served alone must
+   equal the same frame served in the batch bit for bit, and K1's launch
+   counter, zeroed just before, must have moved;
+5. times — CUDA events, median of repeats after warm-up: K1 per launch, its
+   plain version, the same conv stack as cuDNN calls (``library_ms``, the
+   yardstick only) and K1's bound from the unpadded ABPN work, at 1 and 8
+   frames; the server's frames/s over the wall clock of 20 closed-loop
+   8-frame requests, and their p50 launch-to-completion latency;
+6. the kernels line, then the card's name and power limit, then the result.
+
+Exits 2 and prints no result when no CUDA device is present.
+"""
+
+import json
+import os
+import re
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+H, W, SCALE = 360, 640, 3  # the paper's design point: 360x640 -> 1080x1920
+TOL = {"fp32": 5e-4, "int8": 5e-4, "bf16": 5e-2}
+
+# Published peaks of the H100 SXM5 (NVIDIA data sheet; dense, without
+# sparsity): FP32 on the CUDA cores in FLOP/s, device memory in bytes/s.
+# K1 runs fp32 FMAs on the CUDA cores for fp32 and bf16 plans alike.
+PEAKS = {"H100 80GB HBM3": (67e12, 3.35e12)}
+
+
+def require(cond, msg):
+    if not cond:
+        raise RuntimeError(f"check failed: {msg}")
+
+
+def phase(name):
+    print(f"== {name}", flush=True)
+
+
+def peaks_for(name):
+    for key, val in PEAKS.items():
+        if key in name:
+            return key, val
+    raise RuntimeError(f"no published peaks recorded for {name!r}")
+
+
+def time_ms(torch, fn, reps, warmup=1):
+    """Median milliseconds of ``fn`` on the current stream (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def main() -> int:
+    t_start = time.perf_counter()
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available; nothing was run", file=sys.stderr)
+        return 2
+
+    from repro_torch import engine
+    from repro_torch.core.fusion import ConvLayer, conv_stack_reference, exact_fp32, halo_slabs
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import tilted_fusion as ttf
+    from repro_torch.models.abpn import init_abpn
+
+    dev = torch.device("cuda")
+    kcall = ttf.tilted_fusion_call
+
+    # ------------------------------------------------------------------
+    phase("1. environment")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    card = torch.cuda.get_device_name(0)
+    peak_key, (peak_flops, peak_bw) = peaks_for(card)
+    print(f"nvidia-smi: {smi}")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {card!r}, "
+          f"count {torch.cuda.device_count()}, python {sys.version.split()[0]}")
+    print(f"peaks used for bounds ({peak_key}): fp32 {peak_flops / 1e12:.0f} TFLOP/s, "
+          f"memory {peak_bw / 1e12:.2f} TB/s")
+    require(not torch.backends.cuda.matmul.allow_tf32, "fp32 matmuls must not use TF32")
+
+    # ------------------------------------------------------------------
+    phase("2. build")
+    t0 = time.perf_counter()
+    built = _build.build_all()
+    print(f"nvcc {_build.nvcc_path()} built {sorted(built)} in "
+          f"{time.perf_counter() - t0:.1f} s ({' '.join(_build.NVCC_FLAGS)})")
+    # registers, spills (LOCAL) and static shared memory of each instance
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    for name in sorted(built):
+        usage = subprocess.run([cuobjdump, "--dump-resource-usage",
+                                str(_build.library_path(name))],
+                               capture_output=True, text=True, timeout=120)
+        label, shown = None, 0
+        for line in usage.stdout.splitlines():
+            m = re.search(r"kernelI(f|13__nv_bfloat16)Li(\d+)E", line)
+            if m:
+                label = f"<{'fp32' if m.group(1) == 'f' else 'bf16'}, chp {m.group(2)}>"
+            res = re.search(r"REG:\d+ STACK:\d+ SHARED:\d+ LOCAL:\d+", line)
+            if res and label:
+                print(f"  {name} {label}: {res.group(0)}")
+                label, shown = None, shown + 1
+        if not shown:
+            print(f"  cuobjdump (exit {usage.returncode}) reported no resource usage: "
+                  f"{(usage.stdout + usage.stderr).strip()[:300]!r}")
+
+    # ------------------------------------------------------------------
+    phase("3. K1 vs its plain version on the card (design point)")
+    gen = torch.Generator().manual_seed(1)
+    # init_abpn's biases are zero; seeded non-zero ones check the bias path
+    layers = [ConvLayer(l.w, (0.1 * torch.randn(l.b.shape, generator=gen)).to(dev), l.relu)
+              for l in init_abpn(torch.Generator().manual_seed(0), device=dev)]
+    require(all(bool((l.b != 0).all()) for l in layers), "every bias must be non-zero")
+    relu = [l.relu for l in layers]
+    frame = torch.rand((1, H, W, 3), generator=gen).to(dev)
+    L, C = len(layers), 8
+
+    # TF32 off under exact_fp32: the fp32 reference must match fp64
+    band = frame[:, :60, :128]
+    ref32 = conv_stack_reference(band, layers)
+    ref64 = conv_stack_reference(band.double(), [l.to(dtype=torch.float64) for l in layers])
+    tf32_err = (ref32.double() - ref64).abs().max().item()
+    print(f"conv_stack_reference fp32 vs fp64: max_abs_err={tf32_err:.3e}")
+    require(tf32_err < 1e-4, "the fp32 reference must run without TF32")
+
+    bands = frame.reshape(H // 60, 60, W, 3)
+    slabs, bounds = halo_slabs(frame, 60, L)
+    prime = torch.rand((1, 61, W, 3), generator=gen).to(dev)  # one-band fallback
+    cases = [
+        ("zero", bands, dict(row_policy="zero")),
+        ("replicate", bands, dict(row_policy="replicate")),
+        ("halo (74-row slabs, bounds)", slabs, dict(row_policy="zero", row_bounds=bounds)),
+        ("zero + anchor", bands, dict(row_policy="zero", add_anchor=True)),
+        ("61-row frame as one band", prime, dict(row_policy="replicate")),
+    ]
+    worst = {}
+    for prec, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        packed = ops.pack_stack([l.to(dtype=dt) for l in layers], dtype=dt)
+        for name, xb, extra in cases:
+            xs, first = ops.band_streams(xb.to(dt), C, L)
+            kw = dict(width=W, tile_cols=C, relu_flags=relu, in_channels=3,
+                      anchor_repeats=SCALE * SCALE, add_anchor=False)
+            kw.update(extra)
+            got = kcall(xs, first, packed.w, packed.b, **kw)
+            torch.cuda.synchronize()
+            want = ttf.tilted_fusion_plain(xs, first, packed.w, packed.b, **kw)
+            require(got.shape == want.shape and got.dtype == want.dtype, f"{name} shape/dtype")
+            require(bool(torch.isfinite(got.float()).all()), f"{name} {prec}: non-finite output")
+            err = (got.float() - want.float()).abs().max().item()
+            worst[prec] = max(worst.get(prec, 0.0), err)
+            print(f"K1 vs plain [{prec}, {name}, B={xs.shape[0]} R={xs.shape[1]}]: "
+                  f"max_abs_err={err:.3e} (tol {TOL[prec]:g})")
+            require(err <= TOL[prec], f"K1 vs plain {prec} {name}")
+
+    # ------------------------------------------------------------------
+    phase("4. main path: SRServer.open('abpn_x3', backend='kernel') serving")
+    rng = np.random.default_rng(2)
+    req4 = rng.uniform(size=(4, H, W, 3)).astype(np.float32)
+    pair = [rng.uniform(size=(2, H, W, 3)).astype(np.float32) for _ in range(2)]
+    small = rng.uniform(size=(H // 2, W // 2, 3)).astype(np.float32)
+    kcall.launches = 0  # count the main path's launches only
+    per_config = {}
+    for prec, policy in (("fp32", "zero"), ("bf16", "zero"), ("int8", "zero"), ("fp32", "halo")):
+        before = kcall.launches
+        server = engine.SRServer.open("abpn_x3", backend="kernel", precision=prec,
+                                      vertical_policy=policy, layers=layers)
+        hr4 = server.submit(req4).result()
+        s0 = server.scheduler_stats()
+        futs = [server.submit(p) for p in pair]  # submitted together
+        hr_pair = [f.result() for f in futs]
+        s1 = server.scheduler_stats()
+        require(s1["dispatches"] - s0["dispatches"] == 1
+                and s1["coalesced_dispatches"] - s0["coalesced_dispatches"] == 1,
+                f"{prec}/{policy}: the two 2-frame requests must share one dispatch")
+        hr_small = server.submit(small).result()
+        alone = server.submit(req4[0]).result()
+        require(torch.equal(alone, hr4[0]),
+                f"{prec}/{policy}: a frame served alone must equal it served in a batch")
+        dispatches = server.scheduler_stats()["dispatches"]
+        server.close()
+        launched = kcall.launches - before
+        require(launched > 0, f"{prec}/{policy}: K1 was never launched")
+
+        errs = []
+        for lr, hr in ((req4, hr4), (np.concatenate(pair), torch.cat(hr_pair)),
+                       (small[None], hr_small[None])):
+            plan = engine.make_plan(layers, lr.shape[1:], backend="tilted", precision=prec,
+                                    vertical_policy=policy, band_rows=engine.derive_band_rows(
+                                        lr.shape[1]), scale=SCALE)
+            want = engine.run(plan, layers, lr, device=dev)
+            require(tuple(hr.shape) == (lr.shape[0], lr.shape[1] * SCALE, lr.shape[2] * SCALE, 3),
+                    f"{prec}/{policy}: HR shape {tuple(hr.shape)}")
+            require(bool(torch.isfinite(hr).all()), f"{prec}/{policy}: non-finite HR output")
+            errs.append((hr.float() - want.float()).abs().max().item())
+        err = max(errs)
+        per_config[f"{prec}/{policy}"] = {"launches": launched, "max_abs_err": err}
+        print(f"server [{prec}, {policy}]: K1 launches {launched}, dispatches "
+              f"{dispatches}, HR vs tilted backend max_abs_err={err:.3e} "
+              f"(tol {TOL[prec]:g}); batch-independent bit-exact: yes")
+        require(err <= TOL[prec], f"{prec}/{policy}: server output vs tilted backend")
+    main_launches = kcall.launches
+    print(f"main path K1 launches: {main_launches}")
+    require(main_launches > 0, "the main path never launched K1")
+
+    # ------------------------------------------------------------------
+    phase("5. times (CUDA events, median of repeats after warm-up)")
+    packed = ops.pack_stack(layers, dtype=torch.float32)
+    chp, c0p = packed.chp, 8
+    timings = {}
+    for n in (1, 8):
+        frames = torch.rand((n, H, W, 3), generator=gen).to(dev)
+        xb = frames.reshape(n * H // 60, 60, W, 3)
+        xs, first = ops.band_streams(xb, C, L)
+        kw = dict(width=W, tile_cols=C, relu_flags=relu, in_channels=3, add_anchor=False)
+        B, R, KC, _ = xs.shape
+        k1_ms = time_ms(torch, lambda: kcall(xs, first, packed.w, packed.b, **kw), reps=10)
+        plain_ms = time_ms(torch, lambda: ttf.tilted_fusion_plain(
+            xs, first, packed.w, packed.b, **kw), reps=3)
+        nchw = xb.permute(0, 3, 1, 2).contiguous()
+        oihw = [(l.w.permute(3, 2, 0, 1).contiguous(), l.b) for l in layers]
+
+        def cudnn_stack():
+            f = nchw
+            with exact_fp32():
+                for (w_, b_), r in zip(oihw, relu):
+                    f = torch.nn.functional.conv2d(f, w_, b_, padding=1)
+                    f = torch.relu(f) if r else f
+            return f
+
+        lib_ms = time_ms(torch, cudnn_stack, reps=10)
+        # The bound counts the function's own work: the unpadded stack over
+        # the n*H*W pixels (2 FLOP per MAC), the frames read and the last
+        # layer's features written once, and the weights read once.
+        flops = 2 * n * H * W * sum(9 * l.ci * l.co for l in layers)
+        nbytes = 4 * (n * H * W * (layers[0].ci + layers[-1].co)
+                      + sum(l.w.numel() + l.b.numel() for l in layers))
+        # What K1 executes: every tile column of every band, layer 0 over
+        # c0p input channels and the rest over chp (padding included)
+        executed = 2 * B * R * KC * 9 * (c0p * chp + (L - 1) * chp * chp)
+        bound_ms = max(flops / peak_flops, nbytes / peak_bw) * 1e3
+        bound_by = "operations" if flops / peak_flops >= nbytes / peak_bw else "bytes"
+        timings[n] = dict(k1_ms=k1_ms, plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, flops=flops, bytes=nbytes, bands=B)
+        print(f"batch {n} ({B} bands of {R}x{W}, fp32, zero): K1 {k1_ms:.3f} ms/launch, "
+              f"plain {plain_ms:.3f} ms, cuDNN conv stack (library_ms) {lib_ms:.3f} ms, "
+              f"bound {bound_ms:.3f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP of ABPN, "
+              f"{nbytes / 1e6:.1f} MB moved; {peak_flops / 1e12:.0f} TFLOP/s, "
+              f"{peak_bw / 1e12:.2f} TB/s) -> {100 * bound_ms / k1_ms:.1f}% of bound; "
+              f"K1 executes {executed / 1e9:.2f} GFLOP with padding")
+
+    server = engine.SRServer.open("abpn_x3", backend="kernel", precision="fp32",
+                                  layers=layers)
+    batch8 = rng.uniform(size=(8, H, W, 3)).astype(np.float32)
+    server.submit(batch8).result()  # warm the bucket-8 executor
+    session = server.session()
+    session.reset_stats()
+    requests = 20
+    t0 = time.perf_counter()
+    for _ in range(requests):  # closed loop: one client, one request at a time
+        server.submit(batch8).result()
+    wall_s = time.perf_counter() - t0
+    st = session.stats()
+    worst_ms = max(session._complete_ms)
+    server.close()
+    server_fps = requests * batch8.shape[0] / wall_s
+    print(f"server fp32 zero, {requests} closed-loop 8-frame requests of {H}x{W}: "
+          f"{server_fps:.2f} frames/s over {wall_s:.3f} s of wall clock (upload, host "
+          f"work and K1 included); launch-to-completion latency p50 {st['p50_ms']:.2f} ms, "
+          f"max {worst_ms:.2f} ms (host numpy in, HR tensor on the card out)")
+
+    # ------------------------------------------------------------------
+    phase("6. kernels")
+    t8 = timings[8]
+    kernels = [{
+        "name": "tilted_fusion",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/tilted_fusion.cu",
+        "replaces": "src/repro/kernels/tilted_fusion.py:208",
+        "launches": main_launches,
+        "max_abs_err": worst["fp32"],
+        "max_abs_err_bf16": worst["bf16"],
+        "ms": t8["k1_ms"],
+        "plain_ms": t8["plain_ms"],
+        "bound_ms": t8["bound_ms"],
+        "bound_by": t8["bound_by"],
+        "library_ms": t8["lib_ms"],
+        "shape": f"8 frames {H}x{W}: {t8['bands']} bands, fp32, zero",
+        "batch1_ms": timings[1]["k1_ms"],
+        "batch1_bound_ms": timings[1]["bound_ms"],
+        "server_fps": server_fps,
+        "main_path": per_config,
+    }]
+    print("kernels: " + json.dumps({k["name"]: {"launches": k["launches"], "replaces": k["replaces"]}
+                                    for k in kernels}))
+    print(json.dumps({"kernels": kernels}))
+    print(smi)  # the card, as nvidia-smi names it, and its power limit
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

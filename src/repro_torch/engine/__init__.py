@@ -1,0 +1,96 @@
+"""Batched SR execution engine (the serving subsystem), in PyTorch.
+
+``SRServer`` (server.py) is the serving front door:
+``SRServer.open(models...)`` hosts one or more named sessions and
+``server.submit(frames, model=..., priority=...)`` returns an
+:class:`SRFuture`.  A micro-batching scheduler (scheduler.py) coalesces
+concurrent requests that share a ``(model, plan, dtype)`` key into single
+bucket-sized dispatches and enforces a bounded queue
+(``max_inflight_frames``, block-or-reject admission).
+
+``SRSession`` (session.py) is the per-model layer underneath: it derives
+the :class:`SRPlan` per resolution, buckets batches to powers of two, and
+keeps one warmed executor per ``(plan, bucket, dtype)`` in an LRU
+:class:`PlanCache`, over device-resident :class:`PreparedStack` weights.
+
+Underneath: ``SRPlan`` (plan.py) describes one execution — geometry,
+numerics, boundary policy, backend — and ``run`` (executor.py) runs it
+over a batch of LR frames.  The ``kernel`` backend launches the
+hand-written CUDA kernel on the card.  Every entry point runs on CUDA
+unless the caller passes ``device="cpu"``.
+"""
+
+from repro_torch.engine.executor import (
+    OutputSpec,
+    PreparedStack,
+    build_executor,
+    build_stack_executor,
+    compute_dtype_for,
+    default_device,
+    output_spec,
+    prepare_layers,
+    prepare_stack,
+    run,
+    sr_epilogue,
+    sr_features,
+)
+from repro_torch.engine.plan import (
+    BACKENDS,
+    PRECISIONS,
+    VERTICAL_POLICIES,
+    SRPlan,
+    check_layer_channels,
+    derive_band_rows,
+    legal_band_rows,
+    make_plan,
+    shardable_band_rows,
+)
+from repro_torch.engine.scheduler import (
+    DeadlineExceededError,
+    MicroBatchScheduler,
+    QueueFullError,
+    RequestShedError,
+)
+from repro_torch.engine.server import SRFuture, SRServer
+from repro_torch.engine.session import (
+    AUTOTUNE_MODES,
+    PlanCache,
+    SRSession,
+    StreamStats,
+    bucket_batch,
+)
+
+__all__ = [
+    "SRServer",
+    "SRFuture",
+    "MicroBatchScheduler",
+    "QueueFullError",
+    "DeadlineExceededError",
+    "RequestShedError",
+    "SRSession",
+    "PlanCache",
+    "bucket_batch",
+    "SRPlan",
+    "make_plan",
+    "check_layer_channels",
+    "derive_band_rows",
+    "legal_band_rows",
+    "shardable_band_rows",
+    "AUTOTUNE_MODES",
+    "BACKENDS",
+    "PRECISIONS",
+    "VERTICAL_POLICIES",
+    "OutputSpec",
+    "build_executor",
+    "build_stack_executor",
+    "compute_dtype_for",
+    "default_device",
+    "output_spec",
+    "prepare_layers",
+    "prepare_stack",
+    "PreparedStack",
+    "run",
+    "sr_epilogue",
+    "sr_features",
+    "StreamStats",
+]

@@ -1,0 +1,280 @@
+"""Batched plan executor — one call per frame batch, any backend.
+
+* ``reference`` — the full-image layerwise oracle over the frame batch.
+* ``tilted``    — the plain PyTorch tilted sweep over a flat
+  ``(N * num_bands, R, W, C)`` band axis.
+* ``kernel``    — the hand-written CUDA kernel (K1) on the card, its plain
+  version on the CPU; the same flat band axis becomes the kernel's grid
+  (one CTA per band), so a batch of frames is ONE kernel launch
+  (``kernels.ops.tilted_fused_frames``).
+
+All backends share the anchor + pixel-shuffle epilogue and the plan's
+numerics policy (fp32 / bf16 / int8 dequant-on-read weights).
+
+Weight preparation has two homes: :func:`prepare_stack` builds a
+device-resident :class:`PreparedStack` ONCE per weight stack and
+:func:`build_stack_executor` binds it into the serving callable (this is
+what ``SRSession`` serves through); :func:`run` / :func:`build_executor`
+keep the self-contained signature (raw float layers in, preparation inside
+the call).  PyTorch runs eagerly, so the per-(plan, bucket, dtype) callable
+the session caches takes the place of a compiled program.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.fusion import (
+    ConvLayer,
+    conv_stack_reference,
+    halo_slabs,
+    tilted_fused_bands,
+)
+from repro_torch.core.quant import dequantize_layers, quantize_layers
+from repro_torch.engine.plan import SRPlan
+from repro_torch.models.abpn import depth_to_space, make_anchor
+
+__all__ = [
+    "OutputSpec",
+    "prepare_layers",
+    "prepare_stack",
+    "PreparedStack",
+    "build_executor",
+    "build_stack_executor",
+    "compute_dtype_for",
+    "default_device",
+    "output_spec",
+    "run",
+    "sr_epilogue",
+    "sr_features",
+]
+
+
+def default_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``device`` if given, else the
+    CUDA card.  With no ``device`` and no CUDA this raises — entry points
+    never carry on on the CPU unless the caller asks for it."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device and none is available; pass "
+            "device='cpu' explicitly to run the plain versions on the CPU"
+        )
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def prepare_layers(layers: Sequence[ConvLayer], precision: str) -> List[ConvLayer]:
+    """Apply the plan's numerics policy to a float conv stack.
+
+    ``fp32`` passes through; ``bf16`` casts weights/biases (activations are
+    cast at the executor boundary); ``int8`` round-trips the weights through
+    symmetric per-channel quantisation and computes in fp32
+    (dequant-on-read).
+    """
+    if precision == "fp32":
+        return list(layers)
+    if precision == "bf16":
+        return [l.to(dtype=torch.bfloat16) for l in layers]
+    if precision == "int8":
+        return dequantize_layers(quantize_layers(layers))
+    raise ValueError(f"unknown precision {precision!r}")
+
+
+@dataclasses.dataclass
+class PreparedStack:
+    """A weight stack with the plan's numerics + backend packing applied.
+
+    Built ONCE per (weight stack, precision, backend) by
+    :func:`prepare_stack`; ``packed`` is only populated for the ``kernel``
+    backend (the launch's padded storage form).
+    """
+
+    layers: tuple  # Tuple[ConvLayer, ...], numerics applied
+    packed: Optional[object]  # kernels.ops.PackedLayers | None
+    precision: str
+    backend: str
+
+    def _tensors(self):
+        for l in self.layers:
+            yield l.w
+            yield l.b
+        if self.packed is not None:
+            yield self.packed.w
+            yield self.packed.b
+
+    def nbytes(self) -> int:
+        """Device bytes this stack holds (prepared + packed forms)."""
+        return sum(t.numel() * t.element_size() for t in self._tensors())
+
+
+def compute_dtype_for(precision: str) -> torch.dtype:
+    """The on-chip compute dtype a precision policy implies (int8 stores
+    quantised weights but computes dequantised in fp32)."""
+    return torch.bfloat16 if precision == "bf16" else torch.float32
+
+
+def prepare_stack(plan: SRPlan, layers: Sequence[ConvLayer]) -> PreparedStack:
+    """Apply ``plan``'s numerics policy — and, for the ``kernel`` backend,
+    the launch's weight pad/pack — producing a :class:`PreparedStack` on
+    the layers' device."""
+    prepared = tuple(prepare_layers(layers, plan.precision))
+    packed = None
+    if plan.backend == "kernel":
+        from repro_torch.kernels import ops
+
+        packed = ops.pack_stack(prepared, dtype=compute_dtype_for(plan.precision))
+    return PreparedStack(
+        layers=prepared, packed=packed, precision=plan.precision, backend=plan.backend
+    )
+
+
+# ----------------------------------------------------------------------
+# Backend feature executors: (N, H, W, C0) -> (N, H, W, ChL)
+# ----------------------------------------------------------------------
+def _features_reference(plan: SRPlan, layers, frames: torch.Tensor) -> torch.Tensor:
+    return conv_stack_reference(frames, layers)
+
+
+def _features_tilted(plan: SRPlan, layers, frames: torch.Tensor) -> torch.Tensor:
+    N, H, W, C0 = frames.shape
+    R, L = plan.band_rows, plan.num_layers
+    policy = plan.vertical_policy
+    if policy in ("zero", "replicate"):
+        bands = frames.reshape(N * plan.num_bands, R, W, C0)
+        out = tilted_fused_bands(bands, layers, plan.tile_cols, row_pad=policy)
+        return out.reshape(N, H, W, out.shape[-1])
+    # halo: every band is the (R + 2L)-row slab of the zero-padded frame
+    # starting at its own row offset, with its phantom rows masked per layer
+    slabs, bounds = halo_slabs(frames, R, L)
+    out = tilted_fused_bands(slabs, layers, plan.tile_cols, "zero", bounds)
+    out = out[:, L : L + R]  # crop the recompute margin
+    return out.reshape(N, H, W, out.shape[-1])
+
+
+def _features_kernel(plan: SRPlan, layers, frames: torch.Tensor, packed=None) -> torch.Tensor:
+    from repro_torch.kernels import ops
+
+    # frames arrive already cast, so the compute dtype rides in on the
+    # input dtype; ``packed`` (from a PreparedStack) skips the weight pack
+    return ops.tilted_fused_frames(
+        frames,
+        layers,
+        band_rows=plan.band_rows,
+        tile_cols=plan.tile_cols,
+        vertical_policy=plan.vertical_policy,
+        compute_dtype=frames.dtype,
+        packed=packed,
+    )
+
+
+_BACKENDS = {
+    "reference": _features_reference,
+    "tilted": _features_tilted,
+}
+
+
+def sr_features(plan: SRPlan, layers, frames: torch.Tensor, packed=None) -> torch.Tensor:
+    """Run the plan's conv-stack backend over a frame batch (no epilogue).
+    ``layers`` are assumed already numerics-prepared."""
+    if plan.backend == "kernel":
+        return _features_kernel(plan, layers, frames, packed)
+    return _BACKENDS[plan.backend](plan, layers, frames)
+
+
+def _execute_stack(plan: SRPlan, stack: PreparedStack, frames: torch.Tensor) -> torch.Tensor:
+    """The per-batch computation over an already-prepared weight stack:
+    the conv datapath + epilogue, nothing else."""
+    if frames.ndim != 4:
+        raise ValueError(
+            f"expected a frame batch (N, H, W, C), got shape {tuple(frames.shape)}"
+        )
+    in_dtype = frames.dtype
+    x = frames.to(compute_dtype_for(plan.precision))
+    feats = sr_features(plan, stack.layers, x, packed=stack.packed)
+    return sr_epilogue(plan, x, feats, in_dtype)
+
+
+def sr_epilogue(plan: SRPlan, x: torch.Tensor, feats: torch.Tensor, in_dtype) -> torch.Tensor:
+    """ABPN's residual epilogue: anchor add, pixel shuffle, clip, cast.
+
+    Row-block local: ``depth_to_space`` maps LR row ``y`` to HR rows
+    ``[y*s, y*s+s)``.
+    """
+    out = feats + make_anchor(x, plan.scale)
+    hr = depth_to_space(out, plan.scale)
+    if plan.clip:
+        hr = torch.clamp(hr, 0.0, 1.0)
+    return hr.to(in_dtype)
+
+
+def _execute(plan: SRPlan, layers, frames: torch.Tensor) -> torch.Tensor:
+    """``(plan, layers, frames) -> HR batch`` with weight preparation inside."""
+    return _execute_stack(plan, prepare_stack(plan, layers), frames)
+
+
+def _on_device(layers, device):
+    return tuple(l.to(device=device) for l in layers)
+
+
+def _frames_on(frames, device) -> torch.Tensor:
+    if isinstance(frames, np.ndarray):
+        frames = torch.from_numpy(frames)
+    return frames.to(device)
+
+
+def build_executor(
+    plan: SRPlan, layers: Sequence[ConvLayer], device=None
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Bind plan + weights into ``frames (N,H,W,C) -> HR (N,sH,sW,C)`` on
+    ``device`` (default: the CUDA card; raises without one)."""
+    plan.check_invariants()
+    dev = default_device(device)
+    bound = _on_device(layers, dev)
+    return lambda frames: _execute(plan, bound, _frames_on(frames, dev))
+
+
+def build_stack_executor(
+    plan: SRPlan,
+    stack: PreparedStack,
+    *,
+    donate_frames: bool = False,
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The serving executor: bind plan + a :class:`PreparedStack` into
+    ``frames (N,H,W,C) -> HR (N,sH,sW,C)`` on the stack's device.
+
+    ``donate_frames`` is accepted for interface parity and is a no-op:
+    eager PyTorch frees the frame slab when its last reference goes, so
+    there is no buffer donation to request.
+    """
+    plan.check_invariants()
+    return functools.partial(_execute_stack, plan, stack)
+
+
+@dataclasses.dataclass(frozen=True)
+class OutputSpec:
+    """Shape and dtype an executor emits for a batch."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def output_spec(plan: SRPlan, layers: Sequence[ConvLayer], batch: int, dtype) -> OutputSpec:
+    """The shape/dtype the executor emits for a ``(batch, *lr_shape)`` input
+    of ``dtype``: the HR shape of the plan, in the input dtype (the epilogue
+    casts back).  Computed from the plan; nothing runs."""
+    return OutputSpec(shape=(int(batch), *plan.hr_shape), dtype=dtype)
+
+
+def run(plan: SRPlan, layers: Sequence[ConvLayer], frames, device=None) -> torch.Tensor:
+    """One-shot convenience: run a frame batch through the plan on
+    ``device`` (default: the CUDA card; raises without one).  ``frames`` is
+    a tensor or numpy array ``(N, H, W, C)``; the result stays on the
+    device."""
+    dev = default_device(device)
+    return _execute(plan, _on_device(layers, dev), _frames_on(frames, dev))

@@ -1,0 +1,706 @@
+"""SRSession — shape/batch/model-agnostic serving over an executor cache.
+
+* ``SRSession.open("abpn_x3", backend=..., precision=...)`` resolves the
+  model's config + weights through ``repro_torch.models.registry``.
+* ``session.upscale(frames)`` accepts ``(H, W, C)``, ``(T, H, W, C)`` or
+  ``(B, T, H, W, C)`` input.  Per new resolution it derives the
+  :class:`~repro_torch.engine.plan.SRPlan` (including a legal
+  ``band_rows`` — ``SRPlan.from_request``), buckets the flattened batch up
+  to a power of two, and builds one executor per ``(plan, bucket, dtype)``
+  on demand, warmed on a zero dummy (the first launch also builds the CUDA
+  kernel) — the warm-up time is the entry's ``compile_s``.
+* Executors live in an LRU :class:`PlanCache`; weights are prepared ONCE
+  per ``(precision, backend)`` into a device-resident
+  :class:`~repro_torch.engine.executor.PreparedStack`, refcounted across
+  cache entries.
+* ``submit``/``upscale`` route through an :class:`SRServer` (the hosting
+  one, or an embedded single-model server), which pipelines up to
+  ``pipeline_depth`` dispatches per session.
+
+The session runs on ``device`` — the CUDA card unless the caller passes
+``device="cpu"``; with no ``device`` and no CUDA, construction raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import OrderedDict
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.engine.executor import (
+    PreparedStack,
+    build_stack_executor,
+    default_device,
+    output_spec,
+    prepare_stack,
+)
+from repro_torch.engine.plan import (
+    PREFERRED_BAND_ROWS,
+    SRPlan,
+    check_layer_channels,
+)
+
+__all__ = [
+    "SRSession",
+    "PlanCache",
+    "StreamStats",
+    "bucket_batch",
+    "latency_stats",
+    "AUTOTUNE_MODES",
+]
+
+# Schedule autotuning modes of the JAX package; only "off" is ported.
+AUTOTUNE_MODES = ("off", "cached", "full")
+
+# numpy/torch dtypes a request may carry, canonicalised the way the JAX
+# package serves them (no 64-bit types)
+_CANONICAL = {
+    torch.float64: torch.float32,
+    torch.int64: torch.int32,
+    torch.complex128: torch.complex64,
+}
+
+
+def _not_ported(what: str, item: int) -> ValueError:
+    return ValueError(
+        f"{what} is not ported to repro_torch yet (ROADMAP queue 1, item {item})"
+    )
+
+
+class StreamStats(dict):
+    """Latency/throughput summary: frames, batches, fps, dispatch/complete
+    p50/p95/p99/mean ms."""
+
+
+def latency_stats(
+    lat_ms: Sequence[float],
+    frames: int,
+    *,
+    dispatch_ms: Optional[Sequence[float]] = None,
+    total_s: Optional[float] = None,
+    **extra,
+) -> StreamStats:
+    """Summarise recorded per-call latencies (warm-up never included).
+
+    ``lat_ms`` are COMPLETE latencies (dispatch -> result ready);
+    ``dispatch_ms`` are enqueue times; ``total_s`` is the serving wall-clock
+    span, so with pipelining fps is frames over the SPAN.
+    """
+    lat = np.asarray(lat_ms, dtype=np.float64)
+    disp = lat if dispatch_ms is None else np.asarray(dispatch_ms, np.float64)
+    if lat.size == 0:
+        return StreamStats(
+            frames=0, batches=0, fps=0.0,
+            p50_ms=0.0, p95_ms=0.0, p99_ms=0.0, mean_ms=0.0,
+            dispatch_p50_ms=0.0, dispatch_p99_ms=0.0, dispatch_mean_ms=0.0,
+            **extra,
+        )
+    total = lat.sum() / 1e3 if total_s is None else float(total_s)
+    if disp.size == 0:
+        d50 = d99 = dmean = 0.0
+    else:
+        d50 = float(np.percentile(disp, 50))
+        d99 = float(np.percentile(disp, 99))
+        dmean = float(disp.mean())
+    return StreamStats(
+        frames=frames,
+        batches=int(lat.size),
+        fps=frames / total if total > 0 else 0.0,
+        p50_ms=float(np.percentile(lat, 50)),
+        p95_ms=float(np.percentile(lat, 95)),
+        p99_ms=float(np.percentile(lat, 99)),
+        mean_ms=float(lat.mean()),
+        dispatch_p50_ms=d50,
+        dispatch_p99_ms=d99,
+        dispatch_mean_ms=dmean,
+        **extra,
+    )
+
+
+def bucket_batch(n: int) -> int:
+    """Round a batch size up to the next power of two (at most
+    ``log2(max batch)`` executors per plan, at most 2x padding)."""
+    if n < 1:
+        raise ValueError(f"batch size {n} must be >= 1")
+    return 1 << (n - 1).bit_length()
+
+
+@dataclasses.dataclass
+class _CacheEntry:
+    """A warmed executor plus the key facts ``cache_stats`` reports."""
+
+    fn: Callable[[torch.Tensor], torch.Tensor]
+    plan: SRPlan
+    bucket: int
+    dtype: str
+    compile_s: float
+    stack_key: tuple = ()
+
+
+class PlanCache:
+    """LRU cache of warmed executors keyed by ``(plan, bucket, dtype)``.
+
+    ``get`` counts a hit (and refreshes recency) or a miss; ``put`` evicts
+    the least-recently-used entry past ``capacity``.  ``on_evict(key,
+    entry)`` fires for every evicted entry (including :meth:`clear`).
+    """
+
+    def __init__(self, capacity: int = 8, on_evict: Optional[Callable] = None):
+        if capacity < 1:
+            raise ValueError(f"capacity={capacity} must be >= 1")
+        self.capacity = capacity
+        self.on_evict = on_evict
+        self._entries: "OrderedDict[tuple, _CacheEntry]" = OrderedDict()
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+
+    def get(self, key) -> Optional[_CacheEntry]:
+        entry = self._entries.get(key)
+        if entry is None:
+            self.misses += 1
+            return None
+        self._entries.move_to_end(key)
+        self.hits += 1
+        return entry
+
+    def _evict_oldest(self) -> None:
+        k, e = self._entries.popitem(last=False)
+        self.evictions += 1
+        if self.on_evict is not None:
+            self.on_evict(k, e)
+
+    def put(self, key, entry: _CacheEntry) -> None:
+        self._entries[key] = entry
+        self._entries.move_to_end(key)
+        while len(self._entries) > self.capacity:
+            self._evict_oldest()
+
+    def clear(self) -> None:
+        """Evict every entry (counted, ``on_evict`` fired per entry)."""
+        while self._entries:
+            self._evict_oldest()
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def __contains__(self, key) -> bool:  # does not touch the counters
+        return key in self._entries
+
+    def keys(self) -> List[tuple]:
+        """Keys in LRU -> MRU order (eviction order)."""
+        return list(self._entries)
+
+    def entries(self) -> List[_CacheEntry]:
+        """Entries in LRU -> MRU order."""
+        return list(self._entries.values())
+
+    def stats(self) -> Dict[str, float]:
+        total = self.hits + self.misses
+        return {
+            "hits": self.hits,
+            "misses": self.misses,
+            "evictions": self.evictions,
+            "size": len(self._entries),
+            "capacity": self.capacity,
+            "hit_rate": self.hits / total if total else 0.0,
+        }
+
+
+@dataclasses.dataclass
+class _StackRecord:
+    """A refcounted device-resident PreparedStack shared by cache entries."""
+
+    stack: PreparedStack
+    refs: int
+    prepare_s: float
+
+
+def _synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class SRSession:
+    """One serving endpoint: fixed weights + policy, any request shape.
+
+    Construct from a layer stack (the port's ``ConvLayer``\\ s — see
+    ``models.abpn.layers_from_numpy``), via :meth:`open` (model name ->
+    weights through the registry), or via :meth:`from_plan` (pin a plan).
+    """
+
+    def __init__(
+        self,
+        layers,
+        *,
+        backend: str = "tilted",
+        precision: str = "fp32",
+        vertical_policy: str = "zero",
+        tile_cols: int = 8,
+        band_rows: Optional[int] = None,
+        preferred_band_rows: int = PREFERRED_BAND_ROWS,
+        scale: int = 3,
+        clip: bool = True,
+        cache_capacity: int = 8,
+        max_bucket: Optional[int] = None,
+        model: Optional[str] = None,
+        pipeline_depth: Optional[int] = None,
+        donate_frames: Optional[bool] = None,
+        autotune: str = "off",
+        tuner=None,
+        tuning_db: Optional[str] = None,
+        strict: bool = False,
+        mesh=None,
+        route: Optional[str] = None,
+        device=None,
+    ):
+        layers = tuple(layers)
+        if not layers:
+            raise ValueError("layer stack is empty")
+        if max_bucket is not None and max_bucket < 1:
+            raise ValueError(f"max_bucket={max_bucket} must be >= 1")
+        if pipeline_depth is not None and pipeline_depth < 1:
+            raise ValueError(
+                f"pipeline_depth={pipeline_depth} must be >= 1 "
+                "(1 = blocking, 2 = double-buffered dispatch)"
+            )
+        if autotune not in AUTOTUNE_MODES:
+            raise ValueError(f"autotune {autotune!r} not in {AUTOTUNE_MODES}")
+        if autotune != "off" or tuner is not None or tuning_db is not None:
+            raise _not_ported(f"schedule autotuning (autotune={autotune!r})", 10)
+        if mesh is not None or route is not None:
+            raise _not_ported("mesh serving (mesh=/route=)", 11)
+        if strict:
+            raise _not_ported("strict plan verification (strict=True)", 12)
+        if cache_capacity < 1:
+            raise ValueError(
+                f"cache_capacity={cache_capacity} must be >= 1 "
+                "(the session needs at least one live executor)"
+            )
+        self.device = default_device(device)
+        self.layers = tuple(l.to(device=self.device) for l in layers)
+        self.model = model
+        self.backend = backend
+        self.precision = precision
+        self.vertical_policy = vertical_policy
+        self.tile_cols = tile_cols
+        self.band_rows = band_rows
+        self.preferred_band_rows = preferred_band_rows
+        self.scale = scale
+        self.clip = clip
+        self.max_bucket = max_bucket
+        self.autotune = autotune
+        # pipeline_depth bounds in-flight dispatches per session: 1 =
+        # blocking, 2 = double buffering (the paper's ping-pong buffers)
+        self.pipeline_depth = 2 if pipeline_depth is None else pipeline_depth
+        # accepted for interface parity; eager PyTorch has no donation
+        self.donate_frames = donate_frames
+        self._degenerate_plans = 0
+        self._compile_counts: Dict[tuple, int] = {}
+        self._cache = PlanCache(cache_capacity, on_evict=self._on_evict)
+        self._stacks: Dict[tuple, _StackRecord] = {}
+        self._memo_cap = 8 * cache_capacity
+        self._plans: Dict[Tuple[int, int, int], SRPlan] = {}
+        self._pinned: Optional[SRPlan] = None
+        self._pinned_bucket: Optional[int] = None
+        # one host staging buffer (pinned on CUDA), reused across ragged
+        # and coalesced dispatches; replaced when the shape moves
+        self._staging: Optional[Tuple[tuple, torch.Tensor]] = None
+        self._dispatch_ms: List[float] = []
+        self._complete_ms: List[float] = []
+        self._span_s = 0.0
+        self._frames = 0
+        self._peak_inflight = 0
+        # the SRServer submit()/upscale() serve through (set by the first
+        # server that hosts this session, else created on first submit)
+        self._server = None
+
+    # ------------------------------------------------------------------
+    # Constructors
+    # ------------------------------------------------------------------
+    @classmethod
+    def open(
+        cls,
+        model: str = "abpn_x3",
+        *,
+        seed: int = 0,
+        layers=None,
+        scale: Optional[int] = None,
+        clip: Optional[bool] = None,
+        **kwargs,
+    ) -> "SRSession":
+        """Open a session on a registered SR model.
+
+        Weights come from the spec's initialiser, seeded through a
+        ``torch.Generator`` from ``seed``, unless an explicit ``layers``
+        stack is passed.  ``scale``/``clip`` default to the model config's;
+        everything else (backend, precision, device, ...) passes through to
+        :class:`SRSession`.
+        """
+        from repro_torch.models.registry import get_sr_model
+
+        spec = get_sr_model(model)
+        cfg = spec.config
+        if layers is None:
+            layers = spec.init(torch.Generator().manual_seed(int(seed)))
+        return cls(
+            layers,
+            scale=cfg.scale if scale is None else scale,
+            clip=cfg.clip if clip is None else clip,
+            model=spec.name,
+            **kwargs,
+        )
+
+    @classmethod
+    def from_plan(
+        cls,
+        plan: SRPlan,
+        layers,
+        *,
+        bucket: Optional[int] = None,
+        cache_capacity: int = 8,
+        **kwargs,
+    ) -> "SRSession":
+        """A session pinned to one plan (and optionally one batch bucket):
+        requests for any other LR shape are rejected."""
+        session = cls(
+            layers,
+            backend=plan.backend,
+            precision=plan.precision,
+            vertical_policy=plan.vertical_policy,
+            tile_cols=plan.tile_cols,
+            band_rows=plan.band_rows,
+            scale=plan.scale,
+            clip=plan.clip,
+            cache_capacity=cache_capacity,
+            **kwargs,
+        )
+        check_layer_channels(session.layers, plan.in_channels, plan.scale)
+        session._pinned = plan
+        session._pinned_bucket = bucket
+        session._plans[plan.lr_shape] = plan
+        return session
+
+    # ------------------------------------------------------------------
+    # Plan + executor resolution
+    # ------------------------------------------------------------------
+    @property
+    def num_layers(self) -> int:
+        return len(self.layers)
+
+    def plan_for(
+        self,
+        lr_shape: Tuple[int, int, int],
+        batch_hint: Optional[int] = None,
+    ) -> SRPlan:
+        """The session's plan for one LR frame shape (derived once,
+        memoised).  ``batch_hint`` is accepted for interface parity; it
+        keys schedule tuning, which is not ported."""
+        lr_shape = tuple(int(x) for x in lr_shape)
+        plan = self._plans.get(lr_shape)
+        if plan is not None:
+            return plan
+        if self._pinned is not None:
+            raise ValueError(
+                f"session is pinned to LR shape {self._pinned.lr_shape}, "
+                f"got {lr_shape}"
+            )
+        check_layer_channels(self.layers, lr_shape[2], self.scale)
+        plan = SRPlan.from_request(
+            lr_shape,
+            num_layers=self.num_layers,
+            band_rows=self.band_rows,
+            tile_cols=self.tile_cols,
+            vertical_policy=self.vertical_policy,
+            backend=self.backend,
+            precision=self.precision,
+            scale=self.scale,
+            clip=self.clip,
+            preferred_band_rows=self.preferred_band_rows,
+        )
+        if plan.degenerate_bands:
+            self._degenerate_plans += 1
+        self._memo_put(self._plans, lr_shape, plan)
+        return plan
+
+    def _memo_put(self, memo: dict, key, value) -> None:
+        """Insert into a memo dict, evicting oldest entries past the cap."""
+        memo[key] = value
+        while len(memo) > self._memo_cap:
+            try:
+                memo.pop(next(iter(memo)))
+            except (KeyError, StopIteration, RuntimeError):
+                # concurrent submits resolve plans outside the server lock;
+                # losing the race for the oldest key is fine — re-check
+                continue
+
+    @staticmethod
+    def serving_dtype(dtype) -> torch.dtype:
+        """The torch dtype a request serves in, from a numpy or torch dtype:
+        64-bit types serve in 32 bits, as in the JAX package, so one
+        executor serves both spellings."""
+        if not isinstance(dtype, torch.dtype):
+            dtype = torch.from_numpy(np.empty(0, dtype=np.dtype(dtype))).dtype
+        return _CANONICAL.get(dtype, dtype)
+
+    @classmethod
+    def dtype_name(cls, dtype) -> str:
+        return str(cls.serving_dtype(dtype)).replace("torch.", "")
+
+    @classmethod
+    def cache_key(cls, plan: SRPlan, bucket: int, dtype) -> tuple:
+        return (plan, int(bucket), cls.dtype_name(dtype))
+
+    def _acquire_stack(self, plan: SRPlan) -> Tuple[PreparedStack, tuple]:
+        """The session's PreparedStack for this plan's numerics/backend,
+        prepared on first use and refcounted per cache entry."""
+        skey = plan.stack_key
+        rec = self._stacks.get(skey)
+        if rec is None:
+            t0 = time.perf_counter()
+            stack = prepare_stack(plan, self.layers)
+            _synchronize(self.device)
+            rec = _StackRecord(stack=stack, refs=0, prepare_s=time.perf_counter() - t0)
+            self._stacks[skey] = rec
+        rec.refs += 1
+        return rec.stack, skey
+
+    def _release_stack(self, skey: tuple) -> None:
+        rec = self._stacks.get(skey)
+        if rec is None:
+            return
+        rec.refs -= 1
+        if rec.refs <= 0:
+            del self._stacks[skey]
+
+    def _on_evict(self, key, entry: _CacheEntry) -> None:
+        self._release_stack(entry.stack_key)
+
+    def clear_cache(self) -> None:
+        """Evict every executor AND release the prepared weights they
+        pinned (the next request re-prepares and re-warms)."""
+        self._cache.clear()
+
+    def executor_for(self, plan: SRPlan, bucket: int, dtype) -> Tuple[_CacheEntry, bool]:
+        """The executor for ``(plan, bucket, dtype)``, and whether it was
+        built now.
+
+        A cache miss prepares the weight stack (once per numerics, shared
+        and refcounted) and runs the executor once on a zero dummy in the
+        dtype that will be served, then synchronises the device; that first
+        launch also builds the CUDA kernel on first use.  Its time is the
+        entry's ``compile_s``, so no later call on this key pays it.
+        """
+        dtype = self.serving_dtype(dtype)
+        key = self.cache_key(plan, bucket, dtype)
+        entry = self._cache.get(key)
+        if entry is not None:
+            return entry, False
+        stack, skey = self._acquire_stack(plan)
+        try:
+            fn = build_stack_executor(plan, stack)
+            dummy = torch.zeros((bucket, *plan.lr_shape), dtype=dtype, device=self.device)
+            t0 = time.perf_counter()
+            fn(dummy)
+            _synchronize(self.device)
+            compile_s = time.perf_counter() - t0
+        except BaseException:
+            # a failed build/launch must not strand the stack refcount
+            self._release_stack(skey)
+            raise
+        entry = _CacheEntry(
+            fn=fn,
+            plan=plan,
+            bucket=int(bucket),
+            dtype=self.dtype_name(dtype),
+            compile_s=compile_s,
+            stack_key=skey,
+        )
+        self._compile_counts[key] = self._compile_counts.get(key, 0) + 1
+        self._cache.put(key, entry)
+        return entry, True
+
+    def band_executor_for(self, plan: SRPlan, bucket: int, dtype):
+        raise _not_ported("partial-band serving (temporal delta)", 9)
+
+    def output_dtype(self, plan: SRPlan, dtype) -> torch.dtype:
+        """The dtype the executor emits for ``dtype`` input."""
+        return output_spec(plan, self.layers, 1, self.serving_dtype(dtype)).dtype
+
+    # ------------------------------------------------------------------
+    # Serving
+    # ------------------------------------------------------------------
+    def _bucket_for(self, n: int) -> int:
+        if self._pinned_bucket is not None:
+            return self._pinned_bucket
+        bucket = bucket_batch(n)
+        if self.max_bucket is not None:
+            # clamp DOWN to the largest power of two within the cap
+            cap = 1 << (self.max_bucket.bit_length() - 1)
+            bucket = min(bucket, cap)
+        return bucket
+
+    def flatten_request(self, frames) -> Tuple[torch.Tensor, int, Optional[tuple]]:
+        """Validate a request and flatten it to ``(N, H, W, C)``.
+
+        Returns ``(flat, ndim, lead)``: the flat frame batch as a tensor in
+        the serving dtype (host input stays on the host — a numpy array is
+        wrapped without a copy — and device tensors stay on their device),
+        the caller's original rank, and the ``(B, T)`` leading shape for
+        rank-5 input.  Malformed input fails HERE with a ``ValueError``
+        naming the expected ``(..., H, W, C)`` layout.
+        """
+        if isinstance(frames, torch.Tensor):
+            arr = frames
+        else:
+            try:
+                arr = np.asarray(frames)
+            except Exception as e:
+                raise ValueError(
+                    "expected an array of frames with shape (..., H, W, C); "
+                    f"got {type(frames).__name__}"
+                ) from e
+            if arr.dtype.kind not in "fiub":
+                raise ValueError(
+                    "expected numeric frames with shape (..., H, W, C); "
+                    f"got dtype {arr.dtype} (from {type(frames).__name__})"
+                )
+            arr = torch.from_numpy(np.ascontiguousarray(arr))
+        if arr.dtype.is_complex:
+            raise ValueError(
+                "expected numeric frames with shape (..., H, W, C); "
+                f"got dtype {arr.dtype} (from {type(frames).__name__})"
+            )
+        arr = arr.to(self.serving_dtype(arr.dtype))
+        lead: Optional[tuple] = None
+        if arr.ndim == 3:
+            flat = arr[None]
+        elif arr.ndim == 4:
+            flat = arr
+        elif arr.ndim == 5:
+            lead = tuple(arr.shape[:2])
+            flat = arr.reshape(arr.shape[0] * arr.shape[1], *arr.shape[2:])
+        else:
+            raise ValueError(
+                "expected (H, W, C), (T, H, W, C) or (B, T, H, W, C) frames, "
+                f"got shape {tuple(arr.shape)}"
+            )
+        ci = self.layers[0].ci
+        if flat.shape[-1] != ci:
+            raise ValueError(
+                f"frames have {flat.shape[-1]} channels in the trailing "
+                f"(..., H, W, C) axis; this session's layer stack expects "
+                f"C={ci}"
+            )
+        return flat, arr.ndim, lead
+
+    def submit(self, frames, *, priority: int = 0, deadline=None, timeout=None):
+        """Queue a request on the session's server; returns an
+        :class:`~repro_torch.engine.server.SRFuture` immediately."""
+        return self._host_server().submit_for(
+            self, frames, priority=priority, deadline=deadline, timeout=timeout)
+
+    def _host_server(self):
+        """The hosting :class:`SRServer`, else an embedded single-model
+        server created on first use."""
+        if self._server is None:
+            from repro_torch.engine.server import SRServer  # lazy: avoids a cycle
+
+            self._server = SRServer({self.model or "session": self})
+        return self._server
+
+    def upscale(self, frames) -> torch.Tensor:
+        """Super-resolve frames of any supported rank (blocking):
+        ``submit(frames).result()``.  The result is on the session's
+        device."""
+        return self.submit(frames).result()
+
+    def serve_batch(
+        self, plan: SRPlan, frames: torch.Tensor, real_frames: Optional[int] = None
+    ) -> torch.Tensor:
+        """Run ONE pre-bucketed batch through the plan's executor
+        synchronously, recording its latency (a cache miss warms first,
+        outside the timed region).  ``real_frames`` counts only that many
+        leading frames in :meth:`stats`."""
+        n_real = frames.shape[0] if real_frames is None else real_frames
+        entry, _ = self.executor_for(plan, frames.shape[0], frames.dtype)
+        t0 = time.perf_counter()
+        hr = entry.fn(frames.to(self.device))
+        _synchronize(self.device)
+        dt_ms = (time.perf_counter() - t0) * 1e3
+        self._dispatch_ms.append(dt_ms)
+        self._complete_ms.append(dt_ms)
+        self._span_s += dt_ms / 1e3
+        self._frames += n_real
+        self._peak_inflight = max(self._peak_inflight, 1)
+        return hr
+
+    def _staging_for(self, bucket: int, frame_shape, dtype) -> torch.Tensor:
+        """One reusable host buffer for staging host dispatches (pinned
+        when the session runs on CUDA, so its copy can be asynchronous)."""
+        key = (bucket, tuple(frame_shape), dtype)
+        if self._staging is None or self._staging[0] != key:
+            buf = torch.zeros((bucket, *frame_shape), dtype=dtype,
+                              pin_memory=self.device.type == "cuda")
+            self._staging = (key, buf)
+        return self._staging[1]
+
+    # ------------------------------------------------------------------
+    # Introspection
+    # ------------------------------------------------------------------
+    def cache_stats(self) -> dict:
+        """Executor-cache counters plus per-entry warm-up metadata and the
+        device-resident prepared weight stacks."""
+        stats = self._cache.stats()
+        stats["recompiles"] = sum(c - 1 for c in self._compile_counts.values() if c > 1)
+        stats["entries"] = [
+            {
+                "lr_shape": list(e.plan.lr_shape),
+                "backend": e.plan.backend,
+                "precision": e.plan.precision,
+                "band_rows": e.plan.band_rows,
+                "bucket": e.bucket,
+                "dtype": e.dtype,
+                "compile_s": e.compile_s,
+            }
+            for e in self._cache.entries()
+        ]
+        stats["stacks"] = [
+            {
+                "precision": k[0],
+                "backend": k[1],
+                "refs": rec.refs,
+                "prepare_s": rec.prepare_s,
+                "resident_bytes": rec.stack.nbytes(),
+            }
+            for k, rec in self._stacks.items()
+        ]
+        return stats
+
+    def stats(self, **extra) -> StreamStats:
+        """Steady-state serving stats (warm-up and weight prep excluded)."""
+        return latency_stats(
+            self._complete_ms,
+            self._frames,
+            dispatch_ms=self._dispatch_ms,
+            total_s=self._span_s,
+            peak_inflight=self._peak_inflight,
+            **extra,
+        )
+
+    def output_cache(self, max_bytes: Optional[int] = None):
+        raise _not_ported("the temporal output-band cache", 9)
+
+    def temporal_stats(self) -> dict:
+        raise _not_ported("temporal delta serving stats", 9)
+
+    def reset_stats(self) -> None:
+        self._dispatch_ms.clear()
+        self._complete_ms.clear()
+        self._span_s = 0.0
+        self._frames = 0
+        self._peak_inflight = 0

@@ -1,0 +1,41 @@
+"""Plain oracle for the fused kernel (the correctness contract).
+
+:func:`tilted_fused_stack_ref` matches the signature of
+``ops.tilted_fused_stack`` and is built from nothing but the full-band
+layer-by-layer conv (no tiling, no carried state), so a disagreement points
+at the kernel's dataflow, not at the math.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.fusion import ConvLayer, conv_stack_reference
+
+__all__ = ["tilted_fused_stack_ref"]
+
+
+def tilted_fused_stack_ref(
+    x: torch.Tensor,
+    layers: Sequence[ConvLayer],
+    *,
+    band_rows: int = 60,
+    add_anchor: bool = False,
+    anchor_repeats: int = 9,
+) -> torch.Tensor:
+    """Oracle for the fused kernel: per-band SAME conv stack (+ anchor).
+
+    Bands are convolved independently with zero padding at band edges — the
+    paper's vertical block-conv policy.
+    """
+    H, W, C0 = x.shape
+    R = band_rows
+    bands = x.reshape(H // R, R, W, C0)
+    out = conv_stack_reference(bands, layers)
+    if add_anchor:
+        anchor = torch.repeat_interleave(bands, anchor_repeats, dim=-1)
+        out = out + F.pad(anchor, (0, out.shape[-1] - C0 * anchor_repeats))
+    return out.reshape(H, W, out.shape[-1])

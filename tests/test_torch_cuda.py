@@ -1,0 +1,102 @@
+"""The CUDA kernel K1 on the card vs its plain version (and the serving path
+on the card vs the same path on the CPU).
+
+Every test here needs a CUDA device and skips where none is present: the
+CUDA kernel has no CPU mode.  The file imports torch and the PyTorch
+package only, so it runs where JAX is not installed:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+
+Tolerances (max abs diff): fp32 5e-4 and bf16 5e-2, the README support
+matrix's — fp32 sums in another order, bf16 feature maps rounded per layer
+on both sides.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import engine
+from repro_torch.kernels import ops
+from repro_torch.kernels import tilted_fusion as ttf
+from repro_torch.models.abpn import init_abpn, layers_from_numpy
+
+TOL = {torch.float32: 5e-4, torch.bfloat16: 5e-2}
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _stack(seed, channels):
+    rng = np.random.default_rng(seed)
+    return layers_from_numpy([
+        ((rng.normal(size=(3, 3, channels[i], channels[i + 1])) * 0.2).astype(np.float32),
+         (rng.normal(size=(channels[i + 1],)) * 0.1).astype(np.float32),
+         i < len(channels) - 2)
+        for i in range(len(channels) - 1)
+    ])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("rows", [20, 61])
+@pytest.mark.parametrize("policy", ["zero", "replicate", "halo_bounds"])
+@pytest.mark.parametrize("channels", [[3, 12, 12, 12], [3, 28, 28, 27]], ids=["chp16", "chp32"])
+def test_kernel_matches_plain(cuda, channels, policy, rows, dtype):
+    layers = [l.to(dtype=dtype) for l in _stack(1, channels)]
+    packed = ops.pack_stack(layers, dtype=dtype)
+    gen = torch.Generator().manual_seed(2)
+    xb = torch.rand((3, rows, 37, 3), generator=gen).to(dtype)
+    xs, first = ops.band_streams(xb, 4, len(layers))
+    bounds = None
+    if policy == "halo_bounds":
+        bounds = torch.tensor([[2, rows - 3], [0, rows], [5, 9]], dtype=torch.int32)
+    kw = dict(width=37, tile_cols=4, relu_flags=list(packed.relu), add_anchor=True,
+              in_channels=3, anchor_repeats=4 if channels[-1] == 12 else 9,
+              row_policy="replicate" if policy == "replicate" else "zero")
+    want = ttf.tilted_fusion_plain(xs, first, packed.w, packed.b, row_bounds=bounds, **kw)
+    launches = ttf.tilted_fusion_call.launches
+    got = ttf.tilted_fusion_call(
+        xs.to(cuda), first.to(cuda), packed.w.to(cuda), packed.b.to(cuda),
+        row_bounds=None if bounds is None else bounds.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert ttf.tilted_fusion_call.launches == launches + 1
+    assert got.dtype == dtype and got.shape == want.shape
+    np.testing.assert_allclose(got.cpu().float().numpy(), want.float().numpy(),
+                               atol=TOL[dtype], rtol=0)
+
+
+def test_kernel_rejects_what_it_does_not_take(cuda):
+    layers = _stack(3, [3, 40, 12])  # chp 40: no kernel instance
+    packed = ops.pack_stack([l.to(device=cuda) for l in layers])
+    xs, first = ops.band_streams(torch.rand((1, 8, 16, 3), device=cuda), 4, 2)
+    with pytest.raises(ValueError, match="padded channel count"):
+        ttf.tilted_fusion_call(xs, first, packed.w, packed.b, width=16, tile_cols=4,
+                               relu_flags=[True, False], add_anchor=False, in_channels=3)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        packed16 = ops.pack_stack([l.to(device=cuda) for l in _stack(3, [3, 12, 12])])
+        ttf.tilted_fusion_call(xs.half(), first.half(), packed16.w.half(), packed16.b.half(),
+                               width=16, tile_cols=4, relu_flags=[True, False],
+                               add_anchor=False, in_channels=3)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "int8"])
+def test_server_on_the_card_matches_the_cpu(cuda, precision):
+    layers = init_abpn(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(4)
+    frames = rng.uniform(size=(3, 40, 48, 3)).astype(np.float32)
+    out = {}
+    for device in ("cpu", cuda):
+        server = engine.SRServer.open("abpn_x3", backend="kernel", precision=precision,
+                                      device=device, layers=layers)
+        before = ttf.tilted_fusion_call.launches
+        out[str(device)] = server.submit(frames).result().cpu()
+        launched = ttf.tilted_fusion_call.launches - before
+        server.close()
+        assert launched == (0 if device == "cpu" else 2)  # warm-up + dispatch
+    tol = 5e-2 if precision == "bf16" else 5e-4
+    np.testing.assert_allclose(out["cuda"].numpy(), out["cpu"].numpy(), atol=tol, rtol=0)

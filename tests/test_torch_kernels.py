@@ -1,0 +1,207 @@
+"""K1 (tilted fusion) in the PyTorch port vs the JAX package's Pallas kernel.
+
+On the CPU the port's wrapper runs the kernel's plain version
+(``tilted_fusion_plain``); the JAX side runs the Pallas kernel in interpret
+mode, as the JAX package's own tests do.  Both get identical raw inputs
+made with ``np.random.default_rng``.  Tolerances (max abs diff):
+
+* fp32 — 5e-4, the README support matrix's fp32 bound: both sides
+  accumulate in fp32, in a different order (observed ~1e-6);
+* bf16 — 5e-2, the support matrix's bf16 bound: feature maps are rounded
+  to bf16 after every layer on both sides, and one reordered fp32 sum can
+  flip a rounding.
+
+``tests/test_torch_cuda.py`` holds the CUDA kernel against its plain
+version on the card.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.fusion import ConvLayer as JConvLayer
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels import tilted_fusion as jtf
+
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import tilted_fusion as ttf
+from repro_torch.models.abpn import layers_from_numpy
+
+torch.set_num_threads(2)
+
+TOL = {"fp32": 5e-4, "bf16": 5e-2}
+JDT = {"fp32": jnp.float32, "bf16": jnp.bfloat16}
+TDT = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+# the small stack of the issue: 3 layers, channels [3, 12, 12, 12], R = 20,
+# W = 24, C = 4 (chp 16, c0p 8, K = 7)
+CHANNELS = [3, 12, 12, 12]
+R, W, C, B = 20, 24, 4, 2
+
+
+def np_stack(seed, channels):
+    rng = np.random.default_rng(seed)
+    return [
+        ((rng.normal(size=(3, 3, channels[i], channels[i + 1])) * 0.2).astype(np.float32),
+         (rng.normal(size=(channels[i + 1],)) * 0.1).astype(np.float32),
+         i < len(channels) - 2)
+        for i in range(len(channels) - 1)
+    ]
+
+
+def both_stacks(seed, channels, precision="fp32"):
+    """The same weights for both packages, rounded to the precision's dtype
+    first so both sides start from identical values."""
+    arrays = [(_round(w, precision), _round(b, precision), r) for w, b, r in np_stack(seed, channels)]
+    jl = [JConvLayer(w=jnp.asarray(w, JDT[precision]), b=jnp.asarray(b, JDT[precision]), relu=r)
+          for w, b, r in arrays]
+    return jl, layers_from_numpy(arrays, dtype=TDT[precision])
+
+
+def _round(a, precision):
+    return torch.from_numpy(a).to(TDT[precision]).float().numpy()
+
+
+def raw_inputs(seed, precision, chp=16, c0p=8, layers=3):
+    """Raw K1 arguments: the fresh stream, first column, packed weights."""
+    rng = np.random.default_rng(seed)
+    K = -(-(W + layers - 1) // C)
+    x = np.zeros((B, R, K * C, c0p), np.float32)
+    x[:, :, : W - 1, :3] = rng.uniform(size=(B, R, W - 1, 3))  # columns 1..W-1
+    first = np.zeros((B, R, 1, c0p), np.float32)
+    first[..., :3] = rng.uniform(size=(B, R, 1, 3))
+    w = np.zeros((layers, 3, 3, chp, chp), np.float32)
+    b = np.zeros((layers, chp), np.float32)
+    for l, (wl, bl, _) in enumerate(np_stack(seed + 1, CHANNELS)):
+        w[l, :, :, : wl.shape[2], : wl.shape[3]] = wl
+        b[l, : bl.shape[0]] = bl
+    return [_round(a, precision) for a in (x, first, w, b)]
+
+
+# ----------------------------------------------------------------------
+# tilted_fusion_plain vs the Pallas kernel (interpret mode)
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("anchor", [False, True], ids=["plain", "anchor"])
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("policy", ["zero", "replicate", "halo_bounds"])
+def test_plain_matches_pallas_kernel(policy, precision, anchor):
+    x, first, w, b = raw_inputs(11, precision)
+    bounds = np.array([[2, 17], [0, 13]], np.int32) if policy == "halo_bounds" else None
+    row_policy = "replicate" if policy == "replicate" else "zero"
+    kw = dict(width=W, tile_cols=C, relu_flags=[True, True, False], add_anchor=anchor,
+              in_channels=3, anchor_repeats=4, row_policy=row_policy)
+    jd, td = JDT[precision], TDT[precision]
+    j = jtf.tilted_fusion_call(
+        jnp.asarray(x, jd), jnp.asarray(first, jd), jnp.asarray(w, jd), jnp.asarray(b, jd),
+        row_bounds=None if bounds is None else jnp.asarray(bounds), interpret=True, **kw)
+    launches = ttf.tilted_fusion_call.launches
+    t = ttf.tilted_fusion_call(
+        torch.from_numpy(x).to(td), torch.from_numpy(first).to(td),
+        torch.from_numpy(w).to(td), torch.from_numpy(b).to(td),
+        row_bounds=None if bounds is None else torch.from_numpy(bounds), **kw)
+    # a CPU tensor takes the plain version and does not move the counter
+    assert ttf.tilted_fusion_call.launches == launches
+    assert t.dtype == td and tuple(t.shape) == tuple(j.shape)
+    np.testing.assert_allclose(t.float().numpy(), np.asarray(j, np.float32),
+                               atol=TOL[precision], rtol=0)
+
+
+# ----------------------------------------------------------------------
+# ops wrappers vs the JAX ones
+# ----------------------------------------------------------------------
+def test_pack_stack_equal():
+    jl, tl = both_stacks(12, [3, 28, 28, 27])
+    jp, tp = jops.pack_stack(jl), tops.pack_stack(tl)
+    np.testing.assert_array_equal(tp.w.numpy(), np.asarray(jp.w))
+    np.testing.assert_array_equal(tp.b.numpy(), np.asarray(jp.b))
+    assert (tp.chp, tp.relu, tp.out_channels, tp.num_layers) == \
+        (jp.chp, jp.relu, jp.out_channels, jp.num_layers)
+    jp16 = jops.pack_stack(jl, dtype=jnp.bfloat16)
+    tp16 = tops.pack_stack(tl, dtype=torch.bfloat16)
+    np.testing.assert_array_equal(tp16.w.float().numpy(), np.asarray(jp16.w, np.float32))
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("policy", ["zero", "halo", "replicate"])
+def test_tilted_fused_frames_matches_jax(policy, precision):
+    jl, tl = both_stacks(13, CHANNELS, precision)
+    frames = _round(np.random.default_rng(14).uniform(size=(2, 40, W, 3)).astype(np.float32),
+                    precision)
+    kw = dict(band_rows=20, tile_cols=C, vertical_policy=policy)
+    j = jops.tilted_fused_frames(jnp.asarray(frames, JDT[precision]), jl,
+                                 compute_dtype=JDT[precision], interpret=True, **kw)
+    t = tops.tilted_fused_frames(torch.from_numpy(frames).to(TDT[precision]), tl,
+                                 compute_dtype=TDT[precision], **kw)
+    assert tuple(t.shape) == tuple(j.shape) == (2, 40, W, 12)
+    np.testing.assert_allclose(t.float().numpy(), np.asarray(j, np.float32),
+                               atol=TOL[precision], rtol=0)
+
+
+@pytest.mark.parametrize("policy", ["zero", "halo"])
+def test_tilted_fused_band_stack_matches_jax(policy):
+    from repro.core.fusion import halo_slabs as jhalo
+    from repro_torch.core.fusion import halo_slabs as thalo
+
+    jl, tl = both_stacks(15, CHANNELS)
+    frames = np.random.default_rng(16).uniform(size=(1, 60, W, 3)).astype(np.float32)
+    if policy == "halo":
+        js, jb = jhalo(jnp.asarray(frames), 20, 3)
+        ts, tb = thalo(torch.from_numpy(frames), 20, 3)
+        pick = [2, 0]  # a subset, out of order
+        j = jops.tilted_fused_band_stack(js[np.array(pick)], jl, tile_cols=C, vertical_policy="halo",
+                                         row_bounds=jb[np.array(pick)], interpret=True)
+        t = tops.tilted_fused_band_stack(ts[pick], tl, tile_cols=C, vertical_policy="halo",
+                                         row_bounds=tb[pick])
+    else:
+        bands = frames.reshape(3, 20, W, 3)[[1, 2]]
+        j = jops.tilted_fused_band_stack(jnp.asarray(bands), jl, tile_cols=C, interpret=True)
+        t = tops.tilted_fused_band_stack(torch.from_numpy(bands), tl, tile_cols=C)
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=TOL["fp32"], rtol=0)
+
+
+def test_tilted_fused_stack_and_ref_match_jax():
+    jl, tl = both_stacks(17, [3, 12, 12, 12])
+    img = np.random.default_rng(18).uniform(size=(40, W, 3)).astype(np.float32)
+    j = jops.tilted_fused_stack(jnp.asarray(img), jl, band_rows=20, tile_cols=C,
+                                add_anchor=True, anchor_repeats=4, interpret=True)
+    t = tops.tilted_fused_stack(torch.from_numpy(img), tl, band_rows=20, tile_cols=C,
+                                add_anchor=True, anchor_repeats=4)
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=TOL["fp32"], rtol=0)
+    jr = jref.tilted_fused_stack_ref(jnp.asarray(img), jl, band_rows=20, add_anchor=True,
+                                     anchor_repeats=4)
+    tr = tref.tilted_fused_stack_ref(torch.from_numpy(img), tl, band_rows=20, add_anchor=True,
+                                     anchor_repeats=4)
+    np.testing.assert_allclose(tr.numpy(), np.asarray(jr), atol=TOL["fp32"], rtol=0)
+    np.testing.assert_allclose(t.numpy(), tr.numpy(), atol=TOL["fp32"], rtol=0)
+
+
+# ----------------------------------------------------------------------
+# Wrapper contract and buffer accounting
+# ----------------------------------------------------------------------
+def test_wrapper_rejects_bad_arguments():
+    x, first, w, b = (torch.from_numpy(a) for a in raw_inputs(19, "fp32"))
+    kw = dict(width=W, tile_cols=C, relu_flags=[True, True, False], add_anchor=False,
+              in_channels=3)
+    with pytest.raises(ValueError, match="row_policy"):
+        ttf.tilted_fusion_call(x, first, w, b, row_policy="edge", **kw)
+    with pytest.raises(ValueError, match="relu flags"):
+        ttf.tilted_fusion_call(x, first, w, b, **{**kw, "relu_flags": [True]})
+    with pytest.raises(ValueError, match="anchor"):
+        ttf.tilted_fusion_call(x, first, w, b, **{**kw, "add_anchor": True, "anchor_repeats": 9})
+    with pytest.raises(ValueError, match="first_col"):
+        ttf.tilted_fusion_call(x, first[:1], w, b, **kw)
+
+
+def test_kernel_buffers_bounded_in_r():
+    ch = [3, 28, 28, 28, 28, 28, 28, 27]
+    for rows in (8, 60, 61, 74, 1009):
+        kb = ttf.kernel_buffers(channels=ch, band_rows=rows, tile_cols=8)
+        assert kb["chp"] == 32 and kb["c0p"] == 8
+        assert kb["shared_bytes"] == 2 * 9 * 32 * 32 * 4  # the same for every R
+        assert kb["workspace_elements"] == 2 * 32 * rows * 10 + 7 * 32 * rows * 2
+        assert kb["buffers"]["overlap"]["logical_elements"] == 7 * rows * 2 * 28
+    assert ttf.kernel_buffers(channels=ch, band_rows=60, tile_cols=8)["shared_bytes"] < 227 * 1024
+    assert ttf.round_up_channels(28) == jtf.round_up_channels(28) == 32
