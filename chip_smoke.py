@@ -10,12 +10,18 @@ exits non-zero (nothing is caught):
 
 1. environment — ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build — compiles every CUDA kernel from ``src/repro_torch/kernels/csrc``
-   with nvcc (one process per source, started together);
-3. kernel vs plain — K1 against ``tilted_fusion_plain`` on the card at the
+   with nvcc (one process per source, started together) and prints each
+   template instance's registers, stack, shared and local memory;
+3. K1 vs plain — K1 against ``tilted_fusion_plain`` on the card at the
    design point (the 6 bands of a 360x640 frame under zero and replicate,
    the 74-row halo slabs with bounds, the anchor) in fp32 (max abs diff
    <= 5e-4) and bf16 (<= 5e-2), on ABPN x3 weights from seed 0 with
    seeded non-zero biases (``init_abpn`` zeroes them);
+3b. K2 vs plain — K2 against ``conv3x3_plain`` on the card at the seven
+   ABPN x3 layer shapes over one 360x640 frame (the stack of phase 3, each
+   layer fed the previous layer's features) and at a width that is not a
+   tile multiple, in fp32 (|diff| <= 2e-5 + 1e-5 |want|) and bf16
+   (<= 2e-2 + 2e-2 |want|, the JAX package's K2 tolerances);
 4. main path — ``SRServer.open("abpn_x3", backend="kernel", precision=p,
    layers=...)`` at full ABPN x3 width (the stack of phase 3) serves a 4-frame
    360x640 request, two 2-frame requests that coalesce into one dispatch,
@@ -24,11 +30,21 @@ exits non-zero (nothing is caught):
    (TF32 off) at 5e-4 (fp32, int8) / 5e-2 (bf16), a frame served alone must
    equal the same frame served in the batch bit for bit, and K1's launch
    counter, zeroed just before, must have moved;
-5. times — CUDA events, median of repeats after warm-up: K1 per launch, its
-   plain version, the same conv stack as cuDNN calls (``library_ms``, the
-   yardstick only) and K1's bound from the unpadded ABPN work, at 1 and 8
-   frames; the server's frames/s over the wall clock of 20 closed-loop
-   8-frame requests, and their p50 launch-to-completion latency;
+4b. layer-by-layer path — ABPN x3 over two 360x640 frames as 7
+   ``ops.conv3x3`` launches per frame plus ``engine.sr_epilogue``, fp32 and
+   bf16, held against ``engine.run`` on the ``reference`` backend (TF32
+   off) at 5e-4 / 5e-2; K2's launch counter, zeroed just before, must have
+   moved;
+5. times — CUDA events, median of repeats after warm-up: K1 per launch in
+   fp32 and bf16, its plain version, the same conv stack as cuDNN calls
+   (``library_ms``, the yardstick only) and K1's bound from the unpadded
+   ABPN work, at 1 and 8 frames; K2 per launch at the 3->28, 28->28 and
+   28->27 shapes and the 7-launch stack per 360x640 frame, each beside its
+   bound, its plain version and cuDNN ``conv2d`` (+ ReLU), timed over
+   launches queued behind a sleep so that host time does not count; the
+   bytes per frame of the layer-by-layer stack and of K1; the server's
+   frames/s over the wall clock of 20 closed-loop 8-frame requests, and
+   their p50 launch-to-completion latency;
 6. the kernels line, then the card's name and power limit, then the result.
 
 Exits 2 and prints no result when no CUDA device is present.
@@ -86,6 +102,35 @@ def time_ms(torch, fn, reps, warmup=1):
     return statistics.median(times)
 
 
+def device_ms(torch, fn, calls=20, rounds=5):
+    """Median device milliseconds per call of ``fn``: each round queues
+    ``calls`` calls behind a ~20 ms device sleep, so the host enqueues them
+    all before the card reaches the start event and host time between
+    launches is not measured."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(40_000_000)  # cycles: ~20 ms at the H100's ~2 GHz
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def conv_cost(ci, co, pixels):
+    """One SAME 3x3 conv layer's own work over ``pixels`` output pixels in
+    fp32: 2 FLOP per MAC, and the input map read, the output map written
+    and the weights and bias read, each once."""
+    flops = 2 * pixels * 9 * ci * co
+    nbytes = 4 * (pixels * (ci + co) + 9 * ci * co + co)
+    return flops, nbytes
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import numpy as np
@@ -98,11 +143,13 @@ def main() -> int:
     from repro_torch import engine
     from repro_torch.core.fusion import ConvLayer, conv_stack_reference, exact_fp32, halo_slabs
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import conv3x3 as k2
     from repro_torch.kernels import tilted_fusion as ttf
     from repro_torch.models.abpn import init_abpn
 
     dev = torch.device("cuda")
     kcall = ttf.tilted_fusion_call
+    k2call = k2.conv3x3_call
 
     # ------------------------------------------------------------------
     phase("1. environment")
@@ -133,9 +180,11 @@ def main() -> int:
                                capture_output=True, text=True, timeout=120)
         label, shown = None, 0
         for line in usage.stdout.splitlines():
-            m = re.search(r"kernelI(f|13__nv_bfloat16)Li(\d+)E", line)
+            # K1 instances are <dtype, Chp> (..._kernelIfLi32EE...), K2's <dtype>
+            m = re.search(r"_kernelI(f|13__nv_bfloat16)(?:Li(\d+)E)?E", line)
             if m:
-                label = f"<{'fp32' if m.group(1) == 'f' else 'bf16'}, chp {m.group(2)}>"
+                label = "<" + ("fp32" if m.group(1) == "f" else "bf16") + (
+                    f", chp {m.group(2)}>" if m.group(2) else ">")
             res = re.search(r"REG:\d+ STACK:\d+ SHARED:\d+ LOCAL:\d+", line)
             if res and label:
                 print(f"  {name} {label}: {res.group(0)}")
@@ -193,6 +242,36 @@ def main() -> int:
             require(err <= TOL[prec], f"K1 vs plain {prec} {name}")
 
     # ------------------------------------------------------------------
+    phase("3b. K2 vs its plain version on the card (ABPN x3 layer shapes, 360x640)")
+
+    def k2_check(label, prec, x, w_, b_, relu_, tile_cols=8):
+        got = k2call(x, w_, b_, tile_cols=tile_cols, relu=relu_)
+        torch.cuda.synchronize()
+        want = k2.conv3x3_plain(x, w_, b_, tile_cols=tile_cols, relu=relu_)
+        require(got.shape == want.shape and got.dtype == want.dtype, f"K2 {label} shape/dtype")
+        require(bool(torch.isfinite(got.float()).all()), f"K2 {label} {prec}: non-finite output")
+        diff = (got.float() - want.float()).abs()
+        atol, rtol = (2e-5, 1e-5) if prec == "fp32" else (2e-2, 2e-2)
+        err = diff.max().item()
+        k2_worst[prec] = max(k2_worst.get(prec, 0.0), err)
+        print(f"K2 vs plain [{prec}, {label}, {tuple(x.shape)} -> {w_.shape[3]}, tile "
+              f"{tile_cols}]: max_abs_err={err:.3e} (tol {atol:g} + {rtol:g}|want|)")
+        require(bool((diff <= atol + rtol * want.float().abs()).all()), f"K2 vs plain {prec} {label}")
+        return want
+
+    k2_worst = {}
+    k2_inputs = []  # fp32 input of every layer, for the phase-5 timings
+    for prec, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        f = frame[0].to(dt)
+        for i, l in enumerate(layers):
+            if dt == torch.float32:
+                k2_inputs.append(f)
+            f = k2_check(f"layer {i}", prec, f, l.w.to(dt), l.b.to(dt), l.relu)
+        # a width that is not a multiple of the tile: the last CTA reads zeros
+        l = layers[2]
+        k2_check("width 637", prec, k2_inputs[2][:, :637].to(dt), l.w.to(dt), l.b.to(dt), l.relu)
+
+    # ------------------------------------------------------------------
     phase("4. main path: SRServer.open('abpn_x3', backend='kernel') serving")
     rng = np.random.default_rng(2)
     req4 = rng.uniform(size=(4, H, W, 3)).astype(np.float32)
@@ -243,8 +322,42 @@ def main() -> int:
     require(main_launches > 0, "the main path never launched K1")
 
     # ------------------------------------------------------------------
+    phase("4b. layer-by-layer path: ABPN x3 as 7 ops.conv3x3 launches per frame")
+    lw_frames = torch.from_numpy(
+        np.random.default_rng(3).uniform(size=(2, H, W, 3)).astype(np.float32)).to(dev)
+    k2call.launches = 0  # count the layer-by-layer path's launches only
+    per_layerwise = {}
+    for prec in ("fp32", "bf16"):
+        before = k2call.launches
+        plan = engine.make_plan(layers, (H, W, 3), backend="reference", precision=prec,
+                                scale=SCALE)
+        prepared = engine.prepare_layers(layers, prec)
+        x = lw_frames.to(engine.compute_dtype_for(prec))
+        feats = []
+        for n in range(x.shape[0]):
+            f = x[n]
+            for l in prepared:
+                f = ops.conv3x3(f, l.w, l.b, relu=l.relu)
+            feats.append(f)
+        hr = engine.sr_epilogue(plan, x, torch.stack(feats), lw_frames.dtype)
+        launched = k2call.launches - before
+        want = engine.run(plan, layers, lw_frames, device=dev)
+        require(tuple(hr.shape) == (2, H * SCALE, W * SCALE, 3), f"layerwise {prec}: HR shape")
+        require(bool(torch.isfinite(hr).all()), f"layerwise {prec}: non-finite HR output")
+        err = (hr.float() - want.float()).abs().max().item()
+        per_layerwise[prec] = {"launches": launched, "max_abs_err": err}
+        print(f"layer by layer [{prec}]: K2 launches {launched} (7 per frame), HR vs reference "
+              f"backend max_abs_err={err:.3e} (tol {TOL[prec]:g})")
+        require(launched == 7 * x.shape[0], f"layerwise {prec}: K2 launches {launched}")
+        require(err <= TOL[prec], f"layerwise {prec}: HR output vs reference backend")
+    layerwise_launches = k2call.launches
+    print(f"layer-by-layer path K2 launches: {layerwise_launches}")
+    require(layerwise_launches > 0, "the layer-by-layer path never launched K2")
+
+    # ------------------------------------------------------------------
     phase("5. times (CUDA events, median of repeats after warm-up)")
     packed = ops.pack_stack(layers, dtype=torch.float32)
+    packed16 = ops.pack_stack([l.to(dtype=torch.bfloat16) for l in layers], dtype=torch.bfloat16)
     chp, c0p = packed.chp, 8
     timings = {}
     for n in (1, 8):
@@ -254,6 +367,9 @@ def main() -> int:
         kw = dict(width=W, tile_cols=C, relu_flags=relu, in_channels=3, add_anchor=False)
         B, R, KC, _ = xs.shape
         k1_ms = time_ms(torch, lambda: kcall(xs, first, packed.w, packed.b, **kw), reps=10)
+        xs16, first16 = xs.to(torch.bfloat16), first.to(torch.bfloat16)
+        k1_bf16_ms = time_ms(torch, lambda: kcall(xs16, first16, packed16.w, packed16.b, **kw),
+                             reps=10)
         plain_ms = time_ms(torch, lambda: ttf.tilted_fusion_plain(
             xs, first, packed.w, packed.b, **kw), reps=3)
         nchw = xb.permute(0, 3, 1, 2).contiguous()
@@ -279,14 +395,118 @@ def main() -> int:
         executed = 2 * B * R * KC * 9 * (c0p * chp + (L - 1) * chp * chp)
         bound_ms = max(flops / peak_flops, nbytes / peak_bw) * 1e3
         bound_by = "operations" if flops / peak_flops >= nbytes / peak_bw else "bytes"
-        timings[n] = dict(k1_ms=k1_ms, plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=bound_ms,
-                          bound_by=bound_by, flops=flops, bytes=nbytes, bands=B)
-        print(f"batch {n} ({B} bands of {R}x{W}, fp32, zero): K1 {k1_ms:.3f} ms/launch, "
+        timings[n] = dict(k1_ms=k1_ms, k1_bf16_ms=k1_bf16_ms, plain_ms=plain_ms, lib_ms=lib_ms,
+                          bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes,
+                          bands=B)
+        print(f"batch {n} ({B} bands of {R}x{W}, fp32, zero): K1 {k1_ms:.3f} ms/launch "
+              f"(bf16 plan: {k1_bf16_ms:.3f} ms), "
               f"plain {plain_ms:.3f} ms, cuDNN conv stack (library_ms) {lib_ms:.3f} ms, "
               f"bound {bound_ms:.3f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP of ABPN, "
               f"{nbytes / 1e6:.1f} MB moved; {peak_flops / 1e12:.0f} TFLOP/s, "
               f"{peak_bw / 1e12:.2f} TB/s) -> {100 * bound_ms / k1_ms:.1f}% of bound; "
               f"K1 executes {executed / 1e9:.2f} GFLOP with padding")
+
+    # K2, the layer-by-layer baseline, on one 360x640 frame: per layer shape
+    # and as the whole 7-launch stack.  Inputs are the real feature maps of
+    # phase 3b.  A layer's bound is its own work (conv_cost); the stack's is
+    # the sum of its layers' bounds, since each layer is a function of its own.
+    def layer_bound(ci, co):
+        flops, nbytes = conv_cost(ci, co, H * W)
+        return max(flops / peak_flops, nbytes / peak_bw) * 1e3, (
+            "operations" if flops / peak_flops >= nbytes / peak_bw else "bytes"), flops, nbytes
+
+    def cudnn_layer(x_nchw, w_oihw, b_, relu_):
+        with exact_fp32():
+            y = torch.nn.functional.conv2d(x_nchw, w_oihw, b_, padding=1)
+        return torch.relu(y) if relu_ else y
+
+    k2_shapes = {}
+    for i, tag in ((0, "3->28"), (1, "28->28"), (6, "28->27")):
+        l, x32 = layers[i], k2_inputs[i]
+        x16, w16, b16 = x32.to(torch.bfloat16), l.w.to(torch.bfloat16), l.b.to(torch.bfloat16)
+        nchw1 = x32.permute(2, 0, 1)[None].contiguous()
+        oihw1 = l.w.permute(3, 2, 0, 1).contiguous()
+        row = dict(
+            ms=device_ms(torch, lambda: k2call(x32, l.w, l.b, relu=l.relu)),
+            bf16_ms=device_ms(torch, lambda: k2call(x16, w16, b16, relu=l.relu)),
+            library_ms=device_ms(torch, lambda: cudnn_layer(nchw1, oihw1, l.b, l.relu)),
+            plain_ms=time_ms(torch, lambda: k2.conv3x3_plain(x32, l.w, l.b, relu=l.relu), reps=3),
+        )
+        row["bound_ms"], row["bound_by"], flops, nbytes = layer_bound(l.ci, l.co)
+        k2_shapes[tag] = row
+        print(f"K2 {tag} (layer {i}, {H}x{W}, fp32): {row['ms']:.4f} ms/launch (bf16 "
+              f"{row['bf16_ms']:.4f} ms), bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
+              f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB) -> "
+              f"{100 * row['bound_ms'] / row['ms']:.1f}% of bound; cuDNN conv2d"
+              f"{' + ReLU' if l.relu else ''} (library_ms) {row['library_ms']:.4f} ms; plain "
+              f"{row['plain_ms']:.3f} ms")
+
+    frame32 = k2_inputs[0]
+    frame16 = frame32.to(torch.bfloat16)
+    layers16 = [l.to(dtype=torch.bfloat16) for l in layers]
+    nchw_frame = frame32.permute(2, 0, 1)[None].contiguous()
+    oihw = [(l.w.permute(3, 2, 0, 1).contiguous(), l.b, l.relu) for l in layers]
+
+    def k2_stack(f, stack):
+        for l in stack:
+            f = k2call(f, l.w, l.b, relu=l.relu)
+        return f
+
+    def k2_plain_stack():
+        f = frame32
+        for l in layers:
+            f = k2.conv3x3_plain(f, l.w, l.b, relu=l.relu)
+        return f
+
+    def cudnn_frame():
+        f = nchw_frame
+        for w_, b_, r in oihw:
+            f = cudnn_layer(f, w_, b_, r)
+        return f
+
+    bounds = [layer_bound(l.ci, l.co) for l in layers]
+    stack = dict(
+        ms=device_ms(torch, lambda: k2_stack(frame32, layers), calls=10),
+        bf16_ms=device_ms(torch, lambda: k2_stack(frame16, layers16), calls=10),
+        library_ms=device_ms(torch, cudnn_frame, calls=10),
+        plain_ms=time_ms(torch, k2_plain_stack, reps=3),
+        bound_ms=sum(b[0] for b in bounds),
+        # the kind of bound that accounts for most of the summed bound
+        bound_by=max(("operations", "bytes"),
+                     key=lambda k: sum(b[0] for b in bounds if b[1] == k)),
+        bytes=sum(b[3] for b in bounds),
+    )
+    # The same stack under torch.profiler: K2's own device time per launch,
+    # to check that the CUDA-event times above hold no host time, and the
+    # share of the stack's device span that a kernel was running.
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            k2_stack(frame32, layers)
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if "conv3x3_kernel" in e.name)
+    if spans:
+        per_layer = [statistics.median(b - a for a, b in spans[i::7]) / 1e3 for i in range(7)]
+        stack["profiler_ms"] = sum(per_layer)
+        stack["busy_share"] = sum(b - a for a, b in spans) / (spans[-1][1] - spans[0][0])
+        print(f"torch.profiler, {len(spans)} K2 kernels over 5 frames: "
+              f"{', '.join(f'{t:.4f}' for t in per_layer)} ms per layer, "
+              f"{stack['profiler_ms']:.4f} ms per frame; the card ran a K2 kernel "
+              f"{100 * stack['busy_share']:.1f}% of the span")
+    else:
+        print("torch.profiler recorded no K2 kernel on the card")
+    k1_bytes = timings[1]["bytes"]
+    print(f"K2 layer-by-layer stack, one {H}x{W} frame (7 launches, fp32): {stack['ms']:.4f} ms "
+          f"(bf16 {stack['bf16_ms']:.4f} ms), bound {stack['bound_ms']:.4f} ms (sum of the "
+          f"layers' bounds, mostly {stack['bound_by']}) -> "
+          f"{100 * stack['bound_ms'] / stack['ms']:.1f}% of bound; cuDNN stack (library_ms) "
+          f"{stack['library_ms']:.4f} ms; plain {stack['plain_ms']:.3f} ms")
+    print(f"bytes per {H}x{W} frame: layer by layer {stack['bytes'] / 1e6:.1f} MB, fused K1 "
+          f"{k1_bytes / 1e6:.1f} MB ({100 * (1 - k1_bytes / stack['bytes']):.1f}% less); "
+          f"time per frame: layer by layer {stack['ms']:.4f} ms, K1 at 1 frame "
+          f"{timings[1]['k1_ms']:.3f} ms, K1 at 8 frames {timings[8]['k1_ms'] / 8:.3f} ms/frame")
 
     server = engine.SRServer.open("abpn_x3", backend="kernel", precision="fp32",
                                   layers=layers)
@@ -325,10 +545,32 @@ def main() -> int:
         "bound_by": t8["bound_by"],
         "library_ms": t8["lib_ms"],
         "shape": f"8 frames {H}x{W}: {t8['bands']} bands, fp32, zero",
+        "bf16_ms": t8["k1_bf16_ms"],
         "batch1_ms": timings[1]["k1_ms"],
+        "batch1_bf16_ms": timings[1]["k1_bf16_ms"],
         "batch1_bound_ms": timings[1]["bound_ms"],
+        "bytes_per_frame": timings[1]["bytes"],
         "server_fps": server_fps,
         "main_path": per_config,
+    }, {
+        "name": "conv3x3",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/conv3x3.cu",
+        "replaces": "src/repro/kernels/conv3x3.py:28",
+        "launches": layerwise_launches,
+        "max_abs_err": k2_worst["fp32"],
+        "max_abs_err_bf16": k2_worst["bf16"],
+        "ms": stack["ms"],
+        "plain_ms": stack["plain_ms"],
+        "bound_ms": stack["bound_ms"],
+        "bound_by": stack["bound_by"],
+        "library_ms": stack["library_ms"],
+        "shape": f"the 7-layer ABPN x3 stack over one {H}x{W} frame, 7 launches, fp32",
+        "bf16_ms": stack["bf16_ms"],
+        "profiler_ms": stack.get("profiler_ms"),
+        "bytes_per_frame": stack["bytes"],
+        "per_layer_shape": k2_shapes,
+        "main_path": per_layerwise,
     }]
     print("kernels: " + json.dumps({k["name"]: {"launches": k["launches"], "replaces": k["replaces"]}
                                     for k in kernels}))

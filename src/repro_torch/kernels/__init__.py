@@ -5,10 +5,14 @@ kernels/
                           conv stack swept by tilted column tiles (CUDA C++)
   tilted_fusion.py      — its wrapper, launch counter, plain PyTorch
                           version and buffer accounting
+  csrc/conv3x3.cu       — K2, one SAME 3x3 conv layer: the layer-by-layer
+                          baseline datapath (CUDA C++)
+  conv3x3.py            — its wrapper, launch counter and plain PyTorch
+                          version
   _build.py             — nvcc build on first use + ctypes loading
   ops.py                — public wrappers (channel padding, stream layout,
-                          untilt)
-  ref.py                — plain oracle
+                          untilt; ``conv3x3``)
+  ref.py                — plain oracles
 
 No module here builds or loads a kernel at import time; the first launch
 on a CUDA tensor does.

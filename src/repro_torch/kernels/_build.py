@@ -33,7 +33,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 # kernel name -> source file under csrc/
-SOURCES: Dict[str, str] = {"tilted_fusion": "tilted_fusion.cu"}
+SOURCES: Dict[str, str] = {"tilted_fusion": "tilted_fusion.cu", "conv3x3": "conv3x3.cu"}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -1,0 +1,179 @@
+"""One SAME 3x3 conv layer on an NVIDIA Hopper card (K2): wrapper and plain
+version.
+
+The kernel (``csrc/conv3x3.cu``, CUDA C++ for ``sm_90a``) computes what the
+JAX package's Pallas kernel ``src/repro/kernels/conv3x3.py::_kernel``
+computes: one SAME-padded 3x3 conv over a ``(R, W, Ci)`` band with HWIO
+weights ``(3, 3, Ci, Co)`` — input, weights and bias widened to fp32, fp32
+accumulation of the 9 taps, the bias, an optional ReLU, and ONE rounding to
+the input's dtype at the store.  It is the layer-by-layer baseline
+datapath the paper compares tilted fusion against: every feature map makes
+a round trip through device memory.
+
+* :func:`conv3x3_call` — the wrapper.  A CUDA tensor launches the kernel
+  (or raises); a CPU tensor runs :func:`conv3x3_plain`.  There is no other
+  path.  ``conv3x3_call.launches`` counts kernel launches.
+* :func:`conv3x3_plain` — the plain PyTorch version of the TPU kernel's
+  dataflow: zero padding out to the column-tile grid, the ``(R+2, C+2, Ci)``
+  slab of every C-column tile, 9 shifted fp32 products in the order dy then
+  dx.  It is the CPU path and the oracle the kernel is held against on the
+  card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import _build
+
+__all__ = [
+    "conv3x3_call",
+    "conv3x3_plain",
+    "SUPPORTED_DTYPES",
+    "MAX_CHANNELS",
+    "MAX_TILE_COLS",
+]
+
+SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)  # storage dtypes on the card
+MAX_CHANNELS = 32  # Ci and Co the kernel takes (kMaxChannels in the source)
+MAX_TILE_COLS = 64  # widest column tile of one CTA (kMaxTileCols)
+_DTYPE_CODE = {dt: i for i, dt in enumerate(SUPPORTED_DTYPES)}  # the launcher's dtype argument
+
+
+def _check_args(x, w, b, tile_cols):
+    if x.ndim != 3:
+        raise ValueError(f"x must be (R, W, Ci), got shape {tuple(x.shape)}")
+    ci = x.shape[2]
+    if w.ndim != 4 or tuple(w.shape[:3]) != (3, 3, ci):
+        raise ValueError(f"w must be (3, 3, {ci}, Co), got shape {tuple(w.shape)}")
+    co = w.shape[3]
+    if tuple(b.shape) != (co,):
+        raise ValueError(f"b must be ({co},), got shape {tuple(b.shape)}")
+    if not (x.dtype == w.dtype == b.dtype):
+        raise ValueError(f"x, w and b must share one dtype, got {x.dtype}, {w.dtype}, {b.dtype}")
+    if not (x.device == w.device == b.device):
+        raise ValueError(f"x, w and b must be on one device, got {x.device}, {w.device}, {b.device}")
+    if int(tile_cols) < 1:
+        raise ValueError(f"tile_cols must be >= 1, got {tile_cols}")
+
+
+# ----------------------------------------------------------------------
+# Plain version
+# ----------------------------------------------------------------------
+def conv3x3_plain(
+    x: torch.Tensor,  # (R, W, Ci)
+    w: torch.Tensor,  # (3, 3, Ci, Co)
+    b: torch.Tensor,  # (Co,)
+    *,
+    tile_cols: int = 8,
+    relu: bool = True,
+) -> torch.Tensor:
+    """Plain PyTorch version of K2 -> ``(R, W, Co)`` in ``x.dtype``.
+
+    Pads as the TPU launcher does (+-1 row, 1 column on the left, out to
+    ``K*C + 1`` on the right), cuts the ``(R+2, C+2, Ci)`` slab of each of
+    the K column tiles, widens slab and weights to fp32, accumulates the 9
+    shifted ``(R*C, Ci) @ (Ci, Co)`` products over all tiles at once in
+    the order dy then dx, adds the fp32 bias, applies the optional ReLU,
+    casts once and crops to W.
+    """
+    _check_args(x, w, b, tile_cols)
+    R, W, ci = x.shape
+    co = w.shape[3]
+    C = int(tile_cols)
+    K = -(-W // C)
+    xp = F.pad(x, (0, 0, 1, K * C + 1 - W, 1, 1))  # (R+2, K*C+2, Ci)
+    # (R+2, K, Ci, C+2) -> (K, R+2, C+2, Ci): tile k's slab is columns
+    # [k*C, k*C + C + 2) of the padded band
+    slabs = xp.unfold(1, C + 2, C).permute(1, 0, 3, 2).float()
+    wf = w.float()
+    acc = torch.zeros((K, R, C, co), dtype=torch.float32, device=x.device)
+    for dy in range(3):
+        for dx in range(3):
+            patch = slabs[:, dy : dy + R, dx : dx + C].reshape(K * R * C, ci)
+            acc = acc + torch.matmul(patch, wf[dy, dx]).reshape(K, R, C, co)
+    out = acc + b.float()
+    if relu:
+        out = torch.clamp_min(out, 0.0)
+    out = out.to(x.dtype).permute(1, 0, 2, 3).reshape(R, K * C, co)
+    return out[:, :W].contiguous()
+
+
+# ----------------------------------------------------------------------
+# The wrapper
+# ----------------------------------------------------------------------
+_lib_handle = None
+
+
+def _lib() -> ctypes.CDLL:
+    global _lib_handle
+    if _lib_handle is None:
+        lib = _build.load("conv3x3")
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.conv3x3_launch.argtypes = [ci] + [vp] * 4 + [ci] * 6 + [vp]
+        lib.conv3x3_launch.restype = ci
+        lib.conv3x3_error_string.argtypes = [ci]
+        lib.conv3x3_error_string.restype = ctypes.c_char_p
+        _lib_handle = lib
+    return _lib_handle
+
+
+def _launch_kernel(x, w, b, *, tile_cols, relu):
+    if x.dtype not in SUPPORTED_DTYPES:
+        raise ValueError(f"the kernel stores float32 or bfloat16, not {x.dtype}")
+    R, W, ci = x.shape
+    co = w.shape[3]
+    if ci > MAX_CHANNELS or co > MAX_CHANNELS:
+        raise ValueError(
+            f"channels {ci} -> {co} exceed the kernel's limit of {MAX_CHANNELS}"
+        )
+    if tile_cols > MAX_TILE_COLS:
+        raise ValueError(
+            f"tile_cols={tile_cols} exceeds the kernel's limit of {MAX_TILE_COLS}"
+        )
+    xc, wc, bc = x.contiguous(), w.contiguous(), b.contiguous()
+    out = torch.empty((R, W, co), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.conv3x3_launch(
+            _DTYPE_CODE[x.dtype], xc.data_ptr(), wc.data_ptr(), bc.data_ptr(),
+            out.data_ptr(), R, W, ci, co, int(tile_cols), int(bool(relu)), stream,
+        )
+    if err != 0:
+        msg = lib.conv3x3_error_string(err).decode()
+        raise RuntimeError(f"conv3x3 kernel launch failed: CUDA error {err} ({msg})")
+    conv3x3_call.launches += 1
+    return out
+
+
+def conv3x3_call(
+    x: torch.Tensor,  # (R, W, Ci)
+    w: torch.Tensor,  # (3, 3, Ci, Co)
+    b: torch.Tensor,  # (Co,)
+    *,
+    tile_cols: int = 8,
+    relu: bool = True,
+) -> torch.Tensor:
+    """K2: SAME 3x3 conv + bias (+ ReLU) over one band -> ``(R, W, Co)`` in
+    ``x.dtype``.
+
+    A tensor on the CPU runs :func:`conv3x3_plain`; a CUDA tensor launches
+    the kernel on the current stream (no synchronisation) or raises.  On
+    the card ``tile_cols`` is each CTA's column width; the result does not
+    depend on it.
+    """
+    if x.device.type == "cpu":
+        return conv3x3_plain(x, w, b, tile_cols=tile_cols, relu=relu)
+    _check_args(x, w, b, tile_cols)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3x3_call runs on cuda or cpu, not {x.device}")
+    return _launch_kernel(x, w, b, tile_cols=int(tile_cols), relu=relu)
+
+
+conv3x3_call.launches = 0  # kernel launches since import (or reset)

@@ -1,10 +1,13 @@
-"""Public wrappers around the tilted-fusion kernel.
+"""Public wrappers around the kernels.
 
-These do the host-side marshalling the accelerator's DMA engine performs in
-the paper: channel padding, building the fresh-column stream, and undoing
-the output tilt.  Each is a line-for-line counterpart of the JAX package's
-``kernels/ops.py``; the kernel behind them runs on whatever device the
-frames are on (the CUDA kernel on the card, its plain version on the CPU).
+The tilted-fusion wrappers do the host-side marshalling the accelerator's
+DMA engine performs in the paper: channel padding, building the
+fresh-column stream, and undoing the output tilt.  :func:`conv3x3` is the
+single-layer conv of the layer-by-layer baseline datapath.  Each is a
+line-for-line counterpart of the JAX package's ``kernels/ops.py``; the
+kernel behind them runs on whatever device the tensors are on (the CUDA
+kernel on the card, its plain version on the CPU), so the JAX wrappers'
+``interpret`` argument has no counterpart.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.fusion import ConvLayer, halo_slabs
 from repro_torch.core.tiling import make_schedule
+from repro_torch.kernels import conv3x3 as _conv3x3
 from repro_torch.kernels import tilted_fusion as _tilted
 
 __all__ = [
@@ -27,6 +31,7 @@ __all__ = [
     "pack_layers",
     "pack_stack",
     "PackedLayers",
+    "conv3x3",
 ]
 
 VERTICAL_POLICIES = ("zero", "halo", "replicate")
@@ -290,3 +295,17 @@ def tilted_fused_band_stack(
         row_policy=vertical_policy,
         compute_dtype=compute_dtype,
     )
+
+
+def conv3x3(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    tile_cols: int = 8,
+    relu: bool = True,
+) -> torch.Tensor:
+    """Single-layer vectorwise 3x3 conv (the layerwise-baseline datapath):
+    ``(R, W, Ci)`` NHWC band, HWIO ``(3, 3, Ci, Co)`` weights -> ``(R, W, Co)``
+    through K2."""
+    return _conv3x3.conv3x3_call(x, w, b, tile_cols=tile_cols, relu=relu)

@@ -1,9 +1,9 @@
-"""Plain oracle for the fused kernel (the correctness contract).
+"""Plain oracles for the kernels (the correctness contracts).
 
-:func:`tilted_fused_stack_ref` matches the signature of
-``ops.tilted_fused_stack`` and is built from nothing but the full-band
-layer-by-layer conv (no tiling, no carried state), so a disagreement points
-at the kernel's dataflow, not at the math.
+Each ``*_ref`` matches the signature of its ``ops`` counterpart and is built
+from nothing but the full-band layer-by-layer conv (``F.conv2d`` with TF32
+off; no tiling, no carried state), so a disagreement points at the kernel's
+dataflow, not at the math.
 """
 
 from __future__ import annotations
@@ -15,7 +15,17 @@ import torch.nn.functional as F
 
 from repro_torch.core.fusion import ConvLayer, conv_stack_reference
 
-__all__ = ["tilted_fused_stack_ref"]
+__all__ = ["conv3x3_ref", "tilted_fused_stack_ref"]
+
+
+def conv3x3_ref(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, relu: bool = True
+) -> torch.Tensor:
+    """SAME-padded 3x3 conv over a ``(R, W, Ci)`` band with HWIO weights
+    ``(3, 3, Ci, Co)``, plus bias, with ReLU when asked -> ``(R, W, Co)``.
+    Accumulates in fp32 (fp64 for fp64 input) and rounds once to
+    ``x.dtype``."""
+    return conv_stack_reference(x, [ConvLayer(w, b, relu)])
 
 
 def tilted_fused_stack_ref(

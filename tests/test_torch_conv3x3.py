@@ -1,0 +1,170 @@
+"""K2 (one SAME 3x3 conv layer) in the PyTorch port vs the JAX package's
+Pallas kernel, and the layer-by-layer ABPN x3 datapath built on it.
+
+On the CPU the port's ``ops.conv3x3`` runs the kernel's plain version
+(``conv3x3_plain``); the JAX side runs its Pallas kernel in interpret mode
+(``default_interpret()`` on the CPU), as ``tests/test_kernels.py`` does.
+Both get identical raw inputs made with ``np.random.default_rng``.
+Tolerances:
+
+* fp32 single layer — ``atol 2e-5, rtol 1e-5``, the JAX package's own K2
+  vs oracle tolerances: both sides accumulate in fp32, in another order;
+* bf16 single layer — ``atol = rtol = 2e-2``: the only rounding is the
+  single cast at the store, so one reordered sum can flip one bf16 ulp;
+* the 7-layer stack and its HR output — 5e-4 max abs diff, the README
+  support matrix's fp32 bound.
+
+``tests/test_torch_cuda.py`` holds the CUDA kernel against its plain
+version on the card.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import engine as jengine
+from repro.core.fusion import ConvLayer as JConvLayer
+from repro.core.fusion import conv_stack_reference as jconv_stack_reference
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+
+from repro_torch import engine as tengine
+from repro_torch.kernels import conv3x3 as tk2
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.models.abpn import ABPNConfig, layers_from_numpy
+
+torch.set_num_threads(2)
+
+FP32 = dict(atol=2e-5, rtol=1e-5)
+BF16 = dict(atol=2e-2, rtol=2e-2)
+STACK_TOL = 5e-4
+
+
+def np_layer(seed, shape, co):
+    """Seeded raw (x, w, b) for one layer: x uniform in [0, 1), w and b
+    normal, scaled as in ``tests/test_kernels.py``."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(size=shape).astype(np.float32)
+    w = (rng.normal(size=(3, 3, shape[2], co)) * 0.2).astype(np.float32)
+    b = (rng.normal(size=(co,)) * 0.1).astype(np.float32)
+    return x, w, b
+
+
+def bf16_round(a):
+    return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+
+def both(x, w, b, *, tile_cols, relu, jdt=jnp.float32, tdt=torch.float32):
+    """The JAX kernel (interpret mode) and the port's op on the same arrays."""
+    j = jops.conv3x3(jnp.asarray(x, jdt), jnp.asarray(w, jdt), jnp.asarray(b, jdt),
+                     tile_cols=tile_cols, relu=relu)
+    launches = tk2.conv3x3_call.launches
+    t = tops.conv3x3(torch.from_numpy(x).to(tdt), torch.from_numpy(w).to(tdt),
+                     torch.from_numpy(b).to(tdt), tile_cols=tile_cols, relu=relu)
+    # a CPU tensor takes the plain version and does not move the counter
+    assert tk2.conv3x3_call.launches == launches
+    assert t.dtype == tdt and tuple(t.shape) == tuple(j.shape)
+    return np.asarray(j, np.float32), t.float().numpy()
+
+
+# ----------------------------------------------------------------------
+# One layer: the JAX package's K2 test shapes and dtypes
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("relu", [True, False], ids=["relu", "linear"])
+@pytest.mark.parametrize("shape,co,tile", [
+    ((60, 64, 28), 28, 8),
+    ((60, 37, 28), 16, 8),  # width not a tile multiple: the last tile reads zeros
+    ((15, 8, 3), 5, 4),
+    ((8, 9, 1), 1, 2),      # one channel, a ragged last tile
+])
+def test_conv3x3_matches_pallas_kernel(shape, co, tile, relu):
+    x, w, b = np_layer(1, shape, co)
+    j, t = both(x, w, b, tile_cols=tile, relu=relu)
+    assert t.shape == (*shape[:2], co)
+    np.testing.assert_allclose(t, j, **FP32)
+
+
+@pytest.mark.parametrize("relu", [True, False], ids=["relu", "linear"])
+def test_conv3x3_bf16_matches_pallas_kernel(relu):
+    x, w, b = (bf16_round(a) for a in np_layer(2, (20, 24, 8), 8))
+    j, t = both(x, w, b, tile_cols=8, relu=relu, jdt=jnp.bfloat16, tdt=torch.bfloat16)
+    np.testing.assert_allclose(t, j, **BF16)
+
+
+def test_conv3x3_ref_matches_jax_ref():
+    x, w, b = np_layer(3, (20, 37, 8), 12)
+    for relu in (True, False):
+        j = jref.conv3x3_ref(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), relu=relu)
+        t = tref.conv3x3_ref(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b),
+                             relu=relu)
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), **FP32)
+
+
+@pytest.mark.parametrize("tile", [1, 3, 8, 64])
+def test_conv3x3_does_not_depend_on_tile_cols(tile):
+    x, w, b = (torch.from_numpy(a) for a in np_layer(4, (20, 37, 8), 12))
+    want = tops.conv3x3(x, w, b, tile_cols=8)
+    got = tops.conv3x3(x, w, b, tile_cols=tile)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=0)
+    np.testing.assert_allclose(got.numpy(), tref.conv3x3_ref(x, w, b).numpy(), **FP32)
+
+
+# ----------------------------------------------------------------------
+# The slice: ABPN x3 layer by layer through K2, at 24x32
+# ----------------------------------------------------------------------
+def abpn_arrays(seed):
+    ch = ABPNConfig().channels  # 3, 28 x6, 27
+    rng = np.random.default_rng(seed)
+    return [((rng.normal(size=(3, 3, ch[i], ch[i + 1])) * (2.0 / (9 * ch[i])) ** 0.5)
+             .astype(np.float32),
+             (rng.normal(size=(ch[i + 1],)) * 0.1).astype(np.float32),
+             i < len(ch) - 2)
+            for i in range(len(ch) - 1)]
+
+
+def test_layerwise_abpn_matches_jax():
+    arrays = abpn_arrays(5)
+    jl = [JConvLayer(w=jnp.asarray(w), b=jnp.asarray(b), relu=r) for w, b, r in arrays]
+    tl = layers_from_numpy(arrays)
+    lr = np.random.default_rng(6).uniform(size=(24, 32, 3)).astype(np.float32)
+
+    jf, tf = jnp.asarray(lr), torch.from_numpy(lr)
+    for jlayer, tlayer in zip(jl, tl):
+        jf = jops.conv3x3(jf, jlayer.w, jlayer.b, relu=jlayer.relu)
+        tf = tops.conv3x3(tf, tlayer.w, tlayer.b, relu=tlayer.relu)
+    assert tuple(tf.shape) == (24, 32, 27)
+    np.testing.assert_allclose(tf.numpy(), np.asarray(jf), atol=STACK_TOL, rtol=0)
+    want = jconv_stack_reference(jnp.asarray(lr), jl)
+    np.testing.assert_allclose(tf.numpy(), np.asarray(want), atol=STACK_TOL, rtol=0)
+
+    # the HR frame: the port's epilogue over the layer-by-layer features vs
+    # the JAX package's reference backend
+    plan = tengine.make_plan(tl, lr.shape, backend="reference", scale=3)
+    hr = tengine.sr_epilogue(plan, torch.from_numpy(lr)[None], tf[None], torch.float32)
+    jplan = jengine.make_plan(jl, lr.shape, backend="reference", scale=3)
+    jhr = jengine.run(jplan, jl, jnp.asarray(lr)[None])
+    assert tuple(hr.shape) == (1, 72, 96, 3)
+    np.testing.assert_allclose(hr.numpy(), np.asarray(jhr), atol=STACK_TOL, rtol=0)
+
+
+# ----------------------------------------------------------------------
+# Argument checks
+# ----------------------------------------------------------------------
+def _bad_args():
+    x, w, b = (torch.from_numpy(a) for a in np_layer(7, (8, 9, 4), 6))
+    return {
+        "x_ndim": (x[None], w, b, 8, "x must be"),
+        "w_ci": (x, w[:, :, :3], b, 8, "w must be"),
+        "b_len": (x, w, b[:5], 8, "b must be"),
+        "mixed_dtypes": (x, w.double(), b, 8, "one dtype"),
+        "tile_cols_0": (x, w, b, 0, "tile_cols"),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_bad_args()))
+def test_conv3x3_rejects_bad_arguments(case):
+    x, w, b, tile, match = _bad_args()[case]
+    with pytest.raises(ValueError, match=match):
+        tops.conv3x3(x, w, b, tile_cols=tile)

@@ -1,5 +1,6 @@
-"""The CUDA kernel K1 on the card vs its plain version (and the serving path
-on the card vs the same path on the CPU).
+"""The CUDA kernels on the card vs their plain versions: K1 (tilted fusion)
+and K2 (one SAME 3x3 conv layer), and the serving path on the card vs the
+same path on the CPU.
 
 Every test here needs a CUDA device and skips where none is present: the
 CUDA kernel has no CPU mode.  The file imports torch and the PyTorch
@@ -7,9 +8,11 @@ package only, so it runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances (max abs diff): fp32 5e-4 and bf16 5e-2, the README support
-matrix's — fp32 sums in another order, bf16 feature maps rounded per layer
-on both sides.
+Tolerances: K1 and the server, max abs diff fp32 5e-4 and bf16 5e-2, the
+README support matrix's — fp32 sums in another order, bf16 feature maps
+rounded per layer on both sides.  K2, the JAX package's own K2 tolerances:
+fp32 ``atol 2e-5, rtol 1e-5`` (another summation order) and bf16
+``atol = rtol = 2e-2`` (one rounding at the store, so at most one ulp).
 """
 
 import numpy as np
@@ -17,11 +20,13 @@ import pytest
 import torch
 
 from repro_torch import engine
+from repro_torch.kernels import conv3x3 as tk2
 from repro_torch.kernels import ops
 from repro_torch.kernels import tilted_fusion as ttf
 from repro_torch.models.abpn import init_abpn, layers_from_numpy
 
 TOL = {torch.float32: 5e-4, torch.bfloat16: 5e-2}
+K2_TOL = {torch.float32: dict(atol=2e-5, rtol=1e-5), torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
 pytestmark = pytest.mark.cuda
 
 
@@ -100,3 +105,68 @@ def test_server_on_the_card_matches_the_cpu(cuda, precision):
         assert launched == (0 if device == "cpu" else 2)  # warm-up + dispatch
     tol = 5e-2 if precision == "bf16" else 5e-4
     np.testing.assert_allclose(out["cuda"].numpy(), out["cpu"].numpy(), atol=tol, rtol=0)
+
+
+# ----------------------------------------------------------------------
+# K2: conv3x3 on the card vs conv3x3_plain
+# ----------------------------------------------------------------------
+def _k2_inputs(seed, shape, co, dtype):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.uniform(size=shape).astype(np.float32)).to(dtype)
+    w = torch.from_numpy((rng.normal(size=(3, 3, shape[2], co)) * 0.2).astype(np.float32))
+    b = torch.from_numpy((rng.normal(size=(co,)) * 0.1).astype(np.float32))
+    return x, w.to(dtype), b.to(dtype)
+
+
+def _k2_check(cuda, x, w, b, *, tile_cols, relu):
+    want = tk2.conv3x3_plain(x, w, b, tile_cols=tile_cols, relu=relu)
+    launches = tk2.conv3x3_call.launches
+    got = tk2.conv3x3_call(x.to(cuda), w.to(cuda), b.to(cuda), tile_cols=tile_cols, relu=relu)
+    torch.cuda.synchronize()
+    assert tk2.conv3x3_call.launches == launches + 1
+    assert got.dtype == x.dtype and got.shape == want.shape
+    np.testing.assert_allclose(got.cpu().float().numpy(), want.float().numpy(),
+                               **K2_TOL[x.dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("rows", [60, 360])
+@pytest.mark.parametrize("ci,co,relu", [(3, 28, True), (28, 28, True), (28, 27, False)],
+                         ids=["3to28", "28to28", "28to27"])
+def test_k2_abpn_layer_shapes(cuda, ci, co, relu, rows, dtype):
+    x, w, b = _k2_inputs(5, (rows, 640, ci), co, dtype)
+    _k2_check(cuda, x, w, b, tile_cols=8, relu=relu)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("relu", [True, False], ids=["relu", "linear"])
+@pytest.mark.parametrize("shape,co,tile", [
+    ((60, 64, 28), 28, 8),
+    ((60, 37, 28), 16, 8),
+    ((15, 8, 3), 5, 4),
+    ((8, 9, 1), 1, 2),
+])
+def test_k2_jax_test_shapes(cuda, shape, co, tile, relu, dtype):
+    x, w, b = _k2_inputs(6, shape, co, dtype)
+    _k2_check(cuda, x, w, b, tile_cols=tile, relu=relu)
+
+
+def test_k2_does_not_depend_on_tile_cols(cuda):
+    x, w, b = (t.to(cuda) for t in _k2_inputs(7, (37, 101, 28), 28, torch.float32))
+    want = tk2.conv3x3_call(x, w, b, tile_cols=8)
+    for tile in (1, 3, 64):
+        # every output sums its taps in the same order whatever the tile
+        assert torch.equal(tk2.conv3x3_call(x, w, b, tile_cols=tile), want)
+
+
+def test_k2_rejects_what_it_does_not_take(cuda):
+    x, w, b = (t.to(cuda) for t in _k2_inputs(8, (8, 16, 4), 6, torch.float32))
+    with pytest.raises(ValueError, match="one device"):
+        tk2.conv3x3_call(x, w.cpu(), b)
+    with pytest.raises(ValueError, match="limit of 32"):
+        wide = torch.zeros((3, 3, 4, 33), device=cuda)
+        tk2.conv3x3_call(x, wide, torch.zeros(33, device=cuda))
+    with pytest.raises(ValueError, match="limit of 64"):
+        tk2.conv3x3_call(x, w, b, tile_cols=65)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tk2.conv3x3_call(x.half(), w.half(), b.half())
