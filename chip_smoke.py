@@ -11,12 +11,14 @@ exits non-zero (nothing is caught):
 1. environment — ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build — compiles every CUDA kernel from ``src/repro_torch/kernels/csrc``
    with nvcc (one process per source, started together) and prints each
-   template instance's registers, stack, shared and local memory;
+   template instance's registers, stack, shared and local memory, and K1's
+   resident CTAs per SM for each instance;
 3. K1 vs plain — K1 against ``tilted_fusion_plain`` on the card at the
    design point (the 6 bands of a 360x640 frame under zero and replicate,
    the 74-row halo slabs with bounds, the anchor) in fp32 (max abs diff
    <= 5e-4) and bf16 (<= 5e-2), on ABPN x3 weights from seed 0 with
-   seeded non-zero biases (``init_abpn`` zeroes them);
+   seeded non-zero biases (``init_abpn`` zeroes them); and K1 with
+   ``segments`` 1, 2, 3, the automatic plan and K must be bit-identical;
 3b. K2 vs plain — K2 against ``conv3x3_plain`` on the card at the seven
    ABPN x3 layer shapes over one 360x640 frame (the stack of phase 3, each
    layer fed the previous layer's features) and at a width that is not a
@@ -35,14 +37,20 @@ exits non-zero (nothing is caught):
    bf16, held against ``engine.run`` on the ``reference`` backend (TF32
    off) at 5e-4 / 5e-2; K2's launch counter, zeroed just before, must have
    moved;
-5. times — CUDA events, median of repeats after warm-up: K1 per launch in
-   fp32 and bf16, its plain version, the same conv stack as cuDNN calls
-   (``library_ms``, the yardstick only) and K1's bound from the unpadded
-   ABPN work, at 1 and 8 frames; K2 per launch at the 3->28, 28->28 and
-   28->27 shapes and the 7-launch stack per 360x640 frame, each beside its
-   bound, its plain version and cuDNN ``conv2d`` (+ ReLU), timed over
-   launches queued behind a sleep so that host time does not count; the
-   bytes per frame of the layer-by-layer stack and of K1; the server's
+5. times — CUDA events, median of repeats after warm-up.  K1 at 1 and 8
+   frames (fp32 and bf16, automatic segment plan: its segments, CTAs,
+   warm-up tiles and their share of the executed tiles) four ways: one
+   launch between two events, host time of the wrapper included (the
+   kernels line's ``ms``); launches queued behind a
+   device sleep (device time only); the wrapper's host time per call; the
+   kernel's duration in ``torch.profiler``.  Beside it its plain version,
+   the same conv stack as cuDNN calls (``library_ms``, the yardstick only,
+   timed both ways) and K1's bound from the unpadded ABPN work.  K1 at
+   forced segment counts 1..81 (device time) beside the plan's cost model.
+   K2 per launch at the 3->28, 28->28 and 28->27 shapes and the 7-launch
+   stack per 360x640 frame, each beside its bound, its plain version and
+   cuDNN ``conv2d`` (+ ReLU), timed over launches queued behind a sleep;
+   the bytes per frame of the layer-by-layer stack and of K1; the server's
    frames/s over the wall clock of 20 closed-loop 8-frame requests, and
    their p50 launch-to-completion latency;
 6. the kernels line, then the card's name and power limit, then the result.
@@ -122,6 +130,37 @@ def device_ms(torch, fn, calls=20, rounds=5):
     return statistics.median(times)
 
 
+def host_ms(torch, fn, calls=10):
+    """Host milliseconds per call of ``fn`` while the card is busy behind a
+    ~20 ms device sleep: what the caller's thread spends before ``fn``
+    returns, none of it waiting for the card."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(40_000_000)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed * 1e3 / calls
+
+
+def profiler_kernel_ms(torch, fn, kernel, calls=5):
+    """Median device milliseconds of the kernels named ``kernel`` that
+    ``calls`` calls of ``fn`` launch, as ``torch.profiler`` records them
+    (None when it records none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events() if kernel in e.name]
+    return statistics.median(spans) / 1e3 if spans else None
+
+
 def conv_cost(ci, co, pixels):
     """One SAME 3x3 conv layer's own work over ``pixels`` output pixels in
     fp32: 2 FLOP per MAC, and the input map read, the output map written
@@ -192,6 +231,13 @@ def main() -> int:
         if not shown:
             print(f"  cuobjdump (exit {usage.returncode}) reported no resource usage: "
                   f"{(usage.stdout + usage.stderr).strip()[:300]!r}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    k1_blocks = {}
+    for prec, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        for chp_ in ttf.SUPPORTED_CHP:
+            k1_blocks[f"{prec}/chp{chp_}"] = ttf.blocks_per_sm(dev, dt, chp_)
+    print(f"  tilted_fusion resident CTAs per SM ({ttf.THREADS} threads, {sms} SMs): "
+          + ", ".join(f"<{k}> {v}" for k, v in k1_blocks.items()))
 
     # ------------------------------------------------------------------
     phase("3. K1 vs its plain version on the card (design point)")
@@ -240,6 +286,15 @@ def main() -> int:
             print(f"K1 vs plain [{prec}, {name}, B={xs.shape[0]} R={xs.shape[1]}]: "
                   f"max_abs_err={err:.3e} (tol {TOL[prec]:g})")
             require(err <= TOL[prec], f"K1 vs plain {prec} {name}")
+            # column segments must not change a bit
+            K = xs.shape[2] // C
+            one = kcall(xs, first, packed.w, packed.b, segments=1, **kw)
+            auto = ttf.launch_plan(xs, packed.w, tile_cols=C).segments
+            for segs in (2, 3, None, K):
+                require(torch.equal(kcall(xs, first, packed.w, packed.b, segments=segs, **kw),
+                                    one), f"K1 {prec} {name}: segments={segs} changed the output")
+            require(torch.equal(got, one), f"K1 {prec} {name}: auto plan vs one segment")
+            print(f"  segments 1, 2, 3, {auto} (auto), {K}: bit-identical")
 
     # ------------------------------------------------------------------
     phase("3b. K2 vs its plain version on the card (ABPN x3 layer shapes, 360x640)")
@@ -359,6 +414,9 @@ def main() -> int:
     packed = ops.pack_stack(layers, dtype=torch.float32)
     packed16 = ops.pack_stack([l.to(dtype=torch.bfloat16) for l in layers], dtype=torch.bfloat16)
     chp, c0p = packed.chp, 8
+    # K1's workspace per CTA in fp32 bytes
+    kb_per_cta = 4 * ttf.kernel_buffers(channels=[3] + [l.co for l in layers], band_rows=60,
+                                        tile_cols=C)["workspace_elements"]
     timings = {}
     for n in (1, 8):
         frames = torch.rand((n, H, W, 3), generator=gen).to(dev)
@@ -366,10 +424,58 @@ def main() -> int:
         xs, first = ops.band_streams(xb, C, L)
         kw = dict(width=W, tile_cols=C, relu_flags=relu, in_channels=3, add_anchor=False)
         B, R, KC, _ = xs.shape
-        k1_ms = time_ms(torch, lambda: kcall(xs, first, packed.w, packed.b, **kw), reps=10)
+        plan = ttf.launch_plan(xs, packed.w, tile_cols=C)
+        plan16 = ttf.launch_plan(xs.to(torch.bfloat16), packed16.w, tile_cols=C)
+        executed_tiles = sum(k1 - kw_ for kw_, _, k1 in plan.ranges())  # per band
         xs16, first16 = xs.to(torch.bfloat16), first.to(torch.bfloat16)
-        k1_bf16_ms = time_ms(torch, lambda: kcall(xs16, first16, packed16.w, packed16.b, **kw),
-                             reps=10)
+
+        def k1_fp32():
+            return kcall(xs, first, packed.w, packed.b, **kw)
+
+        def k1_bf16():
+            return kcall(xs16, first16, packed16.w, packed16.b, **kw)
+
+        # K1 four ways: one launch between two events (host time of the
+        # wrapper included; the kernels line's ms), launches queued behind a
+        # device sleep (device time only), the wrapper's host time per call,
+        # and the kernel's own duration in torch.profiler.
+        k1 = dict(ms=time_ms(torch, k1_fp32, reps=10), device_ms=device_ms(torch, k1_fp32, calls=5),
+                  host_ms=host_ms(torch, k1_fp32),
+                  profiler_ms=profiler_kernel_ms(torch, k1_fp32, "tilted_fusion_kernel"),
+                  bf16_ms=time_ms(torch, k1_bf16, reps=10),
+                  bf16_device_ms=device_ms(torch, k1_bf16, calls=5),
+                  bf16_host_ms=host_ms(torch, k1_bf16))
+        # forced segment counts (device time): where the automatic plan
+        # sits, how far time follows the plan's cost model, and whether the
+        # workspace outgrowing L2 bends the curve
+        sweep = {}
+        for segs in sorted({1, 2, 4, 5, 8, 16, 21, 22, 41, 44, 81, plan.segments}):
+            sp = ttf.launch_plan(xs, packed.w, tile_cols=C, segments=segs)
+            sweep[segs] = dict(ms=device_ms(torch, lambda: kcall(
+                xs, first, packed.w, packed.b, segments=segs, **kw), calls=5),
+                ctas=sp.ctas, cost=sp.cost, workspace_mb=sp.ctas * kb_per_cta / 1e6)
+        best = min(sweep, key=lambda k: sweep[k]["ms"])
+        # the search over S = 1..K through segment_plan, uncached: what the
+        # wrapper ran on the host at every launch before it cached the plan
+        t0 = time.perf_counter()
+        for _ in range(10):
+            min(range(1, plan.tiles + 1), key=lambda s_: (ttf.segment_plan(
+                B, plan.tiles, C, L, sms, k1_blocks["fp32/chp32"], segments=s_).cost, s_))
+        k1["search_ms"] = (time.perf_counter() - t0) * 1e2
+        print(f"batch {n}: K1 automatic plan S={plan.segments} (at most "
+              f"{-(-plan.tiles // plan.segments)} own tiles per segment), {plan.ctas} CTAs on "
+              f"{sms} SMs x {k1_blocks['fp32/chp32']}, w={plan.warmup} warm-up tiles, model "
+              f"cost {plan.cost:g} lone-CTA tiles; warm-up "
+              f"{100 * (1 - plan.tiles / executed_tiles):.1f}% of the {executed_tiles * B} "
+              f"executed tiles; workspace {plan.ctas * kb_per_cta / 1e6:.1f} MB; bf16 plan "
+              f"S={plan16.segments}")
+        print(f"batch {n}: K1 forced S sweep (fp32, device time): " + "; ".join(
+            f"S={k} {v['ctas']} CTAs cost {v['cost']:g} ws {v['workspace_mb']:.1f} MB -> "
+            f"{v['ms']:.3f} ms ({v['ms'] / v['cost']:.3f} ms per cost tile)"
+            for k, v in sweep.items()))
+        print(f"batch {n}: sweep best S={best} {sweep[best]['ms']:.3f} ms; automatic S="
+              f"{plan.segments} {sweep[plan.segments]['ms']:.3f} ms "
+              f"({100 * (sweep[plan.segments]['ms'] / sweep[best]['ms'] - 1):.1f}% above the best)")
         plain_ms = time_ms(torch, lambda: ttf.tilted_fusion_plain(
             xs, first, packed.w, packed.b, **kw), reps=3)
         nchw = xb.permute(0, 3, 1, 2).contiguous()
@@ -383,7 +489,9 @@ def main() -> int:
                     f = torch.relu(f) if r else f
             return f
 
+        # the yardstick timed both ways, as K1
         lib_ms = time_ms(torch, cudnn_stack, reps=10)
+        lib_device_ms = device_ms(torch, cudnn_stack, calls=5)
         # The bound counts the function's own work: the unpadded stack over
         # the n*H*W pixels (2 FLOP per MAC), the frames read and the last
         # layer's features written once, and the weights read once.
@@ -391,20 +499,31 @@ def main() -> int:
         nbytes = 4 * (n * H * W * (layers[0].ci + layers[-1].co)
                       + sum(l.w.numel() + l.b.numel() for l in layers))
         # What K1 executes: every tile column of every band, layer 0 over
-        # c0p input channels and the rest over chp (padding included)
-        executed = 2 * B * R * KC * 9 * (c0p * chp + (L - 1) * chp * chp)
+        # c0p input channels and the rest over chp (padding included), and
+        # layers 0..L-2 again on each warm-up tile
+        tile_flops = 2 * R * C * 9 * (c0p * chp + (L - 1) * chp * chp)
+        warm_flops = 2 * R * C * 9 * (c0p * chp + (L - 2) * chp * chp)
+        executed = B * (plan.tiles * tile_flops + (executed_tiles - plan.tiles) * warm_flops)
         bound_ms = max(flops / peak_flops, nbytes / peak_bw) * 1e3
         bound_by = "operations" if flops / peak_flops >= nbytes / peak_bw else "bytes"
-        timings[n] = dict(k1_ms=k1_ms, k1_bf16_ms=k1_bf16_ms, plain_ms=plain_ms, lib_ms=lib_ms,
+        timings[n] = dict(k1=k1, plain_ms=plain_ms, lib_ms=lib_ms, lib_device_ms=lib_device_ms,
                           bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes,
-                          bands=B)
-        print(f"batch {n} ({B} bands of {R}x{W}, fp32, zero): K1 {k1_ms:.3f} ms/launch "
-              f"(bf16 plan: {k1_bf16_ms:.3f} ms), "
-              f"plain {plain_ms:.3f} ms, cuDNN conv stack (library_ms) {lib_ms:.3f} ms, "
-              f"bound {bound_ms:.3f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP of ABPN, "
-              f"{nbytes / 1e6:.1f} MB moved; {peak_flops / 1e12:.0f} TFLOP/s, "
-              f"{peak_bw / 1e12:.2f} TB/s) -> {100 * bound_ms / k1_ms:.1f}% of bound; "
-              f"K1 executes {executed / 1e9:.2f} GFLOP with padding")
+                          bands=B, segments=plan.segments, ctas=plan.ctas,
+                          sweep_ms={k: v["ms"] for k, v in sweep.items()})
+        prof = "not recorded" if k1["profiler_ms"] is None else f"{k1['profiler_ms']:.3f} ms"
+        print(f"batch {n} ({B} bands of {R}x{W}, fp32, zero): K1 {k1['ms']:.3f} ms for one "
+              f"launch between two events; {k1['device_ms']:.3f} ms device time queued "
+              f"behind a sleep; wrapper host time {k1['host_ms']:.3f} ms per call; kernel in "
+              f"torch.profiler {prof}; the plan search uncached {k1['search_ms']:.3f} ms on "
+              f"the host (cached per shape). bf16 plan: {k1['bf16_ms']:.3f} ms one launch, "
+              f"{k1['bf16_device_ms']:.3f} ms queued, host {k1['bf16_host_ms']:.3f} ms. "
+              f"plain {plain_ms:.3f} ms, cuDNN conv stack (library_ms) {lib_ms:.3f} ms one "
+              f"call, {lib_device_ms:.3f} ms queued; bound {bound_ms:.3f} ms ({bound_by}: "
+              f"{flops / 1e9:.2f} GFLOP of ABPN, {nbytes / 1e6:.1f} MB moved; "
+              f"{peak_flops / 1e12:.0f} TFLOP/s, {peak_bw / 1e12:.2f} TB/s) -> "
+              f"{100 * bound_ms / k1['ms']:.1f}% of bound one launch, "
+              f"{100 * bound_ms / k1['device_ms']:.1f}% queued; "
+              f"K1 executes {executed / 1e9:.2f} GFLOP with padding and warm-up")
 
     # K2, the layer-by-layer baseline, on one 360x640 frame: per layer shape
     # and as the whole 7-launch stack.  Inputs are the real feature maps of
@@ -505,8 +624,9 @@ def main() -> int:
           f"{stack['library_ms']:.4f} ms; plain {stack['plain_ms']:.3f} ms")
     print(f"bytes per {H}x{W} frame: layer by layer {stack['bytes'] / 1e6:.1f} MB, fused K1 "
           f"{k1_bytes / 1e6:.1f} MB ({100 * (1 - k1_bytes / stack['bytes']):.1f}% less); "
-          f"time per frame: layer by layer {stack['ms']:.4f} ms, K1 at 1 frame "
-          f"{timings[1]['k1_ms']:.3f} ms, K1 at 8 frames {timings[8]['k1_ms'] / 8:.3f} ms/frame")
+          f"device time per frame: layer by layer {stack['ms']:.4f} ms, K1 at 1 frame "
+          f"{timings[1]['k1']['device_ms']:.3f} ms, K1 at 8 frames "
+          f"{timings[8]['k1']['device_ms'] / 8:.3f} ms/frame")
 
     server = engine.SRServer.open("abpn_x3", backend="kernel", precision="fp32",
                                   layers=layers)
@@ -539,16 +659,29 @@ def main() -> int:
         "launches": main_launches,
         "max_abs_err": worst["fp32"],
         "max_abs_err_bf16": worst["bf16"],
-        "ms": t8["k1_ms"],
+        "ms": t8["k1"]["ms"],
         "plain_ms": t8["plain_ms"],
         "bound_ms": t8["bound_ms"],
         "bound_by": t8["bound_by"],
         "library_ms": t8["lib_ms"],
         "shape": f"8 frames {H}x{W}: {t8['bands']} bands, fp32, zero",
-        "bf16_ms": t8["k1_bf16_ms"],
-        "batch1_ms": timings[1]["k1_ms"],
-        "batch1_bf16_ms": timings[1]["k1_bf16_ms"],
-        "batch1_bound_ms": timings[1]["bound_ms"],
+        "timing": "ms, bf16_ms, library_ms: one call between two CUDA events, host time "
+                  "included; *device_ms: calls queued behind a device sleep",
+        "device_ms": t8["k1"]["device_ms"],
+        "host_ms": t8["k1"]["host_ms"],
+        "search_ms": t8["k1"]["search_ms"],
+        "profiler_ms": t8["k1"]["profiler_ms"],
+        "library_device_ms": t8["lib_device_ms"],
+        "bf16_ms": t8["k1"]["bf16_ms"],
+        "bf16_device_ms": t8["k1"]["bf16_device_ms"],
+        "segments": t8["segments"],
+        "ctas": t8["ctas"],
+        "blocks_per_sm": k1_blocks["fp32/chp32"],
+        "batch1": {"segments": timings[1]["segments"], "ctas": timings[1]["ctas"],
+                   **timings[1]["k1"], "library_ms": timings[1]["lib_ms"],
+                   "library_device_ms": timings[1]["lib_device_ms"],
+                   "bound_ms": timings[1]["bound_ms"]},
+        "segment_sweep_device_ms": {n: timings[n]["sweep_ms"] for n in (1, 8)},
         "bytes_per_frame": timings[1]["bytes"],
         "server_fps": server_fps,
         "main_path": per_config,

@@ -4,7 +4,8 @@ kernels/
   csrc/tilted_fusion.cu — K1, the paper's contribution: the fused L-layer
                           conv stack swept by tilted column tiles (CUDA C++)
   tilted_fusion.py      — its wrapper, launch counter, plain PyTorch
-                          version and buffer accounting
+                          version, column-segment plan and buffer
+                          accounting
   csrc/conv3x3.cu       — K2, one SAME 3x3 conv layer: the layer-by-layer
                           baseline datapath (CUDA C++)
   conv3x3.py            — its wrapper, launch counter and plain PyTorch

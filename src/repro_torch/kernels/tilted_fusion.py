@@ -18,14 +18,20 @@ anchor added to the last layer, and the output tilted by L-1 columns.
   loop, with the overlap queue and residual ring held as the TPU kernel
   holds them and rounding at the same points.  It is the CPU path and the
   oracle the kernel is held against on the card.
+* :func:`segment_plan` / :func:`launch_plan` — how many column segments
+  each band's sweep is cut into, so that many CTAs sweep one band at once.
+  A segment restarted at tile ``k0`` first re-runs :func:`warmup_tiles`
+  tiles before it, so the output is bit-identical for every segment count.
 * :func:`kernel_buffers` — the Hopper kernel's own workspace and shared
-  memory, per band.
+  memory, per CTA and per launch.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+import functools
+import numbers
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -38,6 +44,12 @@ __all__ = [
     "round_up_channels",
     "workspace_shapes",
     "kernel_buffers",
+    "SegmentPlan",
+    "SHARED_SM_TILE_COST",
+    "warmup_tiles",
+    "segment_plan",
+    "blocks_per_sm",
+    "launch_plan",
     "THREADS",
     "SUPPORTED_CHP",
 ]
@@ -54,7 +66,7 @@ def round_up_channels(n: int, multiple: int = 8) -> int:
 
 
 def workspace_shapes(num_layers: int, band_rows: int, tile_cols: int, chp: int):
-    """The per-band device-memory workspace of the kernel — ``(slabs,
+    """The per-CTA device-memory workspace of the kernel — ``(slabs,
     overlap_queue)``: two ping-pong feature slabs ``(2, Chp, R, C+2)`` and
     the overlap queue ``(L, Chp, R, 2)`` — as plain tuples.  The wrapper
     allocates exactly this; the kernel's ``workspace_elems`` indexes it."""
@@ -70,14 +82,19 @@ def _elems(shape) -> int:
     return n
 
 
-def kernel_buffers(*, channels, band_rows: int, tile_cols: int, chp: int = None) -> dict:
-    """What one CTA (one band) of the Hopper kernel holds, in ELEMENTS of
-    the compute dtype unless a key says bytes.
+def kernel_buffers(*, channels, band_rows: int, tile_cols: int, chp: int = None,
+                   bands: int = 1, segments: int = 1) -> dict:
+    """What one CTA (one segment of one band) of the Hopper kernel holds, in
+    ELEMENTS of the compute dtype unless a key says bytes, and the workspace
+    of a launch of ``bands`` x ``segments`` CTAs.
 
     * ``slabs`` / ``overlap`` (summed in ``workspace_elements``) — device
-      memory the wrapper allocates per band (:func:`workspace_shapes`).
+      memory the wrapper allocates per CTA (:func:`workspace_shapes`).
       The TPU kernel's residual ring has no counterpart: the anchor is read
       from the input stream, which stays in device memory.
+    * ``ctas`` / ``launch_workspace_elements`` — the CTAs of the launch and
+      the workspace the wrapper allocates for them,
+      ``bands * segments * workspace_elements``.
     * ``shared_bytes`` — dynamic shared memory per CTA: two fp32 stages of
       one layer's weights, ``2 * 9 * Chp * Chp * 4`` bytes.  It does not
       depend on R.
@@ -106,6 +123,8 @@ def kernel_buffers(*, channels, band_rows: int, tile_cols: int, chp: int = None)
         "weights": {"shape": (L, 3, 3, chp, chp), "elements": L * 9 * chp * chp},
         "bias": {"shape": (L, chp), "elements": L * chp},
     }
+    per_cta = buffers["slabs"]["elements"] + buffers["overlap"]["elements"]
+    ctas = int(bands) * int(segments)
     return {
         "num_layers": L,
         "band_rows": R,
@@ -114,9 +133,106 @@ def kernel_buffers(*, channels, band_rows: int, tile_cols: int, chp: int = None)
         "c0p": c0p,
         "threads": THREADS,
         "buffers": buffers,
-        "workspace_elements": buffers["slabs"]["elements"] + buffers["overlap"]["elements"],
+        "workspace_elements": per_cta,
+        "ctas": ctas,
+        "launch_workspace_elements": ctas * per_cta,
         "shared_bytes": 2 * 9 * chp * chp * 4,
     }
+
+
+# ----------------------------------------------------------------------
+# Column segments
+# ----------------------------------------------------------------------
+# The time per tile of a CTA that shares its SM with a second resident CTA,
+# over the time of one alone on its SM: 0.46-0.52 against 0.31-0.33 ms per
+# tile for the fp32 Chp 32 instance at 2 CTAs per SM on an H100
+# (chip_smoke.py's forced-segment sweep; PERF.md).
+SHARED_SM_TILE_COST = 1.6
+
+
+class SegmentPlan(NamedTuple):
+    """How a launch cuts each band's K tiles into segments, one CTA each."""
+
+    bands: int
+    tiles: int  # K
+    segments: int  # S, segments per band (at most K)
+    warmup: int  # w, warm-up tiles before a segment restarted at k0 >= w
+    cost: float  # the model's makespan, in tiles of a CTA alone on its SM
+
+    @property
+    def ctas(self) -> int:
+        return self.bands * self.segments
+
+    def ranges(self) -> List[Tuple[int, int, int]]:
+        """``(kw, k0, k1)`` per segment: its own tiles ``[k0, k1)``, with
+        ``k0 = s * K // S``, and the tile ``kw`` its sweep starts at —
+        ``k0 - w``, or 0 where ``k0 < w`` (the band-start state).  The
+        kernel computes the same bounds from ``blockIdx``."""
+        return _ranges(self.tiles, self.segments, self.warmup)
+
+
+def warmup_tiles(num_layers: int, tile_cols: int) -> int:
+    """``w = ceil((2L - 1) / C)``: the tiles a segment re-runs before its
+    first own tile.  A wrong carried column of F_l spreads at most one
+    column to the right per layer; after ``w * C >= 2L - 1`` columns none
+    reaches a column that any layer carries into tile ``k0``."""
+    return -(-(2 * int(num_layers) - 1) // int(tile_cols))
+
+
+def _ranges(K: int, S: int, w: int) -> List[Tuple[int, int, int]]:
+    out = []
+    for s in range(S):
+        k0, k1 = s * K // S, (s + 1) * K // S
+        out.append((k0 - w if k0 >= w else 0, k0, k1))
+    return out
+
+
+def _cost(bands: int, K: int, S: int, w: int, sms: int, ctas_per_sm: int) -> float:
+    """The makespan of ``bands * S`` CTAs, in tiles of a CTA alone on its
+    SM: waves of ``sms * ctas_per_sm`` CTAs, each as long as the CTA that
+    executes the most tiles (warm-up included), and a CTA that shares its
+    SM runs :data:`SHARED_SM_TILE_COST` times slower than one alone."""
+    ctas = bands * S
+    longest = max(k1 - kw for kw, _, k1 in _ranges(K, S, w))
+    if ctas <= sms:
+        return float(longest)
+    waves = -(-ctas // (sms * ctas_per_sm))
+    return waves * longest * (SHARED_SM_TILE_COST if ctas_per_sm > 1 else 1.0)
+
+
+@functools.lru_cache(maxsize=256)
+def _best_segments(bands: int, K: int, w: int, sms: int, ctas_per_sm: int) -> int:
+    return min(range(1, K + 1), key=lambda s: (_cost(bands, K, s, w, sms, ctas_per_sm), s))
+
+
+def _check_segments(segments) -> None:
+    if segments is not None and (isinstance(segments, bool)
+                                 or not isinstance(segments, numbers.Integral) or segments < 1):
+        raise ValueError(f"segments must be None (the automatic plan) or an integer >= 1, "
+                         f"not {segments!r}")
+
+
+def segment_plan(bands: int, tiles: int, tile_cols: int, num_layers: int, sms: int,
+                 ctas_per_sm: int = 1, segments: Optional[int] = None) -> SegmentPlan:
+    """The segment count for a launch of ``bands`` bands of ``tiles`` tiles
+    on ``sms`` SMs that each hold ``ctas_per_sm`` resident CTAs.
+
+    ``segments=None`` picks the S in ``1..K`` with the least model makespan
+    (``SegmentPlan.cost``); ties go to fewer segments.  The search is
+    cached per shape.  An integer forces S (clamped to K: a segment holds
+    at least one tile).
+    """
+    _check_segments(segments)
+    if int(sms) < 1 or int(ctas_per_sm) < 1:
+        raise ValueError(f"sms and ctas_per_sm must be >= 1, not {sms}, {ctas_per_sm}")
+    B, K, sms, per_sm = int(bands), int(tiles), int(sms), int(ctas_per_sm)
+    w = warmup_tiles(num_layers, tile_cols)
+    if segments is None:
+        S = _best_segments(B, K, w, sms, per_sm) if B >= 1 and K >= 1 else 1
+    else:
+        S = min(int(segments), K) if K >= 1 else 1
+    cost = _cost(B, K, S, w, sms, per_sm) if B >= 1 and K >= 1 else 0.0
+    return SegmentPlan(bands=B, tiles=K, segments=S, warmup=w, cost=cost)
 
 
 # ----------------------------------------------------------------------
@@ -139,6 +255,14 @@ def _conv_tile_plain(f, w_l, b_l, row_policy: str):
     return acc + b_l
 
 
+def _input_cols(ext: torch.Tensor, start: int, n: int) -> torch.Tensor:
+    """Input columns ``[start, start + n)`` of a band batch, zero left of the
+    image; ``ext`` is ``first_col ++ x_stream``, so its column a is input
+    column a."""
+    lo = max(start, 0)
+    return F.pad(ext[:, :, lo : start + n], (0, 0, lo - start, 0))
+
+
 def tilted_fusion_plain(
     x_stream: torch.Tensor,  # (B, R, K*C, C0p)
     first_col: torch.Tensor,  # (B, R, 1, C0p)
@@ -155,6 +279,7 @@ def tilted_fusion_plain(
     row_bounds: torch.Tensor = None,
     compute_dtype=None,
     out_dtype=None,
+    segments: Optional[int] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of K1: same arguments, same tilted
     ``(B, R, K*C, Chp)`` result.
@@ -164,9 +289,17 @@ def tilted_fusion_plain(
     compute dtype and the bias in the compute dtype, both widened to fp32;
     products and sums are fp32; each layer's masked output is rounded to the
     compute dtype, and the anchor is a compute-dtype sum.
+
+    ``segments`` sweeps each band as the kernel's CTAs do: segment by
+    segment (``SegmentPlan.ranges``), each restarted with the true F_0
+    columns, zeroed deeper queue slots and warm-up tiles that run layers
+    0..L-2 and store nothing.  The result is the same for every count.
+    ``None`` is the plan for one SM — a sequential loop is one — which is
+    one segment.
     """
     _check_args(x_stream, first_col, w, b, tile_cols, relu_flags, add_anchor,
                 in_channels, anchor_repeats, row_policy, row_bounds)
+    _check_segments(segments)
     B, R, KC, c0p = x_stream.shape
     L, chp = w.shape[0], w.shape[3]
     C, W = tile_cols, width
@@ -174,14 +307,11 @@ def tilted_fusion_plain(
     cdt = compute_dtype or x_stream.dtype
     out_dtype = out_dtype or x_stream.dtype
     dev = x_stream.device
+    plan = segment_plan(B, K, C, L, sms=1, segments=segments)
 
     wf = w.to(cdt).float()
     bf = b.to(cdt).float()
-    first = first_col[:, :, 0, :].to(cdt)
-    overlap = torch.zeros((L, B, R, 2, chp), dtype=cdt, device=dev)
-    overlap[0, :, :, 1, :c0p] = first
-    ring = torch.zeros((B, R, C + L, c0p), dtype=cdt, device=dev)
-    ring[:, :, C + L - 1] = first
+    ext = torch.cat([first_col.to(cdt), x_stream.to(cdt)], dim=2)  # column a = input column a
     row_ok = None
     if row_bounds is not None:
         rb = row_bounds.to(dev)
@@ -191,35 +321,43 @@ def tilted_fusion_plain(
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     out = torch.empty((B, R, KC, chp), dtype=out_dtype, device=dev)
 
-    for k in range(K):
-        fresh = x_stream[:, :, k * C : (k + 1) * C].to(cdt)
-        if add_anchor:
-            ring = torch.cat([ring[:, :, C:], fresh], dim=2)
-        f = torch.cat([overlap[0, :, :, :, :c0p], fresh], dim=2)
-        overlap[0, :, :, :, :c0p] = f[:, :, -2:]
-        f = F.pad(f, (0, chp - c0p))
-        for l in range(L):
-            g = _conv_tile_plain(f, wf[l], bf[l], row_policy)
-            if relu_flags[l]:
-                g = torch.clamp_min(g, 0.0)
-            abs_cols = k * C - l + col_idx
-            col_ok = ((abs_cols >= 0) & (abs_cols < W))[None, None, :, None]
-            g = torch.where(col_ok, g, zero)
-            if row_ok is not None:
-                g = torch.where(row_ok, g, zero)
-            g = g.to(cdt)
-            if l < L - 1:
-                left = overlap[l + 1].clone()
-                overlap[l + 1] = g[:, :, -2:]
-                f = torch.cat([left, g], dim=2)
-            else:
-                if add_anchor:
-                    anchor = ring[:, :, :C, :in_channels]
-                    anchor = torch.repeat_interleave(anchor, anchor_repeats, dim=-1)
-                    anchor = F.pad(anchor, (0, chp - in_channels * anchor_repeats))
-                    anchor = torch.where(col_ok, anchor, torch.zeros((), dtype=cdt, device=dev))
-                    g = g + anchor
-                out[:, :, k * C : (k + 1) * C] = g.to(out_dtype)
+    for kw, k0, k1 in plan.ranges():
+        # the state before tile kw: F_0's carried columns kw*C-1, kw*C, the
+        # deeper slots zero, and the ring's last C+L input columns
+        overlap = torch.zeros((L, B, R, 2, chp), dtype=cdt, device=dev)
+        overlap[0, :, :, :, :c0p] = _input_cols(ext, kw * C - 1, 2)
+        ring = _input_cols(ext, kw * C - C - L + 1, C + L)
+        for k in range(kw, k1):
+            fresh = x_stream[:, :, k * C : (k + 1) * C].to(cdt)
+            if add_anchor:
+                ring = torch.cat([ring[:, :, C:], fresh], dim=2)
+            f = torch.cat([overlap[0, :, :, :, :c0p], fresh], dim=2)
+            overlap[0, :, :, :, :c0p] = f[:, :, -2:]
+            f = F.pad(f, (0, chp - c0p))
+            # a warm-up tile runs layers 0..L-2: layer L-1 carries nothing
+            for l in range(L if k >= k0 else L - 1):
+                g = _conv_tile_plain(f, wf[l], bf[l], row_policy)
+                if relu_flags[l]:
+                    g = torch.clamp_min(g, 0.0)
+                abs_cols = k * C - l + col_idx
+                col_ok = ((abs_cols >= 0) & (abs_cols < W))[None, None, :, None]
+                g = torch.where(col_ok, g, zero)
+                if row_ok is not None:
+                    g = torch.where(row_ok, g, zero)
+                g = g.to(cdt)
+                if l < L - 1:
+                    left = overlap[l + 1].clone()
+                    overlap[l + 1] = g[:, :, -2:]
+                    f = torch.cat([left, g], dim=2)
+                else:
+                    if add_anchor:
+                        anchor = ring[:, :, :C, :in_channels]
+                        anchor = torch.repeat_interleave(anchor, anchor_repeats, dim=-1)
+                        anchor = F.pad(anchor, (0, chp - in_channels * anchor_repeats))
+                        anchor = torch.where(col_ok, anchor,
+                                             torch.zeros((), dtype=cdt, device=dev))
+                        g = g + anchor
+                    out[:, :, k * C : (k + 1) * C] = g.to(out_dtype)
     return out
 
 
@@ -261,17 +399,64 @@ def _lib() -> ctypes.CDLL:
     if _lib_handle is None:
         lib = _build.load("tilted_fusion")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.tilted_fusion_launch.argtypes = [ci] + [vp] * 7 + [ci] * 13 + [vp]
+        lib.tilted_fusion_launch.argtypes = [ci] + [vp] * 7 + [ci] * 15 + [vp]
         lib.tilted_fusion_launch.restype = ci
+        lib.tilted_fusion_blocks_per_sm.argtypes = [ci, ci, ctypes.POINTER(ci)]
+        lib.tilted_fusion_blocks_per_sm.restype = ci
         lib.tilted_fusion_error_string.argtypes = [ci]
         lib.tilted_fusion_error_string.restype = ctypes.c_char_p
         _lib_handle = lib
     return _lib_handle
 
 
+def _check_error(lib, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.tilted_fusion_error_string(err).decode()
+        raise RuntimeError(f"tilted_fusion {what} failed: CUDA error {err} ({msg})")
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(device_index: int, dtype_code: int, chp: int) -> int:
+    lib = _lib()
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        _check_error(lib, lib.tilted_fusion_blocks_per_sm(dtype_code, chp, ctypes.byref(blocks)),
+                     "occupancy query")
+    if blocks.value < 1:
+        raise RuntimeError(f"the <{dtype_code}, chp {chp}> kernel fits no CTA on an SM")
+    return blocks.value
+
+
+def blocks_per_sm(device, dtype, chp: int) -> int:
+    """Resident CTAs per SM of the kernel's ``<dtype, chp>`` instance on a
+    CUDA ``device``, from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    (builds the kernel on first use)."""
+    device = torch.device(device)
+    if dtype not in _DTYPE_CODE:
+        raise ValueError(f"the kernel computes in float32 or bfloat16, not {dtype}")
+    if chp not in SUPPORTED_CHP:
+        raise ValueError(f"padded channel count {chp} not in the kernel's {SUPPORTED_CHP}")
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return _blocks_per_sm(index, _DTYPE_CODE[dtype], int(chp))
+
+
+def launch_plan(x_stream: torch.Tensor, w: torch.Tensor, *, tile_cols: int,
+                segments: Optional[int] = None, compute_dtype=None) -> SegmentPlan:
+    """The :class:`SegmentPlan` of a launch on these inputs: on a CUDA
+    tensor, for the card's SMs with :func:`blocks_per_sm` CTAs each; on the
+    CPU (the plain version's sequential loop), for one SM of one."""
+    B, _, KC, _ = x_stream.shape
+    L, chp = w.shape[0], w.shape[3]
+    sms, per_sm = 1, 1
+    if x_stream.device.type == "cuda":
+        sms = torch.cuda.get_device_properties(x_stream.device).multi_processor_count
+        per_sm = blocks_per_sm(x_stream.device, compute_dtype or x_stream.dtype, chp)
+    return segment_plan(B, KC // tile_cols, tile_cols, L, sms, per_sm, segments=segments)
+
+
 def _launch_kernel(x_stream, first_col, w, b, *, width, tile_cols, relu_flags,
                    add_anchor, in_channels, anchor_repeats, row_policy,
-                   row_bounds, cdt):
+                   row_bounds, cdt, segments):
     dev = x_stream.device
     if cdt not in _DTYPE_CODE:
         raise ValueError(f"the kernel computes in float32 or bfloat16, not {cdt}")
@@ -293,8 +478,9 @@ def _launch_kernel(x_stream, first_col, w, b, *, width, tile_cols, relu_flags,
     bounds = None if row_bounds is None else row_bounds.to(torch.int32).contiguous()
     lib = _lib()
     C = tile_cols
+    plan = launch_plan(x, wc, tile_cols=C, segments=segments, compute_dtype=cdt)
     ws_elems = sum(_elems(s) for s in workspace_shapes(L, R, C, chp))
-    workspace = torch.empty((B * ws_elems,), dtype=cdt, device=dev)
+    workspace = torch.empty((plan.ctas * ws_elems,), dtype=cdt, device=dev)
     out = torch.empty((B, R, KC, chp), dtype=cdt, device=dev)
     relu_mask = sum(1 << i for i, r in enumerate(relu_flags) if r)
     with torch.cuda.device(dev):
@@ -305,11 +491,9 @@ def _launch_kernel(x_stream, first_col, w, b, *, width, tile_cols, relu_flags,
             out.data_ptr(), workspace.data_ptr(),
             B, R, KC // C, C, c0p, chp, L, int(width),
             relu_mask, int(bool(add_anchor)), int(in_channels), int(anchor_repeats),
-            int(row_policy == "replicate"), stream,
+            int(row_policy == "replicate"), plan.segments, plan.warmup, stream,
         )
-    if err != 0:
-        msg = lib.tilted_fusion_error_string(err).decode()
-        raise RuntimeError(f"tilted_fusion kernel launch failed: CUDA error {err} ({msg})")
+    _check_error(lib, err, "kernel launch")
     tilted_fusion_call.launches += 1
     return out
 
@@ -330,6 +514,7 @@ def tilted_fusion_call(
     row_bounds: torch.Tensor = None,  # (B, 2) int32 [valid_lo, valid_hi) per band
     compute_dtype=None,
     out_dtype=None,
+    segments: Optional[int] = None,
 ) -> torch.Tensor:
     """K1 over a flat batch of bands -> tilted ``(B, R, K*C, Chp)``.
 
@@ -340,14 +525,19 @@ def tilted_fusion_call(
     input's) is the feature-map dtype, float32 or bfloat16 on the card;
     accumulation is always fp32.
 
+    ``segments`` cuts each band's sweep into that many column segments,
+    one CTA each (:func:`segment_plan`); ``None`` takes the plan that fills
+    the card (:func:`launch_plan`).  The output does not depend on it.
+
     A tensor on the CPU runs :func:`tilted_fusion_plain`; a CUDA tensor
     launches the kernel on the current stream (no synchronisation) or
     raises.
     """
+    _check_segments(segments)
     args = dict(width=width, tile_cols=tile_cols, relu_flags=list(relu_flags),
                 add_anchor=add_anchor, in_channels=in_channels,
                 anchor_repeats=anchor_repeats, row_policy=row_policy,
-                row_bounds=row_bounds)
+                row_bounds=row_bounds, segments=segments)
     if x_stream.device.type == "cpu":
         return tilted_fusion_plain(x_stream, first_col, w, b, compute_dtype=compute_dtype,
                                    out_dtype=out_dtype, **args)

@@ -1,6 +1,7 @@
 """The CUDA kernels on the card vs their plain versions: K1 (tilted fusion)
 and K2 (one SAME 3x3 conv layer), and the serving path on the card vs the
-same path on the CPU.
+same path on the CPU.  K1's column segments must not change a bit of its
+output (``torch.equal`` across segment counts).
 
 Every test here needs a CUDA device and skips where none is present: the
 CUDA kernel has no CPU mode.  The file imports torch and the PyTorch
@@ -65,20 +66,50 @@ def test_kernel_matches_plain(cuda, channels, policy, rows, dtype):
               row_policy="replicate" if policy == "replicate" else "zero")
     want = ttf.tilted_fusion_plain(xs, first, packed.w, packed.b, row_bounds=bounds, **kw)
     launches = ttf.tilted_fusion_call.launches
-    got = ttf.tilted_fusion_call(
-        xs.to(cuda), first.to(cuda), packed.w.to(cuda), packed.b.to(cuda),
-        row_bounds=None if bounds is None else bounds.to(cuda), **kw)
+    args = (xs.to(cuda), first.to(cuda), packed.w.to(cuda), packed.b.to(cuda))
+    kw["row_bounds"] = None if bounds is None else bounds.to(cuda)
+    got = ttf.tilted_fusion_call(*args, **kw)
     torch.cuda.synchronize()
     assert ttf.tilted_fusion_call.launches == launches + 1
     assert got.dtype == dtype and got.shape == want.shape
     np.testing.assert_allclose(got.cpu().float().numpy(), want.float().numpy(),
                                atol=TOL[dtype], rtol=0)
+    # column segments change no bit of the output
+    K = xs.shape[2] // 4
+    one = ttf.tilted_fusion_call(*args, segments=1, **kw)
+    for segments in (2, 3, None, K):
+        assert torch.equal(ttf.tilted_fusion_call(*args, segments=segments, **kw), one), segments
+    assert torch.equal(got, one)
+
+
+def test_auto_plan_fills_the_card_at_one_frame(cuda):
+    """One 360x640 frame of ABPN x3: 6 bands of 81 tiles."""
+    layers = [l.to(device=cuda) for l in init_abpn(torch.Generator().manual_seed(0))]
+    packed = ops.pack_stack(layers)
+    xb = torch.rand((6, 60, 640, 3), generator=torch.Generator().manual_seed(9)).to(cuda)
+    xs, first = ops.band_streams(xb, 8, 7)
+    plan = ttf.launch_plan(xs, packed.w, tile_cols=8)
+    assert plan.tiles == 81 and plan.ctas >= 100
+    sms = torch.cuda.get_device_properties(xs.device).multi_processor_count
+    assert plan.ctas <= sms * ttf.blocks_per_sm(xs.device, torch.float32, 32)  # one wave
+    kw = dict(width=640, tile_cols=8, relu_flags=list(packed.relu), add_anchor=False,
+              in_channels=3)
+    got = ttf.tilted_fusion_call(xs, first, packed.w, packed.b, **kw)
+    assert torch.equal(got, ttf.tilted_fusion_call(xs, first, packed.w, packed.b, segments=1,
+                                                   **kw))
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
     layers = _stack(3, [3, 40, 12])  # chp 40: no kernel instance
     packed = ops.pack_stack([l.to(device=cuda) for l in layers])
     xs, first = ops.band_streams(torch.rand((1, 8, 16, 3), device=cuda), 4, 2)
+    packed12 = ops.pack_stack([l.to(device=cuda) for l in _stack(3, [3, 12, 12])])
+    launches = ttf.tilted_fusion_call.launches
+    with pytest.raises(ValueError, match="segments"):
+        ttf.tilted_fusion_call(xs, first, packed12.w, packed12.b, width=16, tile_cols=4,
+                               relu_flags=[True, False], add_anchor=False, in_channels=3,
+                               segments=0)
+    assert ttf.tilted_fusion_call.launches == launches
     with pytest.raises(ValueError, match="padded channel count"):
         ttf.tilted_fusion_call(xs, first, packed.w, packed.b, width=16, tile_cols=4,
                                relu_flags=[True, False], add_anchor=False, in_channels=3)

@@ -205,3 +205,14 @@ def test_kernel_buffers_bounded_in_r():
         assert kb["buffers"]["overlap"]["logical_elements"] == 7 * rows * 2 * 28
     assert ttf.kernel_buffers(channels=ch, band_rows=60, tile_cols=8)["shared_bytes"] < 227 * 1024
     assert ttf.round_up_channels(28) == jtf.round_up_channels(28) == 32
+
+
+def test_kernel_buffers_launch_total():
+    ch = [3, 28, 28, 28, 28, 28, 28, 27]
+    kb = ttf.kernel_buffers(channels=ch, band_rows=60, tile_cols=8, bands=6, segments=41)
+    per_cta = 2 * 32 * 60 * 10 + 7 * 32 * 60 * 2  # 65,280: ~261 KB in fp32
+    assert kb["workspace_elements"] == per_cta
+    assert kb["ctas"] == 6 * 41
+    assert kb["launch_workspace_elements"] == 6 * 41 * per_cta
+    one = ttf.kernel_buffers(channels=ch, band_rows=60, tile_cols=8)
+    assert one["ctas"] == 1 and one["launch_workspace_elements"] == per_cta
