@@ -12,7 +12,10 @@ a round trip through device memory.
 
 * :func:`conv3x3_call` — the wrapper.  A CUDA tensor launches the kernel
   (or raises); a CPU tensor runs :func:`conv3x3_plain`.  There is no other
-  path.  ``conv3x3_call.launches`` counts kernel launches.
+  path.  ``conv3x3_call.launches`` counts kernel launches.  On the card the
+  kernel runs persistent CTAs over ``TILE_ROWS x TILE_COLS`` output tiles
+  on the tensor cores (bf16 products; fp32 through 3xTF32), with at most
+  :func:`blocks_per_sm` CTAs on each SM (:func:`launch_grid`).
 * :func:`conv3x3_plain` — the plain PyTorch version of the TPU kernel's
   dataflow: zero padding out to the column-tile grid, the ``(R+2, C+2, Ci)``
   slab of every C-column tile, 9 shifted fp32 products in the order dy then
@@ -23,6 +26,7 @@ a round trip through device memory.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -34,12 +38,16 @@ __all__ = [
     "conv3x3_plain",
     "SUPPORTED_DTYPES",
     "MAX_CHANNELS",
-    "MAX_TILE_COLS",
+    "TILE_ROWS",
+    "TILE_COLS",
+    "blocks_per_sm",
+    "launch_grid",
+    "smem_bytes",
 ]
 
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)  # storage dtypes on the card
 MAX_CHANNELS = 32  # Ci and Co the kernel takes (kMaxChannels in the source)
-MAX_TILE_COLS = 64  # widest column tile of one CTA (kMaxTileCols)
+TILE_ROWS, TILE_COLS = 8, 32  # a CTA's output tile on the card (kTileRows, kTileCols)
 _DTYPE_CODE = {dt: i for i, dt in enumerate(SUPPORTED_DTYPES)}  # the launcher's dtype argument
 
 
@@ -115,39 +123,94 @@ def _lib() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.conv3x3_launch.argtypes = [ci] + [vp] * 4 + [ci] * 6 + [vp]
         lib.conv3x3_launch.restype = ci
+        lib.conv3x3_blocks_per_sm.argtypes = [ci, ci, ctypes.POINTER(ci)]
+        lib.conv3x3_blocks_per_sm.restype = ci
+        lib.conv3x3_smem_bytes.argtypes = [ci, ci, ctypes.POINTER(ci)]
+        lib.conv3x3_smem_bytes.restype = ci
         lib.conv3x3_error_string.argtypes = [ci]
         lib.conv3x3_error_string.restype = ctypes.c_char_p
         _lib_handle = lib
     return _lib_handle
 
 
-def _launch_kernel(x, w, b, *, tile_cols, relu):
-    if x.dtype not in SUPPORTED_DTYPES:
-        raise ValueError(f"the kernel stores float32 or bfloat16, not {x.dtype}")
+def _check_error(lib, err, what):
+    if err != 0:
+        msg = lib.conv3x3_error_string(err).decode()
+        raise RuntimeError(f"conv3x3 {what} failed: CUDA error {err} ({msg})")
+
+
+def _dtype_code(dtype):
+    if dtype not in SUPPORTED_DTYPES:
+        raise ValueError(f"the kernel stores float32 or bfloat16, not {dtype}")
+    return _DTYPE_CODE[dtype]
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(device_index: int, dtype_code: int, ci: int) -> int:
+    lib = _lib()
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        _check_error(lib, lib.conv3x3_blocks_per_sm(dtype_code, ci, ctypes.byref(blocks)),
+                     "occupancy query")
+    if blocks.value < 1:
+        raise RuntimeError(f"the conv3x3 kernel (dtype code {dtype_code}, Ci {ci}) fits no "
+                           "CTA on an SM")
+    return blocks.value
+
+
+def blocks_per_sm(device, dtype, ci: int) -> int:
+    """Resident CTAs per SM of the kernel instance that ``dtype`` storage
+    and ``ci`` input channels launch, on a CUDA ``device``, from
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (builds the kernel on
+    first use)."""
+    device = torch.device(device)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return _blocks_per_sm(index, _dtype_code(dtype), int(ci))
+
+
+def smem_bytes(dtype, ci: int) -> int:
+    """Dynamic shared memory of one CTA, in bytes, of the kernel instance
+    that ``dtype`` storage and ``ci`` input channels launch (builds the
+    kernel on first use): the weights in B-fragment layout, two input
+    windows and the warps' output staging runs."""
+    lib = _lib()
+    nbytes = ctypes.c_int(0)
+    _check_error(lib, lib.conv3x3_smem_bytes(_dtype_code(dtype), int(ci), ctypes.byref(nbytes)),
+                 "shared memory query")
+    return nbytes.value
+
+
+def launch_grid(x: torch.Tensor) -> tuple:
+    """``(tiles, ctas)`` of a launch on the CUDA ``(R, W, Ci)`` tensor
+    ``x``: the ``TILE_ROWS x TILE_COLS`` output tiles, and the persistent
+    CTAs that walk them, at most the SM count times :func:`blocks_per_sm`."""
+    R, W, ci = x.shape
+    tiles = -(-R // TILE_ROWS) * -(-W // TILE_COLS)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    return tiles, min(tiles, sms * blocks_per_sm(x.device, x.dtype, ci))
+
+
+def _launch_kernel(x, w, b, *, relu):
+    code = _dtype_code(x.dtype)
     R, W, ci = x.shape
     co = w.shape[3]
     if ci > MAX_CHANNELS or co > MAX_CHANNELS:
         raise ValueError(
             f"channels {ci} -> {co} exceed the kernel's limit of {MAX_CHANNELS}"
         )
-    if tile_cols > MAX_TILE_COLS:
-        raise ValueError(
-            f"tile_cols={tile_cols} exceeds the kernel's limit of {MAX_TILE_COLS}"
-        )
     xc, wc, bc = x.contiguous(), w.contiguous(), b.contiguous()
     out = torch.empty((R, W, co), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
+    _, ctas = launch_grid(xc)
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.conv3x3_launch(
-            _DTYPE_CODE[x.dtype], xc.data_ptr(), wc.data_ptr(), bc.data_ptr(),
-            out.data_ptr(), R, W, ci, co, int(tile_cols), int(bool(relu)), stream,
+            code, xc.data_ptr(), wc.data_ptr(), bc.data_ptr(),
+            out.data_ptr(), R, W, ci, co, int(bool(relu)), ctas, stream,
         )
-    if err != 0:
-        msg = lib.conv3x3_error_string(err).decode()
-        raise RuntimeError(f"conv3x3 kernel launch failed: CUDA error {err} ({msg})")
+    _check_error(lib, err, "kernel launch")
     conv3x3_call.launches += 1
     return out
 
@@ -165,7 +228,8 @@ def conv3x3_call(
 
     A tensor on the CPU runs :func:`conv3x3_plain`; a CUDA tensor launches
     the kernel on the current stream (no synchronisation) or raises.  On
-    the card ``tile_cols`` is each CTA's column width; the result does not
+    the card the kernel picks its own output tile and ``tile_cols`` (the
+    JAX function's argument) only has to be >= 1; the result does not
     depend on it.
     """
     if x.device.type == "cpu":
@@ -173,7 +237,7 @@ def conv3x3_call(
     _check_args(x, w, b, tile_cols)
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3_call runs on cuda or cpu, not {x.device}")
-    return _launch_kernel(x, w, b, tile_cols=int(tile_cols), relu=relu)
+    return _launch_kernel(x, w, b, relu=relu)
 
 
 conv3x3_call.launches = 0  # kernel launches since import (or reset)

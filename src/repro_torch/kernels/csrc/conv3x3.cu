@@ -1,37 +1,77 @@
 // One SAME 3x3 conv layer on Hopper (sm_90a): the layer-by-layer baseline
-// datapath.
+// datapath, on the tensor cores.
 //
 // Replaces: src/repro/kernels/conv3x3.py::_kernel, the Pallas TPU kernel
 // launched by conv3x3_call over a grid of column tiles of one whole band.
 //
-// What it computes, exactly as the TPU kernel does: out = x (*) w + b over an
+// What it computes, as the TPU kernel does: out = x (*) w + b over an
 // (R, W, Ci) NHWC band with HWIO weights (3, 3, Ci, Co), SAME zero padding on
-// all four sides; input, weights and bias widened to fp32, fp32 FMAs on the
-// CUDA cores (no TF32, no tensor cores), the bias added in fp32, then the
+// all four sides, fp32 accumulation, the bias added in fp32, then the
 // optional ReLU, then ONE rounding to the storage dtype at the store.
 //
-// What bounds it on this card: at 28 -> 28 channels an output pixel costs
-// 14,112 FLOP against 224 B moved in fp32 (one read of the input map, one
-// write of the output map), 63 FLOP/B, above the H100's 20 FLOP/B ridge
-// (67 TFLOP/s fp32 on the CUDA cores over 3.35 TB/s): bound by operations,
-// 48.5 us per 360x640 map.  The 3 -> 28 first layer (12 FLOP/B) is bound by
-// bytes, 8.5 us.
+// What bounds it on this card, on the tensor cores (989 TFLOP/s bf16, 495
+// TF32, 3.35 TB/s): a 360x640 map at 28 -> 28 channels is 3.25 GFLOP against
+// one read of the input and one write of the output, 51.6 MB in fp32 and
+// 25.8 MB in bf16.  bf16 is bound by bytes (7.7 us against 3.3 us of
+// operations); fp32 through 3xTF32 (three TF32 products per fp32 product) by
+// operations, 19.7 us.  The 3 -> 28 first layer is bound by bytes in both.
 //
-// What this first design does about it (simple and right first):
-//   * the TPU grid (K column tiles over one whole band) is not copied: it
-//     would give a handful of CTAs for 132 SMs.  Here one CTA owns a
-//     (kRowBlock rows, C columns) output tile, C = tile_cols; a 360x640 map
-//     at C = 8 is 23 x 80 = 1,840 CTAs.
-//   * the CTA stages its input window (kRowBlock+2, C+2, Ci), zero outside
-//     the image, and the whole (3, 3, Ci, Co) weight tensor, both widened to
-//     fp32, in shared memory.  The window is stored channel-planar, so the
-//     threads of a warp read neighbouring words.
-//   * each thread owns kPix vertically adjacent output pixels x kGroup output
-//     channels in fp32 registers; per input channel it reads (kPix+2) x 3
-//     window values and 9 x kGroup weights (as float4, the same address for
-//     the whole warp) for kPix x 9 x kGroup FMAs.
-// Left for later work: tensor cores (wgmma), TMA, weights kept resident
-// across tiles in a persistent CTA, vectorised stores.
+// The design:
+//   * persistent CTAs, weights resident.  The grid is at most the SM count
+//     times the resident CTAs per SM (the wrapper asks
+//     conv3x3_blocks_per_sm); each CTA loads the whole weight tensor into
+//     shared memory once, already in the mma B-fragment layout, zero-padded
+//     to K = 32 and N = 32 (fp32: split into TF32 hi and lo words), then
+//     walks the output tiles t = blockIdx.x, blockIdx.x + gridDim.x, ...
+//     A tile is kTileRows x kTileCols = 8 x 32 output pixels, 16 m16
+//     fragments of 16 pixels of one row; each of the 8 warps owns a row.
+//   * asynchronous, double-buffered input windows.  Tile t's (10, 34, Ci)
+//     window, zero outside the image, comes into shared memory with
+//     cp.async while the CTA computes the tile before it.  A pixel's row of
+//     the window is padded to 36 32-bit words in fp32 and 20 in bf16, so the
+//     8 rows of each 8x8 matrix an ldmatrix reads fall on distinct banks.
+//     The copy granule is the largest of 16, 8 and 4 bytes that divides a
+//     pixel's bytes and the input's address: 16 at Ci = 28 fp32 (112 B), 8
+//     at Ci = 28 bf16 (56 B), 4 at Ci = 3 fp32 (12 B).  A bf16 map with an
+//     odd Ci has 2-byte pixel boundaries that no cp.async size meets; it is
+//     read with plain loads into the same buffer, at the same point (ahead
+//     of the tile that reads it, but not overlapped with the compute).
+//     Channels Ci..K-1 of every pixel are zeroed once and never written,
+//     and a copy of a pixel outside the image has source size 0 (cp.async's
+//     zero fill).  Each thread walks its copies without dividing by the
+//     runtime copies-per-pixel.
+//   * tensor cores through mma.sync.  Per tap (dy, dx), A is the window
+//     shifted by (dy, dx), 16 pixels x 32 channels per fragment, loaded with
+//     one ldmatrix.x4 (an fp32 is two b16 halves, so the same instruction
+//     gives the m16k8 TF32 fragment), and B is W[dy, dx], 32 x 32.  bf16:
+//     m16n8k16 with fp32 accumulation; bf16 products are exact in fp32.
+//     fp32: m16n8k8 TF32 three times (3xTF32): each operand splits into
+//     hi = tf32(a) and lo = tf32(a - hi), rounded as cvt.rna.tf32.f32 rounds
+//     (to nearest, ties away; tf32_rna does it in two integer operations),
+//     and the sum is lo*hi + hi*lo + hi*hi, small terms first.  Single TF32
+//     keeps about 11 bits of a product and is not fp32; 3xTF32 keeps ~22 and
+//     holds the fp32 tolerance (2e-5 + 1e-5 |want|) with room to spare.
+//     With Ci <= 3 the 9 taps fold into K (k = tap * Ci + ci, 27 -> 32 at
+//     Ci = 3) instead of padding each tap's 3 channels to 32: one pass of
+//     K = 32 instead of nine, from a window of 4-element pixels.
+//     Why mma.sync and not wgmma: N is only 32 (Co <= 32), and on the tensor
+//     cores the bf16 layer is bound by bytes (7.7 us), not by the MMA issue
+//     rate (3.3 us).  wgmma's 64-row warpgroup tiles and swizzled
+//     shared-memory descriptors are left for a later change.  On an H100
+//     the fp32 layer's loop time splits about evenly between the 3xTF32
+//     MMAs and the fragment loads and hi/lo splits that feed them, while
+//     the bf16 MMAs hide entirely (tools/k2_ablation.py, PERF.md).
+//   * epilogue through shared memory.  Each warp adds the fp32 bias, applies
+//     the ReLU and rounds once into its own staging run, laid out as its
+//     tile row's (32, Co) NHWC run is in device memory and at the same
+//     address modulo 16; it then stores the run with 16-byte vector stores
+//     (32 lanes = 512 contiguous bytes) and element stores at the ends.
+//     Ragged R and W shorten or skip a run; Co = 27 needs nothing special.
+//
+// Shared memory per CTA and resident CTAs per SM (their registers bound
+// the folded ones): fp32 per tap 204,544 B, 1; bf16 per tap 89,344 B, 2;
+// fp32 folded 51,968 B, 2; bf16 folded 24,000 B, 3.
+// Limits: Ci, Co <= 32 (the window row and B fragments are sized for 32).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -39,20 +79,68 @@
 
 namespace {
 
-constexpr int kRowBlock = 16;    // output rows per CTA
-constexpr int kPix = 4;          // vertically adjacent output pixels per thread
-constexpr int kGroup = 8;        // output channels per thread
-constexpr int kMaxThreads = 256;
-constexpr int kMaxChannels = 32;  // Ci, Co limit (conv3x3.py MAX_CHANNELS)
-constexpr int kMaxTileCols = 64;  // C limit (conv3x3.py MAX_TILE_COLS)
-static_assert(kRowBlock % kPix == 0, "a thread's pixels stay inside the row block");
+constexpr int kTileRows = 8;   // output rows of a tile
+constexpr int kTileCols = 32;  // output columns of a tile: two m16 fragments a row
+constexpr int kWinCols = kTileCols + 2;
+constexpr int kWinPix = (kTileRows + 2) * kWinCols;  // 340 window pixels
+constexpr int kTileFrags = kTileRows * kTileCols / 16;  // 16 m16 fragments a tile
+constexpr int kMaxChannels = 32;                     // Ci, Co limit (conv3x3.py MAX_CHANNELS)
+constexpr int kFoldMaxCi = 3;                        // 9 * Ci <= 32: taps fold into K
+
+// The MMA of each storage dtype.
+template <typename T> struct Mma;
+template <> struct Mma<float> {  // m16n8k8 TF32, three times (3xTF32)
+  static constexpr int kSteps = 4;      // k-steps of 8 over K = 32
+  static constexpr int kBQuads = 4;     // uint4 of B per lane and k-step: hi, lo
+  static constexpr int kPixWords = 36;  // a window pixel, taps not folded: 32 + 4
+};
+template <> struct Mma<__nv_bfloat16> {  // m16n8k16 bf16
+  static constexpr int kSteps = 2;      // k-steps of 16 over K = 32
+  static constexpr int kBQuads = 2;
+  static constexpr int kPixWords = 20;  // 32 channels + 8
+};
+
+// What each instance <dtype, taps folded> is built for: m16 fragments a
+// warp (so 16 / kFrags warps a CTA) and the resident CTAs per SM its
+// registers are bounded for (chosen by timing the alternatives at the ABPN
+// layer shapes on an H100: one m16 fragment a warp, or more CTAs, was no
+// faster, and a tighter bound spilled).  With the taps folded into K
+// (Ci <= 3) a window pixel is 4 elements, so weights and windows are small
+// and several CTAs share an SM.
+template <typename T, bool kFold> struct Plan {
+  static constexpr int kFrags = 2;
+  static constexpr int kMinBlocks = sizeof(T) == 4 ? (kFold ? 2 : 1) : (kFold ? 3 : 2);
+};
+
+template <typename T, bool kFold> struct Layout {
+  static constexpr int kThreads = 32 * kTileFrags / Plan<T, kFold>::kFrags;
+  static constexpr int kWarps = kThreads / 32;
+  static constexpr int kTaps = kFold ? 1 : 9;
+  static constexpr int kPixWords = kFold ? (int)sizeof(T) : Mma<T>::kPixWords;
+  static constexpr int kPixElems = kPixWords * 4 / (int)sizeof(T);
+  static constexpr int kWeightBytes = kTaps * Mma<T>::kSteps * Mma<T>::kBQuads * 32 * 16;
+  static constexpr int kWindowBytes = kWinPix * kPixWords * 4;
+  // a warp's staging run: its 16 * kFrags pixels x up to 32 outputs, plus
+  // 16 bytes so that it can start at its global address modulo 16
+  static constexpr int kStageBytes =
+      16 * Plan<T, kFold>::kFrags * kMaxChannels * (int)sizeof(T) + 16;
+  static constexpr int kSmemBytes = kWeightBytes + 2 * kWindowBytes + kWarps * kStageBytes;
+  static_assert(kWeightBytes % 16 == 0 && kWindowBytes % 16 == 0 && kStageBytes % 16 == 0,
+                "16-byte aligned sections");
+  static_assert(kPixElems > (kFold ? kFoldMaxCi : kMaxChannels),
+                "the last element of a window pixel is a zero pad");
+  static_assert(kWindowBytes >= 9 * (kFold ? kFoldMaxCi : kMaxChannels) * kMaxChannels *
+                                    (int)sizeof(T), "window 1 holds the raw weights");
+};
 
 struct Params {
   const void* x;     // (R, W, Ci), storage dtype
   const void* w;     // (3, 3, Ci, Co), storage dtype
   const void* bias;  // (Co,), storage dtype
   void* out;         // (R, W, Co), storage dtype
-  int R, W, ci, co, C, relu;
+  int R, W, ci, co, relu;
+  int tiles_c, tiles;  // column tiles, all tiles
+  int gran;            // bytes per window copy: 16, 8, 4 (cp.async) or 2 (plain)
 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -64,143 +152,450 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16_rn(v);
 }
 
-// Output channels padded to whole thread groups (zero weights beyond Co).
-__host__ __device__ inline int padded_co(int co) { return (co + kGroup - 1) / kGroup * kGroup; }
-
-// Dynamic shared memory of one CTA: the fp32 weights, then the fp32 window.
-__host__ __device__ inline int smem_bytes(int ci, int co, int C) {
-  return (9 * ci * padded_co(co) + ci * (kRowBlock + 2) * (C + 2)) * (int)sizeof(float);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
-conv3x3_kernel(Params p) {
-  extern __shared__ float4 smem4[];
-  const int R = p.R, W = p.W, ci_n = p.ci, co_n = p.co, C = p.C;
-  const int cop = padded_co(co_n);
-  const int SR = kRowBlock + 2, SC = C + 2;  // window rows, columns
-  float* wsm = reinterpret_cast<float*>(smem4);  // [tap][ci][cop]
-  float* win = wsm + 9 * ci_n * cop;             // [ci][SR][SC]
+// src_bytes = 0 fills the N destination bytes with zeros
+template <int N>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src, int src_bytes) {
+  if constexpr (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(src_bytes));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+                 :: "r"(dst), "l"(src), "n"(N), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
 
-  const int c0 = blockIdx.x * C;          // first output column of the tile
-  const int r0 = blockIdx.y * kRowBlock;  // first output row of the tile
-  const int tid = threadIdx.x, nthreads = blockDim.x;
-  const T* x = reinterpret_cast<const T*>(p.x);
-  const T* wg = reinterpret_cast<const T*>(p.w);
-  const T* bias = reinterpret_cast<const T*>(p.bias);
-  T* out = reinterpret_cast<T*>(p.out);
+// Four 8x8 b16 matrices from shared memory: lanes 8i..8i+7 give the row
+// addresses of matrix i, and matrix i lands in register i.  An m16k8 TF32
+// A fragment is the same four matrices with each fp32 read as two b16, so
+// one ldmatrix loads an A fragment in either dtype.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
+}
 
-  for (int i = tid; i < 9 * ci_n * cop; i += nthreads) {
-    const int co = i % cop, tc = i / cop;  // tc = tap * Ci + ci
-    wsm[i] = co < co_n ? to_f(wg[(size_t)tc * co_n + co]) : 0.f;
+// The TF32 value of fp32 bits, rounded as cvt.rna.tf32.f32 rounds (to
+// nearest, ties away from zero; the 13 low mantissa bits cleared) for every
+// finite input, in two integer operations: half of the cleared unit added
+// to the magnitude bits rounds the magnitude half up, whatever the sign.
+__device__ __forceinline__ uint32_t tf32_rna(uint32_t bits) {
+  return (bits + 0x1000u) & 0xffffe000u;
+}
+
+// A TF32 hi and lo of fp32 bits: hi = tf32(a), lo = tf32(a - hi).
+__device__ __forceinline__ void tf32_split(uint32_t a, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(a);
+  lo = tf32_rna(__float_as_uint(__uint_as_float(a) - __uint_as_float(hi)));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Index into w of B[k][n] for tap t (folded: k = tap * Ci + ci over one
+// "tap"), or -1 where B is zero padding.
+template <bool kFold>
+__device__ __forceinline__ int weight_index(const Params& p, int t, int k, int n) {
+  if (k >= (kFold ? 9 * p.ci : p.ci) || n >= p.co) return -1;
+  return ((kFold ? 0 : t * p.ci) + k) * p.co + n;
+}
+
+// The (3, 3, Ci, Co) weights, copied as they are into `raw` in shared
+// memory in two steps: load() issues all of a thread's loads (at most 36,
+// or 4 with the taps folded) into registers, so the CTA waits for device memory once, and store()
+// stores them once they arrive.
+template <typename T, int kThreads, int kMaxCi>
+struct RawWeights {
+  static constexpr int kPer = (9 * kMaxCi * kMaxChannels + kThreads - 1) / kThreads;
+  T v[kPer];
+
+  __device__ __forceinline__ void load(const Params& p) {
+    const int n = 9 * p.ci * p.co;
+    const T* w = static_cast<const T*>(p.w);
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int i = threadIdx.x + u * kThreads;
+      if (i < n) v[u] = w[i];
+    }
   }
-  // Window rows [r0-1, r0+kRowBlock], columns [c0-1, c0+C]; read in NHWC
-  // order (coalesced), zero outside the image — never clamped.
-  for (int i = tid; i < SR * SC * ci_n; i += nthreads) {
-    const int ci = i % ci_n, col = (i / ci_n) % SC, row = i / (ci_n * SC);
+  __device__ __forceinline__ void store(const Params& p, T* raw) const {
+    const int n = 9 * p.ci * p.co;
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int i = threadIdx.x + u * kThreads;
+      if (i < n) raw[i] = v[u];
+    }
+  }
+};
+
+// The weights into shared memory in the B-fragment layout, from `raw`.
+// For tap t and k-step s, uint4 number q of lane l sits at
+// ((t * kSteps + s) * kBQuads + q) * 32 + l, so a warp's 128-bit loads are
+// conflict-free.  A lane's words u = 4q + e:
+// fp32: q < 2 hi, q >= 2 lo; n-fragment j = (u % 8) / 2, register r = u % 2,
+//       holding B[8s + tig + 4r][8j + g];
+// bf16: j = u / 2, r = u % 2, holding B[k][8j + g] (low half) and
+//       B[k + 1][8j + g] with k = 16s + 2 tig + 8r.
+// Thread i builds word e of lane l for (l, e) = ((i / 4) % 32, i % 4), and
+// both the hi and the lo word of a fp32 weight.
+template <typename T, bool kFold>
+__device__ void build_weights(const Params& p, const T* raw, uint32_t* ws) {
+  using L = Layout<T, kFold>;
+  constexpr int kS = Mma<T>::kSteps;
+  constexpr int kQB = sizeof(T) == 4 ? 2 : Mma<T>::kBQuads;  // quads built per (t, s)
+  const int e = threadIdx.x & 3, lane = (threadIdx.x >> 2) & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  for (int i = threadIdx.x >> 7; i < L::kTaps * kS * kQB; i += L::kThreads >> 7) {
+    const int q = i % kQB, ts = i / kQB, t = ts / kS, s = ts % kS;
+    const int u = 4 * q + e, r = u & 1, n = 8 * (u >> 1) + g;
+    const int at = ((ts * Mma<T>::kBQuads + q) * 32 + lane) * 4 + e;  // the word in ws
+    if constexpr (sizeof(T) == 4) {
+      const int idx = weight_index<kFold>(p, t, 8 * s + tig + 4 * r, n);
+      uint32_t hi, lo;
+      tf32_split(idx < 0 ? 0u : __float_as_uint(raw[idx]), hi, lo);
+      ws[at] = hi;
+      ws[at + 2 * 32 * 4] = lo;  // two uint4 further on
+    } else {
+      const int k = 16 * s + 2 * tig + 8 * r;
+      const uint16_t* w = reinterpret_cast<const uint16_t*>(raw);
+      const int i0 = weight_index<kFold>(p, t, k, n), i1 = weight_index<kFold>(p, t, k + 1, n);
+      ws[at] = (i0 < 0 ? 0u : w[i0]) | ((i1 < 0 ? 0u : (uint32_t)w[i1]) << 16);
+    }
+  }
+}
+
+// This thread's window copies: copy i = pix * gpp + gi for i = tid, tid +
+// kThreads, ...; the first, and the step from one to the next as
+// (pixels, copies) so that no copy divides by the runtime gpp.
+struct CopyWalk {
+  int gpp, pix0, gi0, dpix, dgi;
+};
+
+template <typename T, bool kFold>
+__device__ CopyWalk copy_walk(const Params& p) {
+  CopyWalk w;
+  w.gpp = p.ci * (int)sizeof(T) / p.gran;
+  w.pix0 = threadIdx.x / w.gpp;
+  w.gi0 = threadIdx.x - w.pix0 * w.gpp;
+  w.dpix = Layout<T, kFold>::kThreads / w.gpp;
+  w.dgi = Layout<T, kFold>::kThreads - w.dpix * w.gpp;
+  return w;
+}
+
+// Issue the copies of a tile's window into `win`: window rows
+// r0-1 .. r0+kTileRows, columns c0-1 .. c0+kTileCols, zero outside the map.
+template <typename T, bool kFold, int G>
+__device__ void load_window_g(const Params& p, const CopyWalk& w, char* win, int r0, int c0) {
+  using L = Layout<T, kFold>;
+  const char* x = static_cast<const char*>(p.x);
+  const int pixel_bytes = p.ci * (int)sizeof(T);
+  const uint32_t base = smem_addr(win);
+  for (int pix = w.pix0, gi = w.gi0; pix < kWinPix;) {
+    const int row = pix / kWinCols, col = pix - row * kWinCols;
     const int gr = r0 - 1 + row, gc = c0 - 1 + col;
-    const bool in = gr >= 0 && gr < R && gc >= 0 && gc < W;
-    win[(ci * SR + row) * SC + col] = in ? to_f(x[((size_t)gr * W + gc) * ci_n + ci]) : 0.f;
+    const bool in = gr >= 0 && gr < p.R && gc >= 0 && gc < p.W;
+    const char* src = in ? x + (size_t)(gr * p.W + gc) * pixel_bytes + gi * G : x;
+    const int dst = pix * L::kPixWords * 4 + gi * G;
+    if constexpr (G >= 4) {
+      cp_async<G>(base + dst, src, in ? G : 0);
+    } else {  // 2-byte pixel boundaries (bf16, odd Ci): a plain load
+      *reinterpret_cast<uint16_t*>(win + dst) = in ? *reinterpret_cast<const uint16_t*>(src) : 0;
+    }
+    pix += w.dpix;
+    gi += w.dgi;
+    if (gi >= w.gpp) {
+      gi -= w.gpp;
+      ++pix;
+    }
   }
+}
+
+template <typename T, bool kFold>
+__device__ void load_window(const Params& p, const CopyWalk& w, char* win, int tile) {
+  const int r0 = tile / p.tiles_c * kTileRows, c0 = tile % p.tiles_c * kTileCols;
+  switch (p.gran) {
+    case 16: load_window_g<T, kFold, 16>(p, w, win, r0, c0); break;
+    case 8: load_window_g<T, kFold, 8>(p, w, win, r0, c0); break;
+    case 4: load_window_g<T, kFold, 4>(p, w, win, r0, c0); break;
+    default: load_window_g<T, kFold, 2>(p, w, win, r0, c0); break;
+  }
+}
+
+// Window element offset (from a fragment row's own pixel) of folded K index
+// k = tap * Ci + ci; beyond 9 * Ci, the pixel's last element, a zero pad.
+template <typename T>
+__device__ __forceinline__ int fold_offset(int k, int ci) {
+  constexpr int kPE = Layout<T, true>::kPixElems;
+  if (k >= 9 * ci) return kPE - 1;
+  const int tap = k / ci;
+  return ((tap / 3) * kWinCols + tap % 3) * kPE + k % ci;
+}
+
+template <typename T, bool kFold>
+__global__ void __launch_bounds__(Layout<T, kFold>::kThreads, Plan<T, kFold>::kMinBlocks)
+conv3x3_kernel(Params p) {
+  using L = Layout<T, kFold>;
+  constexpr int kS = Mma<T>::kSteps, kQ = Mma<T>::kBQuads, kPW = L::kPixWords;
+  constexpr int kPE = L::kPixElems, kF = Plan<T, kFold>::kFrags;
+  constexpr bool kF32 = sizeof(T) == 4;
+  extern __shared__ uint4 smem[];
+  char* base = reinterpret_cast<char*>(smem);
+  const uint4* wsm = smem;
+  char* win0 = base + L::kWeightBytes;
+  char* stage = win0 + 2 * L::kWindowBytes;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  // this warp's kF fragments of a tile: tile row `wrow`, columns from wcol
+  const int wrow = warp * kF / 2, wcol = 16 * (warp * kF % 2);
+
+  // Channels Ci..K-1 of every window pixel are zero from here on: buffer 0
+  // now, buffer 1 once it has served as the weights' scratch.
+  RawWeights<T, L::kThreads, kFold ? kFoldMaxCi : kMaxChannels> rw;
+  rw.load(p);  // in flight while the first window is zeroed and requested
+  uint4* zero0 = reinterpret_cast<uint4*>(win0);
+  uint4* zero1 = reinterpret_cast<uint4*>(win0 + L::kWindowBytes);
+  for (int i = tid; i < L::kWindowBytes / 16; i += L::kThreads) zero0[i] = make_uint4(0, 0, 0, 0);
+  __syncthreads();  // the zeros are in place before any copy lands
+  int tile = blockIdx.x;
+  const CopyWalk walk = copy_walk<T, kFold>(p);
+  load_window<T, kFold>(p, walk, win0, tile);  // the grid has at most one CTA per tile
+  cp_async_commit();
+  T* raw = reinterpret_cast<T*>(zero1);
+  rw.store(p, raw);
   __syncthreads();
+  build_weights<T, kFold>(p, raw, reinterpret_cast<uint32_t*>(smem));
+  __syncthreads();  // the scratch is read; the first loop barrier orders the zeros
+  for (int i = tid; i < L::kWindowBytes / 16; i += L::kThreads) zero1[i] = make_uint4(0, 0, 0, 0);
 
-  // Items: (output-channel group g, pixel column j, row group rg); the
-  // threads of a warp share g, so their weight reads are one broadcast.
-  const int npix = (kRowBlock / kPix) * C;
-  const int items = npix * (cop / kGroup);
-  for (int it = tid; it < items; it += nthreads) {
-    const int g = it / npix, pi = it % npix;
-    const int j = pi % C, rr0 = (pi / C) * kPix;  // window row of output row r0 + rr0 is rr0 + 1
-    float acc[kPix][kGroup];
+  // this thread's output channels 8j + 2 tig + e, and its bias for them
+  float bias[4][2];
+  const T* bsrc = static_cast<const T*>(p.bias);
 #pragma unroll
-    for (int q = 0; q < kPix; ++q)
+  for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int k = 0; k < kGroup; ++k) acc[q][k] = 0.f;
+    for (int e = 0; e < 2; ++e) {
+      const int co = 8 * j + 2 * tig + e;
+      bias[j][e] = co < p.co ? to_f(bsrc[co]) : 0.f;
+    }
+  // per tap: this lane's ldmatrix row, pixel m = r + 8 (i & 1) of matrix
+  // i = lane / 8 at k offset 16 (i / 2) bytes
+  const int lane_off = ((lane & 7) + 8 * ((lane >> 3) & 1)) * kPW * 4 + 16 * (lane >> 4);
+  // folded K: window offsets of this thread's A elements for each k-step
+  // (fp32: k = 8s + tig + {0, 4}; bf16: k = 16s + 2 tig + {0, 1, 8, 9})
+  constexpr int kOffs = kF32 ? 2 : 4;
+  int off[kS][kOffs];
+#pragma unroll
+  for (int s = 0; s < kS; ++s)
+#pragma unroll
+    for (int h = 0; h < kOffs; ++h)
+      off[s][h] = kFold ? fold_offset<T>(kF32 ? 8 * s + tig + 4 * h
+                                              : 16 * s + 2 * tig + (h & 1) + 8 * (h >> 1), p.ci)
+                        : 0;
 
-    for (int ci = 0; ci < ci_n; ++ci) {
-      const float* plane = win + (ci * SR + rr0) * SC + j;
-      float v[kPix + 2][3];
+  for (int it = 0; tile < p.tiles; ++it, tile += gridDim.x) {
+    const char* win = win0 + (it & 1) * L::kWindowBytes;
+    cp_async_wait_all();
+    __syncthreads();  // this tile's window has landed; the other buffer is free
+    if (tile + (int)gridDim.x < p.tiles)
+      load_window<T, kFold>(p, walk, win0 + ((it + 1) & 1) * L::kWindowBytes, tile + gridDim.x);
+    cp_async_commit();
+
+    float acc[kF][4][4];
 #pragma unroll
-      for (int rr = 0; rr < kPix + 2; ++rr)
+    for (int f = 0; f < kF; ++f)
 #pragma unroll
-        for (int dx = 0; dx < 3; ++dx) v[rr][dx] = plane[rr * SC + dx];
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int dy = 0; dy < 3; ++dy)
+        for (int c = 0; c < 4; ++c) acc[f][j][c] = 0.f;
+
+    const uint32_t win_addr = smem_addr(win);
+#pragma unroll 1
+    for (int dy = 0; dy < (kFold ? 1 : 3); ++dy) {
 #pragma unroll
-        for (int dx = 0; dx < 3; ++dx) {
-          const float4* w4 = reinterpret_cast<const float4*>(
-              wsm + ((dy * 3 + dx) * ci_n + ci) * cop + g * kGroup);
+      for (int dx = 0; dx < (kFold ? 1 : 3); ++dx) {
+        const int t = dy * 3 + dx;
 #pragma unroll
-          for (int h = 0; h < kGroup / 4; ++h) {
-            const float4 wv = w4[h];
+        for (int s = 0; s < kS; ++s) {
+          uint32_t bw[4 * kQ];
 #pragma unroll
-            for (int q = 0; q < kPix; ++q) {
-              const float a = v[q + dy][dx];
-              acc[q][4 * h + 0] = fmaf(a, wv.x, acc[q][4 * h + 0]);
-              acc[q][4 * h + 1] = fmaf(a, wv.y, acc[q][4 * h + 1]);
-              acc[q][4 * h + 2] = fmaf(a, wv.z, acc[q][4 * h + 2]);
-              acc[q][4 * h + 3] = fmaf(a, wv.w, acc[q][4 * h + 3]);
+          for (int q = 0; q < kQ; ++q) {
+            const uint4 v = wsm[((t * kS + s) * kQ + q) * 32 + lane];
+            bw[4 * q] = v.x; bw[4 * q + 1] = v.y; bw[4 * q + 2] = v.z; bw[4 * q + 3] = v.w;
+          }
+#pragma unroll
+          for (int f = 0; f < kF; ++f) {
+            // the fragment's 16 rows are window pixels pix0 .. pix0 + 15
+            const int pix0 = (wrow + dy) * kWinCols + wcol + 16 * f + dx, pix = pix0 + g;
+            uint32_t a[4];
+            if constexpr (kFold && kF32) {
+              const float* pe = reinterpret_cast<const float*>(win) + pix * kPE;
+              a[0] = __float_as_uint(pe[off[s][0]]);
+              a[1] = __float_as_uint(pe[8 * kPE + off[s][0]]);
+              a[2] = __float_as_uint(pe[off[s][1]]);
+              a[3] = __float_as_uint(pe[8 * kPE + off[s][1]]);
+            } else if constexpr (kFold) {
+              const uint16_t* pe = reinterpret_cast<const uint16_t*>(win) + pix * kPE;
+              a[0] = pe[off[s][0]] | ((uint32_t)pe[off[s][1]] << 16);
+              a[1] = pe[8 * kPE + off[s][0]] | ((uint32_t)pe[8 * kPE + off[s][1]] << 16);
+              a[2] = pe[off[s][2]] | ((uint32_t)pe[off[s][3]] << 16);
+              a[3] = pe[8 * kPE + off[s][2]] | ((uint32_t)pe[8 * kPE + off[s][3]] << 16);
+            } else {  // 32 bytes per k-step in both dtypes (8 fp32 or 16 bf16)
+              ldmatrix_x4(a, win_addr + pix0 * kPW * 4 + 32 * s + lane_off);
+            }
+            if constexpr (kF32) {
+              uint32_t ah[4], al[4];
+#pragma unroll
+              for (int c = 0; c < 4; ++c) tf32_split(a[c], ah[c], al[c]);
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                mma_tf32(acc[f][j], al, bw[2 * j], bw[2 * j + 1]);
+                mma_tf32(acc[f][j], ah, bw[8 + 2 * j], bw[8 + 2 * j + 1]);
+                mma_tf32(acc[f][j], ah, bw[2 * j], bw[2 * j + 1]);
+              }
+            } else {
+#pragma unroll
+              for (int j = 0; j < 4; ++j) mma_bf16(acc[f][j], a, bw[2 * j], bw[2 * j + 1]);
             }
           }
         }
-    }
-
-    // Epilogue: fp32 bias, optional ReLU, one rounding; rows, columns and
-    // channels beyond the map are not stored.
-    const int c = c0 + j;
-    if (c >= W) continue;
-#pragma unroll
-    for (int q = 0; q < kPix; ++q) {
-      const int r = r0 + rr0 + q;
-      if (r >= R) break;
-      T* o = out + ((size_t)r * W + c) * co_n;
-#pragma unroll
-      for (int k = 0; k < kGroup; ++k) {
-        const int co = g * kGroup + k;
-        if (co >= co_n) break;
-        float y = acc[q][k] + to_f(bias[co]);
-        if (p.relu) y = fmaxf(y, 0.f);
-        o[co] = from_f<T>(y);
       }
     }
+
+    // Epilogue: the warp stages its 16 * kF pixels of tile row `wrow` as
+    // their NHWC run, then stores the run.
+    const int r0 = tile / p.tiles_c * kTileRows, c0 = tile % p.tiles_c * kTileCols + wcol;
+    const int row = r0 + wrow, ncols = min(16 * kF, p.W - c0);
+    if (row >= p.R || ncols <= 0) continue;  // warp-uniform
+    char* gdst = static_cast<char*>(p.out) + ((size_t)row * p.W + c0) * p.co * sizeof(T);
+    const int mis = (int)(reinterpret_cast<uintptr_t>(gdst) & 15);
+    char* srun = stage + warp * L::kStageBytes + mis;  // == gdst modulo 16
+    T* st = reinterpret_cast<T*>(srun);
+#pragma unroll
+    for (int f = 0; f < kF; ++f)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int col = 16 * f + g + 8 * (c >> 1), co = 8 * j + 2 * tig + (c & 1);
+          if (co < p.co) {
+            float y = acc[f][j][c] + bias[j][c & 1];
+            if (p.relu) y = fmaxf(y, 0.f);
+            st[col * p.co + co] = from_f<T>(y);
+          }
+        }
+    __syncwarp();
+    const int nbytes = ncols * p.co * (int)sizeof(T);
+    const int head = min((16 - mis) & 15, nbytes);
+    const int body_end = head + ((nbytes - head) & ~15);
+    for (int b = head + 16 * lane; b < body_end; b += 16 * 32)
+      *reinterpret_cast<uint4*>(gdst + b) = *reinterpret_cast<const uint4*>(srun + b);
+    constexpr int kE = (int)sizeof(T);
+    for (int b = kE * lane; b < head; b += kE * 32)
+      *reinterpret_cast<T*>(gdst + b) = *reinterpret_cast<const T*>(srun + b);
+    for (int b = body_end + kE * lane; b < nbytes; b += kE * 32)
+      *reinterpret_cast<T*>(gdst + b) = *reinterpret_cast<const T*>(srun + b);
+    __syncwarp();
   }
+  cp_async_wait_all();
 }
 
-template <typename T>
-cudaError_t launch_typed(const Params& p, cudaStream_t stream) {
-  const int smem = smem_bytes(p.ci, p.co, p.C);
-  cudaError_t e = cudaFuncSetAttribute(
-      conv3x3_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  const int items = (kRowBlock / kPix) * p.C * (padded_co(p.co) / kGroup);
-  int threads = (items + 31) / 32 * 32;
-  if (threads > kMaxThreads) threads = kMaxThreads;
-  const dim3 grid((p.W + p.C - 1) / p.C, (p.R + kRowBlock - 1) / kRowBlock);
-  conv3x3_kernel<T><<<grid, threads, smem, stream>>>(p);
-  return cudaGetLastError();
+using KernelFn = void (*)(Params);
+
+struct Instance {
+  KernelFn fn;
+  int threads, smem;
+};
+
+template <typename T, bool kFold> Instance make_instance() {
+  using L = Layout<T, kFold>;
+  return {conv3x3_kernel<T, kFold>, L::kThreads, L::kSmemBytes};
+}
+
+// The instance for (dtype, ci) in *k, allowed the shared memory it takes.
+cudaError_t prepare(int dtype, int ci, Instance* k) {
+  const bool fold = ci <= kFoldMaxCi;
+  if (dtype == 0) *k = fold ? make_instance<float, true>() : make_instance<float, false>();
+  else if (dtype == 1)
+    *k = fold ? make_instance<__nv_bfloat16, true>() : make_instance<__nv_bfloat16, false>();
+  else return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(k->fn, cudaFuncAttributeMaxDynamicSharedMemorySize, k->smem);
+}
+
+// The widest cp.async size (16, 8, 4 bytes) that both a pixel's bytes and
+// the input's address are multiples of; 2 where none is (bf16, odd Ci).
+int copy_granule(const void* x, int pixel_bytes) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(x);
+  for (int g = 16; g >= 4; g /= 2)
+    if (pixel_bytes % g == 0 && a % g == 0) return g;
+  return 2;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch on `stream`; returns cudaGetLastError() after the launch (0 = ok).
-// dtype: 0 = float32, 1 = bfloat16.  Does not synchronise or allocate.
+// Launch min(ctas, tiles) persistent CTAs on `stream`; returns the launch's
+// CUDA error code (0 = ok).  dtype: 0 = float32, 1 = bfloat16.  Does not
+// synchronise or allocate.
 int conv3x3_launch(int dtype, const void* x, const void* w, const void* bias, void* out,
-                   int R, int W, int ci, int co, int C, int relu, void* stream) {
+                   int R, int W, int ci, int co, int relu, int ctas, void* stream) {
   if (R <= 0 || W <= 0) return 0;
-  if (ci < 1 || co < 1 || ci > kMaxChannels || co > kMaxChannels || C < 1 ||
-      C > kMaxTileCols)
+  if (ci < 1 || co < 1 || ci > kMaxChannels || co > kMaxChannels || ctas < 1)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.x = x; p.w = w; p.bias = bias; p.out = out;
-  p.R = R; p.W = W; p.ci = ci; p.co = co; p.C = C; p.relu = relu;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (dtype == 0) e = launch_typed<float>(p, s);
-  else if (dtype == 1) e = launch_typed<__nv_bfloat16>(p, s);
-  else e = cudaErrorInvalidValue;
-  return (int)e;
+  p.R = R; p.W = W; p.ci = ci; p.co = co; p.relu = relu;
+  p.tiles_c = (W + kTileCols - 1) / kTileCols;
+  p.tiles = (R + kTileRows - 1) / kTileRows * p.tiles_c;
+  p.gran = copy_granule(x, ci * (dtype == 0 ? 4 : 2));
+  Instance k;
+  cudaError_t e = prepare(dtype, ci, &k);
+  if (e != cudaSuccess) return (int)e;
+  void* args[] = {&p};
+  const int grid = ctas < p.tiles ? ctas : p.tiles;
+  return (int)cudaLaunchKernel(reinterpret_cast<const void*>(k.fn), dim3(grid), dim3(k.threads),
+                               args, k.smem, reinterpret_cast<cudaStream_t>(stream));
+}
+
+// Resident CTAs per SM of the instance a launch with (dtype, ci) takes, on
+// the current device (cudaOccupancyMaxActiveBlocksPerMultiprocessor at its
+// threads and shared memory), written to *blocks; returns the CUDA error
+// code.
+int conv3x3_blocks_per_sm(int dtype, int ci, int* blocks) {
+  Instance k;
+  cudaError_t e = prepare(dtype, ci, &k);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k.fn, k.threads, k.smem);
+}
+
+// Dynamic shared memory of one CTA of the instance a launch with (dtype,
+// ci) takes, in bytes, written to *bytes; returns the CUDA error code.
+int conv3x3_smem_bytes(int dtype, int ci, int* bytes) {
+  Instance k;
+  cudaError_t e = prepare(dtype, ci, &k);
+  if (e != cudaSuccess) return (int)e;
+  *bytes = k.smem;
+  return 0;
 }
 
 const char* conv3x3_error_string(int code) {

@@ -15,7 +15,9 @@ Tolerances:
   support matrix's fp32 bound.
 
 ``tests/test_torch_cuda.py`` holds the CUDA kernel against its plain
-version on the card.
+version on the card.  Here, :func:`conv3x3_3xtf32` emulates the kernel's
+fp32 arithmetic on the tensor cores (3xTF32) in numpy, to show that it
+holds the fp32 tolerance where single TF32 does not.
 """
 
 import jax.numpy as jnp
@@ -109,6 +111,79 @@ def test_conv3x3_does_not_depend_on_tile_cols(tile):
     got = tops.conv3x3(x, w, b, tile_cols=tile)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=0)
     np.testing.assert_allclose(got.numpy(), tref.conv3x3_ref(x, w, b).numpy(), **FP32)
+
+
+# ----------------------------------------------------------------------
+# The kernel's fp32 numerics on the tensor cores (3xTF32), emulated
+# ----------------------------------------------------------------------
+def tf32_rna(a):
+    """float32 -> the TF32 value ``cvt.rna.tf32.f32`` gives: round to
+    nearest, ties away from zero, the 13 low mantissa bits cleared (finite
+    inputs).  Adding half of the cleared unit to the magnitude bits rounds
+    the magnitude half up, whatever the sign."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def conv3x3_3xtf32(x, w, b, *, relu, terms=3):
+    """The kernel's fp32 path in numpy: A and B cut into K = 32 (the 9 taps
+    folded into K where 9*Ci <= 32, else one pass per tap with Ci padded to
+    32), k-steps of 8 as ``mma.m16n8k8``; each operand split into
+    ``hi = tf32(v)`` and ``lo = tf32(v - hi)``, each MMA's products summed
+    exactly and rounded once into the fp32 accumulator, in the order
+    lo*hi, hi*lo, hi*hi.  ``terms=1`` is single TF32 (hi*hi only)."""
+    R, W, ci = x.shape
+    co = w.shape[3]
+    xp = np.pad(x, ((1, 1), (1, 1), (0, 0)))
+    shifted = [xp[dy:dy + R, dx:dx + W].reshape(R * W, ci) for dy in range(3) for dx in range(3)]
+    if 9 * ci <= 32:
+        passes = [(np.concatenate(shifted, axis=1), w.reshape(9 * ci, co))]
+    else:
+        passes = [(a, w[t // 3, t % 3]) for t, a in enumerate(shifted)]
+    acc = np.zeros((R * W, co), np.float32)
+    for a, bmat in passes:
+        a = np.pad(a, ((0, 0), (0, 32 - a.shape[1])))
+        bmat = np.pad(bmat, ((0, 32 - bmat.shape[0]), (0, 0)))
+        for s in range(4):
+            ak, bk = a[:, 8 * s:8 * s + 8], bmat[8 * s:8 * s + 8]
+            ah, bh = tf32_rna(ak), tf32_rna(bk)
+            al, bl = tf32_rna(ak - ah), tf32_rna(bk - bh)
+            products = [(al, bh), (ah, bl), (ah, bh)] if terms == 3 else [(ah, bh)]
+            for pa, pb in products:
+                acc = (acc + pa.astype(np.float64) @ pb.astype(np.float64)).astype(np.float32)
+    out = acc + b
+    if relu:
+        out = np.maximum(out, np.float32(0))
+    return out.reshape(R, W, co)
+
+
+def test_tf32_rna_rounds_to_nearest_ties_away():
+    ulp = 2.0 ** -10  # TF32's unit in the last place at 1.0
+    tie = np.float32(1 + ulp / 2)
+    vals = np.array([tie, -tie, np.nextafter(tie, np.float32(0)), 1 + 3 * ulp / 2,
+                     np.float32(3.0), np.float32(0.0)], np.float32)
+    want = np.array([1 + ulp, -(1 + ulp), 1.0, 1 + 2 * ulp, 3.0, 0.0], np.float32)
+    np.testing.assert_array_equal(tf32_rna(vals), want)
+    rng = np.random.default_rng(11)
+    v = rng.normal(size=1000).astype(np.float32)
+    r = tf32_rna(v)
+    assert not (r.view(np.uint32) & np.uint32(0x1FFF)).any()
+    assert (np.abs(r - v) <= np.abs(v) * 2.0 ** -11).all()
+
+
+@pytest.mark.parametrize("ci,co,relu", [(3, 28, True), (28, 28, True), (28, 27, False)],
+                         ids=["3to28", "28to28", "28to27"])
+def test_3xtf32_holds_the_fp32_tolerance(ci, co, relu):
+    x, w, b = np_layer(12, (12, 20, ci), co)
+    want = tk2.conv3x3_plain(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b),
+                             relu=relu).numpy()
+    bound = FP32["atol"] + FP32["rtol"] * np.abs(want)
+    err3 = np.abs(conv3x3_3xtf32(x, w, b, relu=relu) - want)
+    err1 = np.abs(conv3x3_3xtf32(x, w, b, relu=relu, terms=1) - want)
+    assert (err3 <= bound).all(), f"3xTF32 max err {err3.max():.3e}"
+    # single TF32 misses the same tolerance: the test tells the two apart
+    assert not (err1 <= bound).all(), f"single TF32 max err {err1.max():.3e}"
+    assert err1.max() > 10 * err3.max()
 
 
 # ----------------------------------------------------------------------

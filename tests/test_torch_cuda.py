@@ -12,8 +12,9 @@ package only, so it runs where JAX is not installed:
 Tolerances: K1 and the server, max abs diff fp32 5e-4 and bf16 5e-2, the
 README support matrix's — fp32 sums in another order, bf16 feature maps
 rounded per layer on both sides.  K2, the JAX package's own K2 tolerances:
-fp32 ``atol 2e-5, rtol 1e-5`` (another summation order) and bf16
-``atol = rtol = 2e-2`` (one rounding at the store, so at most one ulp).
+fp32 ``atol 2e-5, rtol 1e-5`` (3xTF32 on the tensor cores keeps ~22 bits
+of each product, summed in another order) and bf16 ``atol = rtol = 2e-2``
+(one rounding at the store, so at most one ulp).
 """
 
 import numpy as np
@@ -185,19 +186,50 @@ def test_k2_jax_test_shapes(cuda, shape, co, tile, relu, dtype):
 def test_k2_does_not_depend_on_tile_cols(cuda):
     x, w, b = (t.to(cuda) for t in _k2_inputs(7, (37, 101, 28), 28, torch.float32))
     want = tk2.conv3x3_call(x, w, b, tile_cols=8)
-    for tile in (1, 3, 64):
-        # every output sums its taps in the same order whatever the tile
+    for tile in (1, 3, 64, 65):
+        # the kernel picks its own output tile: tile_cols changes nothing
         assert torch.equal(tk2.conv3x3_call(x, w, b, tile_cols=tile), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape,co", [
+    ((5, 7, 28), 28),       # one tile: a map smaller than the grid
+    ((720, 1280, 28), 28),  # 3,600 tiles: many tiles per persistent CTA
+    ((37, 101, 28), 27),    # ragged R and W, Co = 27
+    ((61, 45, 3), 27),      # Ci = 3 (taps folded into K), Co = 27, ragged
+    ((19, 50, 5), 13),      # odd Ci with taps not folded (bf16: plain loads)
+])
+def test_k2_grid_and_ragged_maps(cuda, shape, co, dtype):
+    x, w, b = _k2_inputs(9, shape, co, dtype)
+    tiles, ctas = tk2.launch_grid(x.to(cuda))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert ctas == min(tiles, sms * tk2.blocks_per_sm(cuda, dtype, shape[2]))
+    _k2_check(cuda, x, w, b, tile_cols=8, relu=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_k2_unaligned_input(cuda, dtype):
+    # an input one element past an aligned address: the window copies fall
+    # back to a narrower granule and the result does not change
+    x, w, b = _k2_inputs(10, (24, 70, 28), 28, dtype)
+    flat = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)
+    shifted = flat[1:].view(x.shape)
+    shifted.copy_(x.to(cuda))
+    want = tk2.conv3x3_call(x.to(cuda), w.to(cuda), b.to(cuda))
+    assert torch.equal(tk2.conv3x3_call(shifted, w.to(cuda), b.to(cuda)), want)
+    _k2_check(cuda, x, w, b, tile_cols=8, relu=True)
 
 
 def test_k2_rejects_what_it_does_not_take(cuda):
     x, w, b = (t.to(cuda) for t in _k2_inputs(8, (8, 16, 4), 6, torch.float32))
+    launches = tk2.conv3x3_call.launches
     with pytest.raises(ValueError, match="one device"):
         tk2.conv3x3_call(x, w.cpu(), b)
     with pytest.raises(ValueError, match="limit of 32"):
         wide = torch.zeros((3, 3, 4, 33), device=cuda)
         tk2.conv3x3_call(x, wide, torch.zeros(33, device=cuda))
-    with pytest.raises(ValueError, match="limit of 64"):
-        tk2.conv3x3_call(x, w, b, tile_cols=65)
+    with pytest.raises(ValueError, match="tile_cols"):
+        tk2.conv3x3_call(x, w, b, tile_cols=0)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         tk2.conv3x3_call(x.half(), w.half(), b.half())
+    assert tk2.conv3x3_call.launches == launches
