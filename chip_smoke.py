@@ -29,16 +29,32 @@ exits non-zero (nothing is caught):
 4. main path — ``SRServer.open("abpn_x3", backend="kernel", precision=p,
    layers=...)`` at full ABPN x3 width (the stack of phase 3) serves a 4-frame
    360x640 request, two 2-frame requests that coalesce into one dispatch,
-   and a 180x320 frame, for fp32/bf16/int8 (zero) and fp32 (halo); every HR
-   result is held against the package's ``tilted`` backend on the card
-   (TF32 off) at 5e-4 (fp32, int8) / 5e-2 (bf16), a frame served alone must
-   equal the same frame served in the batch bit for bit, and K1's launch
-   counter, zeroed just before, must have moved;
+   and a 180x320 frame, for fp32/bf16/int8 under zero and halo and fp32
+   under replicate; every HR result is held against the package's
+   ``tilted`` backend on the card (TF32 off) at 5e-4 (fp32, int8) / 5e-2
+   (bf16), a frame served alone must equal the same frame served in the
+   batch bit for bit, and K1's launch counter, zeroed just before, must
+   have moved;
 4b. layer-by-layer path — ABPN x3 over two 360x640 frames as 7
    ``ops.conv3x3`` launches per frame plus ``engine.sr_epilogue``, fp32 and
    bf16, held against ``engine.run`` on the ``reference`` backend (TF32
    off) at 5e-4 / 5e-2; K2's launch counter, zeroed just before, must have
    moved;
+4c. temporal delta path — K1 against its plain version at the delta path's
+   shapes (one dirty band; three halo bands padded to four slots, the pad's
+   bounds (0, 0)), each real band bit-identical to the same band of the
+   full-frame launch; then ``SRServer.open("abpn_x3", backend="kernel")``
+   serves a six-frame 360x640 clip (random, static, a patch in band 2,
+   patches in bands 0 and 5, random, static) through
+   ``server.stream(clip, delta=True)`` for fp32 under zero, replicate and
+   halo and bf16 under zero: every HR frame must equal
+   ``server.submit(frame).result()`` bit for bit, the bands skipped per
+   frame must be the clip's, no splice rule may fail, K1's launch counter
+   (zeroed just before) must move, and a stream abandoned after two frames
+   must leave no pinned cache entry and no queued request; once (fp32,
+   zero): a request past its deadline fails while its neighbour serves, an
+   injected dispatch failure fails only its request, and degrade level 1
+   serves fp32 requests in bf16 within 5e-2 of ``tilted``;
 5. times — CUDA events, median of repeats after warm-up.  K1 at 1 and 8
    frames (fp32 and bf16, automatic segment plan: its segments, CTAs,
    warm-up tiles and their share of the executed tiles) four ways: one
@@ -58,7 +74,10 @@ exits non-zero (nothing is caught):
    split under ``torch.profiler`` (the last 35 of 42 kernels, cut by name);
    the bytes per frame of the layer-by-layer stack and of K1; the server's
    frames/s over the wall clock of 20 closed-loop 8-frame requests, and
-   their p50 launch-to-completion latency;
+   their p50 launch-to-completion latency; the delta path (fp32, zero): ms
+   per frame of a full re-upscale, and of a delta frame with 0, 1 and 6
+   dirty bands split into digest, dispatch and splice; K1 at 1, 3 and 4 (3
+   real + 1 padded) bands beside its bound for that work;
 6. the kernels line, then the card's name and power limit, then the result.
 
 Exits 2 and prints no result when no CUDA device is present.
@@ -362,7 +381,8 @@ def main() -> int:
     small = rng.uniform(size=(H // 2, W // 2, 3)).astype(np.float32)
     kcall.launches = 0  # count the main path's launches only
     per_config = {}
-    for prec, policy in (("fp32", "zero"), ("bf16", "zero"), ("int8", "zero"), ("fp32", "halo")):
+    for prec, policy in (("fp32", "zero"), ("bf16", "zero"), ("int8", "zero"), ("fp32", "halo"),
+                         ("fp32", "replicate"), ("bf16", "halo"), ("int8", "halo")):
         before = kcall.launches
         server = engine.SRServer.open("abpn_x3", backend="kernel", precision=prec,
                                       vertical_policy=policy, layers=layers)
@@ -436,6 +456,198 @@ def main() -> int:
     layerwise_launches = k2call.launches
     print(f"layer-by-layer path K2 launches: {layerwise_launches}")
     require(layerwise_launches > 0, "the layer-by-layer path never launched K2")
+
+    # ------------------------------------------------------------------
+    phase("4c. temporal delta path: server.stream(clip, delta=True), partial-band K1 dispatches")
+    import asyncio
+
+    from repro_torch.engine.temporal import band_bounds, band_slabs
+    from repro_torch.runtime.resilience import FailureInjector, InjectedFailure
+
+    R = 60
+    drng = np.random.default_rng(5)
+
+    def patch(rows, cols):
+        return drng.uniform(size=(rows, cols, 3)).astype(np.float32)
+
+    f0 = drng.uniform(size=(H, W, 3)).astype(np.float32)
+    f2 = f0.copy()
+    f2[2 * R + 10:2 * R + 20, W // 6:W // 3] = patch(10, W // 3 - W // 6)  # inside band 2
+    f3 = f2.copy()
+    # bands 0 and 5, at the frame's top and bottom edges
+    f3[5:15, W // 2:2 * W // 3] = patch(10, 2 * W // 3 - W // 2)
+    f3[5 * R + 40:5 * R + 50, 3 * W // 4:7 * W // 8] = patch(10, 7 * W // 8 - 3 * W // 4)
+    f4 = drng.uniform(size=(H, W, 3)).astype(np.float32)
+    clip = [f0, f0.copy(), f2, f3, f4, f4.copy()]
+    # bands skipped per frame; halo's reach is ceil(7 / 60) = 1 band a side
+    want_skipped = {"zero": [0, 6, 5, 4, 0, 6], "replicate": [0, 6, 5, 4, 0, 6],
+                    "halo": [0, 6, 3, 2, 0, 6]}
+
+    # K1 at the delta path's shapes against its plain version, and each real
+    # band bit-identical to the same band of the 6-band full-frame launch
+    # (their segment plans differ); not counted as launches of the path
+    packed32 = ops.pack_stack(layers, dtype=torch.float32)
+    kw1 = dict(width=W, tile_cols=C, relu_flags=relu, in_channels=3, add_anchor=False)
+    full_f2 = torch.from_numpy(f2).to(dev)
+    delta_k1 = {}
+    for name, bands_, policy in (("1 band (zero)", [2], "zero"),
+                                 ("3 bands + 1 padded slot (halo)", [1, 2, 3], "halo")):
+        slabs_ = torch.from_numpy(band_slabs(f2, R, L, bands_, policy)).to(dev)
+        if policy == "halo":
+            full_x, full_b = halo_slabs(full_f2[None], R, L)
+            bnds = torch.from_numpy(band_bounds(H, R, L, bands_, slots=4)).to(dev)
+            slabs_ = torch.cat([slabs_, torch.zeros_like(slabs_[:1])])
+            extra = dict(row_policy="zero", row_bounds=bnds)
+            full_extra = dict(row_policy="zero", row_bounds=full_b)
+        else:
+            full_x = full_f2.reshape(H // R, R, W, 3)
+            extra = full_extra = dict(row_policy="zero")
+        xs, first = ops.band_streams(slabs_, C, L)
+        got = kcall(xs, first, packed32.w, packed32.b, **kw1, **extra)
+        want = ttf.tilted_fusion_plain(xs, first, packed32.w, packed32.b, **kw1, **extra)
+        fxs, ffirst = ops.band_streams(full_x, C, L)
+        full_out = kcall(fxs, ffirst, packed32.w, packed32.b, **kw1, **full_extra)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        segs = ttf.launch_plan(xs, packed32.w, tile_cols=C).segments
+        full_segs = ttf.launch_plan(fxs, packed32.w, tile_cols=C).segments
+        require(err <= TOL["fp32"], f"K1 vs plain at the delta shape {name}")
+        for i, b_ in enumerate(bands_):
+            require(torch.equal(got[i], full_out[b_]),
+                    f"K1 {name}: band {b_} differs from the full-frame launch's")
+        if policy == "halo":
+            require(not bool(got[3].any()), "K1: a padded slot with bounds (0, 0) must be zero")
+        delta_k1[name] = {"max_abs_err": err, "segments": segs, "full_frame_segments": full_segs}
+        print(f"K1 vs plain [fp32, {name}, B={xs.shape[0]} R={xs.shape[1]}]: max_abs_err="
+              f"{err:.3e} (tol {TOL['fp32']:g}); segments S={segs} (the full frame's "
+              f"S={full_segs}); every real band bit-identical to the full-frame launch")
+
+    kcall.launches = 0  # count the delta path's launches only
+    delta_configs = {}
+    hardening = {}
+    for prec, policy in (("fp32", "zero"), ("fp32", "replicate"), ("fp32", "halo"),
+                         ("bf16", "zero")):
+        tag = f"{prec}/{policy}"
+        before = kcall.launches
+        server = engine.SRServer.open("abpn_x3", backend="kernel", precision=prec,
+                                      vertical_policy=policy, layers=layers)
+        session = server.session()
+
+        async def serve_clip():
+            outs, cumulative = [], []
+            async for hr in server.stream(clip, delta=True):
+                outs.append(hr)
+                cumulative.append(session.temporal_stats()["bands_skipped"])
+            return outs, cumulative
+
+        async def abandon():
+            gen = server.stream(clip, delta=True)
+            seen = 0
+            async for _ in gen:
+                seen += 1
+                if seen == 2:
+                    break
+            await gen.aclose()
+            return seen
+
+        outs, cumulative = asyncio.run(serve_clip())
+        stats = session.temporal_stats()
+        recent = [d for d in server.scheduler_stats()["recent_dispatches"] if d["bands"]]
+        pinned_after_clip = session.output_cache().pinned
+        require(asyncio.run(abandon()) == 2, f"delta {tag}: the abandoned stream's frames")
+        launched = kcall.launches - before
+        sched = server.scheduler_stats()
+        require(session.output_cache().pinned == 0 and pinned_after_clip == 0,
+                f"delta {tag}: cache pins left after a closed or abandoned stream")
+        require(sched["pending_frames"] == 0 and sched["inflight_dispatches"] == 0
+                and sched["carry_buckets"] == 0, f"delta {tag}: work left queued")
+        skipped = [b_ - a_ for a_, b_ in zip([0] + cumulative[:-1], cumulative)]
+        fulls = [server.submit(f).result() for f in clip]
+        for i, (got, want) in enumerate(zip(outs, fulls)):
+            require(got.device.type == "cuda" and got.dtype == want.dtype
+                    and got.shape == want.shape, f"delta {tag}: frame {i} shape/dtype/device")
+            require(bool(torch.isfinite(got.float()).all()), f"delta {tag}: non-finite frame {i}")
+            require(torch.equal(got, want),
+                    f"delta {tag}: frame {i} differs from a full re-upscale")
+        require(skipped == want_skipped[policy],
+                f"delta {tag}: bands skipped per frame {skipped} != {want_skipped[policy]}")
+        require(stats["cover_violations"] == 0, f"delta {tag}: splice rule violated")
+        require(stats["band_dispatches"] == 4, f"delta {tag}: {stats['band_dispatches']} "
+                "partial-band dispatches, not 4")
+        require(launched > 0, f"delta {tag}: K1 was never launched")
+        delta_configs[tag] = {
+            "launches": launched, "skipped_per_frame": skipped,
+            "reuse_ratio": stats["reuse_ratio"], "band_dispatches": stats["band_dispatches"],
+            "dispatches": [(d["bands"], d["bucket"]) for d in recent],
+            "effective_hbm_bytes_per_frame": stats["effective_hbm_bytes_per_frame"],
+            "full_hbm_bytes_per_frame": stats["full_hbm_bytes_per_frame"],
+        }
+        print(f"delta [{prec}, {policy}]: K1 launches {launched}; bands skipped per frame "
+              f"{skipped}; reuse {stats['reuse_ratio']:.3f}; partial dispatches (bands -> "
+              f"bucket) {[(d['bands'], d['bucket']) for d in recent]}; every frame bit-identical "
+              f"to a full re-upscale; no pins or queued work after an abandoned stream")
+        if (prec, policy) == ("fp32", "zero"):
+            # a request past its deadline, with a neighbour it would have
+            # coalesced with
+            s0 = server.scheduler_stats()
+            keeper = server.submit(clip[0])
+            doomed = server.submit(clip[2], timeout=0.05)
+            time.sleep(0.2)
+            kept = keeper.result()
+            s1 = server.scheduler_stats()
+            require(isinstance(doomed.exception(), engine.DeadlineExceededError),
+                    "a request past its deadline must fail with DeadlineExceededError")
+            require(s1["expired"] - s0["expired"] == 1 and s1["dispatches"] - s0["dispatches"] == 1
+                    and s1["recent_dispatches"][-1]["frames"] == 1,
+                    "the expired request must leave the queue before its neighbour dispatches")
+            require(torch.equal(kept, fulls[0]), "the deadline's neighbour must serve exactly")
+            server.close()
+            # an injected failure of the second dispatch fails only its request
+            injector = FailureInjector(fail_dispatches={1})
+            srv = engine.SRServer(session, injector=injector)
+            ok_a = srv.submit(clip[0]).result()
+            failed = srv.submit(clip[2])
+            require(isinstance(failed.exception(), InjectedFailure),
+                    "the injected dispatch failure must fail its request")
+            ok_c = srv.submit(clip[4]).result()
+            require(torch.equal(ok_a, fulls[0]) and torch.equal(ok_c, fulls[4]),
+                    "requests around an injected failure must serve exactly")
+            require(injector.stats()["injected_failures"] == 1, "one injected failure")
+            srv.close()
+            # degrade level 1: fp32 requests dispatch in bf16; delta streams
+            # keep their dtype and stay exact
+            policy_ = engine.DegradePolicy(1e9)
+            policy_.level = 1
+            srv = engine.SRServer(session, degrade=policy_)
+            pair_ = np.stack([clip[0], clip[4]])
+            hr16 = srv.submit(pair_).result()
+            require(hr16.dtype == torch.bfloat16 and srv.scheduler_stats()[
+                "recent_dispatches"][-1]["dtype"] == "bfloat16",
+                "degrade level 1 must dispatch fp32 requests in bf16")
+            tplan = engine.make_plan(layers, (H, W, 3), backend="tilted", scale=SCALE)
+            deg_err = (hr16.float() - engine.run(tplan, layers, pair_, device=dev)).abs().max().item()
+            require(deg_err <= TOL["bf16"], f"degrade level 1 HR vs tilted {deg_err:.3e}")
+
+            async def one_delta():
+                return [hr async for hr in srv.stream(clip[:1], delta=True)]
+
+            (d0,) = asyncio.run(one_delta())
+            require(d0.dtype == torch.float32 and torch.equal(d0, fulls[0]),
+                    "a delta stream under degrade must stay fp32 and exact")
+            srv.close()
+            hardening = {"deadline": "DeadlineExceededError, neighbour exact",
+                         "injector": "InjectedFailure on dispatch 1 only",
+                         "degrade_bf16_max_abs_err": deg_err}
+            print(f"hardening [fp32, zero]: past deadline -> DeadlineExceededError, neighbour "
+                  f"served alone and exact; injected failure of dispatch 1 failed only its "
+                  f"request; degrade level 1 served fp32 requests in bf16, HR vs tilted "
+                  f"max_abs_err={deg_err:.3e} (tol {TOL['bf16']:g}), a delta stream stayed fp32 "
+                  f"and exact")
+        else:
+            server.close()
+    delta_launches = sum(v["launches"] for v in delta_configs.values())
+    print(f"delta path K1 launches: {delta_launches}")
+    require(delta_launches > 0, "the delta path never launched K1")
 
     # ------------------------------------------------------------------
     phase("5. times (CUDA events, median of repeats after warm-up)")
@@ -726,6 +938,73 @@ def main() -> int:
           f"work and K1 included); launch-to-completion latency p50 {st['p50_ms']:.2f} ms, "
           f"max {worst_ms:.2f} ms (host numpy in, HR tensor on the card out)")
 
+    # The temporal delta path, fp32 zero: a full re-upscale of one frame,
+    # and delta frames with 0, 1 and 6 dirty bands, each split into its
+    # phases (DeltaSession.last_ms: digest and dispatch on the host clock;
+    # splice = the frame's wall clock to a device sync, less the two)
+    from repro_torch.engine.temporal import DeltaSession
+
+    server = engine.SRServer.open("abpn_x3", backend="kernel", precision="fp32", layers=layers)
+    session = server.session()
+    server.submit(f0).result()  # warm the bucket-1 executor
+
+    def wall_ms(fn, reps=10):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    full_frame_ms = wall_ms(lambda: server.submit(f0).result())
+    delta_times = {}
+    with DeltaSession(session, server=server) as ds:
+        for label, pair_ in (("0 dirty bands", (f0, f0)), ("1 dirty band", (f0, f2)),
+                             ("6 dirty bands", (f0, f4))):
+            for frame in (*pair_, *pair_):  # warm: every bucket built, both frames cached
+                ds.serve(frame)
+            rows = []
+            for i in range(12):
+                frame = pair_[i % 2]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ds.serve(frame)
+                torch.cuda.synchronize()
+                total = (time.perf_counter() - t0) * 1e3
+                rows.append((total, ds.last_ms["digest"], ds.last_ms["dispatch"]))
+            med = {k: statistics.median(r[j] for r in rows)
+                   for j, k in enumerate(("total_ms", "digest_ms", "dispatch_ms"))}
+            med["splice_ms"] = statistics.median(r[0] - r[1] - r[2] for r in rows)
+            delta_times[label] = med
+            print(f"delta frame, {label} ({H}x{W}, fp32, zero): {med['total_ms']:.3f} ms to a "
+                  f"device sync = digest {med['digest_ms']:.3f} + dispatch "
+                  f"{med['dispatch_ms']:.3f} + splice {med['splice_ms']:.3f} ms; a full "
+                  f"re-upscale of one frame {full_frame_ms:.3f} ms (submit to result)")
+    server.close()
+
+    # K1 over the band counts the delta path dispatches, queued device time,
+    # beside its bound for the real bands' work (a padded slot is not work
+    # the data needs)
+    k1_bands = {}
+    for label, real, slots in (("1 band", 1, 1), ("3 bands", 3, 3),
+                               ("3 bands + 1 padded slot", 3, 4)):
+        xb = torch.zeros((slots, 60, W, 3), device=dev)
+        xb[:real] = torch.from_numpy(f0[:real * 60]).to(dev).reshape(real, 60, W, 3)
+        xs, first = ops.band_streams(xb, C, L)
+        kw = dict(width=W, tile_cols=C, relu_flags=relu, in_channels=3, add_anchor=False)
+        plan_b = ttf.launch_plan(xs, packed.w, tile_cols=C)
+        ms = device_ms(torch, lambda: kcall(xs, first, packed.w, packed.b, **kw), calls=10)
+        flops = 2 * real * 60 * W * sum(9 * l.ci * l.co for l in layers)
+        nbytes = 4 * (real * 60 * W * (layers[0].ci + layers[-1].co)
+                      + sum(l.w.numel() + l.b.numel() for l in layers))
+        bms, bby = bound(flops, nbytes, peak_flops, peak_bw)
+        k1_bands[label] = dict(device_ms=ms, bound_ms=bms, bound_by=bby,
+                               segments=plan_b.segments, ctas=plan_b.ctas)
+        print(f"K1, {label} (B={slots}, fp32, zero): {ms:.4f} ms queued, S={plan_b.segments}, "
+              f"{plan_b.ctas} CTAs; bound {bms:.4f} ms ({bby}) -> {100 * bms / ms:.1f}% of bound")
+
     # ------------------------------------------------------------------
     phase("6. kernels")
     t8 = timings[8]
@@ -734,7 +1013,7 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/tilted_fusion.cu",
         "replaces": "src/repro/kernels/tilted_fusion.py:208",
-        "launches": main_launches,
+        "launches": main_launches + delta_launches,
         "max_abs_err": worst["fp32"],
         "max_abs_err_bf16": worst["bf16"],
         "ms": t8["k1"]["ms"],
@@ -765,6 +1044,10 @@ def main() -> int:
         "bytes_per_frame": timings[1]["bytes"],
         "server_fps": server_fps,
         "main_path": per_config,
+        "delta_path": {"launches": delta_launches, "configs": delta_configs,
+                       "k1_vs_plain": delta_k1, "hardening": hardening,
+                       "full_frame_ms": full_frame_ms, "frame_ms": delta_times,
+                       "k1_bands": k1_bands},
     }, {
         "name": "conv3x3",
         "route": "cuda",

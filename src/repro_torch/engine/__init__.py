@@ -3,21 +3,32 @@
 ``SRServer`` (server.py) is the serving front door:
 ``SRServer.open(models...)`` hosts one or more named sessions and
 ``server.submit(frames, model=..., priority=...)`` returns an
-:class:`SRFuture`.  A micro-batching scheduler (scheduler.py) coalesces
-concurrent requests that share a ``(model, plan, dtype)`` key into single
-bucket-sized dispatches and enforces a bounded queue
-(``max_inflight_frames``, block-or-reject admission).
+:class:`SRFuture`, and ``server.stream(...)`` is an async generator for
+frame-at-a-time live video.  A micro-batching scheduler (scheduler.py)
+coalesces concurrent requests that share a ``(model, plan, dtype)`` key
+into single bucket-sized dispatches and enforces a bounded queue
+(``max_inflight_frames``, block, reject or shed admission), per-request
+deadlines and cancellation; a :class:`DegradePolicy` steps down a
+documented ladder under sustained overload.
 
 ``SRSession`` (session.py) is the per-model layer underneath: it derives
 the :class:`SRPlan` per resolution, buckets batches to powers of two, and
 keeps one warmed executor per ``(plan, bucket, dtype)`` in an LRU
 :class:`PlanCache`, over device-resident :class:`PreparedStack` weights.
 
+Serving is DELTA-AWARE for video (temporal/): ``server.stream(...,
+delta=True)`` (or a :class:`DeltaSession` directly) band-diffs each frame
+against the previous one, dispatches only the dirty bands as partial-band
+dispatches, and splices clean bands from a bounded refcounted
+:class:`OutputBandCache` on the device — bit-exact with a full re-upscale
+(``session.stats()['temporal']``).
+
 Underneath: ``SRPlan`` (plan.py) describes one execution — geometry,
 numerics, boundary policy, backend — and ``run`` (executor.py) runs it
 over a batch of LR frames.  The ``kernel`` backend launches the
 hand-written CUDA kernel on the card.  Every entry point runs on CUDA
-unless the caller passes ``device="cpu"``.
+unless the caller passes ``device="cpu"``.  ``VideoStream`` (stream.py)
+is a deprecated fixed-batch shim over a pinned session.
 """
 
 from repro_torch.engine.executor import (
@@ -51,7 +62,13 @@ from repro_torch.engine.scheduler import (
     QueueFullError,
     RequestShedError,
 )
-from repro_torch.engine.server import SRFuture, SRServer
+from repro_torch.engine.server import (
+    DEGRADE_LADDER,
+    DegradePolicy,
+    RequestCancelledError,
+    SRFuture,
+    SRServer,
+)
 from repro_torch.engine.session import (
     AUTOTUNE_MODES,
     PlanCache,
@@ -59,6 +76,8 @@ from repro_torch.engine.session import (
     StreamStats,
     bucket_batch,
 )
+from repro_torch.engine.stream import VideoStream
+from repro_torch.engine.temporal import DeltaSession, OutputBandCache
 
 __all__ = [
     "SRServer",
@@ -67,6 +86,12 @@ __all__ = [
     "QueueFullError",
     "DeadlineExceededError",
     "RequestShedError",
+    "RequestCancelledError",
+    "DegradePolicy",
+    "DEGRADE_LADDER",
+    "DeltaSession",
+    "OutputBandCache",
+    "VideoStream",
     "SRSession",
     "PlanCache",
     "bucket_batch",

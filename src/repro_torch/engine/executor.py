@@ -44,6 +44,7 @@ __all__ = [
     "prepare_layers",
     "prepare_stack",
     "PreparedStack",
+    "build_band_executor",
     "build_executor",
     "build_stack_executor",
     "compute_dtype_for",
@@ -254,6 +255,70 @@ def build_stack_executor(
     """
     plan.check_invariants()
     return functools.partial(_execute_stack, plan, stack)
+
+
+def _band_features(plan: SRPlan, stack: PreparedStack, slabs: torch.Tensor,
+                   bounds: torch.Tensor) -> torch.Tensor:
+    """Conv-stack features over an explicit band-slab stack.
+
+    ``slabs`` is (k, rows, W, C0) with rows = R + 2L under ``halo`` (the
+    ``core.fusion.halo_slabs`` geometry, ``bounds`` carrying each slab's
+    valid-row interval) and rows = R otherwise.  Per band this runs the
+    SAME per-band computation as the full-frame path — the tilted backend
+    the same ``tilted_fused_bands`` sweep, the kernel backend the same K1
+    launch over a band axis — and neither depends on how many bands share
+    the call, so each output band is bit-identical to the same band of a
+    full-frame run.  The reference backend has no band decomposition
+    (:func:`build_band_executor` refuses it).
+    """
+    R, L = plan.band_rows, plan.num_layers
+    policy = plan.vertical_policy
+    if plan.backend == "kernel":
+        from repro_torch.kernels import ops
+
+        return ops.tilted_fused_band_stack(
+            slabs,
+            tile_cols=plan.tile_cols,
+            vertical_policy=policy,
+            row_bounds=bounds if policy == "halo" else None,
+            compute_dtype=slabs.dtype,
+            packed=stack.packed,
+        )
+    if policy in ("zero", "replicate"):
+        return tilted_fused_bands(slabs, stack.layers, plan.tile_cols, row_pad=policy)
+    out = tilted_fused_bands(slabs, stack.layers, plan.tile_cols, "zero", bounds)
+    return out[:, L : L + R]  # crop the recompute margin
+
+
+def _execute_band_stack(plan: SRPlan, stack: PreparedStack, slabs: torch.Tensor,
+                        bounds: torch.Tensor) -> torch.Tensor:
+    """Partial-band serving: (k, rows, W, C) input slabs plus (k, 2) int32
+    valid-row bounds (read under ``halo`` only) -> (k, R*s, W*s, C) HR
+    bands.  The epilogue is row-block local (:func:`sr_epilogue`), so
+    running it on each band's own LR rows reproduces the full-frame
+    epilogue's bytes for those rows exactly."""
+    if slabs.ndim != 4:
+        raise ValueError(
+            f"expected a band-slab batch (k, rows, W, C), got {tuple(slabs.shape)}"
+        )
+    in_dtype = slabs.dtype
+    x = slabs.to(compute_dtype_for(plan.precision))
+    feats = _band_features(plan, stack, x, bounds)
+    if plan.vertical_policy == "halo":
+        L = plan.num_layers
+        x = x[:, L : L + plan.band_rows]  # each slab's own (anchor) rows
+    return sr_epilogue(plan, x, feats, in_dtype)
+
+
+def build_band_executor(
+    plan: SRPlan, stack: PreparedStack
+) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+    """The partial-band executor ``(slabs, bounds) -> HR bands`` over a
+    :class:`PreparedStack` (the temporal delta path's dispatch body)."""
+    plan.check_invariants()
+    if plan.backend == "reference":
+        raise ValueError("reference backend cannot serve partial-band dispatches")
+    return functools.partial(_execute_band_stack, plan, stack)
 
 
 @dataclasses.dataclass(frozen=True)

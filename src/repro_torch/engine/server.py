@@ -7,32 +7,53 @@
   share a ``(model, plan, dtype)`` key are COALESCED by the
   :class:`~repro_torch.engine.scheduler.MicroBatchScheduler` into
   bucket-sized dispatches.
+* ``async for hr in server.stream(frames)`` serves frame-at-a-time live
+  video: a small lookahead keeps the coalescer fed and HR frames are
+  yielded in order.  ``stream(..., delta=True)`` serves the clip through a
+  :class:`~repro_torch.engine.temporal.DeltaSession`: only the bands that
+  changed dispatch (``submit_bands``), the rest splice from the session's
+  output cache.
 * ``max_inflight_frames`` bounds the queue (pending + dispatched frames);
-  at the bound, ``admission="block"`` drains the queue to make space and
-  ``admission="reject"`` raises :class:`QueueFullError`.
+  at the bound, ``admission="block"`` drains the queue to make space,
+  ``admission="reject"`` raises :class:`QueueFullError`, and
+  ``admission="shed"`` evicts the lowest-priority, latest-deadline queued
+  work (never the newcomer) — victims fail with :class:`RequestShedError`.
+* ``submit(frames, deadline=..., timeout=...)``: a request still fully
+  queued when its deadline passes fails with
+  :class:`DeadlineExceededError` before it ever dispatches; its coalesced
+  neighbours are untouched.  ``cancel(future)`` drops a request's queued
+  remainder (:class:`RequestCancelledError`).
+* :class:`DegradePolicy` watches a rolling p99 of end-to-end request
+  latency and, on sustained SLO breach, steps down a ladder — bf16
+  dispatch dtype, halved ``stream()`` lookahead, halved buckets — and
+  back up on recovery.
+* A ``runtime.resilience.FailureInjector`` passed as ``injector=`` is
+  called before every launch; an injected fault fails exactly the
+  dispatch it targets.
 
 Execution is a pipelined drain loop: each dispatch is assembled (host
 frames through the session's one reused, pinned staging buffer and an
-asynchronous copy; device frames through one concatenate), launched on the
-current CUDA stream, and completed in order, with up to
-``session.pipeline_depth`` dispatches in flight per session.  A
-``torch.cuda.Event`` recorded after each launch is what a completion waits
-on — with the server lock released, so other threads' submits are admitted
-(and coalesce) meanwhile.  ``SRFuture.result()`` drives the drain; no
-background thread exists.
-
-Deadlines, load shedding, the degrade policy, fault injection, partial-band
-requests, cancellation and ``stream()`` are not ported yet (ROADMAP queue 1,
-item 8); passing their options raises.
+asynchronous copy; band slabs and device frames through one copy and a
+concatenate), launched, and completed in order, with up to
+``session.pipeline_depth`` dispatches in flight per session.  Every launch
+of a CUDA session runs on ONE stream the server names when it takes the
+session (the constructing thread's current stream), whichever thread
+drives the drain, and a ``torch.cuda.Event`` recorded on that stream
+after the launch is what a completion waits on — with the server lock
+released, so other threads' submits are admitted (and coalesce)
+meanwhile.  ``SRFuture.result()`` drives the drain; no background thread
+exists.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from collections import deque
 from typing import Deque, Dict, Mapping, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch.engine.scheduler import (
@@ -43,7 +64,8 @@ from repro_torch.engine.scheduler import (
     RequestShedError,
     SchedRequest,
 )
-from repro_torch.engine.session import SRSession, _not_ported
+from repro_torch.engine.session import SRSession
+from repro_torch.runtime.resilience import EMAMeanVar
 
 __all__ = [
     "SRServer",
@@ -51,9 +73,147 @@ __all__ = [
     "QueueFullError",
     "DeadlineExceededError",
     "RequestShedError",
+    "RequestCancelledError",
+    "DegradePolicy",
+    "DEGRADE_LADDER",
 ]
 
-ADMISSION_POLICIES = ("block", "reject")
+ADMISSION_POLICIES = ("block", "reject", "shed")
+
+
+class RequestCancelledError(RuntimeError):
+    """The submitter cancelled the request (e.g. an abandoned stream)."""
+
+
+# The degradation ladder, mildest first; level k applies steps 1..k.
+DEGRADE_LADDER = ("full", "bf16", "half_lookahead", "half_buckets")
+
+
+class DegradePolicy:
+    """Degrade-under-pressure controller for :class:`SRServer`.
+
+    Watches a rolling p99 estimate of END-TO-END request latency
+    (admission to future resolution, milliseconds): an
+    :class:`~repro_torch.runtime.resilience.EMAMeanVar` approximates p99 as
+    ``mean + 2.326 sigma`` — O(1) per observation and monotone in both load
+    and jitter.
+
+    The ladder (:data:`DEGRADE_LADDER`), mildest first; level k applies
+    every step up to k:
+
+    1. ``bf16`` — fp32 frame requests dispatch in bf16 (band requests of
+       the delta path never do: their contract is bit-exactness);
+    2. ``half_lookahead`` — ``stream()`` halves its lookahead window;
+    3. ``half_buckets`` — freshly derived dispatch buckets are halved
+       (carry-pinned buckets are never resized mid-clip).
+
+    Hysteresis: stepping DOWN takes ``breach_steps`` consecutive
+    observations with the p99 estimate over ``slo_p99_ms``; stepping UP
+    takes ``recover_steps`` consecutive observations at or under
+    ``recover_fraction * slo_p99_ms``.  Every transition is recorded
+    (``transitions``, surfaced by ``SRServer.stats()``).
+
+    The server calls :meth:`observe` and reads the level under its own
+    lock; the policy keeps no lock.
+    """
+
+    #: z for the normal-approximation p99 (Phi(2.326) ~ 0.99)
+    P99_Z = 2.326
+
+    def __init__(self, slo_p99_ms: float, *, alpha: float = 0.1,
+                 breach_steps: int = 3, recover_steps: int = 8,
+                 recover_fraction: float = 0.5):
+        if slo_p99_ms <= 0:
+            raise ValueError(f"slo_p99_ms={slo_p99_ms} must be > 0")
+        if breach_steps < 1 or recover_steps < 1:
+            raise ValueError("breach_steps and recover_steps must be >= 1")
+        if not 0 < recover_fraction <= 1:
+            raise ValueError(f"recover_fraction={recover_fraction} must be in (0, 1]")
+        self.slo_p99_ms = float(slo_p99_ms)
+        self.breach_steps = int(breach_steps)
+        self.recover_steps = int(recover_steps)
+        self.recover_fraction = float(recover_fraction)
+        self._ema = EMAMeanVar(alpha)
+        self.level = 0
+        self.observations = 0
+        self.degraded_requests = 0  # requests admitted at level > 0
+        self.transitions: list = []
+        self._breach = 0
+        self._recover = 0
+
+    @property
+    def p99_ms(self) -> float:
+        """The rolling p99 estimate (0.0 until the first observation)."""
+        return self._ema.upper(self.P99_Z)
+
+    def observe(self, latency_ms: float) -> Optional[dict]:
+        """Fold one completed request's end-to-end latency; returns the
+        transition record if this observation moved the ladder."""
+        self.observations += 1
+        self._ema.fold(latency_ms)
+        p99 = self.p99_ms
+        if p99 > self.slo_p99_ms:
+            self._breach += 1
+            self._recover = 0
+            if self._breach >= self.breach_steps and self.level < len(DEGRADE_LADDER) - 1:
+                return self._transition(self.level + 1, p99, "slo_breach")
+        elif p99 <= self.recover_fraction * self.slo_p99_ms:
+            self._recover += 1
+            self._breach = 0
+            if self._recover >= self.recover_steps and self.level > 0:
+                return self._transition(self.level - 1, p99, "recovered")
+        else:
+            # between the recovery band and the SLO: neither direction is
+            # earning a transition
+            self._breach = 0
+            self._recover = 0
+        return None
+
+    def _transition(self, to: int, p99: float, reason: str) -> dict:
+        t = {
+            "from": self.level,
+            "to": to,
+            "from_step": DEGRADE_LADDER[self.level],
+            "to_step": DEGRADE_LADDER[to],
+            "p99_ms": round(p99, 3),
+            "slo_p99_ms": self.slo_p99_ms,
+            "reason": reason,
+            "observation": self.observations,
+        }
+        self.level = to
+        self._breach = 0
+        self._recover = 0
+        self.transitions.append(t)
+        return t
+
+    # --- the knobs the server consults, one per ladder step -----------
+    def serve_dtype(self, dtype) -> torch.dtype:
+        """Dispatch dtype (torch) at the current level for a numpy or torch
+        dtype (level >= 1: fp32 -> bf16)."""
+        dtype = SRSession.serving_dtype(dtype)
+        if self.level >= 1 and dtype == torch.float32:
+            return torch.bfloat16
+        return dtype
+
+    def lookahead(self, base: int) -> int:
+        """Stream lookahead at the current level (level >= 2: halved)."""
+        return max(1, base // 2) if self.level >= 2 else base
+
+    def bucket_cap(self, bucket: int) -> int:
+        """Dispatch bucket at the current level (level >= 3: halved)."""
+        return max(1, bucket // 2) if self.level >= 3 else bucket
+
+    def stats(self) -> dict:
+        return {
+            "level": self.level,
+            "step": DEGRADE_LADDER[self.level],
+            "ladder": list(DEGRADE_LADDER),
+            "slo_p99_ms": self.slo_p99_ms,
+            "p99_ms": round(self.p99_ms, 3),
+            "observations": self.observations,
+            "degraded_requests": self.degraded_requests,
+            "transitions": list(self.transitions),
+        }
 
 
 class SRFuture:
@@ -71,6 +231,7 @@ class SRFuture:
         self._result = None
         self._exc: Optional[BaseException] = None
         self._callbacks = []
+        # the admitted SchedRequest — what SRServer.cancel drops
         self._request = None
 
     def done(self) -> bool:
@@ -78,7 +239,8 @@ class SRFuture:
 
     def _wait_done(self, timeout: Optional[float]) -> None:
         """Drive the drain, then wait for completion — both bounded by one
-        monotonic deadline."""
+        monotonic deadline (a spurious wakeup neither shortens nor
+        lengthens the wait)."""
         deadline = None if timeout is None else time.monotonic() + timeout
         if not self._done:
             self._server._drain_until(self, deadline=deadline)
@@ -101,7 +263,9 @@ class SRFuture:
         return self._result
 
     def exception(self, timeout: Optional[float] = None) -> Optional[BaseException]:
-        """The error that failed this request, or ``None`` (blocking)."""
+        """The error that failed this request, or ``None`` (blocking; a
+        stored failure is RETURNED — even a ``TimeoutError`` raised by the
+        dispatch — while an unfinished wait raises ``TimeoutError``)."""
         self._wait_done(timeout)
         return self._exc
 
@@ -149,8 +313,12 @@ class SRServer:
 
     ``sessions`` maps model names to :class:`SRSession`\\ s (a bare session
     is hosted under its model name).  ``max_inflight_frames`` bounds pending
-    + dispatched frames; ``admission`` is ``"block"`` (drain to make space)
-    or ``"reject"`` (raise :class:`QueueFullError`).
+    + dispatched frames; ``admission`` is ``"block"`` (drain to make space),
+    ``"reject"`` (raise :class:`QueueFullError`) or ``"shed"`` (evict
+    less urgent queued work, or reject the newcomer when it is itself the
+    least urgent).  ``degrade`` installs a :class:`DegradePolicy`;
+    ``injector`` a :class:`~repro_torch.runtime.resilience.FailureInjector`
+    consulted before every launch.
     """
 
     def __init__(
@@ -160,7 +328,7 @@ class SRServer:
         default_model: Optional[str] = None,
         max_inflight_frames: Optional[int] = None,
         admission: str = "block",
-        degrade=None,
+        degrade: Optional[DegradePolicy] = None,
         injector=None,
     ):
         if isinstance(sessions, SRSession):
@@ -180,14 +348,20 @@ class SRServer:
                 f"max_inflight_frames={max_inflight_frames} must be >= 1 "
                 "(or None for an unbounded queue)"
             )
-        if admission == "shed":
-            raise _not_ported('admission="shed"', 8)
         if admission not in ADMISSION_POLICIES:
             raise ValueError(f"admission {admission!r} not in {ADMISSION_POLICIES}")
-        if degrade is not None:
-            raise _not_ported("the degrade policy (degrade=)", 8)
-        if injector is not None:
-            raise _not_ported("fault injection (injector=)", 8)
+        if admission == "shed" and max_inflight_frames is None:
+            raise ValueError(
+                'admission="shed" needs a max_inflight_frames bound — '
+                "an unbounded queue never sheds"
+            )
+        if degrade is not None and not isinstance(degrade, DegradePolicy):
+            raise ValueError(f"degrade must be a DegradePolicy, got {type(degrade).__name__}")
+        if injector is not None and not hasattr(injector, "on_dispatch"):
+            raise ValueError(
+                "injector must expose on_dispatch(model=, replica=) — "
+                "see repro_torch.runtime.resilience.FailureInjector"
+            )
         if default_model is None:
             default_model = next(iter(sessions))
         if default_model not in sessions:
@@ -199,6 +373,8 @@ class SRServer:
         self._default = default_model
         self.max_inflight_frames = max_inflight_frames
         self.admission = admission
+        self._degrade = degrade
+        self._injector = injector
         # hosted sessions route their own submit()/upscale() through THIS
         # server: one lock + one scheduler govern all traffic into a session
         for s in sessions.values():
@@ -209,6 +385,12 @@ class SRServer:
                     "session is already served by another SRServer; host each "
                     "session in exactly one server"
                 )
+        # the one CUDA stream every launch of a session runs on, whichever
+        # thread drives the drain (a thread's current stream is its own)
+        self._streams: Dict[int, torch.cuda.Stream] = {
+            id(s): torch.cuda.current_stream(s.device)
+            for s in sessions.values() if s.device.type == "cuda"
+        }
         self._sched = MicroBatchScheduler()
         # one lock guards scheduler + inflight state; the condition lets a
         # thread RELEASE it while waiting on the device
@@ -237,7 +419,7 @@ class SRServer:
         default_model: Optional[str] = None,
         max_inflight_frames: Optional[int] = None,
         admission: str = "block",
-        degrade=None,
+        degrade: Optional[DegradePolicy] = None,
         injector=None,
         seed: int = 0,
         autotune: Union[str, Mapping[str, str], None] = None,
@@ -282,6 +464,13 @@ class SRServer:
         """The hosted session serving ``model`` (default model if None)."""
         return self._sessions[self._resolve_model(model)]
 
+    def device_stream(self, session: SRSession):
+        """A context that makes the server's stream for ``session`` the
+        current one (nothing on the CPU): device work on a session's
+        results — the delta path's splice — runs where its launches ran."""
+        stream = self._streams.get(id(session))
+        return contextlib.nullcontext() if stream is None else torch.cuda.stream(stream)
+
     def scheduler_stats(self) -> dict:
         """The micro-batcher's coalescing/queue counters plus the server's
         in-flight state."""
@@ -293,11 +482,17 @@ class SRServer:
         return stats
 
     def stats(self) -> dict:
-        """Scheduler counters and each hosted session's serving stats."""
-        return {
+        """Scheduler counters, each hosted session's serving stats, and —
+        with a :class:`DegradePolicy` — its level, rolling p99 estimate and
+        transition log."""
+        out = {
             "scheduler": self.scheduler_stats(),
             "models": {name: dict(s.stats()) for name, s in self._sessions.items()},
         }
+        if self._degrade is not None:
+            with self._lock:
+                out["degrade"] = self._degrade.stats()
+        return out
 
     # ------------------------------------------------------------------
     # Admission
@@ -333,17 +528,45 @@ class SRServer:
         dispatch first.  The dispatch runs when the drain loop next turns
         over (``result()``/``flush()``), coalescing whatever compatible
         requests are queued by then.
+
+        ``deadline`` (absolute ``time.monotonic()`` seconds) or ``timeout``
+        (seconds from now; the two are exclusive) bounds how long the
+        request may sit QUEUED: when it passes before the first frame
+        dispatches, the future fails with :class:`DeadlineExceededError` —
+        checked at every admission and drain turn, so an expired request
+        never dispatches.  Once frames are in flight the request runs to
+        completion.
         """
         if self._closed:
             raise RuntimeError("server is closed")
-        if deadline is not None or timeout is not None:
-            raise _not_ported("request deadlines (deadline=/timeout=)", 8)
+        if deadline is not None and timeout is not None:
+            raise ValueError("pass deadline= or timeout=, not both")
+        if timeout is not None:
+            deadline = time.monotonic() + float(timeout)
         name = self._resolve_model(model)
         session = self._sessions[name]
         flat, ndim, lead = session.flatten_request(frames)
+        degraded = False
+        if self._degrade is not None:
+            # the ladder's dispatch dtype applies BEFORE key derivation, so
+            # a degraded request coalesces with (and builds as) bf16 traffic
+            wanted = self._degrade.serve_dtype(flat.dtype)
+            if wanted != flat.dtype:
+                flat = flat.to(wanted)
+                degraded = True
         shape = tuple(int(x) for x in flat.shape[1:])
         n = int(flat.shape[0])
         fut = SRFuture(self)
+        if deadline is not None and time.monotonic() >= deadline:
+            # dead on arrival: fail before plan derivation, let alone a build
+            with self._lock:
+                self._sched.expired += 1
+            fut._finish(exc=DeadlineExceededError(
+                "deadline exceeded on submit: the request's budget elapsed "
+                "before admission"
+            ))
+            fut._run_callbacks()
+            return fut
         plan = session.plan_for(shape, batch_hint=n or None)
         dtype = session.serving_dtype(flat.dtype)
         if n == 0:
@@ -366,10 +589,105 @@ class SRServer:
             future=fut,
             ndim=ndim,
             lead=lead,
+            deadline=deadline,
+        )
+        fut._request = req
+        self._admit(req)
+        if degraded:
+            with self._lock:
+                self._degrade.degraded_requests += 1
+        return fut
+
+    def submit_bands(self, slabs, bands, *, plan, model: Optional[str] = None,
+                     priority: int = 0) -> SRFuture:
+        """Queue a partial-band request (the temporal delta path).
+
+        ``slabs`` is a ``(k, rows, W, C)`` array or tensor of per-band input
+        slabs in the plan's band-input geometry (``rows = R + 2L`` under
+        ``halo``, the ``core.fusion.halo_slabs`` layout; ``R`` otherwise)
+        and ``bands`` the matching strictly increasing band indices.  The
+        future resolves to the ``(k, R*s, W*s, C)`` HR band stack on the
+        session's device.  Band requests ride the same scheduler as frames
+        under a ``"bands"``-suffixed key (queue units are bands, so
+        backpressure and shedding apply unchanged, but a band slab never
+        shares a dispatch with a frame).  The degrade policy's dtype ladder
+        is deliberately NOT applied: the delta path's contract is
+        bit-exactness with a full re-upscale, and a mid-clip downcast would
+        poison the output cache.
+        """
+        if self._closed:
+            raise RuntimeError("server is closed")
+        from repro_torch.engine.temporal.band_diff import band_input_rows
+
+        name = self._resolve_model(model)
+        session = self._sessions[name]
+        bands = tuple(int(b) for b in bands)
+        if not bands:
+            raise ValueError("submit_bands needs at least one band")
+        if any(b2 <= b1 for b1, b2 in zip(bands, bands[1:])):
+            raise ValueError(f"bands must be strictly increasing: {bands}")
+        if bands[0] < 0 or bands[-1] >= plan.num_bands:
+            raise ValueError(f"bands {bands} out of range [0, {plan.num_bands})")
+        flat = slabs if isinstance(slabs, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(slabs))
+        flat = flat.to(session.serving_dtype(flat.dtype))
+        rows = band_input_rows(plan.band_rows, plan.num_layers, plan.vertical_policy)
+        want = (len(bands), rows, plan.width, plan.in_channels)
+        if tuple(flat.shape) != want:
+            raise ValueError(
+                f"band slabs shape {tuple(flat.shape)} != expected {want} for "
+                f"{len(bands)} band(s) of plan {plan.height}x{plan.width} "
+                f"({plan.vertical_policy})"
+            )
+        fut = SRFuture(self)
+        req = SchedRequest(
+            seq=0,  # assigned under the lock in _admit
+            key=(name, plan, session.dtype_name(flat.dtype), "bands"),
+            session=session,
+            plan=plan,
+            flat=flat,
+            n=len(bands),
+            priority=int(priority),
+            future=fut,
+            ndim=4,  # identity assembly: the future gets the raw stack
+            lead=None,
+            bands=bands,
         )
         fut._request = req
         self._admit(req)
         return fut
+
+    def cancel(self, fut: SRFuture) -> bool:
+        """Best-effort cancel of a submitted request (the stream-abandon
+        path).  The queued remainder is dropped — releasing any
+        carry-pinned bucket — and the future fails with
+        :class:`RequestCancelledError`; frames already inside an in-flight
+        dispatch complete on the device and are discarded.  Returns False
+        if the future is already resolved or was never admitted."""
+        req = fut._request
+        if req is None:
+            return False
+        with self._lock:
+            if fut.done():
+                return False
+            req.failed = True
+            self._sched.drop(req)
+            fut._finish(exc=RequestCancelledError("request cancelled by its submitter"))
+            self._just_finished.append(fut)
+            finished = self._take_finished()
+        self._run_finished(finished)
+        return True
+
+    def _expire_locked(self, now: float) -> None:
+        """Cancel queued past-deadline requests (call holding the lock):
+        each fails with :class:`DeadlineExceededError` before dispatching."""
+        for r in self._sched.expire_due(now):
+            r.failed = True
+            r.future._finish(exc=DeadlineExceededError(
+                f"deadline exceeded: {r.n} frames still queued when the "
+                "request's deadline passed (never dispatched)"
+            ))
+            self._just_finished.append(r.future)
 
     def _admit(self, req: SchedRequest) -> None:
         bound = self.max_inflight_frames
@@ -380,13 +698,24 @@ class SRServer:
             )
         while True:
             err: Optional[BaseException] = None
-            admitted = False
+            admitted = done = False
             with self._lock:
+                # expire due work first: a stale queue must not block or
+                # shed live traffic a deadline already freed
+                self._expire_locked(time.monotonic())
                 queued = self._sched.pending_frames + self._inflight_frames
-                if bound is None or queued + req.n <= bound:
-                    req.seq = self._sched.next_seq()
-                    req.admitted_at = time.monotonic()
-                    self._sched.add(req)
+                if req.deadline is not None and time.monotonic() >= req.deadline:
+                    # the budget elapsed while blocked at admission
+                    self._sched.expired += 1
+                    req.failed = True
+                    req.future._finish(exc=DeadlineExceededError(
+                        "deadline exceeded during admission: the queue stayed "
+                        "full past the request's budget"
+                    ))
+                    self._just_finished.append(req.future)
+                    done = True
+                elif bound is None or queued + req.n <= bound:
+                    self._enqueue(req)
                     admitted = True
                 elif self.admission == "reject":
                     self._sched.note_rejected()
@@ -394,20 +723,46 @@ class SRServer:
                         f"queue full: {queued} frames in flight + {req.n} "
                         f"requested > max_inflight_frames={bound}"
                     )
-                elif not (self._sched.has_pending() or self._inflight
-                          or self._completing):
+                elif self.admission == "shed":
+                    victims = self._sched.shed_victims(
+                        queued + req.n - bound, priority=req.priority, deadline=req.deadline)
+                    if victims is None:
+                        # nothing queued ranks below the newcomer: IT takes
+                        # the rejection
+                        self._sched.note_rejected()
+                        err = QueueFullError(
+                            f"queue full: {queued} frames in flight + {req.n} "
+                            f"requested > max_inflight_frames={bound}, and no "
+                            "queued work ranks below the new request"
+                        )
+                    else:
+                        for v in victims:
+                            v.failed = True
+                            v.future._finish(exc=RequestShedError(
+                                f"shed: {v.n} queued frames (priority {v.priority}) "
+                                f"evicted for a priority-{req.priority} request at "
+                                "a full queue"
+                            ))
+                            self._just_finished.append(v.future)
+                        self._enqueue(req)
+                        admitted = True
+                elif not (self._sched.has_pending() or self._inflight or self._completing):
                     raise RuntimeError(
-                        "queue full but no work to drain — "
-                        "inconsistent scheduler state"
+                        "queue full but no work to drain — inconsistent scheduler state"
                     )
                 finished = self._take_finished()
             self._run_finished(finished)
             if err is not None:
                 raise err
-            if admitted:
+            if admitted or done:
                 return
             # block policy: make space by draining (outside the lock)
             self._step()
+
+    def _enqueue(self, req: SchedRequest) -> None:
+        req.seq = self._sched.next_seq()
+        req.admitted_at = time.monotonic()
+        self._sched.add(req)
 
     # ------------------------------------------------------------------
     # The drain loop
@@ -443,7 +798,10 @@ class SRServer:
         inf = None
         progress = True
         with self._cv:
-            d = self._sched.next_dispatch(self._session_ready)
+            # expired work never reaches a build, nor inflates the bucket
+            self._expire_locked(time.monotonic())
+            bucket_fn = self._degrade.bucket_cap if self._degrade is not None else None
+            d = self._sched.next_dispatch(self._session_ready, bucket_fn)
             if d is not None:
                 self._launch(d)  # a launch FAILURE finishes futures
             elif self._inflight:
@@ -452,6 +810,8 @@ class SRServer:
             elif self._completing:
                 self._cv.wait()
             else:
+                # nothing to launch or complete: progress only if expiry
+                # just finished futures
                 progress = bool(self._just_finished)
             finished = self._take_finished()
         self._run_finished(finished)
@@ -485,16 +845,30 @@ class SRServer:
     def _launch(self, d: Dispatch) -> None:
         session: SRSession = d.session
         try:
-            # a cache miss warms the executor on a dummy (and builds the
-            # kernel on first use) before the timed dispatch starts
-            entry, _ = session.executor_for(d.plan, d.bucket, d.tickets[0].request.flat.dtype)
-            slab, used_staging = self._assemble(d)
-            t0 = time.perf_counter()
-            hr = entry.fn(slab)  # asynchronous on CUDA: returns once enqueued
-            event = None
-            if session.device.type == "cuda":
-                event = torch.cuda.Event()
-                event.record(torch.cuda.current_stream(session.device))
+            with self.device_stream(session):
+                dtype = d.tickets[0].request.flat.dtype
+                # a cache miss warms the executor on a dummy (and builds the
+                # kernel on first use) before the timed dispatch starts
+                if d.band_subset is not None:
+                    entry, _ = session.band_executor_for(d.plan, d.bucket, dtype)
+                else:
+                    entry, _ = session.executor_for(d.plan, d.bucket, dtype)
+                if self._injector is not None:
+                    # a raise here fails exactly this dispatch's requests
+                    self._injector.on_dispatch(model=d.key[0], replica=None)
+                if d.band_subset is not None:
+                    slab, bounds = self._assemble_bands(d)
+                    used_staging = False
+                    t0 = time.perf_counter()
+                    hr = entry.fn(slab, bounds)  # asynchronous on CUDA
+                else:
+                    slab, used_staging = self._assemble(d)
+                    t0 = time.perf_counter()
+                    hr = entry.fn(slab)  # asynchronous on CUDA
+                event = None
+                if session.device.type == "cuda":
+                    event = torch.cuda.Event()
+                    event.record(self._streams[id(session)])
             session._dispatch_ms.append((time.perf_counter() - t0) * 1e3)
         except Exception as e:
             self._fail_dispatch(d, e)
@@ -542,11 +916,36 @@ class SRServer:
                 buf[t.slot:t.slot + t.n] = t.request.flat[t.start:t.start + t.n]
             buf[real:] = 0
             return buf.to(device, non_blocking=True), shared
-        pieces = [t.request.flat[t.start:t.start + t.n].to(device) for t in tickets]
-        if real < d.bucket:
-            pieces.append(torch.zeros((d.bucket - real, *pieces[0].shape[1:]),
+        return self._concat_padded(d), False
+
+    @staticmethod
+    def _concat_padded(d: Dispatch) -> torch.Tensor:
+        """The tickets' rows concatenated on the session's device, zero
+        padded to the bucket."""
+        device = d.session.device
+        pieces = [t.request.flat[t.start:t.start + t.n].to(device) for t in d.tickets]
+        if d.real < d.bucket:
+            pieces.append(torch.zeros((d.bucket - d.real, *pieces[0].shape[1:]),
                                       dtype=pieces[0].dtype, device=device))
-        return (pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=0)), False
+        return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=0)
+
+    def _assemble_bands(self, d: Dispatch):
+        """A band dispatch's ``(slab, bounds)`` device pair.
+
+        Band slabs go to the device through a plain (pageable) copy — never
+        the session's pinned frame staging buffer, and never a fresh pinned
+        allocation per dispatch — padded with zero slabs to the bucket.
+        The per-slot valid-row bounds follow from the dispatched band
+        indices (``band_diff.band_bounds``, the ``halo_slabs`` formula);
+        padded slots keep ``(0, 0)``: every row phantom, so a padding slab
+        computes zero features and its HR rows are never read back.
+        """
+        from repro_torch.engine.temporal.band_diff import band_bounds
+
+        plan = d.plan
+        bounds = band_bounds(plan.height, plan.band_rows, plan.num_layers, d.band_subset,
+                             slots=d.bucket)
+        return self._concat_padded(d), torch.from_numpy(bounds).to(d.session.device)
 
     def _finalize_complete(self, inf: _Inflight, error: Optional[BaseException]) -> None:
         """Bookkeeping for a completed (or device-failed) dispatch — runs
@@ -564,11 +963,16 @@ class SRServer:
             self._fail_dispatch(d, error)
             return
         session._complete_ms.append((now - inf.t0) * 1e3)
-        session._frames += d.real
+        if d.band_subset is None:
+            session._frames += d.real
+        else:
+            # partial-band traffic counts band rows of compute, not frames
+            session._band_rows_served += d.real * d.plan.band_rows
+            session._band_dispatches += 1
         for t in d.tickets:
             r = t.request
             if r.failed:
-                continue
+                continue  # cancelled mid-flight: its rows are discarded
             # keyed by the ticket's offset: concurrent drains may finalize
             # a long request's dispatches out of order
             r.pieces.append((t.start, inf.hr[t.slot:t.slot + t.n]))
@@ -586,10 +990,14 @@ class SRServer:
             out = out.reshape(*req.lead, *req.plan.hr_shape)
         req.future._finish(result=out)
         self._just_finished.append(req.future)
+        if self._degrade is not None and req.admitted_at:
+            # end-to-end latency (admission -> resolution) sees queue delay,
+            # which is what overload inflates
+            self._degrade.observe((time.monotonic() - req.admitted_at) * 1e3)
 
     def _fail_dispatch(self, d: Dispatch, exc: BaseException) -> None:
-        """A dispatch failed (build, launch or device error): fail every
-        involved request's future and drop their queued remainders."""
+        """A dispatch failed (build, launch, injected or device error): fail
+        every involved request's future and drop their queued remainders."""
         for r in d.requests:
             if r.failed:
                 continue
@@ -599,11 +1007,79 @@ class SRServer:
             self._just_finished.append(r.future)
 
     # ------------------------------------------------------------------
+    # Streaming
+    # ------------------------------------------------------------------
+    async def stream(self, frames, *, model: Optional[str] = None,
+                     priority: int = 0, lookahead: int = 4,
+                     delta: bool = False, cache_bytes: Optional[int] = None):
+        """Serve an iterable of frames one at a time; yields HR frames (on
+        the session's device) in order — ``async for hr in
+        server.stream(...)``.
+
+        ``lookahead`` frames are submitted ahead of the one being awaited,
+        which keeps the micro-batcher's queue non-empty: a stream coalesces
+        its own lookahead window into full buckets, and concurrent streams
+        share dispatches.  Waiting happens off the event loop
+        (``asyncio.to_thread``), so streams interleave.  Under a
+        :class:`DegradePolicy` at level >= 2 the window is halved, re-read
+        every turn.
+
+        ``delta=True`` serves the clip through a
+        :class:`~repro_torch.engine.temporal.DeltaSession`: each frame is
+        band-diffed against the previous one, only dirty bands dispatch,
+        and clean bands splice from the session's output cache, bit-exact
+        with a full re-upscale.  Delta streams are sequential (frame k's
+        dirty set needs frame k-1's digests), so ``lookahead`` does not
+        apply; ``cache_bytes`` bounds the output cache.  Abandoning either
+        kind of stream (closing the generator mid-clip) cancels its pending
+        requests and releases its cache pins.
+        """
+        import asyncio
+
+        if delta:
+            from repro_torch.engine.temporal import DeltaSession
+
+            ds = DeltaSession(self.session(model), server=self,
+                              priority=priority, cache_bytes=cache_bytes)
+            try:
+                for frame in frames:
+                    yield await asyncio.to_thread(ds.serve, frame)
+            finally:
+                ds.close()
+            return
+
+        base = max(1, int(lookahead))
+        pending: Deque[SRFuture] = deque()
+        it = iter(frames)
+        exhausted = False
+        try:
+            while pending or not exhausted:
+                window = self._degrade.lookahead(base) if self._degrade is not None else base
+                while not exhausted and len(pending) < window:
+                    try:
+                        frame = next(it)
+                    except StopIteration:
+                        exhausted = True
+                        break
+                    # submit off the loop too: a full bounded queue under
+                    # admission="block" drains (device waits) until space
+                    pending.append(await asyncio.to_thread(
+                        self.submit, frame, model=model, priority=priority))
+                if pending:
+                    fut = pending.popleft()
+                    yield await asyncio.to_thread(fut.result)
+        finally:
+            # abandoned mid-clip: drop the lookahead window's queued frames
+            while pending:
+                self.cancel(pending.popleft())
+
+    # ------------------------------------------------------------------
     # Lifecycle
     # ------------------------------------------------------------------
     def close(self) -> None:
         """Drain outstanding work, refuse further submits, and release the
-        hosted sessions so a successor server may host them."""
+        hosted sessions so a successor server may host them (their caches
+        carry over)."""
         self.flush()
         self._closed = True
         for s in self._sessions.values():

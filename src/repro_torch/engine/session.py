@@ -16,6 +16,9 @@
 * ``submit``/``upscale`` route through an :class:`SRServer` (the hosting
   one, or an embedded single-model server), which pipelines up to
   ``pipeline_depth`` dispatches per session.
+* Temporal delta serving (``engine.temporal``) dispatches band subsets
+  through :meth:`SRSession.band_executor_for` and keeps the HR bands it
+  can splice again in the session's :meth:`SRSession.output_cache`.
 
 The session runs on ``device`` — the CUDA card unless the caller passes
 ``device="cpu"``; with no ``device`` and no CUDA, construction raises.
@@ -33,6 +36,7 @@ import torch
 
 from repro_torch.engine.executor import (
     PreparedStack,
+    build_band_executor,
     build_stack_executor,
     default_device,
     output_spec,
@@ -315,6 +319,22 @@ class SRSession:
         self._span_s = 0.0
         self._frames = 0
         self._peak_inflight = 0
+        # temporal delta serving: partial-band dispatch counters (bumped by
+        # the server at completion), the per-frame reuse accounting
+        # DeltaSession keeps, and the output cache (made on first use)
+        self._band_rows_served = 0
+        self._band_dispatches = 0
+        self._temporal_counts: Dict[str, int] = {
+            "frames": 0,
+            "bands_total": 0,
+            "bands_skipped": 0,
+            "band_rows_total": 0,
+            "band_rows_served": 0,
+            "hbm_bytes_full": 0,
+            "hbm_bytes_served": 0,
+            "cover_violations": 0,
+        }
+        self._output_cache = None
         # the SRServer submit()/upscale() serve through (set by the first
         # server that hosts this session, else created on first submit)
         self._server = None
@@ -524,8 +544,52 @@ class SRSession:
         self._cache.put(key, entry)
         return entry, True
 
-    def band_executor_for(self, plan: SRPlan, bucket: int, dtype):
-        raise _not_ported("partial-band serving (temporal delta)", 9)
+    def band_executor_for(self, plan: SRPlan, bucket: int, dtype) -> Tuple[_CacheEntry, bool]:
+        """The partial-band executor for ``(plan, bucket, dtype)`` — the
+        temporal delta path's ``(bucket, rows, W, C) slabs + (bucket, 2)
+        bounds -> HR bands`` — and whether it was built now.
+
+        Lives in the same :class:`PlanCache` under a ``"bands"``-suffixed
+        key with the same refcounted weight-stack sharing, warmed on zero
+        slabs and zero bounds (every row phantom) like the frame path.
+        """
+        if plan.backend == "reference":
+            raise ValueError(
+                "partial-band serving needs a banded backend (tilted or "
+                "kernel); the reference backend computes whole frames"
+            )
+        from repro_torch.engine.temporal.band_diff import band_input_rows
+
+        dtype = self.serving_dtype(dtype)
+        key = (*self.cache_key(plan, bucket, dtype), "bands")
+        entry = self._cache.get(key)
+        if entry is not None:
+            return entry, False
+        stack, skey = self._acquire_stack(plan)
+        try:
+            fn = build_band_executor(plan, stack)
+            rows = band_input_rows(plan.band_rows, plan.num_layers, plan.vertical_policy)
+            dummy = torch.zeros((bucket, rows, plan.width, plan.in_channels), dtype=dtype,
+                                device=self.device)
+            dbounds = torch.zeros((bucket, 2), dtype=torch.int32, device=self.device)
+            t0 = time.perf_counter()
+            fn(dummy, dbounds)
+            _synchronize(self.device)
+            compile_s = time.perf_counter() - t0
+        except BaseException:
+            self._release_stack(skey)
+            raise
+        entry = _CacheEntry(
+            fn=fn,
+            plan=plan,
+            bucket=int(bucket),
+            dtype=self.dtype_name(dtype),
+            compile_s=compile_s,
+            stack_key=skey,
+        )
+        self._compile_counts[key] = self._compile_counts.get(key, 0) + 1
+        self._cache.put(key, entry)
+        return entry, True
 
     def output_dtype(self, plan: SRPlan, dtype) -> torch.dtype:
         """The dtype the executor emits for ``dtype`` input."""
@@ -682,7 +746,10 @@ class SRSession:
         return stats
 
     def stats(self, **extra) -> StreamStats:
-        """Steady-state serving stats (warm-up and weight prep excluded)."""
+        """Steady-state serving stats (warm-up and weight prep excluded),
+        with a ``temporal`` section once delta frames were served."""
+        if self._temporal_counts["frames"] and "temporal" not in extra:
+            extra["temporal"] = self.temporal_stats()
         return latency_stats(
             self._complete_ms,
             self._frames,
@@ -693,10 +760,52 @@ class SRSession:
         )
 
     def output_cache(self, max_bytes: Optional[int] = None):
-        raise _not_ported("the temporal output-band cache", 9)
+        """The session's HR output-band cache (temporal delta serving),
+        created on first use.  ``max_bytes`` only applies at creation —
+        later callers share whatever bound the first one set."""
+        if self._output_cache is None:
+            from repro_torch.engine.temporal.output_cache import (
+                DEFAULT_CACHE_BYTES,
+                OutputBandCache,
+            )
+
+            self._output_cache = OutputBandCache(
+                max_bytes=DEFAULT_CACHE_BYTES if max_bytes is None else max_bytes
+            )
+        return self._output_cache
 
     def temporal_stats(self) -> dict:
-        raise _not_ported("temporal delta serving stats", 9)
+        """Delta-serving counters (the ``temporal`` section of :meth:`stats`).
+
+        ``reuse_ratio`` is spliced-from-cache bands over all bands of
+        delta-served frames; ``band_rows_*`` count LR rows of conv-stack
+        compute.  ``effective_hbm_bytes_per_frame`` models the paper's
+        DRAM-traffic metric for the delta path: the LR slab bytes
+        dispatched plus the HR band bytes written, per frame, weights
+        excluded — next to ``full_hbm_bytes_per_frame``, the same model for
+        a full re-upscale.
+        """
+        t = self._temporal_counts
+        frames = t["frames"]
+        total = t["bands_total"]
+        out = {
+            "frames": frames,
+            "bands_total": total,
+            "bands_skipped": t["bands_skipped"],
+            "reuse_ratio": t["bands_skipped"] / total if total else 0.0,
+            "band_rows_total": t["band_rows_total"],
+            "band_rows_served": t["band_rows_served"],
+            "band_dispatches": self._band_dispatches,
+            # the server's count across ALL partial dispatches (any
+            # submit_bands caller), beside the delta accounting above
+            "band_rows_dispatched": self._band_rows_served,
+            "effective_hbm_bytes_per_frame": t["hbm_bytes_served"] / frames if frames else 0.0,
+            "full_hbm_bytes_per_frame": t["hbm_bytes_full"] / frames if frames else 0.0,
+            "cover_violations": t["cover_violations"],
+        }
+        if self._output_cache is not None:
+            out["cache"] = self._output_cache.stats()
+        return out
 
     def reset_stats(self) -> None:
         self._dispatch_ms.clear()
@@ -704,3 +813,7 @@ class SRSession:
         self._span_s = 0.0
         self._frames = 0
         self._peak_inflight = 0
+        self._band_rows_served = 0
+        self._band_dispatches = 0
+        for k in self._temporal_counts:
+            self._temporal_counts[k] = 0

@@ -233,3 +233,49 @@ def test_k2_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         tk2.conv3x3_call(x.half(), w.half(), b.half())
     assert tk2.conv3x3_call.launches == launches
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_k2_holds_the_jax_dtype_tolerance(cuda, dtype):
+    """Twin of the JAX package's ``test_conv3x3_dtypes``: Ci = Co = 8, zero
+    bias, ReLU, held to its stricter ``atol = rtol = 1e-5`` in fp32 (2e-2 in
+    bf16) against the plain version."""
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.uniform(size=(20, 24, 8)).astype(np.float32)).to(dtype)
+    w = torch.from_numpy((rng.normal(size=(3, 3, 8, 8)) * 0.2).astype(np.float32)).to(dtype)
+    b = torch.zeros((8,), dtype=dtype)
+    want = tk2.conv3x3_plain(x, w, b)
+    got = tk2.conv3x3_call(x.to(cuda), w.to(cuda), b.to(cuda))
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    np.testing.assert_allclose(got.cpu().float().numpy(), want.float().numpy(),
+                               atol=tol, rtol=tol)
+
+
+# ----------------------------------------------------------------------
+# The temporal delta path on the card: partial-band K1 dispatches
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("policy", ["zero", "replicate", "halo"])
+def test_delta_session_on_the_card_is_bit_exact(cuda, policy):
+    """Frames served through DeltaSession (dirty bands through K1 as
+    partial-band dispatches, clean bands spliced on the card) equal a full
+    re-upscale of each frame bit for bit."""
+    from repro_torch.engine.temporal import DeltaSession
+
+    layers = init_abpn(torch.Generator().manual_seed(0))
+    session = engine.SRSession(layers, backend="kernel", band_rows=20,
+                               vertical_policy=policy, device=cuda)
+    rng = np.random.default_rng(5)
+    f0 = rng.uniform(size=(120, 64, 3)).astype(np.float32)
+    f2 = f0.copy()
+    f2[45:47] += 0.25  # band 2
+    clip = [f0, f0.copy(), f2, rng.uniform(size=(120, 64, 3)).astype(np.float32)]
+    before = ttf.tilted_fusion_call.launches
+    with DeltaSession(session) as ds:
+        for frame in clip:
+            out = ds.serve(frame)
+            assert out.device.type == "cuda"
+            assert torch.equal(out, session.upscale(frame))
+    assert ttf.tilted_fusion_call.launches > before
+    t = session.temporal_stats()
+    assert t["bands_skipped"] == 6 + (6 - (1 if policy != "halo" else 3))
+    assert t["cover_violations"] == 0 and t["cache"]["pinned"] == 0

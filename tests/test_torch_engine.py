@@ -153,12 +153,18 @@ def test_session_validation_and_unported_options():
                          (dict(strict=True), "item 12")):
         with pytest.raises(ValueError, match=item):
             tengine.SRSession(TLAYERS, scale=2, device="cpu", **kwargs)
-    with pytest.raises(ValueError, match="item 9"):
-        session.band_executor_for(None, 1, torch.float32)
-    with pytest.raises(ValueError, match="item 8"):
-        session.submit(np.zeros((8, 8, 3), np.float32), timeout=1.0)
-    with pytest.raises(ValueError, match="item 8"):
-        tengine.SRServer(session, admission="shed")
+    # the temporal and front-door options (items 8 and 9) now work
+    plan = session.plan_for((8, 8, 3))
+    entry, built = session.band_executor_for(plan, 1, torch.float32)
+    assert built and session.band_executor_for(plan, 1, torch.float32) == (entry, False)
+    slabs = torch.zeros((1, plan.band_rows, 8, 3))
+    assert tuple(entry.fn(slabs, torch.zeros((1, 2), dtype=torch.int32)).shape) == \
+        (1, 2 * plan.band_rows, 16, 3)
+    served = session.submit(np.zeros((8, 8, 3), np.float32), timeout=60.0).result()
+    assert tuple(served.shape) == (16, 16, 3)
+    other = tengine.SRSession(TLAYERS, scale=2, device="cpu")
+    shed = tengine.SRServer(other, admission="shed", max_inflight_frames=4)
+    assert shed.admission == "shed" and shed.max_inflight_frames == 4
 
 
 def test_scheduler_matches_jax_on_the_same_traffic():
