@@ -55,6 +55,20 @@ exits non-zero (nothing is caught):
    zero): a request past its deadline fails while its neighbour serves, an
    injected dispatch failure fails only its request, and degrade level 1
    serves fp32 requests in bf16 within 5e-2 of ``tilted``;
+4d. autotune and static analysis — ``RooflinePeaks.detect`` on the card
+   (printed beside the data-sheet ``PEAKS``); ``engine.autotune.tune`` for
+   fp32 ``halo`` at batch 8 on the ``kernel`` backend at 360x640: every
+   candidate's predicted and measured ms per frame, the winner, default vs
+   tuned ms per frame (the tuned must not be slower) and the sweep's
+   seconds; a ``halo`` session at every candidate ``band_rows`` must equal
+   the default's output bit for bit in fp32 and bf16; a server opened with
+   ``autotune="full"`` (a tuning sweep on its first request) must serve
+   that request bit-identical to an ``autotune="off"`` server; the tuned
+   sessions' program audit and ``analysis_report()`` (the lint, the plan
+   grid, and the program sweep with the ``kernel`` backend in fp32, bf16
+   and int8) must hold no error; K1's launch counter, zeroed just before,
+   must move.  The tuning DBs are ``build/chip_smoke_tuning*.json``, made
+   afresh each run;
 5. times — CUDA events, median of repeats after warm-up.  K1 at 1 and 8
    frames (fp32 and bf16, automatic segment plan: its segments, CTAs,
    warm-up tiles and their share of the executed tiles) four ways: one
@@ -83,6 +97,7 @@ exits non-zero (nothing is caught):
 Exits 2 and prints no result when no CUDA device is present.
 """
 
+import dataclasses
 import json
 import os
 import re
@@ -212,6 +227,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; nothing was run", file=sys.stderr)
         return 2
+
+    # the port's tuning DB for this run, inside the checkout and made afresh
+    # (sessions default to autotune="cached" and would read the user's)
+    tuning_db = os.path.join(ROOT, "build", "chip_smoke_tuning.json")
+    os.makedirs(os.path.dirname(tuning_db), exist_ok=True)
+    if os.path.exists(tuning_db):
+        os.remove(tuning_db)
+    os.environ["REPRO_SR_TORCH_TUNING_DB"] = tuning_db
 
     from repro_torch import engine
     from repro_torch.core.fusion import ConvLayer, conv_stack_reference, exact_fp32, halo_slabs
@@ -650,6 +673,123 @@ def main() -> int:
     require(delta_launches > 0, "the delta path never launched K1")
 
     # ------------------------------------------------------------------
+    phase("4d. autotune and static analysis (engine.autotune, repro_torch.analysis)")
+    from repro_torch.analysis import program_audit
+    from repro_torch.analysis import sweep as analysis_sweep
+    from repro_torch.engine import autotune
+
+    kcall.launches = 0  # count this path's launches only
+    k2call.launches = 0
+    t0 = time.perf_counter()
+    detected = autotune.RooflinePeaks.detect(dev)
+    calib_s = time.perf_counter() - t0
+    print(f"RooflinePeaks.detect on {smi}: fp32 {detected.flops_per_s / 1e12:.2f} TFLOP/s "
+          f"(SM count x 128 lanes x 2 x the SM clock timed over a spin), memory "
+          f"{detected.hbm_bytes_per_s / 1e12:.3f} TB/s (a timed 256 MiB device-to-device "
+          f"copy), cache {detected.cache_bytes / 2**20:.0f} MiB (L2) in {calib_s:.2f} s; "
+          f"data sheet (PEAKS, for bounds): fp32 {peak_flops / 1e12:.0f} TFLOP/s, memory "
+          f"{peak_bw / 1e12:.2f} TB/s")
+    require(0.3 * peak_flops < detected.flops_per_s < 1.5 * peak_flops
+            and 0.3 * peak_bw < detected.hbm_bytes_per_s < 1.5 * peak_bw,
+            "the calibrated peaks must be within reach of the data sheet's")
+    tune_plan = engine.SRPlan.from_request((H, W, 3), num_layers=L, vertical_policy="halo",
+                                           backend="kernel", precision="fp32", scale=SCALE)
+    db = autotune.TuningDB(tuning_db)
+    t0 = time.perf_counter()
+    tuned = autotune.tune(layers, tune_plan, 8, db=db, peaks=detected)
+    tune_s = time.perf_counter() - t0
+    cands = tuned.candidates
+    for c in cands:
+        print(f"  candidate band_rows={c.band_rows} bucket={c.bucket} depth={c.pipeline_depth}"
+              f"{' (default)' if c.is_default else ''}: predicted {c.predicted_ms:.4f} ms/frame, "
+              + ("pruned" if c.pruned else f"measured {c.measured_ms:.4f} ms/frame"))
+    print(f"tune [fp32, halo, batch 8, {H}x{W}, kernel]: winner band_rows={tuned.band_rows} "
+          f"depth={tuned.pipeline_depth} bucket={tuned.bucket} ({tuned.bucket_policy}): "
+          f"{tuned.measured_ms:.4f} ms/frame against the default's {tuned.default_ms:.4f} "
+          f"(x{tuned.speedup:.4f}); {sum(not c.pruned for c in cands)} of {len(cands)} "
+          f"candidates measured; sweep {tune_s:.2f} s")
+    require(tuned.measured_ms <= tuned.default_ms, "the tuned schedule must not be slower")
+    require(db.get(autotune.TuningKey.from_plan(tune_plan, 8), device=dev) is not None,
+            "the winner must be in the DB, stamped for this card")
+
+    # every candidate band_rows is bit-identical to the default's under halo
+    trng = np.random.default_rng(6)
+    halo_frames = trng.uniform(size=(2, H, W, 3)).astype(np.float32)
+    band_choices = sorted({c.band_rows for c in cands})
+    halo_equal = {}
+    for prec in ("fp32", "bf16"):
+        outs = {}
+        for band in band_choices:
+            p = dataclasses.replace(tune_plan, band_rows=band, precision=prec)
+            outs[band] = engine.SRSession.from_plan(p, layers, autotune="off").upscale(
+                halo_frames)
+        base = outs[engine.derive_band_rows(H)]
+        for band, out in outs.items():
+            require(bool(torch.isfinite(out.float()).all()), f"halo {prec} R={band}: non-finite")
+            require(torch.equal(out, base), f"halo {prec}: band_rows={band} differs from the "
+                    f"default's output")
+        halo_equal[prec] = band_choices
+        print(f"halo [{prec}]: band_rows {band_choices} bit-identical to the default "
+              f"({engine.derive_band_rows(H)}) on 2 frames of {H}x{W}")
+
+    # autotune="full" on a DB of its own (the sweep above would answer its
+    # lookup as the nearest tuned batch): the first request runs a sweep,
+    # then serves exactly
+    req = trng.uniform(size=(4, H, W, 3)).astype(np.float32)
+    full_db = os.path.join(ROOT, "build", "chip_smoke_tuning_full.json")
+    if os.path.exists(full_db):
+        os.remove(full_db)
+    full = engine.SRServer.open("abpn_x3", backend="kernel", vertical_policy="halo",
+                                layers=layers, autotune="full", tuning_db=full_db)
+    t0 = time.perf_counter()
+    hr_full = full.submit(req).result()
+    torch.cuda.synchronize()
+    first_request_s = time.perf_counter() - t0
+    full_stats = full.session().tuning_stats()
+    full_plan = full.session().plan_for((H, W, 3))
+    off = engine.SRServer.open("abpn_x3", backend="kernel", vertical_policy="halo",
+                               layers=layers, autotune="off")
+    hr_off = off.submit(req).result()
+    require(full_stats["tuned_now"] == 1 and full_stats["misses"] == 1,
+            f"autotune='full' must tune on its first miss: {full_stats}")
+    require(torch.equal(hr_full, hr_off), "the autotune='full' server must serve exactly what "
+            "the autotune='off' server serves")
+    audit_tuned = program_audit.audit_session(full.session())
+    full.close()
+    off.close()
+    print(f"server autotune='full' [fp32, halo, 4 frames]: first request {first_request_s:.2f} s "
+          f"with the sweep (band_rows={full_plan.band_rows}, depth "
+          f"{full_stats['pipeline_depth']}, exact buckets {full_stats['exact_buckets']}); output "
+          f"bit-identical to autotune='off'; its program audit: "
+          f"{[f.format() for f in audit_tuned] or 'clean'}")
+    require(not [f for f in audit_tuned if f.severity == "error"], "tuned session audit")
+
+    t0 = time.perf_counter()
+    report = analysis_sweep.analysis_report(device=dev)
+    report_s = time.perf_counter() - t0
+    print(f"analysis_report(device=cuda) in {report_s:.1f} s (program sweep: "
+          f"{list(analysis_sweep.PROGRAM_SWEEP_CONFIGS + analysis_sweep.CARD_SWEEP_CONFIGS)}"
+          f"): {json.dumps(report)}")
+    require(report["clean"], "analysis_report must hold no error finding")
+    autotune_launches = kcall.launches
+    print(f"autotune/analysis path K1 launches: {autotune_launches}, K2 launches: "
+          f"{k2call.launches}")
+    require(autotune_launches > 0, "the autotune path never launched K1")
+    autotune_path = {
+        "launches": autotune_launches,
+        "peaks": dataclasses.asdict(detected), "calibration_s": calib_s,
+        "tune": {"winner": {"band_rows": tuned.band_rows, "depth": tuned.pipeline_depth,
+                            "bucket": tuned.bucket},
+                 "default_ms_per_frame": tuned.default_ms,
+                 "tuned_ms_per_frame": tuned.measured_ms, "speedup": tuned.speedup,
+                 "sweep_s": tune_s,
+                 "candidates": [dataclasses.asdict(c) for c in cands]},
+        "halo_bit_identical_band_rows": halo_equal,
+        "full_first_request_s": first_request_s,
+        "analysis_report": report,
+    }
+
+    # ------------------------------------------------------------------
     phase("5. times (CUDA events, median of repeats after warm-up)")
     packed = ops.pack_stack(layers, dtype=torch.float32)
     packed16 = ops.pack_stack([l.to(dtype=torch.bfloat16) for l in layers], dtype=torch.bfloat16)
@@ -1013,7 +1153,7 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/tilted_fusion.cu",
         "replaces": "src/repro/kernels/tilted_fusion.py:208",
-        "launches": main_launches + delta_launches,
+        "launches": main_launches + delta_launches + autotune_launches,
         "max_abs_err": worst["fp32"],
         "max_abs_err_bf16": worst["bf16"],
         "ms": t8["k1"]["ms"],
@@ -1044,6 +1184,7 @@ def main() -> int:
         "bytes_per_frame": timings[1]["bytes"],
         "server_fps": server_fps,
         "main_path": per_config,
+        "autotune_path": autotune_path,
         "delta_path": {"launches": delta_launches, "configs": delta_configs,
                        "k1_vs_plain": delta_k1, "hardening": hardening,
                        "full_frame_ms": full_frame_ms, "frame_ms": delta_times,

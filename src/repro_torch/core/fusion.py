@@ -233,6 +233,10 @@ def halo_slabs(frames: torch.Tensor, band_rows: int, num_layers: int):
     are real image content (``[lo, hi)`` in slab coordinates).  Rows outside
     the bounds are phantom and must be re-zeroed after every conv layer;
     cropping L rows per side afterwards reproduces the full-image result.
+
+    The bounds are computed on the frames' device: a host array copied
+    there would make torch synchronize the stream after the pageable copy,
+    inside every halo dispatch.
     """
     N, H, W, C0 = frames.shape
     R, L = band_rows, num_layers
@@ -240,14 +244,11 @@ def halo_slabs(frames: torch.Tensor, band_rows: int, num_layers: int):
     slab = R + 2 * L
     padded = F.pad(frames, (0, 0, 0, 0, L, L))
     slabs = torch.stack([padded[:, b * R : b * R + slab] for b in range(B)], dim=1)
-    starts = np.arange(B) * R
-    lo = np.clip(L - starts, 0, slab)
-    hi = np.clip(L + H - starts, 0, slab)
-    bounds = np.tile(np.stack([lo, hi], axis=1), (N, 1)).astype(np.int32)
-    return (
-        slabs.reshape(N * B, slab, W, C0),
-        torch.as_tensor(bounds, device=frames.device),
-    )
+    starts = torch.arange(B, device=frames.device) * R
+    lo = (L - starts).clamp(0, slab)
+    hi = (L + H - starts).clamp(0, slab)
+    bounds = torch.stack([lo, hi], dim=1).repeat(N, 1).to(torch.int32)
+    return slabs.reshape(N * B, slab, W, C0), bounds
 
 
 # ----------------------------------------------------------------------

@@ -23,6 +23,13 @@ dispatches, and splices clean bands from a bounded refcounted
 :class:`OutputBandCache` on the device — bit-exact with a full re-upscale
 (``session.stats()['temporal']``).
 
+Schedules are TUNED: the autotuner (autotune.py) sweeps the legal
+schedule space (halo band heights, pipeline depth, bucket rounding),
+prunes on an analytic roofline, measures the survivors on the device and
+persists winners in a JSON :class:`TuningDB`; sessions consult it on cold
+start (``SRSession.open(..., autotune="off"|"cached"|"full")``, default
+``"cached"``).
+
 Underneath: ``SRPlan`` (plan.py) describes one execution — geometry,
 numerics, boundary policy, backend — and ``run`` (executor.py) runs it
 over a batch of LR frames.  The ``kernel`` backend launches the
@@ -31,6 +38,13 @@ unless the caller passes ``device="cpu"``.  ``VideoStream`` (stream.py)
 is a deprecated fixed-batch shim over a pinned session.
 """
 
+from repro_torch.engine.autotune import (
+    PlanTuner,
+    TuningDB,
+    TuningEntry,
+    TuningKey,
+    tune,
+)
 from repro_torch.engine.executor import (
     OutputSpec,
     PreparedStack,
@@ -38,6 +52,7 @@ from repro_torch.engine.executor import (
     build_stack_executor,
     compute_dtype_for,
     default_device,
+    executor_artifacts,
     output_spec,
     prepare_layers,
     prepare_stack,
@@ -102,6 +117,11 @@ __all__ = [
     "legal_band_rows",
     "shardable_band_rows",
     "AUTOTUNE_MODES",
+    "PlanTuner",
+    "TuningDB",
+    "TuningEntry",
+    "TuningKey",
+    "tune",
     "BACKENDS",
     "PRECISIONS",
     "VERTICAL_POLICIES",
@@ -110,6 +130,7 @@ __all__ = [
     "build_stack_executor",
     "compute_dtype_for",
     "default_device",
+    "executor_artifacts",
     "output_spec",
     "prepare_layers",
     "prepare_stack",

@@ -49,6 +49,7 @@ __all__ = [
     "build_stack_executor",
     "compute_dtype_for",
     "default_device",
+    "executor_artifacts",
     "output_spec",
     "run",
     "sr_epilogue",
@@ -319,6 +320,145 @@ def build_band_executor(
     if plan.backend == "reference":
         raise ValueError("reference backend cannot serve partial-band dispatches")
     return functools.partial(_execute_band_stack, plan, stack)
+
+
+# ----------------------------------------------------------------------
+# What one serving call runs (the program audit's input)
+# ----------------------------------------------------------------------
+# Runtime calls that make the host wait for the card.
+SYNC_CALLS = frozenset({"cudaDeviceSynchronize", "cudaStreamSynchronize",
+                        "cudaEventSynchronize", "cudaMemcpy", "cudaMemcpy2D"})
+_CALL_MARK = "repro_torch::executor_call"
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, (list, tuple)):
+        for t in tree:
+            yield from _tensors(t)
+    elif isinstance(tree, dict):
+        for t in tree.values():
+            yield from _tensors(t)
+
+
+def _record_ops(fn) -> List[dict]:
+    """The aten ops one call of ``fn`` dispatches, in order: ``op``
+    (``aten.<name>``), ``dtypes`` (of its tensor outputs), ``to_host`` (a
+    tensor on an accelerator in, a tensor on the CPU out) and ``from_host``
+    (a tensor on the CPU in, a tensor on an accelerator out)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    ops: List[dict] = []
+
+    class _Recorder(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            ins = {t.device.type for t in _tensors((args, kwargs or {}))}
+            outs = list(_tensors(out))
+            out_devs = {t.device.type for t in outs}
+            ops.append({
+                "op": str(func.overloadpacket),
+                "dtypes": [str(t.dtype).replace("torch.", "") for t in outs],
+                "to_host": bool(ins - {"cpu"}) and "cpu" in out_devs,
+                "from_host": "cpu" in ins and bool(out_devs - {"cpu"}),
+            })
+            return out
+
+    with _Recorder():
+        fn()
+    return ops
+
+
+def _profile_call(fn, device: torch.device) -> dict:
+    """What ``torch.profiler`` records for one call of ``fn`` on the card:
+    ``kernels`` (device kernel names), ``memcpy`` (device copy kinds, e.g.
+    ``Memcpy DtoH (Device -> Pageable)``) and ``syncs`` (the runtime calls
+    in :data:`SYNC_CALLS` the call made).
+
+    The card is idle when the window opens, so every device event in it is
+    the call's; of the runtime calls, only those inside the call's own
+    ``record_function`` span count — the profiler's, and the synchronize
+    that closes the window, fall outside it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function(_CALL_MARK):
+            fn()
+        torch.cuda.synchronize(device)
+    events = list(prof.events())
+    marks = [e for e in events if e.name == _CALL_MARK and e.device_type == DeviceType.CPU]
+    if len(marks) != 1:
+        raise RuntimeError(f"the profiler recorded {len(marks)} spans of the call, not 1")
+    lo, hi = marks[0].time_range.start, marks[0].time_range.end
+    # the call's own span is projected onto the device as well: not a kernel
+    device_events = [e.name for e in events
+                     if e.device_type == DeviceType.CUDA and e.name != _CALL_MARK]
+    if not device_events:
+        raise RuntimeError("torch.profiler recorded no device activity for the call")
+    return {
+        "kernels": [n for n in device_events if not n.startswith(("Memcpy", "Memset"))],
+        "memcpy": [n for n in device_events if n.startswith("Memcpy")],
+        "syncs": [e.name for e in events if e.device_type == DeviceType.CPU
+                  and e.name in SYNC_CALLS
+                  and lo <= e.time_range.start and e.time_range.end <= hi],
+    }
+
+
+def executor_artifacts(
+    plan: SRPlan,
+    stack: Optional[PreparedStack],
+    batch: int,
+    dtype=torch.float32,
+    *,
+    layers: Optional[Sequence[ConvLayer]] = None,
+    compiled: bool = True,
+) -> dict:
+    """What one call of the serving executor (``_execute_stack``) runs for a
+    ``(batch, *lr_shape)`` batch of ``dtype`` — what
+    ``repro_torch.analysis.program_audit`` scans for forbidden patterns
+    (quant ops, host transfers and waits, silent upcasts, builds):
+
+    * ``ops`` — the aten ops of one call, recorded with a
+      ``TorchDispatchMode``, with their output dtypes.  On the card K1 and
+      K2 are ctypes launches, so they do not appear here.
+    * ``kernels`` — with ``compiled=True`` and the stack on the card, the
+      device kernels, memcpy kinds and synchronizing runtime calls that
+      ``torch.profiler`` records for one more call; else ``None``.
+    * ``builds`` — on the card, the kernel libraries the first call loaded
+      (``(kernel, compiled by nvcc)``): a warmed executor loads none; on
+      the CPU ``None``.
+
+    Pass ``stack`` to audit exactly what serving runs; pass ``layers`` with
+    ``stack=None`` to prepare the stack here.  The input is a zero batch on
+    the stack's device.
+    """
+    if stack is None:
+        if layers is None:
+            raise ValueError("need a PreparedStack or raw layers")
+        stack = prepare_stack(plan, layers)
+    device = stack.layers[0].w.device
+    frames = torch.zeros((int(batch), *plan.lr_shape), dtype=dtype, device=device)
+
+    def call():
+        return _execute_stack(plan, stack, frames)
+
+    on_card = device.type == "cuda"
+    if on_card:
+        from repro_torch.kernels import _build
+
+        before = len(_build.load_log())
+    ops = _record_ops(call)
+    return {
+        "plan": plan,
+        "batch": int(batch),
+        "dtype": str(dtype).replace("torch.", ""),
+        "ops": ops,
+        "kernels": _profile_call(call, device) if compiled and on_card else None,
+        "builds": _build.load_log()[before:] if on_card else None,
+    }
 
 
 @dataclasses.dataclass(frozen=True)

@@ -226,12 +226,15 @@ class SRPlan:
         self.schedule.check_invariants()
 
     def verify(self, **kwargs):
-        """Static plan verification lives in the analysis subsystem, which
-        this package has not ported yet (ROADMAP queue 1, item 12)."""
-        raise NotImplementedError(
-            "SRPlan.verify needs the static-analysis subsystem, not yet "
-            "ported to repro_torch (ROADMAP queue 1, item 12)"
-        )
+        """Statically verify this plan (band coverage, halo sufficiency, the
+        Hopper kernels' shared memory, the Table II budget) and return the
+        list of :class:`~repro_torch.analysis.findings.Finding` diagnostics —
+        empty when clean.  Keyword overrides (``channels``, ``budget_kb``,
+        ``halo_margin``, ``band_shards``) pass through to
+        :func:`repro_torch.analysis.plan_check.verify_plan`."""
+        from repro_torch.analysis.plan_check import verify_plan  # lazy: no cycle
+
+        return verify_plan(self, **kwargs)
 
     # ------------------------------------------------------------------
     # Construction from a serving request

@@ -32,9 +32,10 @@
   dispatch it targets.
 
 Execution is a pipelined drain loop: each dispatch is assembled (host
-frames through the session's one reused, pinned staging buffer and an
-asynchronous copy; band slabs and device frames through one copy and a
-concatenate), launched, and completed in order, with up to
+frames and band slabs are copied into pinned memory once, on the
+submitting thread, so a dispatch uploads them asynchronously and the launch
+never waits for the card; the pieces are concatenated and zero padded on
+the device), launched, and completed in order, with up to
 ``session.pipeline_depth`` dispatches in flight per session.  Every launch
 of a CUDA session runs on ONE stream the server names when it takes the
 session (the constructing thread's current stream), whichever thread
@@ -284,6 +285,12 @@ class SRFuture:
             self._result = result
             self._exc = exc
             self._done = True
+            # the request refers back to this future: drop it here, so the
+            # pair is freed by its last reference and not by the cycle
+            # collector.  It holds the pinned host frames, and a batch held
+            # that long makes the next request pin fresh memory: a new
+            # page-locked allocation, far slower than the copy itself.
+            self._request = None
             self._cond.notify_all()
 
     def _run_callbacks(self) -> None:
@@ -295,17 +302,16 @@ class SRFuture:
 
 class _Inflight:
     """One launched dispatch: the HR tensor, the event recorded after its
-    launch (None on the CPU, where the call returns when done), its timing
-    and whether it staged through the session's shared host buffer."""
+    launch (None on the CPU, where the call returns when done) and its
+    timing."""
 
-    __slots__ = ("dispatch", "hr", "event", "t0", "used_staging")
+    __slots__ = ("dispatch", "hr", "event", "t0")
 
-    def __init__(self, dispatch: Dispatch, hr, event, t0: float, used_staging: bool):
+    def __init__(self, dispatch: Dispatch, hr, event, t0: float):
         self.dispatch = dispatch
         self.hr = hr
         self.event = event
         self.t0 = t0
-        self.used_staging = used_staging
 
 
 class SRServer:
@@ -401,11 +407,6 @@ class SRServer:
         self._inflight_frames = 0  # dispatched, not yet complete (real)
         self._session_inflight: Dict[int, int] = {}
         self._window_start: Dict[int, float] = {}
-        # per-session count of in-flight dispatches staged through the
-        # session's SHARED pinned host buffer: its asynchronous copy may
-        # still be reading it until that dispatch's event completes, so
-        # the next host dispatch stages through a fresh buffer meanwhile
-        self._staging_busy: Dict[int, int] = {}
         self._just_finished: list = []
         self._closed = False
 
@@ -569,6 +570,7 @@ class SRServer:
             return fut
         plan = session.plan_for(shape, batch_hint=n or None)
         dtype = session.serving_dtype(flat.dtype)
+        flat = self._pinned_for(session, flat)
         if n == 0:
             out = torch.zeros((0, *plan.hr_shape), dtype=session.output_dtype(plan, dtype),
                               device=session.device)
@@ -639,6 +641,7 @@ class SRServer:
                 f"{len(bands)} band(s) of plan {plan.height}x{plan.width} "
                 f"({plan.vertical_policy})"
             )
+        flat = self._pinned_for(session, flat)
         fut = SRFuture(self)
         req = SchedRequest(
             seq=0,  # assigned under the lock in _admit
@@ -656,6 +659,17 @@ class SRServer:
         fut._request = req
         self._admit(req)
         return fut
+
+    @staticmethod
+    def _pinned_for(session: SRSession, flat: torch.Tensor) -> torch.Tensor:
+        """Host input for a CUDA session, copied once into pinned memory on
+        the submitting thread (outside the server lock): its dispatches then
+        upload it asynchronously.  From pageable memory torch would
+        synchronize the stream after the copy, inside the launch, under the
+        lock, so each dispatch would wait for the one before it."""
+        if session.device.type == "cuda" and flat.device.type == "cpu" and not flat.is_pinned():
+            return flat.pin_memory()
+        return flat
 
     def cancel(self, fut: SRFuture) -> bool:
         """Best-effort cancel of a submitted request (the stream-abandon
@@ -858,11 +872,10 @@ class SRServer:
                     self._injector.on_dispatch(model=d.key[0], replica=None)
                 if d.band_subset is not None:
                     slab, bounds = self._assemble_bands(d)
-                    used_staging = False
                     t0 = time.perf_counter()
                     hr = entry.fn(slab, bounds)  # asynchronous on CUDA
                 else:
-                    slab, used_staging = self._assemble(d)
+                    slab = self._assemble(d)
                     t0 = time.perf_counter()
                     hr = entry.fn(slab)  # asynchronous on CUDA
                 event = None
@@ -880,50 +893,17 @@ class SRServer:
         self._session_inflight[sid] = count + 1
         session._peak_inflight = max(session._peak_inflight, count + 1)
         self._inflight_frames += d.real
-        if used_staging:
-            self._staging_busy[sid] = self._staging_busy.get(sid, 0) + 1
-        self._inflight.append(_Inflight(d, hr, event, t0, used_staging))
-
-    def _assemble(self, d: Dispatch):
-        """Build the bucket-sized device slab from the dispatch's tickets;
-        returns ``(slab, used_shared_staging)``.
-
-        On a CUDA session, all-host tickets are packed into the session's
-        reused pinned staging buffer and copied asynchronously — unless an
-        in-flight dispatch still owns that buffer, in which case a fresh
-        pinned buffer keeps the earlier copy safe.  Everything else is one
-        copy to the device plus a concatenate/zero pad.
-        """
-        session: SRSession = d.session
-        device = session.device
-        tickets = d.tickets
-        real = d.real
-        first = tickets[0]
-        host = device.type == "cuda" and all(
-            t.request.flat.device.type == "cpu" for t in tickets)
-        if host:
-            if len(tickets) == 1 and real == d.bucket:
-                src = first.request.flat[first.start:first.start + first.n]
-                return src.to(device), False
-            frame_shape = first.request.flat.shape[1:]
-            dtype = first.request.flat.dtype
-            shared = not self._staging_busy.get(id(session), 0)
-            if shared:
-                buf = session._staging_for(d.bucket, frame_shape, dtype)
-            else:
-                buf = torch.zeros((d.bucket, *frame_shape), dtype=dtype, pin_memory=True)
-            for t in tickets:
-                buf[t.slot:t.slot + t.n] = t.request.flat[t.start:t.start + t.n]
-            buf[real:] = 0
-            return buf.to(device, non_blocking=True), shared
-        return self._concat_padded(d), False
+        self._inflight.append(_Inflight(d, hr, event, t0))
 
     @staticmethod
-    def _concat_padded(d: Dispatch) -> torch.Tensor:
-        """The tickets' rows concatenated on the session's device, zero
-        padded to the bucket."""
+    def _assemble(d: Dispatch) -> torch.Tensor:
+        """The bucket-sized device slab of a dispatch: the tickets' rows
+        uploaded (asynchronously from the pinned host copy
+        :meth:`_pinned_for` made; device rows stay put), concatenated on the
+        session's device and zero padded to the bucket."""
         device = d.session.device
-        pieces = [t.request.flat[t.start:t.start + t.n].to(device) for t in d.tickets]
+        pieces = [t.request.flat[t.start:t.start + t.n].to(device, non_blocking=True)
+                  for t in d.tickets]
         if d.real < d.bucket:
             pieces.append(torch.zeros((d.bucket - d.real, *pieces[0].shape[1:]),
                                       dtype=pieces[0].dtype, device=device))
@@ -932,12 +912,10 @@ class SRServer:
     def _assemble_bands(self, d: Dispatch):
         """A band dispatch's ``(slab, bounds)`` device pair.
 
-        Band slabs go to the device through a plain (pageable) copy — never
-        the session's pinned frame staging buffer, and never a fresh pinned
-        allocation per dispatch — padded with zero slabs to the bucket.
-        The per-slot valid-row bounds follow from the dispatched band
-        indices (``band_diff.band_bounds``, the ``halo_slabs`` formula);
-        padded slots keep ``(0, 0)``: every row phantom, so a padding slab
+        Band slabs are assembled as frames are (:meth:`_assemble`), padded
+        with zero slabs to the bucket.  The per-slot valid-row bounds follow
+        from the dispatched band indices (``band_diff.band_bounds``, the
+        ``halo_slabs`` formula); padded slots keep ``(0, 0)``: every row phantom, so a padding slab
         computes zero features and its HR rows are never read back.
         """
         from repro_torch.engine.temporal.band_diff import band_bounds
@@ -945,7 +923,10 @@ class SRServer:
         plan = d.plan
         bounds = band_bounds(plan.height, plan.band_rows, plan.num_layers, d.band_subset,
                              slots=d.bucket)
-        return self._concat_padded(d), torch.from_numpy(bounds).to(d.session.device)
+        bounds = torch.from_numpy(bounds)
+        if d.session.device.type == "cuda":
+            bounds = bounds.pin_memory()  # a pageable copy would sync the stream
+        return self._assemble(d), bounds.to(d.session.device, non_blocking=True)
 
     def _finalize_complete(self, inf: _Inflight, error: Optional[BaseException]) -> None:
         """Bookkeeping for a completed (or device-failed) dispatch — runs
@@ -957,8 +938,6 @@ class SRServer:
         self._session_inflight[sid] -= 1
         if self._session_inflight[sid] == 0:
             session._span_s += now - self._window_start.pop(sid)
-        if inf.used_staging:
-            self._staging_busy[sid] -= 1
         if error is not None:
             self._fail_dispatch(d, error)
             return

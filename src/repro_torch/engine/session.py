@@ -19,6 +19,12 @@
 * Temporal delta serving (``engine.temporal``) dispatches band subsets
   through :meth:`SRSession.band_executor_for` and keeps the HR bands it
   can splice again in the session's :meth:`SRSession.output_cache`.
+* Schedules come from the tuning DB (``engine.autotune``):
+  ``autotune="cached"`` (the default) applies a measured winner for the
+  request's (shape, batch) and never measures; ``"full"`` tunes on a miss;
+  ``"off"`` never reads the DB (:meth:`SRSession.tuning_stats`).
+  ``strict=True`` verifies every derived plan (``analysis.plan_check``)
+  before anything is built.
 
 The session runs on ``device`` — the CUDA card unless the caller passes
 ``device="cpu"``; with no ``device`` and no CUDA, construction raises.
@@ -26,6 +32,7 @@ The session runs on ``device`` — the CUDA card unless the caller passes
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections import OrderedDict
@@ -57,7 +64,13 @@ __all__ = [
     "AUTOTUNE_MODES",
 ]
 
-# Schedule autotuning modes of the JAX package; only "off" is ported.
+# Cold-start schedule policy (SRSession.open(..., autotune=...)):
+#   "off"    — hard-coded defaults only; the tuning DB is never read.
+#   "cached" — consult the DB per new (shape, batch); a hit applies the
+#              measured-best schedule, a miss falls back to the defaults.
+#              NEVER measures in the serving path (the default).
+#   "full"   — like "cached", but a miss runs a small tuning sweep NOW
+#              (blocking, on the submitting thread) and persists the winner.
 AUTOTUNE_MODES = ("off", "cached", "full")
 
 # numpy/torch dtypes a request may carry, canonicalised the way the JAX
@@ -143,6 +156,7 @@ class _CacheEntry:
     dtype: str
     compile_s: float
     stack_key: tuple = ()
+    donates: bool = False
 
 
 class PlanCache:
@@ -254,7 +268,7 @@ class SRSession:
         model: Optional[str] = None,
         pipeline_depth: Optional[int] = None,
         donate_frames: Optional[bool] = None,
-        autotune: str = "off",
+        autotune: str = "cached",
         tuner=None,
         tuning_db: Optional[str] = None,
         strict: bool = False,
@@ -274,12 +288,8 @@ class SRSession:
             )
         if autotune not in AUTOTUNE_MODES:
             raise ValueError(f"autotune {autotune!r} not in {AUTOTUNE_MODES}")
-        if autotune != "off" or tuner is not None or tuning_db is not None:
-            raise _not_ported(f"schedule autotuning (autotune={autotune!r})", 10)
         if mesh is not None or route is not None:
             raise _not_ported("mesh serving (mesh=/route=)", 11)
-        if strict:
-            raise _not_ported("strict plan verification (strict=True)", 12)
         if cache_capacity < 1:
             raise ValueError(
                 f"cache_capacity={cache_capacity} must be >= 1 "
@@ -297,10 +307,28 @@ class SRSession:
         self.scale = scale
         self.clip = clip
         self.max_bucket = max_bucket
-        self.autotune = autotune
         # pipeline_depth bounds in-flight dispatches per session: 1 =
-        # blocking, 2 = double buffering (the paper's ping-pong buffers)
+        # blocking, 2 = double buffering (the paper's ping-pong buffers).
+        # None = the tunable default (2), which a measured DB entry may
+        # override; an EXPLICIT depth is the caller's and never overridden.
+        self._depth_explicit = pipeline_depth is not None
         self.pipeline_depth = 2 if pipeline_depth is None else pipeline_depth
+        # schedule autotuning: the mode and the DB-backed PlanTuner ("off"
+        # keeps no tuner, so the DB file is never opened)
+        self.autotune = autotune
+        self._tuner = None
+        if autotune != "off":
+            from repro_torch.engine.autotune import PlanTuner  # lazy: no cycle
+
+            self._tuner = (tuner if tuner is not None
+                           else PlanTuner(path=tuning_db, device=self.device))
+        self._tuning_counts = {"hits": 0, "misses": 0, "fallbacks": 0,
+                               "applied": 0, "tuned_now": 0}
+        # request batch sizes whose measured-best bucket policy is "exact"
+        self._exact_buckets: set = set()
+        # strict=True verifies every derived plan (analysis.plan_check) and
+        # refuses error-level findings before anything is built
+        self.strict = bool(strict)
         # accepted for interface parity; eager PyTorch has no donation
         self.donate_frames = donate_frames
         self._degenerate_plans = 0
@@ -311,9 +339,6 @@ class SRSession:
         self._plans: Dict[Tuple[int, int, int], SRPlan] = {}
         self._pinned: Optional[SRPlan] = None
         self._pinned_bucket: Optional[int] = None
-        # one host staging buffer (pinned on CUDA), reused across ragged
-        # and coalesced dispatches; replaced when the shape moves
-        self._staging: Optional[Tuple[tuple, torch.Tensor]] = None
         self._dispatch_ms: List[float] = []
         self._complete_ms: List[float] = []
         self._span_s = 0.0
@@ -418,8 +443,17 @@ class SRSession:
         batch_hint: Optional[int] = None,
     ) -> SRPlan:
         """The session's plan for one LR frame shape (derived once,
-        memoised).  ``batch_hint`` is accepted for interface parity; it
-        keys schedule tuning, which is not ported."""
+        memoised).
+
+        ``batch_hint`` (the request's flattened frame count, passed by the
+        server's submit path) keys the tuning-DB lookup: a warm entry for
+        this (shape, batch) applies the measured-best schedule — band
+        decomposition via ``SRPlan.from_request(tuner=...)``, pipeline depth
+        and bucket rounding via :meth:`_apply_tuning` — before anything is
+        built.  With ``autotune="off"`` (or an explicit ``band_rows``) the
+        derivation is the untuned default.  ``strict=True`` verifies the
+        plan here and raises on an error-level finding.
+        """
         lr_shape = tuple(int(x) for x in lr_shape)
         plan = self._plans.get(lr_shape)
         if plan is not None:
@@ -430,6 +464,9 @@ class SRSession:
                 f"got {lr_shape}"
             )
         check_layer_channels(self.layers, lr_shape[2], self.scale)
+        tuner = self._tuner if self.band_rows is None else None
+        if tuner is not None:
+            self._consult_tuning(lr_shape, batch_hint)
         plan = SRPlan.from_request(
             lr_shape,
             num_layers=self.num_layers,
@@ -441,11 +478,113 @@ class SRSession:
             scale=self.scale,
             clip=self.clip,
             preferred_band_rows=self.preferred_band_rows,
+            tuner=tuner,
+            bucket=batch_hint,
         )
         if plan.degenerate_bands:
             self._degenerate_plans += 1
+        if self.strict:
+            self._verify_plan(plan)
         self._memo_put(self._plans, lr_shape, plan)
         return plan
+
+    def _verify_plan(self, plan: SRPlan) -> None:
+        """Strict-mode gate: statically verify the derived plan and raise
+        :class:`~repro_torch.analysis.findings.PlanVerificationError` on any
+        error-level finding — before weight prep or a build.  The shared
+        memory rule reads the session's own layer widths."""
+        from repro_torch.analysis import findings as _findings  # lazy: no cycle
+        from repro_torch.analysis import plan_check  # lazy: no cycle
+
+        channels = [self.layers[0].ci] + [layer.co for layer in self.layers]
+        errs = _findings.errors(plan_check.verify_plan(plan, channels=channels))
+        if errs:
+            raise _findings.PlanVerificationError(errs)
+
+    # ------------------------------------------------------------------
+    # Schedule autotuning (engine.autotune)
+    # ------------------------------------------------------------------
+    def _tuning_key(self, lr_shape: tuple, batch: Optional[int]):
+        from repro_torch.engine.autotune import TuningKey
+
+        H, W, C = lr_shape
+        return TuningKey(
+            backend=self.backend, precision=self.precision,
+            vertical_policy=self.vertical_policy,
+            height=H, width=W, channels=C,
+            num_layers=self.num_layers, tile_cols=self.tile_cols,
+            scale=self.scale, clip=self.clip,
+            batch=int(batch) if batch else 1,
+        )
+
+    def _consult_tuning(self, lr_shape: tuple, batch: Optional[int]) -> None:
+        """DB lookup for a new shape: count the outcome, apply a hit's
+        depth/bucket policy, and — ``autotune="full"`` only — tune NOW on
+        a miss (blocking; the winner persists for every later cold start)."""
+        key = self._tuning_key(lr_shape, batch)
+        entry, kind = self._tuner.lookup(key)
+        self._tuning_counts[
+            {"hit": "hits", "fallback": "fallbacks", "miss": "misses"}[kind]
+        ] += 1
+        if entry is None and self.autotune == "full":
+            entry = self._tune_now(lr_shape, batch)
+        if entry is not None:
+            self._apply_tuning(entry)
+
+    def _apply_tuning(self, entry) -> None:
+        """Adopt a measured-best schedule's session-level knobs.  Band
+        decomposition is applied where plans are built (``from_request``'s
+        tuner hook); depth applies unless the caller pinned one; an
+        "exact" bucket policy registers the tuned batch so ``_bucket_for``
+        stops rounding it up."""
+        self._tuning_counts["applied"] += 1
+        if not self._depth_explicit:
+            self.pipeline_depth = int(entry.pipeline_depth)
+        if entry.bucket_policy == "exact":
+            self._exact_buckets.add(int(entry.bucket))
+
+    def _tune_now(self, lr_shape: tuple, batch: Optional[int]):
+        """The ``autotune="full"`` miss path: a small measured sweep for this
+        (shape, batch), persisted (shallow depth grid, few reps — paid once
+        per DB).  On a hosted CUDA session it launches on the stream the
+        server gives the session."""
+        from repro_torch.engine.autotune import tune
+
+        default_plan = SRPlan.from_request(
+            lr_shape,
+            num_layers=self.num_layers,
+            tile_cols=self.tile_cols,
+            vertical_policy=self.vertical_policy,
+            backend=self.backend,
+            precision=self.precision,
+            scale=self.scale,
+            clip=self.clip,
+            preferred_band_rows=self.preferred_band_rows,
+        )
+        stream = (self._server.device_stream(self) if self._server is not None
+                  else contextlib.nullcontext())
+        with stream:
+            entry = tune(
+                self.layers, default_plan, batch or 1,
+                db=self._tuner.db, depths=(1, 2), chunks=2, reps=1,
+            )
+        self._tuning_counts["tuned_now"] += 1
+        return entry
+
+    def tuning_stats(self) -> dict:
+        """Autotune outcome counters: ``hits`` (exact DB entry),
+        ``fallbacks`` (nearest tuned batch), ``misses``, ``applied``
+        (schedules adopted), ``tuned_now`` (blocking sweeps run by
+        ``autotune="full"``), plus the mode, DB path and the live
+        session-level knobs the tuner controls."""
+        return {
+            "mode": self.autotune,
+            "db_path": self._tuner.db.path if self._tuner else None,
+            **self._tuning_counts,
+            "degenerate_plans": self._degenerate_plans,
+            "pipeline_depth": self.pipeline_depth,
+            "exact_buckets": sorted(self._exact_buckets),
+        }
 
     def _memo_put(self, memo: dict, key, value) -> None:
         """Insert into a memo dict, evicting oldest entries past the cap."""
@@ -522,7 +661,7 @@ class SRSession:
             return entry, False
         stack, skey = self._acquire_stack(plan)
         try:
-            fn = build_stack_executor(plan, stack)
+            fn = build_stack_executor(plan, stack, donate_frames=bool(self.donate_frames))
             dummy = torch.zeros((bucket, *plan.lr_shape), dtype=dtype, device=self.device)
             t0 = time.perf_counter()
             fn(dummy)
@@ -539,6 +678,7 @@ class SRSession:
             dtype=self.dtype_name(dtype),
             compile_s=compile_s,
             stack_key=skey,
+            donates=bool(self.donate_frames),
         )
         self._compile_counts[key] = self._compile_counts.get(key, 0) + 1
         self._cache.put(key, entry)
@@ -601,6 +741,10 @@ class SRSession:
     def _bucket_for(self, n: int) -> int:
         if self._pinned_bucket is not None:
             return self._pinned_bucket
+        if n in self._exact_buckets and (self.max_bucket is None or n <= self.max_bucket):
+            # the tuner measured this batch faster built exactly than
+            # rounded up (padding waste beats the extra executor)
+            return n
         bucket = bucket_batch(n)
         if self.max_bucket is not None:
             # clamp DOWN to the largest power of two within the cap
@@ -702,16 +846,6 @@ class SRSession:
         self._frames += n_real
         self._peak_inflight = max(self._peak_inflight, 1)
         return hr
-
-    def _staging_for(self, bucket: int, frame_shape, dtype) -> torch.Tensor:
-        """One reusable host buffer for staging host dispatches (pinned
-        when the session runs on CUDA, so its copy can be asynchronous)."""
-        key = (bucket, tuple(frame_shape), dtype)
-        if self._staging is None or self._staging[0] != key:
-            buf = torch.zeros((bucket, *frame_shape), dtype=dtype,
-                              pin_memory=self.device.type == "cuda")
-            self._staging = (key, buf)
-        return self._staging[1]
 
     # ------------------------------------------------------------------
     # Introspection

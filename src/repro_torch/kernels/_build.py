@@ -22,9 +22,10 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
 
-__all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "build_all", "library_path", "load", "nvcc_path"]
+__all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "build_all", "library_path", "load", "load_log",
+           "nvcc_path"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -36,6 +37,7 @@ NVCC_FLAGS = (
 SOURCES: Dict[str, str] = {"tilted_fusion": "tilted_fusion.cu", "conv3x3": "conv3x3.cu"}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_log: List[Tuple[str, bool]] = []  # (kernel, compiled by nvcc) per first load, in order
 _lock = threading.Lock()
 
 
@@ -106,8 +108,19 @@ def load(name: str) -> ctypes.CDLL:
         lib = _loaded.get(name)
         if lib is None:
             path = library_path(name)
-            if not path.exists():
+            compiled = not path.exists()
+            if compiled:
                 build_all([name])
             lib = ctypes.CDLL(str(path))
             _loaded[name] = lib
+            _log.append((name, compiled))
         return lib
+
+
+def load_log() -> List[Tuple[str, bool]]:
+    """Every first load of a kernel library in this process, in order:
+    ``(kernel, compiled)``, ``compiled`` when ``nvcc`` ran for it then.
+    ``engine.executor.executor_artifacts`` reads it to find builds that a
+    serving call triggered."""
+    with _lock:
+        return list(_log)

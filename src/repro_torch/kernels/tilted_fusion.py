@@ -120,8 +120,12 @@ def kernel_buffers(*, channels, band_rows: int, tile_cols: int, chp: int = None,
         },
         "stream_in_per_column": {"shape": (R, 1, c0p), "elements": R * c0p},
         "stream_out_per_column": {"shape": (R, 1, chp), "elements": R * chp},
-        "weights": {"shape": (L, 3, 3, chp, chp), "elements": L * 9 * chp * chp},
-        "bias": {"shape": (L, chp), "elements": L * chp},
+        "weights": {
+            "shape": (L, 3, 3, chp, chp),
+            "elements": L * 9 * chp * chp,
+            "logical_elements": sum(9 * channels[i] * channels[i + 1] for i in range(L)),
+        },
+        "bias": {"shape": (L, chp), "elements": L * chp, "logical_elements": sum(channels[1:])},
     }
     per_cta = buffers["slabs"]["elements"] + buffers["overlap"]["elements"]
     ctas = int(bands) * int(segments)

@@ -17,6 +17,8 @@ of each product, summed in another order) and bf16 ``atol = rtol = 2e-2``
 (one rounding at the store, so at most one ulp).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -30,6 +32,14 @@ from repro_torch.models.abpn import init_abpn, layers_from_numpy
 TOL = {torch.float32: 5e-4, torch.bfloat16: 5e-2}
 K2_TOL = {torch.float32: dict(atol=2e-5, rtol=1e-5), torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
 pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(autouse=True)
+def _port_tuning_db(tmp_path, monkeypatch):
+    """Sessions default to ``autotune="cached"``: point the port's tuning DB
+    at this test's ``tmp_path``, so no DB outside the test steers a
+    schedule and no test writes one."""
+    monkeypatch.setenv("REPRO_SR_TORCH_TUNING_DB", str(tmp_path / "tuning.json"))
 
 
 @pytest.fixture
@@ -279,3 +289,94 @@ def test_delta_session_on_the_card_is_bit_exact(cuda, policy):
     t = session.temporal_stats()
     assert t["bands_skipped"] == 6 + (6 - (1 if policy != "halo" else 3))
     assert t["cover_violations"] == 0 and t["cache"]["pinned"] == 0
+
+
+# ----------------------------------------------------------------------
+# Schedule autotuning and static analysis on the card
+# ----------------------------------------------------------------------
+def test_strict_kernel_session_serves_on_the_card(cuda):
+    layers = init_abpn(torch.Generator().manual_seed(0))
+    frames = np.random.default_rng(6).uniform(size=(2, 120, 64, 3)).astype(np.float32)
+    strict = engine.SRSession(layers, backend="kernel", strict=True, autotune="off",
+                              device=cuda)
+    plain = engine.SRSession(layers, backend="kernel", autotune="off", device=cuda)
+    assert strict.plan_for((120, 64, 3)).verify() == []
+    assert torch.equal(strict.upscale(frames), plain.upscale(frames))
+
+
+@pytest.mark.parametrize("precision,policy", [
+    ("fp32", "zero"), ("bf16", "zero"), ("int8", "zero"), ("fp32", "halo"), ("bf16", "halo"),
+])
+def test_audit_session_clean_on_kernel_sessions(cuda, precision, policy):
+    """The program audit on the card: one call of a warmed kernel session
+    copies nothing to the host, waits for nothing, builds nothing, and
+    launches K1's instance of the plan's precision.  Under halo this needs
+    the valid-row bounds made on the card (``core.fusion.halo_slabs``)."""
+    from repro_torch.analysis import program_audit
+    from repro_torch.engine import executor
+
+    layers = init_abpn(torch.Generator().manual_seed(0))
+    session = engine.SRSession(layers, backend="kernel", precision=precision,
+                               vertical_policy=policy, autotune="off", device=cuda)
+    session.upscale(np.zeros((120, 64, 3), np.float32))
+    assert program_audit.audit_session(session) == []
+    entry = session._cache.entries()[0]
+    arts = executor.executor_artifacts(entry.plan, session._stacks[entry.stack_key].stack,
+                                       entry.bucket, torch.float32)
+    k1 = [k for k in arts["kernels"]["kernels"] if "tilted_fusion_kernel" in k]
+    assert len(k1) == 1 and ("bfloat16" in k1[0]) == (precision == "bf16")
+    assert arts["kernels"]["syncs"] == [] and arts["builds"] == []
+
+
+@pytest.mark.parametrize("policy", ["zero", "halo"])
+def test_server_launch_does_not_wait_for_the_card(cuda, policy):
+    """A dispatch's launch holds the server lock, so uploading a request's
+    host frames there must not synchronize the stream (each dispatch would
+    wait for the one before it, and ``pipeline_depth`` would buy nothing):
+    one frame filling its bucket, three frames coalesced into one padded
+    dispatch, and under ``halo`` a band request (the delta path's slabs and
+    valid-row bounds)."""
+    from repro_torch.analysis import program_audit
+    from repro_torch.engine.temporal.band_diff import band_slabs
+
+    layers = init_abpn(torch.Generator().manual_seed(0))
+    session = engine.SRSession(layers, backend="kernel", vertical_policy=policy,
+                               autotune="off", device=cuda)
+    server = engine.SRServer({"m": session})
+    frame = np.random.default_rng(8).uniform(size=(120, 64, 3)).astype(np.float32)
+    assert program_audit.audit_server(server, lambda: server.submit(frame)) == []
+    three = [frame + i for i in range(3)]
+    assert program_audit.audit_server(
+        server, lambda: [server.submit(f) for f in three][-1]) == []
+    if policy == "halo":
+        plan = session.plan_for(frame.shape)
+        slabs = band_slabs(frame, plan.band_rows, plan.num_layers, [0, 1], policy)
+        assert program_audit.audit_server(
+            server, lambda: server.submit_bands(slabs, (0, 1), plan=plan)) == []
+
+
+def test_tuned_halo_output_equals_the_default_on_the_card(cuda, tmp_path):
+    from repro_torch.engine import autotune
+
+    layers = init_abpn(torch.Generator().manual_seed(0), device=cuda)
+    peaks = autotune.RooflinePeaks.detect(cuda)
+    props = torch.cuda.get_device_properties(cuda)
+    assert peaks.cache_bytes == props.L2_cache_size
+    assert peaks.flops_per_s > 1e12 and peaks.hbm_bytes_per_s > 1e11
+    plan = engine.SRPlan.from_request((120, 64, 3), num_layers=7, vertical_policy="halo",
+                                      backend="kernel")
+    db = autotune.TuningDB(str(tmp_path / "db.json"))
+    entry = autotune.tune(layers, plan, 4, db=db, depths=(1, 2), chunks=2, reps=1)
+    assert entry.measured_ms <= entry.default_ms
+    assert entry.device_name == torch.cuda.get_device_name(cuda)
+    frames = np.random.default_rng(7).uniform(size=(4, 120, 64, 3)).astype(np.float32)
+    default = engine.SRSession(layers, backend="kernel", vertical_policy="halo",
+                               autotune="off", device=cuda).upscale(frames)
+    tuned = engine.SRSession(layers, backend="kernel", vertical_policy="halo",
+                             autotune="cached", tuning_db=db.path, device=cuda)
+    assert torch.equal(tuned.upscale(frames), default)
+    assert tuned.tuning_stats()["hits"] == 1
+    for band in sorted({c.band_rows for c in entry.candidates}):
+        p = dataclasses.replace(plan, band_rows=band)
+        out = engine.SRSession.from_plan(p, layers, autotune="off").upscale(frames)
+        assert torch.equal(out, default), band

@@ -29,6 +29,15 @@ from repro_torch.models.abpn import layers_from_numpy
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture(autouse=True)
+def _port_tuning_db(tmp_path, monkeypatch):
+    """Sessions default to ``autotune="cached"``: point the port's tuning DB
+    at this test's ``tmp_path``, so no DB outside the test steers a
+    schedule and no test writes one."""
+    monkeypatch.setenv("REPRO_SR_TORCH_TUNING_DB", str(tmp_path / "tuning.json"))
+
+
 TOL = {"fp32": 5e-4, "int8": 5e-4, "bf16": 5e-2}
 MATRIX = [(b, p, q) for b in ("reference", "tilted", "kernel")
           for p in ("zero", "halo", "replicate") for q in ("fp32", "bf16", "int8")]
@@ -149,10 +158,14 @@ def test_session_validation_and_unported_options():
         session.submit(np.array([["a"]]))
     empty = session.upscale(np.zeros((0, 8, 8, 3), np.float32))
     assert tuple(empty.shape) == (0, 16, 16, 3)
-    for kwargs, item in ((dict(autotune="cached"), "item 10"), (dict(mesh=(1, 2)), "item 11"),
-                         (dict(strict=True), "item 12")):
-        with pytest.raises(ValueError, match=item):
+    # items 10 (autotune) and 12 (strict) are ported; item 11 (mesh) is not
+    for kwargs in (dict(mesh=(1, 2)), dict(route="least_loaded")):
+        with pytest.raises(ValueError, match="item 11"):
             tengine.SRSession(TLAYERS, scale=2, device="cpu", **kwargs)
+    for mode in ("off", "cached", "full"):
+        tuned = tengine.SRSession(TLAYERS, scale=2, device="cpu", autotune=mode, strict=True)
+        assert tuned.autotune == mode and tuned.strict
+    assert session.autotune == "cached"  # the default, as in the JAX package
     # the temporal and front-door options (items 8 and 9) now work
     plan = session.plan_for((8, 8, 3))
     entry, built = session.band_executor_for(plan, 1, torch.float32)

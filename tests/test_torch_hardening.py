@@ -38,6 +38,15 @@ from repro_torch.runtime.resilience import FailureInjector, InjectedFailure
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture(autouse=True)
+def _port_tuning_db(tmp_path, monkeypatch):
+    """Sessions default to ``autotune="cached"``: point the port's tuning DB
+    at this test's ``tmp_path``, so no DB outside the test steers a
+    schedule and no test writes one."""
+    monkeypatch.setenv("REPRO_SR_TORCH_TUNING_DB", str(tmp_path / "tuning.json"))
+
+
 LAYERS = layers_from_numpy(init_abpn(jax.random.PRNGKey(2), ABPNConfig()))
 LR = (12, 16, 3)
 CLIP = np.random.default_rng(21).random((8, *LR), dtype=np.float32)

@@ -31,6 +31,15 @@ from repro_torch.runtime.resilience import (
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture(autouse=True)
+def _port_tuning_db(tmp_path, monkeypatch):
+    """Sessions default to ``autotune="cached"``: point the port's tuning DB
+    at this test's ``tmp_path``, so no DB outside the test steers a
+    schedule and no test writes one."""
+    monkeypatch.setenv("REPRO_SR_TORCH_TUNING_DB", str(tmp_path / "tuning.json"))
+
+
 LAYERS = layers_from_numpy(init_abpn(jax.random.PRNGKey(2), ABPNConfig()))
 LR = (12, 16, 3)
 CLIP = np.random.default_rng(21).random((8, *LR), dtype=np.float32)
@@ -146,6 +155,30 @@ def test_concurrent_submit_threads_coalesce_and_serve_correctly():
     s = server.scheduler_stats()
     assert s["frames_dispatched"] == 6 and s["pending_frames"] == 0
     assert s["inflight_dispatches"] == 0 and s["dispatches"] <= 3
+
+
+def test_a_resolved_request_is_freed_without_the_cycle_collector():
+    """A request holds its frames (pinned host memory on the card) and
+    refers to its future.  Once the future resolves, with the caller still
+    holding it, nothing may keep the request alive: with the cycle
+    collector off, the request is gone, whether it was served or
+    cancelled."""
+    import gc
+    import weakref
+
+    server, _ = make_server()
+    gc.disable()
+    try:
+        fut = server.submit(CLIP[0:2])
+        req = weakref.ref(fut._request)
+        fut.result()
+        assert req() is None and fut.done()
+        queued = server.submit(CLIP[2:4])
+        req = weakref.ref(queued._request)
+        assert server.cancel(queued)
+        assert req() is None and not server.cancel(queued)
+    finally:
+        gc.enable()
 
 
 # ----------------------------------------------------------------------

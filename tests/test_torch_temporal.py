@@ -51,6 +51,15 @@ from repro_torch.models.registry import get_sr_model
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture(autouse=True)
+def _port_tuning_db(tmp_path, monkeypatch):
+    """Sessions default to ``autotune="cached"``: point the port's tuning DB
+    at this test's ``tmp_path``, so no DB outside the test steers a
+    schedule and no test writes one."""
+    monkeypatch.setenv("REPRO_SR_TORCH_TUNING_DB", str(tmp_path / "tuning.json"))
+
+
 CFG = ABPNConfig()
 JLAYERS = init_abpn(jax.random.PRNGKey(2), CFG)
 LAYERS = layers_from_numpy(JLAYERS)
