@@ -69,6 +69,25 @@ exits non-zero (nothing is caught):
    and int8) must hold no error; K1's launch counter, zeroed just before,
    must move.  The tuning DBs are ``build/chip_smoke_tuning*.json``, made
    afresh each run;
+4e. sharded serving — every mesh position is this card, each with its own
+   stream (``make_sr_mesh(R, S, devices=[cuda:0] * (R * S))``), so the
+   positions are streams of one GPU, not GPUs.  ``build_sharded_executor``
+   at 8 frames of 360x640 must equal the single-device kernel executor
+   bit for bit (``torch.equal``) for fp32/bf16/int8 under zero, halo and
+   replicate at S = 2 (R = 60) and S = 4 (re-banded to R = 45, against a
+   single-device plan with the same R), launching K1 once per shard; K1's
+   segment plan per shard is printed.  A ``(2, 2)`` mesh session behind
+   ``SRServer`` (fp32, halo and zero) serves 8 closed-loop 2-frame
+   requests ``torch.equal`` to an unsharded server's, with both replicas
+   dispatched (``sharding_stats()`` printed); ``server.stream(clip,
+   delta=True)`` on it gives every frame ``torch.equal`` to
+   ``server.submit(frame).result()`` with the clip's bands skipped; and
+   ``program_audit.audit_server`` finds its launch clean.  K1's launch
+   counter, zeroed just before the served part, must move.  Times: the
+   sharded executor at 8 frames (fp32, zero and halo, S = 1, 2, 4, queued)
+   beside the single-device executor at the same R, and the ``(2, 2)``
+   server's frames/s over 20 closed-loop 8-frame requests of host frames
+   beside an unsharded server's;
 5. times — CUDA events, median of repeats after warm-up.  K1 at 1 and 8
    frames (fp32 and bf16, automatic segment plan: its segments, CTAs,
    warm-up tiles and their share of the executed tiles) four ways: one
@@ -790,6 +809,185 @@ def main() -> int:
     }
 
     # ------------------------------------------------------------------
+    phase("4e. sharded serving: band shards and replicas on one card's streams")
+    from repro_torch.engine.sharding import (MeshSpec, ShardedPlan, build_sharded_executor,
+                                             halo_exchange_bytes_per_frame)
+    from repro_torch.launch.mesh import band_submesh, make_sr_mesh
+
+    # every mesh position is this card; each has its own stream (made once
+    # with the mesh), so these are streams of one GPU, not GPUs
+    bands_of = {S: band_submesh(make_sr_mesh(1, S, devices=[dev] * S), 0) for S in (1, 2, 4)}
+    mesh22 = make_sr_mesh(2, 2, devices=[dev] * 4)
+    srng = np.random.default_rng(8)
+    frames8 = torch.from_numpy(srng.uniform(size=(8, H, W, 3)).astype(np.float32)).to(dev)
+
+    def shard_plan(S, policy, prec="fp32"):
+        # 360 rows re-band to 60 for S = 2 (6 bands) and 45 for S = 4 (8)
+        rows = engine.shardable_band_rows(H, S) if S > 1 else engine.derive_band_rows(H)
+        return engine.SRPlan(height=H, width=W, num_layers=L, band_rows=rows,
+                             vertical_policy=policy, backend="kernel", precision=prec,
+                             scale=SCALE)
+
+    def sharded_fn(plan_s, S, stack_s):
+        return build_sharded_executor(ShardedPlan(plan=plan_s, spec=MeshSpec(1, S)), stack_s,
+                                      bands_of[S])
+
+    # 1. the executor, bit for bit against the single-device executor at
+    # the same band_rows; K1 launches once per shard
+    shard_exact = {}
+    for prec in ("fp32", "bf16", "int8"):
+        stack_p = engine.prepare_stack(shard_plan(2, "zero", prec), layers)
+        for policy in ("zero", "halo", "replicate"):
+            for S in (2, 4):
+                plan_s = shard_plan(S, policy, prec)
+                want = engine.build_stack_executor(plan_s, stack_p)(frames8)
+                fn = sharded_fn(plan_s, S, stack_p)
+                before = kcall.launches
+                got = fn(frames8)
+                launched = kcall.launches - before
+                torch.cuda.synchronize()
+                tag = f"sharded executor {prec}/{policy} S={S} (R={plan_s.band_rows})"
+                require(launched == S, f"{tag}: {launched} K1 launches, not one per shard")
+                require(got.shape == want.shape and got.dtype == want.dtype, f"{tag}: shape/dtype")
+                require(bool(torch.isfinite(got.float()).all()), f"{tag}: non-finite output")
+                require(torch.equal(got, want), f"{tag}: differs from the single-device executor")
+                shard_exact[f"{prec}/{policy}/S={S}"] = plan_s.band_rows
+    print(f"sharded executor, 8 frames of {H}x{W}, kernel, on [cuda:0] * S (one stream per "
+          f"shard): fp32/bf16/int8 x zero/halo/replicate x S = 2 (R = 60) and S = 4 (R = 45) "
+          f"torch.equal to the single-device executor at the same R; K1 launched once per "
+          f"shard in each call")
+    shard_segments = {}
+    for S in (1, 2, 4):
+        for policy in ("zero", "halo"):
+            plan_s = shard_plan(S, policy)
+            per_shard = 8 * plan_s.num_bands // S
+            rows = plan_s.band_rows + (2 * L if policy == "halo" else 0)
+            xs, _ = ops.band_streams(torch.zeros((per_shard, rows, W, 3), device=dev), C, L)
+            sp = ttf.launch_plan(xs, packed32.w, tile_cols=C)
+            xs1, _ = ops.band_streams(torch.zeros((8 * plan_s.num_bands, rows, W, 3),
+                                                  device=dev), C, L)
+            sp1 = ttf.launch_plan(xs1, packed32.w, tile_cols=C)
+            # tiles a band executes: its K tiles plus every segment's warm-up
+            tiles = lambda p: sum(k1 - kw for kw, _, k1 in p.ranges())  # noqa: E731
+            shard_segments[f"{policy}/S={S}"] = dict(
+                bands=per_shard, segments=sp.segments, ctas=sp.ctas, warmup=sp.warmup,
+                tiles_per_band=tiles(sp), single_device_segments=sp1.segments,
+                single_device_tiles_per_band=tiles(sp1))
+            print(f"  K1 per shard [{policy}, S={S}, R={plan_s.band_rows}, 8 frames]: "
+                  f"{per_shard} bands, segments S={sp.segments}, {sp.ctas} CTAs, "
+                  f"{tiles(sp)} tiles a band with warm-up; {S} launches a call; one "
+                  f"launch of all {8 * plan_s.num_bands} bands: S={sp1.segments}, "
+                  f"{tiles(sp1)} tiles a band")
+
+    # 2. a (2, 2) mesh session behind SRServer, against an unsharded one;
+    # 3. delta serving on it; 4. the program audit of its launch
+    from repro_torch.analysis import program_audit
+
+    reqs = [srng.uniform(size=(2, H, W, 3)).astype(np.float32) for _ in range(8)]
+    mesh_path = {}
+    sharded_launches = 0
+    for policy in ("halo", "zero"):
+        flat = engine.SRServer.open("abpn_x3", backend="kernel", vertical_policy=policy,
+                                    layers=layers, autotune="off")
+        wants = [flat.submit(r).result() for r in reqs]
+        flat_clip = [flat.submit(f).result() for f in clip]
+        flat.close()
+        msrv = engine.SRServer.open("abpn_x3", backend="kernel", vertical_policy=policy,
+                                    layers=layers, autotune="off", mesh=mesh22)
+        msession = msrv.session()
+        kcall.launches = 0  # count this path's launches only
+        gots = [msrv.submit(r).result() for r in reqs]  # closed loop: one dispatch each
+
+        async def serve_mesh_clip():
+            outs, cumulative = [], []
+            async for hr in msrv.stream(clip, delta=True):
+                outs.append(hr)
+                cumulative.append(msession.temporal_stats()["bands_skipped"])
+            return outs, cumulative
+
+        outs, cumulative = asyncio.run(serve_mesh_clip())
+        launched = kcall.launches
+        sharded_launches += launched
+        tag = f"(2, 2) mesh server [fp32, {policy}]"
+        for i, (g, w) in enumerate(zip(gots, wants)):
+            require(g.shape == w.shape and bool(torch.isfinite(g).all()), f"{tag}: request {i}")
+            require(torch.equal(g, w), f"{tag}: request {i} differs from the unsharded server")
+        stats = msession.sharding_stats()
+        per_replica = [r["dispatches"] for r in stats["replicas"]]
+        require(stats["mesh"] == "2x2" and all(n >= 1 for n in per_replica),
+                f"{tag}: both replicas must serve: {per_replica}")
+        skipped = [b_ - a_ for a_, b_ in zip([0] + cumulative[:-1], cumulative)]
+        fulls = [msrv.submit(f).result() for f in clip]
+        for i, (got, want) in enumerate(zip(outs, fulls)):
+            require(torch.equal(got, want), f"{tag}: delta frame {i} differs from "
+                    "server.submit(frame).result()")
+            require(torch.equal(want, flat_clip[i]), f"{tag}: clip frame {i} differs from the "
+                    "unsharded server")
+        require(skipped == want_skipped[policy] and sum(skipped) > 0,
+                f"{tag}: delta bands skipped per frame {skipped} != {want_skipped[policy]}")
+        require(launched > 0, f"{tag}: K1 was never launched")
+        audit = program_audit.audit_server(msrv, lambda: msrv.submit(clip[0]))
+        require(audit == [], f"{tag}: program audit {[f.format() for f in audit]}")
+        stats = msession.sharding_stats()
+        mesh_path[policy] = {
+            "launches": launched, "requests_bit_exact": len(reqs),
+            "replica_fill": stats["replica_fill"],
+            "replica_dispatches": [r["dispatches"] for r in stats["replicas"]],
+            "halo_bytes_per_frame": stats["halo_bytes_per_frame"],
+            "delta_skipped_per_frame": skipped, "audit": "clean",
+        }
+        print(f"{tag}: {len(reqs)} 2-frame requests torch.equal to an unsharded server; "
+              f"sharding_stats: mesh {stats['mesh']}, policy {stats['policy']}, replica_fill "
+              f"{stats['replica_fill']:.3f}, dispatches per replica "
+              f"{mesh_path[policy]['replica_dispatches']}, halo bytes per frame "
+              f"{stats['halo_bytes_per_frame']}; stream(clip, delta=True) every frame "
+              f"torch.equal to submit(frame).result(), bands skipped {skipped}; audit_server "
+              f"clean; K1 launches {launched}")
+        msrv.close()
+    print(f"sharded path K1 launches: {sharded_launches}")
+    require(sharded_launches > 0, "the sharded path never launched K1")
+
+    # 5. times: queued device time per 8-frame call (calls queued behind a
+    # device sleep, CUDA events on the caller's stream, which every shard
+    # stream joins), beside the single-device executor at the same R
+    shard_ms = {}
+    stack32 = engine.prepare_stack(shard_plan(1, "zero"), layers)
+    for policy in ("zero", "halo"):
+        for S in (1, 2, 4):
+            plan_s = shard_plan(S, policy)
+            fn = sharded_fn(plan_s, S, stack32)
+            flat_fn = engine.build_stack_executor(plan_s, stack32)
+            ms = device_ms(torch, lambda: fn(frames8), calls=5, rounds=3)
+            flat_ms = device_ms(torch, lambda: flat_fn(frames8), calls=5, rounds=3)
+            shard_ms[f"{policy}/S={S}"] = dict(band_rows=plan_s.band_rows, ms=ms,
+                                               single_device_ms=flat_ms)
+            print(f"sharded executor [fp32, {policy}, S={S} streams of one card, R="
+                  f"{plan_s.band_rows}, 8 frames]: {ms:.4f} ms queued; single-device "
+                  f"executor at the same R {flat_ms:.4f} ms ({smi})")
+    mesh_fps = {}
+    for label, kw in (("(2, 2) mesh", dict(mesh=mesh22)), ("unsharded", {})):
+        srv = engine.SRServer.open("abpn_x3", backend="kernel", layers=layers, autotune="off",
+                                   **kw)
+        batch8h = frames8.cpu().numpy()
+        srv.submit(batch8h).result()
+        srv.submit(batch8h).result()  # warm every replica's bucket-8 executor
+        t0 = time.perf_counter()
+        for _ in range(20):
+            srv.submit(batch8h).result()
+        mesh_fps[label] = 20 * 8 / (time.perf_counter() - t0)
+        srv.close()
+    print(f"server fp32 zero, 20 closed-loop 8-frame requests of {H}x{W} host frames: (2, 2) "
+          f"mesh on one card's streams {mesh_fps['(2, 2) mesh']:.2f} frames/s, unsharded "
+          f"{mesh_fps['unsharded']:.2f} frames/s ({smi})")
+    sharded_path = {"launches": sharded_launches, "executor_bit_exact_band_rows": shard_exact,
+                    "k1_per_shard": shard_segments, "served": mesh_path,
+                    "executor_ms": shard_ms, "server_fps": mesh_fps,
+                    "halo_bytes_per_frame": {
+                        f"S={S}": halo_exchange_bytes_per_frame(shard_plan(S, "halo"), S)
+                        for S in (2, 4)},
+                    "note": "mesh positions are streams of one card, not GPUs"}
+
+    # ------------------------------------------------------------------
     phase("5. times (CUDA events, median of repeats after warm-up)")
     packed = ops.pack_stack(layers, dtype=torch.float32)
     packed16 = ops.pack_stack([l.to(dtype=torch.bfloat16) for l in layers], dtype=torch.bfloat16)
@@ -1153,7 +1351,7 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/tilted_fusion.cu",
         "replaces": "src/repro/kernels/tilted_fusion.py:208",
-        "launches": main_launches + delta_launches + autotune_launches,
+        "launches": main_launches + delta_launches + autotune_launches + sharded_launches,
         "max_abs_err": worst["fp32"],
         "max_abs_err_bf16": worst["bf16"],
         "ms": t8["k1"]["ms"],
@@ -1189,6 +1387,7 @@ def main() -> int:
                        "k1_vs_plain": delta_k1, "hardening": hardening,
                        "full_frame_ms": full_frame_ms, "frame_ms": delta_times,
                        "k1_bands": k1_bands},
+        "sharded_path": sharded_path,
     }, {
         "name": "conv3x3",
         "route": "cuda",

@@ -273,14 +273,19 @@ def audit_server(server, submit) -> List[Finding]:
     server lock, so each dispatch would wait for the one before it and the
     session's ``pipeline_depth`` would buy nothing.  The completion's event
     wait runs outside the launch, with the lock released, and does not
-    count.  On the CPU nothing is asynchronous and nothing is found."""
+    count.  On a mesh session every replica builds its own executor on its
+    first dispatch, so the warm-up runs once per replica.  On the CPU
+    nothing is asynchronous and nothing is found."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch.engine.executor import SYNC_CALLS
 
-    submit().result()  # warm: plan, executor, kernel build
+    replicas = max(s.mesh_spec.replicas if s.mesh_spec is not None else 1
+                   for s in server._sessions.values())
+    for _ in range(replicas):  # warm: plan, executor, kernel build
+        submit().result()
     launch = server._launch
 
     def traced(d):

@@ -30,6 +30,11 @@ persists winners in a JSON :class:`TuningDB`; sessions consult it on cold
 start (``SRSession.open(..., autotune="off"|"cached"|"full")``, default
 ``"cached"``).
 
+Serving SHARDS over a mesh (sharding/): ``SRSession(..., mesh=(R, S))``
+runs each dispatch band-sharded over one of ``R`` replicas of ``S``
+mesh positions (each with its own CUDA stream), routed round-robin or
+least-loaded (``session.sharding_stats()``).
+
 Underneath: ``SRPlan`` (plan.py) describes one execution — geometry,
 numerics, boundary policy, backend — and ``run`` (executor.py) runs it
 over a batch of LR frames.  The ``kernel`` backend launches the
@@ -91,6 +96,13 @@ from repro_torch.engine.session import (
     StreamStats,
     bucket_batch,
 )
+from repro_torch.engine.sharding import (
+    ROUTE_POLICIES,
+    MeshSpec,
+    ReplicaRouter,
+    ShardedPlan,
+    build_sharded_executor,
+)
 from repro_torch.engine.stream import VideoStream
 from repro_torch.engine.temporal import DeltaSession, OutputBandCache
 
@@ -139,4 +151,9 @@ __all__ = [
     "sr_epilogue",
     "sr_features",
     "StreamStats",
+    "MeshSpec",
+    "ShardedPlan",
+    "ReplicaRouter",
+    "ROUTE_POLICIES",
+    "build_sharded_executor",
 ]

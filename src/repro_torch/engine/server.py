@@ -392,11 +392,20 @@ class SRServer:
                     "session in exactly one server"
                 )
         # the one CUDA stream every launch of a session runs on, whichever
-        # thread drives the drain (a thread's current stream is its own)
-        self._streams: Dict[int, torch.cuda.Stream] = {
+        # thread drives the drain (a thread's current stream is its own);
+        # a mesh session's replica whose first position is on another GPU
+        # gets a home stream there, keyed by that device
+        self._streams: Dict[object, torch.cuda.Stream] = {
             id(s): torch.cuda.current_stream(s.device)
             for s in sessions.values() if s.device.type == "cuda"
         }
+        for s in sessions.values():
+            if s._router is None or s.device.type != "cuda":
+                continue
+            for r in range(s.mesh_spec.replicas):
+                home = s._router.home_device(r)
+                if home != s.device and home not in self._streams:
+                    self._streams[home] = torch.cuda.current_stream(home)
         self._sched = MicroBatchScheduler()
         # one lock guards scheduler + inflight state; the condition lets a
         # thread RELEASE it while waiting on the device
@@ -869,23 +878,36 @@ class SRServer:
                     entry, _ = session.executor_for(d.plan, d.bucket, dtype)
                 if self._injector is not None:
                     # a raise here fails exactly this dispatch's requests
-                    self._injector.on_dispatch(model=d.key[0], replica=None)
-                if d.band_subset is not None:
-                    slab, bounds = self._assemble_bands(d)
-                    t0 = time.perf_counter()
-                    hr = entry.fn(slab, bounds)  # asynchronous on CUDA
-                else:
-                    slab = self._assemble(d)
-                    t0 = time.perf_counter()
-                    hr = entry.fn(slab)  # asynchronous on CUDA
-                event = None
-                if session.device.type == "cuda":
-                    event = torch.cuda.Event()
-                    event.record(self._streams[id(session)])
+                    self._injector.on_dispatch(model=d.key[0], replica=entry.replica)
+                # a routed dispatch arrives on its replica's first position;
+                # the sharded executor joins its shard streams back into
+                # that stream, so the event below marks the whole dispatch
+                d.replica = entry.replica
+                home = self._home(d)
+                away = home != session.device  # a replica on another GPU
+                stream = self._streams.get(home if away else id(session))
+                with torch.cuda.stream(stream) if away else contextlib.nullcontext():
+                    if d.band_subset is not None:
+                        slab, bounds = self._assemble_bands(d)
+                        t0 = time.perf_counter()
+                        hr = entry.fn(slab, bounds)  # asynchronous on CUDA
+                    else:
+                        slab = self._assemble(d)
+                        t0 = time.perf_counter()
+                        hr = entry.fn(slab)  # asynchronous on CUDA
+                    event = None
+                    if stream is not None:
+                        event = torch.cuda.Event()
+                        event.record(stream)
             session._dispatch_ms.append((time.perf_counter() - t0) * 1e3)
         except Exception as e:
             self._fail_dispatch(d, e)
             return
+        # mesh serving: credit the routing decision — the scheduler's
+        # replica counters and the router's live load both key off it
+        if d.replica is not None:
+            self._sched.note_routed(d.replica)
+            session._router.note_launch(d.replica, d.real)
         sid = id(session)
         count = self._session_inflight.get(sid, 0)
         if count == 0:
@@ -896,12 +918,20 @@ class SRServer:
         self._inflight.append(_Inflight(d, hr, event, t0))
 
     @staticmethod
-    def _assemble(d: Dispatch) -> torch.Tensor:
+    def _home(d: Dispatch) -> torch.device:
+        """The device a dispatch runs from: its routed replica's first
+        position on a mesh session, else the session's device."""
+        s = d.session
+        return s.device if d.replica is None else s._router.home_device(d.replica)
+
+    @classmethod
+    def _assemble(cls, d: Dispatch) -> torch.Tensor:
         """The bucket-sized device slab of a dispatch: the tickets' rows
         uploaded (asynchronously from the pinned host copy
-        :meth:`_pinned_for` made; device rows stay put), concatenated on the
-        session's device and zero padded to the bucket."""
-        device = d.session.device
+        :meth:`_pinned_for` made; device rows stay put), concatenated on
+        the dispatch's home device (:meth:`_home`) and zero padded to the
+        bucket."""
+        device = cls._home(d)
         pieces = [t.request.flat[t.start:t.start + t.n].to(device, non_blocking=True)
                   for t in d.tickets]
         if d.real < d.bucket:
@@ -934,6 +964,10 @@ class SRServer:
         d, session = inf.dispatch, inf.dispatch.session
         sid = id(session)
         now = time.perf_counter()
+        # release the replica's in-flight slot FIRST — device failures must
+        # not leave a replica looking permanently loaded
+        if d.replica is not None and session._router is not None:
+            session._router.note_complete(d.replica)
         self._inflight_frames -= d.real
         self._session_inflight[sid] -= 1
         if self._session_inflight[sid] == 0:
@@ -953,8 +987,12 @@ class SRServer:
             if r.failed:
                 continue  # cancelled mid-flight: its rows are discarded
             # keyed by the ticket's offset: concurrent drains may finalize
-            # a long request's dispatches out of order
-            r.pieces.append((t.start, inf.hr[t.slot:t.slot + t.n]))
+            # a long request's dispatches out of order; a replica on another
+            # GPU hands its rows back on the session's device
+            piece = inf.hr[t.slot:t.slot + t.n]
+            if piece.device != session.device:
+                piece = piece.to(session.device, non_blocking=True)
+            r.pieces.append((t.start, piece))
             r.completed += t.n
             if r.completed == r.n:
                 self._finish_request(r)

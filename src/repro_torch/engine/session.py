@@ -25,9 +25,15 @@
   ``"off"`` never reads the DB (:meth:`SRSession.tuning_stats`).
   ``strict=True`` verifies every derived plan (``analysis.plan_check``)
   before anything is built.
+* ``mesh=(R, S)`` (or a ``launch.mesh.SRMesh``) serves band-sharded over
+  ``R`` replicas of ``S`` mesh positions (``engine.sharding``): plans are
+  re-banded until their bands split over ``S``, and each dispatch is
+  routed to a replica (``route="least_loaded"`` or ``"round_robin"``;
+  :meth:`SRSession.sharding_stats`).
 
 The session runs on ``device`` — the CUDA card unless the caller passes
-``device="cpu"``; with no ``device`` and no CUDA, construction raises.
+``device="cpu"``; with no ``device`` and no CUDA, construction raises.  A
+mesh session's device is its replica 0's first position.
 """
 
 from __future__ import annotations
@@ -80,12 +86,6 @@ _CANONICAL = {
     torch.int64: torch.int32,
     torch.complex128: torch.complex64,
 }
-
-
-def _not_ported(what: str, item: int) -> ValueError:
-    return ValueError(
-        f"{what} is not ported to repro_torch yet (ROADMAP queue 1, item {item})"
-    )
 
 
 class StreamStats(dict):
@@ -157,6 +157,8 @@ class _CacheEntry:
     compile_s: float
     stack_key: tuple = ()
     donates: bool = False
+    # replica index when a ReplicaRouter built the entry (mesh serving)
+    replica: Optional[int] = None
 
 
 class PlanCache:
@@ -273,7 +275,7 @@ class SRSession:
         tuning_db: Optional[str] = None,
         strict: bool = False,
         mesh=None,
-        route: Optional[str] = None,
+        route: str = "least_loaded",
         device=None,
     ):
         layers = tuple(layers)
@@ -288,13 +290,28 @@ class SRSession:
             )
         if autotune not in AUTOTUNE_MODES:
             raise ValueError(f"autotune {autotune!r} not in {AUTOTUNE_MODES}")
-        if mesh is not None or route is not None:
-            raise _not_ported("mesh serving (mesh=/route=)", 11)
         if cache_capacity < 1:
             raise ValueError(
                 f"cache_capacity={cache_capacity} must be >= 1 "
                 "(the session needs at least one live executor)"
             )
+        # mesh serving: resolve the topology FIRST — it gates autotune
+        # modes, places the session and stamps the tuner with the topology
+        self.mesh_spec = None
+        self._router = None
+        if mesh is not None:
+            spec = self._resolve_mesh(mesh, device)
+            if spec is not None:
+                if autotune == "full":
+                    raise ValueError(
+                        'autotune="full" measures single-device schedules '
+                        "and cannot run on a sharded session; tune offline "
+                        'per topology and use "cached" or "off"'
+                    )
+                self.mesh_spec = spec
+                # the session's own device (weights, partial-band
+                # executors, results): replica 0's first position
+                device = spec.mesh.devices[0]
         self.device = default_device(device)
         self.layers = tuple(l.to(device=self.device) for l in layers)
         self.model = model
@@ -321,7 +338,9 @@ class SRSession:
             from repro_torch.engine.autotune import PlanTuner  # lazy: no cycle
 
             self._tuner = (tuner if tuner is not None
-                           else PlanTuner(path=tuning_db, device=self.device))
+                           else PlanTuner(path=tuning_db, device=self.device,
+                                          mesh_shape=(self.mesh_spec.descriptor
+                                                      if self.mesh_spec else "1x1")))
         self._tuning_counts = {"hits": 0, "misses": 0, "fallbacks": 0,
                                "applied": 0, "tuned_now": 0}
         # request batch sizes whose measured-best bucket policy is "exact"
@@ -363,6 +382,37 @@ class SRSession:
         # the SRServer submit()/upscale() serve through (set by the first
         # server that hosts this session, else created on first submit)
         self._server = None
+        # mesh serving: the router owns per-replica executor caches and
+        # band-sharded executors over the session's mesh
+        if self.mesh_spec is not None:
+            from repro_torch.engine.sharding import ReplicaRouter  # lazy: no cycle
+
+            self._router = ReplicaRouter(self, self.mesh_spec, policy=route,
+                                         cache_capacity=cache_capacity)
+
+    @staticmethod
+    def _resolve_mesh(mesh, device):
+        """The session's :class:`~repro_torch.engine.sharding.MeshSpec` for
+        ``mesh=`` (None for a one-position mesh), with its SRMesh built: a
+        ``(replicas, band_shards)`` pair or a spec becomes
+        ``make_sr_mesh`` on ``device``'s type (the card unless the caller
+        asks for the CPU); an ``SRMesh`` is served as given."""
+        from repro_torch.engine.sharding import MeshSpec  # lazy: no cycle
+        from repro_torch.launch.mesh import make_sr_mesh
+
+        spec = MeshSpec.coerce(mesh)
+        if spec.is_trivial:
+            return None
+        if spec.mesh is None:
+            built = make_sr_mesh(spec.replicas, spec.band_shards,
+                                 device=default_device(device))
+            spec = dataclasses.replace(spec, mesh=built)
+        elif device is not None and torch.device(device).type != spec.mesh.devices[0].type:
+            raise ValueError(
+                f"device={device!r} does not match the mesh's devices "
+                f"({spec.mesh.devices[0].type})"
+            )
+        return spec
 
     # ------------------------------------------------------------------
     # Constructors
@@ -481,12 +531,31 @@ class SRSession:
             tuner=tuner,
             bucket=batch_hint,
         )
+        if self.mesh_spec is not None:
+            plan = self._shardable_plan(plan)
         if plan.degenerate_bands:
             self._degenerate_plans += 1
         if self.strict:
             self._verify_plan(plan)
         self._memo_put(self._plans, lr_shape, plan)
         return plan
+
+    def _shardable_plan(self, plan: SRPlan) -> SRPlan:
+        """Make a derived plan legal for the session's mesh: re-band when
+        the default decomposition does not split across the band shards;
+        an EXPLICIT ``band_rows`` is the caller's decision and is rejected
+        (never silently re-banded) when it cannot shard."""
+        from repro_torch.engine.sharding import check_shardable, ensure_shardable
+
+        if self.band_rows is not None:
+            err = check_shardable(plan, self.mesh_spec.band_shards)
+            if err is not None:
+                raise ValueError(
+                    f"explicit band_rows={self.band_rows} cannot serve on "
+                    f"mesh {self.mesh_spec.descriptor}: {err}"
+                )
+            return plan
+        return ensure_shardable(plan, self.mesh_spec, self.preferred_band_rows)
 
     def _verify_plan(self, plan: SRPlan) -> None:
         """Strict-mode gate: statically verify the derived plan and raise
@@ -496,8 +565,10 @@ class SRSession:
         from repro_torch.analysis import findings as _findings  # lazy: no cycle
         from repro_torch.analysis import plan_check  # lazy: no cycle
 
-        channels = [self.layers[0].ci] + [layer.co for layer in self.layers]
-        errs = _findings.errors(plan_check.verify_plan(plan, channels=channels))
+        kwargs = {"channels": [self.layers[0].ci] + [layer.co for layer in self.layers]}
+        if self.mesh_spec is not None:
+            kwargs["band_shards"] = self.mesh_spec.band_shards
+        errs = _findings.errors(plan_check.verify_plan(plan, **kwargs))
         if errs:
             raise _findings.PlanVerificationError(errs)
 
@@ -643,6 +714,8 @@ class SRSession:
         """Evict every executor AND release the prepared weights they
         pinned (the next request re-prepares and re-warms)."""
         self._cache.clear()
+        if self._router is not None:
+            self._router.clear()
 
     def executor_for(self, plan: SRPlan, bucket: int, dtype) -> Tuple[_CacheEntry, bool]:
         """The executor for ``(plan, bucket, dtype)``, and whether it was
@@ -653,7 +726,12 @@ class SRSession:
         dtype that will be served, then synchronises the device; that first
         launch also builds the CUDA kernel on first use.  Its time is the
         entry's ``compile_s``, so no later call on this key pays it.
+
+        On a mesh session the call routes to a replica's band-sharded
+        executor instead (``entry.replica`` records which one).
         """
+        if self._router is not None:
+            return self._router.executor_for(plan, bucket, dtype)
         dtype = self.serving_dtype(dtype)
         key = self.cache_key(plan, bucket, dtype)
         entry = self._cache.get(key)
@@ -691,7 +769,11 @@ class SRSession:
 
         Lives in the same :class:`PlanCache` under a ``"bands"``-suffixed
         key with the same refcounted weight-stack sharing, warmed on zero
-        slabs and zero bounds (every row phantom) like the frame path.
+        slabs and zero bounds (every row phantom) like the frame path.  On a
+        mesh session it is built locally, unsharded, on the session's device
+        (replica 0's first position): a partial-band dispatch is below the
+        granularity band sharding pays off at, and sharded and single-device
+        full-frame outputs are bit-exact, so the splice guarantee holds.
         """
         if plan.backend == "reference":
             raise ValueError(
@@ -892,6 +974,13 @@ class SRSession:
             peak_inflight=self._peak_inflight,
             **extra,
         )
+
+    def sharding_stats(self) -> Optional[dict]:
+        """Mesh routing stats (replica dispatch balance, per-replica
+        caches, halo bytes per frame); ``None`` on an unsharded session."""
+        if self._router is None:
+            return None
+        return self._router.stats()
 
     def output_cache(self, max_bytes: Optional[int] = None):
         """The session's HR output-band cache (temporal delta serving),

@@ -14,8 +14,9 @@ Python (nothing here touches a tensor):
   server fails only the affected requests.  ``fail_at_steps`` /
   :meth:`FailureInjector.maybe_fail` serve a training loop.
 
-The restart loop and elastic re-mesh of the JAX module belong to the
-training and multi-device items, which are not ported yet.
+The restart loop (``resilient_train_loop``) and elastic re-mesh
+(``elastic_remesh``) of the JAX module are training code; they belong to
+the benchmarks and LM items, which are not ported yet.
 """
 
 from __future__ import annotations

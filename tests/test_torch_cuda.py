@@ -380,3 +380,125 @@ def test_tuned_halo_output_equals_the_default_on_the_card(cuda, tmp_path):
         p = dataclasses.replace(plan, band_rows=band)
         out = engine.SRSession.from_plan(p, layers, autotune="off").upscale(frames)
         assert torch.equal(out, default), band
+
+
+def _card_mesh(cuda, replicas, shards):
+    from repro_torch.launch.mesh import make_sr_mesh
+
+    return make_sr_mesh(replicas, shards, devices=[cuda] * (replicas * shards))
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("policy", ["zero", "halo", "replicate"])
+@pytest.mark.parametrize("shards", [2, 4])
+def test_sharded_executor_bit_exact_on_the_card(cuda, precision, policy, shards):
+    """The band-sharded executor on ``[cuda:0] * S`` (one stream per shard)
+    equals the single-device kernel executor bit for bit, and launches K1
+    once per shard."""
+    from repro_torch.engine.sharding import MeshSpec, ShardedPlan, build_sharded_executor
+    from repro_torch.launch.mesh import band_submesh
+
+    layers = init_abpn(torch.Generator().manual_seed(0), device=cuda)
+    plan = engine.SRPlan(height=120, width=64, num_layers=7, band_rows=15,
+                         vertical_policy=policy, backend="kernel", precision=precision)
+    stack = engine.prepare_stack(plan, layers)
+    frames = torch.from_numpy(np.random.default_rng(4).uniform(
+        size=(4, 120, 64, 3)).astype(np.float32)).to(cuda)
+    want = engine.build_stack_executor(plan, stack)(frames)
+    fn = build_sharded_executor(ShardedPlan(plan=plan, spec=MeshSpec(1, shards)), stack,
+                                band_submesh(_card_mesh(cuda, 1, shards), 0))
+    before = ttf.tilted_fusion_call.launches
+    got = fn(frames)
+    assert ttf.tilted_fusion_call.launches - before == shards
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("policy", ["zero", "halo"])
+def test_mesh_server_on_the_card_equals_an_unsharded_one(cuda, policy):
+    layers = init_abpn(torch.Generator().manual_seed(0))
+    flat = engine.SRServer({"m": engine.SRSession(
+        layers, backend="kernel", vertical_policy=policy, autotune="off", device=cuda)})
+    mesh = engine.SRServer({"m": engine.SRSession(
+        layers, backend="kernel", vertical_policy=policy, autotune="off",
+        mesh=_card_mesh(cuda, 2, 2))})
+    rng = np.random.default_rng(9)
+    for _ in range(4):
+        frames = rng.uniform(size=(2, 120, 64, 3)).astype(np.float32)
+        assert torch.equal(mesh.submit(frames).result(), flat.submit(frames).result())
+    stats = mesh.session().sharding_stats()
+    assert stats["mesh"] == "2x2" and [r["dispatches"] for r in stats["replicas"]] == [2, 2]
+
+
+@pytest.mark.parametrize("policy", ["zero", "halo"])
+def test_audit_server_clean_on_a_mesh_session(cuda, policy):
+    """A mesh session's launch forks and joins its shard streams without a
+    host wait: no synchronize, no pageable upload, no stream made there."""
+    from repro_torch.analysis import program_audit
+
+    layers = init_abpn(torch.Generator().manual_seed(0))
+    session = engine.SRSession(layers, backend="kernel", vertical_policy=policy,
+                               autotune="off", mesh=_card_mesh(cuda, 2, 2))
+    server = engine.SRServer({"m": session})
+    frame = np.random.default_rng(8).uniform(size=(120, 64, 3)).astype(np.float32)
+    assert program_audit.audit_server(server, lambda: server.submit(frame)) == []
+
+
+def _cards(n):
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA devices: a mesh across cards")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+@pytest.mark.parametrize("precision,policy", [("fp32", "zero"), ("fp32", "halo"),
+                                              ("bf16", "halo")])
+@pytest.mark.parametrize("shards", [2, 4])
+def test_sharded_executor_bit_exact_across_cards(cuda, precision, policy, shards):
+    """Shards on different GPUs (the default mesh: the first S cards): the
+    row blocks, the halo margins and the HR blocks cross between cards
+    with device-to-device copies, and the output still equals the
+    single-device executor's bit for bit."""
+    from repro_torch.engine.sharding import MeshSpec, ShardedPlan, build_sharded_executor
+    from repro_torch.launch.mesh import band_submesh, make_sr_mesh
+
+    _cards(shards)
+    layers = init_abpn(torch.Generator().manual_seed(0), device=cuda)
+    plan = engine.SRPlan(height=120, width=64, num_layers=7, band_rows=15,
+                         vertical_policy=policy, backend="kernel", precision=precision)
+    stack = engine.prepare_stack(plan, layers)
+    frames = torch.from_numpy(np.random.default_rng(4).uniform(
+        size=(4, 120, 64, 3)).astype(np.float32)).to(cuda)
+    want = engine.build_stack_executor(plan, stack)(frames)
+    mesh = band_submesh(make_sr_mesh(1, shards), 0)
+    assert len(mesh.distinct_devices()) == shards
+    got = build_sharded_executor(ShardedPlan(plan=plan, spec=MeshSpec(1, shards)), stack,
+                                 mesh)(frames)
+    torch.cuda.synchronize()
+    assert got.device == frames.device and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("policy", ["zero", "halo"])
+def test_mesh_server_across_cards_equals_an_unsharded_one(cuda, policy):
+    """A (2, 2) mesh over four cards: replica 1 runs from cuda:2 on the
+    server's home stream there, and its results come back on the session's
+    device (cuda:0)."""
+    from repro_torch.analysis import program_audit
+
+    _cards(4)
+    layers = init_abpn(torch.Generator().manual_seed(0))
+    flat = engine.SRServer({"m": engine.SRSession(
+        layers, backend="kernel", vertical_policy=policy, autotune="off", device=cuda)})
+    session = engine.SRSession(layers, backend="kernel", vertical_policy=policy,
+                               autotune="off", mesh=(2, 2))
+    mesh = engine.SRServer({"m": session})
+    assert session.device == torch.device("cuda", 0)
+    rng = np.random.default_rng(9)
+    for _ in range(4):
+        frames = rng.uniform(size=(2, 120, 64, 3)).astype(np.float32)
+        got = mesh.submit(frames).result()
+        assert got.device == session.device
+        assert torch.equal(got, flat.submit(frames).result())
+    stats = session.sharding_stats()
+    assert [r["dispatches"] for r in stats["replicas"]] == [2, 2]
+    frame = rng.uniform(size=(120, 64, 3)).astype(np.float32)
+    assert program_audit.audit_server(mesh, lambda: mesh.submit(frame)) == []

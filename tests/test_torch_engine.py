@@ -158,9 +158,14 @@ def test_session_validation_and_unported_options():
         session.submit(np.array([["a"]]))
     empty = session.upscale(np.zeros((0, 8, 8, 3), np.float32))
     assert tuple(empty.shape) == (0, 16, 16, 3)
-    # items 10 (autotune) and 12 (strict) are ported; item 11 (mesh) is not
-    for kwargs in (dict(mesh=(1, 2)), dict(route="least_loaded")):
-        with pytest.raises(ValueError, match="item 11"):
+    # items 10 (autotune), 11 (mesh) and 12 (strict) are ported: a mesh
+    # session serves; a bogus mesh or route is rejected
+    meshed = tengine.SRSession(TLAYERS, scale=2, device="cpu", mesh=(1, 2),
+                               route="least_loaded")
+    assert meshed.sharding_stats()["mesh"] == "1x2"
+    assert tuple(meshed.upscale(np.zeros((16, 8, 3), np.float32)).shape) == (32, 16, 3)
+    for kwargs in (dict(mesh="1x2"), dict(mesh=(1, 2), route="random")):
+        with pytest.raises(ValueError):
             tengine.SRSession(TLAYERS, scale=2, device="cpu", **kwargs)
     for mode in ("off", "cached", "full"):
         tuned = tengine.SRSession(TLAYERS, scale=2, device="cpu", autotune=mode, strict=True)

@@ -1,7 +1,7 @@
 """The PyTorch port's temporal delta serving vs the JAX package's.
 
-Twins of ``tests/test_temporal.py`` (every test but the mesh subprocess
-one, which waits for multi-device sharding), plus parity with the JAX
+Twins of ``tests/test_temporal.py`` (the mesh subprocess test runs
+in-process, on a mesh of cpu positions), plus parity with the JAX
 package: band digests byte for byte, slab/bounds marshalling array for
 array, the ``verify_delta_cover`` findings rule for rule, and the
 delta-served clip within the fp32 tolerance (5e-4) of the JAX full-frame
@@ -618,3 +618,23 @@ def test_concurrent_delta_streams_share_one_session():
     assert t["cache"]["pinned"] == 0 and t["cover_violations"] == 0
     s = server.scheduler_stats()
     assert s["pending_frames"] == 0 and s["inflight_dispatches"] == 0
+
+
+def test_delta_parity_on_mesh_session():
+    """The twin of the JAX package's mesh subprocess test, in-process on a
+    (2, 2) mesh of cpu positions: partial-band dispatches run locally,
+    unsharded, on the session's device, and the splice is bit-exact vs the
+    SHARDED full re-upscale (itself bit-exact vs single-device)."""
+    session = make_session(vertical_policy="halo", mesh=(2, 2), autotune="off")
+    rng = np.random.default_rng(7)
+    base = rng.random(LR, dtype=np.float32)
+    moved = base.copy()
+    moved[12:14] += 0.25
+    clip = [base, base.copy(), moved]
+    with DeltaSession(session) as ds:
+        for f in clip:
+            assert torch.equal(ds.serve(f), session.upscale(f))
+    t = session.temporal_stats()
+    assert t["bands_skipped"] > 0, t
+    stats = session.sharding_stats()
+    assert stats["mesh"] == "2x2" and sum(r["dispatches"] for r in stats["replicas"]) == 3
