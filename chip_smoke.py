@@ -88,6 +88,23 @@ exits non-zero (nothing is caught):
    beside the single-device executor at the same R, and the ``(2, 2)``
    server's frames/s over 20 closed-loop 8-frame requests of host frames
    beside an unsharded server's;
+4f. LM serving — ``launch/serve.py``'s step functions
+   (``make_prefill_step``/``make_decode_step``) over qwen2-0.5b at its full
+   width and depth (24 layers, d_model 896, 14/2 heads of 64, d_ff 4864,
+   vocab 151936, tied, fp32 weights from a ``torch.Generator`` on the card,
+   QKV biases seeded non-zero): batch 4, a 128-token random prompt, 32
+   greedy tokens, in bf16 (the config's) and fp32 activations; logits
+   finite and (4, 151936) after prefill and every decode step; bf16 vs fp32
+   prefill logits within a relative L2 of 0.05 and a max abs diff of 0.1 of
+   the largest logit (the greedy tokens printed); fp32 prefill over 128
+   then decode of token 128 == ``forward`` over 129 at position 128
+   (``atol 2e-4, rtol 1e-3``, the reference's); fp32 prefill logits of a
+   16-token prompt on the card == on the CPU (the same tolerance).  Times:
+   prefill ms, decode ms per step and tokens/s (CUDA events), the device's
+   busy time per step (``torch.profiler``), each decode step's HBM bound
+   (weights as stored + the bf16 copies that casting at use writes and
+   reads + the KV cache, at the calibrated rate of phase 4d) and the
+   prefill's bound;
 5. times — CUDA events, median of repeats after warm-up.  K1 at 1 and 8
    frames (fp32 and bf16, automatic segment plan: its segments, CTAs,
    warm-up tiles and their share of the executed tiles) four ways: one
@@ -236,6 +253,200 @@ def bound(flops, nbytes, peak_flops, peak_bw):
     ``nbytes`` at ``peak_bw``, and which of the two bounds it."""
     t_ops, t_bytes = flops / peak_flops, nbytes / peak_bw
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+# Phase 4f: the LM serving path at the full width and depth of qwen2-0.5b.
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "qwen2-0.5b", 4, 128, 32
+LM_PROFILED_STEPS = 3  # decode steps in the profiler's window
+LM_TOL = dict(atol=2e-4, rtol=1e-3)  # fp32: the reference's decode-vs-forward tolerance
+# bf16 vs fp32 prefill logits: bf16 keeps 8 significant bits (a rounding
+# step of 2^-8 = 0.39 %) and the activations are rounded some ten times a
+# layer over 24 layers; at 24 layers of widths 128-448 the CPU gives a
+# relative L2 error of 1.8-2.1 % and a max abs diff of 1.6-2.0 % of the
+# largest logit.  The bounds leave 2.5x and 5x of that.
+LM_BF16_REL_L2, LM_BF16_MAX_FRAC = 0.05, 0.1
+
+
+def _leaves(tree, prefix=""):
+    """(path, tensor) of every leaf of a nested dict."""
+    for key in sorted(tree):
+        if isinstance(tree[key], dict):
+            yield from _leaves(tree[key], f"{prefix}{key}/")
+        else:
+            yield prefix + key, tree[key]
+
+
+def profiler_device_ms(torch, fn):
+    """(milliseconds the card spends in kernels and copies, their count)
+    during one call of ``fn``, from ``torch.profiler``; (None, 0) when it
+    records no device event.  Keep ``fn`` short: the profiler's events are
+    read back in Python."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    return (sum(spans) / 1e3 if spans else None), len(spans)
+
+
+def lm_serving(torch, dev, smi, hbm_bytes_per_s, peaks, cfg):
+    """Phase 4f: ``launch/serve.py``'s code (``make_prefill_step`` /
+    ``make_decode_step``) over ``cfg`` (qwen2-0.5b at its full width and
+    depth): checks, then times beside the bounds."""
+    from repro_torch.distributed.steps import init_cache, make_decode_step, make_prefill_step
+    from repro_torch.layers.params import init_params, tree_map
+    from repro_torch.models import lm
+    from repro_torch.models.registry import get_model
+
+    B, S, G, V = LM_BATCH, LM_PROMPT, LM_GEN, cfg.vocab_size
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_params(get_model(cfg).schema(cfg), gen, cfg.weight_dtype, dev)
+    # the schema zeroes the QKV biases; seeded non-zero ones check the bias path
+    for key in ("bq", "bk", "bv"):
+        params["blocks"]["attn"][key].normal_(0.0, 0.1, generator=gen)
+    tokens = torch.randint(0, V, (B, S + 1), generator=gen, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    leaves = list(_leaves(params))
+    n_params = sum(t.numel() for _, t in leaves)
+    stored = sum(t.numel() * t.element_size() for _, t in leaves)
+    print(f"{LM_ARCH}: {cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads} query / "
+          f"{cfg.num_kv_heads} KV heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {V}, tied, QKV "
+          f"bias; {n_params} parameters ({stored / 1e9:.3f} GB {cfg.param_dtype}) from a "
+          f"torch.Generator on {dev} in {time.perf_counter() - t0:.2f} s")
+    cfgs = {"bf16": cfg, "fp32": dataclasses.replace(cfg, dtype="float32")}
+    cfg32 = cfgs["fp32"]
+
+    def serve(c):
+        """Prefill S tokens, then G - 1 greedy decode steps; every step's
+        logits must be finite and shaped (B, V)."""
+        prefill, decode = make_prefill_step(c), make_decode_step(c)
+        cache = init_cache(c, B, S + G, dev)
+        logits, cache = prefill(params, {"tokens": tokens[:, :S]}, cache)
+        first = logits.float()
+        out = []
+        for i in range(G):
+            require(tuple(logits.shape) == (B, V), f"{c.dtype} step {i}: logits {tuple(logits.shape)}")
+            require(bool(torch.isfinite(logits).all()), f"{c.dtype} step {i}: non-finite logits")
+            tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+            out.append(tok)
+            if i < G - 1:
+                logits, cache = decode(params, tok, cache, S + i)
+        return first, torch.cat(out, dim=1)
+
+    t0 = time.perf_counter()
+    served = {prec: serve(c) for prec, c in cfgs.items()}
+    print(f"served [bf16, fp32]: prefill of {B}x{S} tokens, then {G - 1} greedy decode steps; "
+          f"logits finite and ({B}, {V}) after prefill and after every step ({time.perf_counter() - t0:.1f} s)")
+
+    # bf16 against fp32 prefill logits on the card
+    ref, got = served["fp32"][0], served["bf16"][0]
+    rel_l2 = float(((got - ref).norm(dim=-1) / ref.norm(dim=-1)).max())
+    max_frac = float((got - ref).abs().max() / ref.abs().max())
+    agree = float((served["bf16"][1] == served["fp32"][1]).float().mean())
+    print(f"bf16 vs fp32 prefill logits: relative L2 (worst row) {rel_l2:.5f} (bound "
+          f"{LM_BF16_REL_L2}), max abs diff {max_frac:.5f} of the largest |logit| (bound "
+          f"{LM_BF16_MAX_FRAC}); greedy tokens agree at {agree:.4f} of {B}x{G}")
+    for prec in ("bf16", "fp32"):
+        print(f"  greedy tokens [{prec}], row 0: {served[prec][1][0].tolist()}")
+    require(rel_l2 <= LM_BF16_REL_L2 and max_frac <= LM_BF16_MAX_FRAC,
+            "bf16 prefill logits are out of their bound from fp32's")
+
+    # fp32 cache consistency: prefill over S, decode token S == forward over S + 1
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        full, _, _ = lm.forward(params, cfg32, tokens, mode="train")
+    want = full[:, S]
+    del full
+    cache = init_cache(cfg32, B, S + 4, dev)
+    _, cache = make_prefill_step(cfg32)(params, {"tokens": tokens[:, :S]}, cache)
+    dec, _ = make_decode_step(cfg32)(params, tokens[:, S:S + 1], cache, S)
+    err = (dec - want).abs()
+    excess = float((err / (LM_TOL["atol"] + LM_TOL["rtol"] * want.abs())).max())
+    print(f"fp32 decode at position {S} vs forward over {S + 1} tokens: max abs diff "
+          f"{float(err.max()):.3e} ({excess:.3f} of atol {LM_TOL['atol']} + rtol "
+          f"{LM_TOL['rtol']} |want|; {time.perf_counter() - t0:.1f} s)")
+    require(excess <= 1.0, "fp32 decode after prefill must match forward over S + 1 tokens")
+
+    # the card against the CPU: fp32 weights, a 16-token prompt at batch 1
+    t0 = time.perf_counter()
+    params_cpu = tree_map(lambda t: t.cpu(), params, is_leaf=lambda t: not isinstance(t, dict))
+    prompt = tokens[:1, :16]
+    on_card, _ = make_prefill_step(cfg32)(params, {"tokens": prompt},
+                                          init_cache(cfg32, 1, 16, dev))
+    on_cpu, _ = make_prefill_step(cfg32)(params_cpu, {"tokens": prompt.cpu()},
+                                         init_cache(cfg32, 1, 16, "cpu"))
+    del params_cpu
+    err = (on_card.cpu() - on_cpu).abs()
+    cpu_excess = float((err / (LM_TOL["atol"] + LM_TOL["rtol"] * on_cpu.abs())).max())
+    print(f"fp32 prefill logits, card vs CPU (batch 1, 16 tokens): max abs diff "
+          f"{float(err.max()):.3e} ({cpu_excess:.3f} of the tolerance; {time.perf_counter() - t0:.1f} s)")
+    require(cpu_excess <= 1.0, "fp32 prefill logits on the card must match the CPU's")
+
+    # times (CUDA events, median of repeats after warm-up) beside the bounds
+    norm_keys = ("ln1", "ln2", "final_norm", "q_norm", "k_norm")
+    tokens_in = B * S
+    layer_matmul = sum(t[0].numel() for k, t in leaves if k.startswith("blocks/")
+                       and not k.endswith(norm_keys))
+    attn_flops = cfg.num_layers * 4 * B * cfg.num_heads * cfg.head_dim * S * (S + 1) // 2
+    prefill_flops = 2 * tokens_in * cfg.num_layers * layer_matmul + 2 * B * V * cfg.d_model \
+        + attn_flops
+    times = {}
+    for prec, c in cfgs.items():
+        act_size = torch.empty((), dtype=c.activation_dtype).element_size()
+        cast = sum(2 * t.numel() * act_size for k, t in leaves
+                   if not k.endswith(norm_keys) and t.dtype != c.activation_dtype)
+        prefill, decode = make_prefill_step(c), make_decode_step(c)
+        cache = init_cache(c, B, S + G, dev)
+        kv = sum(t.numel() * t.element_size() for _, t in _leaves(cache))
+        batch = {"tokens": tokens[:, :S]}
+        # serve() above ran these shapes already: one warm-up call is enough
+        prefill_ms = time_ms(torch, lambda: prefill(params, batch, cache), reps=5, warmup=1)
+        logits, _ = prefill(params, batch, cache)
+        tok0 = torch.argmax(logits, -1)[:, None].to(torch.int32)
+
+        def loop(steps=G - 1):
+            tok = tok0
+            for i in range(steps):
+                out, _ = decode(params, tok, cache, S + i)
+                tok = torch.argmax(out, -1)[:, None].to(torch.int32)
+
+        t0 = time.perf_counter()
+        loop_ms = time_ms(torch, loop, reps=3, warmup=0)
+        busy_ms, kernels = profiler_device_ms(torch, lambda: loop(LM_PROFILED_STEPS))
+        step_ms = loop_ms / (G - 1)
+        decode_bytes = stored + cast + kv
+        decode_bound = decode_bytes / hbm_bytes_per_s * 1e3
+        peak = peaks["bf16" if prec == "bf16" else "fp32"]
+        pre_bound, pre_by = bound(prefill_flops, stored + cast + kv, peak, hbm_bytes_per_s)
+        busy = None if busy_ms is None else busy_ms / LM_PROFILED_STEPS
+        times[prec] = dict(prefill_ms=prefill_ms, prefill_bound_ms=pre_bound,
+                           prefill_bound_by=pre_by, prefill_flops=prefill_flops,
+                           decode_ms_per_step=step_ms, tokens_per_s=B * (G - 1) / loop_ms * 1e3,
+                           decode_bound_ms=decode_bound, decode_bytes=decode_bytes,
+                           weight_bytes=stored, cast_bytes=cast, kv_cache_bytes=kv,
+                           decode_device_busy_ms_per_step=busy,
+                           decode_device_events_per_step=kernels / LM_PROFILED_STEPS)
+        print(f"LM serving [{prec}, B={B}, prompt {S}, {G - 1} decode steps]: prefill "
+              f"{prefill_ms:.3f} ms (bound {pre_bound:.3f} ms, {pre_by}: {prefill_flops / 1e9:.1f} "
+              f"GFLOP at {peak / 1e12:.0f} TFLOP/s); decode {step_ms:.3f} ms/step, "
+              f"{times[prec]['tokens_per_s']:.1f} tokens/s; decode HBM bound "
+              f"{decode_bound:.3f} ms/step ({decode_bytes / 1e9:.4f} GB: weights {stored / 1e9:.4f}"
+              f" + cast copies {cast / 1e9:.4f} + KV cache {kv / 1e6:.3f} MB, at the calibrated "
+              f"{hbm_bytes_per_s / 1e12:.3f} TB/s) -> {100 * decode_bound / step_ms:.1f}% of "
+              f"bound; device busy per step (torch.profiler, {LM_PROFILED_STEPS} steps): "
+              f"{'not measured' if busy is None else f'{busy:.3f} ms'}, "
+              f"{kernels / LM_PROFILED_STEPS:.0f} kernels and copies a step; "
+              f"{time.perf_counter() - t0:.1f} s ({smi})")
+    return {"arch": LM_ARCH, "batch": B, "prompt": S, "generated": G, "parameters": n_params,
+            "bf16_vs_fp32": {"rel_l2": rel_l2, "max_frac": max_frac, "token_agreement": agree},
+            "decode_vs_forward_fp32_excess": excess, "card_vs_cpu_fp32_excess": cpu_excess,
+            "times": times}
 
 
 def main() -> int:
@@ -986,6 +1197,21 @@ def main() -> int:
                         f"S={S}": halo_exchange_bytes_per_frame(shard_plan(S, "halo"), S)
                         for S in (2, 4)},
                     "note": "mesh positions are streams of one card, not GPUs"}
+
+    # ------------------------------------------------------------------
+    phase("4f. LM serving: qwen2-0.5b at full width (prefill + KV-cache decode)")
+    from repro_torch.configs import get_config as lm_config
+
+    lm_cfg = lm_config(LM_ARCH)  # not reduced
+    dims = (lm_cfg.num_layers, lm_cfg.d_model, lm_cfg.num_heads, lm_cfg.num_kv_heads,
+            lm_cfg.head_dim, lm_cfg.d_ff, lm_cfg.vocab_size, lm_cfg.tie_embeddings,
+            lm_cfg.qkv_bias, lm_cfg.param_dtype, lm_cfg.dtype)
+    require(dims == (24, 896, 14, 2, 64, 4864, 151936, True, True, "float32", "bfloat16"),
+            f"{LM_ARCH} is not at its published width: {dims}")
+    t0 = time.perf_counter()
+    lm_path = lm_serving(torch, dev, smi, detected.hbm_bytes_per_s, peaks, lm_cfg)
+    print(f"lm_serving: {json.dumps(lm_path)}")
+    print(f"phase 4f took {time.perf_counter() - t0:.1f} s")
 
     # ------------------------------------------------------------------
     phase("5. times (CUDA events, median of repeats after warm-up)")

@@ -10,8 +10,13 @@ Layout (each module is the counterpart of the same path in ``repro``):
                          int8 quantisation
   repro_torch.kernels  — the hand-written CUDA kernel (K1) + its wrapper,
                          plain version and marshalling
-  repro_torch.models   — ABPN and the SR model registry
+  repro_torch.models   — ABPN, the decoder-only LM (dense and vlm
+                         families) and the model registry
   repro_torch.engine   — plan, executor, scheduler, session, server
+  repro_torch.config, .configs, .layers, .distributed, .launch.serve —
+                         the LM serving path: configs, layers, the
+                         prefill/decode step functions and their entry
+                         point
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``, which runs every kernel's plain version.

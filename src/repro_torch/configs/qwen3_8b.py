@@ -1,0 +1,19 @@
+"""qwen3-8b — dense, GQA + qk_norm. [hf:Qwen/Qwen3-8B; hf]"""
+
+from repro_torch.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-8b",
+    family="dense",
+    num_layers=36,
+    d_model=4096,
+    d_ff=12288,
+    vocab_size=151936,
+    attention="gqa",
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=128,
+    qk_norm=True,
+    rope_theta=1e6,
+    remat="full",
+)

@@ -1,5 +1,6 @@
 """repro_torch.launch — device meshes for serving (the SR half of the JAX
-package's ``launch``)."""
+package's ``launch/mesh.py``) and the LM serving entry point
+(``python -m repro_torch.launch.serve``)."""
 
 from repro_torch.launch.mesh import (
     SR_BAND_AXIS,

@@ -1,1 +1,1 @@
-"""The paper's ABPN model and the SR model registry (PyTorch)."""
+"""The paper's ABPN model, the decoder-only LM and the model registry (PyTorch)."""

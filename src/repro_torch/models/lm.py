@@ -1,0 +1,191 @@
+"""Decoder-only LM for the dense and VLM-prefix families — the port of
+``repro.models.lm``.
+
+One config-driven assembly:
+  * attention: GQA (qwen2/3); MLA (deepseek-v2) comes with ROADMAP queue 1,
+    item 14d
+  * FFN: SwiGLU or plain MLP; MoE (arctic, deepseek-v2) comes with item
+    14d, ``first_k_dense`` prologue layers are ported
+  * optional multimodal prefix: precomputed frontend embeddings (internvl2
+    stub ViT) are concatenated ahead of the token embeddings
+  * the reference's ``lax.scan`` over the stacked ``blocks`` is a Python
+    loop over their leading (layer) dimension; ``remat`` does nothing in
+    forward-only serving (the training slice, item 14c, brings
+    ``torch.utils.checkpoint``)
+
+The same forward serves train, prefill (fills the KV cache, returns
+last-position logits) and single-token decode.  Prefill and decode write
+the cache **in place** and return the same tree (see
+``layers.attention``); a caller must not reuse the cache it passed in.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.layers import attention as attn_lib
+from repro_torch.layers.common import cross_entropy, embed_lookup, rmsnorm
+from repro_torch.layers.mlp import mlp_block, mlp_schema
+from repro_torch.layers.params import ParamSpec, stack_schema, tree_map
+
+__all__ = ["schema", "cache_schema", "loss", "prefill", "decode_step", "forward"]
+
+MOE_MLA_ITEM = "ROADMAP queue 1, item 14d (MoE and MLA)"
+
+
+def _check_supported(cfg) -> None:
+    if cfg.attention == "mla":
+        raise NotImplementedError(f"{cfg.name}: MLA attention is not ported yet: {MOE_MLA_ITEM}")
+    if cfg.is_moe:
+        raise NotImplementedError(f"{cfg.name}: MoE layers are not ported yet: {MOE_MLA_ITEM}")
+
+
+# ----------------------------------------------------------------------
+# Schemas
+# ----------------------------------------------------------------------
+def _block_schema(cfg) -> dict:
+    d = cfg.d_model
+    return {
+        "ln1": ParamSpec((d,), ("norm",), init="ones"),
+        "ln2": ParamSpec((d,), ("norm",), init="ones"),
+        "attn": attn_lib.gqa_schema(cfg),
+        "mlp": mlp_schema(cfg),
+    }
+
+
+def _n_scan(cfg) -> int:
+    return cfg.num_layers - cfg.first_k_dense
+
+
+def schema(cfg) -> dict:
+    _check_supported(cfg)
+    d, v = cfg.d_model, cfg.vocab_size
+    s: Dict[str, Any] = {
+        "embed": ParamSpec((v, d), ("vocab", "embed"), init="embed", scale=0.02),
+        "blocks": stack_schema(_block_schema(cfg), _n_scan(cfg)),
+        "final_norm": ParamSpec((d,), ("norm",), init="ones"),
+    }
+    for i in range(cfg.first_k_dense):
+        s[f"prologue_{i}"] = _block_schema(cfg)
+    if not cfg.tie_embeddings:
+        s["lm_head"] = ParamSpec((d, v), ("embed", "vocab"))
+    return s
+
+
+def cache_schema(cfg, batch: int, max_len: int) -> dict:
+    """ParamSpec tree (init=zeros) describing the decode cache."""
+    _check_supported(cfg)
+    shape, dtype, axes = attn_lib.init_kv_cache_spec(cfg, batch, max_len)
+    one = ParamSpec(shape, axes, init="zeros", dtype=str(dtype).removeprefix("torch."))
+    layer = {"k": one, "v": one}
+    s = {"layers": stack_schema(layer, _n_scan(cfg))}
+    for i in range(cfg.first_k_dense):
+        s[f"prologue_{i}"] = dict(layer)
+    return s
+
+
+# ----------------------------------------------------------------------
+# Blocks
+# ----------------------------------------------------------------------
+def _apply_block(p, cfg, x, positions, cache, cache_pos, mode):
+    """Pre-norm residual block. Returns (x, new_cache)."""
+    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    a, kv = attn_lib.attention_block(
+        p["attn"], cfg, h, positions,
+        cache=None if cache is None else (cache["k"], cache["v"]),
+        cache_pos=cache_pos, mode=mode)
+    new_cache = None if kv is None else {"k": kv[0], "v": kv[1]}
+    x = x + a
+    h = rmsnorm(x, p["ln2"], cfg.norm_eps)
+    return x + mlp_block(p["mlp"], cfg, h), new_cache
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a stacked tree: views, so cache writes land in it."""
+    return tree_map(lambda t: t[i], tree, is_leaf=lambda t: not isinstance(t, dict))
+
+
+# ----------------------------------------------------------------------
+# Forward
+# ----------------------------------------------------------------------
+def forward(
+    params,
+    cfg,
+    tokens: torch.Tensor,  # (B, S)
+    *,
+    frontend: Optional[torch.Tensor] = None,  # (B, F, d) precomputed embeds
+    cache=None,
+    cache_pos=None,
+    mode: str = "train",
+    last_logit_only: bool = False,
+):
+    """Returns (logits (B, S_total, V), new_cache, metrics)."""
+    _check_supported(cfg)
+    act = cfg.activation_dtype
+    x = embed_lookup(params["embed"], tokens, act)
+    if frontend is not None:
+        x = torch.cat([frontend.to(act), x], dim=1)
+    B, S, _ = x.shape
+    if mode == "decode":
+        positions = torch.full((B, 1), cache_pos, dtype=torch.int32, device=x.device)
+    else:
+        positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+
+    new_cache: Dict[str, Any] = {}
+    for i in range(cfg.first_k_dense):
+        c = None if cache is None else cache[f"prologue_{i}"]
+        x, nc = _apply_block(params[f"prologue_{i}"], cfg, x, positions, c, cache_pos, mode)
+        if nc is not None:
+            new_cache[f"prologue_{i}"] = nc
+
+    for i in range(_n_scan(cfg)):
+        lc = None if cache is None else _layer(cache["layers"], i)
+        x, _ = _apply_block(_layer(params["blocks"], i), cfg, x, positions, lc, cache_pos, mode)
+    if cache is not None:
+        new_cache["layers"] = cache["layers"]  # written in place, layer by layer
+
+    if last_logit_only:
+        # only the last position's logits are consumed: slice the hidden
+        # state before the unembedding matmul
+        x = x[:, -1:]
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    if cfg.tie_embeddings:
+        logits = torch.einsum("bsd,vd->bsv", x, params["embed"].to(x.dtype))
+    else:
+        logits = torch.einsum("bsd,dv->bsv", x, params["lm_head"].to(x.dtype))
+    return logits, (new_cache if new_cache else None), {}
+
+
+# ----------------------------------------------------------------------
+# Unified API
+# ----------------------------------------------------------------------
+def loss(params, cfg, batch):
+    logits, _, metrics = forward(
+        params, cfg, batch["tokens"], frontend=batch.get("frontend"), mode="train"
+    )
+    if batch.get("frontend") is not None:
+        logits = logits[:, batch["frontend"].shape[1]:]
+    l, ce_metrics = cross_entropy(logits, batch["targets"], batch.get("mask"))
+    metrics.update(ce_metrics)
+    metrics["total_loss"] = l
+    return l, metrics
+
+
+def prefill(params, cfg, batch, cache):
+    """Fill the cache (in place); return (last-position logits (B, V), cache)."""
+    logits, new_cache, _ = forward(
+        params, cfg, batch["tokens"], frontend=batch.get("frontend"),
+        cache=cache, cache_pos=0, mode="prefill", last_logit_only=True,
+    )
+    return logits[:, -1, :], new_cache
+
+
+def decode_step(params, cfg, tokens, cache, pos):
+    """One decode step at position ``pos`` (a Python int); writes the cache
+    in place; returns (logits (B, V), cache)."""
+    logits, new_cache, _ = forward(
+        params, cfg, tokens, cache=cache, cache_pos=pos, mode="decode"
+    )
+    return logits[:, -1, :], new_cache

@@ -1,6 +1,15 @@
-"""SR model registry: model names -> servable specs.
+"""Model registry: LM families -> unified model API, SR models -> specs.
 
-A registered :class:`SRModelSpec` (canonical name, config, weight
+LM side — ``get_model(cfg)`` returns the family's module, which exposes:
+  schema(cfg)                          parameter ParamSpec tree
+  cache_schema(cfg, batch, max_len)    decode-cache ParamSpec tree
+  loss(params, cfg, batch)             -> (scalar loss, metrics)
+  prefill(params, cfg, batch, cache)   -> (last logits (B,V), cache)
+  decode_step(params, cfg, tok, cache, pos) -> (logits (B,V), cache)
+The dense and vlm families are ported (``models.lm``); the others raise
+an error naming the ROADMAP item that ports them.
+
+SR side — a registered :class:`SRModelSpec` (canonical name, config, weight
 initialiser) is how ``repro_torch.engine.SRSession.open("abpn_x3")``
 resolves a model name into a servable conv stack without the caller
 touching plans or weights.
@@ -11,18 +20,47 @@ from __future__ import annotations
 import dataclasses
 import difflib
 import functools
+import types
 from typing import Callable, Dict, Sequence, Tuple
 
+from repro_torch.models import lm
 from repro_torch.models.abpn import ABPNConfig, init_abpn
 
 __all__ = [
+    "get_model",
     "get_sr_model",
     "list_sr_models",
     "register_sr_model",
     "SRModelSpec",
 ]
 
+_FAMILY = {
+    "dense": lm,
+    "vlm": lm,
+}
 
+# families of the JAX package that later slices port
+_UNPORTED = {
+    "moe": "ROADMAP queue 1, item 14d (MoE and MLA)",
+    "ssm": "ROADMAP queue 1, item 14e (SSM and hybrid)",
+    "hybrid": "ROADMAP queue 1, item 14e (SSM and hybrid)",
+    "encdec": "ROADMAP queue 1, item 14f (encoder-decoder)",
+}
+
+
+def get_model(cfg) -> types.ModuleType:
+    if cfg.family in _FAMILY:
+        return _FAMILY[cfg.family]
+    if cfg.family in _UNPORTED:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family is not ported yet: {_UNPORTED[cfg.family]}")
+    raise ValueError(
+        f"unknown family {cfg.family!r}; expected one of {sorted({*_FAMILY, *_UNPORTED})}")
+
+
+# ----------------------------------------------------------------------
+# SR models (served through repro_torch.engine.SRSession)
+# ----------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class SRModelSpec:
     """A servable SR model.

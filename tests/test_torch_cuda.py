@@ -1,6 +1,8 @@
 """The CUDA kernels on the card vs their plain versions: K1 (tilted fusion)
 and K2 (one SAME 3x3 conv layer), and the serving path on the card vs the
-same path on the CPU.  K1's column segments must not change a bit of its
+same path on the CPU.  The LM serving path (qwen2-0.5b's widths cut to 2
+layers, fp32): decode after prefill vs ``forward``, and prefill on the card
+vs the CPU, at the reference's ``atol 2e-4, rtol 1e-3``.  K1's column segments must not change a bit of its
 output (``torch.equal`` across segment counts).
 
 Every test here needs a CUDA device and skips where none is present: the
@@ -502,3 +504,48 @@ def test_mesh_server_across_cards_equals_an_unsharded_one(cuda, policy):
     assert [r["dispatches"] for r in stats["replicas"]] == [2, 2]
     frame = rng.uniform(size=(120, 64, 3)).astype(np.float32)
     assert program_audit.audit_server(mesh, lambda: mesh.submit(frame)) == []
+
+
+def _lm_cut(device):
+    """qwen2-0.5b at its full widths, cut to 2 layers, fp32, seeded
+    weights (QKV biases non-zero) on ``device``."""
+    from repro_torch.configs import get_config
+    from repro_torch.layers.params import init_params
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"), num_layers=2, dtype="float32")
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = init_params(lm.schema(cfg), gen, cfg.weight_dtype, device)
+    for key in ("bq", "bk", "bv"):
+        params["blocks"]["attn"][key].normal_(0.0, 0.1, generator=gen)
+    return cfg, params
+
+
+def test_lm_decode_after_prefill_matches_forward_on_the_card(cuda):
+    from repro_torch.distributed.steps import init_cache, make_decode_step, make_prefill_step
+    from repro_torch.models import lm
+
+    cfg, params = _lm_cut(cuda)
+    B, S = 2, 40
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), dtype=torch.int32, device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+    with torch.no_grad():
+        full, _, _ = lm.forward(params, cfg, tokens, mode="train")
+    cache = init_cache(cfg, B, S + 3, cuda)
+    _, cache = make_prefill_step(cfg)(params, {"tokens": tokens[:, :S]}, cache)
+    logits, _ = make_decode_step(cfg)(params, tokens[:, S:S + 1], cache, S)
+    torch.testing.assert_close(logits, full[:, S], atol=2e-4, rtol=1e-3)
+
+
+def test_lm_prefill_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.distributed.steps import init_cache, make_prefill_step
+    from repro_torch.layers.params import tree_map
+
+    cfg, params = _lm_cut(cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 16), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(2))
+    step = make_prefill_step(cfg)
+    on_card, _ = step(params, {"tokens": tokens.to(cuda)}, init_cache(cfg, 1, 16, cuda))
+    params_cpu = tree_map(lambda t: t.cpu(), params, is_leaf=lambda t: not isinstance(t, dict))
+    on_cpu, _ = step(params_cpu, {"tokens": tokens}, init_cache(cfg, 1, 16, "cpu"))
+    torch.testing.assert_close(on_card.cpu(), on_cpu, atol=2e-4, rtol=1e-3)
