@@ -105,6 +105,33 @@ exits non-zero (nothing is caught):
    (weights as stored + the bf16 copies that casting at use writes and
    reads + the KV cache, at the calibrated rate of phase 4d) and the
    prefill's bound;
+4g. training — qwen2-0.5b at full width and depth (``remat="full"``): the
+   flash backward in fp32 with the config's head layout (Kh 2, G 7, D 64),
+   batch 2, causal, S = 128 (one KV chunk) and 512 (four of 128), ``dq``,
+   ``dk``, ``dv`` against autograd through a direct softmax (``atol 5e-5,
+   rtol 1e-3``, the reference's); ``steps.compute_grads`` in fp32 at batch
+   1 x 32 tokens on the card vs the CPU on the same weights (every leaf
+   within a relative L2 of 1e-4), and ``remat="full"`` vs ``"none"`` on the
+   card (within 1e-5; the peak memory of each call above what was allocated
+   before it);
+   ``launch.train.main(["--full", "--steps", "8", "--batch", "4", "--seq",
+   "128", "--checkpoint-every", "0", ...])`` returns 0 with finite losses
+   and grad norms; ``make_train_step`` on one fixed 4 x 128 batch (bf16
+   activations, fp32 parameters, lr 1e-3) brings the loss below 0.9x its
+   first within 12 steps, every step finite.  Times: the step's ms (CUDA
+   events, median of steps 3-12) and tokens/s, its peak memory, the card's
+   busy ms and kernels per step over a 3-step ``torch.profiler`` window with
+   the five costliest kernels, beside the step's bounds (its operations at
+   the bf16 tensor-core peak; AdamW's bytes at the calibrated HBM rate).
+   Then ``resilient_train_loop`` on the card (2 layers of width 32, failures
+   injected at steps 7 and 13, a checkpoint every 5 in a temporary
+   directory): 2 restarts, step 20 reached, the optimizer at >= 18, and the
+   final parameters' max abs diff from an uninterrupted run.  Then ABPN
+   training through ``examples/torch_train_abpn.py``'s step (12 channels,
+   4 layers, 24x24, 60 SGD steps at lr 0.02, fp32, TF32 off) must gain more
+   than 0.5 dB of PSNR, and ``examples/torch_quickstart.py`` on the card
+   must print ``reference vs tilted(halo)`` as ``0.00e+00`` (its ``kernel``
+   backend launches K1 once, outside the counted paths);
 5. times — CUDA events, median of repeats after warm-up.  K1 at 1 and 8
    frames (fp32 and bf16, automatic segment plan: its segments, CTAs,
    warm-up tiles and their share of the executed tiles) four ways: one
@@ -135,6 +162,7 @@ Exits 2 and prints no result when no CUDA device is present.
 
 import dataclasses
 import json
+import math
 import os
 import re
 import statistics
@@ -447,6 +475,311 @@ def lm_serving(torch, dev, smi, hbm_bytes_per_s, peaks, cfg):
             "bf16_vs_fp32": {"rel_l2": rel_l2, "max_frac": max_frac, "token_agreement": agree},
             "decode_vs_forward_fp32_excess": excess, "card_vs_cpu_fp32_excess": cpu_excess,
             "times": times}
+
+
+# Phase 4g: training.  The gradient of the full-width model on the card
+# against the CPU: fp32 sums in another order, and the embedding's gradient
+# is summed by atomics on the card (index_put_ with accumulation), whose
+# order varies from run to run; at relative L2 1e-4 a leaf may differ by
+# about 1e-4 of its norm, some 10^3 fp32 roundings of each element.
+TRAIN_BATCH, TRAIN_SEQ = 4, 128
+TRAIN_GRAD_REL_L2 = 1e-4  # card vs CPU, per leaf (fp32)
+TRAIN_REMAT_REL_L2 = 1e-5  # remat "full" vs "none" on the card, per leaf (fp32)
+TRAIN_LR = 1e-3  # the fixed-batch check's peak learning rate (warm-up 2 steps)
+TRAIN_PROFILED_STEPS = 3  # train steps in the profiler's window
+FLASH_TOL = dict(atol=5e-5, rtol=1e-3)  # the reference's VJP tolerance
+
+
+def _rel_l2(got, want):
+    return float((got.double() - want.double()).norm() / want.double().norm().clamp_min(1e-30))
+
+
+def _profile_window(torch, fn):
+    """(device ms in kernels and copies, their count, the 5 kernels that
+    took the most device time with their ms) over one call of ``fn``, after
+    one warm-up call; (None, 0, []) when the profiler records no device
+    event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name.setdefault(e.name, []).append(e.time_range.end - e.time_range.start)
+    if not by_name:
+        return None, 0, []
+    total = sum(sum(v) for v in by_name.values()) / 1e3
+    count = sum(len(v) for v in by_name.values())
+    top = sorted(((sum(v) / 1e3, len(v), n) for n, v in by_name.items()), reverse=True)[:5]
+    return total, count, [{"ms": ms, "count": c, "name": n[:100]} for ms, c, n in top]
+
+
+def lm_training(torch, dev, smi, hbm_bytes_per_s, peaks, cfg):
+    """Phase 4g: the flash backward, gradients card vs CPU and remat at full
+    width, ``launch/train.py`` and ``make_train_step`` at full width (times
+    beside the bounds), the resilient loop, and ABPN training through
+    ``examples/torch_train_abpn.py``; returns the JSON record."""
+    import contextlib
+    import importlib.util
+    import io
+    import tempfile
+
+    from repro_torch.config import TrainConfig
+    from repro_torch.data.synthetic import lm_batch, sr_pair_batch
+    from repro_torch.distributed.steps import compute_grads, init_train_state, make_train_step
+    from repro_torch.launch import train as train_cli
+    from repro_torch.layers.attention import flash_attention
+    from repro_torch.layers.params import tree_leaves, tree_leaves_with_path, tree_map
+    from repro_torch.models.abpn import ABPNConfig, init_abpn
+    from repro_torch.runtime.resilience import FailureInjector, resilient_train_loop
+
+    record = {"arch": cfg.name, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ}
+
+    # 1. the flash backward on the card, fp32, the full config's head layout
+    kh, g = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
+    flash = {}
+    for S in (128, 512):
+        gen = torch.Generator(device=dev).manual_seed(S)
+        q = torch.randn((2, S, kh, g, cfg.head_dim), generator=gen, device=dev)
+        k = torch.randn((2, S, kh, cfg.head_dim), generator=gen, device=dev)
+        v = torch.randn((2, S, kh, cfg.head_dim), generator=gen, device=dev)
+        cot = torch.randn((2, S, kh, g, cfg.head_dim), generator=gen, device=dev)
+
+        def direct(q, k, v):
+            s = torch.einsum("bqkgd,bskd->bqkgs", q, k) / cfg.head_dim ** 0.5
+            mask = torch.arange(S, device=dev)[:, None] >= torch.arange(S, device=dev)[None, :]
+            s = torch.where(mask[None, :, None, None, :], s, -1e30)
+            return torch.einsum("bqkgs,bskd->bqkgd", torch.softmax(s, -1), v)
+
+        args = [t.clone().requires_grad_() for t in (q, k, v)]
+        got = torch.autograd.grad(flash_attention(*args, causal=True, chunk=128), args, cot)
+        args = [t.clone().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad(direct(*args), args, cot)
+        tol = [FLASH_TOL["atol"] + FLASH_TOL["rtol"] * b.abs() for b in want]
+        excess = max(float(((a - b).abs() / t).max()) for a, b, t in zip(got, want, tol))
+        flash[S] = {"excess": excess, "max_abs": max(float((a - b).abs().max())
+                                                      for a, b in zip(got, want))}
+        print(f"flash backward [fp32, B=2, S={S}, {S // 128} KV chunk(s) of 128, Kh {kh}, G {g}, "
+              f"D {cfg.head_dim}, causal]: dq/dk/dv vs autograd through a direct softmax, max "
+              f"abs diff {flash[S]['max_abs']:.3e} ({excess:.3f} of atol {FLASH_TOL['atol']} + "
+              f"rtol {FLASH_TOL['rtol']} |want|)")
+        require(excess <= 1.0, f"flash backward at S={S} vs the direct softmax's gradient")
+    record["flash_backward"] = flash
+
+    # 2. gradients at full width, fp32, card vs CPU, the same weights
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    state = init_train_state(cfg32, TrainConfig(), gen, dev)
+    params = state["params"]
+    for key in ("bq", "bk", "bv"):  # the schema zeroes them; non-zero ones check the bias path
+        params["blocks"]["attn"][key].normal_(0.0, 0.1, generator=gen)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    batch1 = lm_batch(cfg, 0, 1, 32, device=dev)
+    _, g_card = compute_grads(cfg32, params, batch1)
+    params_cpu = tree_map(lambda t: t.cpu(), params, is_leaf=lambda t: not isinstance(t, dict))
+    _, g_cpu = compute_grads(cfg32, params_cpu, {k: v.cpu() for k, v in batch1.items()})
+    del params_cpu
+    errs = {"/".join(p): _rel_l2(a.cpu(), b) for (p, a), (_, b)
+            in zip(tree_leaves_with_path(g_card), tree_leaves_with_path(g_cpu))}
+    del g_cpu
+    worst = max(errs, key=errs.get)
+    print(f"gradient [fp32, full width, batch 1 x 32 tokens, {n_params} parameters], card vs "
+          f"CPU: worst leaf {worst} relative L2 {errs[worst]:.3e}, embed "
+          f"{errs['embed']:.3e} (bound {TRAIN_GRAD_REL_L2}; {time.perf_counter() - t0:.1f} s)")
+    require(max(errs.values()) <= TRAIN_GRAD_REL_L2, "full-width gradients, card vs CPU")
+    record["grad_card_vs_cpu_rel_l2"] = {"worst": errs[worst], "worst_leaf": worst,
+                                         "embed": errs["embed"]}
+
+    # 3. remat "full" against "none", fp32, on the card; each call's peak
+    # is read above the memory allocated just before it
+    del g_card
+    peak = {}
+    grads = {}
+    for remat in ("full", "none"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        _, grads[remat] = compute_grads(dataclasses.replace(cfg32, remat=remat), params, batch1)
+        torch.cuda.synchronize()
+        peak[remat] = torch.cuda.max_memory_allocated(dev) - before
+    errs = [_rel_l2(a, b) for a, b in zip(tree_leaves(grads["full"]), tree_leaves(grads["none"]))]
+    grad_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(grads["full"]))
+    print(f"remat [fp32, full width, batch 1 x 32 tokens]: gradients full vs none, worst leaf "
+          f"relative L2 {max(errs):.3e} (bound {TRAIN_REMAT_REL_L2}); peak memory of the call "
+          f"above what was allocated before it (its {grad_bytes / 1e9:.3f} GB of gradients "
+          f"included): full {peak['full'] / 1e9:.3f} GB, none {peak['none'] / 1e9:.3f} GB")
+    require(max(errs) <= TRAIN_REMAT_REL_L2, "remat full vs none gradients")
+    record["remat"] = {"rel_l2_worst": max(errs), "peak_bytes_above_before": peak}
+    del grads, state, params
+    torch.cuda.empty_cache()
+
+    # 4a. launch/train.py at full width on the card
+    ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    if os.path.isdir(ckpt_dir):
+        import shutil
+        shutil.rmtree(ckpt_dir)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = train_cli.main(["--arch", cfg.name, "--full", "--steps", "8", "--batch",
+                             str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--checkpoint-every",
+                             "0", "--log-every", "1", "--ckpt-dir", ckpt_dir, "--device", "cuda"])
+    cli_s = time.perf_counter() - t0
+    cli_peak = torch.cuda.max_memory_allocated(dev)
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        print(f"  train.py: {line}")
+    losses = [float(l.split()[3]) for l in lines if l.startswith("step ")]
+    gnorms = [float(l.split()[5]) for l in lines if l.startswith("step ")]
+    print(f"launch.train.main(--full, 8 steps of {TRAIN_BATCH}x{TRAIN_SEQ}) returned {rc} in "
+          f"{cli_s:.1f} s; peak memory {cli_peak / 1e9:.3f} GB (the loop's copy of the initial "
+          f"state included)")
+    require(rc == 0, "launch.train.main at full width must return 0")
+    require(len(losses) == 8 and all(math.isfinite(x) for x in losses + gnorms),
+            "launch.train: loss and grad norm finite at every step")
+    record["train_cli"] = {"rc": rc, "losses": losses, "grad_norms": gnorms, "seconds": cli_s,
+                           "peak_bytes": cli_peak}
+
+    # 4b. make_train_step on one fixed batch: the loss must fall below 0.9x
+    tcfg = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=2, total_steps=30)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    state = init_train_state(cfg, tcfg, gen, dev)
+    step = make_train_step(cfg, tcfg)
+    batch = lm_batch(cfg, 0, TRAIN_BATCH, TRAIN_SEQ, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, gnorms, step_ms = [], [], []
+    for i in range(12):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = step(state, batch)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(metrics["total_loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+    train_peak = torch.cuda.max_memory_allocated(dev)
+    print(f"fixed batch [{cfg.dtype} activations, {cfg.param_dtype} parameters, remat "
+          f"{cfg.remat!r}, lr {TRAIN_LR}, warm-up 2]: losses {[round(x, 4) for x in losses]}; "
+          f"grad norms {[round(x, 3) for x in gnorms]}")
+    require(all(math.isfinite(x) for x in losses + gnorms), "fixed batch: non-finite loss or norm")
+    require(losses[-1] < 0.9 * losses[0], "fixed batch: the loss must fall below 0.9x the first")
+
+    # times beside the bounds
+    ms = statistics.median(step_ms[2:])
+    busy, kernels, top = _profile_window(
+        torch, lambda: [step(state, batch) for _ in range(TRAIN_PROFILED_STEPS)])
+    busy_step = None if busy is None else busy / TRAIN_PROFILED_STEPS
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    leaves = list(tree_leaves_with_path(state["params"]))
+    norms = ("ln1", "ln2", "final_norm", "q_norm", "k_norm")
+    block_mm = sum(t[0].numel() for p, t in leaves if p[0] == "blocks" and p[-1] not in norms
+                   and p[-1] not in ("bq", "bk", "bv"))
+    unembed = cfg.vocab_size * cfg.d_model
+    attn = cfg.num_layers * 4 * TRAIN_BATCH * cfg.num_heads * cfg.head_dim \
+        * TRAIN_SEQ * (TRAIN_SEQ + 1) // 2  # causal QK^T and PV, one forward
+    fwd = 2 * tokens * (cfg.num_layers * block_mm + unembed) + attn
+    remat_fwd = 2 * tokens * cfg.num_layers * block_mm + attn  # the blocks once more
+    flops = 3 * fwd + remat_fwd
+    n_params = sum(t.numel() for _, t in leaves)
+    opt_bytes = n_params * (4 * 4 + 3 * 4)  # p, g, m, v read; p, m, v written (fp32)
+    t_ops = flops / peaks["bf16"] * 1e3
+    t_bytes = opt_bytes / hbm_bytes_per_s * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    print(f"train step [{cfg.name} full width, {TRAIN_BATCH}x{TRAIN_SEQ} tokens, "
+          f"{cfg.dtype}]: {ms:.3f} ms (CUDA events, median of steps 3-12), "
+          f"{tokens / ms * 1e3:.1f} tokens/s; peak memory {train_peak / 1e9:.3f} GB; device busy "
+          f"per step (torch.profiler, {TRAIN_PROFILED_STEPS} steps) "
+          f"{'not measured' if busy_step is None else f'{busy_step:.3f} ms'}"
+          + ("" if busy_step is None else f" -> idle {100 * (1 - busy_step / ms):.1f}%")
+          + f", {kernels / TRAIN_PROFILED_STEPS:.0f} kernels and copies a step ({smi})")
+    print(f"  top kernels over the window: " + "; ".join(
+        f"{t['ms']:.2f} ms x{t['count']} {t['name']}" for t in top))
+    print(f"  bounds: operations {flops / 1e12:.3f} TFLOP (6 N tokens + one more forward of "
+          f"the blocks for remat + causal attention) at {peaks['bf16'] / 1e12:.0f} TFLOP/s "
+          f"bf16 -> {t_ops:.3f} ms; AdamW bytes {opt_bytes / 1e9:.2f} GB at the calibrated "
+          f"{hbm_bytes_per_s / 1e12:.3f} TB/s -> {t_bytes:.3f} ms; bound {bound_ms:.3f} ms "
+          f"({'operations' if t_ops >= t_bytes else 'bytes'}) -> {100 * bound_ms / ms:.1f}% of "
+          f"bound")
+    record["fixed_batch"] = {"lr": TRAIN_LR, "losses": losses, "grad_norms": gnorms}
+    record["step"] = {"ms": ms, "step_ms": step_ms, "tokens_per_s": tokens / ms * 1e3,
+                      "peak_bytes": train_peak, "device_busy_ms": busy_step,
+                      "device_events_per_step": kernels / TRAIN_PROFILED_STEPS,
+                      "top_kernels": top, "flops": flops, "ops_bound_ms": t_ops,
+                      "adamw_bytes": opt_bytes, "bytes_bound_ms": t_bytes,
+                      "bound_ms": bound_ms, "card": smi}
+    del state, step
+    torch.cuda.empty_cache()
+
+    # 5. the resilient loop on the card: injected failures, restarts
+    small = cfg.reduced(num_layers=2, d_model=32, d_ff=64, vocab_size=128, remat="none")
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=2, total_steps=30)
+    runs = {}
+    for name, fail_at in (("injected", {7, 13}), ("clean", set())):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        with tempfile.TemporaryDirectory() as d:
+            runs[name] = resilient_train_loop(
+                init_state=init_train_state(small, tcfg, gen, dev),
+                train_step=make_train_step(small, tcfg),
+                batch_fn=lambda s: lm_batch(small, s, 2, 16, device=dev),
+                total_steps=20, ckpt_dir=d, cfg=small, checkpoint_every=5,
+                injector=FailureInjector(fail_at_steps=fail_at))
+    (st, report), (clean, _) = runs["injected"], runs["clean"]
+    diff = max(float((a - b).abs().max()) for a, b in zip(tree_leaves(st["params"]),
+                                                        tree_leaves(clean["params"])))
+    print(f"resilient loop [2 layers, d_model 32, failures at steps 7 and 13, checkpoint every "
+          f"5]: restarts {report['restarts']}, finished step {report['finished_step']}, "
+          f"optimizer step {int(st['opt']['step'])}; final parameters vs an uninterrupted run: "
+          f"max abs diff {diff:.3e}")
+    require(report["restarts"] == 2 and report["finished_step"] == 20
+            and int(st["opt"]["step"]) >= 18, "the resilient loop on the card")
+    record["resilience"] = {"restarts": report["restarts"],
+                            "finished_step": report["finished_step"],
+                            "opt_step": int(st["opt"]["step"]), "max_abs_diff_vs_clean": diff}
+
+    # 6. ABPN training through examples/torch_train_abpn.py (fp32, TF32 off)
+    def example(name):
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(ROOT, "examples", f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    ex = example("torch_train_abpn")
+    acfg = ABPNConfig(feature_channels=12, num_layers=4)
+    t0 = time.perf_counter()
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        layers = ex.trainable(init_abpn(0, acfg, device=dev))
+        lr_img, hr_img = sr_pair_batch(0, 4, lr_shape=(24, 24), scale=3, device=dev)
+        with torch.no_grad():
+            before = ex.psnr(ex.upscale(layers, lr_img, acfg), hr_img)
+        for i in range(60):
+            lr_b, hr_b = sr_pair_batch(i, 4, lr_shape=(24, 24), scale=3, device=dev)
+            loss = ex.sgd_step(layers, lr_b, hr_b, acfg, 0.02)
+        with torch.no_grad():
+            after = ex.psnr(ex.upscale(layers, lr_img, acfg), hr_img)
+    print(f"ABPN training [12 channels, 4 layers, 24x24, 60 SGD steps at lr 0.02, fp32 on the "
+          f"card]: PSNR {before:.3f} -> {after:.3f} dB (last loss {float(loss):.4f}; "
+          f"{time.perf_counter() - t0:.1f} s)")
+    require(after > before + 0.5, "ABPN training must gain more than 0.5 dB")
+    record["abpn"] = {"psnr_before": before, "psnr_after": after}
+
+    qs = example("torch_quickstart")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = qs.main(["--device", "cuda"])
+    for line in out.getvalue().splitlines():
+        print(f"  torch_quickstart: {line}")
+    require(rc == 0 and "reference vs tilted(halo): max|d| = 0.00e+00" in out.getvalue(),
+            "examples/torch_quickstart.py on the card")
+    return record
 
 
 def main() -> int:
@@ -1212,6 +1545,13 @@ def main() -> int:
     lm_path = lm_serving(torch, dev, smi, detected.hbm_bytes_per_s, peaks, lm_cfg)
     print(f"lm_serving: {json.dumps(lm_path)}")
     print(f"phase 4f took {time.perf_counter() - t0:.1f} s")
+
+    # ------------------------------------------------------------------
+    phase("4g. training: qwen2-0.5b at full width, and ABPN")
+    t0 = time.perf_counter()
+    lm_train = lm_training(torch, dev, smi, detected.hbm_bytes_per_s, peaks, lm_cfg)
+    print(f"lm_training: {json.dumps(lm_train)}")
+    print(f"phase 4g took {time.perf_counter() - t0:.1f} s")
 
     # ------------------------------------------------------------------
     phase("5. times (CUDA events, median of repeats after warm-up)")

@@ -13,10 +13,12 @@ Layout (each module is the counterpart of the same path in ``repro``):
   repro_torch.models   — ABPN, the decoder-only LM (dense and vlm
                          families) and the model registry
   repro_torch.engine   — plan, executor, scheduler, session, server
-  repro_torch.config, .configs, .layers, .distributed, .launch.serve —
-                         the LM serving path: configs, layers, the
-                         prefill/decode step functions and their entry
-                         point
+  repro_torch.config, .configs, .layers, .distributed, .launch —
+                         the LM path: configs, layers, the train, prefill
+                         and decode step functions and their entry points
+                         (launch.train, launch.serve)
+  repro_torch.optim, .data, .runtime — AdamW, synthetic data and the
+                         prefetcher, checkpoints and the resilient loop
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``, which runs every kernel's plain version.

@@ -14,7 +14,7 @@ import dataclasses
 
 import torch
 
-__all__ = ["ModelConfig", "TrainConfig", "torch_dtype"]
+__all__ = ["ModelConfig", "TrainConfig", "torch_dtype", "resolve_device"]
 
 
 def torch_dtype(name) -> torch.dtype:
@@ -26,6 +26,17 @@ def torch_dtype(name) -> torch.dtype:
     if not isinstance(dtype, torch.dtype):
         raise ValueError(f"unknown dtype {name!r}")
     return dtype
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The ``torch.device`` an entry point runs on (default the CUDA card).
+    A CUDA device where there is none raises: an entry point never carries
+    on on the CPU unless the caller asks for ``"cpu"``."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(device)!r}: no CUDA device is available "
+                           "(pass device 'cpu' to run on the CPU)")
+    return device
 
 
 @dataclasses.dataclass(frozen=True)

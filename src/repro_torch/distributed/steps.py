@@ -1,23 +1,95 @@
-"""Step-function factories for serving: prefill and decode — the serving
-half of ``repro.distributed.steps``.
+"""Step-function factories: train, prefill and decode — the port of
+``repro.distributed.steps``.
 
-The closures run eagerly under ``torch.no_grad``; the reference jits them
-and donates the cache, and here the cache is written in place (see
-``layers.attention``), so a caller passes each step the cache the previous
-step returned and never reuses an older one.  The train half
-(``make_train_step``, the train-state trees) comes with the LM training
-slice (ROADMAP queue 1, item 14c), the logical-axis trees for shardings
-with the dry-run slice (item 14g).
+The closures run eagerly.  The reference jits them and donates their state;
+here the state is updated in place instead: a train step writes the new
+parameters and moments into the tensors of the state it is given (see
+``optim.adamw``), and prefill and decode write the KV cache in place (see
+``layers.attention``).  A caller passes each step the state the previous
+step returned and never reuses an older one.  The logical-axis trees for
+shardings (``train_state_axes``, ``train_state_shapes``, ``batch_axes``)
+come with the dry-run slice (ROADMAP queue 1, item 14g).
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.layers.params import init_params
+from repro_torch.config import resolve_device, torch_dtype
+from repro_torch.layers.params import init_params, tree_leaves_with_path, tree_unflatten
 from repro_torch.models.registry import get_model
+from repro_torch.optim.adamw import adamw_update, init_opt_state
 
-__all__ = ["make_prefill_step", "make_decode_step", "init_cache"]
+__all__ = ["make_train_step", "compute_grads", "init_train_state", "make_prefill_step",
+           "make_decode_step", "init_cache"]
+
+
+# ----------------------------------------------------------------------
+# Train
+# ----------------------------------------------------------------------
+def compute_grads(cfg, params, batch):
+    """``(metrics, grads)``: ``model.loss``'s metrics (detached) and its
+    gradient with respect to every leaf of ``params``, a tree of the same
+    structure in the parameters' dtypes (zeros for a leaf the loss does not
+    reach, as ``jax.grad`` gives).  ``params`` are not modified."""
+    paths, leaves = zip(*tree_leaves_with_path(params))
+    xs = [p.detach().requires_grad_() for p in leaves]
+    with torch.enable_grad():
+        loss, metrics = get_model(cfg).loss(tree_unflatten(paths, xs), cfg, batch)
+        grads = torch.autograd.grad(loss, xs, allow_unused=True, materialize_grads=True)
+    return {k: v.detach() for k, v in metrics.items()}, tree_unflatten(paths, grads)
+
+
+def make_train_step(cfg, tcfg):
+    """``(state, batch) -> (state, metrics)``; ``state = {params, opt}``.
+
+    The gradient of ``model.loss`` with respect to every parameter, then one
+    AdamW step in place.  With ``tcfg.microbatches > 1`` the leading batch
+    dimension is split into that many microbatches whose gradients are
+    summed in fp32 and divided by their count; the metrics are the last
+    microbatch's (the reference's ``lax.scan``).  ``metrics`` are 0-d
+    tensors on the state's device: nothing is read back to the host."""
+    get_model(cfg)  # an unported family raises here, not at the first step
+
+    def train_step(state, batch):
+        mb = tcfg.microbatches
+        if mb > 1:
+            gsum = None
+            for i in range(mb):
+                micro = {k: v.reshape((mb, v.shape[0] // mb) + tuple(v.shape[1:]))[i]
+                         for k, v in batch.items()}
+                metrics, grads = compute_grads(cfg, state["params"], micro)
+                flat = [g.float() for _, g in tree_leaves_with_path(grads)]
+                if gsum is None:
+                    gsum = flat
+                else:
+                    for a, g in zip(gsum, flat):
+                        a.add_(g)
+            paths = [p for p, _ in tree_leaves_with_path(state["params"])]
+            grads = tree_unflatten(paths, [g / mb for g in gsum])
+        else:
+            metrics, grads = compute_grads(cfg, state["params"], batch)
+
+        params, opt, opt_metrics = adamw_update(grads, state["opt"], state["params"], tcfg)
+        metrics.update(opt_metrics)
+        return {"params": params, "opt": opt}, metrics
+
+    return train_step
+
+
+def init_train_state(cfg, tcfg, generator=None, device="cuda"):
+    """``{params, opt}`` on ``device`` (default the CUDA card; raises where
+    there is none): parameters from the model's schema drawn from
+    ``generator`` (a ``torch.Generator`` on ``device``; seed 0 when None),
+    zero AdamW moments in ``tcfg.optimizer_dtype``."""
+    device = resolve_device(device)
+    params = init_params(get_model(cfg).schema(cfg), generator, cfg.weight_dtype, device)
+    return {"params": params, "opt": init_opt_state(params, torch_dtype(tcfg.optimizer_dtype))}
+
+
+# ----------------------------------------------------------------------
+# Serve
+# ----------------------------------------------------------------------
 
 
 def make_prefill_step(cfg):

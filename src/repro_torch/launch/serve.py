@@ -16,6 +16,7 @@ import time
 
 import torch
 
+from repro_torch.config import resolve_device
 from repro_torch.configs import LM_ARCH_IDS, get_config
 from repro_torch.distributed.steps import init_cache, make_decode_step, make_prefill_step
 from repro_torch.layers.params import init_params
@@ -38,10 +39,7 @@ def main(argv=None) -> int:
                     help="torch device to serve on (default cuda; cpu runs on the CPU)")
     args = ap.parse_args(argv)
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device is available (pass --device cpu "
-                           "to serve on the CPU)")
+    device = resolve_device(args.device)
     cfg = get_config(args.arch).reduced()
     model = get_model(cfg)
     gen = torch.Generator(device=device)

@@ -9,9 +9,12 @@ Design notes:
 * Long sequences use an online softmax over KV chunks (a loop whose carry
   is the running max / normaliser / accumulator), Q chunks outside, KV
   chunks inside.  This keeps activation memory O(S · chunk) instead of
-  O(S^2).  Causality is enforced by masking with -1e30; chunks fully in
-  the future wash out of the online softmax.  The function is the
-  reference's, operation for operation, in torch ops (not
+  O(S^2).  The gradient is the reference's own VJP (``_flash_bwd``): the
+  forward keeps only its output, running max and normaliser, and the
+  backward recomputes each chunk's probabilities from them.  Causality is
+  enforced by masking with -1e30; chunks fully in the future wash out of
+  the online softmax.  The function is the reference's, operation for
+  operation, in torch ops (not
   ``scaled_dot_product_attention``): the reference computes it in
   ``jnp``, outside any kernel, so there is no TPU kernel to port here.
 * Decode attends one query position against the whole preallocated KV
@@ -88,11 +91,10 @@ def _chunk_mask(q_pos, ki, ck, Sk, causal):
     return mask  # (Sq, ck)
 
 
-def _flash_fwd_core(q, k, v, q_pos, causal, chunk):
-    B, Sq, Kh, G, Dqk = q.shape
-    Sk = k.shape[1]
-    Dv = v.shape[-1]
-    scale = _scale(Dqk)
+def _kv_chunks(k, v, chunk):
+    """K and V cut into ``(nk, B, ck, Kh, D)`` chunks of ``ck = min(chunk,
+    Sk)`` positions, the last zero-padded; returns ``(kc, vc, ck)``."""
+    B, Sk, Kh, Dqk = k.shape
     ck = min(chunk, Sk)
     pad = (-Sk) % ck
     if pad:
@@ -100,8 +102,17 @@ def _flash_fwd_core(q, k, v, q_pos, causal, chunk):
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
     nk = (Sk + pad) // ck
     kc = k.reshape(B, nk, ck, Kh, Dqk).transpose(0, 1)
-    vc = v.reshape(B, nk, ck, Kh, Dv).transpose(0, 1)
-    qf = q.float() * scale
+    vc = v.reshape(B, nk, ck, Kh, v.shape[-1]).transpose(0, 1)
+    return kc, vc, ck
+
+
+def _flash_fwd_core(q, k, v, q_pos, causal, chunk):
+    B, Sq, Kh, G, Dqk = q.shape
+    Sk = k.shape[1]
+    Dv = v.shape[-1]
+    kc, vc, ck = _kv_chunks(k, v, chunk)
+    nk = kc.shape[0]
+    qf = q.float() * _scale(Dqk)
 
     m = torch.full((B, Sq, Kh, G), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((B, Sq, Kh, G), dtype=torch.float32, device=q.device)
@@ -120,21 +131,58 @@ def _flash_fwd_core(q, k, v, q_pos, causal, chunk):
     return out.to(q.dtype), m, l
 
 
+def _flash_bwd_core(q, k, v, q_pos, out, m, l, g, causal, chunk):
+    """The reference's ``_flash_bwd``: ``p`` is recomputed per KV chunk
+    against the forward's saved max ``m`` and normaliser ``l``, with
+    ``delta = sum(g * out)`` over the value dim; ``dq`` accumulates in fp32
+    across chunks, ``dk``/``dv`` are computed per chunk and joined."""
+    B, Sq, Kh, G, Dqk = q.shape
+    Sk = k.shape[1]
+    scale = _scale(Dqk)
+    kc, vc, ck = _kv_chunks(k, v, chunk)
+    qf = q.float() * scale
+    gf = g.float()
+    l_safe = torch.clamp_min(l, 1e-37)
+    delta = torch.sum(gf * out.float(), dim=-1)  # (B, Sq, Kh, G)
+
+    dq = torch.zeros((B, Sq, Kh, G, Dqk), dtype=torch.float32, device=q.device)
+    dk_c, dv_c = [], []
+    for ki in range(kc.shape[0]):
+        kb, vb = kc[ki].float(), vc[ki].float()
+        s = torch.einsum("bqkgd,bskd->bqkgs", qf, kb)
+        mask = _chunk_mask(q_pos, ki, ck, Sk, causal)
+        s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+        p = torch.exp(s - m[..., None]) / l_safe[..., None]
+        dv_c.append(torch.einsum("bqkgs,bqkgd->bskd", p, gf))
+        dp = torch.einsum("bqkgd,bskd->bqkgs", gf, vb)
+        ds = p * (dp - delta[..., None])
+        dq = dq + torch.einsum("bqkgs,bskd->bqkgd", ds, kb) * scale
+        dk_c.append(torch.einsum("bqkgs,bqkgd->bskd", ds, qf))
+    dk = torch.cat(dk_c, dim=1)[:, :Sk]
+    dv = torch.cat(dv_c, dim=1)[:, :Sk]
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 class _Flash(torch.autograd.Function):
-    """The reference's ``_flash`` (a ``jax.custom_vjp``): the forward is
-    :func:`_flash_fwd_core`; the recompute-in-backward VJP comes with the
-    LM training slice."""
+    """The reference's ``_flash`` (a ``jax.custom_vjp`` with ``causal`` and
+    ``chunk`` as ``nondiff_argnums``): the forward is
+    :func:`_flash_fwd_core` and saves ``(q, k, v, q_pos, out, m, l)``; the
+    backward is :func:`_flash_bwd_core`, which recomputes the scores per
+    KV chunk rather than keeping them.  ``q_pos`` gets no gradient (the
+    reference returns a zero cotangent for it)."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_pos, causal, chunk):
-        out, _, _ = _flash_fwd_core(q, k, v, q_pos, causal, chunk)
+        out, m, l = _flash_fwd_core(q, k, v, q_pos, causal, chunk)
+        ctx.save_for_backward(q, k, v, q_pos, out, m, l)
+        ctx.causal, ctx.chunk = causal, chunk
         return out
 
     @staticmethod
     def backward(ctx, g):
-        raise NotImplementedError(
-            "flash attention's backward (the reference's _flash_bwd) is not ported yet: "
-            "ROADMAP queue 1, item 14c (LM training)")
+        q, k, v, q_pos, out, m, l = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd_core(q, k, v, q_pos, out, m, l, g, ctx.causal, ctx.chunk)
+        return dq, dk, dv, None, None, None
 
 
 def _flash(q, k, v, q_pos, causal, chunk):

@@ -33,6 +33,9 @@ __all__ = [
     "stack_schema",
     "params_from_numpy",
     "tree_map",
+    "tree_leaves",
+    "tree_leaves_with_path",
+    "tree_unflatten",
 ]
 
 Schema = Dict[str, Any]  # nested dict of ParamSpec
@@ -88,6 +91,35 @@ def tree_map(fn: Callable, tree, is_leaf: Callable = _is_leaf):
     if isinstance(tree, dict) and not is_leaf(tree):
         return {k: tree_map(fn, tree[k], is_leaf) for k in sorted(tree)}
     return fn(tree)
+
+
+def tree_leaves_with_path(tree, prefix: Tuple = ()):
+    """``(path, leaf)`` for every leaf of a nested dict of tensors (any
+    non-dict value is a leaf), keys in sorted order as ``jax.tree_util``
+    walks them; ``path`` is the tuple of keys from the root."""
+    if isinstance(tree, dict):
+        out = []
+        for k in sorted(tree):
+            out += tree_leaves_with_path(tree[k], prefix + (k,))
+        return out
+    return [(prefix, tree)]
+
+
+def tree_unflatten(paths, leaves) -> Dict:
+    """The nested dict whose leaf at each ``path`` (a tuple of keys, as
+    :func:`tree_leaves_with_path` gives) is the matching one of ``leaves``."""
+    out: Dict = {}
+    for path, leaf in zip(paths, leaves):
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return out
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict, in :func:`tree_leaves_with_path` order."""
+    return [leaf for _, leaf in tree_leaves_with_path(tree)]
 
 
 def init_params(schema: Schema, generator: Optional[torch.Generator] = None,

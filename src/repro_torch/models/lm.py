@@ -9,9 +9,14 @@ One config-driven assembly:
   * optional multimodal prefix: precomputed frontend embeddings (internvl2
     stub ViT) are concatenated ahead of the token embeddings
   * the reference's ``lax.scan`` over the stacked ``blocks`` is a Python
-    loop over their leading (layer) dimension; ``remat`` does nothing in
-    forward-only serving (the training slice, item 14c, brings
-    ``torch.utils.checkpoint``)
+    loop over their leading (layer) dimension
+  * ``cfg.remat`` applies when a train-mode forward records a graph:
+    ``"full"`` checkpoints each stacked block
+    (``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, the
+    reference's ``jax.checkpoint``), and ``"dots"`` checkpoints it
+    selectively, saving the outputs of matmuls without batch dimensions
+    (the reference's ``checkpoint_dots_with_no_batch_dims``).  Serving
+    modes and forwards without a graph run the blocks plainly
 
 The same forward serves train, prefill (fills the KV cache, returns
 last-position logits) and single-token decode.  Prefill and decode write
@@ -21,9 +26,12 @@ the cache **in place** and return the same tree (see
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.layers import attention as attn_lib
 from repro_torch.layers.common import cross_entropy, embed_lookup, rmsnorm
@@ -102,9 +110,43 @@ def _apply_block(p, cfg, x, positions, cache, cache_pos, mode):
     return x + mlp_block(p["mlp"], cfg, h), new_cache
 
 
-def _layer(tree, i: int):
-    """Layer ``i`` of a stacked tree: views, so cache writes land in it."""
-    return tree_map(lambda t: t[i], tree, is_leaf=lambda t: not isinstance(t, dict))
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the outputs of matmuls without batch dimensions, recompute the
+    rest.  ``torch.einsum`` lowers a contraction with no batch dimension to
+    a ``bmm`` of batch 1 (the projections, the MLP, the unembedding); the
+    attention scores are ``bmm``s over ``B * Kh`` and are recomputed, as
+    the reference's policy recomputes its batched dots (at ``B * Kh == 1``
+    they are saved too, which costs memory, not correctness)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    if op is torch.ops.aten.bmm.default and args[0].shape[0] == 1:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg, mode: str):
+    """``fn`` wrapped as ``cfg.remat`` asks, in a train forward that records
+    a graph; ``fn`` itself otherwise."""
+    if mode != "train" or not torch.is_grad_enabled() or cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if cfg.remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts, _dots_policy))
+    raise ValueError(f"unknown remat {cfg.remat!r}; expected none | dots | full")
+
+
+def _unstack(tree, n: int) -> list:
+    """The ``n`` layers of a stacked tree, as views from one ``unbind`` per
+    leaf (so cache writes land in the stack).  Its backward stacks the
+    layers' gradients into the stacked leaf's gradient once; indexing each
+    layer apart would instead add a zero-filled gradient of the whole
+    stacked leaf per layer, ``n`` times the stack's bytes."""
+    parts = tree_map(lambda t: t.unbind(0), tree, is_leaf=lambda t: not isinstance(t, dict))
+    return [tree_map(lambda u: u[i], parts, is_leaf=lambda u: not isinstance(u, dict))
+            for i in range(n)]
 
 
 # ----------------------------------------------------------------------
@@ -140,9 +182,14 @@ def forward(
         if nc is not None:
             new_cache[f"prologue_{i}"] = nc
 
-    for i in range(_n_scan(cfg)):
-        lc = None if cache is None else _layer(cache["layers"], i)
-        x, _ = _apply_block(_layer(params["blocks"], i), cfg, x, positions, lc, cache_pos, mode)
+    def block(p, x, lc):
+        return _apply_block(p, cfg, x, positions, lc, cache_pos, mode)[0]
+
+    block = _remat(block, cfg, mode)
+    n = _n_scan(cfg)
+    layer_caches = [None] * n if cache is None else _unstack(cache["layers"], n)
+    for lp, lc in zip(_unstack(params["blocks"], n), layer_caches):
+        x = block(lp, x, lc)
     if cache is not None:
         new_cache["layers"] = cache["layers"]  # written in place, layer by layer
 

@@ -1,8 +1,10 @@
-"""Fault tolerance for serving: latency statistics and fault injection.
+"""Fault tolerance: the restart loop, latency statistics and fault
+injection — the port of ``repro.runtime.resilience``.
 
-The serving half of the JAX package's ``runtime/resilience.py``, in plain
-Python (nothing here touches a tensor):
-
+* :func:`resilient_train_loop` — wraps a train step; on a failure it
+  restores the newest complete checkpoint (``runtime.checkpoint``) and
+  replays the data stream from that step (the stream is a pure function of
+  the step, see ``data.synthetic``).
 * :class:`EMAMeanVar` — exponential moving mean/variance of a latency
   stream; the core of :class:`StragglerDetector` and of
   ``engine.server.DegradePolicy``'s rolling p99 estimate.
@@ -14,17 +16,22 @@ Python (nothing here touches a tensor):
   server fails only the affected requests.  ``fail_at_steps`` /
   :meth:`FailureInjector.maybe_fail` serve a training loop.
 
-The restart loop (``resilient_train_loop``) and elastic re-mesh
-(``elastic_remesh``) of the JAX module are training code; they belong to
-the benchmarks and LM items, which are not ported yet.
+Elastic re-mesh (the reference's ``elastic_remesh``) comes with the
+dry-run slice's sharding rules (ROADMAP queue 1, item 14g).
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
-__all__ = ["EMAMeanVar", "StragglerDetector", "FailureInjector", "InjectedFailure"]
+import torch
+
+from repro_torch.layers.params import tree_leaves, tree_map
+from repro_torch.runtime import checkpoint as ckpt_lib
+
+__all__ = ["EMAMeanVar", "StragglerDetector", "FailureInjector", "InjectedFailure",
+           "resilient_train_loop"]
 
 
 class EMAMeanVar:
@@ -180,3 +187,88 @@ class FailureInjector:
             "injected_failures": self.injected_failures,
             "injected_delays": self.injected_delays,
         }
+
+
+def _clone(state):
+    return tree_map(torch.clone, state, is_leaf=lambda x: not isinstance(x, dict))
+
+
+def _synchronize(state) -> None:
+    """Wait for the device of the state's first leaf (the reference's
+    ``jax.block_until_ready``), so a step's time is the device's."""
+    leaf = tree_leaves(state)[0]
+    if leaf.device.type == "cuda":
+        torch.cuda.synchronize(leaf.device)
+
+
+def resilient_train_loop(
+    *,
+    init_state,
+    train_step: Callable,
+    batch_fn: Callable[[int], Dict],
+    total_steps: int,
+    ckpt_dir: str,
+    cfg=None,
+    checkpoint_every: int = 50,
+    keep: int = 3,
+    max_restarts: int = 5,
+    injector: Optional[FailureInjector] = None,
+    on_metrics: Optional[Callable[[int, Dict], None]] = None,
+) -> Tuple[Any, Dict]:
+    """Run to ``total_steps`` surviving failures. Returns ``(state, report)``.
+
+    ``train_step`` may update the state in place (``distributed.steps``'
+    does), so the loop keeps a copy of ``init_state`` on its device until
+    it has issued its first checkpoint: a failure before one restarts from
+    that copy, as the reference restarts from ``init_state``.  Without
+    checkpoints (``checkpoint_every=0``) the copy is held for the whole run,
+    which costs one state's device memory.
+    """
+    detector = StragglerDetector()
+    restarts = 0
+    state = init_state
+    start = ckpt_lib.latest_step(ckpt_dir)
+    initial = None
+    if start is not None:
+        start, state = ckpt_lib.restore(ckpt_dir, state, cfg)
+        start += 1
+    else:
+        start = 0
+        initial = _clone(init_state)
+
+    step = start
+    while step < total_steps:
+        try:
+            # monotonic: step-latency deltas must not jump with NTP slews
+            t0 = time.monotonic()
+            if injector is not None:
+                injector.maybe_fail(step)
+            state, metrics = train_step(state, batch_fn(step))
+            _synchronize(state)
+            detector.update(step, time.monotonic() - t0)
+            if on_metrics is not None:
+                on_metrics(step, metrics)
+            if checkpoint_every and (step + 1) % checkpoint_every == 0:
+                ckpt_lib.save(ckpt_dir, step, state, cfg, keep=keep, blocking=False)
+                initial = None  # a failure from here on restores a checkpoint
+            step += 1
+        except Exception:
+            restarts += 1
+            if restarts > max_restarts:
+                raise
+            ckpt_lib.wait_pending()
+            last = ckpt_lib.latest_step(ckpt_dir)
+            if last is not None:
+                _, state = ckpt_lib.restore(ckpt_dir, state, cfg)
+                step = last + 1
+            elif initial is not None:
+                state = _clone(initial)
+                step = 0
+            else:  # a checkpoint was issued but none completed
+                raise
+    ckpt_lib.wait_pending()
+    return state, {
+        "restarts": restarts,
+        "stragglers": list(detector.flagged),
+        "finished_step": step,
+    }

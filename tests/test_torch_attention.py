@@ -1,7 +1,9 @@
 """The port's LM layers against the JAX package's, on the CPU in fp32: the
-twins of ``tests/test_attention.py`` (flash vs direct softmax, decode at a
-position, prefill-then-decode of a full block, the rope properties; the
-VJP twin comes with the LM training slice) and port-vs-JAX checks of
+twins of ``tests/test_attention.py`` (flash vs direct softmax and its VJP
+vs autograd through the direct softmax, decode at a position,
+prefill-then-decode of a full block, the rope properties) and port-vs-JAX
+checks of the flash VJP (against ``jax.grad``, at the reference's VJP
+tolerance ``atol=5e-5, rtol=1e-3``),
 ``rmsnorm``, ``layernorm``, ``apply_rope``, ``mlp_block``,
 ``flash_attention``, ``decode_attention`` and ``attention_block`` (train,
 prefill, decode).
@@ -106,11 +108,56 @@ def test_flash_q_offset_matches_jax():
     np.testing.assert_allclose(_np(out), np.asarray(want), **TOL)
 
 
-def test_flash_backward_is_the_training_slices():
-    q, k, v = (t.requires_grad_() for t in map(_t, _qkv(0, 1, 8, 1, 2, 8)))
-    out = tattn.flash_attention(q, k, v, chunk=4, q_chunk=8)
-    with pytest.raises(NotImplementedError, match="item 14c"):
-        out.sum().backward()
+def test_flash_vjp_matches_direct_grads():
+    """Twin of tests/test_attention.py::test_flash_vjp_matches_direct_grads:
+    the backward (the reference's ``_flash_bwd``) against autograd through a
+    direct softmax, Dv != Dqk (the MLA case)."""
+    q, k, v = _qkv(0, 2, 48, 2, 3, 16, dv=20)
+    args = [_t(a).requires_grad_() for a in (q, k, v)]
+    f = torch.sin(tattn.flash_attention(*args, causal=True, chunk=16, q_chunk=16)).sum()
+    gf = torch.autograd.grad(f, args)
+    r = torch.sin(direct(*args)).sum()
+    gr = torch.autograd.grad(r, args)
+    for a, b in zip(gf, gr):
+        np.testing.assert_allclose(_np(a), _np(b), atol=5e-5, rtol=1e-3)
+
+
+# Q padding (sq not a multiple of q_chunk), several KV chunks, a ragged
+# last KV chunk, one Q chunk, G = 1, non-causal
+FLASH_VJP_CASES = [
+    # sq, kh, g, d, dv, chunk, q_chunk, causal
+    (48, 2, 3, 16, 20, 16, 16, True),
+    (37, 2, 2, 8, 8, 16, 24, True),
+    (50, 1, 4, 8, 12, 16, 512, True),
+    (33, 3, 1, 16, 16, 8, 16, False),
+    (20, 1, 2, 8, 8, 64, 8, True),
+]
+
+
+@pytest.mark.parametrize("sq,kh,g,d,dv,chunk,q_chunk,causal", FLASH_VJP_CASES)
+def test_flash_vjp_matches_jax(sq, kh, g, d, dv, chunk, q_chunk, causal):
+    """``dq``, ``dk``, ``dv`` of ``sum(sin(flash_attention))`` against
+    ``jax.grad`` of the JAX package's ``flash_attention`` (its custom VJP),
+    at the reference's VJP tolerance."""
+    q, k, v = _qkv(sq * 13 + d, 2, sq, kh, g, d, dv=dv)
+    kw = dict(causal=causal, chunk=chunk, q_chunk=q_chunk)
+    args = [_t(a).requires_grad_() for a in (q, k, v)]
+    mine = torch.autograd.grad(torch.sin(tattn.flash_attention(*args, **kw)).sum(), args)
+    theirs = jax.grad(lambda *a: jnp.sum(jnp.sin(jattn.flash_attention(*a, **kw))),
+                      argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    for a, b in zip(mine, theirs):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        np.testing.assert_allclose(_np(a), np.asarray(b), atol=5e-5, rtol=1e-3)
+
+
+def test_flash_vjp_returns_the_input_dtypes():
+    """bf16 inputs get bf16 gradients (the reference casts ``dq``, ``dk``,
+    ``dv`` back to the inputs' dtypes); the query positions get none."""
+    q, k, v = (_t(a).bfloat16().requires_grad_() for a in _qkv(1, 1, 12, 1, 2, 8))
+    out = tattn.flash_attention(q, k, v, chunk=8, q_chunk=8)
+    grads = torch.autograd.grad(out.float().sum(), (q, k, v))
+    assert [g.dtype for g in grads] == [torch.bfloat16] * 3
+    assert all(bool(torch.isfinite(g.float()).all()) for g in grads)
 
 
 def test_decode_attention_matches_full_at_position():

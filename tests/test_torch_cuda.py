@@ -2,7 +2,10 @@
 and K2 (one SAME 3x3 conv layer), and the serving path on the card vs the
 same path on the CPU.  The LM serving path (qwen2-0.5b's widths cut to 2
 layers, fp32): decode after prefill vs ``forward``, and prefill on the card
-vs the CPU, at the reference's ``atol 2e-4, rtol 1e-3``.  K1's column segments must not change a bit of its
+vs the CPU, at the reference's ``atol 2e-4, rtol 1e-3``.  LM training: the
+flash backward on the card vs the CPU (qwen2-0.5b's head layout, one and
+four KV chunks, ``atol 5e-5, rtol 1e-3``), and one train step of the same
+2-layer cut on the card vs the CPU.  K1's column segments must not change a bit of its
 output (``torch.equal`` across segment counts).
 
 Every test here needs a CUDA device and skips where none is present: the
@@ -20,6 +23,7 @@ of each product, summed in another order) and bf16 ``atol = rtol = 2e-2``
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -549,3 +553,69 @@ def test_lm_prefill_on_the_card_matches_the_cpu(cuda):
     params_cpu = tree_map(lambda t: t.cpu(), params, is_leaf=lambda t: not isinstance(t, dict))
     on_cpu, _ = step(params_cpu, {"tokens": tokens}, init_cache(cfg, 1, 16, "cpu"))
     torch.testing.assert_close(on_card.cpu(), on_cpu, atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("S", [128, 512])
+def test_flash_vjp_on_the_card_matches_the_cpu(cuda, S):
+    """The flash backward (the reference's ``_flash_bwd``) in fp32 with
+    qwen2-0.5b's head layout (Kh 2, G 7, D 64), batch 2, causal, KV chunks
+    of 128 (one chunk at S = 128, four at S = 512): ``dq``, ``dk``, ``dv`` on
+    the card vs the CPU at the reference's VJP tolerance."""
+    from repro_torch.layers.attention import flash_attention
+
+    gen = torch.Generator().manual_seed(S)
+    q = torch.randn((2, S, 2, 7, 64), generator=gen)
+    k = torch.randn((2, S, 2, 64), generator=gen)
+    v = torch.randn((2, S, 2, 64), generator=gen)
+    g = torch.randn((2, S, 2, 7, 64), generator=gen)
+
+    def grads(device):
+        args = [t.to(device).requires_grad_() for t in (q, k, v)]
+        out = flash_attention(*args, causal=True, chunk=128)
+        return torch.autograd.grad(out, args, g.to(device))
+
+    for on_card, on_cpu in zip(grads(cuda), grads("cpu")):
+        torch.testing.assert_close(on_card.cpu(), on_cpu, atol=5e-5, rtol=1e-3)
+
+
+def test_lm_train_step_on_the_card_matches_the_cpu(cuda):
+    """One ``make_train_step`` step of qwen2-0.5b's widths cut to 2 layers,
+    fp32, batch 1 x 32 tokens, from the same state on the card and on the
+    CPU: every gradient leaf within a relative L2 error of 1e-4 (the
+    embedding's gradient is summed by atomics on the card, in another order
+    than on the CPU), the loss and grad norm at ``rtol 1e-4``, and every
+    parameter after the step within 2 lr of the CPU's (the first AdamW step
+    moves an element by about lr times the sign of its gradient, and a
+    gradient near zero may have either sign on the two devices)."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.distributed.steps import compute_grads, make_train_step
+    from repro_torch.layers.params import tree_leaves_with_path, tree_map
+    from repro_torch.optim.adamw import init_opt_state
+
+    cfg, params = _lm_cut(cuda)
+    gen = torch.Generator().manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (1, 33), dtype=torch.int32, generator=gen)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:], "mask": torch.ones((1, 32),
+                                                                                dtype=torch.int32)}
+    to_cpu = functools.partial(tree_map, lambda t: t.to("cpu", copy=True),
+                               is_leaf=lambda t: not isinstance(t, dict))
+    on = {"card": (params, {k: v.to(cuda) for k, v in batch.items()}),
+          "cpu": (to_cpu(params), batch)}
+    grads = {dev: dict(tree_leaves_with_path(compute_grads(cfg, p, b)[1]))
+             for dev, (p, b) in on.items()}
+    for path, want in grads["cpu"].items():
+        err = float((grads["card"][path].cpu() - want).norm() / want.norm().clamp_min(1e-30))
+        assert err <= 1e-4, ("/".join(path), err)
+
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=10)
+    step = make_train_step(cfg, tcfg)
+    after = {}
+    for dev, (p, b) in on.items():
+        state, m = step({"params": p, "opt": init_opt_state(p)}, b)
+        after[dev] = (to_cpu(state["params"]), float(m["total_loss"]), float(m["grad_norm"]))
+    assert after["card"][1] == pytest.approx(after["cpu"][1], rel=1e-4)
+    assert after["card"][2] == pytest.approx(after["cpu"][2], rel=1e-4)
+    for (path, a), (_, b) in zip(tree_leaves_with_path(after["card"][0]),
+                                 tree_leaves_with_path(after["cpu"][0])):
+        torch.testing.assert_close(a, b, atol=2 * tcfg.learning_rate, rtol=0,
+                                   msg=lambda m: f"{'/'.join(path)}: {m}")

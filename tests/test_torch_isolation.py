@@ -1,5 +1,6 @@
 """The PyTorch package stands alone: it imports neither jax nor the JAX
-package ``repro``, and neither does ``chip_smoke.py``.
+package ``repro``, and neither do ``chip_smoke.py`` and the example twins
+(``examples/torch_*.py``).
 
 * A fresh interpreter imports every ``repro_torch`` module and then checks
   ``sys.modules``: a transitive import would show there.
@@ -23,6 +24,9 @@ PKG = os.path.join(SRC, "repro_torch")
 
 def _sources():
     out = [os.path.join(REPO, "chip_smoke.py")]
+    examples = os.path.join(REPO, "examples")
+    out += [os.path.join(examples, f) for f in os.listdir(examples)
+            if f.startswith("torch_") and f.endswith(".py")]
     for root, _, files in os.walk(PKG):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
