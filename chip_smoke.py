@@ -6,7 +6,8 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 Phases, each printing its lines; any failed check raises and the script
-exits non-zero (nothing is caught):
+exits non-zero (nothing is caught, except that phase 4h runs each of its
+parts to the end and then fails with every failure listed):
 
 1. environment — ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build — compiles every CUDA kernel from ``src/repro_torch/kernels/csrc``
@@ -132,6 +133,34 @@ exits non-zero (nothing is caught):
    than 0.5 dB of PSNR, and ``examples/torch_quickstart.py`` on the card
    must print ``reference vs tilted(halo)`` as ``0.00e+00`` (its ``kernel``
    backend launches K1 once, outside the counted paths);
+4h. LM families — ``make_prefill_step``/``make_decode_step`` over
+   deepseek-v2-236b (3 layers: the dense MLA prologue and 2 MoE+MLA
+   layers), arctic-480b (1 layer), mamba2-130m and zamba2-2.7b at their
+   published widths (mamba2 and zamba2 at full depth), weights from a
+   ``torch.Generator`` in fp32: batch 4, a 128-token prompt, 32 greedy
+   tokens in fp32, then in bf16 activations (the MoE configs' parameters
+   cast to bf16 in place, as they store them); logits finite and (4, V) at
+   every step; fp32 decode of token 128 after prefill == ``forward`` over
+   129 (the MoE configs at capacity factor E, since decode is dropless)
+   and fp32 prefill logits of a 16-token prompt at batch 1 card == CPU
+   (not arctic), both at ``rtol 1e-3`` and ``atol 2e-4`` per unit of the
+   largest |logit| above 1 (the unscaled excess printed beside it); the
+   MoE metrics of ``forward`` finite; bf16 vs fp32: for the MoE configs
+   the share of agreeing top-k
+   picks, and the forward logits over the positions whose picks and kept
+   claims agree in every layer within a relative L2 of 0.05 and a max abs
+   diff of 0.1 of the largest logit; for mamba2 and zamba2 the same rule
+   layer by layer (each Mamba layer and shared-block application on the
+   fp32 run's input; the end-to-end logits printed, not held).  Then
+   ``compute_grads`` for deepseek-v2 at 2 layers in bf16 over 1 x 32
+   tokens (every leaf finite, the router's non-zero) and ``make_train_step``
+   on mamba2-130m over one fixed 4 x 128 batch (the loss below 0.9x its
+   first within 12 steps).  Times per architecture and precision: prefill
+   ms, decode ms per step and tokens/s (CUDA events), the card's busy ms
+   and kernels per step (``torch.profiler``), peak memory, and the decode
+   step's HBM bound (weights as stored, every expert included, + the
+   copies casting at use writes and reads + the cache); a
+   ``lm_families: {...}`` JSON line;
 5. times — CUDA events, median of repeats after warm-up.  K1 at 1 and 8
    frames (fp32 and bf16, automatic segment plan: its segments, CTAs,
    warm-up tiles and their share of the executed tiles) four ways: one
@@ -322,6 +351,30 @@ def profiler_device_ms(torch, fn):
     return (sum(spans) / 1e3 if spans else None), len(spans)
 
 
+def lm_serve(torch, dev, cfg, params, tokens, S, G):
+    """``make_prefill_step`` over ``tokens[:, :S]``, then ``G - 1`` greedy
+    ``make_decode_step`` steps; every step's logits finite and ``(B, V)``.
+    Returns (prefill logits fp32, the greedy tokens (B, G))."""
+    from repro_torch.distributed.steps import init_cache, make_decode_step, make_prefill_step
+
+    B, V = tokens.shape[0], cfg.vocab_size
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    cache = init_cache(cfg, B, S + G, dev)
+    logits, cache = prefill(params, {"tokens": tokens[:, :S]}, cache)
+    first = logits.float()
+    out = []
+    for i in range(G):
+        require(tuple(logits.shape) == (B, V), f"{cfg.name} {cfg.dtype} step {i}: logits "
+                f"{tuple(logits.shape)}")
+        require(bool(torch.isfinite(logits).all()), f"{cfg.name} {cfg.dtype} step {i}: "
+                "non-finite logits")
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        out.append(tok)
+        if i < G - 1:
+            logits, cache = decode(params, tok, cache, S + i)
+    return first, torch.cat(out, dim=1)
+
+
 def lm_serving(torch, dev, smi, hbm_bytes_per_s, peaks, cfg):
     """Phase 4f: ``launch/serve.py``'s code (``make_prefill_step`` /
     ``make_decode_step``) over ``cfg`` (qwen2-0.5b at its full width and
@@ -350,25 +403,8 @@ def lm_serving(torch, dev, smi, hbm_bytes_per_s, peaks, cfg):
     cfgs = {"bf16": cfg, "fp32": dataclasses.replace(cfg, dtype="float32")}
     cfg32 = cfgs["fp32"]
 
-    def serve(c):
-        """Prefill S tokens, then G - 1 greedy decode steps; every step's
-        logits must be finite and shaped (B, V)."""
-        prefill, decode = make_prefill_step(c), make_decode_step(c)
-        cache = init_cache(c, B, S + G, dev)
-        logits, cache = prefill(params, {"tokens": tokens[:, :S]}, cache)
-        first = logits.float()
-        out = []
-        for i in range(G):
-            require(tuple(logits.shape) == (B, V), f"{c.dtype} step {i}: logits {tuple(logits.shape)}")
-            require(bool(torch.isfinite(logits).all()), f"{c.dtype} step {i}: non-finite logits")
-            tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
-            out.append(tok)
-            if i < G - 1:
-                logits, cache = decode(params, tok, cache, S + i)
-        return first, torch.cat(out, dim=1)
-
     t0 = time.perf_counter()
-    served = {prec: serve(c) for prec, c in cfgs.items()}
+    served = {prec: lm_serve(torch, dev, c, params, tokens, S, G) for prec, c in cfgs.items()}
     print(f"served [bf16, fp32]: prefill of {B}x{S} tokens, then {G - 1} greedy decode steps; "
           f"logits finite and ({B}, {V}) after prefill and after every step ({time.perf_counter() - t0:.1f} s)")
 
@@ -779,6 +815,432 @@ def lm_training(torch, dev, smi, hbm_bytes_per_s, peaks, cfg):
         print(f"  torch_quickstart: {line}")
     require(rc == 0 and "reference vs tilted(halo): max|d| = 0.00e+00" in out.getvalue(),
             "examples/torch_quickstart.py on the card")
+    return record
+
+
+# Phase 4h: the remaining decoder-only families at their published widths.
+# (arch, depth override): deepseek-v2 keeps its dense MLA prologue and two
+# stacked MoE+MLA layers (9.17 G parameters, 36.7 GB in fp32), arctic one
+# layer (14.07 G, 56.3 GB in fp32: two stacked layers' routed experts would
+# not fit beside their fp32 draw); mamba2-130m and zamba2-2.7b are not cut.
+FAMILY_RUNS = (("mamba2-130m", None), ("zamba2-2.7b", None), ("deepseek-v2-236b", 3),
+               ("arctic-480b", 1))
+FAMILY_GRAD_LAYERS = 2  # deepseek-v2's compute_grads check: the prologue + one MoE layer
+FAMILY_GRAD_SEQ = 32
+FAMILY_TRAIN_LR = 3e-3  # mamba2's fixed-batch check: the reference test's lr (warm-up 2)
+NORM_LEAVES = ("ln", "ln1", "ln2", "final_norm", "q_norm", "k_norm", "kv_norm", "norm")
+
+
+def _to_param_dtypes_(tree, schema, dtype):
+    """Cast ``tree``'s leaves to ``dtype`` where the schema sets no dtype of
+    its own (the router stays fp32), one leaf at a time in place: at most
+    one leaf is held in both dtypes."""
+    for key in sorted(tree):
+        if isinstance(tree[key], dict):
+            _to_param_dtypes_(tree[key], schema[key], dtype)
+        elif schema[key].dtype is None:
+            tree[key] = tree[key].to(dtype)
+
+
+def _routed(fn):
+    """(``fn()``, the top-k expert ids ``(B, S, k)`` of every MoE layer it
+    ran, in order), recorded around ``layers.moe._router``."""
+    from repro_torch.layers import moe as moe_lib
+
+    picks, real = [], moe_lib._router
+
+    def recording(p, cfg, x):
+        out = real(p, cfg, x)
+        picks.append(out[1][1])
+        return out
+
+    moe_lib._router = recording
+    try:
+        return fn(), picks
+    finally:
+        moe_lib._router = real
+
+
+def _kept(torch, idx, num_experts, cap):
+    """Which (token, choice) claims of ``idx (B, S, k)`` fit their expert's
+    buffer: ``layers.moe``'s capacity rule (slots in (token, choice) order)."""
+    onehot = torch.nn.functional.one_hot(idx, num_experts).float()
+    B, S, k, _ = onehot.shape
+    claims = onehot.reshape(B, S * k, num_experts)
+    pos = ((claims.cumsum(1) - claims).reshape(B, S, k, num_experts) * onehot).sum(-1)
+    return pos < cap
+
+
+def _decode_bytes(torch, params, cfg, cache):
+    """(weights a decode step reads as stored, the bytes that casting them
+    to the activation dtype at use writes and reads, the cache's bytes).
+    An untied embedding is read a row a token (not counted); every expert
+    is read, as the dense decode path runs them all."""
+    act = torch.empty((), dtype=cfg.activation_dtype).element_size()
+    stored = cast = 0
+    for path, t in _leaves(params):
+        if path == "embed" and not cfg.tie_embeddings:
+            continue
+        stored += t.numel() * t.element_size()
+        key = path.rsplit("/", 1)[-1]
+        if key not in NORM_LEAVES + ("router",) and t.dtype != cfg.activation_dtype:
+            cast += 2 * t.numel() * act
+    kv = sum(t.numel() * t.element_size() for _, t in _leaves(cache))
+    return stored, cast, kv
+
+
+def _family_times(torch, dev, smi, hbm_bytes_per_s, cfg, params, tokens, S, G):
+    """Prefill ms and decode ms a step (CUDA events), the card's busy ms and
+    kernels a step (``torch.profiler``), peak memory, and the decode step's
+    HBM bound."""
+    from repro_torch.distributed.steps import init_cache, make_decode_step, make_prefill_step
+
+    B = tokens.shape[0]
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    cache = init_cache(cfg, B, S + G, dev)
+    batch = {"tokens": tokens[:, :S]}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    prefill_ms = time_ms(torch, lambda: prefill(params, batch, cache), reps=3, warmup=1)
+    logits, _ = prefill(params, batch, cache)
+    tok0 = torch.argmax(logits, -1)[:, None].to(torch.int32)
+
+    def loop(steps=G - 1):
+        tok = tok0
+        for i in range(steps):
+            out, _ = decode(params, tok, cache, S + i)
+            tok = torch.argmax(out, -1)[:, None].to(torch.int32)
+
+    loop_ms = time_ms(torch, loop, reps=2, warmup=0)
+    busy_ms, events = profiler_device_ms(torch, lambda: loop(LM_PROFILED_STEPS))
+    peak = torch.cuda.max_memory_allocated(dev)
+    step_ms = loop_ms / (G - 1)
+    stored, cast, kv = _decode_bytes(torch, params, cfg, cache)
+    bound_ms = (stored + cast + kv) / hbm_bytes_per_s * 1e3
+    busy = None if busy_ms is None else busy_ms / LM_PROFILED_STEPS
+    rec = dict(prefill_ms=prefill_ms, decode_ms_per_step=step_ms,
+               tokens_per_s=B * (G - 1) / loop_ms * 1e3, decode_bound_ms=bound_ms,
+               weight_bytes=stored, cast_bytes=cast, cache_bytes=kv,
+               decode_device_busy_ms_per_step=busy,
+               decode_device_events_per_step=events / LM_PROFILED_STEPS, peak_bytes=peak)
+    print(f"  times [{cfg.dtype}, B={B}, prompt {S}, {G - 1} decode steps]: prefill "
+          f"{prefill_ms:.3f} ms; decode {step_ms:.3f} ms/step, {rec['tokens_per_s']:.1f} "
+          f"tokens/s; HBM bound {bound_ms:.3f} ms/step (weights {stored / 1e9:.4f} GB + cast "
+          f"copies {cast / 1e9:.4f} GB + cache {kv / 1e6:.3f} MB at {hbm_bytes_per_s / 1e12:.3f} "
+          f"TB/s) -> {100 * bound_ms / step_ms:.1f}% of bound; device busy per step "
+          f"{'not measured' if busy is None else f'{busy:.3f} ms'}"
+          + ("" if busy is None else f" (idle {100 * (1 - busy / step_ms):.1f}%)")
+          + f", {rec['decode_device_events_per_step']:.0f} kernels and copies a step; peak "
+          f"memory {peak / 1e9:.3f} GB ({smi})")
+    return rec
+
+
+def _logit_gap(got, ref):
+    """(worst row's relative L2, max abs diff over the largest |logit|)."""
+    got, ref = got.float(), ref.float()
+    rel = float(((got - ref).norm(dim=-1) / ref.norm(dim=-1)).max())
+    return rel, float((got - ref).abs().max() / ref.abs().max())
+
+
+def _family_excess(got, want):
+    """(the excess over LM_TOL, the excess over LM_TOL with its atol scaled
+    by the largest |logit| where that is above 1): 1.0 is the bound.  The
+    scaled form is the one held in phase 4h: at these widths the logits
+    reach ~5, and fp32 GEMMs blocked differently for 4 rows (decode) than
+    for 516 (the forward), or on the CPU, differ by ~1e-6 of a layer's
+    output, which 54 random Mamba layers carry to ~1e-4 of the logits'
+    scale (the SSD itself in fp64 changes nothing)."""
+    err = (got - want).abs()
+    scale = max(1.0, float(want.abs().max()))
+    plain = float((err / (LM_TOL["atol"] + LM_TOL["rtol"] * want.abs())).max())
+    scaled = float((err / (LM_TOL["atol"] * scale + LM_TOL["rtol"] * want.abs())).max())
+    return plain, scaled
+
+
+def _ssm_layer_gaps(torch, cfg32, cfg16, params, tokens):
+    """bf16 against fp32 layer by layer, for mamba2 and zamba2: each Mamba
+    layer and each shared-block application runs in bf16 on the bf16
+    rounding of the fp32 run's input to it; returns the worst (relative L2
+    over the layer's whole (B, S, d) output, of its worst row, max abs diff
+    over the largest |value|) of its residual increment against the fp32
+    layer's, each with the layer where it is worst.  The whole output's
+    relative L2 is held (a row whose increment is small is all rounding).
+    The end-to-end logits are no test of the port here: a random-weight
+    Mamba stack compounds each layer's ~1 % bf16 error, in the JAX package
+    as in the port (PERF.md §6)."""
+    from repro_torch.layers.common import embed_lookup
+    from repro_torch.models import zamba
+    from repro_torch.models.lm import _unstack
+    from repro_torch.models.mamba_lm import mamba_layer
+
+    B, S = tokens.shape
+    positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
+    steps = []
+    for i, lp in enumerate(_unstack(params["blocks"], cfg32.num_layers)):
+        steps.append((f"mamba layer {i}", lambda c, h, lp=lp: mamba_layer(lp, c, h, None, "train")))
+        if cfg32.family == "hybrid" and (i + 1) % cfg32.shared_attn_period == 0 \
+                and i // cfg32.shared_attn_period < zamba._num_apps(cfg32):
+            app = i // cfg32.shared_attn_period
+            sp = _unstack(params["shared"], cfg32.num_shared_blocks)[app % cfg32.num_shared_blocks]
+            steps.append((f"shared application {app}", lambda c, h, sp=sp: zamba._shared_apply(
+                sp, c, h, positions, None, None, "train")))
+    worst = {"rel_l2": (0.0, None), "row_rel_l2": (0.0, None), "max_frac": (0.0, None)}
+    x = embed_lookup(params["embed"], tokens, torch.float32)
+    with torch.no_grad():
+        for label, step in steps:
+            y32 = step(cfg32, x)
+            x16 = x.to(torch.bfloat16)
+            y16 = step(cfg16, x16)
+            got, want = y16.float() - x16.float(), y32 - x
+            row, frac = _logit_gap(got, want)
+            gaps = {"rel_l2": float((got - want).norm() / want.norm()), "row_rel_l2": row,
+                    "max_frac": frac}
+            for key, val in gaps.items():
+                worst[key] = max(worst[key], (val, label), key=lambda t: t[0])
+            x = y32
+    return worst
+
+
+def lm_family(torch, dev, smi, hbm_bytes_per_s, name, layers):
+    """Phase 4h for one architecture at its published width (``layers``
+    cuts the depth, None keeps it): fp32 first (serving, decode vs
+    forward, card vs CPU, the MoE metrics, times), then bf16 activations
+    (the MoE configs' parameters cast to bf16 in place, as their configs
+    store them), against fp32; returns the JSON record."""
+    from repro_torch.configs import get_config as lm_config
+    from repro_torch.distributed.steps import init_cache, make_decode_step, make_prefill_step
+    from repro_torch.layers import moe as moe_lib
+    from repro_torch.layers.params import init_params, tree_map
+    from repro_torch.models.registry import get_model
+
+    full = lm_config(name)
+    cfg = full if layers is None else dataclasses.replace(full, num_layers=layers)
+    model = get_model(cfg)
+    B, S, G, V = LM_BATCH, LM_PROMPT, LM_GEN, cfg.vocab_size
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_params(model.schema(cfg), gen, torch.float32, dev)
+    tokens = torch.randint(0, V, (B, S + 1), generator=gen, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in _leaves(params))
+    rec = {"arch": name, "layers": cfg.num_layers, "published_layers": full.num_layers,
+           "parameters": n_params, "batch": B, "prompt": S, "generated": G}
+    print(f"{name}: {cfg.num_layers} of {full.num_layers} layers, d_model {cfg.d_model}, vocab "
+          f"{V}; {n_params} parameters ({n_params * 4 / 1e9:.3f} GB fp32) from a "
+          f"torch.Generator on {dev} in {time.perf_counter() - t0:.2f} s")
+
+    # fp32: serving, decode vs forward, card vs CPU, the MoE metrics
+    t0 = time.perf_counter()
+    first32, greedy32 = lm_serve(torch, dev, cfg32, params, tokens, S, G)
+    print(f"  served [fp32]: prefill of {B}x{S}, {G - 1} greedy decode steps, logits finite "
+          f"and ({B}, {V}) at every step ({time.perf_counter() - t0:.1f} s)")
+    # decode's MoE path is dropless: hold it to a forward that drops nothing
+    # (capacity factor E gives every expert room for all S * k claims)
+    exact = dataclasses.replace(cfg32, capacity_factor=float(cfg.num_experts)) \
+        if cfg.is_moe else cfg32
+    with torch.no_grad():
+        full_logits, _, _ = model.forward(params, exact, tokens, mode="train")
+    want = full_logits[:, S].clone()
+    del full_logits
+    cache = init_cache(exact, B, S + 4, dev)
+    _, cache = make_prefill_step(exact)(params, {"tokens": tokens[:, :S]}, cache)
+    dec, _ = make_decode_step(exact)(params, tokens[:, S:S + 1], cache, S)
+    del cache
+    plain, excess = _family_excess(dec, want)
+    rec["decode_vs_forward_fp32"] = {"max_abs": float((dec - want).abs().max()),
+                                     "largest_logit": float(want.abs().max()),
+                                     "excess_unscaled": plain, "excess": excess}
+    print(f"  fp32 decode at position {S} vs forward over {S + 1} tokens"
+          + (" (capacity factor E)" if cfg.is_moe else "") + f": max abs diff "
+          f"{float((dec - want).abs().max()):.3e}, largest |logit| {float(want.abs().max()):.3f}; "
+          f"{excess:.3f} of atol {LM_TOL['atol']} x max(1, largest |logit|) + rtol "
+          f"{LM_TOL['rtol']} |want| ({plain:.3f} of the unscaled tolerance)")
+    require(excess <= 1.0, f"{name}: fp32 decode after prefill must match forward over S + 1")
+
+    if name != "arctic-480b":  # arctic's 56 GB fp32 tree is not copied to the host
+        t0 = time.perf_counter()
+        params_cpu = tree_map(lambda t: t.cpu(), params, is_leaf=lambda t: not isinstance(t, dict))
+        prompt = tokens[:1, :16]
+        on_card, _ = make_prefill_step(cfg32)(params, {"tokens": prompt},
+                                              init_cache(cfg32, 1, 16, dev))
+        on_cpu, _ = make_prefill_step(cfg32)(params_cpu, {"tokens": prompt.cpu()},
+                                             init_cache(cfg32, 1, 16, "cpu"))
+        del params_cpu
+        plain, cpu_excess = _family_excess(on_card.cpu(), on_cpu)
+        err = float((on_card.cpu() - on_cpu).abs().max())
+        rec["card_vs_cpu_fp32"] = {"max_abs": err, "largest_logit": float(on_cpu.abs().max()),
+                                   "excess_unscaled": plain, "excess": cpu_excess}
+        print(f"  fp32 prefill logits, card vs CPU (batch 1, 16 tokens): max abs diff "
+              f"{err:.3e}, largest |logit| {float(on_cpu.abs().max()):.3f}; {cpu_excess:.3f} of "
+              f"the scaled tolerance ({plain:.3f} of the unscaled; "
+              f"{time.perf_counter() - t0:.1f} s)")
+        require(cpu_excess <= 1.0, f"{name}: fp32 prefill logits on the card vs the CPU")
+
+    def moe_forward(c):
+        """forward over the prompt: (logits, MoE metrics, per-layer picks)."""
+        with torch.no_grad():
+            (logits, _, metrics), picks = _routed(
+                lambda: model.forward(params, c, tokens[:, :S], mode="train"))
+        shown = {k: float(v) for k, v in metrics.items()}
+        require(all(math.isfinite(v) for v in shown.values()), f"{name} {c.dtype}: MoE metrics")
+        print(f"  forward [{c.dtype}, {B}x{S}] MoE metrics (mean over the stacked layers): "
+              + ", ".join(f"{k} {v:.6f}" for k, v in sorted(shown.items())))
+        return logits.float(), shown, picks
+
+    if cfg.is_moe:
+        logits32, rec["moe_metrics_fp32"], picks32 = moe_forward(cfg32)
+    rec["fp32"] = _family_times(torch, dev, smi, hbm_bytes_per_s, cfg32, params, tokens, S, G)
+
+    # bf16 activations: the MoE configs store bf16 parameters (cast from
+    # the fp32 tree in place); mamba2 and zamba2 keep fp32 ones
+    if cfg.weight_dtype != torch.float32:
+        _to_param_dtypes_(params, model.schema(cfg), cfg.weight_dtype)
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    first16, greedy16 = lm_serve(torch, dev, cfg, params, tokens, S, G)
+    agree_tok = float((greedy16 == greedy32).float().mean())
+    print(f"  served [bf16, {cfg.param_dtype} parameters]: logits finite and ({B}, {V}) at every "
+          f"step; greedy tokens agree with fp32's at {agree_tok:.4f} of {B}x{G} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if cfg.is_moe:
+        # A bf16 rounding can flip a top-k pick (and with it which claims
+        # fit a buffer); the rule holds over the positions whose picks and
+        # kept claims agree with fp32's in every layer, the others differ
+        # by design.
+        logits16, rec["moe_metrics_bf16"], picks16 = moe_forward(cfg)
+        cap = moe_lib.capacity(cfg, S)
+        same_pick = torch.stack([a == b for a, b in zip(picks16, picks32)])  # (L, B, S, k)
+        same_keep = torch.stack([_kept(torch, a, cfg.num_experts, cap)
+                                 == _kept(torch, b, cfg.num_experts, cap)
+                                 for a, b in zip(picks16, picks32)])
+        pick_share = float(same_pick.float().mean())
+        ok = (same_pick & same_keep).all(dim=-1).all(dim=0)  # (B, S)
+        rel, frac = _logit_gap(logits16[ok], logits32[ok])
+        rec["bf16_vs_fp32"] = {"pick_agreement": pick_share, "positions_held": int(ok.sum()),
+                               "positions": B * S, "rel_l2": rel, "max_frac": frac,
+                               "token_agreement": agree_tok}
+        print(f"  bf16 vs fp32: {pick_share:.4f} of the {same_pick.numel()} (token, layer, "
+              f"choice) picks agree; over the {int(ok.sum())} of {B * S} positions whose picks "
+              f"and kept claims agree in every layer, forward logits relative L2 (worst row) "
+              f"{rel:.5f} (bound {LM_BF16_REL_L2}), max abs diff {frac:.5f} of the largest "
+              f"|logit| (bound {LM_BF16_MAX_FRAC})")
+        require(int(ok.sum()) > 0, f"{name}: no position's picks agree between bf16 and fp32")
+        del logits16, logits32
+    else:
+        e2e_rel, e2e_frac = _logit_gap(first16, first32)
+        worst = _ssm_layer_gaps(torch, cfg32, cfg, params, tokens[:, :S])
+        (rel, rel_at), (frac, frac_at) = worst["rel_l2"], worst["max_frac"]
+        row, row_at = worst["row_rel_l2"]
+        rec["bf16_vs_fp32"] = {"prefill_logits_rel_l2": e2e_rel, "prefill_logits_max_frac":
+                               e2e_frac, "layer_rel_l2": rel, "layer_rel_l2_at": rel_at,
+                               "layer_row_rel_l2": row, "layer_row_rel_l2_at": row_at,
+                               "layer_max_frac": frac, "layer_max_frac_at": frac_at,
+                               "token_agreement": agree_tok}
+        print(f"  bf16 vs fp32 prefill logits (not held: the stack compounds each layer's "
+              f"error): relative L2 (worst row) {e2e_rel:.5f}, max abs diff {e2e_frac:.5f} of "
+              f"the largest |logit|; layer by layer on the fp32 run's inputs, the worst residual "
+              f"increment: relative L2 {rel:.5f} at {rel_at} (bound {LM_BF16_REL_L2}; worst "
+              f"row {row:.5f} at {row_at}), max abs diff {frac:.5f} of the largest at "
+              f"{frac_at} (bound {LM_BF16_MAX_FRAC})")
+    require(rel <= LM_BF16_REL_L2 and frac <= LM_BF16_MAX_FRAC,
+            f"{name}: bf16 logits are out of their bound from fp32's")
+    rec["bf16"] = _family_times(torch, dev, smi, hbm_bytes_per_s, cfg, params, tokens, S, G)
+    return rec
+
+
+def lm_family_grads(torch, dev, smi):
+    """deepseek-v2 at FAMILY_GRAD_LAYERS layers, full width, bf16:
+    ``compute_grads`` over 1 x FAMILY_GRAD_SEQ tokens; every gradient leaf
+    finite, the router's non-zero."""
+    from repro_torch.configs import get_config as lm_config
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.distributed.steps import compute_grads
+    from repro_torch.layers.params import init_params
+    from repro_torch.models.registry import get_model
+
+    cfg = dataclasses.replace(lm_config("deepseek-v2-236b"), num_layers=FAMILY_GRAD_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    params = init_params(get_model(cfg).schema(cfg), gen, cfg.weight_dtype, dev)
+    batch = lm_batch(cfg, 0, 1, FAMILY_GRAD_SEQ, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    metrics, grads = compute_grads(cfg, params, batch)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    leaves = list(_leaves(grads))
+    bad = [p for p, g in leaves if not bool(torch.isfinite(g).all())]
+    router = float(grads["blocks"]["moe"]["router"].abs().max())
+    rec = {"layers": cfg.num_layers, "tokens": FAMILY_GRAD_SEQ, "leaves": len(leaves),
+           "non_finite": bad, "router_max_abs_grad": router,
+           "total_loss": float(metrics["total_loss"]), "seconds": seconds,
+           "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+    print(f"deepseek-v2-236b compute_grads [{cfg.num_layers} layers (the dense prologue + 1 "
+          f"MoE), full width, {cfg.dtype} activations, {cfg.param_dtype} parameters, remat "
+          f"{cfg.remat!r}, 1x{FAMILY_GRAD_SEQ} tokens]: total loss {rec['total_loss']:.4f} "
+          f"(moe_aux_loss {float(metrics['moe_aux_loss']):.4f}, moe_z_loss "
+          f"{float(metrics['moe_z_loss']):.4f}); {len(leaves)} leaves, non-finite {bad}; "
+          f"router max |grad| {router:.3e}; {seconds:.1f} s, peak memory "
+          f"{rec['peak_bytes'] / 1e9:.3f} GB ({smi})")
+    require(not bad, "deepseek-v2 gradients must be finite")
+    require(router > 0, "deepseek-v2's router gradient must be non-zero")
+    return rec
+
+
+def lm_family_train(torch, dev, smi):
+    """mamba2-130m at full width and depth: ``make_train_step`` on one fixed
+    LM_BATCH x LM_PROMPT batch; the loss falls below 0.9x its first within
+    12 steps (the twin of tests/test_models_smoke.py's)."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_config as lm_config
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.distributed.steps import init_train_state, make_train_step
+
+    cfg = lm_config("mamba2-130m")
+    tcfg = TrainConfig(learning_rate=FAMILY_TRAIN_LR, warmup_steps=2, total_steps=30)
+    state = init_train_state(cfg, tcfg, torch.Generator(device=dev).manual_seed(1), dev)
+    step = make_train_step(cfg, tcfg)
+    batch = lm_batch(cfg, 0, LM_BATCH, LM_PROMPT, device=dev)
+    losses, step_ms = [], []
+    for _ in range(12):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = step(state, batch)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(metrics["total_loss"]))
+    ms = statistics.median(step_ms[2:])
+    print(f"mamba2-130m fixed batch [{LM_BATCH}x{LM_PROMPT}, {cfg.dtype} activations, "
+          f"{cfg.param_dtype} parameters, lr {FAMILY_TRAIN_LR}]: losses "
+          f"{[round(x, 4) for x in losses]}; a step {ms:.3f} ms (median of steps 3-12), "
+          f"{LM_BATCH * LM_PROMPT / ms * 1e3:.1f} tokens/s ({smi})")
+    require(all(math.isfinite(x) for x in losses), "mamba2 fixed batch: non-finite loss")
+    require(losses[-1] < 0.9 * losses[0], "mamba2 fixed batch: the loss must fall below 0.9x")
+    return {"lr": FAMILY_TRAIN_LR, "losses": losses, "step_ms": ms,
+            "tokens_per_s": LM_BATCH * LM_PROMPT / ms * 1e3}
+
+
+def lm_families(torch, dev, smi, hbm_bytes_per_s):
+    """Phase 4h: every architecture of FAMILY_RUNS, then deepseek-v2's
+    gradients and mamba2's training steps.  Each part runs to its end even
+    when another failed; the phase then fails with every failure listed."""
+    record, failures = {}, []
+    parts = [(name, lambda n=name, l=layers: lm_family(torch, dev, smi, hbm_bytes_per_s, n, l))
+             for name, layers in FAMILY_RUNS]
+    parts += [("deepseek-v2-236b grads", lambda: lm_family_grads(torch, dev, smi)),
+              ("mamba2-130m train", lambda: lm_family_train(torch, dev, smi))]
+    for name, part in parts:
+        t0 = time.perf_counter()
+        try:
+            record[name] = part()
+        except Exception as e:  # noqa: BLE001 -- reported below, the phase fails
+            failures.append(f"{name}: {type(e).__name__}: {e}")
+            print(f"  FAILED {failures[-1]}")
+        torch.cuda.empty_cache()
+        print(f"  {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    require(not failures, "phase 4h: " + "; ".join(failures))
     return record
 
 
@@ -1552,6 +2014,15 @@ def main() -> int:
     lm_train = lm_training(torch, dev, smi, detected.hbm_bytes_per_s, peaks, lm_cfg)
     print(f"lm_training: {json.dumps(lm_train)}")
     print(f"phase 4g took {time.perf_counter() - t0:.1f} s")
+
+    # ------------------------------------------------------------------
+    phase("4h. LM families at full width: deepseek-v2 (3 layers), arctic (1 layer), "
+          "mamba2-130m, zamba2-2.7b")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lm_fam = lm_families(torch, dev, smi, detected.hbm_bytes_per_s)
+    print(f"lm_families: {json.dumps(lm_fam)}")
+    print(f"phase 4h took {time.perf_counter() - t0:.1f} s")
 
     # ------------------------------------------------------------------
     phase("5. times (CUDA events, median of repeats after warm-up)")

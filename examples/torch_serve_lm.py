@@ -2,7 +2,7 @@
 caches — the twin of ``examples/serve_lm.py``.
 
 Thin wrapper over ``repro_torch.launch.serve`` showing the serving API on a
-reduced config of a ported architecture (the dense and vlm families), on
+reduced config of a ported architecture (every family but encoder-decoder), on
 the CUDA card unless ``--device cpu`` is given:
 
     PYTHONPATH=src python examples/torch_serve_lm.py --arch qwen2-0.5b

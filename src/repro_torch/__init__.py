@@ -10,8 +10,9 @@ Layout (each module is the counterpart of the same path in ``repro``):
                          int8 quantisation
   repro_torch.kernels  — the hand-written CUDA kernel (K1) + its wrapper,
                          plain version and marshalling
-  repro_torch.models   — ABPN, the decoder-only LM (dense and vlm
-                         families) and the model registry
+  repro_torch.models   — ABPN, the decoder-only LMs (dense, MoE/MLA
+                         and vlm families; Mamba2; the Zamba2 hybrid)
+                         and the model registry
   repro_torch.engine   — plan, executor, scheduler, session, server
   repro_torch.config, .configs, .layers, .distributed, .launch —
                          the LM path: configs, layers, the train, prefill

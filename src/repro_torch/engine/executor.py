@@ -370,6 +370,9 @@ def _record_ops(fn) -> List[dict]:
     return ops
 
 
+_PROFILE_TRIES = 3
+
+
 def _profile_call(fn, device: torch.device) -> dict:
     """What ``torch.profiler`` records for one call of ``fn`` on the card:
     ``kernels`` (device kernel names), ``memcpy`` (device copy kinds, e.g.
@@ -383,21 +386,28 @@ def _profile_call(fn, device: torch.device) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    torch.cuda.synchronize(device)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        with record_function(_CALL_MARK):
-            fn()
+    # Now and then the profiler delivers no device event for a window (the
+    # card's activity records are lost, not absent); the call is repeatable,
+    # so a window is tried up to _PROFILE_TRIES times before that is an error.
+    for _ in range(_PROFILE_TRIES):
         torch.cuda.synchronize(device)
-    events = list(prof.events())
-    marks = [e for e in events if e.name == _CALL_MARK and e.device_type == DeviceType.CPU]
-    if len(marks) != 1:
-        raise RuntimeError(f"the profiler recorded {len(marks)} spans of the call, not 1")
-    lo, hi = marks[0].time_range.start, marks[0].time_range.end
-    # the call's own span is projected onto the device as well: not a kernel
-    device_events = [e.name for e in events
-                     if e.device_type == DeviceType.CUDA and e.name != _CALL_MARK]
-    if not device_events:
-        raise RuntimeError("torch.profiler recorded no device activity for the call")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with record_function(_CALL_MARK):
+                fn()
+            torch.cuda.synchronize(device)
+        events = list(prof.events())
+        marks = [e for e in events if e.name == _CALL_MARK and e.device_type == DeviceType.CPU]
+        if len(marks) != 1:
+            raise RuntimeError(f"the profiler recorded {len(marks)} spans of the call, not 1")
+        lo, hi = marks[0].time_range.start, marks[0].time_range.end
+        # the call's own span is projected onto the device as well: not a kernel
+        device_events = [e.name for e in events
+                         if e.device_type == DeviceType.CUDA and e.name != _CALL_MARK]
+        if device_events:
+            break
+    else:
+        raise RuntimeError(f"torch.profiler recorded no device activity for the call in "
+                           f"{_PROFILE_TRIES} windows")
     return {
         "kernels": [n for n in device_events if not n.startswith(("Memcpy", "Memset"))],
         "memcpy": [n for n in device_events if n.startswith("Memcpy")],

@@ -3,8 +3,9 @@ port of ``repro.launch.serve``.
 
 ``python -m repro_torch.launch.serve --arch qwen2-0.5b --batch 4
 --prompt-len 64 --gen 32`` serves the reduced model of ``--arch`` on the
-CUDA card (``--device cpu`` runs it on the CPU).  The dense and vlm
-families are ported; the others raise an error naming their ROADMAP item.
+CUDA card (``--device cpu`` runs it on the CPU).  Every LM family but
+encoder-decoder is ported; that one raises an error naming its ROADMAP
+item.
 Tokens stay on the device between decode steps: the loop makes no host
 copy, and the times end with a device synchronize.
 """

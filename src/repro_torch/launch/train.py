@@ -4,8 +4,8 @@
 Runs the resilient training loop (checkpoint/restart, straggler detection)
 on the CUDA card (``--device cpu`` runs it on the CPU).  ``--reduced`` (the
 default) shrinks the model for laptop-scale runs; ``--full`` trains the
-published widths.  The dense and vlm families are ported; the others raise
-an error naming their ROADMAP item.  Prints the reference's lines and
+published widths.  Every LM family but encoder-decoder is ported; that one
+raises an error naming its ROADMAP item.  Prints the reference's lines and
 returns 0 when the mean loss of the last half of the steps is at most 1.05x
 that of the first half.
 """

@@ -1,22 +1,26 @@
-"""Decoder-only LM for the dense and VLM-prefix families — the port of
-``repro.models.lm``.
+"""Decoder-only LM covering the dense / MoE / MLA / VLM-prefix families —
+the port of ``repro.models.lm``.
 
 One config-driven assembly:
-  * attention: GQA (qwen2/3); MLA (deepseek-v2) comes with ROADMAP queue 1,
-    item 14d
-  * FFN: SwiGLU or plain MLP; MoE (arctic, deepseek-v2) comes with item
-    14d, ``first_k_dense`` prologue layers are ported
+  * attention: GQA (qwen2/3, arctic) or MLA (deepseek-v2)
+  * FFN: SwiGLU MLP, MoE (+shared experts), or MoE + parallel dense
+    residual (arctic); ``first_k_dense`` prologue layers (deepseek) keep
+    the config's attention and use the dense MLP
   * optional multimodal prefix: precomputed frontend embeddings (internvl2
     stub ViT) are concatenated ahead of the token embeddings
   * the reference's ``lax.scan`` over the stacked ``blocks`` is a Python
-    loop over their leading (layer) dimension
+    loop over their leading (layer) dimension; MoE metrics are averaged
+    over the stacked layers (the prologue's are dropped, as the reference
+    drops them)
   * ``cfg.remat`` applies when a train-mode forward records a graph:
     ``"full"`` checkpoints each stacked block
     (``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, the
     reference's ``jax.checkpoint``), and ``"dots"`` checkpoints it
     selectively, saving the outputs of matmuls without batch dimensions
-    (the reference's ``checkpoint_dots_with_no_batch_dims``).  Serving
-    modes and forwards without a graph run the blocks plainly
+    (the reference's ``checkpoint_dots_with_no_batch_dims``).  A
+    checkpointed block returns its MoE metrics with their graph, so the
+    router's aux terms reach its gradient.  Serving modes and forwards
+    without a graph run the blocks plainly
 
 The same forward serves train, prefill (fills the KV cache, returns
 last-position logits) and single-token decode.  Prefill and decode write
@@ -34,33 +38,31 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.layers import attention as attn_lib
+from repro_torch.layers import mla as mla_lib
+from repro_torch.layers import moe as moe_lib
 from repro_torch.layers.common import cross_entropy, embed_lookup, rmsnorm
 from repro_torch.layers.mlp import mlp_block, mlp_schema
 from repro_torch.layers.params import ParamSpec, stack_schema, tree_map
 
 __all__ = ["schema", "cache_schema", "loss", "prefill", "decode_step", "forward"]
 
-MOE_MLA_ITEM = "ROADMAP queue 1, item 14d (MoE and MLA)"
-
-
-def _check_supported(cfg) -> None:
-    if cfg.attention == "mla":
-        raise NotImplementedError(f"{cfg.name}: MLA attention is not ported yet: {MOE_MLA_ITEM}")
-    if cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: MoE layers are not ported yet: {MOE_MLA_ITEM}")
-
-
 # ----------------------------------------------------------------------
 # Schemas
 # ----------------------------------------------------------------------
-def _block_schema(cfg) -> dict:
+def _block_schema(cfg, moe: bool) -> dict:
     d = cfg.d_model
-    return {
+    s: Dict[str, Any] = {
         "ln1": ParamSpec((d,), ("norm",), init="ones"),
         "ln2": ParamSpec((d,), ("norm",), init="ones"),
-        "attn": attn_lib.gqa_schema(cfg),
-        "mlp": mlp_schema(cfg),
     }
+    s["attn"] = mla_lib.mla_schema(cfg) if cfg.attention == "mla" else attn_lib.gqa_schema(cfg)
+    if moe:
+        s["moe"] = moe_lib.moe_schema(cfg)
+        if cfg.dense_residual:
+            s["dense"] = mlp_schema(cfg)
+    else:
+        s["mlp"] = mlp_schema(cfg)
+    return s
 
 
 def _n_scan(cfg) -> int:
@@ -68,15 +70,14 @@ def _n_scan(cfg) -> int:
 
 
 def schema(cfg) -> dict:
-    _check_supported(cfg)
     d, v = cfg.d_model, cfg.vocab_size
     s: Dict[str, Any] = {
         "embed": ParamSpec((v, d), ("vocab", "embed"), init="embed", scale=0.02),
-        "blocks": stack_schema(_block_schema(cfg), _n_scan(cfg)),
+        "blocks": stack_schema(_block_schema(cfg, moe=cfg.is_moe), _n_scan(cfg)),
         "final_norm": ParamSpec((d,), ("norm",), init="ones"),
     }
     for i in range(cfg.first_k_dense):
-        s[f"prologue_{i}"] = _block_schema(cfg)
+        s[f"prologue_{i}"] = _block_schema(cfg, moe=False)
     if not cfg.tie_embeddings:
         s["lm_head"] = ParamSpec((d, v), ("embed", "vocab"))
     return s
@@ -84,10 +85,10 @@ def schema(cfg) -> dict:
 
 def cache_schema(cfg, batch: int, max_len: int) -> dict:
     """ParamSpec tree (init=zeros) describing the decode cache."""
-    _check_supported(cfg)
-    shape, dtype, axes = attn_lib.init_kv_cache_spec(cfg, batch, max_len)
+    spec = mla_lib.init_mla_cache_spec if cfg.attention == "mla" else attn_lib.init_kv_cache_spec
+    shape, dtype, axes = spec(cfg, batch, max_len)
     one = ParamSpec(shape, axes, init="zeros", dtype=str(dtype).removeprefix("torch."))
-    layer = {"k": one, "v": one}
+    layer = {"ckv": one} if cfg.attention == "mla" else {"k": one, "v": one}
     s = {"layers": stack_schema(layer, _n_scan(cfg))}
     for i in range(cfg.first_k_dense):
         s[f"prologue_{i}"] = dict(layer)
@@ -97,17 +98,29 @@ def cache_schema(cfg, batch: int, max_len: int) -> dict:
 # ----------------------------------------------------------------------
 # Blocks
 # ----------------------------------------------------------------------
-def _apply_block(p, cfg, x, positions, cache, cache_pos, mode):
-    """Pre-norm residual block. Returns (x, new_cache)."""
+def _apply_block(p, cfg, x, positions, cache, cache_pos, mode, moe: bool):
+    """Pre-norm residual block; writes ``cache`` (a layer's cache dict, or
+    None) in place. Returns (x, metrics)."""
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    a, kv = attn_lib.attention_block(
-        p["attn"], cfg, h, positions,
-        cache=None if cache is None else (cache["k"], cache["v"]),
-        cache_pos=cache_pos, mode=mode)
-    new_cache = None if kv is None else {"k": kv[0], "v": kv[1]}
+    if cfg.attention == "mla":
+        a, _ = mla_lib.mla_block(p["attn"], cfg, h, positions,
+                                 cache=None if cache is None else cache["ckv"],
+                                 cache_pos=cache_pos, mode=mode)
+    else:
+        a, _ = attn_lib.attention_block(
+            p["attn"], cfg, h, positions,
+            cache=None if cache is None else (cache["k"], cache["v"]),
+            cache_pos=cache_pos, mode=mode)
     x = x + a
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp_block(p["mlp"], cfg, h), new_cache
+    metrics = {}
+    if moe:
+        f, metrics = moe_lib.moe_block(p["moe"], cfg, h)
+        if cfg.dense_residual:
+            f = f + mlp_block(p["dense"], cfg, h)
+    else:
+        f = mlp_block(p["mlp"], cfg, h)
+    return x + f, metrics
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -163,8 +176,8 @@ def forward(
     mode: str = "train",
     last_logit_only: bool = False,
 ):
-    """Returns (logits (B, S_total, V), new_cache, metrics)."""
-    _check_supported(cfg)
+    """Returns (logits (B, S_total, V), cache, metrics).  ``cache`` is the
+    tree passed in, written in place (None when none was passed)."""
     act = cfg.activation_dtype
     x = embed_lookup(params["embed"], tokens, act)
     if frontend is not None:
@@ -175,34 +188,39 @@ def forward(
     else:
         positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
 
-    new_cache: Dict[str, Any] = {}
     for i in range(cfg.first_k_dense):
         c = None if cache is None else cache[f"prologue_{i}"]
-        x, nc = _apply_block(params[f"prologue_{i}"], cfg, x, positions, c, cache_pos, mode)
-        if nc is not None:
-            new_cache[f"prologue_{i}"] = nc
+        x, _ = _apply_block(params[f"prologue_{i}"], cfg, x, positions, c, cache_pos, mode,
+                            moe=False)
 
     def block(p, x, lc):
-        return _apply_block(p, cfg, x, positions, lc, cache_pos, mode)[0]
+        return _apply_block(p, cfg, x, positions, lc, cache_pos, mode, moe=cfg.is_moe)
 
     block = _remat(block, cfg, mode)
     n = _n_scan(cfg)
     layer_caches = [None] * n if cache is None else _unstack(cache["layers"], n)
+    layer_metrics = []
     for lp, lc in zip(_unstack(params["blocks"], n), layer_caches):
-        x = block(lp, x, lc)
-    if cache is not None:
-        new_cache["layers"] = cache["layers"]  # written in place, layer by layer
+        x, m = block(lp, x, lc)
+        layer_metrics.append(m)
 
     if last_logit_only:
         # only the last position's logits are consumed: slice the hidden
         # state before the unembedding matmul
         x = x[:, -1:]
+    metrics = {}
+    if cfg.is_moe and layer_metrics:
+        metrics = {k: torch.stack([m[k] for m in layer_metrics]).mean()
+                   for k in layer_metrics[0]}
+    return unembed(params, cfg, x), cache, metrics
+
+
+def unembed(params, cfg, x):
+    """Final norm, then logits through the tied embedding or ``lm_head``."""
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
-        logits = torch.einsum("bsd,vd->bsv", x, params["embed"].to(x.dtype))
-    else:
-        logits = torch.einsum("bsd,dv->bsv", x, params["lm_head"].to(x.dtype))
-    return logits, (new_cache if new_cache else None), {}
+        return torch.einsum("bsd,vd->bsv", x, params["embed"].to(x.dtype))
+    return torch.einsum("bsd,dv->bsv", x, params["lm_head"].to(x.dtype))
 
 
 # ----------------------------------------------------------------------
@@ -216,6 +234,9 @@ def loss(params, cfg, batch):
         logits = logits[:, batch["frontend"].shape[1]:]
     l, ce_metrics = cross_entropy(logits, batch["targets"], batch.get("mask"))
     metrics.update(ce_metrics)
+    if cfg.is_moe:
+        l = (l + cfg.router_aux_weight * metrics["moe_aux_loss"]
+             + cfg.router_z_weight * metrics["moe_z_loss"])
     metrics["total_loss"] = l
     return l, metrics
 

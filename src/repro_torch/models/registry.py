@@ -6,8 +6,9 @@ LM side — ``get_model(cfg)`` returns the family's module, which exposes:
   loss(params, cfg, batch)             -> (scalar loss, metrics)
   prefill(params, cfg, batch, cache)   -> (last logits (B,V), cache)
   decode_step(params, cfg, tok, cache, pos) -> (logits (B,V), cache)
-The dense and vlm families are ported (``models.lm``); the others raise
-an error naming the ROADMAP item that ports them.
+The dense, vlm and moe families are ``models.lm``, ssm is
+``models.mamba_lm`` and hybrid ``models.zamba``; encdec raises an error
+naming the ROADMAP item that ports it.
 
 SR side — a registered :class:`SRModelSpec` (canonical name, config, weight
 initialiser) is how ``repro_torch.engine.SRSession.open("abpn_x3")``
@@ -23,7 +24,7 @@ import functools
 import types
 from typing import Callable, Dict, Sequence, Tuple
 
-from repro_torch.models import lm
+from repro_torch.models import lm, mamba_lm, zamba
 from repro_torch.models.abpn import ABPNConfig, init_abpn
 
 __all__ = [
@@ -36,14 +37,14 @@ __all__ = [
 
 _FAMILY = {
     "dense": lm,
+    "moe": lm,
     "vlm": lm,
+    "ssm": mamba_lm,
+    "hybrid": zamba,
 }
 
 # families of the JAX package that later slices port
 _UNPORTED = {
-    "moe": "ROADMAP queue 1, item 14d (MoE and MLA)",
-    "ssm": "ROADMAP queue 1, item 14e (SSM and hybrid)",
-    "hybrid": "ROADMAP queue 1, item 14e (SSM and hybrid)",
     "encdec": "ROADMAP queue 1, item 14f (encoder-decoder)",
 }
 

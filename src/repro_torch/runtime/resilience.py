@@ -218,11 +218,13 @@ def resilient_train_loop(
     """Run to ``total_steps`` surviving failures. Returns ``(state, report)``.
 
     ``train_step`` may update the state in place (``distributed.steps``'
-    does), so the loop keeps a copy of ``init_state`` on its device until
-    it has issued its first checkpoint: a failure before one restarts from
-    that copy, as the reference restarts from ``init_state``.  Without
-    checkpoints (``checkpoint_every=0``) the copy is held for the whole run,
-    which costs one state's device memory.
+    does), so the loop keeps a copy of ``init_state`` on its device until a
+    checkpoint has *completed* (``latest_step`` finds one; an asynchronous
+    write that fails leaves none): a failure before that restarts from the
+    copy, as the reference restarts from ``init_state``.  Without a
+    completed checkpoint (``checkpoint_every=0``, or every write failing)
+    the copy is held for the whole run, which costs one state's device
+    memory.
     """
     detector = StragglerDetector()
     restarts = 0
@@ -250,6 +252,8 @@ def resilient_train_loop(
                 on_metrics(step, metrics)
             if checkpoint_every and (step + 1) % checkpoint_every == 0:
                 ckpt_lib.save(ckpt_dir, step, state, cfg, keep=keep, blocking=False)
+            if initial is not None and step >= checkpoint_every > 0 \
+                    and ckpt_lib.latest_step(ckpt_dir) is not None:
                 initial = None  # a failure from here on restores a checkpoint
             step += 1
         except Exception:
@@ -264,7 +268,7 @@ def resilient_train_loop(
             elif initial is not None:
                 state = _clone(initial)
                 step = 0
-            else:  # a checkpoint was issued but none completed
+            else:  # resumed from a checkpoint that has since gone
                 raise
     ckpt_lib.wait_pending()
     return state, {

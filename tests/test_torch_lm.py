@@ -5,8 +5,9 @@ decode_step for qwen2-0.5b (QKV bias, tied embeddings), qwen3-1.7b
 prefix) and a ``first_k_dense`` prologue; the slice end to end (prefill
 plus 4 greedy decode steps through both packages' step functions:
 identical token ids, logits within tolerance); the configs field for field;
-the full schemas' parameter counts; ``launch.serve.main`` on the CPU; and
-the errors of the families still to port.
+the full schemas' parameter counts, axes and cache trees for every ported
+family; ``launch.serve.main`` on the CPU for every ported family; and the
+error of the family still to port.
 
 Parameters are made by the JAX package's ``init_params`` and carried across
 with ``params_from_numpy``; tokens and frontend embeddings are drawn with
@@ -39,16 +40,20 @@ from repro_torch.models.registry import get_model
 
 TOL = dict(atol=2e-4, rtol=1e-3)
 B, S = 2, 24
-PORTED = {"dense", "vlm"}
+PORTED = {"dense", "vlm", "moe", "ssm", "hybrid"}
 
 # published sizes (billions) the full schemas must land near — the
 # reference's ranges (tests/test_models_smoke.py)
 EXPECTED_PARAMS_B = {
+    "arctic-480b": (440, 500),
+    "deepseek-v2-236b": (225, 245),
     "qwen3-14b": (13.5, 15.5),
     "qwen3-8b": (7.6, 8.6),
     "qwen2-0.5b": (0.4, 0.55),
     "qwen3-1.7b": (1.5, 2.0),
     "internvl2-1b": (0.4, 0.6),  # LM backbone only (stub ViT)
+    "zamba2-2.7b": (2.1, 2.9),
+    "mamba2-130m": (0.1, 0.16),
 }
 # (arch, overrides of reduced()): bias + tied, qk_norm + tied, untied, vlm
 # prefix, a dense prologue layer
@@ -215,20 +220,42 @@ def test_full_schema_param_count(arch):
     assert n == jax_count_params(jax_get_model(jcfg).schema(jcfg))
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "internvl2-1b"])
+def _spec_leaves(schema, prefix=""):
+    """{path: ParamSpec} of a schema (the port's or the JAX package's)."""
+    out = {}
+    for key in sorted(schema):
+        if isinstance(schema[key], dict):
+            out.update(_spec_leaves(schema[key], f"{prefix}{key}/"))
+        else:
+            out[prefix + key] = schema[key]
+    return out
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "internvl2-1b", "arctic-480b",
+                                  "deepseek-v2-236b", "mamba2-130m", "zamba2-2.7b"])
 def test_schemas_and_axes_match_jax(arch):
+    """Parameter and cache schemas, full and reduced: the same leaves with
+    the same shapes, logical axes, initialisers and dtypes (the cache trees:
+    ``k``/``v``, MLA's ``ckv``, Mamba's ``conv``/``ssm``, Zamba's
+    ``shared_kv``)."""
     for reduced in (False, True):
         cfg = get_config(arch).reduced() if reduced else get_config(arch)
         jcfg = jax_get_config(arch).reduced() if reduced else jax_get_config(arch)
-        s, js = lm.schema(cfg), jax_get_model(jcfg).schema(jcfg)
+        model, jmodel = get_model(cfg), jax_get_model(jcfg)
+        s, js = model.schema(cfg), jmodel.schema(jcfg)
         assert jax.tree_util.tree_leaves(param_axes(s), is_leaf=lambda x: isinstance(x, tuple)) \
             == jax.tree_util.tree_leaves(jax.tree_util.tree_map(
                 lambda x: x.axes, js, is_leaf=lambda x: hasattr(x, "axes")),
                 is_leaf=lambda x: isinstance(x, tuple))
-        cs = lm.cache_schema(cfg, 3, 40)
-        jcs = jax_get_model(jcfg).cache_schema(jcfg, 3, 40)
-        assert cs["layers"]["k"].shape == jcs["layers"]["k"].shape
-        assert cs["layers"]["k"].dtype == jcs["layers"]["k"].dtype
+        for schemas in ((s, js), (model.cache_schema(cfg, 3, 40),
+                                  jmodel.cache_schema(jcfg, 3, 40))):
+            mine, theirs = (_spec_leaves(t) for t in schemas)
+            assert sorted(mine) == sorted(theirs)
+            for key, spec in theirs.items():
+                got = mine[key]
+                assert (got.shape, got.axes, got.init, got.scale) == \
+                    (spec.shape, spec.axes, spec.init, spec.scale), key
+                assert got.dtype == (None if spec.dtype is None else str(spec.dtype)), key
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
@@ -252,17 +279,8 @@ def test_train_config_matches_jax():
 
 @pytest.mark.parametrize("arch", [a for a in LM_ARCH_IDS if get_config(a).family not in PORTED])
 def test_get_model_on_an_unported_family_names_its_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item 14[def]"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item 14f"):
         get_model(get_config(arch))
-
-
-@pytest.mark.parametrize("overrides", [{"attention": "mla"}, {"num_experts": 4}])
-def test_lm_refuses_mla_and_moe(overrides):
-    cfg = get_config("qwen2-0.5b").reduced(**overrides)
-    with pytest.raises(NotImplementedError, match="item 14d"):
-        lm.schema(cfg)
-    with pytest.raises(NotImplementedError, match="item 14d"):
-        lm.forward({}, cfg, torch.zeros((1, 2), dtype=torch.int32))
 
 
 def test_get_model_unknown_family():
@@ -300,7 +318,8 @@ def test_params_from_numpy_keeps_or_casts_dtypes():
         ParamSpec((2, 3), ("embed",))
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "internvl2-1b"])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "internvl2-1b", "arctic-480b", "deepseek-v2-236b",
+                                  "mamba2-130m", "zamba2-2.7b"])
 def test_lm_serve_cli_runs(arch, capsys):
     from repro_torch.launch.serve import main
 

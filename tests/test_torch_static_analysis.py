@@ -23,6 +23,7 @@ tolerance is involved.
 """
 
 import dataclasses
+import types
 
 import jax
 import numpy as np
@@ -360,6 +361,51 @@ def test_executor_artifacts_on_the_cpu():
     assert not any(o["to_host"] or o["from_host"] for o in arts["ops"])
     with pytest.raises(ValueError, match="PreparedStack or raw layers"):
         executor.executor_artifacts(plan, None, 1)
+
+
+class _FakeWindow:
+    """A ``torch.profiler.profile`` stand-in that hands out the event lists
+    it is given, one list per window."""
+
+    def __init__(self, windows):
+        self.windows = windows
+
+    def __call__(self, activities=None):
+        self.events_of_window = self.windows.pop(0)
+        return self
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def events(self):
+        return self.events_of_window
+
+
+def _event(name, device_type):
+    from torch.autograd import DeviceType
+
+    return types.SimpleNamespace(name=name, device_type=getattr(DeviceType, device_type),
+                                 time_range=types.SimpleNamespace(start=0, end=10))
+
+
+def test_profile_call_retries_a_window_with_no_device_event(monkeypatch):
+    """A profiler window that delivers no device event is tried again (the
+    call is repeatable); three empty windows are an error."""
+    from repro_torch.engine import executor
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    mark = _event(executor._CALL_MARK, "CPU")
+    calls = []
+    fake = _FakeWindow([[mark], [mark, _event("k1_kernel", "CUDA")]])
+    monkeypatch.setattr(torch.profiler, "profile", fake)
+    out = executor._profile_call(lambda: calls.append(1), torch.device("cpu"))
+    assert out["kernels"] == ["k1_kernel"] and len(calls) == 2
+    monkeypatch.setattr(torch.profiler, "profile", _FakeWindow([[mark]] * 3))
+    with pytest.raises(RuntimeError, match="no device activity for the call in 3 windows"):
+        executor._profile_call(lambda: None, torch.device("cpu"))
 
 
 def test_audit_catches_quant_round_in_the_call(monkeypatch):

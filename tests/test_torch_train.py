@@ -453,3 +453,39 @@ def test_failure_before_the_first_checkpoint_restarts_from_the_initial_state(tmp
     for (path, a), b in zip(tree_leaves_with_path(failed), tree_leaves(clean)):
         assert torch.equal(a, b), "/".join(path)
     assert int(failed["opt"]["step"]) == 8
+
+
+def test_failed_checkpoint_writes_restart_from_the_initial_state(tmp_path, monkeypatch):
+    """Every asynchronous checkpoint write fails, then a step fails: no
+    checkpoint completed, so the loop restarts from ``init_state`` at step
+    0, and reports what the reference's loop reports on the same schedule
+    (``{'restarts': 1, 'finished_step': 5}``)."""
+    from repro.data.synthetic import lm_batch as jax_lm_batch
+    from repro.runtime import resilience as jres
+
+    def failing_write(*args, **kwargs):
+        raise OSError("disk full")
+
+    monkeypatch.setattr(ck, "_write", failing_write)
+    monkeypatch.setattr(jck, "_write", failing_write)
+    cfg, tcfg, state, batch_fn = _loop_setup()
+    seen = []
+    _, report = resilient_train_loop(
+        init_state=state, train_step=make_train_step(cfg, tcfg), batch_fn=batch_fn,
+        total_steps=5, ckpt_dir=str(tmp_path / "port"), cfg=cfg, checkpoint_every=2,
+        injector=FailureInjector(fail_at_steps={3}), on_metrics=lambda s, m: seen.append(s))
+
+    jcfg = jax_get_config("qwen2-0.5b").reduced(num_layers=2, d_model=32, d_ff=64,
+                                                 vocab_size=128, remat="none")
+    jtcfg = JaxTrainConfig(**dataclasses.asdict(tcfg))
+    _, jreport = jres.resilient_train_loop(
+        init_state=jsteps.init_train_state(jcfg, jtcfg, jax.random.PRNGKey(0)),
+        train_step=jax.jit(jsteps.make_train_step(jcfg, jtcfg)),
+        batch_fn=lambda s: jax_lm_batch(jcfg, s, 2, 16), total_steps=5,
+        ckpt_dir=str(tmp_path / "jax"), cfg=jcfg, checkpoint_every=2,
+        injector=jres.FailureInjector(fail_at_steps={3}))
+    assert {k: report[k] for k in ("restarts", "finished_step")} == \
+        {k: jreport[k] for k in ("restarts", "finished_step")} == \
+        {"restarts": 1, "finished_step": 5}
+    assert seen == [0, 1, 2, 0, 1, 2, 3, 4]
+    assert ck.latest_step(str(tmp_path / "port")) is None
