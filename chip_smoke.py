@@ -6,8 +6,8 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 Phases, each printing its lines; any failed check raises and the script
-exits non-zero (nothing is caught, except that phase 4h runs each of its
-parts to the end and then fails with every failure listed):
+exits non-zero (nothing is caught, except that phases 4h and 4i run each
+of their parts to the end and then fail with every failure listed):
 
 1. environment — ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build — compiles every CUDA kernel from ``src/repro_torch/kernels/csrc``
@@ -161,6 +161,32 @@ parts to the end and then fails with every failure listed):
    step's HBM bound (weights as stored, every expert included, + the
    copies casting at use writes and reads + the cache); a
    ``lm_families: {...}`` JSON line;
+4i. encoder-decoder and partitioning — seamless-m4t-large-v2 at its
+   published width and depth (24 encoder + 24 decoder layers, d_model 1024,
+   16 heads of 64, d_ff 8192 ReLU, vocab 256206; 1.63 G fp32 parameters
+   from a ``torch.Generator`` on the card): batch 4, a 128-frame random
+   ``src`` (the cache's cross leaves sized to it), a 128-token prompt, 32
+   greedy tokens through ``make_prefill_step``/``make_decode_step`` in fp32
+   and bf16 activations, logits finite and (4, V) at every step; bf16 vs
+   fp32 prefill logits within phase 4f's rule end to end; fp32 decode of
+   token 128 == the teacher-forced decoder and fp32 prefill card == CPU
+   (batch 1, 16 frames, 16 tokens), both at phase 4h's scaled tolerance;
+   times as phase 4h's (the decode bound reads the decoder without its
+   cross K/V projections, and ``lm_head``).  Then ``compute_grads`` at full
+   width (every leaf finite) and 10 AdamW steps of ``make_train_step`` on
+   one fixed 2 x 128 batch (loss below 0.9x its first, step ms, peak
+   memory).  Then ``distributed.grad_sync.make_dp_grad_fn`` on a
+   ``(data=4,)`` mesh of the card's streams over qwen2-0.5b at full width in
+   fp32 (batch 8 x 128, 2 a position): ``"none"`` vs the whole batch's
+   gradient (relative L2 <= 1e-5 per leaf), ``"int8_ef"`` vs ``"none"``:
+   one step's cosine and its worst leaves printed, and over 4 steps on the
+   same gradients the transmitted means plus the mean residual within a
+   relative L2 of 1e-5 of 4x ``"none"`` (error feedback's telescoping sum),
+   both step times; the reference test's quadratic (300 steps, loss below
+   1e-3 of its first; far from the optimum, cosine > 0.99 with ``"none"``).  Then ``elastic_remesh`` of a
+   tree from a ``(4, 2)`` mesh of card positions to ``(2, 2)``: every leaf
+   ``torch.equal``.  Every part runs; the phase then fails listing each
+   failure; an ``encdec_and_partitioning: {...}`` JSON line;
 5. times — CUDA events, median of repeats after warm-up.  K1 at 1 and 8
    frames (fp32 and bf16, automatic segment plan: its segments, CTAs,
    warm-up tiles and their share of the executed tiles) four ways: one
@@ -875,11 +901,16 @@ def _decode_bytes(torch, params, cfg, cache):
     """(weights a decode step reads as stored, the bytes that casting them
     to the activation dtype at use writes and reads, the cache's bytes).
     An untied embedding is read a row a token (not counted); every expert
-    is read, as the dense decode path runs them all."""
+    is read, as the dense decode path runs them all.  An encoder-decoder
+    step reads neither the encoder nor the cross-attention's key and value
+    projections (prefill wrote their output to the cache)."""
     act = torch.empty((), dtype=cfg.activation_dtype).element_size()
     stored = cast = 0
     for path, t in _leaves(params):
         if path == "embed" and not cfg.tie_embeddings:
+            continue
+        if path.startswith(("enc_blocks/", "enc_norm")) or path.endswith(("xattn/wk",
+                                                                          "xattn/wv")):
             continue
         stored += t.numel() * t.element_size()
         key = path.rsplit("/", 1)[-1]
@@ -889,16 +920,20 @@ def _decode_bytes(torch, params, cfg, cache):
     return stored, cast, kv
 
 
-def _family_times(torch, dev, smi, hbm_bytes_per_s, cfg, params, tokens, S, G):
+def _family_times(torch, dev, smi, hbm_bytes_per_s, cfg, params, tokens, S, G, src=None):
     """Prefill ms and decode ms a step (CUDA events), the card's busy ms and
     kernels a step (``torch.profiler``), peak memory, and the decode step's
-    HBM bound."""
+    HBM bound.  ``src`` is an encoder-decoder model's encoder input."""
     from repro_torch.distributed.steps import init_cache, make_decode_step, make_prefill_step
 
     B = tokens.shape[0]
     prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
-    cache = init_cache(cfg, B, S + G, dev)
     batch = {"tokens": tokens[:, :S]}
+    if src is None:
+        cache = init_cache(cfg, B, S + G, dev)
+    else:
+        cache = init_cache(cfg, B, S + G, dev, enc_len=src.shape[1])
+        batch["src"] = src
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     prefill_ms = time_ms(torch, lambda: prefill(params, batch, cache), reps=3, warmup=1)
@@ -1241,6 +1276,350 @@ def lm_families(torch, dev, smi, hbm_bytes_per_s):
         torch.cuda.empty_cache()
         print(f"  {name}: {time.perf_counter() - t0:.1f} s", flush=True)
     require(not failures, "phase 4h: " + "; ".join(failures))
+    return record
+
+
+# Phase 4i: the encoder-decoder family at its published width and full
+# depth (24 encoder + 24 decoder layers, 1.63 G parameters), and the
+# partitioning layer on a mesh of the card's streams.  bf16 against fp32
+# compounds over 48 layers less than the bounds allow (a relative L2 of
+# 0.017 on the card, PERF.md), so phase 4f's bounds hold end to end.
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_STEPS = 2, 10
+ENCDEC_TRAIN_LR = 1e-3  # warm-up 2 steps, as phase 4g's fixed-batch check
+DP_ARCH, DP_POSITIONS, DP_BATCH, DP_SEQ = "qwen2-0.5b", 4, 8, 128
+DP_NONE_REL_L2 = 1e-5  # "none" vs the whole batch's gradient, per leaf (fp32)
+# int8_ef: the reference quantises each leaf with one scale, and a stacked
+# leaf spans every layer (qwen2's MLP leaves span 24), so one step's cosine
+# with the raw mean is ~0.986 at full width (0.97-0.98 on the MLP leaves):
+# printed, not held.
+# What error feedback guarantees is held instead: over k steps on the same
+# gradients the transmitted means telescope, sum(out_i) + mean_p(e_k) =
+# k * raw, exact up to fp32 roundings (~1e-7 of the terms).
+DP_EF_STEPS = 4
+DP_EF_REL_L2 = 1e-5
+DP_QUAD_STEPS = 300  # the reference test's quadratic
+DP_QUAD_COS = 0.99  # its cosine check, far from the optimum
+
+
+def encdec_serve(torch, dev, cfg, params, src, tokens, S, G):
+    """``make_prefill_step`` over ``src`` and ``tokens[:, :S]`` (the cache's
+    cross leaves sized to ``src``), then ``G - 1`` greedy decode steps;
+    every step's logits finite and ``(B, V)``.  Returns (prefill logits
+    fp32, the greedy tokens (B, G))."""
+    from repro_torch.distributed.steps import init_cache, make_decode_step, make_prefill_step
+
+    B, V = tokens.shape[0], cfg.vocab_size
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    cache = init_cache(cfg, B, S + G, dev, enc_len=src.shape[1])
+    logits, cache = prefill(params, {"src": src, "tokens": tokens[:, :S]}, cache)
+    first = logits.float()
+    out = []
+    for i in range(G):
+        require(tuple(logits.shape) == (B, V), f"{cfg.name} {cfg.dtype} step {i}: logits "
+                f"{tuple(logits.shape)}")
+        require(bool(torch.isfinite(logits).all()), f"{cfg.name} {cfg.dtype} step {i}: "
+                "non-finite logits")
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        out.append(tok)
+        if i < G - 1:
+            logits, cache = decode(params, tok, cache, S + i)
+    return first, torch.cat(out, dim=1)
+
+
+def encdec_serving(torch, dev, smi, hbm_bytes_per_s):
+    """seamless-m4t-large-v2 at its published width and depth, fp32
+    weights: serving in fp32 and bf16 activations, decode against the
+    teacher-forced decoder, the card against the CPU, bf16 against fp32,
+    times; returns the JSON record."""
+    from repro_torch.configs import get_config as lm_config
+    from repro_torch.distributed.steps import init_cache, make_decode_step, make_prefill_step
+    from repro_torch.layers.params import init_params, tree_map
+    from repro_torch.models import encdec
+
+    cfg = lm_config(ENCDEC_ARCH)
+    dims = (cfg.encoder_layers, cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+            cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.mlp_act, cfg.param_dtype, cfg.dtype)
+    require(dims == (24, 24, 1024, 16, 16, 64, 8192, 256206, "relu", "float32", "bfloat16"),
+            f"{ENCDEC_ARCH} is not at its published width: {dims}")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    B, S, G, V = LM_BATCH, LM_PROMPT, LM_GEN, cfg.vocab_size
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_params(encdec.schema(cfg), gen, cfg.weight_dtype, dev)
+    src = torch.randn((B, S, cfg.d_model), generator=gen, device=dev)
+    tokens = torch.randint(0, V, (B, S + 1), generator=gen, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in _leaves(params))
+    rec = {"arch": ENCDEC_ARCH, "encoder_layers": cfg.encoder_layers,
+           "decoder_layers": cfg.num_layers, "parameters": n_params, "batch": B,
+           "src_len": S, "prompt": S, "generated": G}
+    print(f"{ENCDEC_ARCH}: {cfg.encoder_layers} encoder + {cfg.num_layers} decoder layers, "
+          f"d_model {cfg.d_model}, {cfg.num_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff} "
+          f"({cfg.mlp_act}), vocab {V}; {n_params} parameters ({n_params * 4 / 1e9:.3f} GB fp32) "
+          f"from a torch.Generator on {dev} in {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    served = {"fp32": encdec_serve(torch, dev, cfg32, params, src, tokens, S, G),
+              "bf16": encdec_serve(torch, dev, cfg, params, src, tokens, S, G)}
+    rel, frac = _logit_gap(served["bf16"][0], served["fp32"][0])
+    agree = float((served["bf16"][1] == served["fp32"][1]).float().mean())
+    rec["bf16_vs_fp32"] = {"rel_l2": rel, "max_frac": frac, "token_agreement": agree}
+    print(f"  served [fp32, bf16]: src of {B}x{S} frames, prefill of {B}x{S} tokens, {G - 1} "
+          f"greedy decode steps; logits finite and ({B}, {V}) at every step "
+          f"({time.perf_counter() - t0:.1f} s)")
+    print(f"  bf16 vs fp32 prefill logits: relative L2 (worst row) {rel:.5f} (bound "
+          f"{LM_BF16_REL_L2}), max abs diff {frac:.5f} of the largest |logit| (bound "
+          f"{LM_BF16_MAX_FRAC}); greedy tokens agree at {agree:.4f} of {B}x{G}")
+    require(rel <= LM_BF16_REL_L2 and frac <= LM_BF16_MAX_FRAC,
+            f"{ENCDEC_ARCH}: bf16 prefill logits are out of their bound from fp32's")
+
+    # fp32: decode of token S after prefill == the teacher-forced decoder
+    with torch.no_grad():
+        enc = encdec.encode(params, cfg32, src)
+        full, _ = encdec._decoder(params, cfg32, tokens, enc, mode="train")
+    want = full[:, S].clone()
+    del full, enc
+    cache = init_cache(cfg32, B, S + 4, dev, enc_len=S)
+    _, cache = make_prefill_step(cfg32)(params, {"src": src, "tokens": tokens[:, :S]}, cache)
+    dec, _ = make_decode_step(cfg32)(params, tokens[:, S:S + 1], cache, S)
+    del cache
+    plain, excess = _family_excess(dec, want)
+    rec["decode_vs_forward_fp32"] = {"max_abs": float((dec - want).abs().max()),
+                                     "largest_logit": float(want.abs().max()),
+                                     "excess_unscaled": plain, "excess": excess}
+    print(f"  fp32 decode at position {S} vs the teacher-forced decoder over {S + 1} tokens: "
+          f"max abs diff {float((dec - want).abs().max()):.3e}, largest |logit| "
+          f"{float(want.abs().max()):.3f}; {excess:.3f} of atol {LM_TOL['atol']} x max(1, "
+          f"largest |logit|) + rtol {LM_TOL['rtol']} |want| ({plain:.3f} of the unscaled)")
+    require(excess <= 1.0, f"{ENCDEC_ARCH}: fp32 decode after prefill must match the decoder")
+
+    # the card against the CPU: fp32, batch 1, a 16-frame src and 16 tokens
+    t0 = time.perf_counter()
+    params_cpu = tree_map(lambda t: t.cpu(), params, is_leaf=lambda t: not isinstance(t, dict))
+    one = {"src": src[:1, :16], "tokens": tokens[:1, :16]}
+    on_card, _ = make_prefill_step(cfg32)(params, one, init_cache(cfg32, 1, 16, dev, enc_len=16))
+    on_cpu, _ = make_prefill_step(cfg32)(params_cpu, {k: v.cpu() for k, v in one.items()},
+                                         init_cache(cfg32, 1, 16, "cpu", enc_len=16))
+    del params_cpu
+    plain, cpu_excess = _family_excess(on_card.cpu(), on_cpu)
+    err = float((on_card.cpu() - on_cpu).abs().max())
+    rec["card_vs_cpu_fp32"] = {"max_abs": err, "largest_logit": float(on_cpu.abs().max()),
+                               "excess_unscaled": plain, "excess": cpu_excess,
+                               "seconds": time.perf_counter() - t0}
+    print(f"  fp32 prefill logits, card vs CPU (batch 1, 16 frames, 16 tokens): max abs diff "
+          f"{err:.3e}, largest |logit| {float(on_cpu.abs().max()):.3f}; {cpu_excess:.3f} of the "
+          f"scaled tolerance ({plain:.3f} of the unscaled; {time.perf_counter() - t0:.1f} s)")
+    require(cpu_excess <= 1.0, f"{ENCDEC_ARCH}: fp32 prefill logits on the card vs the CPU")
+
+    for prec, c in (("fp32", cfg32), ("bf16", cfg)):
+        rec[prec] = _family_times(torch, dev, smi, hbm_bytes_per_s, c, params, tokens, S, G,
+                                  src=src)
+    return rec
+
+
+def encdec_training(torch, dev, smi):
+    """seamless-m4t-large-v2 at full width: every leaf of ``compute_grads``
+    finite, then ENCDEC_TRAIN_STEPS AdamW steps of ``make_train_step`` on one
+    fixed batch (bf16 activations, fp32 parameters); the loss falls below
+    0.9x its first, every step's loss and grad norm finite."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_config as lm_config
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.distributed.steps import compute_grads, init_train_state, make_train_step
+
+    cfg = lm_config(ENCDEC_ARCH)
+    B, S = ENCDEC_TRAIN_BATCH, LM_PROMPT
+    tcfg = TrainConfig(learning_rate=ENCDEC_TRAIN_LR, warmup_steps=2, total_steps=30)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = init_train_state(cfg, tcfg, torch.Generator(device=dev).manual_seed(1), dev)
+    batch = lm_batch(cfg, 0, B, S, device=dev)
+    batch["src"] = torch.randn((B, S, cfg.d_model), device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(3))
+    metrics, grads = compute_grads(cfg, state["params"], batch)
+    bad = [p for p, g in _leaves(grads) if not bool(torch.isfinite(g).all())]
+    n_leaves = len(list(_leaves(grads)))
+    del grads
+    require(not bad, f"{ENCDEC_ARCH}: non-finite gradient leaves {bad}")
+    step = make_train_step(cfg, tcfg)
+    losses, norms, step_ms = [], [], []
+    for _ in range(ENCDEC_TRAIN_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step(state, batch)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(m["total_loss"]))
+        norms.append(float(m["grad_norm"]))
+    ms = statistics.median(step_ms[2:])
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"{ENCDEC_ARCH} training [full width, {B}x{S} tokens + a {B}x{S} src, {cfg.dtype} "
+          f"activations, {cfg.param_dtype} parameters, remat not run (as the reference), lr "
+          f"{ENCDEC_TRAIN_LR}]: compute_grads' {n_leaves} leaves finite; losses "
+          f"{[round(x, 4) for x in losses]}; grad norms {[round(x, 3) for x in norms]}; a step "
+          f"{ms:.3f} ms (median of steps 3-{ENCDEC_TRAIN_STEPS}), "
+          f"{B * S / ms * 1e3:.1f} tokens/s; peak memory {peak / 1e9:.3f} GB ({smi})")
+    require(all(math.isfinite(x) for x in losses + norms), "encdec training: non-finite step")
+    require(losses[-1] < 0.9 * losses[0], "encdec training: the loss must fall below 0.9x")
+    return {"batch": B, "seq": S, "lr": ENCDEC_TRAIN_LR, "losses": losses, "grad_norms": norms,
+            "step_ms": ms, "tokens_per_s": B * S / ms * 1e3, "peak_bytes": peak}
+
+
+def dp_grad_sync(torch, dev, smi):
+    """``make_dp_grad_fn`` on a (data=4,) mesh of the card's streams over
+    qwen2-0.5b at full width in fp32, a batch of 8 x 128 split over the
+    positions: ``"none"`` against the whole batch's gradient, ``"int8_ef"``
+    against ``"none"`` (one step's cosine, printed; DP_EF_STEPS steps'
+    telescoping sum, held), both timed; then the reference test's quadratic
+    and its cosine check."""
+    from repro_torch.configs import get_config as lm_config
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.distributed.grad_sync import init_ef_state, make_dp_grad_fn
+    from repro_torch.distributed.steps import compute_grads
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.layers.params import init_params
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(lm_config(DP_ARCH), dtype="float32")
+    params = init_params(lm.schema(cfg), torch.Generator(device=dev).manual_seed(5),
+                         cfg.weight_dtype, dev)
+    batch = lm_batch(cfg, 0, DP_BATCH, DP_SEQ, device=dev)
+    mesh = make_mesh((DP_POSITIONS,), ("data",), devices=[dev] * DP_POSITIONS)
+    loss_fn = lambda p, b: lm.loss(p, cfg, b)[0]  # noqa: E731
+    fns = {c: make_dp_grad_fn(loss_fn, mesh, compression=c) for c in ("none", "int8_ef")}
+    _, whole = compute_grads(cfg, params, batch)
+    _, raw, _ = fns["none"](params, batch, None)
+    worst = max((_rel_l2(g, w), p) for (p, g), (_, w) in zip(_leaves(raw), _leaves(whole)))
+    del whole
+    ef, total = init_ef_state(params), None
+    for k in range(DP_EF_STEPS):
+        _, comp, ef = fns["int8_ef"](params, batch, ef)
+        if k == 0:
+            cos = _cosine(comp, raw)
+            per_leaf = sorted((_cosine({"x": a}, {"x": b}), p) for (p, a), (_, b)
+                              in zip(_leaves(comp), _leaves(raw)))
+        flat = [t.double() for _, t in _leaves(comp)]
+        total = flat if total is None else [a + b for a, b in zip(total, flat)]
+    residual = [sum(t.double() for t in ts) / DP_POSITIONS
+                for ts in zip(*[[t for _, t in _leaves(e)] for e in ef])]
+    num = sum(float((t + e - DP_EF_STEPS * r.double()).square().sum())
+              for t, e, (_, r) in zip(total, residual, _leaves(raw)))
+    den = sum(float((DP_EF_STEPS * r.double()).square().sum()) for _, r in _leaves(raw))
+    telescope = math.sqrt(num / den)
+    del comp, raw, total, residual
+    times = {}
+    for c, fn in fns.items():
+        state = {"ef": init_ef_state(params) if c == "int8_ef" else None}
+
+        def call(fn=fn, state=state):
+            _, _, state["ef"] = fn(params, batch, state["ef"])
+
+        times[c] = time_ms(torch, call, reps=3, warmup=1)
+    del ef
+    print(f"DP grad sync [{DP_ARCH} full width, fp32, (data={DP_POSITIONS},) mesh of one card's "
+          f"streams, {DP_BATCH}x{DP_SEQ} tokens split {DP_BATCH // DP_POSITIONS} a position]: "
+          f"'none' vs the whole batch's gradient, worst leaf relative L2 {worst[0]:.3e} at "
+          f"{worst[1]} (bound {DP_NONE_REL_L2}); 'int8_ef' vs 'none': one step's cosine "
+          f"{cos:.6f} (not held; worst leaves "
+          + ", ".join(f"{p} {c:.6f}" for c, p in per_leaf[:3])
+          + f"), {DP_EF_STEPS} steps' sum + the mean residual vs {DP_EF_STEPS} x 'none' relative "
+          f"L2 {telescope:.3e} (bound {DP_EF_REL_L2}); a step {times['none']:.3f} ms ('none'), "
+          f"{times['int8_ef']:.3f} ms ('int8_ef') ({smi})")
+    require(worst[0] <= DP_NONE_REL_L2, "DP 'none' must match the whole batch's gradient")
+    require(telescope <= DP_EF_REL_L2, "DP 'int8_ef': the transmitted means must telescope")
+
+    # the quadratic of tests/test_distributed.py::test_int8_ef_grad_sync_converges
+    target = torch.arange(16.0, device=dev).reshape(4, 4)
+    quad = make_dp_grad_fn(
+        lambda p, b: torch.mean((b["x"] @ p["w"] - b["x"] @ target) ** 2), mesh)
+    w = {"w": torch.zeros((4, 4), device=dev)}
+    qef = init_ef_state(w)
+    xs = torch.randn((DP_QUAD_STEPS, DP_POSITIONS * 2, 4),
+                     generator=torch.Generator().manual_seed(7)).to(dev)
+    t0 = time.perf_counter()
+    losses = []
+    for step in range(DP_QUAD_STEPS):
+        loss, g, qef = quad(w, {"x": xs[step]}, qef)
+        w = {"w": w["w"] - 0.1 * g["w"]}
+        losses.append(loss)
+    losses = [float(x) for x in losses]
+    quad_s = time.perf_counter() - t0
+    w0 = {"w": torch.randn((4, 4), generator=torch.Generator().manual_seed(5)).to(dev)}
+    x0 = {"x": torch.randn((DP_POSITIONS * 2, 4), generator=torch.Generator().manual_seed(999)
+                           ).to(dev)}
+    quad_raw = make_dp_grad_fn(
+        lambda p, b: torch.mean((b["x"] @ p["w"] - b["x"] @ target) ** 2), mesh, compression="none")
+    quad_cos = _cosine(quad(w0, x0, init_ef_state(w0))[1], quad_raw(w0, x0, None)[1])
+    print(f"  int8_ef quadratic ({DP_QUAD_STEPS} SGD steps, lr 0.1, the same mesh): loss "
+          f"{losses[0]:.4e} -> {losses[-1]:.4e} (bound < 1e-3 x the first) in {quad_s:.2f} s; "
+          f"cosine with 'none' far from the optimum {quad_cos:.6f} (bound > {DP_QUAD_COS})")
+    require(losses[-1] < 1e-3 * losses[0], "the int8_ef quadratic must converge")
+    require(quad_cos > DP_QUAD_COS, "the int8_ef quadratic's gradient must point where 'none' does")
+    return {"positions": DP_POSITIONS, "batch": DP_BATCH, "seq": DP_SEQ,
+            "none_worst_rel_l2": worst[0], "int8_ef_cosine_one_step": cos,
+            "int8_ef_worst_leaves": [[p, c] for c, p in per_leaf[:3]],
+            "int8_ef_telescope_rel_l2": telescope, "step_ms": times,
+            "quadratic": {"first": losses[0], "last": losses[-1], "seconds": quad_s,
+                          "cosine": quad_cos}}
+
+
+def _cosine(a, b):
+    """Cosine of two gradient trees, every leaf together, in fp64."""
+    dot = sum(float((x.double() * y.double()).sum()) for (_, x), (_, y)
+              in zip(_leaves(a), _leaves(b)))
+    na = math.sqrt(sum(float(x.double().square().sum()) for _, x in _leaves(a)))
+    nb = math.sqrt(sum(float(y.double().square().sum()) for _, y in _leaves(b)))
+    return dot / (na * nb)
+
+
+def remesh_check(torch, dev):
+    """``elastic_remesh`` of a state tree from a (4, 2) ("data", "model")
+    mesh of card positions to (2, 2): every leaf ``torch.equal`` to the
+    original after the move."""
+    from repro_torch.distributed import partitioning as pt
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.resilience import elastic_remesh
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    state = {"w": torch.randn((896, 4864), generator=gen, device=dev),
+             "b": torch.randn((4864,), generator=gen, device=dev),
+             "e": torch.randn((8, 896), generator=gen, device=dev)}
+    axes = {"w": ("embed", "mlp"), "b": ("mlp",), "e": ("batch", "embed")}
+    mesh8 = make_mesh((4, 2), ("data", "model"), devices=[dev] * 8)
+    mesh4 = make_mesh((2, 2), ("data", "model"), devices=[dev] * 4)
+    with pt.axis_rules(mesh8, pt.fsdp_rules()):
+        placed = elastic_remesh(state, axes, mesh8)
+    moved = elastic_remesh(placed, axes, mesh4, pt.fsdp_rules())
+    specs = {k: (placed[k].sharding.spec, moved[k].sharding.spec) for k in state}
+    exact = all(torch.equal(pt.gather(moved[k]), state[k]) for k in state)
+    on_card = all(s.device.type == "cuda" for k in moved for s in moved[k].shards)
+    print(f"elastic_remesh (4, 2) -> (2, 2) on card positions (FSDP rules): specs {specs}; "
+          f"every leaf torch.equal to the original: {exact}; shards on the card: {on_card}")
+    require(exact and on_card and all(moved[k].sharding.mesh is mesh4 for k in moved),
+            "elastic_remesh must move every leaf exactly")
+    return {"specs": {k: [list(map(str, a)), list(map(str, b))] for k, (a, b) in specs.items()},
+            "exact": exact}
+
+
+def encdec_and_partitioning(torch, dev, smi, hbm_bytes_per_s):
+    """Phase 4i: each part runs to its end even when another failed; the
+    phase then fails with every failure listed."""
+    record, failures = {}, []
+    parts = [("seamless serving", lambda: encdec_serving(torch, dev, smi, hbm_bytes_per_s)),
+             ("seamless training", lambda: encdec_training(torch, dev, smi)),
+             ("DP grad sync", lambda: dp_grad_sync(torch, dev, smi)),
+             ("elastic_remesh", lambda: remesh_check(torch, dev))]
+    for name, part in parts:
+        t0 = time.perf_counter()
+        try:
+            record[name] = part()
+        except Exception as e:  # noqa: BLE001 -- reported below, the phase fails
+            failures.append(f"{name}: {type(e).__name__}: {e}")
+            print(f"  FAILED {failures[-1]}")
+        torch.cuda.empty_cache()
+        print(f"  {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    require(not failures, "phase 4i: " + "; ".join(failures))
     return record
 
 
@@ -2023,6 +2402,15 @@ def main() -> int:
     lm_fam = lm_families(torch, dev, smi, detected.hbm_bytes_per_s)
     print(f"lm_families: {json.dumps(lm_fam)}")
     print(f"phase 4h took {time.perf_counter() - t0:.1f} s")
+
+    # ------------------------------------------------------------------
+    phase("4i. encoder-decoder at full width (seamless-m4t-large-v2), DP grad sync and "
+          "elastic re-mesh on the card's streams")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    encdec_part = encdec_and_partitioning(torch, dev, smi, detected.hbm_bytes_per_s)
+    print(f"encdec_and_partitioning: {json.dumps(encdec_part)}")
+    print(f"phase 4i took {time.perf_counter() - t0:.1f} s")
 
     # ------------------------------------------------------------------
     phase("5. times (CUDA events, median of repeats after warm-up)")

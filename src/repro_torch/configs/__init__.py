@@ -5,7 +5,7 @@ The ten LM-family architectures plus the paper's own ABPN model.
 ``get_config(name)`` returns the full published configuration;
 ``get_config(name).reduced()`` is the CPU smoke-test variant.  The
 dry-run's input shapes (``repro.configs.shapes``) come with the dry-run
-slice of the port (ROADMAP queue 1, item 14g).
+slice of the port (ROADMAP queue 1, item 14h).
 """
 
 from __future__ import annotations

@@ -15,7 +15,7 @@ for data parallelism.  Three layers:
   * ``router``     — :class:`ReplicaRouter`: per-replica executor caches +
     prepared stacks, round-robin / least-loaded dispatch routing.
 
-One process drives the whole mesh (``repro_torch.launch.mesh.SRMesh``),
+One process drives the whole mesh (``repro_torch.launch.mesh.Mesh``),
 whose positions may repeat a device: everything runs on the CPU with
 ``make_sr_mesh(R, S, device="cpu")``, and on one card with
 ``devices=[torch.device("cuda:0")] * (R * S)``.
@@ -30,6 +30,7 @@ from repro_torch.engine.sharding.mesh_plan import (
 from repro_torch.engine.sharding.router import ROUTE_POLICIES, ReplicaRouter
 from repro_torch.engine.sharding.shard_exec import (
     build_sharded_executor,
+    frame_spec,
     halo_exchange_bytes_per_frame,
 )
 
@@ -41,5 +42,6 @@ __all__ = [
     "ReplicaRouter",
     "ROUTE_POLICIES",
     "build_sharded_executor",
+    "frame_spec",
     "halo_exchange_bytes_per_frame",
 ]

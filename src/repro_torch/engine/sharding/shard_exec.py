@@ -33,9 +33,10 @@ the HR row blocks there, so an event the caller records afterwards marks
 the end of the whole call.  Every tensor that crosses streams is recorded
 on the stream that reads it.  Nothing here waits on the host.
 
-Divergence from the JAX module: ``frame_spec`` (a JAX ``PartitionSpec``
-resolved through ``distributed/partitioning.py``) has no counterpart —
-rows over ``bands`` is the scatter above.
+The row split comes from :func:`frame_spec`, the frame batch's spec
+resolved through ``distributed.partitioning``'s ``SR_RULES`` (rows over
+``bands``), as the reference's ``shard_map`` reads its ``in_specs``; the
+scatter above is how the port carries that spec out.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ from typing import Dict, Mapping, Sequence, Union
 import torch
 
 from repro_torch.core.fusion import tilted_fused_bands
+from repro_torch.distributed.partitioning import Spec, logical_to_spec, sr_rules
 from repro_torch.engine.executor import (
     PreparedStack,
     compute_dtype_for,
@@ -58,9 +60,18 @@ from repro_torch.launch.mesh import SR_BAND_AXIS, SRMesh
 
 __all__ = [
     "build_sharded_executor",
+    "frame_spec",
     "halo_exchange_bytes_per_frame",
     "stack_on",
 ]
+
+# Logical axes of a frame batch (N, H, W, C), resolved against SR_RULES.
+FRAME_AXES = ("sr_batch", "sr_rows", "sr_cols", "sr_chan")
+
+
+def frame_spec(mesh: SRMesh) -> Spec:
+    """The spec of a frame batch on ``mesh`` (rows over ``bands``)."""
+    return logical_to_spec(FRAME_AXES, mesh, sr_rules())
 
 
 def halo_exchange_bytes_per_frame(plan, band_shards: int) -> int:
@@ -178,7 +189,8 @@ def build_sharded_executor(
     plan.check_invariants()
     devices, streams = mesh.devices, mesh.streams
     stacks = _stacks_for(stack, mesh.distinct_devices())
-    S, L = spec.band_shards, plan.num_layers
+    rows_axis = frame_spec(mesh)[1]  # the mesh axis the frame rows split over
+    S, L = sizes[rows_axis], plan.num_layers
     halo = S > 1 and plan.vertical_policy == "halo"
     home = devices[0]
 

@@ -1,13 +1,19 @@
-"""repro_torch.launch — device meshes for serving (the SR half of the JAX
-package's ``launch/mesh.py``) and the LM serving entry point
-(``python -m repro_torch.launch.serve``)."""
+"""repro_torch.launch — device meshes (``launch/mesh.py``: the SR serving
+mesh and the LM meshes) and the LM entry points
+(``python -m repro_torch.launch.serve``, ``python -m repro_torch.launch.train``)."""
 
 from repro_torch.launch.mesh import (
+    MULTI_POD,
+    SINGLE_POD,
     SR_BAND_AXIS,
     SR_REPLICA_AXIS,
+    Mesh,
     SRMesh,
     band_submesh,
+    make_mesh,
+    make_production_mesh,
     make_sr_mesh,
 )
 
-__all__ = ["SRMesh", "make_sr_mesh", "band_submesh", "SR_REPLICA_AXIS", "SR_BAND_AXIS"]
+__all__ = ["Mesh", "SRMesh", "make_mesh", "make_production_mesh", "make_sr_mesh",
+           "band_submesh", "SR_REPLICA_AXIS", "SR_BAND_AXIS", "SINGLE_POD", "MULTI_POD"]

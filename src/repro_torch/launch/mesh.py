@@ -1,36 +1,50 @@
-"""The serving mesh: a grid of torch devices, one stream per position.
+"""Device meshes: a grid of torch devices with named axes, one stream per
+position — the port of ``repro.launch.mesh``.
 
-The SR half of the JAX package's ``launch/mesh.py``.  One Python process
-drives every position of the mesh, as the JAX package's single-controller
-``shard_map`` does: a :class:`SRMesh` is a ``(replica, bands)`` grid of
-``torch.device``\\ s, and on CUDA each position carries its own
-``torch.cuda.Stream``, made once here, when the mesh is built — never
-inside a launch.
+One Python process drives every position of a mesh, as the JAX package's
+single-controller ``shard_map`` does: a :class:`Mesh` is a grid of
+``torch.device``\\ s with named axes, and on CUDA each position carries its
+own ``torch.cuda.Stream``, made once here, when the mesh is built — never
+inside a launch.  ``torch.distributed`` and NCCL are not used.
 
 A mesh's positions may repeat a device.  torch has no counterpart of
 ``--xla_force_host_platform_device_count``, so ``devices=`` is how a mesh
-larger than the machine's device count is built: ``["cpu"] * 4`` on a
-host, ``[torch.device("cuda:0")] * 4`` on one card, where the positions
-are four streams of the same GPU.
+larger than the machine's device count is built: ``["cpu"]`` (every
+position the CPU) on a host, ``[torch.device("cuda:0")] * 4`` on one card,
+where the positions are four streams of the same GPU.  A position holds
+nothing but its device and its stream, so a 256-position mesh of one
+device costs 256 streams on a card and nothing on the CPU.
 
-``make_production_mesh`` and ``make_mesh`` of the JAX module build the LM
-meshes and are not ported (LM scaffolding).
+Mesh shapes (the reference's TPU v5e pods; the LM partitioning rules of
+``distributed.partitioning`` resolve against them):
+  single pod : (data=16, model=16)           = 256 positions
+  multi-pod  : (pod=2, data=16, model=16)    = 512 positions
+The SR serving mesh is ``(replica, bands)`` (:func:`make_sr_mesh`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+import math
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 __all__ = [
+    "Mesh",
     "SRMesh",
+    "make_mesh",
+    "make_production_mesh",
     "make_sr_mesh",
     "band_submesh",
     "SR_REPLICA_AXIS",
     "SR_BAND_AXIS",
+    "SINGLE_POD",
+    "MULTI_POD",
 ]
+
+SINGLE_POD = ((16, 16), ("data", "model"))
+MULTI_POD = ((2, 16, 16), ("pod", "data", "model"))
 
 # SR serving mesh axes: ``replica`` is pure data parallelism (whole frames,
 # no communication), ``bands`` splits each frame's row bands spatially
@@ -40,7 +54,7 @@ SR_BAND_AXIS = "bands"
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
-class SRMesh:
+class Mesh:
     """A grid of devices with named axes, stored row-major.
 
     ``devices[i]`` and ``streams[i]`` belong to flat position ``i``;
@@ -76,6 +90,16 @@ class SRMesh:
         """The mesh's devices, each once, in position order."""
         return tuple(dict.fromkeys(self.devices))
 
+    def coords(self, position: int) -> Dict[str, int]:
+        """``{axis name: index}`` of flat position ``position`` (row-major)."""
+        out = {}
+        for name, n in zip(reversed(self.axis_names), reversed(self.shape)):
+            position, out[name] = divmod(position, n)
+        return out
+
+
+SRMesh = Mesh  # the serving mesh's name before the LM meshes were ported
+
 
 def _indexed(device: torch.device) -> torch.device:
     """A CUDA device with its index (``cuda`` -> the current one), the
@@ -90,16 +114,63 @@ def _positions(devices: Sequence[torch.device]) -> Tuple[Optional["torch.cuda.St
                  for d in devices)
 
 
-def _cuda_devices(needed: int, replicas: int, band_shards: int) -> Tuple[torch.device, ...]:
+def _cuda_devices(shape: Tuple[int, ...]) -> Tuple[torch.device, ...]:
+    needed = math.prod(shape)
     avail = torch.cuda.device_count()
     if needed > avail:
         raise ValueError(
-            f"mesh ({replicas}x{band_shards}) needs {needed} devices but "
+            f"mesh ({'x'.join(map(str, shape))}) needs {needed} devices but "
             f"only {avail} CUDA devices are visible; to place several mesh "
             "positions on one card pass devices=[torch.device('cuda:0')] * "
             f"{needed}"
         )
     return tuple(torch.device("cuda", i) for i in range(needed))
+
+
+def _devices_for(shape: Tuple[int, ...], devices: Sequence) -> Tuple[torch.device, ...]:
+    """``devices`` as the mesh's positions: one device repeated at every
+    position, or one device per position (row-major), all cpu or all
+    cuda."""
+    needed = math.prod(shape)
+    devs = tuple(_indexed(torch.device(d)) for d in devices)
+    if len(devs) == 1:
+        devs = devs * needed
+    if len(devs) != needed:
+        raise ValueError(
+            f"mesh ({'x'.join(map(str, shape))}) needs {needed} devices (or one "
+            f"for every position), got {len(devs)}"
+        )
+    kinds = {d.type for d in devs}
+    if len(kinds) != 1 or not kinds <= {"cpu", "cuda"}:
+        raise ValueError(f"a mesh runs on cuda or on cpu devices, got {sorted(kinds)}")
+    return devs
+
+
+def make_mesh(shape: Sequence[int], axes: Sequence[str],
+              devices: Optional[Sequence] = None) -> Mesh:
+    """A mesh of ``shape`` with axis names ``axes``.
+
+    ``devices`` lists the positions row-major and may repeat a device; a
+    list of one device puts it at every position (``["cpu"]`` builds any
+    mesh on a host).  Without it the mesh takes the first ``prod(shape)``
+    visible GPUs and raises ``ValueError`` when there are too few.  Each
+    CUDA position gets a stream of its own, made here.
+    """
+    shape, axes = tuple(int(n) for n in shape), tuple(axes)
+    if any(n <= 0 for n in shape):
+        raise ValueError(f"mesh axes must be positive, got {shape}")
+    if len(shape) != len(axes) or len(set(axes)) != len(axes):
+        raise ValueError(f"mesh shape {shape} needs as many distinct axis names, got {axes}")
+    devs = _cuda_devices(shape) if devices is None else _devices_for(shape, devices)
+    return Mesh(devices=devs, shape=shape, axis_names=axes, streams=_positions(devs))
+
+
+def make_production_mesh(*, multi_pod: bool = False, devices: Optional[Sequence] = None) -> Mesh:
+    """The LM mesh: ``SINGLE_POD`` (data=16, model=16), or ``MULTI_POD``
+    (pod=2, data=16, model=16); ``devices`` as :func:`make_mesh` takes it
+    (``["cpu"]`` resolves the rules on a host)."""
+    shape, axes = MULTI_POD if multi_pod else SINGLE_POD
+    return make_mesh(shape, axes, devices)
 
 
 def make_sr_mesh(
@@ -108,7 +179,7 @@ def make_sr_mesh(
     *,
     device=None,
     devices: Optional[Sequence] = None,
-) -> SRMesh:
+) -> Mesh:
     """The serving mesh: ``(replica=R, bands=S)`` over ``R*S`` positions.
 
     ``devices`` lists the ``R*S`` positions row-major (replica-major) and
@@ -125,36 +196,20 @@ def make_sr_mesh(
             f"mesh axes must be positive, got replicas={replicas} "
             f"band_shards={band_shards}"
         )
-    needed = replicas * band_shards
-    if devices is not None:
-        devs = tuple(_indexed(torch.device(d)) for d in devices)
-        if len(devs) != needed:
-            raise ValueError(
-                f"mesh ({replicas}x{band_shards}) needs {needed} devices, "
-                f"got {len(devs)}"
-            )
-        kinds = {d.type for d in devs}
-        if len(kinds) != 1 or not kinds <= {"cpu", "cuda"}:
-            raise ValueError(
-                f"a serving mesh runs on cuda or on cpu devices, got {sorted(kinds)}"
-            )
-    else:
+    if devices is not None and len(devices) != replicas * band_shards:
+        raise ValueError(
+            f"mesh ({replicas}x{band_shards}) needs {replicas * band_shards} "
+            f"devices, got {len(devices)}"
+        )
+    if devices is None:
         kind = torch.device(device if device is not None else "cuda").type
-        if kind == "cpu":
-            devs = (torch.device("cpu"),) * needed
-        elif kind == "cuda":
-            devs = _cuda_devices(needed, replicas, band_shards)
-        else:
+        if kind not in ("cpu", "cuda"):
             raise ValueError(f"a serving mesh runs on cuda or cpu, not {kind!r}")
-    return SRMesh(
-        devices=devs,
-        shape=(replicas, band_shards),
-        axis_names=(SR_REPLICA_AXIS, SR_BAND_AXIS),
-        streams=_positions(devs),
-    )
+        devices = ["cpu"] if kind == "cpu" else None
+    return make_mesh((replicas, band_shards), (SR_REPLICA_AXIS, SR_BAND_AXIS), devices)
 
 
-def band_submesh(mesh: SRMesh, replica: int) -> SRMesh:
+def band_submesh(mesh: Mesh, replica: int) -> Mesh:
     """One replica's 1-D ``bands`` row of an SR mesh, streams included.
 
     Each replica runs its own band-sharded executor over this submesh —
@@ -168,7 +223,7 @@ def band_submesh(mesh: SRMesh, replica: int) -> SRMesh:
     if not 0 <= replica < replicas:
         raise ValueError(f"replica {replica} not in a mesh of {replicas} replicas")
     row = slice(replica * shards, (replica + 1) * shards)
-    return SRMesh(
+    return Mesh(
         devices=mesh.devices[row],
         shape=(shards,),
         axis_names=(SR_BAND_AXIS,),

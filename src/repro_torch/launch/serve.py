@@ -3,9 +3,9 @@ port of ``repro.launch.serve``.
 
 ``python -m repro_torch.launch.serve --arch qwen2-0.5b --batch 4
 --prompt-len 64 --gen 32`` serves the reduced model of ``--arch`` on the
-CUDA card (``--device cpu`` runs it on the CPU).  Every LM family but
-encoder-decoder is ported; that one raises an error naming its ROADMAP
-item.
+CUDA card (``--device cpu`` runs it on the CPU).  Every LM family is
+ported; an encoder-decoder model encodes a random ``src`` of
+``--prompt-len`` frame embeddings, and its cache holds exactly that many.
 Tokens stay on the device between decode steps: the loop makes no host
 copy, and the times end with a device synchronize.
 """
@@ -48,7 +48,8 @@ def main(argv=None) -> int:
     B, S = args.batch, args.prompt_len
     extra = cfg.frontend_tokens if cfg.family == "vlm" else 0
     max_len = S + extra + args.gen
-    cache = init_cache(cfg, B, max_len, device)
+    cache = init_cache(cfg, B, max_len, device,
+                       enc_len=S if cfg.family == "encdec" else None)
 
     gen.manual_seed(args.seed + 1)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
@@ -56,6 +57,8 @@ def main(argv=None) -> int:
     if cfg.family == "vlm":
         batch["frontend"] = torch.randn((B, cfg.frontend_tokens, cfg.d_model),
                                         generator=gen, device=device)
+    if cfg.family == "encdec":
+        batch["src"] = torch.randn((B, S, cfg.d_model), generator=gen, device=device)
 
     prefill = make_prefill_step(cfg)
     decode = make_decode_step(cfg)

@@ -27,8 +27,8 @@ Design notes:
   caller must not reuse a cache it passed in as the state before the step.
   Cache positions are Python ints, so a decode step copies nothing
   between the host and the card.
-* The reference's ``pshard`` sharding tags are identity off a mesh and have
-  no counterpart here (the dry-run slice, ROADMAP queue 1, item 14g).
+* Activations and caches carry the reference's logical-axis tags
+  (``distributed.partitioning.pshard``, an identity on the tensor).
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.partitioning import pshard
 from repro_torch.layers.common import rmsnorm
 from repro_torch.layers.params import ParamSpec
 from repro_torch.layers.rope import apply_rope
@@ -299,17 +300,21 @@ def attention_block(
     q, k, v = _project_qkv(p, cfg, x)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    q = q.reshape(B, S, kh, G, cfg.head_dim)
+    q = pshard(q.reshape(B, S, kh, G, cfg.head_dim), "batch", "seq", "kv_heads", None, None)
+    k = pshard(k, "batch", "seq", "kv_heads", None)  # in-flight: Dh replicated
+    v = pshard(v, "batch", "seq", "kv_heads", None)
 
     new_cache = None
     if mode in ("train", "prefill"):
         out = flash_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
         if mode == "prefill":
             kc, vc = cache  # pre-allocated (B, Smax, Kh, Dh)
-            new_cache = (_write_at(kc, 0, k), _write_at(vc, 0, v))
+            new_cache = (pshard(_write_at(kc, 0, k), "batch", "kv_seq", "kv_heads", "head_dim"),
+                         pshard(_write_at(vc, 0, v), "batch", "kv_seq", "kv_heads", "head_dim"))
     elif mode == "decode":
         kc, vc = cache
-        kc, vc = _write_at(kc, cache_pos, k), _write_at(vc, cache_pos, v)
+        kc = pshard(_write_at(kc, cache_pos, k), "batch", "kv_seq", "kv_heads", "head_dim")
+        vc = pshard(_write_at(vc, cache_pos, v), "batch", "kv_seq", "kv_heads", "head_dim")
         out = decode_attention(q, kc, vc, cache_pos)
         new_cache = (kc, vc)
     else:
@@ -317,4 +322,4 @@ def attention_block(
 
     out = out.reshape(B, S, h, cfg.head_dim)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
-    return y, new_cache
+    return pshard(y, "batch", "act_seq", "embed"), new_cache

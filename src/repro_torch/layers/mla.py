@@ -24,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed.partitioning import pshard
 from repro_torch.layers.attention import NEG_INF, _scale, _write_at, flash_attention
 from repro_torch.layers.common import rmsnorm
 from repro_torch.layers.params import ParamSpec
@@ -92,13 +93,18 @@ def mla_block(
         v = torch.einsum("bsr,rhk->bshk", c_kv, p["wv_b"].to(x.dtype))
         k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, h, dr)], -1)
         q = torch.cat([q_nope, q_rope], -1)  # (B,S,h,dn+dr)
-        out = flash_attention(q[:, :, :, None, :], k, v, causal=True, chunk=cfg.attn_chunk)
+        q = pshard(q[:, :, :, None, :], "batch", "seq", "heads", None, None)
+        k = pshard(k, "batch", "seq", "heads", "head_dim")
+        v = pshard(v, "batch", "seq", "heads", "head_dim")
+        out = flash_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
         out = out[:, :, :, 0, :]  # (B,S,h,dv)
         if mode == "prefill":
-            new_cache = _write_at(cache, 0, torch.cat([c_kv, k_rope], -1))
+            new_cache = pshard(_write_at(cache, 0, torch.cat([c_kv, k_rope], -1)),
+                               "batch", "kv_seq", "kv_lora")
     elif mode == "decode":
         # Absorbed form: attention entirely in the compressed space.
-        cache = _write_at(cache, cache_pos, torch.cat([c_kv, k_rope], -1))
+        cache = pshard(_write_at(cache, cache_pos, torch.cat([c_kv, k_rope], -1)),
+                       "batch", "kv_seq", "kv_lora")
         new_cache = cache
         ckv_cache, krope_cache = cache[..., :r].float(), cache[..., r:].float()
         # fold W_uk into q:   q_eff = q_nope @ W_uk  -> (B,1,h,r)
@@ -115,4 +121,4 @@ def mla_block(
         raise ValueError(f"unknown mode {mode!r}")
 
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
-    return y, new_cache
+    return pshard(y, "batch", "act_seq", "embed"), new_cache

@@ -2,15 +2,16 @@
 port of ``repro.layers.mlp``.
 
 The weights are cast to the activation dtype at each use, as the
-reference does, so bf16 rounds at the same points.  The reference's
-``pshard`` sharding tags are identity off a mesh and have no counterpart
-here (the dry-run slice, ROADMAP queue 1, item 14g).
+reference does, so bf16 rounds at the same points.  The activations carry
+the reference's logical-axis tags (``distributed.partitioning.pshard``, an
+identity on the tensor).
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.partitioning import pshard
 from repro_torch.layers.common import act_fn
 from repro_torch.layers.params import ParamSpec
 
@@ -38,4 +39,6 @@ def mlp_block(p: dict, cfg, x: torch.Tensor) -> torch.Tensor:
         h = act(g) * h
     else:
         h = act(h)
-    return torch.einsum("bsf,fd->bsd", h, p["wo"].to(x.dtype))
+    h = pshard(h, "batch", "seq", "mlp")
+    y = torch.einsum("bsf,fd->bsd", h, p["wo"].to(x.dtype))
+    return pshard(y, "batch", "act_seq", "embed")

@@ -17,8 +17,8 @@ are weighted by the gates (``_moe_decode_dense``), dropless.
 Router numerics: fp32 logits, softmax-then-top-k, gates renormalised over
 the selected experts.  Aux losses: Switch-style load-balance + router
 z-loss, both returned as metrics for the loss to weight in.  The
-reference's ``pshard`` sharding tags are identity off a mesh and have no
-counterpart here (ROADMAP queue 1, item 14g).
+activations carry the reference's logical-axis tags
+(``distributed.partitioning.pshard``, an identity on the tensor).
 """
 
 from __future__ import annotations
@@ -28,6 +28,8 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed.partitioning import pshard
 
 from repro_torch.layers.common import act_fn
 from repro_torch.layers.params import ParamSpec
@@ -125,7 +127,7 @@ def moe_block(p: dict, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, dict]:
         if cfg.num_shared_experts:
             y = y + _shared(p, cfg, x)
         metrics["moe_dropped_frac"] = torch.zeros((), device=x.device)
-        return y, metrics
+        return pshard(y, "batch", "seq", "embed"), metrics
 
     # Position of each (token, choice) in its expert's buffer; drop overflow.
     # pos[b,s,j] = number of earlier claims on expert idx[b,s,j] in sequence b,
@@ -144,17 +146,20 @@ def moe_block(p: dict, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, dict]:
     slot = (pos[..., None] == torch.arange(cap, device=x.device)).to(x.dtype) \
         * keep[..., None].to(x.dtype)
     gated = onehot.to(x.dtype) * gates.to(x.dtype)[..., None]
-    combine = torch.einsum("bske,bskc->bsec", gated, slot)
+    combine = pshard(torch.einsum("bske,bskc->bsec", gated, slot), "batch", "seq", "expert", None)
     dispatch = (combine > 0).to(x.dtype)
 
     xin = torch.einsum("bsec,bsd->ebcd", dispatch, x)  # (E,B,cap,d)
+    xin = pshard(xin, "expert", "batch", None, None)
     h = act(torch.einsum("ebcd,edf->ebcf", xin, p["wg"].to(x.dtype))) * torch.einsum(
         "ebcd,edf->ebcf", xin, p["wi"].to(x.dtype))
+    h = pshard(h, "expert", "batch", None, "mlp")
     xout = torch.einsum("ebcf,efd->ebcd", h, p["wo"].to(x.dtype))
+    xout = pshard(xout, "expert", "batch", None, None)
     y = torch.einsum("bsec,ebcd->bsd", combine, xout)
 
     if cfg.num_shared_experts:
         y = y + _shared(p, cfg, x)
 
     metrics["moe_dropped_frac"] = 1.0 - keep.float().mean()
-    return y, metrics
+    return pshard(y, "batch", "act_seq", "embed"), metrics

@@ -5,13 +5,14 @@ initialiser — as a nested dict of :class:`ParamSpec`.  From that single
 schema we derive:
 
 * ``init_params``     — materialised tensors, drawn from a ``torch.Generator``
+* ``param_shapes``    — shapes and dtypes without storage (``meta`` tensors,
+                        the reference's ``ShapeDtypeStruct`` tree)
 * ``param_axes``      — the logical-axis tree (same structure as the params)
 * ``count_params``    — the parameter count of a schema
 
 ``params_from_numpy`` carries a parameter or cache tree made elsewhere (the
 JAX package's, as numpy arrays) into the port, so both compute on the same
-weights.  ``param_shapes`` (the dry-run's ``ShapeDtypeStruct`` tree) comes
-with the dry-run slice (ROADMAP queue 1, item 14g).
+weights.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from repro_torch.config import torch_dtype
 __all__ = [
     "ParamSpec",
     "init_params",
+    "param_shapes",
     "param_axes",
     "count_params",
     "stack_schema",
@@ -133,6 +135,13 @@ def init_params(schema: Schema, generator: Optional[torch.Generator] = None,
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     return tree_map(lambda s: s.initializer(generator, dtype, device), schema)
+
+
+def param_shapes(schema: Schema, dtype=torch.float32):
+    """The schema's tensors on the ``meta`` device: shapes and dtypes (a
+    leaf's own ``dtype`` over ``dtype``), no storage allocated."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=torch_dtype(s.dtype or dtype),
+                                          device="meta"), schema)
 
 
 def param_axes(schema: Schema):

@@ -27,6 +27,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.partitioning import pshard
 from repro_torch.layers.common import rmsnorm, silu
 from repro_torch.layers.params import ParamSpec
 
@@ -217,7 +218,7 @@ def mamba_block(
     z = torch.einsum("bsd,df->bsf", x, p["wz"].to(x.dtype))
     xs = torch.einsum("bsd,df->bsf", x, p["wx"].to(x.dtype))
     bc = torch.einsum("bsd,df->bsf", x, p["wbc"].to(x.dtype))
-    xbc = torch.cat([xs, bc], dim=-1)
+    xbc = pshard(torch.cat([xs, bc], dim=-1), "batch", "seq", "mlp")
 
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -238,6 +239,7 @@ def mamba_block(
 
     h0 = cache[1] if (cache is not None and mode != "train") else None
     if mode in ("train", "prefill"):
+        xs_c = pshard(xs_c, "batch", "seq", "ssm_heads", None)
         y, hT = ssd_chunked(xs_c, dt, A, Bm, Cm, cfg.ssm_chunk, h0)
     else:
         hT, y1 = ssd_decode_step(h0, xs_c[:, 0], dt[:, 0], A, Bm[:, 0], Cm[:, 0])
@@ -252,4 +254,4 @@ def mamba_block(
         conv_c.copy_(new_conv)
         ssm_c.copy_(hT)
         new_cache = (conv_c, ssm_c)
-    return out, new_cache
+    return pshard(out, "batch", "act_seq", "embed"), new_cache

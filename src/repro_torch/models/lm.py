@@ -37,6 +37,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.distributed.partitioning import pshard
 from repro_torch.layers import attention as attn_lib
 from repro_torch.layers import mla as mla_lib
 from repro_torch.layers import moe as moe_lib
@@ -183,6 +184,7 @@ def forward(
     if frontend is not None:
         x = torch.cat([frontend.to(act), x], dim=1)
     B, S, _ = x.shape
+    x = pshard(x, "batch", "act_seq", "embed")
     if mode == "decode":
         positions = torch.full((B, 1), cache_pos, dtype=torch.int32, device=x.device)
     else:
@@ -219,8 +221,10 @@ def unembed(params, cfg, x):
     """Final norm, then logits through the tied embedding or ``lm_head``."""
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
-        return torch.einsum("bsd,vd->bsv", x, params["embed"].to(x.dtype))
-    return torch.einsum("bsd,dv->bsv", x, params["lm_head"].to(x.dtype))
+        logits = torch.einsum("bsd,vd->bsv", x, params["embed"].to(x.dtype))
+    else:
+        logits = torch.einsum("bsd,dv->bsv", x, params["lm_head"].to(x.dtype))
+    return pshard(logits, "batch", "seq", "vocab")
 
 
 # ----------------------------------------------------------------------

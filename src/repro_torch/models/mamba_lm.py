@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from typing import Any, Dict
 
+from repro_torch.distributed.partitioning import pshard
 from repro_torch.layers.common import cross_entropy, embed_lookup, rmsnorm
 from repro_torch.layers.params import ParamSpec, stack_schema
 from repro_torch.layers.ssd import init_ssm_cache_spec, mamba_block, mamba_schema
@@ -68,6 +69,7 @@ def forward(params, cfg, tokens, *, cache=None, cache_pos=None, mode="train",
             last_logit_only=False):
     """Returns (logits (B, S, V), cache, metrics {})."""
     x = embed_lookup(params["embed"], tokens, cfg.activation_dtype)
+    x = pshard(x, "batch", "act_seq", "embed")
     n = cfg.num_layers
     layer_caches = [None] * n if cache is None else _unstack(cache["layers"], n)
     for lp, lc in zip(_unstack(params["blocks"], n), layer_caches):

@@ -2,13 +2,13 @@
 
 LM side — ``get_model(cfg)`` returns the family's module, which exposes:
   schema(cfg)                          parameter ParamSpec tree
-  cache_schema(cfg, batch, max_len)    decode-cache ParamSpec tree
+  cache_schema(cfg, batch, max_len)    decode-cache ParamSpec tree (encdec
+                                       also takes ``enc_len``)
   loss(params, cfg, batch)             -> (scalar loss, metrics)
   prefill(params, cfg, batch, cache)   -> (last logits (B,V), cache)
   decode_step(params, cfg, tok, cache, pos) -> (logits (B,V), cache)
 The dense, vlm and moe families are ``models.lm``, ssm is
-``models.mamba_lm`` and hybrid ``models.zamba``; encdec raises an error
-naming the ROADMAP item that ports it.
+``models.mamba_lm``, hybrid ``models.zamba`` and encdec ``models.encdec``.
 
 SR side — a registered :class:`SRModelSpec` (canonical name, config, weight
 initialiser) is how ``repro_torch.engine.SRSession.open("abpn_x3")``
@@ -24,7 +24,7 @@ import functools
 import types
 from typing import Callable, Dict, Sequence, Tuple
 
-from repro_torch.models import lm, mamba_lm, zamba
+from repro_torch.models import encdec, lm, mamba_lm, zamba
 from repro_torch.models.abpn import ABPNConfig, init_abpn
 
 __all__ = [
@@ -41,22 +41,14 @@ _FAMILY = {
     "vlm": lm,
     "ssm": mamba_lm,
     "hybrid": zamba,
-}
-
-# families of the JAX package that later slices port
-_UNPORTED = {
-    "encdec": "ROADMAP queue 1, item 14f (encoder-decoder)",
+    "encdec": encdec,
 }
 
 
 def get_model(cfg) -> types.ModuleType:
     if cfg.family in _FAMILY:
         return _FAMILY[cfg.family]
-    if cfg.family in _UNPORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet: {_UNPORTED[cfg.family]}")
-    raise ValueError(
-        f"unknown family {cfg.family!r}; expected one of {sorted({*_FAMILY, *_UNPORTED})}")
+    raise ValueError(f"unknown family {cfg.family!r}; expected one of {sorted(_FAMILY)}")
 
 
 # ----------------------------------------------------------------------

@@ -23,6 +23,7 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch.distributed.partitioning import pshard
 from repro_torch.layers import attention as attn_lib
 from repro_torch.layers.common import cross_entropy, embed_lookup, rmsnorm
 from repro_torch.layers.mlp import mlp_block, mlp_schema
@@ -92,6 +93,7 @@ def forward(params, cfg, tokens, *, cache=None, cache_pos=None, mode="train",
     """Returns (logits (B, S, V), cache, metrics {})."""
     period, n_apps = cfg.shared_attn_period, _num_apps(cfg)
     x = embed_lookup(params["embed"], tokens, cfg.activation_dtype)
+    x = pshard(x, "batch", "act_seq", "embed")
     B, S, _ = x.shape
     if mode == "decode":
         positions = torch.full((B, 1), cache_pos, dtype=torch.int32, device=x.device)

@@ -16,8 +16,8 @@ injection — the port of ``repro.runtime.resilience``.
   server fails only the affected requests.  ``fail_at_steps`` /
   :meth:`FailureInjector.maybe_fail` serve a training loop.
 
-Elastic re-mesh (the reference's ``elastic_remesh``) comes with the
-dry-run slice's sharding rules (ROADMAP queue 1, item 14g).
+* :func:`elastic_remesh` — moves a state tree onto a new mesh, each
+  leaf's logical axes resolved against the new mesh's shape.
 """
 
 from __future__ import annotations
@@ -27,11 +27,12 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed import partitioning as pt
 from repro_torch.layers.params import tree_leaves, tree_map
 from repro_torch.runtime import checkpoint as ckpt_lib
 
 __all__ = ["EMAMeanVar", "StragglerDetector", "FailureInjector", "InjectedFailure",
-           "resilient_train_loop"]
+           "resilient_train_loop", "elastic_remesh"]
 
 
 class EMAMeanVar:
@@ -276,3 +277,19 @@ def resilient_train_loop(
         "stragglers": list(detector.flagged),
         "finished_step": step,
     }
+
+
+def elastic_remesh(state, axes_tree, new_mesh, rules=None):
+    """Re-shard a state tree onto a new mesh (scale down/up).
+
+    Every leaf's LOGICAL axes are re-resolved against the new mesh shape —
+    dims that no longer divide fall back toward replication via
+    ``shape_aware_spec`` — and the leaf (a tensor, or a ``Sharded`` on an
+    older mesh, gathered first) is placed on the new mesh's positions.
+    """
+    def move(axes, leaf):
+        t = pt.gather(leaf) if isinstance(leaf, pt.Sharded) else leaf
+        spec = pt.shape_aware_spec(axes, t.shape, new_mesh, rules)
+        return pt.place(t, pt.NamedSharding(new_mesh, spec))
+
+    return pt.map_with_axes(move, axes_tree, state)

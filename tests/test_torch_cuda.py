@@ -5,8 +5,13 @@ layers, fp32): decode after prefill vs ``forward``, and prefill on the card
 vs the CPU, at the reference's ``atol 2e-4, rtol 1e-3``.  LM training: the
 flash backward on the card vs the CPU (qwen2-0.5b's head layout, one and
 four KV chunks, ``atol 5e-5, rtol 1e-3``), and one train step of the same
-2-layer cut on the card vs the CPU.  K1's column segments must not change a bit of its
-output (``torch.equal`` across segment counts).
+2-layer cut on the card vs the CPU.  The encoder-decoder model (seamless-m4t-large-v2
+reduced, fp32): prefill and decode on the card vs the CPU at the same
+tolerance.  The int8 error-feedback all-reduce on a ``(data=4,)`` mesh of
+the card's streams vs the same positions on the CPU (the mean within one
+quantum of the CPU's: a product ``x / scale`` may round differently).  K1's
+column segments must not change a bit of its output (``torch.equal``
+across segment counts).
 
 Every test here needs a CUDA device and skips where none is present: the
 CUDA kernel has no CPU mode.  The file imports torch and the PyTorch
@@ -619,3 +624,64 @@ def test_lm_train_step_on_the_card_matches_the_cpu(cuda):
                                  tree_leaves_with_path(after["cpu"][0])):
         torch.testing.assert_close(a, b, atol=2 * tcfg.learning_rate, rtol=0,
                                    msg=lambda m: f"{'/'.join(path)}: {m}")
+
+
+def test_encdec_prefill_and_decode_on_the_card_match_the_cpu(cuda):
+    """seamless-m4t-large-v2 reduced (2 + 2 layers), fp32: prefill over a
+    20-frame src and a 24-token prompt, then two decode steps, on the card
+    and on the CPU from the same weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.steps import init_cache, make_decode_step, make_prefill_step
+    from repro_torch.layers.params import init_params, tree_map
+    from repro_torch.models import encdec
+
+    cfg = get_config("seamless-m4t-large-v2").reduced()
+    params = init_params(encdec.schema(cfg), torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    src = torch.randn((2, 20, cfg.d_model), generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 26), dtype=torch.int32, generator=gen)
+    out = {}
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda t: t.to(dev), params, is_leaf=lambda t: not isinstance(t, dict))
+        cache = init_cache(cfg, 2, 28, dev, enc_len=20)
+        logits, cache = make_prefill_step(cfg)(p, {"src": src.to(dev),
+                                                   "tokens": tokens[:, :24].to(dev)}, cache)
+        steps = [logits]
+        for i in range(2):
+            logits, cache = make_decode_step(cfg)(p, tokens[:, 24 + i:25 + i].to(dev), cache,
+                                                  24 + i)
+            steps.append(logits)
+        out[str(dev)] = [t.cpu() for t in steps]
+    for got, want in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(got, want, atol=2e-4, rtol=1e-3)
+
+
+def test_int8_ef_allreduce_on_card_streams_matches_the_cpu(cuda):
+    """The all-reduce over a ``(data=4,)`` mesh of one card's streams and
+    over 4 ``cpu`` positions, from the same per-position gradients and
+    residuals: every element of the mean within one quantum (``scale / n``)
+    of the CPU's and at most 1 % of them off by one; the residuals within
+    one quantum."""
+    from repro_torch.distributed.grad_sync import int8_ef_allreduce
+    from repro_torch.launch.mesh import make_mesh
+
+    gen = torch.Generator().manual_seed(4)
+    grads = [{"a": torch.randn((64, 33), generator=gen),
+              "b": {"c": torch.randn((257,), generator=gen) ** 3}} for _ in range(4)]
+    ef = [{"a": 0.01 * torch.randn((64, 33), generator=gen),
+           "b": {"c": 0.01 * torch.randn((257,), generator=gen)}} for _ in range(4)]
+    mesh = make_mesh((4,), ("data",), devices=[cuda] * 4)
+    move = lambda trees: [{"a": t["a"].to(cuda), "b": {"c": t["b"]["c"].to(cuda)}}  # noqa: E731
+                          for t in trees]
+    got, got_e = int8_ef_allreduce(move(grads), move(ef), mesh.streams)
+    torch.cuda.synchronize()
+    want, want_e = int8_ef_allreduce(grads, ef)
+    for key in ("a", "c"):
+        pick = (lambda t: t["a"]) if key == "a" else (lambda t: t["b"]["c"])
+        gf = torch.stack([pick(g) + pick(e) for g, e in zip(grads, ef)])
+        quantum = float(gf.abs().max()) / 127 / 4
+        diff = (pick(got).cpu() - pick(want)).abs()
+        assert float(diff.max()) <= quantum * 1.001, key
+        assert float((diff > 0).float().mean()) <= 0.01, key
+        for a, b in zip(got_e, want_e):
+            assert float((pick(a).cpu() - pick(b)).abs().max()) <= 4 * quantum * 1.001, key

@@ -1,7 +1,7 @@
 """The port's data slice (``repro_torch.data``) against the JAX package's, on
 the CPU: twins of ``tests/test_runtime.py``'s data tests (LM batches
 deterministic and learnable, SR pairs consistent, the prefetcher's order
-and close), ``downsample`` bit-identical to the JAX package's, and the
+and close), the entry helpers' default device, ``downsample`` bit-identical to the JAX package's, and the
 bilinear resize of the SR textures against ``jax.image.resize`` on the same
 coarse arrays.
 
@@ -76,7 +76,7 @@ def test_prefetcher_orders_and_closes():
 
 def test_make_lm_stream_yields_lm_batches_from_its_start_step():
     cfg = get_config("qwen2-0.5b").reduced()
-    pf = make_lm_stream(cfg, 2, 8, seed=3, start_step=4)
+    pf = make_lm_stream(cfg, 2, 8, seed=3, start_step=4, device="cpu")
     try:
         for want_step in (4, 5, 6):
             step, batch = next(pf)
@@ -84,6 +84,27 @@ def test_make_lm_stream_yields_lm_batches_from_its_start_step():
             assert torch.equal(batch["tokens"], syn.lm_batch(cfg, step, 2, 8, 3)["tokens"])
     finally:
         pf.close()
+
+
+@pytest.mark.parametrize("entry", ["init_cache", "make_lm_stream"])
+def test_entry_helpers_default_to_the_card(entry, monkeypatch):
+    """``steps.init_cache`` and ``make_lm_stream`` run on the card unless the
+    caller asks for the CPU: without one they raise, they never carry on
+    on the CPU."""
+    from repro_torch.distributed.steps import init_cache
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("qwen2-0.5b").reduced()
+    make = {"init_cache": lambda **kw: init_cache(cfg, 2, 8, **kw),
+            "make_lm_stream": lambda **kw: make_lm_stream(cfg, 2, 8, **kw)}[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make()
+    made = make(device="cpu")
+    if entry == "make_lm_stream":
+        assert next(made)[1]["tokens"].device.type == "cpu"
+        made.close()
+    else:
+        assert made["layers"]["k"].device.type == "cpu"
 
 
 @pytest.mark.parametrize("scale", [2, 3, 4])

@@ -6,8 +6,9 @@ prefix) and a ``first_k_dense`` prologue; the slice end to end (prefill
 plus 4 greedy decode steps through both packages' step functions:
 identical token ids, logits within tolerance); the configs field for field;
 the full schemas' parameter counts, axes and cache trees for every ported
-family; ``launch.serve.main`` on the CPU for every ported family; and the
-error of the family still to port.
+family; ``launch.serve.main`` on the CPU for every ported family; and
+``get_model`` for every LM architecture (the encoder-decoder family's
+parity tests are in ``tests/test_torch_encdec.py``).
 
 Parameters are made by the JAX package's ``init_params`` and carried across
 with ``params_from_numpy``; tokens and frontend embeddings are drawn with
@@ -40,7 +41,7 @@ from repro_torch.models.registry import get_model
 
 TOL = dict(atol=2e-4, rtol=1e-3)
 B, S = 2, 24
-PORTED = {"dense", "vlm", "moe", "ssm", "hybrid"}
+PORTED = {"dense", "vlm", "moe", "ssm", "hybrid", "encdec"}
 
 # published sizes (billions) the full schemas must land near — the
 # reference's ranges (tests/test_models_smoke.py)
@@ -54,6 +55,7 @@ EXPECTED_PARAMS_B = {
     "internvl2-1b": (0.4, 0.6),  # LM backbone only (stub ViT)
     "zamba2-2.7b": (2.1, 2.9),
     "mamba2-130m": (0.1, 0.16),
+    "seamless-m4t-large-v2": (1.2, 2.4),
 }
 # (arch, overrides of reduced()): bias + tied, qk_norm + tied, untied, vlm
 # prefix, a dense prologue layer
@@ -132,7 +134,7 @@ def test_prefill_and_decode_match_jax(name):
     model, jmodel = get_model(cfg), jax_get_model(jcfg)
     max_len = S + _extra(cfg) + 4
     pf = {k: (v[:, :S] if k == "tokens" else v) for k, v in batch.items()}
-    cache = tsteps.init_cache(cfg, B, max_len)
+    cache = tsteps.init_cache(cfg, B, max_len, "cpu")
     logits, cache = model.prefill(p, cfg, {k: torch.from_numpy(v) for k, v in pf.items()}, cache)
     jlogits, jcache = jmodel.prefill(jp, jcfg, {k: jnp.asarray(v) for k, v in pf.items()},
                                      _jax_cache(jcfg, max_len))
@@ -163,7 +165,7 @@ def test_decode_matches_prefill_logits_lm(name):
     front = None if front is None else torch.from_numpy(front)
     logits_full, _, _ = lm.forward(p, cfg, toks, frontend=front, mode="train")
     pos = S + _extra(cfg)
-    cache = tsteps.init_cache(cfg, B, pos + 4)
+    cache = tsteps.init_cache(cfg, B, pos + 4, "cpu")
     pf = {"tokens": toks[:, :S]} if front is None else {"tokens": toks[:, :S], "frontend": front}
     _, cache = lm.prefill(p, cfg, pf, cache)
     logits_dec, _ = lm.decode_step(p, cfg, toks[:, S:S + 1], cache, pos)
@@ -186,7 +188,7 @@ def test_serving_slice_matches_jax_end_to_end(name):
     jlogits, jcache = jprefill(jp, {k: jnp.asarray(v) for k, v in pf.items()},
                                _jax_cache(jcfg, max_len))
     logits, cache = prefill(p, {k: torch.from_numpy(v) for k, v in pf.items()},
-                            tsteps.init_cache(cfg, B, max_len))
+                            tsteps.init_cache(cfg, B, max_len, "cpu"))
     jtok = jnp.argmax(jlogits, -1)[:, None].astype(jnp.int32)
     tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
     for i in range(gen):
@@ -204,7 +206,7 @@ def test_step_functions_record_no_autograd_graph():
     _, cfg, _, p, batch = _setup("qwen2-0.5b")
     p = {k: v for k, v in p.items()}
     p["final_norm"] = p["final_norm"].clone().requires_grad_()
-    cache = tsteps.init_cache(cfg, B, S + 2)
+    cache = tsteps.init_cache(cfg, B, S + 2, "cpu")
     logits, _ = tsteps.make_prefill_step(cfg)(
         p, {"tokens": torch.from_numpy(batch["tokens"][:, :S])}, cache)
     assert not logits.requires_grad
@@ -277,10 +279,18 @@ def test_train_config_matches_jax():
         f.name for f in dataclasses.fields(type(jax_get_config("qwen2-0.5b")))]
 
 
-@pytest.mark.parametrize("arch", [a for a in LM_ARCH_IDS if get_config(a).family not in PORTED])
+@pytest.mark.parametrize("arch", LM_ARCH_IDS)
 def test_get_model_on_an_unported_family_names_its_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item 14f"):
-        get_model(get_config(arch))
+    """No LM family is left to port: ``get_model`` serves every
+    architecture with the module of the JAX package's name (this test held
+    the encoder-decoder family's "item 14f" error until it was ported)."""
+    cfg = get_config(arch)
+    assert cfg.family in PORTED
+    model = get_model(cfg)
+    assert model.__name__.rsplit(".", 1)[-1] == jax_get_model(jax_get_config(arch)).__name__.rsplit(
+        ".", 1)[-1]
+    for name in ("schema", "cache_schema", "loss", "prefill", "decode_step"):
+        assert callable(getattr(model, name)), (arch, name)
 
 
 def test_get_model_unknown_family():
@@ -302,7 +312,7 @@ def test_init_params_seeded_and_shaped():
     assert float(a["embed"].std()) == pytest.approx(0.02, rel=0.1)
     half = init_params(s, torch.Generator().manual_seed(3), dtype="bfloat16")
     assert half["embed"].dtype == torch.bfloat16
-    cache = tsteps.init_cache(dataclasses.replace(cfg, dtype="bfloat16"), 2, 8)
+    cache = tsteps.init_cache(dataclasses.replace(cfg, dtype="bfloat16"), 2, 8, "cpu")
     assert cache["layers"]["k"].dtype == torch.bfloat16 and not cache["layers"]["k"].any()
 
 

@@ -144,7 +144,7 @@ def test_prefill_and_decode_match_jax(arch):
     jcfg, cfg, jp, p, tokens = _setup(arch)
     model, jmodel = get_model(cfg), jax_get_model(jcfg)
     max_len = S + 4
-    cache = tsteps.init_cache(cfg, B, max_len)
+    cache = tsteps.init_cache(cfg, B, max_len, "cpu")
     jcache = _jax_cache(jcfg, max_len)
     assert {k: tuple(v.shape) for k, v in _flat(cache).items()} == \
         {k: tuple(v.shape) for k, v in _flat(jcache).items()}
@@ -176,7 +176,7 @@ def test_decode_matches_prefill_logits(arch):
     model = get_model(cfg)
     toks = torch.from_numpy(tokens)
     logits_full, _, _ = model.forward(p, cfg, toks, mode="train")
-    cache = tsteps.init_cache(cfg, B, S + 4)
+    cache = tsteps.init_cache(cfg, B, S + 4, "cpu")
     _, cache = model.prefill(p, cfg, {"tokens": toks[:, :S]}, cache)
     logits_dec, _ = model.decode_step(p, cfg, toks[:, S:S + 1], cache, S)
     np.testing.assert_allclose(_np(logits_dec), _np(logits_full[:, S]), **TOL)
@@ -193,7 +193,7 @@ def test_serving_slice_matches_jax_end_to_end(arch):
     jlogits, jcache = jprefill(jp, {"tokens": jnp.asarray(tokens[:, :S])},
                                _jax_cache(jcfg, max_len))
     logits, cache = prefill(p, {"tokens": torch.from_numpy(tokens[:, :S])},
-                            tsteps.init_cache(cfg, B, max_len))
+                            tsteps.init_cache(cfg, B, max_len, "cpu"))
     for i in range(gen):
         np.testing.assert_allclose(_np(logits), np.asarray(jlogits), **TOL)
         jtok = jnp.argmax(jlogits, -1)[:, None].astype(jnp.int32)
