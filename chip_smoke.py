@@ -6,8 +6,8 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 Phases, each printing its lines; any failed check raises and the script
-exits non-zero (nothing is caught, except that phases 4h and 4i run each
-of their parts to the end and then fail with every failure listed):
+exits non-zero (nothing is caught, except that phases 4h, 4i and 4j run
+each of their parts to the end and then fail with every failure listed):
 
 1. environment — ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build — compiles every CUDA kernel from ``src/repro_torch/kernels/csrc``
@@ -57,9 +57,9 @@ of their parts to the end and then fail with every failure listed):
    injected dispatch failure fails only its request, and degrade level 1
    serves fp32 requests in bf16 within 5e-2 of ``tilted``;
 4d. autotune and static analysis — ``RooflinePeaks.detect`` on the card
-   (printed beside the data-sheet ``PEAKS``); ``engine.autotune.tune`` for
-   fp32 ``halo`` at batch 8 on the ``kernel`` backend at 360x640: every
-   candidate's predicted and measured ms per frame, the winner, default vs
+   (printed beside the data-sheet peaks, ``roofline.report.PEAKS``);
+   ``engine.autotune.tune`` for fp32 ``halo`` at batch 8 on the ``kernel``
+   backend at 360x640: every candidate's predicted and measured ms per frame, the winner, default vs
    tuned ms per frame (the tuned must not be slower) and the sweep's
    seconds; a ``halo`` session at every candidate ``band_rows`` must equal
    the default's output bit for bit in fp32 and bf16; a server opened with
@@ -187,6 +187,24 @@ of their parts to the end and then fail with every failure listed):
    tree from a ``(4, 2)`` mesh of card positions to ``(2, 2)``: every leaf
    ``torch.equal``.  Every part runs; the phase then fails listing each
    failure; an ``encdec_and_partitioning: {...}`` JSON line;
+4j. dry-run and roofline — ``launch.dryrun_lib.run_all`` over the ten LM
+   architectures x four shapes on the single-pod mesh (CPU positions that
+   resolve the rules, ``meta`` tensors, a process a CPU): every
+   cell ``ok`` but the full-attention ``long_500k`` cells, which are
+   ``skipped``; the dry-run and roofline tables at the card's published
+   peaks, with ``fits``.  The multi-pod mesh would double the sweep's time
+   and is left to ``python -m repro_torch.launch.dryrun``.  Then the cells
+   of ROOFLINE_CELLS on the card on a ``(1, 1)`` mesh, weights from seed 0
+   (qwen2-0.5b decode_32k at batch 128 with a random cache, prefill_32k at
+   batch 1 and 3 of 24 layers, its meta trace extrapolated from 1 and 2,
+   train_4k at 4 x 4,096; mamba2-130m
+   long_500k): each step run once under ``roofline.trace_cost`` (its FLOPs
+   equal to the ``meta`` trace's) and then timed (CUDA events, median of
+   ROOFLINE_REPS) beside its bound from ``report.roofline_row`` (bound /
+   measured <= 1.05), the predicted argument bytes equal to the allocated
+   ones, ``max_memory_allocated`` beside the predicted peak; every part
+   runs, then the phase fails listing each failure; a
+   ``dryrun_and_roofline: {...}`` JSON line;
 5. times — CUDA events, median of repeats after warm-up.  K1 at 1 and 8
    frames (fp32 and bf16, automatic segment plan: its segments, CTAs,
    warm-up tiles and their share of the executed tiles) four ways: one
@@ -231,12 +249,6 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 H, W, SCALE = 360, 640, 3  # the paper's design point: 360x640 -> 1080x1920
 TOL = {"fp32": 5e-4, "int8": 5e-4, "bf16": 5e-2}
 
-# Published peaks of the H100 SXM5 (NVIDIA data sheet; dense, without
-# sparsity): FP32 on the CUDA cores, TF32 and bf16 on the tensor cores in
-# FLOP/s, device memory in bytes/s.  K1 runs fp32 FMAs on the CUDA cores for
-# fp32 and bf16 plans alike; K2 runs on the tensor cores (fp32 as 3xTF32).
-PEAKS = {"H100 80GB HBM3": dict(fp32=67e12, tf32=495e12, bf16=989e12, bytes=3.35e12)}
-
 
 def require(cond, msg):
     if not cond:
@@ -248,10 +260,15 @@ def phase(name):
 
 
 def peaks_for(name):
-    for key, val in PEAKS.items():
-        if key in name:
-            return key, val
-    raise RuntimeError(f"no published peaks recorded for {name!r}")
+    """``(key, peaks)``: the card's published peaks from
+    ``repro_torch.roofline.report.PEAKS`` (the H100 SXM5 data sheet, dense:
+    fp32 on the CUDA cores, TF32 and bf16 on the tensor cores in FLOP/s,
+    device memory in bytes/s and bytes, NVLink in bytes/s each way).  K1
+    runs fp32 FMAs on the CUDA cores for fp32 and bf16 plans alike; K2 runs
+    on the tensor cores (fp32 as 3xTF32)."""
+    from repro_torch.roofline import report
+
+    return report.peaks_for(name)
 
 
 def time_ms(torch, fn, reps, warmup=1):
@@ -1623,6 +1640,212 @@ def encdec_and_partitioning(torch, dev, smi, hbm_bytes_per_s):
     return record
 
 
+# Phase 4j: the dry-run and the roofline (launch.dryrun_lib, roofline/).
+# The sweep traces every LM (arch x shape) cell of the single-pod mesh on
+# meta tensors, a process a CPU; the multi-pod mesh doubles its
+# time and stays with `python -m repro_torch.launch.dryrun --mesh multi_pod`.
+# Then four cells run on the card on a (1, 1) mesh, each beside its bound
+# from report.roofline_row at the published peaks.
+ROOFLINE_CELLS = (  # (arch, shape, global batch, layers or None for all, what was cut)
+    ("qwen2-0.5b", "decode_32k", 128, None, "not cut: the shape's batch 128 x 32,768, the "
+                                            "cache filled with random values to pos 32,767"),
+    # the flash loop's 2,048 chunk pairs a layer are ~118k eager operators,
+    # so a full-depth step takes ~20 s and its traced run minutes
+    # (tools/roofline_cell.py runs it).  At 3 layers the meta trace is
+    # extrapolated from 1 and 2, as at full depth, and the card checks it.
+    ("qwen2-0.5b", "prefill_32k", 1, 3, "batch cut to 1 (from 32), depth to 3 of 24 layers"),
+    ("qwen2-0.5b", "train_4k", 4, None, "batch cut to 4 (from 256); remat full, the config's"),
+    ("mamba2-130m", "long_500k", 1, None, "not cut: batch 1 x 524,288"),
+)
+ROOFLINE_MAX_SHARE = 1.05  # a step faster than its bound means the count is wrong
+ROOFLINE_REPS = 3  # timed steps after the trace run, which warms up
+
+
+def dryrun_sweep(torch, smi, peaks):
+    """Every LM (arch x shape) cell on the single-pod mesh: each ``ok``
+    except the full-attention ``long_500k`` cells, which are ``skipped``."""
+    from repro_torch.configs import LM_ARCH_IDS, get_config as lm_config
+    from repro_torch.launch.dryrun_lib import run_all
+    from repro_torch.roofline import report
+
+    out_dir = os.path.join(ROOT, "build", "chip_smoke_dryrun")
+    t0 = time.perf_counter()
+    recs = run_all(meshes=("single_pod",), out_dir=out_dir, skip_existing=False)
+    seconds = time.perf_counter() - t0
+    print(report.dryrun_table(recs, peaks))
+    print(report.roofline_table(recs, peaks=peaks))
+    ok = [r for r in recs if r["status"] == "ok"]
+    slowest = sorted(ok, key=lambda r: -r["trace_seconds"])[:6]
+    print(f"dry-run trace seconds, summed over the cells: "
+          f"{sum(r['trace_seconds'] for r in ok):.1f} s; the slowest: " + ", ".join(
+              f"{r['arch']} {r['shape']} {r['trace_seconds']} s (depths "
+              f"{r['counted']['traced_depths']}: {r['counted']['traced_ops']} operators, "
+              f"{r['counted']['memo_hits']} from the memo)" for r in slowest))
+    bad = []
+    for r in recs:
+        long_only = r["shape"] == "long_500k" and not lm_config(r["arch"]).supports_long_context
+        want = "skipped" if long_only else "ok"
+        if r["status"] != want:
+            bad.append(f"{r['arch']} {r['shape']}: {r['status']} (want {want}) "
+                       f"{r.get('error', '')[:200]}")
+    print(f"dry-run sweep, single_pod, {len(LM_ARCH_IDS)} archs x 4 shapes: "
+          f"{sum(r['status'] == 'ok' for r in recs)} ok, "
+          f"{sum(r['status'] == 'skipped' for r in recs)} skipped, "
+          f"{sum(r['status'] == 'error' for r in recs)} errors in {seconds:.1f} s on the host "
+          f"({len(os.sched_getaffinity(0))} CPUs); the multi-pod mesh is "
+          f"left to the CLI ({smi})")
+    require(not bad, "dry-run sweep: " + "; ".join(bad))
+    return {"seconds": seconds, "cells": len(recs),
+            "fits": {f"{r['arch']} {r['shape']}": report.roofline_row(r, peaks)["fits"]
+                     for r in ok},
+            "peak_estimate_bytes": {f"{r['arch']} {r['shape']}": r["memory"]["peak_estimate_bytes"]
+                                    for r in recs if r["status"] == "ok"}}
+
+
+def _roofline_args(torch, dev, cfg, shape_name, batch, seq):
+    """The step and its arguments on the card at ``batch`` x ``seq``: the
+    weights (and AdamW state) drawn from seed 0, a decode cache filled with
+    random values, token ids from ``data.synthetic.lm_batch``."""
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.distributed.steps import (init_cache, init_train_state, make_decode_step,
+                                               make_prefill_step, make_train_step)
+    from repro_torch.launch.dryrun_lib import _train_tcfg
+    from repro_torch.layers.params import init_params, tree_leaves
+    from repro_torch.models.registry import get_model
+    from repro_torch.configs.shapes import SHAPES
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    kind = SHAPES[shape_name].kind
+    if kind == "train":
+        tcfg = _train_tcfg(cfg)
+        state = init_train_state(cfg, tcfg, gen, dev)
+        return make_train_step(cfg, tcfg), (state, lm_batch(cfg, 0, batch, seq, device=dev))
+    params = init_params(get_model(cfg).schema(cfg), gen, cfg.weight_dtype, dev)
+    cache = init_cache(cfg, batch, seq, device=dev)
+    if kind == "prefill":
+        tokens = lm_batch(cfg, 0, batch, seq, device=dev)["tokens"]
+        return make_prefill_step(cfg), (params, {"tokens": tokens}, cache)
+    for leaf in tree_leaves(cache):
+        leaf.normal_(generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, 1), generator=gen, device=dev,
+                           dtype=torch.int32)
+    return make_decode_step(cfg), (params, tokens, cache, seq - 1)
+
+
+def roofline_cell(torch, dev, smi, peaks, arch, shape_name, batch, depth, cut):
+    """One cell on the card: the dry-run's record on a (1, 1) mesh, then the
+    step on allocated tensors.  The meta trace's FLOPs equal the card's, the
+    predicted argument bytes equal the allocated ones, the measured peak is
+    at least those bytes, and the step takes no less than its bound."""
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.launch.dryrun_lib import record_config, run_cell
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.layers.params import tree_leaves
+    from repro_torch.roofline import report
+    from repro_torch.roofline.trace_cost import trace_cost
+
+    seq = SHAPES[shape_name].seq_len
+    mesh = make_mesh((1, 1), ("data", "model"), devices=["cpu"])
+    rec = run_cell(arch, shape_name, mesh=mesh, batch=batch, depth=depth)
+    cfg = record_config(rec)
+    require(rec["status"] == "ok", f"{arch} {shape_name}: dry-run {rec['status']} "
+            f"{rec.get('error', '')}")
+    row = report.roofline_row(rec, peaks)
+    terms = {"operations": row["t_compute_s"], "bytes": row["t_memory_s"],
+             "collectives": row["t_collective_s"]}
+    bound_by = max(terms, key=terms.get)
+    bound_ms = terms[bound_by] * 1e3
+
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated(dev)  # what earlier phases still hold
+    t0 = time.perf_counter()
+    step, args = _roofline_args(torch, dev, cfg, shape_name, batch, seq)
+    allocated = sum(t.numel() * t.element_size() for a in args for t in tree_leaves(a)
+                    if isinstance(t, torch.Tensor))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    card = trace_cost(step, *args)  # also the warm-up
+    torch.cuda.synchronize()
+    trace_s = time.perf_counter() - t0
+    card.result = None  # the step's outputs
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms = time_ms(torch, lambda: step(*args), reps=ROOFLINE_REPS, warmup=0)
+    peak = torch.cuda.max_memory_allocated(dev) - before
+    share = bound_ms / ms
+    predicted = rec["memory"]
+    out = {"arch": arch, "shape": shape_name, "batch": batch, "seq": seq, "cut": cut,
+           "layers": cfg.num_layers,
+           "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by, "share": share,
+           "terms_ms": {k: v * 1e3 for k, v in terms.items()},
+           "operator_bytes": rec["counted"]["hbm_bytes"],
+           "operator_bytes_ms": row["t_memory_upper_s"] * 1e3,
+           "flops_meta": rec["counted"]["flops"], "flops_card": card.flops,
+           "traced_depths": rec["counted"]["traced_depths"],
+           "op_count_meta": rec["counted"]["op_count"], "op_count_card": card.op_count,
+           "argument_bytes_predicted": predicted["argument_bytes"],
+           "argument_bytes_allocated": allocated,
+           "temp_bytes_predicted": predicted["temp_bytes"],
+           "peak_live_bytes_card": card.peak_live_bytes,
+           "peak_estimate_bytes": predicted["peak_estimate_bytes"],
+           "max_memory_allocated": peak, "held_before": before,
+           "peak_error": peak / predicted["peak_estimate_bytes"] - 1.0,
+           "setup_s": setup_s, "trace_s": trace_s, "meta_trace_s": rec["trace_seconds"]}
+    print(f"{arch} {shape_name} [{cut}; {cfg.dtype} activations, {cfg.param_dtype} "
+          f"parameters, seed 0]: {ms:.3f} ms a step (median of {ROOFLINE_REPS} after the "
+          f"traced warm-up); bound {bound_ms:.3f} ms by {bound_by} (operations "
+          f"{terms['operations'] * 1e3:.3f}, bytes {terms['bytes'] * 1e3:.3f} ms) -> share "
+          f"{100 * share:.2f} %; the eager operators move {out['operator_bytes'] / 1e9:.3f} GB "
+          f"({out['operator_bytes_ms']:.3f} ms at the peak rate); FLOPs meta {rec['counted']['flops']:.6e} vs card "
+          f"{card.flops:.6e} (depths {rec['counted']['traced_depths']}); operators meta "
+          f"{rec['counted']['op_count']} vs card {card.op_count}; argument bytes predicted "
+          f"{predicted['argument_bytes']} vs allocated {allocated}; peak: estimate "
+          f"{predicted['peak_estimate_bytes'] / 1e9:.3f} GB (live bytes meta "
+          f"{predicted['temp_bytes'] / 1e9:.3f} vs card {card.peak_live_bytes / 1e9:.3f} GB), "
+          f"max_memory_allocated {peak / 1e9:.3f} GB above the {before / 1e9:.3f} GB held "
+          f"before ({100 * out['peak_error']:+.1f} %); "
+          f"set-up {setup_s:.1f} s, card trace {trace_s:.1f} s, meta trace "
+          f"{rec['trace_seconds']} s ({smi})", flush=True)
+    del args, step
+    require(rec["counted"]["flops"] == card.flops,
+            f"{arch} {shape_name}: the meta trace's FLOPs {rec['counted']['flops']} are not "
+            f"the card's {card.flops}")
+    require(predicted["argument_bytes"] == allocated,
+            f"{arch} {shape_name}: predicted argument bytes {predicted['argument_bytes']} != "
+            f"allocated {allocated}")
+    require(peak >= allocated, f"{arch} {shape_name}: measured peak {peak} below the "
+            f"argument bytes {allocated}")
+    require(share <= ROOFLINE_MAX_SHARE,
+            f"{arch} {shape_name}: {ms:.3f} ms beats its bound {bound_ms:.3f} ms "
+            f"(share {share:.3f} > {ROOFLINE_MAX_SHARE}): the count is wrong")
+    return out
+
+
+def dryrun_and_roofline(torch, dev, smi):
+    """Phase 4j: the sweep, then each real cell; every part runs to its end
+    even when another failed, then the phase fails listing each failure."""
+    _, peaks = peaks_for(torch.cuda.get_device_name(0))
+    record, failures = {"cells": []}, []
+    parts = [("sweep", lambda: dryrun_sweep(torch, smi, peaks))]
+    parts += [(f"{a} {s}", lambda a=a, s=s, b=b, d=d, c=c: roofline_cell(
+        torch, dev, smi, peaks, a, s, b, d, c)) for a, s, b, d, c in ROOFLINE_CELLS]
+    for name, part in parts:
+        t0 = time.perf_counter()
+        try:
+            out = part()
+            if name == "sweep":
+                record["sweep"] = out
+            else:
+                record["cells"].append(out)
+        except Exception as e:  # noqa: BLE001 -- reported below, the phase fails
+            failures.append(f"{name}: {type(e).__name__}: {e}")
+            print(f"  FAILED {failures[-1]}")
+        torch.cuda.empty_cache()
+        print(f"  {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    require(not failures, "phase 4j: " + "; ".join(failures))
+    return record
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import numpy as np
@@ -2091,7 +2314,7 @@ def main() -> int:
           f"(SM count x 128 lanes x 2 x the SM clock timed over a spin), memory "
           f"{detected.hbm_bytes_per_s / 1e12:.3f} TB/s (a timed 256 MiB device-to-device "
           f"copy), cache {detected.cache_bytes / 2**20:.0f} MiB (L2) in {calib_s:.2f} s; "
-          f"data sheet (PEAKS, for bounds): fp32 {peak_flops / 1e12:.0f} TFLOP/s, memory "
+          f"data sheet (report.PEAKS, for bounds): fp32 {peak_flops / 1e12:.0f} TFLOP/s, memory "
           f"{peak_bw / 1e12:.2f} TB/s")
     require(0.3 * peak_flops < detected.flops_per_s < 1.5 * peak_flops
             and 0.3 * peak_bw < detected.hbm_bytes_per_s < 1.5 * peak_bw,
@@ -2411,6 +2634,15 @@ def main() -> int:
     encdec_part = encdec_and_partitioning(torch, dev, smi, detected.hbm_bytes_per_s)
     print(f"encdec_and_partitioning: {json.dumps(encdec_part)}")
     print(f"phase 4i took {time.perf_counter() - t0:.1f} s")
+
+    # ------------------------------------------------------------------
+    phase("4j. dry-run and roofline: the single-pod sweep on meta tensors, and four LM "
+          "steps on the card beside their bounds")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    roofline_part = dryrun_and_roofline(torch, dev, smi)
+    print(f"dryrun_and_roofline: {json.dumps(roofline_part)}")
+    print(f"phase 4j took {time.perf_counter() - t0:.1f} s")
 
     # ------------------------------------------------------------------
     phase("5. times (CUDA events, median of repeats after warm-up)")

@@ -4,8 +4,7 @@ package's ``repro.configs``.
 The ten LM-family architectures plus the paper's own ABPN model.
 ``get_config(name)`` returns the full published configuration;
 ``get_config(name).reduced()`` is the CPU smoke-test variant.  The
-dry-run's input shapes (``repro.configs.shapes``) come with the dry-run
-slice of the port (ROADMAP queue 1, item 14h).
+dry-run's four assigned input shapes are in ``configs/shapes.py``.
 """
 
 from __future__ import annotations
