@@ -205,9 +205,22 @@ each of their parts to the end and then fail with every failure listed):
    ones, ``max_memory_allocated`` beside the predicted peak; every part
    runs, then the phase fails listing each failure; a
    ``dryrun_and_roofline: {...}`` JSON line;
+4a. plan_cost — ``engine.plan_cost`` on the card for phase 4's seven
+   served configurations at 1 and 8 frames of 360x640: per frame its FLOPs
+   and device-memory bytes (the glue's eager operators, K1's arguments and
+   result (a) and its workspace, restaged weights and re-read inputs (b)),
+   the bound ``max(FLOPs / fp32 peak, bytes / memory rate)`` and the
+   serving executor's device time queued behind a sleep; bound / measured
+   must not pass 1.05.  Beside them, not held: ``autotune.predict_cost``'s
+   per-frame counts, the layer-by-layer K2 path's bytes a frame and K1's
+   reductions from it next to ``core.analysis.dram_reduction()``; a
+   ``plan_cost: {...}`` JSON line (kept out of the kernels line: most of
+   it is counted or modelled, not measured);
 5. times — CUDA events, median of repeats after warm-up.  K1 at 1 and 8
    frames (fp32 and bf16, automatic segment plan: its segments, CTAs,
-   warm-up tiles and their share of the executed tiles) four ways: one
+   warm-up tiles and their share of the executed tiles, the FLOPs it
+   executes from ``engine.plan_cost`` less the glue, held to the hand
+   count of K1_EXECUTED_FLOPS where the plan is the H100's) four ways: one
    launch between two events, host time of the wrapper included (the
    kernels line's ``ms``); launches queued behind a
    device sleep (device time only); the wrapper's host time per call; the
@@ -1846,6 +1859,95 @@ def dryrun_and_roofline(torch, dev, smi):
     return record
 
 
+# The seven configurations phase 4 serves; phase 4a counts each with
+# engine.plan_cost on the card, at 1 and 8 frames of 360x640.  K1's FMAs run on
+# the CUDA cores in every precision, so the bound takes the fp32 peak; the
+# glue's traffic, like K1's, is at the device-memory rate.
+SERVED = (("fp32", "zero"), ("bf16", "zero"), ("int8", "zero"), ("fp32", "halo"),
+          ("fp32", "replicate"), ("bf16", "halo"), ("int8", "halo"))
+PLAN_COST_SHARE_MAX = 1.05  # above it the count would be below the work done
+# K1's executed FLOPs over fp32 zero 360x640 frames for the segment plans an
+# H100 SXM (132 SMs) picks, counted by hand from csrc/tilted_fusion.cu's
+# loops: (frames, K, S, w) -> FLOPs.  Phase 5 holds plan_cost to them.
+K1_EXECUTED_FLOPS = {(1, 81, 21, 2): 38_021_529_600, (8, 81, 5, 2): 232_827_125_760}
+
+
+def served_plan_costs(torch, engine, dev, layers, peaks):
+    """Phase 4a: each served configuration's ``plan_cost`` per frame, K1's
+    arguments and result (a) and the rest of its traffic (b) apart, its
+    bound, and the executor's queued device time; bound / measured must
+    not pass PLAN_COST_SHARE_MAX.  Beside them, not held:
+    ``autotune.predict_cost`` for the same plan, the layer-by-layer K2
+    path's bytes a frame (``conv_cost``) and K1's reductions from it beside
+    the paper's (``core.analysis.dram_reduction``)."""
+    from repro_torch.core.analysis import dram_reduction
+    from repro_torch.engine.autotune import RooflinePeaks, predict_cost
+    from repro_torch.kernels import tilted_fusion as ttf
+
+    t0 = time.perf_counter()
+    ttf.tilted_fusion_call.launches = 0
+    card_peaks = RooflinePeaks.detect(dev)
+    paper = dram_reduction()
+    gen = torch.Generator().manual_seed(5)
+    frames = {n: torch.rand((n, H, W, 3), generator=gen).to(dev) for n in (1, 8)}
+    out = {}
+    for prec, policy in SERVED:
+        plan = engine.make_plan(layers, (H, W, 3), backend="kernel", precision=prec,
+                                vertical_policy=policy, band_rows=engine.derive_band_rows(H),
+                                scale=SCALE)
+        stack = engine.prepare_stack(plan, layers)
+        execute = engine.build_stack_executor(plan, stack)
+        esize = 2 if prec == "bf16" else 4
+        k2_bytes = sum(conv_cost(l.ci, l.co, H * W, esize)[1] for l in layers)
+        for n in (1, 8):
+            terms = engine.plan_cost_terms(plan, layers, n, stack=stack)
+            cost = terms["cost"]  # what engine.plan_cost returns
+            require(len(terms["k1"]) == 1, f"{prec}/{policy}: one K1 launch a call")
+            k1 = terms["k1"][0]
+            ms = device_ms(torch, lambda: execute(frames[n]), calls=5, rounds=3)
+            bound_ms, bound_by = bound(cost["flops"], cost["hbm_bytes"], peaks["fp32"],
+                                       peaks["bytes"])
+            share = bound_ms / ms
+            pred = predict_cost(plan, layers, n, n, peaks=card_peaks)
+            row = dict(flops_per_frame=cost["flops_per_frame"],
+                       hbm_bytes_per_frame=cost["hbm_bytes_per_frame"],
+                       glue_bytes_per_frame=terms["glue"]["hbm_bytes"] / n,
+                       k1_io_bytes_per_frame=k1["io_bytes"] / n,
+                       k1_workspace_bytes_per_frame=k1["workspace_bytes"] / n,
+                       k1_flops_per_frame=k1["flops"] / n, segments=k1["plan"].segments,
+                       weight_bytes_resident=cost["weight_bytes_resident"],
+                       device_ms=ms, bound_ms=bound_ms, bound_by=bound_by, share=share,
+                       predict_flops_per_frame=pred["flops_per_frame"],
+                       predict_bytes_per_frame=pred["hbm_bytes_per_frame"],
+                       k2_bytes_per_frame=k2_bytes,
+                       reduction_a=1 - k1["io_bytes"] / n / k2_bytes,
+                       reduction_ab=1 - k1["bytes"] / n / k2_bytes)
+            out[f"{prec}/{policy}/{n}"] = row
+            print(f"plan_cost [{prec}, {policy}, {n} frame{'s' if n > 1 else ''}]: per frame "
+                  f"{row['flops_per_frame'] / 1e9:.3f} GFLOP, {row['hbm_bytes_per_frame'] / 1e6:.1f}"
+                  f" MB = glue {row['glue_bytes_per_frame'] / 1e6:.1f} + K1 (a) "
+                  f"{row['k1_io_bytes_per_frame'] / 1e6:.2f} + (b) "
+                  f"{row['k1_workspace_bytes_per_frame'] / 1e6:.1f} MB (S={row['segments']}); "
+                  f"resident weights {row['weight_bytes_resident']} B; bound {bound_ms:.3f} ms "
+                  f"({bound_by}) vs executor {ms:.3f} ms queued -> share {share:.3f}; "
+                  f"predict_cost {pred['flops_per_frame'] / 1e9:.3f} GFLOP, "
+                  f"{pred['hbm_bytes_per_frame'] / 1e6:.2f} MB; layer-by-layer K2 path "
+                  f"{k2_bytes / 1e6:.1f} MB: reduction by K1 (a) {100 * row['reduction_a']:.1f}%, "
+                  f"by (a)+(b) {100 * row['reduction_ab']:.1f}% ((a)+(b) is "
+                  f"{k1['bytes'] / n / k2_bytes:.2f}x the path's bytes); the paper's "
+                  f"dram_reduction() {100 * paper:.1f}%")
+            require(share <= PLAN_COST_SHARE_MAX,
+                    f"plan_cost {prec}/{policy} at {n}: bound/measured {share:.3f} > "
+                    f"{PLAN_COST_SHARE_MAX}, the count is below the work")
+    seconds = time.perf_counter() - t0
+    print(f"phase 4a took {seconds:.1f} s, K1 launches {ttf.tilted_fusion_call.launches} "
+          f"(timing only; not a path of the kernels line)")
+    # counts and models beside the measured device_ms, so not in the kernels line
+    print("plan_cost: " + json.dumps({"configs": out, "seconds": seconds,
+                                      "timing_launches": ttf.tilted_fusion_call.launches,
+                                      "paper_reduction": paper}))
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import numpy as np
@@ -2031,8 +2133,7 @@ def main() -> int:
     small = rng.uniform(size=(H // 2, W // 2, 3)).astype(np.float32)
     kcall.launches = 0  # count the main path's launches only
     per_config = {}
-    for prec, policy in (("fp32", "zero"), ("bf16", "zero"), ("int8", "zero"), ("fp32", "halo"),
-                         ("fp32", "replicate"), ("bf16", "halo"), ("int8", "halo")):
+    for prec, policy in SERVED:
         before = kcall.launches
         server = engine.SRServer.open("abpn_x3", backend="kernel", precision=prec,
                                       vertical_policy=policy, layers=layers)
@@ -2073,6 +2174,10 @@ def main() -> int:
     main_launches = kcall.launches
     print(f"main path K1 launches: {main_launches}")
     require(main_launches > 0, "the main path never launched K1")
+
+    # ------------------------------------------------------------------
+    phase("4a. plan_cost: the served configurations' FLOPs and bytes beside their bound")
+    served_plan_costs(torch, engine, dev, layers, peaks)
 
     # ------------------------------------------------------------------
     phase("4b. layer-by-layer path: ABPN x3 as 7 ops.conv3x3 launches per frame")
@@ -2648,7 +2753,6 @@ def main() -> int:
     phase("5. times (CUDA events, median of repeats after warm-up)")
     packed = ops.pack_stack(layers, dtype=torch.float32)
     packed16 = ops.pack_stack([l.to(dtype=torch.bfloat16) for l in layers], dtype=torch.bfloat16)
-    chp, c0p = packed.chp, 8
     # K1's workspace per CTA in fp32 bytes
     kb_per_cta = 4 * ttf.kernel_buffers(channels=[3] + [l.co for l in layers], band_rows=60,
                                         tile_cols=C)["workspace_elements"]
@@ -2733,12 +2837,20 @@ def main() -> int:
         flops = 2 * n * H * W * sum(9 * l.ci * l.co for l in layers)
         nbytes = 4 * (n * H * W * (layers[0].ci + layers[-1].co)
                       + sum(l.w.numel() + l.b.numel() for l in layers))
-        # What K1 executes: every tile column of every band, layer 0 over
-        # c0p input channels and the rest over chp (padding included), and
-        # layers 0..L-2 again on each warm-up tile
-        tile_flops = 2 * R * C * 9 * (c0p * chp + (L - 1) * chp * chp)
-        warm_flops = 2 * R * C * 9 * (c0p * chp + (L - 2) * chp * chp)
-        executed = B * (plan.tiles * tile_flops + (executed_tiles - plan.tiles) * warm_flops)
+        # What K1 executes (padding and warm-up tiles included): the
+        # serving executor's plan_cost on this card less its glue
+        zplan = engine.make_plan(layers, (H, W, 3), backend="kernel", precision="fp32",
+                                 vertical_policy="zero", band_rows=60, scale=SCALE)
+        terms = engine.plan_cost_terms(zplan, layers, n)
+        require([k["plan"] for k in terms["k1"]] == [plan],
+                 f"batch {n}: plan_cost's K1 plan must be the launch's")
+        executed = terms["k1"][0]["flops"]
+        require(executed == terms["cost"]["flops"] - terms["glue"]["flops"],
+                f"batch {n}: plan_cost less the glue must be K1's FLOPs")
+        want = K1_EXECUTED_FLOPS.get((n, plan.tiles, plan.segments, plan.warmup))
+        if want is not None:
+            require(executed == want, f"batch {n}: K1 executes {executed} FLOPs, "
+                                      f"{want} by hand for this plan")
         bound_ms, bound_by = bound(flops, nbytes, peak_flops, peak_bw)
         # the same work on the tensor cores, fp32 as 3xTF32 (three TF32
         # products per fp32 product): what a tensor-core K1 would be held to
@@ -2762,7 +2874,7 @@ def main() -> int:
               f"{100 * bound_ms / k1['ms']:.1f}% of bound one launch, "
               f"{100 * bound_ms / k1['device_ms']:.1f}% queued; tensor-core bound (3xTF32) "
               f"{bound_tc_ms:.3f} ms; "
-              f"K1 executes {executed / 1e9:.2f} GFLOP with padding and warm-up")
+              f"K1 executes {executed / 1e9:.2f} GFLOP with padding and warm-up (plan_cost)")
 
     # K2, the layer-by-layer baseline, on one 360x640 frame: per layer shape
     # and as the whole 7-launch stack.  Inputs are the real feature maps of

@@ -59,6 +59,8 @@ from repro_torch.engine.executor import (
     default_device,
     executor_artifacts,
     output_spec,
+    plan_cost,
+    plan_cost_terms,
     prepare_layers,
     prepare_stack,
     run,
@@ -144,6 +146,8 @@ __all__ = [
     "default_device",
     "executor_artifacts",
     "output_spec",
+    "plan_cost",
+    "plan_cost_terms",
     "prepare_layers",
     "prepare_stack",
     "PreparedStack",

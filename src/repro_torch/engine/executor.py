@@ -51,6 +51,8 @@ __all__ = [
     "default_device",
     "executor_artifacts",
     "output_spec",
+    "plan_cost",
+    "plan_cost_terms",
     "run",
     "sr_epilogue",
     "sr_features",
@@ -469,6 +471,116 @@ def executor_artifacts(
         "kernels": _profile_call(call, device) if compiled and on_card else None,
         "builds": _build.load_log()[before:] if on_card else None,
     }
+
+
+# ----------------------------------------------------------------------
+# What one serving call costs (the roofline terms of a bucket)
+# ----------------------------------------------------------------------
+def _stack_on(stack: PreparedStack, device) -> PreparedStack:
+    packed = stack.packed
+    if packed is not None:
+        packed = dataclasses.replace(packed, w=packed.w.to(device), b=packed.b.to(device))
+    return dataclasses.replace(stack, layers=_on_device(stack.layers, device), packed=packed)
+
+
+def plan_cost_terms(
+    plan: SRPlan,
+    layers: Sequence[ConvLayer],
+    batch: int,
+    dtype=torch.float32,
+    *,
+    stack: Optional[PreparedStack] = None,
+    device=None,
+) -> dict:
+    """:func:`plan_cost`'s terms apart, for one ``(batch, *lr_shape)``
+    bucket of ``dtype`` on ``device`` (default: the CUDA card; raises
+    without one):
+
+    * ``glue`` — ``flops`` and ``hbm_bytes`` of ``_execute_stack`` traced on
+      ``meta`` frames over the stack moved to ``meta``
+      (``roofline.trace_cost``): ``FlopCounterMode``'s FLOPs and the bytes
+      every eager operator reads and writes.  On the ``kernel`` backend K1
+      computes nothing there; its ``meta`` result is not the glue's (the
+      one ``torch.empty`` that makes it is taken out again).
+    * ``k1`` — one dict a K1 launch of the call:
+      :func:`~repro_torch.kernels.tilted_fusion.launch_cost` for the
+      segment plan K1 runs it with on ``device`` (the card's; on the CPU
+      the plain version's, ``plain=True``), plus that ``plan``.  Empty off
+      the ``kernel`` backend.
+    * ``weight_bytes_resident`` — ``stack.nbytes()``.
+    * ``cost`` — their sum, :func:`plan_cost`'s six keys.
+
+    No frame buffer is allocated.  ``stack`` reuses a prepared stack;
+    without one, ``layers`` are prepared where they lie.
+    """
+    from repro_torch.kernels import tilted_fusion as ttf
+    from repro_torch.roofline.trace_cost import trace_cost
+
+    plan.check_invariants()
+    dev = default_device(device)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"plan_cost counts what runs on cuda or cpu, not {dev}")
+    if stack is None:
+        stack = prepare_stack(plan, layers)
+    frames = torch.empty((int(batch), *plan.lr_shape), dtype=dtype, device="meta")
+    with ttf.record_launches() as launches:
+        traced = trace_cost(_execute_stack, plan, _stack_on(stack, "meta"), frames)
+    k1 = []
+    for launch in launches:
+        segments = launch.plan(dev)
+        cost = ttf.launch_cost(segments, band_rows=launch.band_rows, tile_cols=launch.tile_cols,
+                               c0p=launch.c0p, chp=launch.chp, num_layers=launch.num_layers,
+                               dtype=launch.dtype, bounds=launch.bounds,
+                               plain=dev.type == "cpu")
+        k1.append(dict(cost, plan=segments))
+    glue_bytes = traced.bytes_accessed - sum(launch.out_bytes for launch in launches)
+    flops = traced.flops + sum(k["flops"] for k in k1)
+    hbm = glue_bytes + sum(k["bytes"] for k in k1)
+    return {
+        "glue": {"flops": traced.flops, "hbm_bytes": glue_bytes},
+        "k1": k1,
+        "weight_bytes_resident": stack.nbytes(),
+        "cost": {
+            "batch": int(batch),
+            "flops": int(flops),
+            "hbm_bytes": int(hbm),
+            "flops_per_frame": int(flops // batch),
+            "hbm_bytes_per_frame": int(hbm // batch),
+            "weight_bytes_resident": int(stack.nbytes()),
+        },
+    }
+
+
+def plan_cost(
+    plan: SRPlan,
+    layers: Sequence[ConvLayer],
+    batch: int,
+    dtype=torch.float32,
+    *,
+    stack: Optional[PreparedStack] = None,
+    device=None,
+) -> dict:
+    """Roofline terms of the serving executor for one bucket — the port of
+    the JAX package's ``plan_cost``, with its six keys and their meaning:
+    FLOPs and device-memory bytes of one ``(batch, *lr_shape)`` call, and
+    per frame, beside the weight bytes the :class:`PreparedStack` keeps
+    resident (the software analogue of the paper's DRAM-traffic
+    accounting).
+
+    The reference reads both counts from the compiled HLO, where a fused
+    program's operands are the bytes.  Here (:func:`plan_cost_terms`) the
+    bytes are those of the eager operators, plus, on the ``kernel``
+    backend, what K1 issues: its arguments and result once each and its
+    workspace, restaged weights and re-read inputs (``tilted_fusion.
+    launch_cost``).  FLOPs are 2 per multiply-add of every product, K1's
+    padded and warm-up tiles included.  ``device`` (default: the CUDA card)
+    picks K1's segment plan: the card's, or on ``"cpu"`` the plain
+    version's.  On ``"cpu"`` only K1's FLOPs are the plain version's: its
+    bytes stay the card's traffic model (layer 0 widened to Chp), which
+    is nothing the plain version's eager loop issues.  ``stack`` reuses a
+    prepared stack across calls.
+    """
+    return plan_cost_terms(plan, layers, batch, dtype, stack=stack, device=device)["cost"]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -12,8 +12,9 @@ every feature map carried to tile k+1 in the overlap queue, an optional
 anchor added to the last layer, and the output tilted by L-1 columns.
 
 * :func:`tilted_fusion_call` — the wrapper.  A CUDA tensor launches the
-  kernel (or raises); a CPU tensor runs :func:`tilted_fusion_plain`.  There
-  is no other path.  ``tilted_fusion_call.launches`` counts kernel launches.
+  kernel (or raises); a CPU tensor runs :func:`tilted_fusion_plain`; a
+  ``meta`` tensor computes nothing.  There is no other path.
+  ``tilted_fusion_call.launches`` counts kernel launches.
 * :func:`tilted_fusion_plain` — the plain PyTorch version: the same tile
   loop, with the overlap queue and residual ring held as the TPU kernel
   holds them and rounding at the same points.  It is the CPU path and the
@@ -24,10 +25,17 @@ anchor added to the last layer, and the output tilted by L-1 columns.
   tiles before it, so the output is bit-identical for every segment count.
 * :func:`kernel_buffers` — the Hopper kernel's own workspace and shared
   memory, per CTA and per launch.
+* :func:`launch_cost` — the FLOPs and device-memory bytes a launch issues
+  for a :class:`SegmentPlan`.  On ``meta`` tensors the wrapper checks its
+  arguments and returns an empty result of the right shape, and
+  :func:`record_launches` collects what it was given, so a traced call
+  (``engine.executor.plan_cost``) can count K1 with :func:`launch_cost`.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import functools
 import numbers
@@ -50,11 +58,15 @@ __all__ = [
     "segment_plan",
     "blocks_per_sm",
     "launch_plan",
+    "Launch",
+    "record_launches",
+    "launch_cost",
     "THREADS",
     "SUPPORTED_CHP",
 ]
 
 THREADS = 256  # CTA size (kThreads in the source)
+ROWS_PER_ITEM = 2  # output rows a thread item computes (kPix in the source)
 SUPPORTED_CHP = (16, 32)  # template instances of the kernel (launch_chp)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -237,6 +249,82 @@ def segment_plan(bands: int, tiles: int, tile_cols: int, num_layers: int, sms: i
         S = min(int(segments), K) if K >= 1 else 1
     cost = _cost(B, K, S, w, sms, per_sm) if B >= 1 and K >= 1 else 0.0
     return SegmentPlan(bands=B, tiles=K, segments=S, warmup=w, cost=cost)
+
+
+# ----------------------------------------------------------------------
+# What a launch issues
+# ----------------------------------------------------------------------
+def launch_cost(plan: SegmentPlan, *, band_rows: int, tile_cols: int, c0p: int, chp: int,
+                num_layers: int, dtype, bounds: bool = False, plain: bool = False) -> dict:
+    """The FLOPs and device-memory bytes of one launch over ``plan``, as
+    ``csrc/tilted_fusion.cu`` issues them.  ``plain=True`` counts the FLOPs
+    as :func:`tilted_fusion_plain` executes them; its bytes stay the
+    kernel's model below, with layer 0 widened to ``chp``, which is not
+    what the plain version's eager loop issues.
+
+    * ``flops`` — 2 per FMA of every executed tile of every CTA: own tiles
+      run layers 0..L-1, warm-up tiles ``[kw, k0)`` layers 0..L-2.  Layer 0
+      reads ``c0p`` input channels, the others ``chp``, for ``chp`` outputs
+      at every row the item loop covers (``ceil(R / 2) * 2``).  The plain
+      version pads layer 0 to ``chp`` channels and runs exactly ``R`` rows.
+    * ``io_bytes`` (a) — the arguments and the result once each: the input
+      stream, the first column, weights, bias, the row bounds (int32) and
+      the tilted output.
+    * ``workspace_bytes`` (b) — every other byte the launch reads or
+      writes in device memory: each tile's layer-0 slab fill and each
+      layer pass's slab reads and stores, the overlap queue's start state,
+      reads and writes, the weights and bias restaged at every (tile,
+      layer) step, and the input columns and bounds read again by
+      segments.  Each element counts once per pass, whatever the loads a
+      thread issues; L2 hits are not subtracted.  The anchor's reads
+      (``add_anchor``, which the serving path never sets) are not counted.
+
+    ``bytes`` is (a) + (b).  ``tiles`` counts executed tiles and
+    ``warmup_tiles`` the warm-up ones among them, over every band.
+    """
+    R, C, L, chp, c0p = int(band_rows), int(tile_cols), int(num_layers), int(chp), int(c0p)
+    esize = dtype.itemsize
+    cin = [chp if plain else c0p] + [chp] * (L - 1)  # input channels of each layer
+    rows = R if plain else -(-R // ROWS_PER_ITEM) * ROWS_PER_ITEM
+    slab_cols = C + 2
+    wsz = 9 * chp * chp
+
+    def tile_flops(layers):
+        return 2 * rows * C * 9 * chp * sum(cin[:layers])
+
+    # per tile: the layer-0 fill (slab written, queue slot 0 read, slot 0
+    # stored back) and the carried layers 0..L-2 (slab read, carried columns
+    # in, interior stored, queue slot stored); an own tile's last layer
+    # reads its slab and writes the output, which is (a)
+    fill = cin[0] * R * (slab_cols + 6)
+    carried = sum(cin[:L - 1]) * R * slab_cols + (L - 1) * chp * R * (C + 8)
+    last = chp * R * slab_cols
+    flops = tiles = warm_tiles = ws_elems = arg_elems = 0
+    for kw, k0, k1 in plan.ranges():
+        own, warm = k1 - k0, k0 - kw
+        steps = own * L + warm * (L - 1)  # (tile, layer) steps, one weight stage each
+        flops += own * tile_flops(L) + warm * tile_flops(L - 1)
+        tiles += own + warm
+        warm_tiles += warm
+        ws_elems += L * chp * R * 2 + (own + warm) * (fill + carried) + own * last
+        # fresh input columns of every tile, the start state's input
+        # columns (the first column alone for kw = 0), weights and bias
+        arg_elems += ((own + warm) * R * C * c0p + R * c0p * (1 if kw == 0 else 2)
+                      + steps * (wsz + chp))
+    B, K = plan.bands, plan.tiles
+    stream = B * R * K * C
+    io_elems = stream * c0p + B * R * c0p + L * (wsz + chp) + stream * chp
+    bound_bytes = 4 * 2 * B if bounds else 0
+    io_bytes = io_elems * esize + bound_bytes
+    issued = (B * (ws_elems + arg_elems) + stream * chp) * esize + bound_bytes * plan.segments
+    return {
+        "flops": B * flops,
+        "io_bytes": io_bytes,
+        "workspace_bytes": issued - io_bytes,
+        "bytes": issued,
+        "tiles": B * tiles,
+        "warmup_tiles": B * warm_tiles,
+    }
 
 
 # ----------------------------------------------------------------------
@@ -444,18 +532,23 @@ def blocks_per_sm(device, dtype, chp: int) -> int:
     return _blocks_per_sm(index, _DTYPE_CODE[dtype], int(chp))
 
 
+def _plan_on(device: torch.device, bands: int, tiles: int, tile_cols: int, num_layers: int,
+             dtype, chp: int, segments: Optional[int]) -> SegmentPlan:
+    sms, per_sm = 1, 1
+    if device.type == "cuda":
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        per_sm = blocks_per_sm(device, dtype, chp)
+    return segment_plan(bands, tiles, tile_cols, num_layers, sms, per_sm, segments=segments)
+
+
 def launch_plan(x_stream: torch.Tensor, w: torch.Tensor, *, tile_cols: int,
                 segments: Optional[int] = None, compute_dtype=None) -> SegmentPlan:
     """The :class:`SegmentPlan` of a launch on these inputs: on a CUDA
     tensor, for the card's SMs with :func:`blocks_per_sm` CTAs each; on the
     CPU (the plain version's sequential loop), for one SM of one."""
     B, _, KC, _ = x_stream.shape
-    L, chp = w.shape[0], w.shape[3]
-    sms, per_sm = 1, 1
-    if x_stream.device.type == "cuda":
-        sms = torch.cuda.get_device_properties(x_stream.device).multi_processor_count
-        per_sm = blocks_per_sm(x_stream.device, compute_dtype or x_stream.dtype, chp)
-    return segment_plan(B, KC // tile_cols, tile_cols, L, sms, per_sm, segments=segments)
+    return _plan_on(x_stream.device, B, KC // tile_cols, tile_cols, w.shape[0],
+                    compute_dtype or x_stream.dtype, w.shape[3], segments)
 
 
 def _launch_kernel(x_stream, first_col, w, b, *, width, tile_cols, relu_flags,
@@ -502,6 +595,67 @@ def _launch_kernel(x_stream, first_col, w, b, *, width, tile_cols, relu_flags,
     return out
 
 
+class Launch(NamedTuple):
+    """The geometry of one call of :func:`tilted_fusion_call` on ``meta``
+    tensors: what :func:`launch_cost` needs besides a :class:`SegmentPlan`."""
+
+    bands: int
+    band_rows: int
+    tiles: int
+    tile_cols: int
+    c0p: int
+    chp: int
+    num_layers: int
+    dtype: torch.dtype  # the compute dtype
+    bounds: bool  # row bounds given (halo slabs)
+    segments: Optional[int]  # as the caller forced it; None for the automatic plan
+
+    @property
+    def out_bytes(self) -> int:
+        """Bytes of the tilted result (one ``torch.empty`` on ``meta``)."""
+        return (self.bands * self.band_rows * self.tiles * self.tile_cols * self.chp
+                * self.dtype.itemsize)
+
+    def plan(self, device) -> SegmentPlan:
+        """The plan K1 runs this launch with on ``device``, as
+        :func:`launch_plan` picks it for inputs there: the card's SMs and
+        the built kernel's CTAs per SM (building it raises where it fails),
+        or on the CPU the plain version's one SM of one."""
+        return _plan_on(torch.device(device), self.bands, self.tiles, self.tile_cols,
+                        self.num_layers, self.dtype, self.chp, self.segments)
+
+
+_RECORDER: contextvars.ContextVar = contextvars.ContextVar("tilted_fusion_launches",
+                                                          default=None)
+
+
+@contextlib.contextmanager
+def record_launches():
+    """Collect, in the list this yields, a :class:`Launch` for every call
+    of :func:`tilted_fusion_call` on ``meta`` tensors inside the block (in
+    this thread or task)."""
+    launches: List[Launch] = []
+    token = _RECORDER.set(launches)
+    try:
+        yield launches
+    finally:
+        _RECORDER.reset(token)
+
+
+def _meta_call(x_stream, w, *, tile_cols, row_bounds, cdt, segments) -> torch.Tensor:
+    """The result of a launch on ``meta`` tensors: its shape and dtype,
+    nothing computed and no launch counted."""
+    B, R, KC, c0p = x_stream.shape
+    L, chp = w.shape[0], w.shape[3]
+    out = torch.empty((B, R, KC, chp), dtype=cdt, device="meta")
+    launches = _RECORDER.get()
+    if launches is not None:
+        launches.append(Launch(bands=B, band_rows=R, tiles=KC // tile_cols,
+                               tile_cols=tile_cols, c0p=c0p, chp=chp, num_layers=L, dtype=cdt,
+                               bounds=row_bounds is not None, segments=segments))
+    return out
+
+
 def tilted_fusion_call(
     x_stream: torch.Tensor,  # (B, R, K*C, C0p) fresh streams per band
     first_col: torch.Tensor,  # (B, R, 1, C0p)
@@ -535,7 +689,8 @@ def tilted_fusion_call(
 
     A tensor on the CPU runs :func:`tilted_fusion_plain`; a CUDA tensor
     launches the kernel on the current stream (no synchronisation) or
-    raises.
+    raises; a ``meta`` tensor gives the result's shape and dtype and
+    nothing else (:func:`record_launches`).
     """
     _check_segments(segments)
     args = dict(width=width, tile_cols=tile_cols, relu_flags=list(relu_flags),
@@ -545,12 +700,16 @@ def tilted_fusion_call(
     if x_stream.device.type == "cpu":
         return tilted_fusion_plain(x_stream, first_col, w, b, compute_dtype=compute_dtype,
                                    out_dtype=out_dtype, **args)
-    if x_stream.device.type != "cuda":
-        raise ValueError(f"tilted_fusion_call runs on cuda or cpu, not {x_stream.device}")
+    if x_stream.device.type not in ("cuda", "meta"):
+        raise ValueError(f"tilted_fusion_call runs on cuda, cpu or meta, not {x_stream.device}")
     _check_args(x_stream, first_col, w, b, tile_cols, relu_flags, add_anchor,
                 in_channels, anchor_repeats, row_policy, row_bounds)
     cdt = compute_dtype or x_stream.dtype
-    out = _launch_kernel(x_stream, first_col, w, b, cdt=cdt, **args)
+    if x_stream.device.type == "meta":
+        out = _meta_call(x_stream, w, tile_cols=tile_cols, row_bounds=row_bounds, cdt=cdt,
+                         segments=segments)
+    else:
+        out = _launch_kernel(x_stream, first_col, w, b, cdt=cdt, **args)
     out_dtype = out_dtype or x_stream.dtype
     return out if out_dtype == cdt else out.to(out_dtype)
 

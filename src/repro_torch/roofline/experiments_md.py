@@ -2,6 +2,10 @@
 the port of ``repro.roofline.experiments_md``.
 
 Run:  PYTHONPATH=src python -m repro_torch.roofline.experiments_md --out build/EXPERIMENTS_torch.md
+
+With ``--opt-records DIR`` it appends the reference's baseline-versus-
+optimized section: the single-pod roofline of a second sweep beside the
+first (:func:`compare_table`).
 """
 
 from __future__ import annotations
@@ -11,8 +15,10 @@ import sys
 
 from repro_torch.roofline.report import (
     DEFAULT_CARD,
+    _fmt_t,
     dryrun_table,
     load_records,
+    roofline_row,
     roofline_table,
 )
 
@@ -77,27 +83,76 @@ dominant-term-time.
 """
 
 
-def render(recs) -> str:
+def _counts(recs) -> tuple:
     n_ok = sum(r["status"] == "ok" for r in recs)
     n_skip = sum(r["status"] == "skipped" for r in recs)
-    return "\n".join([
+    return n_ok, n_skip, len(recs) - n_ok - n_skip
+
+
+def compare_table(base, opt, peaks=None) -> str:
+    """Baseline vs optimized roofline terms per single-pod cell that both
+    sweeps have ``ok``, under ``peaks`` (``report.roofline_row``'s
+    default: the H100's): the dominant term and its time in each, each
+    roofline fraction, and the speed-up of the dominant time."""
+    def rows_by_key(recs):
+        out = {}
+        for r in recs:
+            if r.get("mesh") != "single_pod":
+                continue
+            row = roofline_row(r, peaks)
+            if row:
+                out[(r["arch"], r["shape"])] = row
+        return out
+
+    b, o = rows_by_key(base), rows_by_key(opt)
+    lines = [
+        "| arch | shape | dominant (base→opt) | t_dominant base | t_dominant opt"
+        " | roofline frac base | opt | Δ |",
+        "|---|---|---|---|---|---|---|---|",
+    ]
+    for key in sorted(set(b) & set(o)):
+        rb, ro = b[key], o[key]
+        tb = max(rb["t_compute_s"], rb["t_memory_s"], rb["t_collective_s"])
+        to = max(ro["t_compute_s"], ro["t_memory_s"], ro["t_collective_s"])
+        speedup = tb / to if to else float("inf")
+        lines.append(
+            f"| {key[0]} | {key[1]} | {rb['dominant']}→{ro['dominant']} | "
+            f"{_fmt_t(tb)} | {_fmt_t(to)} | {rb['roofline_fraction']:.3f} | "
+            f"{ro['roofline_fraction']:.3f} | ×{speedup:.2f} faster |"
+        )
+    return "\n".join(lines)
+
+
+def render(recs, opt=None) -> str:
+    """The markdown of the records ``recs``; with ``opt`` (a second sweep's
+    records, non-empty) the baseline-vs-optimized section as well."""
+    n_ok, n_skip, n_err = _counts(recs)
+    parts = [
         HEADER, DRYRUN_INTRO, dryrun_table(recs), "\n",
         ROOFLINE_INTRO, roofline_table(recs), "\n",
-        f"\nCells: {n_ok} ok, {n_skip} policy skips, "
-        f"{len(recs) - n_ok - n_skip} errors out of {len(recs)}.\n",
-    ])
+        f"\nCells: {n_ok} ok, {n_skip} policy skips, {n_err} errors out of {len(recs)}.\n",
+    ]
+    if opt:
+        o_ok, o_skip, o_err = _counts(opt)
+        parts += ["### Optimized vs baseline — single pod\n", compare_table(recs, opt),
+                  f"\nOptimized cells: {o_ok} ok, {o_skip} skips, {o_err} errors out of "
+                  f"{len(opt)}.\n"]
+    return "\n".join(parts)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Write the dry-run and roofline tables.")
     ap.add_argument("--out", required=True, help="the markdown file to write")
     ap.add_argument("--records", default=None, help="dry-run records (default build/dryrun)")
+    ap.add_argument("--opt-records", default=None,
+                    help="a second sweep's records, compared with the first (default none)")
     args = ap.parse_args(argv)
     recs = load_records(args.records)
+    opt = load_records(args.opt_records) if args.opt_records else []
     with open(args.out, "w") as f:
-        f.write(render(recs))
-    n_ok = sum(r["status"] == "ok" for r in recs)
-    print(f"wrote {args.out} ({n_ok} ok / {len(recs)} cells; peaks of {DEFAULT_CARD})")
+        f.write(render(recs, opt))
+    print(f"wrote {args.out} ({_counts(recs)[0]} ok / {len(recs)} cells; {len(opt)} optimized; "
+          f"peaks of {DEFAULT_CARD})")
     return 0
 
 

@@ -11,7 +11,8 @@ tolerance.  The int8 error-feedback all-reduce on a ``(data=4,)`` mesh of
 the card's streams vs the same positions on the CPU (the mean within one
 quantum of the CPU's: a product ``x / scale`` may round differently).  K1's
 column segments must not change a bit of its output (``torch.equal``
-across segment counts).
+across segment counts).  ``engine.plan_cost`` counts K1 on the card with
+the launch's own segment plan.
 
 Every test here needs a CUDA device and skips where none is present: the
 CUDA kernel has no CPU mode.  The file imports torch and the PyTorch
@@ -119,6 +120,39 @@ def test_auto_plan_fills_the_card_at_one_frame(cuda):
     got = ttf.tilted_fusion_call(xs, first, packed.w, packed.b, **kw)
     assert torch.equal(got, ttf.tilted_fusion_call(xs, first, packed.w, packed.b, segments=1,
                                                    **kw))
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("policy", ["zero", "halo"])
+def test_plan_cost_counts_k1_on_the_card_as_the_plain_version_at_c0p(cuda, policy, precision):
+    """``plan_cost``'s K1 term on the card is the launch's own segment plan
+    (``launch_plan`` on a stream of the same shape), and its FLOPs are the
+    plain version's for that plan (a ``meta`` trace of
+    ``tilted_fusion_plain`` with the same segments) with layer 0 over c0p
+    = 8 input channels in place of Chp = 32.  Two 120x128 frames: 4 bands
+    of 17 tiles; 60 and 74 rows, both even, so no row is added."""
+    from repro_torch.roofline.trace_cost import trace_cost
+
+    layers = [l.to(device=cuda) for l in init_abpn(torch.Generator().manual_seed(0))]
+    plan = engine.make_plan(layers, (120, 128, 3), backend="kernel", precision=precision,
+                            vertical_policy=policy, band_rows=60, scale=3)
+    (k1,) = engine.plan_cost_terms(plan, layers, 2)["k1"]
+    rows = 74 if policy == "halo" else 60
+    dtype = engine.compute_dtype_for(precision)
+    stream = torch.empty((4, rows, 17 * 8, 8), dtype=dtype, device=cuda)
+    w = torch.empty((7, 3, 3, 32, 32), dtype=dtype, device=cuda)
+    assert k1["plan"] == ttf.launch_plan(stream, w, tile_cols=8)
+    meta = dict(dtype=dtype, device="meta")
+    extra = {}
+    if policy == "halo":
+        extra["row_bounds"] = torch.empty((4, 2), dtype=torch.int32, device="meta")
+    traced = trace_cost(
+        ttf.tilted_fusion_plain, torch.empty((4, rows, 17 * 8, 8), **meta),
+        torch.empty((4, rows, 1, 8), **meta), torch.empty((7, 3, 3, 32, 32), **meta),
+        torch.empty((7, 32), **meta), width=128, tile_cols=8, relu_flags=[True] * 6 + [False],
+        add_anchor=False, in_channels=3, segments=k1["plan"].segments, **extra)
+    padding = k1["tiles"] * 2 * rows * 8 * 9 * 32 * (32 - 8)  # layer 0, every executed tile
+    assert k1["flops"] == traced.flops - padding
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):

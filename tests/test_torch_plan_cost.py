@@ -1,0 +1,311 @@
+"""The port's ``engine.plan_cost`` against the JAX package's, and K1's own
+accounting (``kernels.tilted_fusion.launch_cost``) against what its plain
+version and its wrapper do.
+
+* ``plan_cost(device="cpu")`` vs the JAX ``plan_cost`` on the same ABPN x3
+  weights (``init_abpn(PRNGKey(0))`` crossing through numpy), 24x32 LR,
+  ``band_rows`` 12, ``tile_cols`` 8, batch 2, for every backend x policy x
+  precision that ``make_plan`` takes: the same six keys; ``flops``,
+  ``flops_per_frame`` and ``weight_bytes_resident`` exactly equal.  Both
+  count 2 FLOPs per multiply-add of every product (the reference's HLO
+  dots, the port's ``FlopCounterMode`` plus ``launch_cost`` for K1, whose
+  plain version pads layer 0 to Chp channels as the interpreted Pallas
+  kernel does).
+* ``hbm_bytes`` is not compared: XLA counts the operands of fused HLO
+  instructions, the port the bytes of its eager operators plus what K1
+  issues, so the two differ by design.  It is held to a floor every
+  program must move: the frames read, the HR output written and the
+  resident weights.
+* ``launch_cost``: its FLOPs on the plain route equal a ``meta`` trace of
+  ``tilted_fusion_plain`` exactly for every forced segment count; its part
+  (a) equals the bytes of the tensors the wrapper is given and returns;
+  its part (b) equals a count made by walking the CUDA source's loops.
+* At the design point (360x640, batch 8) ``plan_cost`` on the CPU traces
+  ``meta`` frames only and counts K1 with ``launch_cost``, never the
+  plain tile loop.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from repro import engine as jengine
+from repro.models.abpn import init_abpn as jinit_abpn
+from repro_torch import engine as tengine
+from repro_torch.kernels import ops
+from repro_torch.kernels import tilted_fusion as ttf
+from repro_torch.models.abpn import init_abpn, layers_from_numpy
+from repro_torch.roofline.trace_cost import trace_cost
+
+torch.set_num_threads(2)
+
+LR, BAND_ROWS, TILE_COLS, BATCH, SCALE = (24, 32, 3), 12, 8, 2, 3
+JLAYERS = jinit_abpn(jax.random.PRNGKey(0))
+TLAYERS = layers_from_numpy([(np.asarray(l.w), np.asarray(l.b), l.relu) for l in JLAYERS])
+MATRIX = [(b, p, q) for b in ("reference", "tilted", "kernel")
+          for p in ("zero", "halo", "replicate") for q in ("fp32", "bf16", "int8")]
+KEYS = {"batch", "flops", "hbm_bytes", "flops_per_frame", "hbm_bytes_per_frame",
+        "weight_bytes_resident"}
+L, CHP, C0P = 7, 32, 8  # ABPN x3: 7 layers, widest 28 -> Chp 32, 3 input channels -> 8
+
+
+@pytest.mark.parametrize("backend,policy,precision", MATRIX)
+def test_plan_cost_matches_jax(backend, policy, precision):
+    kw = dict(band_rows=BAND_ROWS, tile_cols=TILE_COLS, scale=SCALE, vertical_policy=policy,
+              precision=precision, backend=backend)
+    want = jengine.plan_cost(jengine.make_plan(JLAYERS, LR, **kw), JLAYERS, BATCH)
+    got = tengine.plan_cost(tengine.make_plan(TLAYERS, LR, **kw), TLAYERS, BATCH, device="cpu")
+    assert set(got) == set(want) == KEYS
+    for k in ("batch", "flops", "flops_per_frame", "weight_bytes_resident"):
+        assert got[k] == want[k], k
+    frames_in = BATCH * 24 * 32 * 3 * 4
+    hr_out = BATCH * 72 * 96 * 3 * 4
+    assert got["hbm_bytes"] >= frames_in + hr_out + got["weight_bytes_resident"]
+    assert got["hbm_bytes_per_frame"] == got["hbm_bytes"] // BATCH
+
+
+@pytest.mark.parametrize("backend,policy,flops", [
+    ("reference", "zero", 131_604_480), ("tilted", "zero", 164_505_600),
+    ("tilted", "replicate", 164_505_600), ("tilted", "halo", 356_428_800),
+    ("kernel", "zero", 247_726_080), ("kernel", "replicate", 247_726_080),
+    ("kernel", "halo", 536_739_840)])
+def test_plan_cost_flops_by_hand(backend, policy, flops):
+    """The counts the parity test finds, from the geometry: 2 x 9 x Ci x Co
+    per output pixel and layer.  ``reference`` runs the unpadded stack over
+    the frames; ``tilted`` its K = 5 tiles of 8 columns (the tilt's L - 1
+    extra columns); the plain K1 pads every layer to 32 x 32; ``halo`` runs
+    12 + 2 x 7 = 26 rows a band."""
+    plan = tengine.make_plan(TLAYERS, LR, band_rows=BAND_ROWS, tile_cols=TILE_COLS, scale=SCALE,
+                             vertical_policy=policy, backend=backend)
+    macs = sum(9 * l.ci * l.co for l in TLAYERS)  # 42,840 a pixel
+    rows = BAND_ROWS + 2 * L if policy == "halo" else BAND_ROWS
+    by_backend = {"reference": 24 * 32 * macs, "tilted": 2 * rows * 5 * TILE_COLS * macs,
+                  "kernel": 2 * rows * 5 * TILE_COLS * L * 9 * CHP * CHP}
+    assert 2 * BATCH * by_backend[backend] == flops
+    assert tengine.plan_cost(plan, TLAYERS, BATCH, device="cpu")["flops"] == flops
+
+
+def test_plan_cost_needs_cuda_or_an_explicit_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    plan = tengine.make_plan(TLAYERS, LR, band_rows=BAND_ROWS, scale=SCALE, backend="kernel")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tengine.plan_cost(plan, TLAYERS, BATCH)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tengine.plan_cost(plan, TLAYERS, BATCH, device="meta")
+
+
+@pytest.mark.parametrize("backend", ["tilted", "kernel"])
+def test_plan_cost_reuses_a_prepared_stack(backend, monkeypatch):
+    plan = tengine.make_plan(TLAYERS, LR, band_rows=BAND_ROWS, scale=SCALE, backend=backend,
+                             precision="bf16")
+    stack = tengine.prepare_stack(plan, TLAYERS)
+    want = tengine.plan_cost(plan, TLAYERS, BATCH, device="cpu")
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a given stack must not be prepared again")
+
+    monkeypatch.setattr("repro_torch.engine.executor.prepare_stack", refuse)
+    assert tengine.plan_cost(plan, None, BATCH, stack=stack, device="cpu") == want
+    assert want["weight_bytes_resident"] == stack.nbytes() == (86_070 if backend == "tilted"
+                                                               else 215_542)
+
+
+def test_plan_cost_is_the_sum_of_its_terms():
+    plan = tengine.make_plan(TLAYERS, LR, band_rows=BAND_ROWS, scale=SCALE, backend="kernel",
+                             vertical_policy="halo")
+    terms = tengine.plan_cost_terms(plan, TLAYERS, BATCH, device="cpu")
+    cost = tengine.plan_cost(plan, TLAYERS, BATCH, device="cpu")
+    (k1,) = terms["k1"]  # the whole batch is one launch
+    assert k1["plan"] == ttf.segment_plan(2 * BATCH, 5, TILE_COLS, L, sms=1)
+    assert terms["glue"]["flops"] == 0  # the glue multiplies nothing
+    assert terms["cost"] == cost
+    assert cost["flops"] == k1["flops"]
+    assert cost["hbm_bytes"] == terms["glue"]["hbm_bytes"] + k1["io_bytes"] + k1["workspace_bytes"]
+    assert k1["bytes"] == k1["io_bytes"] + k1["workspace_bytes"]
+    assert terms["glue"]["hbm_bytes"] > 0 and k1["workspace_bytes"] > 0
+
+
+# ----------------------------------------------------------------------
+# launch_cost
+# ----------------------------------------------------------------------
+def _meta_args(bands, rows, tiles, dtype=torch.float32, bounds=False):
+    meta = dict(device="meta", dtype=dtype)
+    args = (torch.empty((bands, rows, tiles * TILE_COLS, C0P), **meta),
+            torch.empty((bands, rows, 1, C0P), **meta),
+            torch.empty((L, 3, 3, CHP, CHP), **meta), torch.empty((L, CHP), **meta))
+    extra = dict(width=tiles * TILE_COLS - L + 1, tile_cols=TILE_COLS,
+                 relu_flags=[True] * (L - 1) + [False], add_anchor=False, in_channels=3)
+    if bounds:
+        extra["row_bounds"] = torch.empty((bands, 2), dtype=torch.int32, device="meta")
+    return args, extra
+
+
+@pytest.mark.parametrize("policy", ["zero", "replicate", "halo"])
+@pytest.mark.parametrize("segments", [1, 2, 3, "K"])
+def test_launch_cost_on_the_plain_route_equals_the_traced_plain(segments, policy):
+    """4 bands of 12 x 32 (K = 5 tiles; 26-row slabs with bounds under
+    halo): the FLOPs of ``tilted_fusion_plain`` on ``meta`` tensors, every
+    warm-up tile of the forced segments included."""
+    K = 5
+    S = K if segments == "K" else segments
+    rows = BAND_ROWS + 2 * L if policy == "halo" else BAND_ROWS
+    args, kw = _meta_args(4, rows, K, bounds=policy == "halo")
+    if policy == "replicate":
+        kw["row_policy"] = "replicate"
+    traced = trace_cost(ttf.tilted_fusion_plain, *args, segments=S, **kw)
+    plan = ttf.segment_plan(4, K, TILE_COLS, L, sms=1, segments=S)
+    got = ttf.launch_cost(plan, band_rows=rows, tile_cols=TILE_COLS, c0p=C0P, chp=CHP,
+                          num_layers=L, dtype=torch.float32, bounds=policy == "halo", plain=True)
+    assert got["flops"] == traced.flops
+    if policy != "halo" and S <= 3:
+        assert got["flops"] == {1: 247_726_080, 2: 332_660_736, 3: 375_128_064}[S]
+
+
+def test_launch_cost_counts_the_kernels_rows_and_channels():
+    """The card's count differs from the plain's in two ways only: layer 0
+    reads c0p channels, and an odd R runs one more row (items of 2 rows)."""
+    plan = ttf.segment_plan(3, 6, TILE_COLS, L, sms=4, segments=2)
+    common = dict(tile_cols=TILE_COLS, c0p=C0P, chp=CHP, num_layers=L, dtype=torch.float32)
+    tiles = ttf.launch_cost(plan, band_rows=13, **common)["tiles"]
+    assert tiles == 3 * (6 + plan.warmup)  # the second segment re-runs w tiles
+    per_tile = 2 * TILE_COLS * 9 * CHP * (CHP - C0P)  # layer 0's padding, a row
+    card = ttf.launch_cost(plan, band_rows=14, **common)["flops"]
+    plain = ttf.launch_cost(plan, band_rows=14, plain=True, **common)["flops"]
+    assert plain - card == tiles * 14 * per_tile
+    assert ttf.launch_cost(plan, band_rows=13, **common)["flops"] == card
+    assert ttf.launch_cost(plan, band_rows=13, plain=True, **common)["flops"] == plain * 13 // 14
+
+
+@pytest.mark.parametrize("bounds", [False, True], ids=["no_bounds", "bounds"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_launch_cost_io_bytes_are_the_wrapper_tensors(dtype, bounds):
+    """(a) is the bytes of what the wrapper is given (stream, first column,
+    packed weights and bias, int32 bounds) and of what it returns."""
+    layers = [l.to(dtype=dtype) for l in init_abpn(torch.Generator().manual_seed(0))]
+    packed = ops.pack_stack(layers, dtype=dtype)
+    frame = torch.rand((1, 24, 32, 3), generator=torch.Generator().manual_seed(1)).to(dtype)
+    if bounds:
+        from repro_torch.core.fusion import halo_slabs
+
+        xb, row_bounds = halo_slabs(frame, BAND_ROWS, L)
+    else:
+        xb, row_bounds = frame.reshape(2, BAND_ROWS, 32, 3), None
+    xs, first = ops.band_streams(xb, TILE_COLS, L)
+    out = ttf.tilted_fusion_call(xs, first, packed.w, packed.b, width=32, tile_cols=TILE_COLS,
+                                 relu_flags=list(packed.relu), add_anchor=False, in_channels=3,
+                                 row_bounds=row_bounds)
+    tensors = [xs, first, packed.w, packed.b, out]
+    if bounds:
+        tensors.append(row_bounds.to(torch.int32))
+    plan = ttf.segment_plan(xs.shape[0], xs.shape[2] // TILE_COLS, TILE_COLS, L, sms=1)
+    got = ttf.launch_cost(plan, band_rows=xs.shape[1], tile_cols=TILE_COLS, c0p=xs.shape[3],
+                          chp=packed.chp, num_layers=L, dtype=dtype, bounds=bounds)
+    assert got["io_bytes"] == sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _walk_the_source(plan, R, C, c0p, chp, L, bounds):
+    """Elements (and bound ints) one launch reads and writes beyond (a),
+    walking ``csrc/tilted_fusion.cu`` loop by loop: each loop over a buffer
+    touches each element once."""
+    SC = C + 2
+    wsz = 9 * chp * chp
+    elems = ints = 0
+    for _ in range(plan.bands):
+        for kw, k0, k1 in plan.ranges():
+            ints += 2 if bounds else 0
+            elems += L * chp * R * 2  # queue start state written
+            elems += R * c0p * (1 if kw == 0 else 2)  # its input columns read
+            elems += wsz  # the first weight stage
+            steps = 0
+            for k in range(kw, k1):
+                nl = L - 1 if k < k0 else L
+                elems += c0p * R * SC + c0p * R * 2 + R * C * c0p  # fill: slab, queue, stream
+                elems += 2 * c0p * R * 2  # slot 0 stored: slab read, queue written
+                for l in range(nl):
+                    steps += 1
+                    cin = c0p if l == 0 else chp
+                    elems += cin * R * SC + chp  # slab read, bias
+                    if l < L - 1:
+                        elems += 2 * chp * R * 2  # carried columns in
+                        elems += chp * R * C  # interior stored
+                        elems += 2 * chp * R * 2  # queue slot stored
+            elems += (steps - 1) * wsz  # a prefetch at every step but the last
+    # (a) once: stream, first column, weights and bias; the output is (a) alone
+    K = plan.tiles
+    elems -= plan.bands * R * (K * C * c0p + c0p) + L * (wsz + chp)
+    ints -= 2 * plan.bands if bounds else 0
+    return elems, ints
+
+
+@pytest.mark.parametrize("bounds", [False, True], ids=["no_bounds", "bounds"])
+@pytest.mark.parametrize("segments", [1, 2, 3, 7])
+def test_launch_cost_workspace_bytes_walk_the_kernels_loops(segments, bounds):
+    plan = ttf.segment_plan(3, 7, TILE_COLS, L, sms=8, segments=segments)
+    elems, ints = _walk_the_source(plan, 13, TILE_COLS, C0P, CHP, L, bounds)
+    for dtype in (torch.float32, torch.bfloat16):
+        got = ttf.launch_cost(plan, band_rows=13, tile_cols=TILE_COLS, c0p=C0P, chp=CHP,
+                              num_layers=L, dtype=dtype, bounds=bounds)
+        assert got["workspace_bytes"] == elems * dtype.itemsize + 4 * ints
+
+
+def test_the_wrapper_on_meta_tensors_records_and_launches_nothing():
+    args, kw = _meta_args(4, BAND_ROWS, 5, dtype=torch.bfloat16, bounds=True)
+    before = ttf.tilted_fusion_call.launches
+    with ttf.record_launches() as launches:
+        out = ttf.tilted_fusion_call(*args, segments=2, **kw)
+    assert out.device.type == "meta" and out.dtype == torch.bfloat16
+    assert tuple(out.shape) == (4, BAND_ROWS, 5 * TILE_COLS, CHP)
+    assert launches == [ttf.Launch(bands=4, band_rows=BAND_ROWS, tiles=5, tile_cols=TILE_COLS,
+                                   c0p=C0P, chp=CHP, num_layers=L, dtype=torch.bfloat16,
+                                   bounds=True, segments=2)]
+    assert launches[0].out_bytes == out.numel() * out.element_size()
+    ttf.tilted_fusion_call(*args, **kw)  # outside the block: nothing recorded
+    assert len(launches) == 1 and ttf.tilted_fusion_call.launches == before
+
+
+class _Allocations(TorchDispatchMode):
+    """The largest tensor any operator makes off ``meta``."""
+
+    def __init__(self):
+        super().__init__()
+        self.largest = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in (out if isinstance(out, (list, tuple)) else [out]):
+            if isinstance(t, torch.Tensor) and t.device.type != "meta":
+                self.largest = max(self.largest, t.numel() * t.element_size())
+        return out
+
+
+@pytest.mark.parametrize("backend,policy", [("reference", "zero"), ("tilted", "zero"),
+                                            ("tilted", "halo"), ("kernel", "zero"),
+                                            ("kernel", "halo"), ("kernel", "replicate")])
+def test_plan_cost_at_the_design_point_traces_meta_frames_only(backend, policy, monkeypatch):
+    """360x640, batch 8: no frame buffer (nothing off ``meta`` as large as
+    one LR frame) and, on the kernel backend, K1 counted once by
+    ``launch_cost``, its plain tile loop never run."""
+    layers = init_abpn(torch.Generator().manual_seed(0))
+    plan = tengine.make_plan(layers, (360, 640, 3), backend=backend, vertical_policy=policy,
+                             scale=SCALE)
+    calls = []
+    counted = ttf.launch_cost
+
+    def spy(*args, **kwargs):
+        calls.append(kwargs)
+        return counted(*args, **kwargs)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("plan_cost must not run the plain tile loop")
+
+    monkeypatch.setattr(ttf, "launch_cost", spy)
+    monkeypatch.setattr(ttf, "tilted_fusion_plain", refuse)
+    with _Allocations() as seen:
+        cost = tengine.plan_cost(plan, layers, 8, device="cpu")
+    assert seen.largest < 360 * 640 * 3 * 4
+    assert len(calls) == (1 if backend == "kernel" else 0)
+    if backend == "kernel":
+        assert calls[0]["plain"] and calls[0]["band_rows"] == (74 if policy == "halo" else 60)
+    assert cost["flops_per_frame"] >= 2 * 360 * 640 * sum(9 * l.ci * l.co for l in layers)
