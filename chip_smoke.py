@@ -12,9 +12,9 @@ each of their parts to the end and then fail with every failure listed):
 1. environment — ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build — compiles every CUDA kernel from ``src/repro_torch/kernels/csrc``
    with nvcc (one process per source, started together) and prints each
-   template instance's registers, stack, shared and local memory, K1's
-   resident CTAs per SM for each instance, and K2's shared memory per CTA
-   and resident CTAs per SM;
+   template instance's registers, stack, shared and local memory, and K1's
+   and K2's dynamic shared memory per CTA and resident CTAs per SM for each
+   instance;
 3. K1 vs plain — K1 against ``tilted_fusion_plain`` on the card at the
    design point (the 6 bands of a 360x640 frame under zero and replicate,
    the 74-row halo slabs with bounds, the anchor) in fp32 (max abs diff
@@ -208,10 +208,11 @@ each of their parts to the end and then fail with every failure listed):
 4a. plan_cost — ``engine.plan_cost`` on the card for phase 4's seven
    served configurations at 1 and 8 frames of 360x640: per frame its FLOPs
    and device-memory bytes (the glue's eager operators, K1's arguments and
-   result (a) and its workspace, restaged weights and re-read inputs (b)),
-   the bound ``max(FLOPs / fp32 peak, bytes / memory rate)`` and the
-   serving executor's device time queued behind a sleep; bound / measured
-   must not pass 1.05.  Beside them, not held: ``autotune.predict_cost``'s
+   result (a) and its workspace, weight stages and windows (b)), the bound
+   ``max(K1's FLOPs at its precision's tensor-core rate (TF32 / 3 for fp32
+   and int8, bf16 for bf16) + the glue's at the fp32 peak, bytes / memory
+   rate)`` and the serving executor's device time queued behind a sleep;
+   bound / measured must not pass 1.05.  Beside them, not held: ``autotune.predict_cost``'s
    per-frame counts, the layer-by-layer K2 path's bytes a frame and K1's
    reductions from it next to ``core.analysis.dram_reduction()``; a
    ``plan_cost: {...}`` JSON line (kept out of the kernels line: most of
@@ -220,14 +221,16 @@ each of their parts to the end and then fail with every failure listed):
    frames (fp32 and bf16, automatic segment plan: its segments, CTAs,
    warm-up tiles and their share of the executed tiles, the FLOPs it
    executes from ``engine.plan_cost`` less the glue, held to the hand
-   count of K1_EXECUTED_FLOPS where the plan is the H100's) four ways: one
+   count of K1_EXECUTED_FLOPS, which must hold the card's plan) four ways: one
    launch between two events, host time of the wrapper included (the
    kernels line's ``ms``); launches queued behind a
    device sleep (device time only); the wrapper's host time per call; the
    kernel's duration in ``torch.profiler``.  Beside it its plain version,
    the same conv stack as cuDNN calls (``library_ms``, the yardstick only,
-   timed both ways) and K1's bound from the unpadded ABPN work.  K1 at
-   forced segment counts 1..81 (device time) beside the plan's cost model.
+   timed both ways) and K1's bounds from the unpadded ABPN work (3xTF32 on
+   the tensor cores, the kernels line's; fp32 on the CUDA cores).  K1 at
+   forced segment counts 1..81 (device time) beside the plan's cost model,
+   fp32 and bf16 (whose CTAs share an SM: SHARED_SM_TILE_COST).
    K2 per launch at the 3->28, 28->28 and 28->27 shapes and the 7-launch
    stack per 360x640 frame, fp32 and bf16, each beside its tensor-core
    bound (fp32 as 3xTF32), the CUDA-core bound, its plain version and
@@ -277,8 +280,9 @@ def peaks_for(name):
     ``repro_torch.roofline.report.PEAKS`` (the H100 SXM5 data sheet, dense:
     fp32 on the CUDA cores, TF32 and bf16 on the tensor cores in FLOP/s,
     device memory in bytes/s and bytes, NVLink in bytes/s each way).  K1
-    runs fp32 FMAs on the CUDA cores for fp32 and bf16 plans alike; K2 runs
-    on the tensor cores (fp32 as 3xTF32)."""
+    and K2 run on the tensor cores: bf16 plans at the bf16 rate, fp32 (and
+    int8, which computes in fp32) as 3xTF32, three TF32 products for each
+    fp32 product."""
     from repro_torch.roofline import report
 
     return report.peaks_for(name)
@@ -1860,9 +1864,11 @@ def dryrun_and_roofline(torch, dev, smi):
 
 
 # The seven configurations phase 4 serves; phase 4a counts each with
-# engine.plan_cost on the card, at 1 and 8 frames of 360x640.  K1's FMAs run on
-# the CUDA cores in every precision, so the bound takes the fp32 peak; the
-# glue's traffic, like K1's, is at the device-memory rate.
+# engine.plan_cost on the card, at 1 and 8 frames of 360x640.  K1's products
+# run on the tensor cores, so its FLOPs take the tensor-core rate of its
+# precision: the TF32 peak over 3 for fp32 and int8 (3xTF32), the bf16 peak
+# for bf16; the glue's FLOPs (none on the serving path) the fp32 peak; every
+# byte, the glue's and K1's, the device-memory rate.
 SERVED = (("fp32", "zero"), ("bf16", "zero"), ("int8", "zero"), ("fp32", "halo"),
           ("fp32", "replicate"), ("bf16", "halo"), ("int8", "halo"))
 PLAN_COST_SHARE_MAX = 1.05  # above it the count would be below the work done
@@ -1870,6 +1876,11 @@ PLAN_COST_SHARE_MAX = 1.05  # above it the count would be below the work done
 # H100 SXM (132 SMs) picks, counted by hand from csrc/tilted_fusion.cu's
 # loops: (frames, K, S, w) -> FLOPs.  Phase 5 holds plan_cost to them.
 K1_EXECUTED_FLOPS = {(1, 81, 21, 2): 38_021_529_600, (8, 81, 5, 2): 232_827_125_760}
+
+
+def k1_flops_per_s(peaks, prec):
+    """The rate K1's FLOPs run at: the tensor cores' for its precision."""
+    return peaks["bf16"] if prec == "bf16" else peaks["tf32"] / 3
 
 
 def served_plan_costs(torch, engine, dev, layers, peaks):
@@ -1905,8 +1916,11 @@ def served_plan_costs(torch, engine, dev, layers, peaks):
             require(len(terms["k1"]) == 1, f"{prec}/{policy}: one K1 launch a call")
             k1 = terms["k1"][0]
             ms = device_ms(torch, lambda: execute(frames[n]), calls=5, rounds=3)
-            bound_ms, bound_by = bound(cost["flops"], cost["hbm_bytes"], peaks["fp32"],
-                                       peaks["bytes"])
+            ops_ms = 1e3 * (k1["flops"] / k1_flops_per_s(peaks, prec)
+                            + terms["glue"]["flops"] / peaks["fp32"])
+            bytes_ms = 1e3 * cost["hbm_bytes"] / peaks["bytes"]
+            bound_ms = max(ops_ms, bytes_ms)
+            bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
             share = bound_ms / ms
             pred = predict_cost(plan, layers, n, n, peaks=card_peaks)
             row = dict(flops_per_frame=cost["flops_per_frame"],
@@ -2007,13 +2021,17 @@ def main() -> int:
                                capture_output=True, text=True, timeout=120)
         label, shown = None, 0
         for line in usage.stdout.splitlines():
-            # K1 instances are <dtype, Chp> (..._kernelIfLi32EE...), K2's
-            # <dtype, taps folded into K> (..._kernelIfLb1EE...)
-            m = re.search(r"_kernelI(f|13__nv_bfloat16)(?:Li(\d+)E)?(?:Lb([01])E)?E", line)
+            # K1's instances (and its weight packing's) are <dtype, Chp>
+            # (..._kernelIfLi32EE...), K2's <dtype, taps folded into K>
+            # (..._kernelIfLb1EE...)
+            # (the name's own length prefix, not the namespace's, precedes it)
+            m = re.search(r"\d+((?:tilted_fusion|pack_weights|conv3x3)\w*?_kernel)"
+                          r"I(f|13__nv_bfloat16)(?:Li(\d+)E)?(?:Lb([01])E)?E", line)
             if m:
-                label = "<" + ("fp32" if m.group(1) == "f" else "bf16") + (
-                    f", chp {m.group(2)}" if m.group(2) else "") + (
-                    {"1": ", folded", "0": ", per tap"}[m.group(3)] if m.group(3) else "") + ">"
+                label = m.group(1) + " <" + (
+                    "fp32" if m.group(2) == "f" else "bf16") + (
+                    f", chp {m.group(3)}" if m.group(3) else "") + (
+                    {"1": ", folded", "0": ", per tap"}[m.group(4)] if m.group(4) else "") + ">"
             res = re.search(r"REG:\d+ STACK:\d+ SHARED:\d+ LOCAL:\d+", line)
             if res and label:
                 print(f"  {name} {label}: {res.group(0)}")
@@ -2022,12 +2040,13 @@ def main() -> int:
             print(f"  cuobjdump (exit {usage.returncode}) reported no resource usage: "
                   f"{(usage.stdout + usage.stderr).strip()[:300]!r}")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    k1_blocks = {}
+    k1_blocks, k1_smem = {}, {}
     for prec, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         for chp_ in ttf.SUPPORTED_CHP:
             k1_blocks[f"{prec}/chp{chp_}"] = ttf.blocks_per_sm(dev, dt, chp_)
-    print(f"  tilted_fusion resident CTAs per SM ({ttf.THREADS} threads, {sms} SMs): "
-          + ", ".join(f"<{k}> {v}" for k, v in k1_blocks.items()))
+            k1_smem[f"{prec}/chp{chp_}"] = ttf.shared_bytes(chp_, dt)
+    print(f"  tilted_fusion ({ttf.THREADS} threads, {sms} SMs): " + ", ".join(
+        f"<{k}> {k1_smem[k]} B shared memory, {v} CTAs per SM" for k, v in k1_blocks.items()))
     k2_occ = {}
     for prec, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         for kind, ci_ in (("folded", 3), ("per tap", 28)):
@@ -2794,6 +2813,16 @@ def main() -> int:
                 xs, first, packed.w, packed.b, segments=segs, **kw), calls=5),
                 ctas=sp.ctas, cost=sp.cost, workspace_mb=sp.ctas * kb_per_cta / 1e6)
         best = min(sweep, key=lambda k: sweep[k]["ms"])
+        # the bf16 instance, whose CTAs share an SM, at the same counts: the
+        # time per tile of a CTA that shares its SM over one alone on it is
+        # what SHARED_SM_TILE_COST models
+        sweep16 = {}
+        for segs in sorted({1, 2, 4, 5, 8, 16, 21, 22, 41, 44, 81, plan16.segments}):
+            sp = ttf.launch_plan(xs16, packed16.w, tile_cols=C, segments=segs)
+            longest = max(k1_ - kw_ for kw_, _, k1_ in sp.ranges())
+            sweep16[segs] = dict(ms=device_ms(torch, lambda: kcall(
+                xs16, first16, packed16.w, packed16.b, segments=segs, **kw), calls=5),
+                ctas=sp.ctas, cost=sp.cost, longest=longest)
         # the search over S = 1..K through segment_plan, uncached: what the
         # wrapper ran on the host at every launch before it cached the plan
         t0 = time.perf_counter()
@@ -2815,6 +2844,15 @@ def main() -> int:
         print(f"batch {n}: sweep best S={best} {sweep[best]['ms']:.3f} ms; automatic S="
               f"{plan.segments} {sweep[plan.segments]['ms']:.3f} ms "
               f"({100 * (sweep[plan.segments]['ms'] / sweep[best]['ms'] - 1):.1f}% above the best)")
+        best16 = min(sweep16, key=lambda k: sweep16[k]["ms"])
+        print(f"batch {n}: K1 forced S sweep (bf16, {k1_blocks['bf16/chp32']} CTAs per SM, "
+              f"device time): " + "; ".join(
+                  f"S={k} {v['ctas']} CTAs, {v['longest']} tiles a CTA, cost {v['cost']:g} -> "
+                  f"{v['ms']:.3f} ms ({v['ms'] / v['longest']:.4f} ms per tile of the longest "
+                  f"CTA)" for k, v in sweep16.items())
+              + f"; best S={best16}, automatic S={plan16.segments} "
+              f"({100 * (sweep16[plan16.segments]['ms'] / sweep16[best16]['ms'] - 1):.1f}% "
+              f"above the best)")
         plain_ms = time_ms(torch, lambda: ttf.tilted_fusion_plain(
             xs, first, packed.w, packed.b, **kw), reps=3)
         nchw = xb.permute(0, 3, 1, 2).contiguous()
@@ -2847,19 +2885,21 @@ def main() -> int:
         executed = terms["k1"][0]["flops"]
         require(executed == terms["cost"]["flops"] - terms["glue"]["flops"],
                 f"batch {n}: plan_cost less the glue must be K1's FLOPs")
-        want = K1_EXECUTED_FLOPS.get((n, plan.tiles, plan.segments, plan.warmup))
-        if want is not None:
-            require(executed == want, f"batch {n}: K1 executes {executed} FLOPs, "
-                                      f"{want} by hand for this plan")
+        key = (n, plan.tiles, plan.segments, plan.warmup)
+        require(key in K1_EXECUTED_FLOPS, f"batch {n}: the card's plan (frames, K, S, w) = "
+                                          f"{key} has no hand count in K1_EXECUTED_FLOPS")
+        require(executed == K1_EXECUTED_FLOPS[key], f"batch {n}: K1 executes {executed} "
+                f"FLOPs, {K1_EXECUTED_FLOPS[key]} by hand for this plan")
         bound_ms, bound_by = bound(flops, nbytes, peak_flops, peak_bw)
         # the same work on the tensor cores, fp32 as 3xTF32 (three TF32
         # products per fp32 product): what a tensor-core K1 would be held to
-        bound_tc_ms, _ = bound(3 * flops, nbytes, peaks["tf32"], peak_bw)
+        bound_tc_ms, bound_tc_by = bound(3 * flops, nbytes, peaks["tf32"], peak_bw)
         timings[n] = dict(k1=k1, plain_ms=plain_ms, lib_ms=lib_ms, lib_device_ms=lib_device_ms,
                           bound_ms=bound_ms, bound_by=bound_by, bound_tc_ms=bound_tc_ms,
-                          flops=flops, bytes=nbytes,
+                          bound_tc_by=bound_tc_by, flops=flops, bytes=nbytes,
                           bands=B, segments=plan.segments, ctas=plan.ctas,
-                          sweep_ms={k: v["ms"] for k, v in sweep.items()})
+                          sweep_ms={k: v["ms"] for k, v in sweep.items()},
+                          sweep_bf16_ms={k: v["ms"] for k, v in sweep16.items()})
         prof = "not recorded" if k1["profiler_ms"] is None else f"{k1['profiler_ms']:.3f} ms"
         print(f"batch {n} ({B} bands of {R}x{W}, fp32, zero): K1 {k1['ms']:.3f} ms for one "
               f"launch between two events; {k1['device_ms']:.3f} ms device time queued "
@@ -2873,7 +2913,7 @@ def main() -> int:
               f"{peak_flops / 1e12:.0f} TFLOP/s, {peak_bw / 1e12:.2f} TB/s) -> "
               f"{100 * bound_ms / k1['ms']:.1f}% of bound one launch, "
               f"{100 * bound_ms / k1['device_ms']:.1f}% queued; tensor-core bound (3xTF32) "
-              f"{bound_tc_ms:.3f} ms; "
+              f"{bound_tc_ms:.3f} ms -> {100 * bound_tc_ms / k1['device_ms']:.1f}% queued; "
               f"K1 executes {executed / 1e9:.2f} GFLOP with padding and warm-up (plan_cost)")
 
     # K2, the layer-by-layer baseline, on one 360x640 frame: per layer shape
@@ -3125,9 +3165,11 @@ def main() -> int:
         "max_abs_err_bf16": worst["bf16"],
         "ms": t8["k1"]["ms"],
         "plain_ms": t8["plain_ms"],
-        "bound_ms": t8["bound_ms"],
-        "bound_by": t8["bound_by"],
-        "bound_tensor_core_ms": t8["bound_tc_ms"],
+        "bound_ms": t8["bound_tc_ms"],
+        "bound_by": t8["bound_tc_by"],
+        "bound_note": "bound_ms: fp32 as 3xTF32 on the tensor cores, K1's route; "
+                      "bound_cuda_core_ms: fp32 FMAs on the CUDA cores",
+        "bound_cuda_core_ms": t8["bound_ms"],
         "library_ms": t8["lib_ms"],
         "shape": f"8 frames {H}x{W}: {t8['bands']} bands, fp32, zero",
         "timing": "ms, bf16_ms, library_ms: one call between two CUDA events, host time "
@@ -3145,9 +3187,10 @@ def main() -> int:
         "batch1": {"segments": timings[1]["segments"], "ctas": timings[1]["ctas"],
                    **timings[1]["k1"], "library_ms": timings[1]["lib_ms"],
                    "library_device_ms": timings[1]["lib_device_ms"],
-                   "bound_ms": timings[1]["bound_ms"],
-                   "bound_tensor_core_ms": timings[1]["bound_tc_ms"]},
+                   "bound_ms": timings[1]["bound_tc_ms"],
+                   "bound_cuda_core_ms": timings[1]["bound_ms"]},
         "segment_sweep_device_ms": {n: timings[n]["sweep_ms"] for n in (1, 8)},
+        "segment_sweep_bf16_device_ms": {n: timings[n]["sweep_bf16_ms"] for n in (1, 8)},
         "bytes_per_frame": timings[1]["bytes"],
         "server_fps": server_fps,
         "main_path": per_config,

@@ -22,10 +22,11 @@ Invariant families, each reported as :class:`Finding`\\ s:
   - On the ``kernel`` backend, an **error** when K1's shared memory per
     CTA exceeds :data:`SMEM_PER_BLOCK_BYTES` (227 KB, the H100's opt-in
     limit of one CTA): the launch would fail.  K1
-    (``kernels.tilted_fusion.kernel_buffers``) holds two fp32 stages of one
-    layer's weights, ``2 * 9 * Chp^2 * 4`` bytes (73,728 at Chp = 32); its
-    slabs and overlap queue are per-CTA workspace in device memory, so R
-    does not enter.  The reference instead makes a past-budget R an error,
+    (``kernels.tilted_fusion.kernel_buffers``) holds two stages of one
+    layer's packed weights (fp32 as TF32 hi and lo words) and two input
+    windows of 320 pixels: 229,632 bytes at Chp = 32 in fp32 and int8,
+    88,320 in bf16; its slabs and overlap queue are per-CTA workspace in
+    device memory, so R does not enter.  The reference instead makes a past-budget R an error,
     because its Pallas kernel's VMEM scratch grows with R; on the card
     nothing on chip does.  Fewer resident CTAs per SM than the build's
     ``__launch_bounds__`` ask for would only lower occupancy, so it is no
@@ -33,7 +34,8 @@ Invariant families, each reported as :class:`Finding`\\ s:
     memory depends only on the precision (at most 204,544 B, fp32 per tap).
   - On both banded backends, a **warning** when K1's per-CTA working set
     in the paper's units (one byte an element: the two ping-pong slabs,
-    the overlap queue and the two shared-memory weight stages) exceeds
+    the overlap queue, the two shared-memory weight stages and the two
+    input windows) exceeds
     Table II's 102.36 KB by more than :data:`BUDGET_TOLERANCE`.  Advisory:
     the slabs and the queue live in device memory (cached in L1/L2), not
     in a fixed SRAM.  So a ``kernel`` plan at ``band_rows=120`` warns and
@@ -113,9 +115,10 @@ def _default_channels(plan) -> List[int]:
 
 def _k1_table2_elements(report: dict) -> int:
     """K1's per-CTA working set in elements: the two ping-pong slabs and the
-    overlap queue (its workspace) and the two shared-memory weight stages."""
+    overlap queue (its workspace), and in shared memory the two weight
+    stages and the two input windows."""
     chp = report["chp"]
-    return report["workspace_elements"] + 2 * 9 * chp * chp
+    return report["workspace_elements"] + 2 * 9 * chp * chp + 2 * report["window_elements"]
 
 
 def plan_buffer_report(plan, channels: Optional[Sequence[int]] = None) -> dict:
@@ -123,11 +126,15 @@ def plan_buffer_report(plan, channels: Optional[Sequence[int]] = None) -> dict:
     :func:`~repro_torch.kernels.tilted_fusion.kernel_buffers` (per CTA, and
     for a launch over the frame's bands, with its ``shared_bytes``) and its
     per-CTA working set in elements (``table2_elements``)."""
+    import torch
+
     from repro_torch.kernels.tilted_fusion import kernel_buffers
 
     chans = list(channels) if channels else _default_channels(plan)
+    # bf16 computes in bf16; fp32 and int8 (dequantised) in fp32
+    dtype = torch.bfloat16 if plan.precision == "bf16" else torch.float32
     report = kernel_buffers(channels=chans, band_rows=plan.band_rows,
-                            tile_cols=plan.tile_cols, bands=plan.num_bands)
+                            tile_cols=plan.tile_cols, bands=plan.num_bands, dtype=dtype)
     report["table2_elements"] = _k1_table2_elements(report)
     return report
 
@@ -263,8 +270,22 @@ def _check_schedule(plan, findings: List[Finding], where: str) -> None:
 
 
 def _check_shared_memory(plan, report: dict, findings: List[Finding], where: str) -> None:
-    """The hard rule of the ``kernel`` backend: K1's shared memory fits one
-    CTA."""
+    """The hard rules of the ``kernel`` backend: K1's shared memory fits one
+    CTA, and a 3-row window of the plan's tile width fits K1's window."""
+    from repro_torch.kernels.tilted_fusion import MAX_TILE_COLS, WINDOW_PIXELS
+
+    if plan.tile_cols > MAX_TILE_COLS:
+        findings.append(Finding(
+            checker="plan",
+            rule="on_chip_budget",
+            severity="error",
+            message=(
+                f"tilted_fusion takes tile_cols <= {MAX_TILE_COLS}: a row block's "
+                f"{WINDOW_PIXELS}-pixel window holds no 3 x {plan.tile_cols + 2} window "
+                f"of tile_cols={plan.tile_cols}; the launch would fail"
+            ),
+            where=where,
+        ))
     per_cta = report["shared_bytes"]
     if per_cta > SMEM_PER_BLOCK_BYTES:
         findings.append(Finding(
@@ -364,7 +385,8 @@ def table2_crosscheck(
       memory, so there is no buffer to count.
     * ``kernel_padded_total_kb`` — K1's per-CTA working set: the two
       ping-pong slabs and the overlap queue at padded channels, plus the
-      two shared-memory weight stages; ``budget_ratio`` = that over the
+      two shared-memory weight stages and the two input windows;
+      ``budget_ratio`` = that over the
       Table II total, bounded by ``1 + BUDGET_TOLERANCE`` at the design
       point.
     """

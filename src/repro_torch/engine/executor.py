@@ -531,7 +531,7 @@ def plan_cost_terms(
         cost = ttf.launch_cost(segments, band_rows=launch.band_rows, tile_cols=launch.tile_cols,
                                c0p=launch.c0p, chp=launch.chp, num_layers=launch.num_layers,
                                dtype=launch.dtype, bounds=launch.bounds,
-                               plain=dev.type == "cpu")
+                               replicate=launch.replicate, plain=dev.type == "cpu")
         k1.append(dict(cost, plan=segments))
     glue_bytes = traced.bytes_accessed - sum(launch.out_bytes for launch in launches)
     flops = traced.flops + sum(k["flops"] for k in k1)

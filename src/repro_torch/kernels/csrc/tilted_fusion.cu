@@ -1,50 +1,89 @@
 // Tilted layer fusion on Hopper (sm_90a): the fused L-layer 3x3 conv stack
-// swept over a band by tilted column tiles.
+// swept over a band by tilted column tiles, on the tensor cores.
 //
 // Replaces: src/repro/kernels/tilted_fusion.py::tilted_fusion_kernel, the
 // Pallas TPU kernel launched by tilted_fusion_call over grid (band, tile k).
 //
 // What bounds it on this card: arithmetic.  ABPN x3 is 42,840 MAC per LR
-// pixel; padded to Chp = 32 channels a 360x640 frame is ~29.7 GFLOP against
-// ~30 MB of output, so the FP32 units (67 TFLOP/s on an H100 SXM) are the
-// roofline, not the 3.35 TB/s of device memory.  The second limit is
-// parallelism: the overlap queue carries state from tile k to tile k+1, so a
-// band is one sequential sweep, and a 360-row frame has only 6 bands.
+// pixel; a 360x640 frame is 19.7 GFLOP (38.0 as executed: Chp = 32 padding
+// and warm-up tiles) against ~30 MB of output.  On the tensor cores (495
+// TFLOP/s TF32, 989 bf16; 3.35 TB/s) fp32 as 3xTF32 (three TF32 products per
+// fp32 product) is bound by operations, 0.120 ms a frame for the unpadded
+// work; bf16 is bound by its bytes.  The second limit is parallelism: the
+// overlap queue carries state from tile k to tile k+1, so a band is one
+// sequential sweep, and a 360-row frame has only 6 bands.
 //
 // What this design does about it:
-//   * column segments: each band's K tiles are cut into S contiguous
-//     segments [k0, k1) of near-equal length (k0 = seg*K/S, rounded down),
-//     and each (band, segment) pair is one CTA, so B*S CTAs fill the SMs
-//     where one CTA per band would fill B of them.  A segment that starts at
-//     k0 >= w restarts the sweep at kw = k0 - w with w = ceil((2L-1)/C)
-//     warm-up tiles: the F_0 slot of the overlap queue holds the true input
-//     columns kw*C-1 and kw*C, the deeper layers' slots start at zero, and
-//     tiles kw..k0-1 run layers 0..L-2 and store nothing.  A wrong carried
-//     column of F_l reaches at most one more column per layer, so after w
-//     tiles (w*C >= 2L-1 columns) every column a layer carries into tile k0
-//     is the full sweep's, bit for bit; the output does not depend on S.
-//     A segment with k0 < w starts at tile 0 with the band-start state.
-//   * the tile loop runs inside the CTA, with __syncthreads() between
-//     layers (the TPU's in-order grid axis becomes a loop, since CTAs run in
-//     no order).  Bands and segments are independent, so nothing crosses
-//     CTAs.
-//   * carried state lives in a per-CTA device-memory workspace the wrapper
-//     allocates (B*S of them): two ping-pong slabs (Chp, R, C+2) and the
-//     overlap queue (L, Chp, R, 2).  Shared memory holds only two stages of
-//     one layer's weights (fp32, 2 x 9 x Chp x Chp), so its size does not
-//     depend on R and every band height the planner derives (divisors up to
-//     60, 74-row halo slabs, a one-band fallback of any height) launches.
-//   * every product and sum is an fp32 FMA on the CUDA cores — no TF32, no
-//     tensor cores; bf16 plans store inputs, weights and carried feature
-//     maps in bf16 and round each layer's masked output to bf16.
-//   * each thread owns kPix vertically adjacent output pixels x all Chp
-//     output channels in registers; weights are broadcast from shared
-//     memory as float4.
-// Left for later work: tensor cores (wgmma), TMA and shared-memory slabs.
-//
-// The anchor (add_anchor) is read straight from the input stream: the ring
-// the TPU kernel keeps holds exactly input columns [kC-L+1, kC+C], which are
-// still in device memory here.
+//   * column segments (unchanged from the FMA design): each band's K tiles
+//     are cut into S contiguous segments [k0, k1) of near-equal length
+//     (k0 = seg*K/S, rounded down), and each (band, segment) pair is one
+//     CTA, so B*S CTAs fill the SMs.  A segment that starts at k0 >= w
+//     restarts the sweep at kw = k0 - w with w = ceil((2L-1)/C) warm-up
+//     tiles: F_0 is read from the input stream, the deeper layers' carried
+//     columns start at zero, and tiles kw..k0-1 run layers 0..L-2 and store
+//     nothing.  A wrong carried column of F_l reaches at most one more
+//     column per layer, so after w tiles every column a layer carries into
+//     tile k0 is the full sweep's, bit for bit; the output does not depend
+//     on S.  A segment with k0 < w starts at tile 0 with the band-start state.
+//   * every layer's nine shifted (pixels, Chp) @ (Chp, Chp) products run on
+//     the tensor cores through mma.sync.  The tile's R x C output pixels,
+//     row-major, are cut into m16 fragments of 16 consecutive pixels (two
+//     rows at C = 8); N = Chp is Chp/8 n8 blocks.  bf16: m16n8k16 (bf16
+//     products are exact in fp32), each tap's k-steps summed by the MMAs
+//     from zero and the tap's partial added to the accumulator in fp32, as
+//     the plain version adds its nine products.  fp32 (and int8,
+//     which computes in fp32): m16n8k8 TF32 three times (3xTF32), each
+//     operand split into hi = tf32(a) and lo = tf32(a - hi), rounded as
+//     cvt.rna.tf32.f32 rounds, summed lo*hi + hi*lo + hi*hi, small terms
+//     first.  Layer 0 reads c0p channels, padded to the MMA's k (8 in TF32,
+//     16 in bf16, the pad zero-filled): one k-step a tap at c0p = 8.
+//     Every output element is summed in one order (tap, k-step, term)
+//     wherever its pixel falls in a fragment, tile, segment or band.
+//   * weights packed once per launch.  A first small kernel writes every
+//     layer's B fragments, already in the mma register layout (fp32: split
+//     into hi and lo words here, once, not at every use) with its bias as
+//     fp32, into the head of the workspace.  Each (tile, layer) step copies
+//     its layer's stage into shared memory with cp.async, one step ahead,
+//     into the other of two stages.
+//   * pixel-major workspace in device memory (per CTA, the wrapper
+//     allocates B*S of them after the packed weights): two ping-pong slabs
+//     (R, C, Chp) that hold a layer's C fresh output columns, and the
+//     overlap queue (2, L-1, R, 2, Chp), double-buffered by tile parity:
+//     layer l reads the columns F_l carried from tile k-1 in slot
+//     [k & 1][l-1] while its epilogue writes F_{l+1}'s last two columns to
+//     [(k+1) & 1][l], so nothing is copied between them.  Layer 0 reads its
+//     window straight from the input stream (no queue slot for F_0).  The
+//     workspace is 307 KB a CTA at R = 60 in fp32, so the resident CTAs'
+//     share stays in the 50 MB L2.
+//   * A windows streamed through shared memory.  Rows are cut into blocks
+//     of at most 256 output pixels in a window of at most 320 (30 rows at
+//     C = 8, 15 fragments: at most 2 per warp, each warp all Chp outputs).
+//     A block's (rows+2) x (C+2) input window comes into shared memory with
+//     cp.async (rows outside the band zero-filled under `zero`, clamped
+//     under `replicate`), double-buffered: block b+1's window is copied
+//     while block b computes (a step's first block reads what the step
+//     before it wrote, so it waits for its own).  A pixel of 128 bytes (fp32
+//     Chp 32) is stored with its 16-byte chunks swizzled (chunk ^ pixel % 8),
+//     a narrower one padded by 16 bytes, so that the 8 rows of each ldmatrix
+//     matrix fall on distinct banks; each fragment is one ldmatrix.x4 per
+//     tap and k-step (an fp32 is two b16 halves, so the same instruction
+//     gives the m16k8 TF32 fragment).  Shared memory does not depend on R,
+//     so every band height the planner derives (divisors up to 60, 74-row
+//     halo slabs, a one-band fallback of any height) launches.  fp32 Chp
+//     32: two weight stages 2 x 73,856 B + two windows 2 x 40,960 B =
+//     229,632 B, one CTA per SM; bf16: 2 x 18,560 + 2 x 25,600 = 88,320 B.
+//   * A is split into hi and lo at use, not stored split: stored split, the
+//     workspace and the window would double (past the L2 at 8 frames, and
+//     past the shared memory with two weight stages), and the window's
+//     ldmatrix traffic would double too.  One split of an A register feeds
+//     all Chp/8 n blocks.
+//   * epilogue from the accumulator fragments: bias, ReLU, the phantom-column
+//     mask (acol = k*C - l + j outside [0, W)), the row bounds, one rounding
+//     to the storage dtype; a layer's output goes to the next slab (and its
+//     last two columns to the queue), the last layer's to `out`, with the
+//     anchor read from the input stream (add_anchor).
+// Left for later work: wgmma and TMA, layer 0's taps folded into K in fp32,
+// slabs resident in shared memory across layers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -53,7 +92,10 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kPix = 2;  // output rows per thread item
+constexpr int kWarps = kThreads / 32;
+constexpr int kFrags = 2;                         // m16 fragments a warp owns in a block
+constexpr int kBlockPix = 16 * kFrags * kWarps;   // 256 output pixels a row block
+constexpr int kWinPix = 320;                      // window pixels: (30 + 2) x (8 + 2)
 
 struct Params {
   const void* x;       // (B, R, K*C, c0p) fresh input stream, compute dtype
@@ -62,10 +104,36 @@ struct Params {
   const void* bias;    // (L, Chp), compute dtype
   const int* bounds;   // (B, 2) valid [lo, hi) rows, or null
   void* out;           // (B, R, K*C, Chp), compute dtype
-  void* ws;            // per-CTA workspace (see workspace_elems)
+  void* ws;            // packed weight stages, then B*S per-CTA workspaces
   int R, K, C, c0p, L, W;
   int S, warm;         // segments per band, warm-up tiles of a restarted one
   int relu_mask, add_anchor, in_ch, repeats, replicate;
+  int ks0;             // layer 0's k-steps a tap
+  int shift0;          // log2 of layer 0's 16-byte copies a window pixel
+  int rows_blk;        // output rows of a full row block
+};
+
+// What each <dtype, Chp> instance holds.
+template <typename T, int CHP> struct Cfg {
+  static constexpr bool kF32 = sizeof(T) == 4;
+  static constexpr int kNB = CHP / 8;                  // n8 blocks of the outputs
+  static constexpr int kK = kF32 ? 8 : 16;             // the MMA's k
+  static constexpr int kKS = CHP / kK;                 // k-steps a tap, layers >= 1
+  static constexpr int kWords = kF32 ? 4 * kNB : 2 * kNB;  // B words a lane, (tap, k-step)
+  static constexpr int kQuads = kWords / 4;
+  static constexpr int kChunks = CHP * (int)sizeof(T) / 16;       // 16-byte copies a pixel
+  // A window pixel: 128 bytes of data (fp32 Chp 32) are stored as they are,
+  // their 16-byte chunks swizzled (chunk ^ pixel % 8); narrower pixels are
+  // padded by 16 bytes.  Either way the 8 rows of an ldmatrix matrix, 8
+  // neighbouring pixels, fall on distinct banks.
+  static constexpr bool kSwizzle = kChunks == 8;
+  static constexpr int kPixBytes = kSwizzle ? 128 : 16 * kChunks + 16;
+  static constexpr int kStageBytes = CHP * 4 + 9 * kKS * kQuads * 32 * 16;  // bias + B
+  static constexpr int kWinBytes = kWinPix * kPixBytes;
+  static constexpr int kSmemBytes = 2 * kStageBytes + 2 * kWinBytes;
+  // fp32 Chp 32 takes 229,632 B of shared memory: one CTA an SM, all registers
+  static constexpr int kMinBlocks = kF32 ? 1 : 2;
+  static_assert(kWords % 4 == 0, "B words come in uint4");
 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -77,219 +145,595 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16_rn(v);
 }
 
-// Elements of one CTA's workspace: two slabs + the overlap queue (the
-// wrapper allocates B*S of these; tilted_fusion.py::workspace_shapes).
-__device__ inline size_t workspace_elems(int chp, int R, int C, int L) {
-  return 2 * (size_t)chp * R * (C + 2) + (size_t)L * chp * R * 2;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// Two resident CTAs per SM: registers capped at 128 a thread (the fp32 Chp 32
-// instance otherwise takes 195, which leaves room for one).
+// 16 bytes; src_bytes = 0 fills them with zeros
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Four 8x8 b16 matrices from shared memory: lanes 8i..8i+7 give the row
+// addresses of matrix i, and matrix i lands in register i.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
+}
+
+// The TF32 value of fp32 bits, rounded as cvt.rna.tf32.f32 rounds (to
+// nearest, ties away from zero; the 13 low mantissa bits cleared) for every
+// finite input, in two integer operations.
+__device__ __forceinline__ uint32_t tf32_rna(uint32_t bits) {
+  return (bits + 0x1000u) & 0xffffe000u;
+}
+
+// A TF32 hi and lo of fp32 bits: hi = tf32(a), lo = tf32(a - hi).
+__device__ __forceinline__ void tf32_split(uint32_t a, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(a);
+  lo = tf32_rna(__float_as_uint(__uint_as_float(a) - __uint_as_float(hi)));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// n / d for the small n and d of a window (n < 2^16): one multiply by a
+// reciprocal made once.
+struct FastDiv {
+  uint32_t d, m;
+  __device__ __forceinline__ explicit FastDiv(int d_) : d(d_), m(0xffffffffu / d_ + 1) {}
+  __device__ __forceinline__ int div(int n) const { return (int)__umulhi((uint32_t)n, m); }
+};
+
+// Byte offset in a window of 16-byte chunk `chunk` of window pixel `pix`.
 template <typename T, int CHP>
-__global__ void __launch_bounds__(kThreads, 2)
+__device__ __forceinline__ uint32_t win_off(int pix, int chunk) {
+  using G = Cfg<T, CHP>;
+  return pix * G::kPixBytes + 16 * (G::kSwizzle ? chunk ^ (pix & 7) : chunk);
+}
+
+// Four consecutive elements, 16-byte (fp32) or 8-byte (bf16) aligned, as one
+// vector store.
+__device__ __forceinline__ void store4(float* d, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(d) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* d, const __nv_bfloat16 (&v)[4]) {
+  const uint16_t* u = reinterpret_cast<const uint16_t*>(v);
+  *reinterpret_cast<uint2*>(d) = make_uint2((uint32_t)u[0] | ((uint32_t)u[1] << 16),
+                                            (uint32_t)u[2] | ((uint32_t)u[3] << 16));
+}
+
+// ---------------------------------------------------------------------------
+// Packed weights: per layer l, a stage of `stage_words(l)` 32-bit words,
+// laid out as it sits in shared memory: the bias as fp32 (Chp words), then
+// the B fragments.  uint4 number q of lane `lane` for tap t and k-step s sits
+// at ((t * ks_l + s) * kQuads + q) * 32 + lane, so a warp's 128-bit loads
+// are conflict-free.  A lane's words u = 4q + e hold, for g = lane / 4 and
+// tig = lane % 4:
+// fp32: u < 2 kNB the hi words, then the lo words; within each half n block
+//       jb = (u mod 2 kNB) / 2 and register r = u % 2 hold
+//       B[8s + tig + 4r][8 jb + g];
+// bf16: jb = u / 2, r = u % 2 hold B[k][8 jb + g] (low half) and
+//       B[k + 1][8 jb + g] with k = 16s + 2 tig + 8r.
+// ---------------------------------------------------------------------------
+template <typename T, int CHP>
+__host__ __device__ inline int stage_words(int ks) {
+  return CHP + 9 * ks * Cfg<T, CHP>::kQuads * 32 * 4;
+}
+
+template <typename T, int CHP>
+__host__ __device__ inline size_t stage_offset(int l, int ks0) {  // in words
+  return l == 0 ? 0
+                : (size_t)stage_words<T, CHP>(ks0) +
+                      (size_t)(l - 1) * stage_words<T, CHP>(Cfg<T, CHP>::kKS);
+}
+
+template <typename T, int CHP>
+__host__ __device__ inline size_t packed_bytes(int L, int ks0) {
+  return 4 * stage_offset<T, CHP>(L, ks0);
+}
+
+template <typename T, int CHP>
+__global__ void pack_weights_kernel(const T* __restrict__ w, const T* __restrict__ bias,
+                                    uint32_t* __restrict__ packed, int L, int ks0) {
+  using G = Cfg<T, CHP>;
+  const size_t total = stage_offset<T, CHP>(L, ks0);
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * blockDim.x) {
+    int l = 0;
+    while (l + 1 < L && stage_offset<T, CHP>(l + 1, ks0) <= i) ++l;
+    const int ks = l == 0 ? ks0 : G::kKS;
+    const int o = (int)(i - stage_offset<T, CHP>(l, ks0));
+    uint32_t v;
+    if (o < CHP) {
+      v = __float_as_uint(to_f(bias[l * CHP + o]));
+    } else {
+      const int word = o - CHP;
+      const int e = word & 3, lane = (word >> 2) & 31, tsq = word >> 7;
+      const int q = tsq % G::kQuads, ts = tsq / G::kQuads;
+      const int t = ts / ks, s = ts % ks;
+      const int g = lane >> 2, tig = lane & 3, u = 4 * q + e;
+      const T* wt = w + ((size_t)l * 9 + t) * CHP * CHP;  // (Chp, Chp) of tap t
+      if constexpr (G::kF32) {
+        const int half = u / (2 * G::kNB), v2 = u % (2 * G::kNB);
+        const int n = 8 * (v2 >> 1) + g, k = 8 * s + tig + 4 * (v2 & 1);
+        uint32_t hi, lo;
+        tf32_split(__float_as_uint(to_f(wt[k * CHP + n])), hi, lo);
+        v = half ? lo : hi;
+      } else {
+        const int n = 8 * (u >> 1) + g, k = 16 * s + 2 * tig + 8 * (u & 1);
+        const uint16_t* wb = reinterpret_cast<const uint16_t*>(wt);
+        v = (uint32_t)wb[k * CHP + n] | ((uint32_t)wb[(k + 1) * CHP + n] << 16);
+      }
+    }
+    packed[i] = v;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The fused kernel
+// ---------------------------------------------------------------------------
+// Elements of one CTA's workspace: two slabs (R, C, Chp) and the overlap
+// queue (2, L-1, R, 2, Chp) (tilted_fusion.py::workspace_shapes).
+__host__ __device__ inline size_t slab_elems(int chp, int R, int C) {
+  return (size_t)R * C * chp;
+}
+__host__ __device__ inline size_t queue_slot_elems(int chp, int R, int L) {
+  return (size_t)(L - 1) * R * 2 * chp;
+}
+__host__ __device__ inline size_t workspace_elems(int chp, int R, int C, int L) {
+  return 2 * slab_elems(chp, R, C) + 2 * queue_slot_elems(chp, R, L);
+}
+
+// Copy one layer's packed stage into shared memory (cp.async, not committed).
+template <typename T, int CHP>
+__device__ __forceinline__ void load_stage(const Params& p, int l, char* stage) {
+  const int ks = l == 0 ? p.ks0 : Cfg<T, CHP>::kKS;
+  const char* src = static_cast<const char*>(p.ws) + 4 * stage_offset<T, CHP>(l, p.ks0);
+  const int n16 = stage_words<T, CHP>(ks) / 4;
+  const uint32_t dst = smem_addr(stage);
+  for (int i = threadIdx.x; i < n16; i += kThreads) cp_async16(dst + 16 * i, src + 16 * i, 16);
+}
+
+// What a row block's window copies read: layer 0 reads the input stream
+// (column a = kC - 1 + window column; a = 0 is the first column, a < 0 zero),
+// layer l >= 1 the carried columns of F_l (queue slot `qin`) and the slab.
+struct WindowSrc {
+  const char* x;      // layer 0: the band's stream
+  const char* first;  // layer 0: the band's first column
+  const char* qin;    // layer >= 1: F_l's carried columns (R, 2, Chp)
+  const char* slab;   // layer >= 1: F_l's fresh columns (R, C, Chp)
+};
+
+template <typename T, int CHP>
+__device__ void load_window(const Params& p, const WindowSrc& src, bool layer0, int k, int r0,
+                            int rows, const FastDiv& sc, char* win) {
+  using G = Cfg<T, CHP>;
+  const int C = p.C, SC = C + 2, R = p.R;
+  // layer 0 copies the chunks of its padded k (c0p channels, then zeros),
+  // rounded up to a power of 2, and the others all of a pixel's
+  const int shift = layer0 ? p.shift0 : 31 - __clz(G::kChunks);
+  const int chunks = 1 << shift;
+  const int data_bytes = layer0 ? p.c0p * (int)sizeof(T) : CHP * (int)sizeof(T);
+  const int total = (rows + 2) * SC << shift;
+  const uint32_t base = smem_addr(win);
+  for (int i = threadIdx.x; i < total; i += kThreads) {
+    const int pix = i >> shift, ch = i & (chunks - 1);
+    const int wr = sc.div(pix), wc = pix - wr * SC;
+    int rr = r0 - 1 + wr;
+    bool ok = ch * 16 < data_bytes;
+    if (rr < 0 || rr >= R) {
+      if (p.replicate) rr = rr < 0 ? 0 : R - 1;
+      else ok = false;
+    }
+    const char* s = src.x;
+    if (layer0) {
+      const int a = k * C - 1 + wc;
+      if (a < 0) ok = false;
+      else if (a == 0) s = src.first + (size_t)rr * data_bytes;
+      else s = src.x + ((size_t)rr * p.K * C + a - 1) * data_bytes;
+    } else {
+      s = wc < 2 ? src.qin + ((size_t)rr * 2 + wc) * data_bytes
+                 : src.slab + ((size_t)rr * C + wc - 2) * data_bytes;
+    }
+    cp_async16(base + win_off<T, CHP>(pix, ch), ok ? s + ch * 16 : src.x, ok ? 16 : 0);
+  }
+}
+
+// One row block of one (tile, layer) step: this warp's NF fragments (block
+// fragments f0, f0 + kWarps), all Chp outputs, then the epilogue.  KS > 0:
+// KS k-steps a tap, known when compiling (layers >= 1); 0: st.ks (layer 0).
+struct Step {
+  int k, l, last, relu;  // tile, layer; last layer; ReLU on
+  int r0, npix;          // the block's first row and its output pixels
+  int lo, hi, mask_rows;
+  int ks;                // k-steps a tap
+};
+
+template <typename T, int CHP, int NF, int KS>
+__device__ __forceinline__ void block_mma(const Params& p, const Step& st, const char* stage,
+                                          const char* win, int f0, T* nxt, T* qout, T* out,
+                                          const T* x, const T* first) {
+  using G = Cfg<T, CHP>;
+  const int lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
+  const int C = p.C, SC = C + 2;
+  const uint32_t win_addr = smem_addr(win);
+  const uint4* bsm = reinterpret_cast<const uint4*>(stage + CHP * 4);
+  // this lane's ldmatrix row, per fragment: row m = (lane & 7) + 8 ((lane
+  // >> 3) & 1) of the fragment, window pixel wpix for tap (0, 0), chunk
+  // 2s + (lane >> 4) of k-step s; a pixel past the block reads the last one
+  int wpix[NF];
+#pragma unroll
+  for (int f = 0; f < NF; ++f) {
+    int px = 16 * (f0 + f * kWarps) + (lane & 7) + 8 * ((lane >> 3) & 1);
+    px = px < st.npix ? px : st.npix - 1;
+    const int r = px / C, j = px - r * C;
+    wpix[f] = r * SC + j;
+  }
+  const int khalf = lane >> 4;
+  float acc[NF][G::kNB][4];
+#pragma unroll
+  for (int f = 0; f < NF; ++f)
+#pragma unroll
+    for (int jb = 0; jb < G::kNB; ++jb)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[f][jb][c] = 0.f;
+
+  // one k-step s of tap t: B from the stage, A by ldmatrix, the MMAs into d
+  const int ks = KS > 0 ? KS : st.ks;
+  auto kstep = [&](int t, int tpix, int s, float (&d)[NF][G::kNB][4]) {
+    uint32_t bw[G::kWords];
+#pragma unroll
+    for (int q = 0; q < G::kQuads; ++q) {
+      const uint4 v = bsm[((t * ks + s) * G::kQuads + q) * 32 + lane];
+      bw[4 * q] = v.x; bw[4 * q + 1] = v.y; bw[4 * q + 2] = v.z; bw[4 * q + 3] = v.w;
+    }
+    uint32_t a[NF][4];
+#pragma unroll
+    for (int f = 0; f < NF; ++f)
+      ldmatrix_x4(a[f], win_addr + win_off<T, CHP>(wpix[f] + tpix, 2 * s + khalf));
+    if constexpr (G::kF32) {
+      uint32_t ah[NF][4], al[NF][4];
+#pragma unroll
+      for (int f = 0; f < NF; ++f)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) tf32_split(a[f][c], ah[f][c], al[f][c]);
+      constexpr int LO = 2 * G::kNB;  // the lo words of B
+#pragma unroll
+      for (int f = 0; f < NF; ++f)
+#pragma unroll
+        for (int jb = 0; jb < G::kNB; ++jb)
+          mma_tf32(d[f][jb], al[f], bw[2 * jb], bw[2 * jb + 1]);
+#pragma unroll
+      for (int f = 0; f < NF; ++f)
+#pragma unroll
+        for (int jb = 0; jb < G::kNB; ++jb)
+          mma_tf32(d[f][jb], ah[f], bw[LO + 2 * jb], bw[LO + 2 * jb + 1]);
+#pragma unroll
+      for (int f = 0; f < NF; ++f)
+#pragma unroll
+        for (int jb = 0; jb < G::kNB; ++jb)
+          mma_tf32(d[f][jb], ah[f], bw[2 * jb], bw[2 * jb + 1]);
+    } else {
+#pragma unroll
+      for (int f = 0; f < NF; ++f)
+#pragma unroll
+        for (int jb = 0; jb < G::kNB; ++jb)
+          mma_bf16(d[f][jb], a[f], bw[2 * jb], bw[2 * jb + 1]);
+    }
+  };
+  // Tap t's k-steps.  fp32: into the accumulator.  bf16: into a partial
+  // that starts at zero, then added to the accumulator in fp32, tap by tap
+  // as the plain version adds its nine products.  One accumulator carried
+  // through all 9 x ks bf16 MMAs rounds about twice as many outputs of a
+  // 28 -> 28 layer away from the exact value as the plain version does
+  // (tools/k1_bf16_rounding.py).
+  auto tap = [&](int t, int tpix) {
+    if constexpr (G::kF32) {
+      if constexpr (KS > 0) {
+#pragma unroll
+        for (int s = 0; s < KS; ++s) kstep(t, tpix, s, acc);
+      } else {
+#pragma unroll 1
+        for (int s = 0; s < ks; ++s) kstep(t, tpix, s, acc);
+      }
+    } else {
+      float part[NF][G::kNB][4];
+#pragma unroll
+      for (int f = 0; f < NF; ++f)
+#pragma unroll
+        for (int jb = 0; jb < G::kNB; ++jb)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) part[f][jb][c] = 0.f;
+      if constexpr (KS > 0) {
+#pragma unroll
+        for (int s = 0; s < KS; ++s) kstep(t, tpix, s, part);
+      } else {
+#pragma unroll 1
+        for (int s = 0; s < ks; ++s) kstep(t, tpix, s, part);
+      }
+#pragma unroll
+      for (int f = 0; f < NF; ++f)
+#pragma unroll
+        for (int jb = 0; jb < G::kNB; ++jb)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[f][jb][c] += part[f][jb][c];
+    }
+  };
+  // a tap row's 3 taps unrolled, so that the loads of one k-step are
+  // issued ahead of the MMAs of the one before
+#pragma unroll 1
+  for (int dy = 0; dy < 3; ++dy) {
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx) tap(dy * 3 + dx, dy * SC + dx);
+  }
+
+  // Epilogue: bias, ReLU, phantom-column and phantom-row masks, one rounding.
+  // Accumulator c of n block jb holds pixel 16f + g + 8 (c >> 1), output
+  // channel 8 jb + 2 tig + (c & 1).  Lanes tig and tig ^ 1 swap halves, so
+  // that an even lane holds 4 consecutive channels of pixel 16f + g and an
+  // odd lane those of pixel 16f + g + 8: one 16-byte (bf16: 8-byte) store.
+  const float* bsh = reinterpret_cast<const float*>(stage);
+  const int KC = p.K * C;
+  const int odd = tig & 1;
+#pragma unroll
+  for (int f = 0; f < NF; ++f) {
+    bool keep[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int px = 16 * (f0 + f * kWarps) + g + 8 * h;
+      const int rb = px / C, j = px - rb * C, r = st.r0 + rb;
+      const int acol = st.k * C - st.l + j;  // absolute column of this output
+      keep[h] = px < st.npix && acol >= 0 && acol < p.W &&
+                (!st.mask_rows || (r >= st.lo && r < st.hi));
+    }
+    // this lane's pixel after the swap, and where its 4 channels start
+    const int px = 16 * (f0 + f * kWarps) + g + 8 * odd;
+    const int rb = px / C, j = px - rb * C, r = st.r0 + rb;
+    const int acol = st.k * C - st.l + j;
+#pragma unroll
+    for (int jb = 0; jb < G::kNB; ++jb) {
+      const int co = 8 * jb + 2 * tig;
+      const float2 bv = *reinterpret_cast<const float2*>(bsh + co);
+      float y[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float v = acc[f][jb][c] + (c & 1 ? bv.y : bv.x);
+        if (st.relu) v = fmaxf(v, 0.f);
+        y[c] = to_f(from_f<T>(keep[c >> 1] ? v : 0.f));  // rounded once, exact in fp32
+      }
+      // an even lane sends its pixel g + 8 pair and keeps pixel g's
+      const float s0 = odd ? y[0] : y[2], s1 = odd ? y[1] : y[3];
+      const float t0 = __shfl_xor_sync(0xffffffffu, s0, 1);
+      const float t1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+      T v[4];
+      if (odd) {
+        v[0] = from_f<T>(t0); v[1] = from_f<T>(t1);
+        v[2] = from_f<T>(y[2]); v[3] = from_f<T>(y[3]);
+      } else {
+        v[0] = from_f<T>(y[0]); v[1] = from_f<T>(y[1]);
+        v[2] = from_f<T>(t0); v[3] = from_f<T>(t1);
+      }
+      if (px >= st.npix) continue;
+      const int c4 = co - 2 * odd;  // the first of this lane's 4 channels
+      if (!st.last) {
+        store4(nxt + ((size_t)rb * C + j) * CHP + c4, v);
+        if (j >= C - 2)  // F_{l+1}'s last two columns: tile k+1's carried ones
+          store4(qout + ((size_t)r * 2 + j - (C - 2)) * CHP + c4, v);
+      } else {
+        if (p.add_anchor && acol >= 0 && acol < p.W) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (c4 + e < p.in_ch * p.repeats) {
+              const int c = (c4 + e) / p.repeats;
+              const T a = acol == 0 ? first[r * p.c0p + c]
+                                    : x[((size_t)r * KC + acol - 1) * p.c0p + c];
+              v[e] = from_f<T>(to_f(v[e]) + to_f(a));
+            }
+          }
+        }
+        store4(out + ((size_t)r * KC + st.k * C + j) * CHP + c4, v);
+      }
+    }
+  }
+}
+
+template <typename T, int CHP>
+__global__ void __launch_bounds__(kThreads, Cfg<T, CHP>::kMinBlocks)
 tilted_fusion_kernel(Params p) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);  // 2 stages x 9*CHP*CHP
+  using G = Cfg<T, CHP>;
+  extern __shared__ uint4 smem[];
+  char* stages = reinterpret_cast<char*>(smem);  // 2 x kStageBytes
+  char* wins = stages + 2 * G::kStageBytes;      // 2 x kWinBytes
 
   const int cta = blockIdx.x;  // band * S + segment
   const int band = cta / p.S, seg = cta % p.S;
-  const int tid = threadIdx.x;
-  const int R = p.R, K = p.K, C = p.C, c0p = p.c0p, L = p.L, W = p.W;
-  const int SC = C + 2;  // slab columns: 2 carried + C fresh
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int R = p.R, K = p.K, C = p.C, L = p.L;
   const int KC = K * C;
-  const size_t slab = (size_t)CHP * R * SC;
-  const int wsz = 9 * CHP * CHP;
   // This segment's own tiles [k0, k1) and the tile kw its sweep starts at.
   const int k0 = (int)((long long)seg * K / p.S);
   const int k1 = (int)((long long)(seg + 1) * K / p.S);
   const int kw = k0 >= p.warm ? k0 - p.warm : 0;
 
-  T* ws = reinterpret_cast<T*>(p.ws) + (size_t)cta * workspace_elems(CHP, R, C, L);
-  T* ov = ws + 2 * slab;  // overlap queue (L, CHP, R, 2)
-  const T* x = reinterpret_cast<const T*>(p.x) + (size_t)band * R * KC * c0p;
-  const T* first = reinterpret_cast<const T*>(p.first) + (size_t)band * R * c0p;
-  const T* wg = reinterpret_cast<const T*>(p.w);
-  const T* bias = reinterpret_cast<const T*>(p.bias);
-  T* out = reinterpret_cast<T*>(p.out) + (size_t)band * R * KC * CHP;
+  T* ws = reinterpret_cast<T*>(static_cast<char*>(p.ws) + packed_bytes<T, CHP>(L, p.ks0)) +
+          (size_t)cta * workspace_elems(CHP, R, C, L);
+  T* slab[2] = {ws, ws + slab_elems(CHP, R, C)};
+  T* queue = ws + 2 * slab_elems(CHP, R, C);  // (2, L-1, R, 2, CHP)
+  const size_t qslot = (size_t)R * 2 * CHP, qpar = queue_slot_elems(CHP, R, L);
+  const T* x = static_cast<const T*>(p.x) + (size_t)band * R * KC * p.c0p;
+  const T* first = static_cast<const T*>(p.first) + (size_t)band * R * p.c0p;
+  T* out = static_cast<T*>(p.out) + (size_t)band * R * KC * CHP;
 
-  const bool mask_rows = p.bounds != nullptr;
-  const int lo = mask_rows ? p.bounds[2 * band] : 0;
-  const int hi = mask_rows ? p.bounds[2 * band + 1] : R;
+  Step st;
+  st.mask_rows = p.bounds != nullptr;
+  st.lo = st.mask_rows ? p.bounds[2 * band] : 0;
+  st.hi = st.mask_rows ? p.bounds[2 * band + 1] : R;
 
-  // Start of the sweep at tile kw: slot 0 of the overlap queue holds input
-  // columns kw*C-1 and kw*C (input column a is zero for a < 0, the first
-  // column for a = 0 and stream column a-1 after it), every deeper slot
-  // zero.  For kw = 0 that is the band-start state: [zero pad, first].
-  for (int i = tid; i < L * CHP * R * 2; i += kThreads) {
-    const int col = i % 2, r = (i / 2) % R, c = (i / (2 * R)) % CHP, l = i / (2 * R * CHP);
-    const int a = kw * C - 1 + col;
-    T v = from_f<T>(0.f);
-    if (l == 0 && c < c0p && a >= 0)
-      v = a == 0 ? first[r * c0p + c] : x[((size_t)r * KC + a - 1) * c0p + c];
-    ov[i] = v;
+  // Start of the sweep at tile kw: every carried column of F_1..F_{L-1}
+  // zero (F_0 is read from the stream).  For kw = 0 that is the band start.
+  {
+    uint4* q = reinterpret_cast<uint4*>(queue + (kw & 1) * qpar);
+    const int n16 = (int)(qpar * sizeof(T) / 16);
+    for (int i = tid; i < n16; i += kThreads) q[i] = make_uint4(0, 0, 0, 0);
   }
-  for (int i = tid; i < wsz; i += kThreads) smem[i] = to_f(wg[i]);
-  __syncthreads();
+  load_stage<T, CHP>(p, 0, stages);
+  cp_async_commit();
 
-  const int nitems = ((R + kPix - 1) / kPix) * C;
+  const int nblk = (R + p.rows_blk - 1) / p.rows_blk;
+  const FastDiv sc(C + 2);
   int step = 0;  // (k, l) counter: layer weights of step s sit in stage s & 1
   for (int k = kw; k < k1; ++k) {
     // A warm-up tile (k < k0) runs layers 0..L-2 only: layer L-1's output
     // is not carried, and a warm-up tile stores nothing.
     const int nl = k < k0 ? L - 1 : L;
-    // Layer-0 input slab: 2 carried columns ++ C fresh columns (c0p channels).
-    T* in0 = ws;
-    for (int i = tid; i < c0p * R * SC; i += kThreads) {
-      const int col = i % SC, r = (i / SC) % R, c = i / (SC * R);
-      in0[i] = col < 2 ? ov[(c * R + r) * 2 + col]
-                       : x[((size_t)r * KC + k * C + col - 2) * c0p + c];
-    }
-    __syncthreads();
-    // F_0's last two columns are tile k+1's carried columns.
-    for (int i = tid; i < c0p * R * 2; i += kThreads) {
-      const int col = i % 2, r = (i / 2) % R, c = i / (2 * R);
-      ov[i] = in0[(c * R + r) * SC + C + col];
-    }
-
     for (int l = 0; l < nl; ++l, ++step) {
-      const float* wsm = smem + (step & 1) * wsz;
-      if (!(l == nl - 1 && k == k1 - 1)) {  // prefetch the next step's weights
-        const T* src = wg + (size_t)(l + 1 < nl ? l + 1 : 0) * wsz;
-        float* dst = smem + ((step + 1) & 1) * wsz;
-        for (int i = tid; i < wsz; i += kThreads) dst[i] = to_f(src[i]);
-      }
-      const T* in = ws + (size_t)(l & 1) * slab;
-      T* nxt = ws + (size_t)((l + 1) & 1) * slab;
-      const bool last = l == L - 1;
-      if (!last) {  // F_{l+1}'s carried columns from tile k-1
-        const T* q = ov + (size_t)(l + 1) * CHP * R * 2;
-        for (int i = tid; i < CHP * R * 2; i += kThreads) {
-          const int col = i % 2, r = (i / 2) % R, c = i / (2 * R);
-          nxt[(c * R + r) * SC + col] = q[i];
+      const char* stage = stages + (step & 1) * G::kStageBytes;
+      const bool has_next = !(l == nl - 1 && k == k1 - 1);
+      st.k = k; st.l = l; st.last = l == L - 1; st.relu = (p.relu_mask >> l) & 1;
+      st.ks = l == 0 ? p.ks0 : G::kKS;
+      WindowSrc src;
+      src.x = reinterpret_cast<const char*>(x);
+      src.first = reinterpret_cast<const char*>(first);
+      src.qin = l > 0 ? reinterpret_cast<const char*>(queue + (k & 1) * qpar + (l - 1) * qslot)
+                      : nullptr;
+      src.slab = l > 0 ? reinterpret_cast<const char*>(slab[(l - 1) & 1]) : nullptr;
+      T* nxt = slab[l & 1];
+      T* qout = st.last ? nullptr : queue + ((k + 1) & 1) * qpar + l * qslot;
+      // Row block b computes from window b & 1; the window of block b + 1
+      // is copied while block b computes (a step's block 0 reads what the
+      // step before it wrote, so it waits for its own window).
+      for (int b = 0; b < nblk; ++b) {
+        st.r0 = b * p.rows_blk;
+        st.npix = min(p.rows_blk, R - st.r0) * C;
+        // the other window and the other stage are free; the last
+        // epilogue's stores are visible to this CTA
+        __syncthreads();
+        if (b == 0) {
+          load_window<T, CHP>(p, src, l == 0, k, 0, min(p.rows_blk, R), sc, wins);
+          cp_async_commit();
+          if (has_next)  // the next step's weights, a step ahead
+            load_stage<T, CHP>(p, l + 1 < nl ? l + 1 : 0,
+                               stages + ((step + 1) & 1) * G::kStageBytes);
+          cp_async_commit();
         }
-      }
-      const int cin = l == 0 ? c0p : CHP;
-      const bool relu = (p.relu_mask >> l) & 1;
-      const T* bl = bias + l * CHP;
-
-      for (int it = tid; it < nitems; it += kThreads) {
-        const int j = it % C;
-        const int r0 = (it / C) * kPix;
-        float acc[kPix][CHP];
-#pragma unroll
-        for (int q = 0; q < kPix; ++q)
-#pragma unroll
-          for (int co = 0; co < CHP; ++co) acc[q][co] = 0.f;
-
-        for (int ci = 0; ci < cin; ++ci) {
-          const T* plane = in + (size_t)ci * R * SC;
-          float v[kPix + 2][3];
-#pragma unroll
-          for (int rr = 0; rr < kPix + 2; ++rr) {
-            int row = r0 - 1 + rr;
-            bool ok = true;
-            if (row < 0 || row >= R) {
-              if (p.replicate) row = row < 0 ? 0 : R - 1;
-              else ok = false;
-            }
-#pragma unroll
-            for (int dx = 0; dx < 3; ++dx)
-              v[rr][dx] = ok ? to_f(plane[row * SC + j + dx]) : 0.f;
-          }
-#pragma unroll
-          for (int dy = 0; dy < 3; ++dy)
-#pragma unroll
-            for (int dx = 0; dx < 3; ++dx) {
-              const float4* w4 =
-                  reinterpret_cast<const float4*>(wsm + ((dy * 3 + dx) * CHP + ci) * CHP);
-#pragma unroll
-              for (int g = 0; g < CHP / 4; ++g) {
-                const float4 wv = w4[g];
-#pragma unroll
-                for (int q = 0; q < kPix; ++q) {
-                  const float a = v[q + dy][dx];
-                  acc[q][4 * g + 0] = fmaf(a, wv.x, acc[q][4 * g + 0]);
-                  acc[q][4 * g + 1] = fmaf(a, wv.y, acc[q][4 * g + 1]);
-                  acc[q][4 * g + 2] = fmaf(a, wv.z, acc[q][4 * g + 2]);
-                  acc[q][4 * g + 3] = fmaf(a, wv.w, acc[q][4 * g + 3]);
-                }
-              }
-            }
+        const bool ahead = b + 1 < nblk;
+        if (ahead) {
+          const int r1 = (b + 1) * p.rows_blk;
+          load_window<T, CHP>(p, src, l == 0, k, r1, min(p.rows_blk, R - r1), sc,
+                              wins + ((b + 1) & 1) * G::kWinBytes);
+          cp_async_commit();
         }
-
-        // Epilogue: bias, ReLU, phantom-column and phantom-row masks, round.
-        const int acol = k * C - l + j;  // absolute column of this output
-        const bool col_ok = acol >= 0 && acol < W;
-#pragma unroll
-        for (int q = 0; q < kPix; ++q) {
-          const int r = r0 + q;
-          if (r >= R) continue;
-          const bool keep = col_ok && (!mask_rows || (r >= lo && r < hi));
-#pragma unroll
-          for (int co = 0; co < CHP; ++co) {
-            float g = acc[q][co] + to_f(bl[co]);
-            if (relu) g = fmaxf(g, 0.f);
-            T gt = from_f<T>(keep ? g : 0.f);
-            if (!last) {
-              nxt[((size_t)co * R + r) * SC + 2 + j] = gt;
-            } else {
-              if (p.add_anchor && col_ok && co < p.in_ch * p.repeats) {
-                const int c = co / p.repeats;
-                const T a = acol == 0 ? first[r * c0p + c]
-                                      : x[((size_t)r * KC + acol - 1) * c0p + c];
-                gt = from_f<T>(to_f(gt) + to_f(a));
-              }
-              out[((size_t)r * KC + k * C + j) * CHP + co] = gt;
-            }
-          }
+        // groups newer than the ones this block needs: at b = 0 the next
+        // stage (and window 1), later window b + 1
+        if (b == 0) {
+          if (ahead) cp_async_wait<2>(); else cp_async_wait<1>();
+        } else {
+          if (ahead) cp_async_wait<1>(); else cp_async_wait<0>();
         }
-      }
-      __syncthreads();
-      if (!last) {  // F_{l+1}'s last two columns are tile k+1's carried ones
-        T* q = ov + (size_t)(l + 1) * CHP * R * 2;
-        for (int i = tid; i < CHP * R * 2; i += kThreads) {
-          const int col = i % 2, r = (i / 2) % R, c = i / (2 * R);
-          q[i] = nxt[(c * R + r) * SC + C + col];
+        __syncthreads();
+        const char* win = wins + (b & 1) * G::kWinBytes;
+        const int nf = (st.npix + 15) / 16;
+        T* nxt_b = nxt + (size_t)st.r0 * C * CHP;
+        if (warp + kWarps < nf) {
+          if (l > 0)
+            block_mma<T, CHP, 2, G::kKS>(p, st, stage, win, warp, nxt_b, qout, out, x, first);
+          else
+            block_mma<T, CHP, 2, 0>(p, st, stage, win, warp, nxt_b, qout, out, x, first);
+        } else if (warp < nf) {
+          if (l > 0)
+            block_mma<T, CHP, 1, G::kKS>(p, st, stage, win, warp, nxt_b, qout, out, x, first);
+          else
+            block_mma<T, CHP, 1, 0>(p, st, stage, win, warp, nxt_b, qout, out, x, first);
         }
       }
     }
-    // A warm-up tile ends on a queue store that may read slab 0, which the
-    // next tile's layer-0 fill overwrites (a full tile ends on a barrier).
-    if (nl < L) __syncthreads();
   }
+  cp_async_wait<0>();
 }
 
 using KernelFn = void (*)(Params);
 
-// The <dtype, Chp> instance (dtype 0 = float32, 1 = bfloat16), or null.
+struct Instance {
+  KernelFn fn;
+  int smem;
+};
+
+template <typename T, int CHP> Instance make_instance() {
+  return {tilted_fusion_kernel<T, CHP>, Cfg<T, CHP>::kSmemBytes};
+}
+
+// The <dtype, Chp> instance (dtype 0 = float32, 1 = bfloat16), or fn null.
 // Instances exist for the padded widths something launches: 32 (ABPN x3)
 // and 16 (the narrow stack of the card tests).  Add one when a model needs
 // it.
-KernelFn instance(int dtype, int chp) {
-  if (dtype == 0 && chp == 16) return tilted_fusion_kernel<float, 16>;
-  if (dtype == 0 && chp == 32) return tilted_fusion_kernel<float, 32>;
-  if (dtype == 1 && chp == 16) return tilted_fusion_kernel<__nv_bfloat16, 16>;
-  if (dtype == 1 && chp == 32) return tilted_fusion_kernel<__nv_bfloat16, 32>;
-  return nullptr;
+Instance instance(int dtype, int chp) {
+  if (dtype == 0 && chp == 16) return make_instance<float, 16>();
+  if (dtype == 0 && chp == 32) return make_instance<float, 32>();
+  if (dtype == 1 && chp == 16) return make_instance<__nv_bfloat16, 16>();
+  if (dtype == 1 && chp == 32) return make_instance<__nv_bfloat16, 32>();
+  return {nullptr, 0};
 }
 
-// Dynamic shared memory of a CTA: two fp32 stages of one layer's weights.
-int smem_bytes(int chp) { return 2 * 9 * chp * chp * (int)sizeof(float); }
-
 // The <dtype, chp> instance in *k, allowed the shared memory it takes.
-cudaError_t prepare(int dtype, int chp, KernelFn* k) {
+cudaError_t prepare(int dtype, int chp, Instance* k) {
   *k = instance(dtype, chp);
-  if (!*k) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(*k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes(chp));
+  if (!k->fn) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(k->fn, cudaFuncAttributeMaxDynamicSharedMemorySize, k->smem);
+}
+
+// Output rows of a full row block: at most kBlockPix pixels, and its
+// window (rows + 2) x (C + 2) within kWinPix; 0 where C is too wide.
+int block_rows(int C) {
+  const int by_pix = kBlockPix / C, by_win = kWinPix / (C + 2) - 2;
+  return by_pix < by_win ? by_pix : by_win;
+}
+
+template <typename T, int CHP>
+cudaError_t launch_pack(const Params& p, cudaStream_t stream) {
+  const size_t words = stage_offset<T, CHP>(p.L, p.ks0);
+  const int grid = (int)((words + kThreads - 1) / kThreads);
+  pack_weights_kernel<T, CHP><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(p.w), static_cast<const T*>(p.bias), static_cast<uint32_t*>(p.ws),
+      p.L, p.ks0);
+  return cudaGetLastError();
+}
+
+cudaError_t pack(int dtype, int chp, const Params& p, cudaStream_t stream) {
+  if (dtype == 0 && chp == 16) return launch_pack<float, 16>(p, stream);
+  if (dtype == 0 && chp == 32) return launch_pack<float, 32>(p, stream);
+  if (dtype == 1 && chp == 16) return launch_pack<__nv_bfloat16, 16>(p, stream);
+  if (dtype == 1 && chp == 32) return launch_pack<__nv_bfloat16, 32>(p, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch B*S CTAs on `stream` (S segments per band, `warm` warm-up tiles
-// for a restarted segment; ws holds B*S workspaces); returns the launch's
-// CUDA error code (0 = ok).  dtype: 0 = float32,
+// Launch the weight packing and then B*S CTAs on `stream` (S segments per
+// band, `warm` warm-up tiles for a restarted segment; ws holds the packed
+// stages and then B*S workspaces, tilted_fusion.py::workspace_bytes);
+// returns the launch's CUDA error code (0 = ok).  dtype: 0 = float32,
 // 1 = bfloat16.  Does not synchronise or allocate.
 int tilted_fusion_launch(int dtype, const void* x, const void* first, const void* w,
                          const void* bias, const void* bounds, void* out, void* ws,
@@ -297,7 +741,9 @@ int tilted_fusion_launch(int dtype, const void* x, const void* first, const void
                          int relu_mask, int add_anchor, int in_ch, int repeats,
                          int replicate, int S, int warm, void* stream) {
   if (B == 0) return 0;
-  if (S < 1 || S > K || warm < 0) return (int)cudaErrorInvalidValue;
+  if (S < 1 || S > K || warm < 0 || L < 1 || c0p < 1 || c0p > chp || c0p % 8 || C < 2 ||
+      block_rows(C) < 1)
+    return (int)cudaErrorInvalidValue;
   Params p;
   p.x = x; p.first = first; p.w = w; p.bias = bias;
   p.bounds = reinterpret_cast<const int*>(bounds);
@@ -306,22 +752,30 @@ int tilted_fusion_launch(int dtype, const void* x, const void* first, const void
   p.S = S; p.warm = warm;
   p.relu_mask = relu_mask; p.add_anchor = add_anchor; p.in_ch = in_ch;
   p.repeats = repeats; p.replicate = replicate;
-  KernelFn k;
+  const int kk = dtype == 0 ? 8 : 16;
+  p.ks0 = (c0p + kk - 1) / kk;
+  p.shift0 = 0;
+  while ((1 << p.shift0) * 16 < p.ks0 * kk * (dtype == 0 ? 4 : 2)) ++p.shift0;
+  p.rows_blk = block_rows(C);
+  Instance k;
   cudaError_t e = prepare(dtype, chp, &k);
   if (e != cudaSuccess) return (int)e;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  e = pack(dtype, chp, p, s);
+  if (e != cudaSuccess) return (int)e;
   void* args[] = {&p};
-  return (int)cudaLaunchKernel(reinterpret_cast<const void*>(k), dim3(B * S), dim3(kThreads),
-                               args, smem_bytes(chp), reinterpret_cast<cudaStream_t>(stream));
+  return (int)cudaLaunchKernel(reinterpret_cast<const void*>(k.fn), dim3(B * S), dim3(kThreads),
+                               args, k.smem, s);
 }
 
 // Resident CTAs per SM of the <dtype, chp> instance on the current device
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor at 256 threads and its
 // shared memory), written to *blocks; returns the CUDA error code.
 int tilted_fusion_blocks_per_sm(int dtype, int chp, int* blocks) {
-  KernelFn k;
+  Instance k;
   cudaError_t e = prepare(dtype, chp, &k);
   if (e != cudaSuccess) return (int)e;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, kThreads, smem_bytes(chp));
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k.fn, kThreads, k.smem);
 }
 
 const char* tilted_fusion_error_string(int code) {

@@ -8,14 +8,15 @@ dataflow, not at the math.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.fusion import ConvLayer, conv_stack_reference
 
-__all__ = ["conv3x3_ref", "tilted_fused_stack_ref"]
+__all__ = ["conv3x3_ref", "tilted_fused_stack_ref", "tf32_rna", "tf32_split"]
 
 
 def conv3x3_ref(
@@ -49,3 +50,22 @@ def tilted_fused_stack_ref(
         anchor = torch.repeat_interleave(bands, anchor_repeats, dim=-1)
         out = out + F.pad(anchor, (0, out.shape[-1] - C0 * anchor_repeats))
     return out.reshape(H, W, out.shape[-1])
+
+
+def tf32_rna(a) -> np.ndarray:
+    """float32 -> the TF32 value ``cvt.rna.tf32.f32`` gives: round to
+    nearest, ties away from zero, the 13 low mantissa bits cleared (finite
+    inputs).  Adding half of the cleared unit to the magnitude bits rounds
+    the magnitude half up, whatever the sign.  The CUDA kernels' own
+    ``tf32_rna`` (``csrc/conv3x3.cu``, ``csrc/tilted_fusion.cu``), in numpy
+    for the tests that emulate their 3xTF32 products."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def tf32_split(a) -> Tuple[np.ndarray, np.ndarray]:
+    """The kernels' 3xTF32 operand split: ``hi = tf32(a)``, ``lo = tf32(a -
+    hi)`` (the difference taken in float32)."""
+    a = np.asarray(a, np.float32)
+    hi = tf32_rna(a)
+    return hi, tf32_rna(a - hi)

@@ -1,8 +1,10 @@
 """Tilted layer fusion on an NVIDIA Hopper card (K1): wrapper, plain version,
 buffer accounting.
 
-The kernel (``csrc/tilted_fusion.cu``, CUDA C++ for ``sm_90a``) computes
-what the JAX package's Pallas kernel
+The kernel (``csrc/tilted_fusion.cu``, CUDA C++ for ``sm_90a``, its
+products on the tensor cores through ``mma.sync``: fp32 as 3xTF32, bf16 as
+m16n8k16 with fp32 accumulation) computes what the JAX package's Pallas
+kernel
 ``src/repro/kernels/tilted_fusion.py::tilted_fusion_kernel`` computes: per
 band, a sequential sweep over K column tiles; in each tile the whole L-layer
 stack of SAME 3x3 convs (fp32 accumulation, bias, optional ReLU), phantom
@@ -24,7 +26,8 @@ anchor added to the last layer, and the output tilted by L-1 columns.
   A segment restarted at tile ``k0`` first re-runs :func:`warmup_tiles`
   tiles before it, so the output is bit-identical for every segment count.
 * :func:`kernel_buffers` — the Hopper kernel's own workspace and shared
-  memory, per CTA and per launch.
+  memory, per CTA and per launch (:func:`workspace_shapes`,
+  :func:`packed_weight_bytes`, :func:`shared_bytes`).
 * :func:`launch_cost` — the FLOPs and device-memory bytes a launch issues
   for a :class:`SegmentPlan`.  On ``meta`` tensors the wrapper checks its
   arguments and returns an empty result of the right shape, and
@@ -51,6 +54,9 @@ __all__ = [
     "tilted_fusion_plain",
     "round_up_channels",
     "workspace_shapes",
+    "packed_weight_bytes",
+    "shared_bytes",
+    "block_rows",
     "kernel_buffers",
     "SegmentPlan",
     "SHARED_SM_TILE_COST",
@@ -62,11 +68,13 @@ __all__ = [
     "record_launches",
     "launch_cost",
     "THREADS",
+    "MAX_TILE_COLS",
     "SUPPORTED_CHP",
 ]
 
 THREADS = 256  # CTA size (kThreads in the source)
-ROWS_PER_ITEM = 2  # output rows a thread item computes (kPix in the source)
+BLOCK_PIXELS = 256  # output pixels of a row block: 8 warps x 2 m16 fragments (kBlockPix)
+WINDOW_PIXELS = 320  # a row block's input window in shared memory: (30 + 2) x (8 + 2) (kWinPix)
 SUPPORTED_CHP = (16, 32)  # template instances of the kernel (launch_chp)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -77,13 +85,72 @@ def round_up_channels(n: int, multiple: int = 8) -> int:
     return -(-int(n) // multiple) * multiple
 
 
+def _mma_k(dtype) -> int:
+    """The k of the kernel's MMA: m16n8k8 TF32 for fp32 (3xTF32), m16n8k16
+    for bf16."""
+    return 16 if dtype == torch.bfloat16 else 8
+
+
+def block_rows(tile_cols: int) -> int:
+    """Output rows of a full row block (``block_rows`` in the source): at
+    most :data:`BLOCK_PIXELS` pixels, with the (rows + 2) x (C + 2) window
+    inside :data:`WINDOW_PIXELS`; 0 where a tile is too wide for it."""
+    C = int(tile_cols)
+    return max(0, min(BLOCK_PIXELS // C, WINDOW_PIXELS // (C + 2) - 2))
+
+
+MAX_TILE_COLS = max(c for c in range(2, WINDOW_PIXELS) if block_rows(c) >= 1)  # 104
+
+
+def _row_blocks(band_rows: int, tile_cols: int) -> List[int]:
+    """The rows of each row block of a tile, top to bottom."""
+    R, nr = int(band_rows), block_rows(tile_cols)
+    return [min(nr, R - r0) for r0 in range(0, R, nr)]
+
+
+def _stage_words(chp: int, ksteps: int, dtype) -> int:
+    """32-bit words of one layer's packed stage: the bias as fp32, then the
+    B fragments of 9 taps x ``ksteps`` k-steps for 32 lanes (fp32: hi and
+    lo words of 2 registers per n8 block; bf16: 2 registers of bf16
+    pairs)."""
+    per_lane = (4 if dtype != torch.bfloat16 else 2) * (chp // 8)
+    return chp + 9 * ksteps * 32 * per_lane
+
+
+def _ksteps(cin: int, dtype) -> int:
+    return -(-int(cin) // _mma_k(dtype))
+
+
+def packed_weight_bytes(num_layers: int, chp: int, c0p: int, dtype) -> int:
+    """Bytes of the packed weight stages at the head of a launch's workspace
+    (``packed_bytes`` in the source): layer 0 with ``ceil(c0p / k)`` k-steps
+    a tap, every other layer with ``Chp / k``."""
+    return 4 * (_stage_words(chp, _ksteps(c0p, dtype), dtype)
+                + (int(num_layers) - 1) * _stage_words(chp, _ksteps(chp, dtype), dtype))
+
+
+def shared_bytes(chp: int, dtype=torch.float32) -> int:
+    """Dynamic shared memory of one CTA of the ``<dtype, chp>`` instance
+    (``kSmemBytes``): two weight stages and two windows of
+    :data:`WINDOW_PIXELS` pixels of ``chp`` channels (128 bytes of data
+    stored as they are, swizzled; narrower pixels padded by 16 bytes).  It
+    does not depend on R."""
+    stage = 4 * _stage_words(chp, _ksteps(chp, dtype), dtype)
+    pixel = chp * dtype.itemsize
+    return 2 * stage + 2 * WINDOW_PIXELS * (pixel if pixel == 128 else pixel + 16)
+
+
 def workspace_shapes(num_layers: int, band_rows: int, tile_cols: int, chp: int):
     """The per-CTA device-memory workspace of the kernel — ``(slabs,
-    overlap_queue)``: two ping-pong feature slabs ``(2, Chp, R, C+2)`` and
-    the overlap queue ``(L, Chp, R, 2)`` — as plain tuples.  The wrapper
-    allocates exactly this; the kernel's ``workspace_elems`` indexes it."""
-    slabs = (2, chp, band_rows, tile_cols + 2)
-    overlap = (num_layers, chp, band_rows, 2)
+    overlap_queue)``: two pixel-major ping-pong slabs ``(2, R, C, Chp)``
+    (a layer's C fresh output columns) and the overlap queue ``(2, L-1, R,
+    2, Chp)``, double-buffered by tile parity, for F_1..F_{L-1} (F_0's
+    carried columns are read from the input stream) — as plain tuples.
+    The wrapper allocates exactly this per CTA, after the packed weights
+    (:func:`packed_weight_bytes`); the kernel's ``workspace_elems`` indexes
+    it."""
+    slabs = (2, band_rows, tile_cols, chp)
+    overlap = (2, num_layers - 1, band_rows, 2, chp)
     return slabs, overlap
 
 
@@ -95,20 +162,24 @@ def _elems(shape) -> int:
 
 
 def kernel_buffers(*, channels, band_rows: int, tile_cols: int, chp: int = None,
-                   bands: int = 1, segments: int = 1) -> dict:
+                   bands: int = 1, segments: int = 1, dtype=torch.float32) -> dict:
     """What one CTA (one segment of one band) of the Hopper kernel holds, in
     ELEMENTS of the compute dtype unless a key says bytes, and the workspace
     of a launch of ``bands`` x ``segments`` CTAs.
 
     * ``slabs`` / ``overlap`` (summed in ``workspace_elements``) — device
       memory the wrapper allocates per CTA (:func:`workspace_shapes`).
-      The TPU kernel's residual ring has no counterpart: the anchor is read
-      from the input stream, which stays in device memory.
+      ``overlap``'s ``logical_elements`` is the algorithm's queue, L slots
+      of 2 columns (the kernel reads F_0's slot from the input stream and
+      keeps two parities of the others).  The TPU kernel's residual ring
+      has no counterpart: the anchor is read from the input stream, which
+      stays in device memory.
     * ``ctas`` / ``launch_workspace_elements`` — the CTAs of the launch and
-      the workspace the wrapper allocates for them,
-      ``bands * segments * workspace_elements``.
-    * ``shared_bytes`` — dynamic shared memory per CTA: two fp32 stages of
-      one layer's weights, ``2 * 9 * Chp * Chp * 4`` bytes.  It does not
+      their workspace, ``bands * segments * workspace_elements``; the
+      wrapper allocates ``packed_weight_bytes`` more, once a launch.
+    * ``shared_bytes`` — dynamic shared memory per CTA for ``dtype``
+      (:func:`shared_bytes`): two weight stages and two input windows of
+      ``window_elements`` (``WINDOW_PIXELS * Chp``) each.  It does not
       depend on R.
     * ``stream_in_per_column`` / ``stream_out_per_column`` — the input
       stream read, and the tilted output written, per band column.
@@ -152,7 +223,9 @@ def kernel_buffers(*, channels, band_rows: int, tile_cols: int, chp: int = None,
         "workspace_elements": per_cta,
         "ctas": ctas,
         "launch_workspace_elements": ctas * per_cta,
-        "shared_bytes": 2 * 9 * chp * chp * 4,
+        "packed_weight_bytes": packed_weight_bytes(L, chp, c0p, dtype),
+        "window_elements": WINDOW_PIXELS * chp,
+        "shared_bytes": shared_bytes(chp, dtype),
     }
 
 
@@ -160,10 +233,11 @@ def kernel_buffers(*, channels, band_rows: int, tile_cols: int, chp: int = None,
 # Column segments
 # ----------------------------------------------------------------------
 # The time per tile of a CTA that shares its SM with a second resident CTA,
-# over the time of one alone on its SM: 0.46-0.52 against 0.31-0.33 ms per
-# tile for the fp32 Chp 32 instance at 2 CTAs per SM on an H100
-# (chip_smoke.py's forced-segment sweep; PERF.md).
-SHARED_SM_TILE_COST = 1.6
+# over the time of one alone on its SM: 0.0889-0.0903 against 0.0626-0.0642
+# ms per tile of the longest CTA, 1.38-1.44, for the bf16 Chp 32 instance at
+# 2 CTAs per SM on an H100 (chip_smoke.py's forced-segment sweep; PERF.md).
+# The fp32 instance fits one CTA per SM, so its plans never share an SM.
+SHARED_SM_TILE_COST = 1.4
 
 
 class SegmentPlan(NamedTuple):
@@ -254,69 +328,97 @@ def segment_plan(bands: int, tiles: int, tile_cols: int, num_layers: int, sms: i
 # ----------------------------------------------------------------------
 # What a launch issues
 # ----------------------------------------------------------------------
+def _mma_pixels(band_rows: int, tile_cols: int) -> int:
+    """Output pixels a tile's MMAs cover: each row block's pixels rounded
+    up to whole m16 fragments (two rows at C = 8, so an odd R runs one more
+    row)."""
+    C = int(tile_cols)
+    return sum(-(-rows * C // 16) * 16 for rows in _row_blocks(band_rows, C))
+
+
 def launch_cost(plan: SegmentPlan, *, band_rows: int, tile_cols: int, c0p: int, chp: int,
-                num_layers: int, dtype, bounds: bool = False, plain: bool = False) -> dict:
+                num_layers: int, dtype, bounds: bool = False, replicate: bool = False,
+                plain: bool = False) -> dict:
     """The FLOPs and device-memory bytes of one launch over ``plan``, as
     ``csrc/tilted_fusion.cu`` issues them.  ``plain=True`` counts the FLOPs
     as :func:`tilted_fusion_plain` executes them; its bytes stay the
-    kernel's model below, with layer 0 widened to ``chp``, which is not
-    what the plain version's eager loop issues.
+    kernel's below, which is not what the plain version's eager loop
+    issues.
 
-    * ``flops`` — 2 per FMA of every executed tile of every CTA: own tiles
-      run layers 0..L-1, warm-up tiles ``[kw, k0)`` layers 0..L-2.  Layer 0
-      reads ``c0p`` input channels, the others ``chp``, for ``chp`` outputs
-      at every row the item loop covers (``ceil(R / 2) * 2``).  The plain
-      version pads layer 0 to ``chp`` channels and runs exactly ``R`` rows.
+    * ``flops`` — 2 per multiply-add the MMAs execute, as fp32-equivalent
+      products (3xTF32 runs three TF32 products for each; a bound takes the
+      TF32 rate over 3): every executed tile of every CTA, own tiles layers
+      0..L-1, warm-up tiles ``[kw, k0)`` layers 0..L-2.  Each layer covers
+      the tile's pixels in whole m16 fragments per row block
+      (``ceil(R / 2) * 2`` rows at C = 8) for all ``chp`` outputs; layer 0
+      reads ``c0p`` channels padded to the MMA's k (8 in fp32, 16 in
+      bf16), the others ``chp``.  The plain version pads layer 0 to
+      ``chp`` channels and runs exactly ``R`` rows.
     * ``io_bytes`` (a) — the arguments and the result once each: the input
       stream, the first column, weights, bias, the row bounds (int32) and
       the tilted output.
     * ``workspace_bytes`` (b) — every other byte the launch reads or
-      writes in device memory: each tile's layer-0 slab fill and each
-      layer pass's slab reads and stores, the overlap queue's start state,
-      reads and writes, the weights and bias restaged at every (tile,
-      layer) step, and the input columns and bounds read again by
-      segments.  Each element counts once per pass, whatever the loads a
-      thread issues; L2 hits are not subtracted.  The anchor's reads
-      (``add_anchor``, which the serving path never sets) are not counted.
+      writes in device memory: the packed weight stages written once and
+      read at every (tile, layer) step; per CTA its row bounds and the
+      queue's start state; per step and row block the window's copies (the
+      stream for layer 0, the slab and the carried columns for the others;
+      rows outside the band are zero-filled under ``zero`` and read again,
+      clamped, under ``replicate``); per carried layer the slab and the
+      queue's two columns stored.  Each element counts once per pass,
+      whatever the loads a thread issues; L2 hits are not subtracted.  The
+      anchor's reads (``add_anchor``, which the serving path never sets)
+      are not counted.
 
     ``bytes`` is (a) + (b).  ``tiles`` counts executed tiles and
     ``warmup_tiles`` the warm-up ones among them, over every band.
     """
     R, C, L, chp, c0p = int(band_rows), int(tile_cols), int(num_layers), int(chp), int(c0p)
     esize = dtype.itemsize
-    cin = [chp if plain else c0p] + [chp] * (L - 1)  # input channels of each layer
-    rows = R if plain else -(-R // ROWS_PER_ITEM) * ROWS_PER_ITEM
-    slab_cols = C + 2
-    wsz = 9 * chp * chp
+    kk = _mma_k(dtype)
+    ks0, ks = _ksteps(c0p, dtype), _ksteps(chp, dtype)
+    cin = [chp if plain else ks0 * kk] + [chp] * (L - 1)  # K of each layer's products
+    pixels = R * C if plain else _mma_pixels(R, C)
 
     def tile_flops(layers):
-        return 2 * rows * C * 9 * chp * sum(cin[:layers])
+        return 2 * pixels * 9 * chp * sum(cin[:layers])
 
-    # per tile: the layer-0 fill (slab written, queue slot 0 read, slot 0
-    # stored back) and the carried layers 0..L-2 (slab read, carried columns
-    # in, interior stored, queue slot stored); an own tile's last layer
-    # reads its slab and writes the output, which is (a)
-    fill = cin[0] * R * (slab_cols + 6)
-    carried = sum(cin[:L - 1]) * R * slab_cols + (L - 1) * chp * R * (C + 8)
-    last = chp * R * slab_cols
-    flops = tiles = warm_tiles = ws_elems = arg_elems = 0
+    # a step's window rows, summed over its row blocks: each block reads its
+    # rows and one more above and below, those outside [0, R) only under
+    # replicate
+    blocks = len(_row_blocks(R, C))
+    win_rows = R + 2 * blocks - (0 if replicate else 2)
+    stage0 = 4 * _stage_words(chp, ks0, dtype)
+    stage = 4 * _stage_words(chp, ks, dtype)
+    # bytes of one tile's layers 0..n-1 beyond the output: the stage, the
+    # window (layer 0: C + 2 stream columns of c0p, C + 1 at tile 0, whose
+    # column -1 is zero-filled; the others: the carried 2 and the slab's C
+    # of chp) and, for a carried layer, its slab and queue columns stored
+    carried_out = R * (C + 2) * chp * esize
+
+    def tile_bytes(k, layers):
+        cols0 = C + 1 if k == 0 else C + 2
+        out = stage0 + win_rows * cols0 * c0p * esize
+        out += (layers - 1) * (stage + win_rows * (C + 2) * chp * esize)
+        return out + min(layers, L - 1) * carried_out
+
+    flops = tiles = warm_tiles = issued = 0
     for kw, k0, k1 in plan.ranges():
         own, warm = k1 - k0, k0 - kw
-        steps = own * L + warm * (L - 1)  # (tile, layer) steps, one weight stage each
         flops += own * tile_flops(L) + warm * tile_flops(L - 1)
         tiles += own + warm
         warm_tiles += warm
-        ws_elems += L * chp * R * 2 + (own + warm) * (fill + carried) + own * last
-        # fresh input columns of every tile, the start state's input
-        # columns (the first column alone for kw = 0), weights and bias
-        arg_elems += ((own + warm) * R * C * c0p + R * c0p * (1 if kw == 0 else 2)
-                      + steps * (wsz + chp))
+        issued += (L - 1) * R * 2 * chp * esize  # the queue's start state
+        issued += sum(tile_bytes(k, L if k >= k0 else L - 1) for k in range(kw, k1))
     B, K = plan.bands, plan.tiles
     stream = B * R * K * C
-    io_elems = stream * c0p + B * R * c0p + L * (wsz + chp) + stream * chp
-    bound_bytes = 4 * 2 * B if bounds else 0
-    io_bytes = io_elems * esize + bound_bytes
-    issued = (B * (ws_elems + arg_elems) + stream * chp) * esize + bound_bytes * plan.segments
+    weights = L * (9 * chp * chp + chp) * esize
+    io_bytes = (stream * c0p + B * R * c0p + stream * chp) * esize + weights
+    if bounds:
+        io_bytes += 4 * 2 * B
+    # the packing kernel reads the weights and bias once and writes the stages
+    issued = (B * issued + stream * chp * esize + weights
+              + packed_weight_bytes(L, chp, c0p, dtype)
+              + (4 * 2 * B * plan.segments if bounds else 0))
     return {
         "flops": B * flops,
         "io_bytes": io_bytes,
@@ -551,6 +653,11 @@ def launch_plan(x_stream: torch.Tensor, w: torch.Tensor, *, tile_cols: int,
                     compute_dtype or x_stream.dtype, w.shape[3], segments)
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where its address is not a multiple of 16."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _launch_kernel(x_stream, first_col, w, b, *, width, tile_cols, relu_flags,
                    add_anchor, in_channels, anchor_repeats, row_policy,
                    row_bounds, cdt, segments):
@@ -568,16 +675,21 @@ def _launch_kernel(x_stream, first_col, w, b, *, width, tile_cols, relu_flags,
     tensors = [x_stream, first_col, w, b] + ([row_bounds] if row_bounds is not None else [])
     if any(t.device != dev for t in tensors):
         raise ValueError("all kernel inputs must be on the same CUDA device")
-    x = x_stream.to(cdt).contiguous()
-    first = first_col.to(cdt).contiguous()
+    C = tile_cols
+    if C > MAX_TILE_COLS:
+        raise ValueError(f"tile_cols={C} exceeds the kernel's {MAX_TILE_COLS}: a row block's "
+                         f"window of {WINDOW_PIXELS} pixels holds no 3-row window")
+    # the window's 16-byte copies need 16-byte aligned stream and first column
+    x, first = (_aligned(t.to(cdt).contiguous()) for t in (x_stream, first_col))
     wc = w.to(cdt).contiguous()
     bc = b.to(cdt).contiguous()
     bounds = None if row_bounds is None else row_bounds.to(torch.int32).contiguous()
     lib = _lib()
-    C = tile_cols
     plan = launch_plan(x, wc, tile_cols=C, segments=segments, compute_dtype=cdt)
+    # the packed weight stages, then one workspace a CTA (both whole 16-byte runs)
     ws_elems = sum(_elems(s) for s in workspace_shapes(L, R, C, chp))
-    workspace = torch.empty((plan.ctas * ws_elems,), dtype=cdt, device=dev)
+    head = packed_weight_bytes(L, chp, c0p, cdt) // cdt.itemsize
+    workspace = torch.empty((head + plan.ctas * ws_elems,), dtype=cdt, device=dev)
     out = torch.empty((B, R, KC, chp), dtype=cdt, device=dev)
     relu_mask = sum(1 << i for i, r in enumerate(relu_flags) if r)
     with torch.cuda.device(dev):
@@ -609,6 +721,7 @@ class Launch(NamedTuple):
     dtype: torch.dtype  # the compute dtype
     bounds: bool  # row bounds given (halo slabs)
     segments: Optional[int]  # as the caller forced it; None for the automatic plan
+    replicate: bool = False  # row_policy "replicate"
 
     @property
     def out_bytes(self) -> int:
@@ -642,7 +755,8 @@ def record_launches():
         _RECORDER.reset(token)
 
 
-def _meta_call(x_stream, w, *, tile_cols, row_bounds, cdt, segments) -> torch.Tensor:
+def _meta_call(x_stream, w, *, tile_cols, row_bounds, row_policy, cdt,
+               segments) -> torch.Tensor:
     """The result of a launch on ``meta`` tensors: its shape and dtype,
     nothing computed and no launch counted."""
     B, R, KC, c0p = x_stream.shape
@@ -652,7 +766,8 @@ def _meta_call(x_stream, w, *, tile_cols, row_bounds, cdt, segments) -> torch.Te
     if launches is not None:
         launches.append(Launch(bands=B, band_rows=R, tiles=KC // tile_cols,
                                tile_cols=tile_cols, c0p=c0p, chp=chp, num_layers=L, dtype=cdt,
-                               bounds=row_bounds is not None, segments=segments))
+                               bounds=row_bounds is not None, segments=segments,
+                               replicate=row_policy == "replicate"))
     return out
 
 
@@ -706,8 +821,8 @@ def tilted_fusion_call(
                 in_channels, anchor_repeats, row_policy, row_bounds)
     cdt = compute_dtype or x_stream.dtype
     if x_stream.device.type == "meta":
-        out = _meta_call(x_stream, w, tile_cols=tile_cols, row_bounds=row_bounds, cdt=cdt,
-                         segments=segments)
+        out = _meta_call(x_stream, w, tile_cols=tile_cols, row_bounds=row_bounds,
+                         row_policy=row_policy, cdt=cdt, segments=segments)
     else:
         out = _launch_kernel(x_stream, first_col, w, b, cdt=cdt, **args)
     out_dtype = out_dtype or x_stream.dtype

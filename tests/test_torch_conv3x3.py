@@ -35,6 +35,7 @@ from repro_torch import engine as tengine
 from repro_torch.kernels import conv3x3 as tk2
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.ref import tf32_rna, tf32_split
 from repro_torch.models.abpn import ABPNConfig, layers_from_numpy
 
 torch.set_num_threads(2)
@@ -116,15 +117,6 @@ def test_conv3x3_does_not_depend_on_tile_cols(tile):
 # ----------------------------------------------------------------------
 # The kernel's fp32 numerics on the tensor cores (3xTF32), emulated
 # ----------------------------------------------------------------------
-def tf32_rna(a):
-    """float32 -> the TF32 value ``cvt.rna.tf32.f32`` gives: round to
-    nearest, ties away from zero, the 13 low mantissa bits cleared (finite
-    inputs).  Adding half of the cleared unit to the magnitude bits rounds
-    the magnitude half up, whatever the sign."""
-    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
-    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
-
-
 def conv3x3_3xtf32(x, w, b, *, relu, terms=3):
     """The kernel's fp32 path in numpy: A and B cut into K = 32 (the 9 taps
     folded into K where 9*Ci <= 32, else one pass per tap with Ci padded to
@@ -146,8 +138,7 @@ def conv3x3_3xtf32(x, w, b, *, relu, terms=3):
         bmat = np.pad(bmat, ((0, 32 - bmat.shape[0]), (0, 0)))
         for s in range(4):
             ak, bk = a[:, 8 * s:8 * s + 8], bmat[8 * s:8 * s + 8]
-            ah, bh = tf32_rna(ak), tf32_rna(bk)
-            al, bl = tf32_rna(ak - ah), tf32_rna(bk - bh)
+            (ah, al), (bh, bl) = tf32_split(ak), tf32_split(bk)
             products = [(al, bh), (ah, bl), (ah, bh)] if terms == 3 else [(ah, bh)]
             for pa, pb in products:
                 acc = (acc + pa.astype(np.float64) @ pb.astype(np.float64)).astype(np.float32)

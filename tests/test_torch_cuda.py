@@ -71,15 +71,23 @@ def _stack(seed, channels):
     ])
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("dtype,spread", [(torch.float32, "unit"), (torch.bfloat16, "unit"),
+                                          (torch.float32, "wide")],
+                         ids=["fp32", "bf16", "fp32_wide"])
 @pytest.mark.parametrize("rows", [20, 61])
 @pytest.mark.parametrize("policy", ["zero", "replicate", "halo_bounds"])
 @pytest.mark.parametrize("channels", [[3, 12, 12, 12], [3, 28, 28, 27]], ids=["chp16", "chp32"])
-def test_kernel_matches_plain(cuda, channels, policy, rows, dtype):
+def test_kernel_matches_plain(cuda, channels, policy, rows, dtype, spread):
+    """``wide``: pixels from 1e-3 to 10 of their unit value, where single
+    TF32 misses 5e-4 and 3xTF32 holds it (tests/test_torch_k1_tensor_cores.py
+    emulates both on these inputs)."""
     layers = [l.to(dtype=dtype) for l in _stack(1, channels)]
     packed = ops.pack_stack(layers, dtype=dtype)
     gen = torch.Generator().manual_seed(2)
-    xb = torch.rand((3, rows, 37, 3), generator=gen).to(dtype)
+    xb = torch.rand((3, rows, 37, 3), generator=gen)
+    if spread == "wide":
+        xb = xb * 10.0 ** (torch.rand(xb.shape, generator=gen) * 4 - 3)
+    xb = xb.to(dtype)
     xs, first = ops.band_streams(xb, 4, len(layers))
     bounds = None
     if policy == "halo_bounds":
@@ -129,8 +137,9 @@ def test_plan_cost_counts_k1_on_the_card_as_the_plain_version_at_c0p(cuda, polic
     (``launch_plan`` on a stream of the same shape), and its FLOPs are the
     plain version's for that plan (a ``meta`` trace of
     ``tilted_fusion_plain`` with the same segments) with layer 0 over c0p
-    = 8 input channels in place of Chp = 32.  Two 120x128 frames: 4 bands
-    of 17 tiles; 60 and 74 rows, both even, so no row is added."""
+    = 8 input channels padded to the MMA's k (8 in fp32, 16 in bf16) in
+    place of Chp = 32.  Two 120x128 frames: 4 bands of 17 tiles; 60 and 74
+    rows, both even, so no row is added."""
     from repro_torch.roofline.trace_cost import trace_cost
 
     layers = [l.to(device=cuda) for l in init_abpn(torch.Generator().manual_seed(0))]
@@ -151,7 +160,8 @@ def test_plan_cost_counts_k1_on_the_card_as_the_plain_version_at_c0p(cuda, polic
         torch.empty((4, rows, 1, 8), **meta), torch.empty((7, 3, 3, 32, 32), **meta),
         torch.empty((7, 32), **meta), width=128, tile_cols=8, relu_flags=[True] * 6 + [False],
         add_anchor=False, in_channels=3, segments=k1["plan"].segments, **extra)
-    padding = k1["tiles"] * 2 * rows * 8 * 9 * 32 * (32 - 8)  # layer 0, every executed tile
+    k0 = 16 if precision == "bf16" else 8  # layer 0's K on the tensor cores
+    padding = k1["tiles"] * 2 * rows * 8 * 9 * 32 * (32 - k0)  # layer 0, every executed tile
     assert k1["flops"] == traced.flops - padding
 
 
@@ -169,6 +179,12 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="padded channel count"):
         ttf.tilted_fusion_call(xs, first, packed.w, packed.b, width=16, tile_cols=4,
                                relu_flags=[True, False], add_anchor=False, in_channels=3)
+    wide = ttf.MAX_TILE_COLS + 1  # no 3-row window of this width fits shared memory
+    xw, fw = ops.band_streams(torch.rand((1, 8, 2 * wide, 3), device=cuda), wide, 2)
+    with pytest.raises(ValueError, match="tile_cols"):
+        ttf.tilted_fusion_call(xw, fw, packed12.w, packed12.b, width=2 * wide, tile_cols=wide,
+                               relu_flags=[True, False], add_anchor=False, in_channels=3)
+    assert ttf.tilted_fusion_call.launches == launches
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         packed16 = ops.pack_stack([l.to(device=cuda) for l in _stack(3, [3, 12, 12])])
         ttf.tilted_fusion_call(xs.half(), first.half(), packed16.w.half(), packed16.b.half(),

@@ -1,0 +1,240 @@
+"""K1's tensor-core datapath (``csrc/tilted_fusion.cu``), emulated on the
+CPU and held against the JAX package's Pallas kernel (interpret mode) and
+the port's plain version.
+
+The CUDA kernel runs only on the card.  :func:`emulate_k1` walks its loops
+in numpy: per band and segment (``SegmentPlan.ranges``) the sweep of tiles
+with warm-up tiles that run layers 0..L-2; layer 0's window read straight
+from the input stream (``first_col ++ x_stream``, zero left of the image);
+the deeper layers' windows made of the two columns carried in the overlap
+queue, double-buffered by tile parity, and the C fresh columns of the
+ping-pong slab; rows outside the band zero (``zero``) or clamped
+(``replicate``).  The arithmetic is the MMAs': per tap (dy, dx) and k-step,
+fp32 operands split into TF32 hi and lo (``ref.tf32_split``, as
+``cvt.rna.tf32.f32`` rounds) and three products summed small terms first,
+lo*hi, hi*lo, hi*hi (``terms=1``: hi*hi alone, single TF32), each MMA's
+products summed exactly and rounded once into the fp32 accumulator; bf16
+products (exact in fp32) summed the same way, k-steps of 16 with layer 0's
+channels padded to 16, into a partial that starts at zero for each tap and
+is then added to the accumulator in fp32.  Then the bias in fp32, the ReLU, the phantom-column
+and row-bound masks, one rounding to the storage dtype.
+
+Tolerances (max abs diff): 5e-4 fp32, 5e-2 bf16, the README support
+matrix's, against both the Pallas kernel and ``tilted_fusion_plain``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import tilted_fusion as jtf
+
+from repro_torch.core.fusion import halo_slabs
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import tilted_fusion as ttf
+from repro_torch.kernels.ref import tf32_split
+from repro_torch.models.abpn import ABPNConfig, layers_from_numpy
+
+torch.set_num_threads(2)
+
+TOL = {"fp32": 5e-4, "bf16": 5e-2}
+TDT = {"fp32": torch.float32, "bf16": torch.bfloat16}
+JDT = {"fp32": jnp.float32, "bf16": jnp.bfloat16}
+CHANNELS = ABPNConfig().channels  # 3, 28 x6, 27: L = 7, Chp 32, c0p 8
+L, C, BAND_ROWS, WIDTH = len(CHANNELS) - 1, 8, 12, 64
+
+
+def _round(a, precision):
+    """float32 values representable in the precision's dtype."""
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(TDT[precision]).float().numpy()
+
+
+def abpn_stack(seed, precision):
+    rng = np.random.default_rng(seed)
+    arrays = [((rng.normal(size=(3, 3, CHANNELS[i], CHANNELS[i + 1]))
+                * (2.0 / (9 * CHANNELS[i])) ** 0.5).astype(np.float32),
+               (rng.normal(size=(CHANNELS[i + 1],)) * 0.1).astype(np.float32),
+               i < L - 1)
+              for i in range(L)]
+    arrays = [(_round(w, precision), _round(b, precision), r) for w, b, r in arrays]
+    return tops.pack_stack(layers_from_numpy(arrays, dtype=TDT[precision]), dtype=TDT[precision])
+
+
+def k1_inputs(seed, precision, policy, spread="unit"):
+    """Two bands of 12 x 64 (``halo``: two 26-row slabs with bounds) of a
+    24 x 64 frame made with numpy, and their K1 arguments."""
+    rng = np.random.default_rng(seed)
+    frame = rng.uniform(size=(1, 2 * BAND_ROWS, WIDTH, 3)).astype(np.float32)
+    if spread == "wide":  # pixels from 1e-3 to 10 of their unit value
+        frame *= (10.0 ** rng.uniform(-3, 1, size=frame.shape)).astype(np.float32)
+    frame = torch.from_numpy(_round(frame, precision)).to(TDT[precision])
+    bounds = None
+    if policy == "halo":
+        bands, bounds = halo_slabs(frame, BAND_ROWS, L)
+    else:
+        bands = frame.reshape(2, BAND_ROWS, WIDTH, 3)
+    xs, first = tops.band_streams(bands, C, L)
+    return xs, first, bounds
+
+
+def _kw(packed, policy):
+    return dict(width=WIDTH, tile_cols=C, relu_flags=list(packed.relu), add_anchor=False,
+                in_channels=3, row_policy="replicate" if policy == "replicate" else "zero")
+
+
+def _mma_sum(acc, a, b, precision, terms):
+    """acc + a @ b over one k-step as the tensor cores take it."""
+    if precision == "bf16":
+        pairs = [(a, b)]
+    else:
+        (ah, al), (bh, bl) = tf32_split(a), tf32_split(b)
+        pairs = [(al, bh), (ah, bl), (ah, bh)] if terms == 3 else [(ah, bh)]
+    for pa, pb in pairs:
+        acc = (acc + pa.astype(np.float64) @ pb.astype(np.float64)).astype(np.float32)
+    return acc
+
+
+def emulate_k1(xs, first, w, b, *, width, tile_cols, relu_flags, row_policy="zero",
+               row_bounds=None, precision="fp32", terms=3, segments=1, **_):
+    """The CUDA kernel's loops and arithmetic in numpy -> tilted
+    ``(B, R, K*C, Chp)`` float32 (values of the storage dtype)."""
+    x = xs.float().numpy()
+    f0 = first.float().numpy()
+    wn, bn = w.float().numpy(), b.float().numpy()
+    B, R, KC, c0p = x.shape
+    Lw, chp = wn.shape[0], wn.shape[3]
+    Cn, K = tile_cols, KC // tile_cols
+    kk = 16 if precision == "bf16" else 8
+    k0pad = -(-c0p // kk) * kk
+    plan = ttf.segment_plan(B, K, Cn, Lw, sms=1, segments=segments)
+    out = np.zeros((B, R, KC, chp), np.float32)
+    rows = np.arange(R)
+    for band in range(B):
+        ext = np.concatenate([f0[band], x[band]], axis=1)  # column a = input column a
+        lo, hi = (0, R) if row_bounds is None else (int(row_bounds[band, 0]),
+                                                    int(row_bounds[band, 1]))
+        row_ok = ((rows >= lo) & (rows < hi))[:, None, None]
+        for kw, k0, k1 in plan.ranges():
+            queue = np.zeros((2, Lw - 1, R, 2, chp), np.float32)  # parity kw & 1 zeroed
+            slab = [None, None]
+            for k in range(kw, k1):
+                for l in range(Lw if k >= k0 else Lw - 1):
+                    if l == 0:  # the stream's columns kC-1 .. kC+C, zero left of the image
+                        win = np.zeros((R, Cn + 2, k0pad), np.float32)
+                        for wc in range(Cn + 2):
+                            a = k * Cn - 1 + wc
+                            if a >= 0:
+                                win[:, wc, :c0p] = ext[:, a]
+                        kdim = k0pad
+                    else:
+                        win = np.concatenate([queue[k & 1, l - 1], slab[(l - 1) & 1]], axis=1)
+                        kdim = chp
+                    if row_policy == "replicate":
+                        win = np.concatenate([win[:1], win, win[-1:]], axis=0)
+                    else:
+                        win = np.pad(win, ((1, 1), (0, 0), (0, 0)))
+                    acc = np.zeros((R * Cn, chp), np.float32)
+                    for dy in range(3):
+                        for dx in range(3):
+                            A = win[dy:dy + R, dx:dx + Cn].reshape(R * Cn, kdim)
+                            # bf16: the tap's k-steps from zero, then one fp32 add
+                            part = acc if precision == "fp32" else np.zeros_like(acc)
+                            for s in range(kdim // kk):
+                                part = _mma_sum(part, A[:, kk * s:kk * (s + 1)],
+                                                wn[l, dy, dx, kk * s:kk * (s + 1)], precision,
+                                                terms)
+                            acc = part if precision == "fp32" else acc + part
+                    y = (acc + bn[l]).reshape(R, Cn, chp)
+                    if relu_flags[l]:
+                        y = np.maximum(y, np.float32(0))
+                    acol = k * Cn - l + np.arange(Cn)
+                    keep = ((acol >= 0) & (acol < width))[None, :, None] & row_ok
+                    y = _round(np.where(keep, y, np.float32(0)), precision)
+                    if l < Lw - 1:
+                        slab[l & 1] = y
+                        queue[(k + 1) & 1, l] = y[:, Cn - 2:]
+                    else:
+                        out[band, :, k * Cn:(k + 1) * Cn] = y
+    return out
+
+
+def _jax_k1(xs, first, packed, bounds, policy, precision):
+    jd = JDT[precision]
+    return np.asarray(jtf.tilted_fusion_call(
+        jnp.asarray(xs.float().numpy(), jd), jnp.asarray(first.float().numpy(), jd),
+        jnp.asarray(packed.w.float().numpy(), jd), jnp.asarray(packed.b.float().numpy(), jd),
+        row_bounds=None if bounds is None else jnp.asarray(bounds.numpy()), interpret=True,
+        **_kw(packed, policy)), np.float32)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("policy", ["zero", "replicate", "halo"])
+def test_emulated_datapath_matches_pallas_and_plain(policy, precision):
+    """ABPN x3 at full width over two bands: the emulated kernel against the
+    Pallas kernel in interpret mode and against ``tilted_fusion_plain``,
+    and bit-identical across segment counts."""
+    packed = abpn_stack(3, precision)
+    xs, first, bounds = k1_inputs(4, precision, policy)
+    kw = _kw(packed, policy)
+    got = emulate_k1(xs, first, packed.w, packed.b, row_bounds=bounds, precision=precision,
+                     **kw)
+    assert np.isfinite(got).all() and np.abs(got).max() > 0.1
+    want = _jax_k1(xs, first, packed, bounds, policy, precision)
+    plain = ttf.tilted_fusion_plain(xs, first, packed.w, packed.b, row_bounds=bounds,
+                                    **kw).float().numpy()
+    np.testing.assert_allclose(got, want, atol=TOL[precision], rtol=0)
+    np.testing.assert_allclose(got, plain, atol=TOL[precision], rtol=0)
+    # each output element sums in one order wherever its tile falls
+    three = emulate_k1(xs, first, packed.w, packed.b, row_bounds=bounds, precision=precision,
+                       segments=3, **kw)
+    np.testing.assert_array_equal(three, got)
+
+
+@pytest.mark.parametrize("spread", ["unit", "wide"])
+def test_one_tf32_term_is_far_worse_than_three(spread):
+    """Single TF32 (hi*hi) against 3xTF32, fp32 ``zero``, both against the
+    plain version: three terms hold 5e-4 and one term is at least 10x worse.
+    Over pixels spread from 1e-3 to 10 of their unit value (as the card
+    test's wide case spreads them), one term misses 5e-4 outright."""
+    packed = abpn_stack(5, "fp32")
+    xs, first, _ = k1_inputs(6, "fp32", "zero", spread)
+    kw = _kw(packed, "zero")
+    plain = ttf.tilted_fusion_plain(xs, first, packed.w, packed.b, **kw).float().numpy()
+    err3 = np.abs(emulate_k1(xs, first, packed.w, packed.b, **kw) - plain).max()
+    err1 = np.abs(emulate_k1(xs, first, packed.w, packed.b, terms=1, **kw) - plain).max()
+    assert err3 <= TOL["fp32"], err3
+    assert err1 >= 10 * err3, (err1, err3)
+    if spread == "wide":
+        assert err1 > TOL["fp32"], err1
+
+
+def test_tf32_split_is_exact_in_two_words():
+    """hi + lo keeps ~22 of a float32's 24 bits: the rest is below 2^-21 of
+    the value, and hi and lo are TF32 values (13 low bits clear)."""
+    v = np.random.default_rng(7).normal(size=4096).astype(np.float32) * 10.0 ** \
+        np.random.default_rng(8).uniform(-3, 3, size=4096).astype(np.float32)
+    hi, lo = tf32_split(v)
+    for part in (hi, lo):
+        assert not (part.view(np.uint32) & np.uint32(0x1FFF)).any()
+    rest = np.abs(v.astype(np.float64) - hi.astype(np.float64) - lo.astype(np.float64))
+    assert (rest <= np.abs(v.astype(np.float64)) * 2.0 ** -21).all()
+    assert (np.abs(v - hi) > 0).any()  # one word alone is not the value
+
+
+def test_wrapper_shapes_the_launch_as_the_kernel_does():
+    """What the wrapper sizes for the kernel: the workspace head holds the
+    packed stages (layer 0 at its own k-steps), the shared memory is the
+    same at every R, and a tile wider than the window's rows raises."""
+    fp32 = ttf.packed_weight_bytes(7, 32, 8, torch.float32)
+    bf16 = ttf.packed_weight_bytes(7, 32, 8, torch.bfloat16)
+    assert fp32 == 4 * ((32 + 9 * 1 * 32 * 16) + 6 * (32 + 9 * 4 * 32 * 16))
+    assert bf16 == 4 * ((32 + 9 * 1 * 32 * 8) + 6 * (32 + 9 * 2 * 32 * 8))
+    assert fp32 % 16 == 0 and bf16 % 16 == 0
+    assert ttf.shared_bytes(32, torch.float32) == 229_632 < 232_448
+    assert ttf.shared_bytes(32, torch.bfloat16) == 88_320
+    assert ttf.shared_bytes(16, torch.float32) == 2 * 4 * (16 + 9 * 2 * 32 * 8) + 2 * 320 * 80
+    for R in (12, 60, 74, 1009):
+        kb = ttf.kernel_buffers(channels=CHANNELS, band_rows=R, tile_cols=C,
+                                dtype=torch.bfloat16)
+        assert kb["shared_bytes"] == 88_320 and kb["packed_weight_bytes"] == bf16

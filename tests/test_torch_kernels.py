@@ -200,8 +200,9 @@ def test_kernel_buffers_bounded_in_r():
     for rows in (8, 60, 61, 74, 1009):
         kb = ttf.kernel_buffers(channels=ch, band_rows=rows, tile_cols=8)
         assert kb["chp"] == 32 and kb["c0p"] == 8
-        assert kb["shared_bytes"] == 2 * 9 * 32 * 32 * 4  # the same for every R
-        assert kb["workspace_elements"] == 2 * 32 * rows * 10 + 7 * 32 * rows * 2
+        assert kb["shared_bytes"] == 229_632  # the same for every R
+        # slabs (2, R, C, Chp) and the queue (2, L-1, R, 2, Chp)
+        assert kb["workspace_elements"] == 2 * rows * 8 * 32 + 2 * 6 * rows * 2 * 32
         assert kb["buffers"]["overlap"]["logical_elements"] == 7 * rows * 2 * 28
     assert ttf.kernel_buffers(channels=ch, band_rows=60, tile_cols=8)["shared_bytes"] < 227 * 1024
     assert ttf.round_up_channels(28) == jtf.round_up_channels(28) == 32
@@ -210,7 +211,7 @@ def test_kernel_buffers_bounded_in_r():
 def test_kernel_buffers_launch_total():
     ch = [3, 28, 28, 28, 28, 28, 28, 27]
     kb = ttf.kernel_buffers(channels=ch, band_rows=60, tile_cols=8, bands=6, segments=41)
-    per_cta = 2 * 32 * 60 * 10 + 7 * 32 * 60 * 2  # 65,280: ~261 KB in fp32
+    per_cta = 2 * 60 * 8 * 32 + 2 * 6 * 60 * 2 * 32  # 76,800: ~307 KB in fp32
     assert kb["workspace_elements"] == per_cta
     assert kb["ctas"] == 6 * 41
     assert kb["launch_workspace_elements"] == 6 * 41 * per_cta

@@ -165,17 +165,28 @@ def test_launch_cost_on_the_plain_route_equals_the_traced_plain(segments, policy
 
 def test_launch_cost_counts_the_kernels_rows_and_channels():
     """The card's count differs from the plain's in two ways only: layer 0
-    reads c0p channels, and an odd R runs one more row (items of 2 rows)."""
+    reads c0p channels padded to the MMA's k (8 in fp32, 16 in bf16), and
+    each row block's pixels run in whole m16 fragments (an odd R runs one
+    more row at C = 8)."""
     plan = ttf.segment_plan(3, 6, TILE_COLS, L, sms=4, segments=2)
-    common = dict(tile_cols=TILE_COLS, c0p=C0P, chp=CHP, num_layers=L, dtype=torch.float32)
-    tiles = ttf.launch_cost(plan, band_rows=13, **common)["tiles"]
-    assert tiles == 3 * (6 + plan.warmup)  # the second segment re-runs w tiles
-    per_tile = 2 * TILE_COLS * 9 * CHP * (CHP - C0P)  # layer 0's padding, a row
-    card = ttf.launch_cost(plan, band_rows=14, **common)["flops"]
-    plain = ttf.launch_cost(plan, band_rows=14, plain=True, **common)["flops"]
-    assert plain - card == tiles * 14 * per_tile
-    assert ttf.launch_cost(plan, band_rows=13, **common)["flops"] == card
-    assert ttf.launch_cost(plan, band_rows=13, plain=True, **common)["flops"] == plain * 13 // 14
+    for dtype, k0 in ((torch.float32, C0P), (torch.bfloat16, 16)):
+        common = dict(tile_cols=TILE_COLS, c0p=C0P, chp=CHP, num_layers=L, dtype=dtype)
+        tiles = ttf.launch_cost(plan, band_rows=13, **common)["tiles"]
+        assert tiles == 3 * (6 + plan.warmup)  # the second segment re-runs w tiles
+        per_tile = 2 * TILE_COLS * 9 * CHP * (CHP - k0)  # layer 0's padding, a row
+        card = ttf.launch_cost(plan, band_rows=14, **common)["flops"]
+        plain = ttf.launch_cost(plan, band_rows=14, plain=True, **common)["flops"]
+        assert plain - card == tiles * 14 * per_tile
+        assert ttf.launch_cost(plan, band_rows=13, **common)["flops"] == card
+        assert ttf.launch_cost(plan, band_rows=13, plain=True, **common)["flops"] == plain * 13 // 14
+    # C = 3: a 13 x 3 tile is one row block of 39 pixels, three m16 fragments
+    plan3 = ttf.segment_plan(1, 4, 3, L, sms=1, segments=1)
+    got = ttf.launch_cost(plan3, band_rows=13, tile_cols=3, c0p=C0P, chp=CHP, num_layers=L,
+                          dtype=torch.float32)
+    assert got["flops"] == 4 * 2 * 48 * 9 * CHP * (C0P + (L - 1) * CHP)
+    # the window's 320 pixels hold 3 rows of a tile up to C = 104
+    assert ttf.MAX_TILE_COLS == 104 and ttf.block_rows(104) == 1 and ttf.block_rows(105) == 0
+    assert ttf.block_rows(TILE_COLS) == 30 and ttf.block_rows(4) == 51
 
 
 @pytest.mark.parametrize("bounds", [False, True], ids=["no_bounds", "bounds"])
@@ -205,49 +216,59 @@ def test_launch_cost_io_bytes_are_the_wrapper_tensors(dtype, bounds):
     assert got["io_bytes"] == sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _walk_the_source(plan, R, C, c0p, chp, L, bounds):
-    """Elements (and bound ints) one launch reads and writes beyond (a),
-    walking ``csrc/tilted_fusion.cu`` loop by loop: each loop over a buffer
-    touches each element once."""
-    SC = C + 2
-    wsz = 9 * chp * chp
-    elems = ints = 0
+def _walk_the_source(plan, R, C, c0p, chp, L, dtype, bounds, replicate):
+    """Bytes one launch reads and writes beyond (a), walking
+    ``csrc/tilted_fusion.cu`` loop by loop: the packing kernel, then per CTA
+    its bounds, the queue's start state, and per (tile, layer) step its
+    weight stage, each row block's window copies (pixel by pixel) and the
+    carried layers' stores.  Each loop over a buffer touches each element
+    once."""
+    es = dtype.itemsize
+    k = 8 if dtype == torch.float32 else 16
+    ks0, ks = -(-c0p // k), chp // k
+    lane_words = (4 if dtype == torch.float32 else 2) * (chp // 8)
+
+    def stage(ksteps):  # bias as fp32, then the B fragments of 32 lanes
+        return 4 * (chp + 9 * ksteps * 32 * lane_words)
+
+    nr = min(256 // C, 320 // (C + 2) - 2)
+    total = L * (9 * chp * chp + chp) * es + stage(ks0) + (L - 1) * stage(ks)  # packing
     for _ in range(plan.bands):
         for kw, k0, k1 in plan.ranges():
-            ints += 2 if bounds else 0
-            elems += L * chp * R * 2  # queue start state written
-            elems += R * c0p * (1 if kw == 0 else 2)  # its input columns read
-            elems += wsz  # the first weight stage
-            steps = 0
-            for k in range(kw, k1):
-                nl = L - 1 if k < k0 else L
-                elems += c0p * R * SC + c0p * R * 2 + R * C * c0p  # fill: slab, queue, stream
-                elems += 2 * c0p * R * 2  # slot 0 stored: slab read, queue written
-                for l in range(nl):
-                    steps += 1
-                    cin = c0p if l == 0 else chp
-                    elems += cin * R * SC + chp  # slab read, bias
+            total += 8 if bounds else 0
+            total += (L - 1) * R * 2 * chp * es  # one parity of the queue zeroed
+            for kt in range(kw, k1):
+                for l in range(L - 1 if kt < k0 else L):
+                    total += stage(ks0 if l == 0 else ks)
+                    for r0 in range(0, R, nr):
+                        for wr in range(min(nr, R - r0) + 2):
+                            if not 0 <= r0 - 1 + wr < R and not replicate:
+                                continue  # zero-filled
+                            for wc in range(C + 2):
+                                if l > 0:
+                                    total += chp * es  # carried columns, then the slab
+                                elif kt * C - 1 + wc >= 0:
+                                    total += c0p * es  # the first column or the stream
                     if l < L - 1:
-                        elems += 2 * chp * R * 2  # carried columns in
-                        elems += chp * R * C  # interior stored
-                        elems += 2 * chp * R * 2  # queue slot stored
-            elems += (steps - 1) * wsz  # a prefetch at every step but the last
-    # (a) once: stream, first column, weights and bias; the output is (a) alone
+                        total += R * C * chp * es + R * 2 * chp * es  # slab, queue stored
+    # (a) once: stream, first column, weights, bias and bounds (the output
+    # is (a) alone)
     K = plan.tiles
-    elems -= plan.bands * R * (K * C * c0p + c0p) + L * (wsz + chp)
-    ints -= 2 * plan.bands if bounds else 0
-    return elems, ints
+    total -= plan.bands * R * (K * C * c0p + c0p) * es + L * (9 * chp * chp + chp) * es
+    return total - (8 * plan.bands if bounds else 0)
 
 
 @pytest.mark.parametrize("bounds", [False, True], ids=["no_bounds", "bounds"])
 @pytest.mark.parametrize("segments", [1, 2, 3, 7])
 def test_launch_cost_workspace_bytes_walk_the_kernels_loops(segments, bounds):
     plan = ttf.segment_plan(3, 7, TILE_COLS, L, sms=8, segments=segments)
-    elems, ints = _walk_the_source(plan, 13, TILE_COLS, C0P, CHP, L, bounds)
     for dtype in (torch.float32, torch.bfloat16):
-        got = ttf.launch_cost(plan, band_rows=13, tile_cols=TILE_COLS, c0p=C0P, chp=CHP,
-                              num_layers=L, dtype=dtype, bounds=bounds)
-        assert got["workspace_bytes"] == elems * dtype.itemsize + 4 * ints
+        for R, C, replicate in ((13, TILE_COLS, False), (13, TILE_COLS, True),
+                                (61, TILE_COLS, False), (9, 3, True)):
+            want = _walk_the_source(plan, R, C, C0P, CHP, L, dtype, bounds, replicate)
+            got = ttf.launch_cost(plan, band_rows=R, tile_cols=C, c0p=C0P, chp=CHP,
+                                  num_layers=L, dtype=dtype, bounds=bounds, replicate=replicate)
+            assert got["workspace_bytes"] == want, (dtype, R, C, replicate)
 
 
 def test_the_wrapper_on_meta_tensors_records_and_launches_nothing():

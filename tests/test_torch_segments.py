@@ -104,14 +104,29 @@ def test_segment_plan_one_segment_and_more_than_k():
 
 
 def test_segment_plan_design_point():
-    # one 360x640 frame: 6 bands of 81 tiles on 132 SMs, two CTAs fit on each.
-    # 21 segments of at most 4 own + 2 warm-up tiles leave every CTA an SM
-    # of its own; 41 segments of 2 + 2 tiles would put two on most SMs.
-    plan = ttf.segment_plan(6, 81, 8, 7, sms=132, ctas_per_sm=2)
+    # one 360x640 frame: 6 bands of 81 tiles on 132 SMs, one CTA of the fp32
+    # instance fits on each.  21 segments of at most 4 own + 2 warm-up tiles
+    # leave every CTA an SM of its own; 41 segments would take two waves.
+    plan = ttf.segment_plan(6, 81, 8, 7, sms=132, ctas_per_sm=1)
     assert plan.warmup == 2 and plan.ctas >= 100 and plan.ctas <= 132
     assert (plan.segments, plan.cost) == (21, 6.0)
-    # eight frames: 48 bands; 5 segments fill 240 of the 264 slots in one wave
-    assert ttf.segment_plan(48, 81, 8, 7, sms=132, ctas_per_sm=2).segments == 5
+    # eight frames: 48 bands; 5 segments of at most 17 + 2 tiles in two
+    # waves of 132 CTAs beat one wave of 2 segments (41 + 2 tiles)
+    eight = ttf.segment_plan(48, 81, 8, 7, sms=132, ctas_per_sm=1)
+    assert (eight.segments, eight.cost) == (5, 38.0)
+
+
+def test_segment_plan_design_point_two_ctas_per_sm():
+    # the bf16 instance fits two CTAs on an SM: at one frame 41 segments of
+    # at most 2 + 2 tiles, two CTAs on most SMs, beat 21 of 4 + 2 alone,
+    # since a CTA that shares its SM is less than twice as slow
+    plan = ttf.segment_plan(6, 81, 8, 7, sms=132, ctas_per_sm=2)
+    assert plan.ctas == 246 <= 264
+    assert (plan.segments, plan.cost) == (41, pytest.approx(4 * ttf.SHARED_SM_TILE_COST))
+    assert 1.0 < ttf.SHARED_SM_TILE_COST < 1.5
+    # eight frames: 5 segments fill 240 of the 264 slots in one wave
+    eight = ttf.segment_plan(48, 81, 8, 7, sms=132, ctas_per_sm=2)
+    assert (eight.segments, eight.cost) == (5, pytest.approx(19 * ttf.SHARED_SM_TILE_COST))
 
 
 def _costs(B, K, C, L, sms, per_sm):

@@ -49,6 +49,7 @@ from repro_torch.core.fusion import halo_slabs
 from repro_torch.engine import executor
 from repro_torch.engine.plan import BACKENDS, PRECISIONS, VERTICAL_POLICIES, SRPlan
 from repro_torch.kernels import _build
+from repro_torch.kernels import tilted_fusion as ttf
 from repro_torch.kernels.tilted_fusion import kernel_buffers, round_up_channels
 from repro_torch.models.abpn import layers_from_numpy
 
@@ -171,12 +172,15 @@ def test_budget_past_design_point_warns_on_both_banded_backends():
     assert rules(errors(jkern.verify())) == ["on_chip_budget"]  # the divergence
     report = plan_check.plan_buffer_report(SRPlan(height=360, width=64, band_rows=120,
                                                   backend="kernel"))
-    assert report["shared_bytes"] == 2 * 9 * 32 * 32 * 4 == 73_728
+    # two fp32 stages of packed weights (bias + TF32 hi and lo words) and two
+    # 320-pixel windows of 128-byte pixels: the same at every R
+    assert report["shared_bytes"] == 2 * 4 * (32 + 9 * 4 * 32 * 16) + 2 * 320 * 128 == 229_632
 
 
 @pytest.mark.parametrize("channels,over", [
-    ([3, 48, 48, 27], False),  # 165,888 B a CTA: fits (fewer CTAs per SM is occupancy only)
-    ([3, 64, 64, 27], True),  # 294,912 B a CTA
+    ([3, 32, 32, 27], False),  # 229,632 B a CTA: fits (one CTA an SM is occupancy only)
+    ([3, 64, 64, 27], True),  # 2 x 295,168 + 2 x 320 x 272 B a CTA
+    ([3, 40, 40, 27], True),  # 2 x 115,360 + 2 x 320 x 176 = 343,360 B a CTA
 ])
 def test_shared_memory_past_the_h100_is_an_error_on_the_kernel_backend(channels, over):
     plan = SRPlan(height=360, width=64, num_layers=3, backend="kernel")
@@ -192,11 +196,33 @@ def test_shared_memory_past_the_h100_is_an_error_on_the_kernel_backend(channels,
     assert errors(tilted.verify(channels=channels)) == []
 
 
+@pytest.mark.parametrize("backend", ["kernel", "tilted"])
+def test_tile_cols_past_k1s_window_is_an_error_on_the_kernel_backend(backend):
+    """K1 streams row blocks through a window of ``WINDOW_PIXELS`` pixels
+    and refuses a tile too wide for a 3-row window of it: the kernel
+    backend's plan says so before a launch; the tilted backend runs no
+    Hopper kernel and takes any width."""
+    widest = ttf.MAX_TILE_COLS
+    assert ttf.block_rows(widest) >= 1 and ttf.block_rows(widest + 1) == 0
+    for C, bad in ((widest, False), (widest + 1, True)):
+        plan = SRPlan(height=360, width=2 * C, num_layers=3, tile_cols=C, backend=backend)
+        errs = [f for f in errors(plan.verify()) if "tile_cols" in f.message]
+        if bad and backend == "kernel":
+            assert rules(errs) == ["on_chip_budget"] and str(widest) in errs[0].message
+        else:
+            assert errs == []
+
+
 def test_plan_buffer_report_reads_k1():
     report = plan_check.plan_buffer_report(SRPlan(height=360, width=640, backend="kernel"))
-    assert report["shared_bytes"] == 73_728
-    assert report["table2_elements"] == report["workspace_elements"] + 2 * 9 * 32 * 32
+    assert report["shared_bytes"] == 229_632
+    assert report["window_elements"] == 320 * 32
+    assert report["table2_elements"] == (report["workspace_elements"] + 2 * 9 * 32 * 32
+                                         + 2 * 320 * 32)
     assert report["ctas"] == 6  # one CTA a band for the accounting's launch
+    bf16 = plan_check.plan_buffer_report(SRPlan(height=360, width=640, backend="kernel",
+                                                precision="bf16"))
+    assert bf16["shared_bytes"] == 2 * 4 * (32 + 9 * 2 * 32 * 8) + 2 * 320 * 80 == 88_320
 
 
 @pytest.mark.parametrize("band_rows", [12, 60])

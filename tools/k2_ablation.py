@@ -22,16 +22,13 @@ Exits 2 without a CUDA device.
 """
 
 import ctypes
-import os
 import re
-import statistics
-import subprocess
 import sys
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, os.path.join(ROOT, "src"))
-SRC = os.path.join(ROOT, "src/repro_torch/kernels/csrc/conv3x3.cu")
-OUT = os.path.join(ROOT, "build/k2_ablation")
+from _ablation import ROOT, build, device_ms, edits, nvidia_smi
+
+SRC = f"{ROOT}/src/repro_torch/kernels/csrc/conv3x3.cu"
+OUT = f"{ROOT}/build/k2_ablation"
 NEVER = "p.relu == 77"  # a condition no launch meets
 
 PLAN = re.compile(r"template <typename T, bool kFold> struct Plan \{.*?\n\};", re.S)
@@ -42,21 +39,6 @@ def plan(frags, blocks):
     return ("template <typename T, bool kFold> struct Plan {\n"
             f"  static constexpr int kFrags = {frags};\n"
             f"  static constexpr int kMinBlocks = {blocks};\n}};")
-
-
-def edits(*pairs):
-    def apply(src):
-        for old, new in pairs:
-            if callable(old):
-                src, n = old(src, new)
-            else:
-                n = src.count(old)
-                src = src.replace(old, new)
-            if n < 1:
-                raise RuntimeError(f"the source no longer holds the text this variant "
-                                   f"edits: {old!r}")
-        return src
-    return apply
 
 
 def sub_plan(src, new):
@@ -95,49 +77,9 @@ VARIANTS = {
 }
 
 
-def build(names):
-    import repro_torch.kernels._build as b
-
-    os.makedirs(OUT, exist_ok=True)
-    src = open(SRC).read()
-    procs = {}
-    for name in names:
-        path = os.path.join(OUT, f"{name}.cu")
-        with open(path, "w") as f:
-            f.write(VARIANTS[name][0](src))
-        lib = os.path.join(OUT, f"lib{name}.so")
-        procs[name] = (subprocess.Popen(
-            [b.nvcc_path(), *b.NVCC_FLAGS, "-Xptxas", "-v", "-o", lib, path],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
-    libs = {}
-    for name, (proc, lib) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for variant {name}:\n{out[-4000:]}")
-        # ptxas -v: "Compiling entry function <name>", then its spills, then
-        # "Used N registers", for each instance in turn
-        usage, label, spilled = [], None, "?"
-        for line in out.splitlines():
-            m = re.search(r"Compiling entry function .*conv3x3_kernelI(f|13__nv_bfloat16)Lb([01])E",
-                          line)
-            if m:
-                label = (f"<{'fp32' if m.group(1) == 'f' else 'bf16'}, "
-                         f"{'folded' if m.group(2) == '1' else 'per tap'}>")
-            m = re.search(r"(\d+) bytes spill stores", line)
-            if m:
-                spilled = m.group(1)
-            m = re.search(r"Used (\d+) registers", line)
-            if m and label:
-                usage.append(f"{label} {m.group(1)} registers, {spilled} B spilled")
-                label = None
-        usage = ", ".join(usage)
-        print(f"{name}: {usage}", flush=True)
-        lib_ = ctypes.CDLL(lib)
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib_.conv3x3_launch.argtypes = [ci] + [vp] * 4 + [ci] * 6 + [vp]
-        lib_.conv3x3_blocks_per_sm.argtypes = [ci, ci, ctypes.POINTER(ci)]
-        libs[name] = lib_
-    return libs
+def k2_label(m):
+    return (f"<{'fp32' if m.group(1) == 'f' else 'bf16'}, "
+            f"{'folded' if m.group(2) == '1' else 'per tap'}>")
 
 
 def main() -> int:
@@ -148,11 +90,17 @@ def main() -> int:
         return 2
     from repro_torch.kernels import conv3x3 as k2
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60).stdout.strip()
+    smi = nvidia_smi()
     print(f"nvidia-smi: {smi}")
     names = sys.argv[1:] or list(VARIANTS)
-    libs = build(names)
+    libs = {}
+    for name, path in build(SRC, OUT, {n: VARIANTS[n][0] for n in names},
+                            r"conv3x3_kernelI(f|13__nv_bfloat16)Lb([01])E", k2_label).items():
+        lib = ctypes.CDLL(path)
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.conv3x3_launch.argtypes = [ci] + [vp] * 4 + [ci] * 6 + [vp]
+        lib.conv3x3_blocks_per_sm.argtypes = [ci, ci, ctypes.POINTER(ci)]
+        libs[name] = lib
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     stream = torch.cuda.current_stream().cuda_stream
@@ -171,21 +119,6 @@ def main() -> int:
             raise RuntimeError(f"launch failed: CUDA error {err}")
         return out, blocks.value
 
-    def device_us(fn, calls=20, rounds=5):
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(rounds):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(40_000_000)  # the launches queue up behind ~20 ms
-            start.record()
-            for _ in range(calls):
-                fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end) * 1e3 / calls)
-        return statistics.median(times)
-
     gen = torch.Generator().manual_seed(0)
     for dt, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
         for ci, co, relu in ((3, 28, True), (28, 28, True), (28, 27, False)):
@@ -203,7 +136,7 @@ def main() -> int:
                     if not bool((diff <= atol + rtol * want.abs()).all()):
                         raise RuntimeError(f"{name} {tag} {ci}->{co}: max abs err "
                                            f"{diff.max().item():.3e} outside the tolerance")
-                us = device_us(lambda: launch(lib, x, w, b, relu))
+                us = 1e3 * device_ms(lambda: launch(lib, x, w, b, relu), calls=20, rounds=5)
                 cells.append(f"{name} {us:.1f} us ({blocks} CTAs/SM)")
             print(f"{tag} {ci}->{co}: " + "; ".join(cells), flush=True)
     print(smi)
