@@ -14,19 +14,29 @@ each of their parts to the end and then fail with every failure listed):
    with nvcc (one process per source, started together) and prints each
    template instance's registers, stack, shared and local memory, and K1's
    and K2's dynamic shared memory per CTA and resident CTAs per SM for each
-   instance;
+   instance (K1: Chp 16 and 32 narrow, 48, 64, 96 and 128 wide; K2: the
+   persistent instances and the wide one);
 3. K1 vs plain — K1 against ``tilted_fusion_plain`` on the card at the
    design point (the 6 bands of a 360x640 frame under zero and replicate,
    the 74-row halo slabs with bounds, the anchor) in fp32 (max abs diff
    <= 5e-4) and bf16 (<= 5e-2), on ABPN x3 weights from seed 0 with
    seeded non-zero biases (``init_abpn`` zeroes them); and K1 with
-   ``segments`` 1, 2, 3, the automatic plan and K must be bit-identical;
+   ``segments`` 1, 2, 3, the automatic plan and K must be bit-identical.
+   Then K1 at every width the Pallas kernel takes: [3, c, c, c] stacks for
+   c = 8, 16, 24, 32, 40, 48, 64, 96, 128 (8, 24 and 40 padded to the 16,
+   32 and 48 instances) over three 61x37 bands under zero, replicate and
+   row bounds, segments bit-identical at 48 and 128; and at ABPN x4's
+   design point (7 layers, 28 features, 48 outputs: Chp 48) over the 6
+   bands of a 360x640 frame under zero, replicate and halo, segments
+   bit-identical under zero; same tolerances;
 3b. K2 vs plain — K2 against ``conv3x3_plain`` on the card at the seven
    ABPN x3 layer shapes over one 360x640 frame (the stack of phase 3, each
    layer fed the previous layer's features) and at a width that is not a
    tile multiple, in fp32 (|diff| <= 2e-5 + 1e-5 |want|, K2's 3xTF32 held
    to the fp32 tolerance) and bf16 (<= 2e-2 + 2e-2 |want|, the JAX
-   package's K2 tolerances);
+   package's K2 tolerances); and on the wide instance at ABPN x4's last
+   layer (28 -> 48, on its stack's features), 48 -> 48 and 128 -> 128
+   over the frame, same tolerances;
 4. main path — ``SRServer.open("abpn_x3", backend="kernel", precision=p,
    layers=...)`` at full ABPN x3 width (the stack of phase 3) serves a 4-frame
    360x640 request, two 2-frame requests that coalesce into one dispatch,
@@ -35,12 +45,18 @@ each of their parts to the end and then fail with every failure listed):
    ``tilted`` backend on the card (TF32 off) at 5e-4 (fp32, int8) / 5e-2
    (bf16), a frame served alone must equal the same frame served in the
    batch bit for bit, and K1's launch counter, zeroed just before, must
-   have moved;
+   have moved.  Then the slice's path: ``SRServer.open("abpn_x3",
+   scale=4, layers=<ABPN x4 from models.abpn.layers_from_numpy>,
+   backend="kernel")`` (360x640 -> 1440x2560) for the same seven
+   configurations, a 2-frame request and a frame alone (bit-identical to
+   its batch twin), held to the ``tilted`` backend on the card at the same
+   tolerances, K1's counter zeroed just before and moved;
 4b. layer-by-layer path — ABPN x3 over two 360x640 frames as 7
    ``ops.conv3x3`` launches per frame plus ``engine.sr_epilogue``, fp32 and
    bf16, held against ``engine.run`` on the ``reference`` backend (TF32
    off) at 5e-4 / 5e-2; K2's launch counter, zeroed just before, must have
-   moved;
+   moved; then ABPN x4 over one frame the same way (its last layer on K2's
+   wide instance), 7 launches, K2's counter zeroed just before;
 4c. temporal delta path — K1 against its plain version at the delta path's
    shapes (one dirty band; three halo bands padded to four slots, the pad's
    bounds (0, 0)), each real band bit-identical to the same band of the
@@ -243,7 +259,12 @@ each of their parts to the end and then fail with every failure listed):
    their p50 launch-to-completion latency; the delta path (fp32, zero): ms
    per frame of a full re-upscale, and of a delta frame with 0, 1 and 6
    dirty bands split into digest, dispatch and splice; K1 at 1, 3 and 4 (3
-   real + 1 padded) bands beside its bound for that work;
+   real + 1 padded) bands beside its bound for that work.  ABPN x4: K1 at
+   1 and 8 frames, fp32 and bf16, one launch and queued, beside the cuDNN
+   conv stack at the same widths (TF32 off), the 3xTF32 and bf16 bounds of
+   the unpadded work and the FLOPs K1 executes (``engine.plan_cost``); K2's
+   28 -> 48 layer and the 7-launch x4 stack a frame beside their bounds
+   and cuDNN;
 6. the kernels line, then the card's name and power limit, then the result.
 
 Exits 2 and prints no result when no CUDA device is present.
@@ -1962,6 +1983,251 @@ def served_plan_costs(torch, engine, dev, layers, peaks):
                                       "paper_reduction": paper}))
 
 
+# ----------------------------------------------------------------------
+# ABPN x4: the same 7-layer stack with 48 outputs (Chp 48), which K1 runs on
+# a wide instance and K2's last layer (28 -> 48) on its wide instance.
+# ----------------------------------------------------------------------
+X4_SCALE = 4
+K1_WIDTHS = (8, 16, 24, 32, 40, 48, 64, 96, 128)  # phase 3: every instance, and padding to one
+K1_SEGMENT_WIDTHS = (48, 128)  # phase 3: segments bit-identical on these wide instances
+
+
+def he_arrays(np, channels, seed):
+    """Seeded (w, b, relu) arrays of a conv stack: He-initialised weights
+    (``sqrt(2 / (9 Ci))``, as ``init_abpn``) and non-zero biases."""
+    rng = np.random.default_rng(seed)
+    return [((rng.normal(size=(3, 3, channels[i], channels[i + 1]))
+              * (2.0 / (9 * channels[i])) ** 0.5).astype(np.float32),
+             (rng.normal(size=(channels[i + 1],)) * 0.1).astype(np.float32),
+             i < len(channels) - 2)
+            for i in range(len(channels) - 1)]
+
+
+def abpn_x4_layers(np, dev):
+    """ABPN x4 (``ABPNConfig(scale=4)``: 7 layers, 28 features, 48 outputs)
+    from seed 40 through ``models.abpn.layers_from_numpy``, the function
+    the tests carry the JAX package's weights across with."""
+    from repro_torch.models.abpn import ABPNConfig, layers_from_numpy
+
+    return layers_from_numpy(he_arrays(np, ABPNConfig(scale=X4_SCALE).channels, 40), device=dev)
+
+
+def k1_check(torch, ttf, ops, label, prec, layers, xb, extra, width, worst, segments=False):
+    """K1 against its plain version on the card for the stack ``layers`` in
+    precision ``prec`` over the band batch ``xb`` (tile 8); with
+    ``segments`` also bit-identical for segments 1, 2, 3, the automatic
+    plan and K.  Records the max abs error in ``worst``."""
+    dt = torch.bfloat16 if prec == "bf16" else torch.float32
+    packed = ops.pack_stack([l.to(dtype=dt) for l in layers], dtype=dt)
+    L, tile_cols = len(layers), 8
+    xs, first = ops.band_streams(xb.to(dt), tile_cols, L)
+    kw = dict(width=width, tile_cols=tile_cols, relu_flags=[l.relu for l in layers],
+              in_channels=3, add_anchor=False)
+    kw.update(extra)
+    call = ttf.tilted_fusion_call
+    got = call(xs, first, packed.w, packed.b, **kw)
+    torch.cuda.synchronize()
+    want = ttf.tilted_fusion_plain(xs, first, packed.w, packed.b, **kw)
+    require(got.shape == want.shape and got.dtype == want.dtype, f"K1 {label} shape/dtype")
+    require(bool(torch.isfinite(got.float()).all()), f"K1 {label} {prec}: non-finite output")
+    err = (got.float() - want.float()).abs().max().item()
+    worst[prec] = max(worst.get(prec, 0.0), err)
+    inst = ttf.launch_chp(packed.chp, dt)
+    print(f"K1 vs plain [{prec}, {label}, Chp {packed.chp} on the Chp {inst} instance, "
+          f"B={xs.shape[0]} R={xs.shape[1]}]: max_abs_err={err:.3e} (tol {TOL[prec]:g})")
+    require(err <= TOL[prec], f"K1 vs plain {prec} {label}")
+    if segments:
+        K = xs.shape[2] // tile_cols
+        one = call(xs, first, packed.w, packed.b, segments=1, **kw)
+        auto = ttf.launch_plan(xs, packed.w, tile_cols=tile_cols, compute_dtype=dt).segments
+        for segs in (2, 3, None, K):
+            require(torch.equal(call(xs, first, packed.w, packed.b, segments=segs, **kw), one),
+                    f"K1 {prec} {label}: segments={segs} changed the output")
+        require(torch.equal(got, one), f"K1 {prec} {label}: auto plan vs one segment")
+        print(f"  segments 1, 2, 3, {auto} (auto), {K}: bit-identical")
+
+
+def serve_x4(torch, np, engine, dev, layers4, kcall):
+    """Phase 4, the slice's path: ``SRServer.open("abpn_x3", scale=4,
+    layers=<ABPN x4>, backend="kernel")`` for every served configuration
+    serves a 2-frame 360x640 request and one frame alone (which must equal
+    its batch twin bit for bit); each HR result against the ``tilted``
+    backend on the card, TF32 off.  K1's counter is zeroed just before
+    and read just after.  Returns (per_config, launches)."""
+    rng = np.random.default_rng(41)
+    req = rng.uniform(size=(2, H, W, 3)).astype(np.float32)
+    kcall.launches = 0
+    per_config = {}
+    for prec, policy in SERVED:
+        before = kcall.launches
+        server = engine.SRServer.open("abpn_x3", scale=X4_SCALE, layers=layers4,
+                                      backend="kernel", precision=prec, vertical_policy=policy)
+        hr = server.submit(req).result()
+        alone = server.submit(req[1]).result()
+        server.close()
+        launched = kcall.launches - before
+        require(launched > 0, f"x4 {prec}/{policy}: K1 was never launched")
+        require(tuple(hr.shape) == (2, H * X4_SCALE, W * X4_SCALE, 3),
+                f"x4 {prec}/{policy}: HR shape {tuple(hr.shape)}")
+        require(bool(torch.isfinite(hr).all()), f"x4 {prec}/{policy}: non-finite HR output")
+        require(torch.equal(alone, hr[1]),
+                f"x4 {prec}/{policy}: a frame served alone must equal it served in a batch")
+        plan = engine.make_plan(layers4, (H, W, 3), backend="tilted", precision=prec,
+                                vertical_policy=policy, band_rows=engine.derive_band_rows(H),
+                                scale=X4_SCALE)
+        want = engine.run(plan, layers4, req, device=dev)
+        err = (hr.float() - want.float()).abs().max().item()
+        per_config[f"{prec}/{policy}"] = {"launches": launched, "max_abs_err": err}
+        print(f"x4 server [{prec}, {policy}]: {H}x{W} -> {H * X4_SCALE}x{W * X4_SCALE}, K1 "
+              f"launches {launched}, HR vs tilted backend max_abs_err={err:.3e} "
+              f"(tol {TOL[prec]:g}); batch-independent bit-exact: yes")
+        require(err <= TOL[prec], f"x4 {prec}/{policy}: server output vs tilted backend")
+    launches = kcall.launches
+    print(f"x4 path K1 launches: {launches}")
+    require(launches > 0, "the x4 path never launched K1")
+    return per_config, launches
+
+
+def x4_times(torch, engine, ops, ttf, k2, dev, layers4, peaks, gen):
+    """Phase 5 at ABPN x4: K1 at 1 and 8 frames of 360x640, fp32 and bf16,
+    one launch between two events and queued behind a sleep, beside the
+    cuDNN conv stack at the same widths (TF32 off), the 3xTF32 and bf16
+    bounds of the unpadded work, and the FLOPs K1 executes
+    (``engine.plan_cost``); K2's 28 -> 48 layer and its 7-launch stack a
+    frame beside their bounds and cuDNN."""
+    from repro_torch.core.fusion import exact_fp32
+
+    L, C = len(layers4), 8
+    relu = [l.relu for l in layers4]
+    layers16 = [l.to(dtype=torch.bfloat16) for l in layers4]
+    packed = ops.pack_stack(layers4, dtype=torch.float32)
+    packed16 = ops.pack_stack(layers16, dtype=torch.bfloat16)
+    oihw = [(l.w.permute(3, 2, 0, 1).contiguous(), l.b, l.relu) for l in layers4]
+    oihw16 = [(w_.to(torch.bfloat16), b_.to(torch.bfloat16), r) for w_, b_, r in oihw]
+
+    def cudnn(f, stack):
+        with exact_fp32():
+            for w_, b_, r in stack:
+                f = torch.nn.functional.conv2d(f, w_, b_, padding=1)
+                f = torch.relu(f) if r else f
+        return f
+
+    macs = sum(9 * l.ci * l.co for l in layers4)
+    out = {}
+    for n in (1, 8):
+        frames = torch.rand((n, H, W, 3), generator=gen).to(dev)
+        xb = frames.reshape(n * H // 60, 60, W, 3)
+        xs, first = ops.band_streams(xb, C, L)
+        xs16, first16 = xs.to(torch.bfloat16), first.to(torch.bfloat16)
+        kw = dict(width=W, tile_cols=C, relu_flags=relu, in_channels=3, add_anchor=False)
+        kcall = ttf.tilted_fusion_call
+
+        def k1_fp32():
+            return kcall(xs, first, packed.w, packed.b, **kw)
+
+        def k1_bf16():
+            return kcall(xs16, first16, packed16.w, packed16.b, **kw)
+
+        nchw = xb.permute(0, 3, 1, 2).contiguous()
+        nchw16 = nchw.to(torch.bfloat16)
+        flops = 2 * n * H * W * macs
+        wbytes = sum(l.w.numel() + l.b.numel() for l in layers4)
+        nbytes = 4 * (n * H * W * (layers4[0].ci + layers4[-1].co) + wbytes)
+        tc_ms, tc_by = bound(3 * flops, nbytes, peaks["tf32"], peaks["bytes"])
+        bf_ms, bf_by = bound(flops, nbytes // 2, peaks["bf16"], peaks["bytes"])
+        executed = {}
+        for prec in ("fp32", "bf16"):
+            plan = engine.make_plan(layers4, (H, W, 3), backend="kernel", precision=prec,
+                                    vertical_policy="zero", band_rows=60, scale=X4_SCALE)
+            (k1,) = engine.plan_cost_terms(plan, layers4, n)["k1"]
+            executed[prec] = dict(flops=k1["flops"], segments=k1["plan"].segments,
+                                  ctas=k1["plan"].ctas)
+        row = dict(
+            ms=time_ms(torch, k1_fp32, reps=10), device_ms=device_ms(torch, k1_fp32, calls=5),
+            bf16_ms=time_ms(torch, k1_bf16, reps=10),
+            bf16_device_ms=device_ms(torch, k1_bf16, calls=5),
+            library_ms=time_ms(torch, lambda: cudnn(nchw, oihw), reps=10),
+            library_device_ms=device_ms(torch, lambda: cudnn(nchw, oihw), calls=5),
+            library_bf16_device_ms=device_ms(torch, lambda: cudnn(nchw16, oihw16), calls=5),
+            bound_ms=tc_ms, bound_by=tc_by, bf16_bound_ms=bf_ms, bf16_bound_by=bf_by,
+            flops=flops, bytes=nbytes, executed=executed, bands=xs.shape[0])
+        if n == 1:
+            row["plain_ms"] = time_ms(torch, lambda: ttf.tilted_fusion_plain(
+                xs, first, packed.w, packed.b, **kw), reps=3)
+        out[n] = row
+        print(f"x4 batch {n} ({xs.shape[0]} bands of 60x{W}, zero): K1 fp32 {row['ms']:.3f} ms "
+              f"one launch, {row['device_ms']:.3f} ms queued; bf16 {row['bf16_ms']:.3f} / "
+              f"{row['bf16_device_ms']:.3f} ms; cuDNN conv stack (TF32 off) "
+              f"{row['library_ms']:.3f} ms one call, {row['library_device_ms']:.3f} ms queued, "
+              f"bf16 {row['library_bf16_device_ms']:.3f} ms queued; bound 3xTF32 {tc_ms:.3f} ms "
+              f"({tc_by}) -> {100 * tc_ms / row['device_ms']:.1f}% queued, bf16 {bf_ms:.3f} ms "
+              f"({bf_by}) -> {100 * bf_ms / row['bf16_device_ms']:.1f}%; {flops / 1e9:.2f} GFLOP "
+              f"of ABPN x4, K1 executes {executed['fp32']['flops'] / 1e9:.2f} (fp32, S="
+              f"{executed['fp32']['segments']}) / {executed['bf16']['flops'] / 1e9:.2f} (bf16, "
+              f"S={executed['bf16']['segments']}) GFLOP (plan_cost)"
+              + (f"; plain {row['plain_ms']:.3f} ms" if n == 1 else ""))
+
+    # K2: the 28 -> 48 layer and the whole stack, one frame
+    f32 = torch.rand((H, W, 3), generator=gen).to(dev)
+    feats = [f32]
+    for l in layers4[:-1]:
+        feats.append(k2.conv3x3_call(feats[-1], l.w, l.b, relu=l.relu))
+    last, x28 = layers4[-1], feats[-1]
+    x28_16, w16, b16 = x28.to(torch.bfloat16), last.w.to(torch.bfloat16), last.b.to(torch.bfloat16)
+    lb = conv_cost(last.ci, last.co, H * W, 4)
+    lb16 = conv_cost(last.ci, last.co, H * W, 2)
+    nchw1 = x28.permute(2, 0, 1)[None].contiguous()
+    oihw1 = [(last.w.permute(3, 2, 0, 1).contiguous(), last.b, last.relu)]
+    layer = dict(
+        ms=device_ms(torch, lambda: k2.conv3x3_call(x28, last.w, last.b, relu=last.relu)),
+        bf16_ms=device_ms(torch, lambda: k2.conv3x3_call(x28_16, w16, b16, relu=last.relu)),
+        library_ms=device_ms(torch, lambda: cudnn(nchw1, oihw1)),
+        library_bf16_ms=device_ms(torch, lambda: cudnn(
+            nchw1.to(torch.bfloat16), [(w_.to(torch.bfloat16), b_.to(torch.bfloat16), r)
+                                       for w_, b_, r in oihw1])),
+        plain_ms=time_ms(torch, lambda: k2.conv3x3_plain(x28, last.w, last.b, relu=last.relu),
+                         reps=3))
+    (layer["bound_ms"], layer["bound_by"]) = bound(3 * lb[0], lb[1], peaks["tf32"], peaks["bytes"])
+    (layer["bf16_bound_ms"], layer["bf16_bound_by"]) = bound(lb16[0], lb16[1], peaks["bf16"],
+                                                             peaks["bytes"])
+
+    def k2_stack(f, stack):
+        for l in stack:
+            f = k2.conv3x3_call(f, l.w, l.b, relu=l.relu)
+        return f
+
+    nchw_frame = f32.permute(2, 0, 1)[None].contiguous()
+    costs = [conv_cost(l.ci, l.co, H * W, 4) for l in layers4]
+    costs16 = [conv_cost(l.ci, l.co, H * W, 2) for l in layers4]
+    stack = dict(
+        ms=device_ms(torch, lambda: k2_stack(f32, layers4), calls=10),
+        one_call_ms=time_ms(torch, lambda: k2_stack(f32, layers4), reps=10),
+        bf16_ms=device_ms(torch, lambda: k2_stack(f32.to(torch.bfloat16), layers16), calls=10),
+        library_ms=device_ms(torch, lambda: cudnn(nchw_frame, oihw), calls=10),
+        library_bf16_ms=device_ms(torch, lambda: cudnn(nchw_frame.to(torch.bfloat16), oihw16),
+                                  calls=10),
+        bound_ms=sum(bound(3 * c[0], c[1], peaks["tf32"], peaks["bytes"])[0] for c in costs),
+        bf16_bound_ms=sum(bound(c[0], c[1], peaks["bf16"], peaks["bytes"])[0] for c in costs16),
+        bytes=sum(c[1] for c in costs))
+    stack["bound_by"] = max(("operations", "bytes"), key=lambda k: sum(
+        b_[0] for b_ in (bound(3 * c[0], c[1], peaks["tf32"], peaks["bytes"]) for c in costs)
+        if b_[1] == k))
+    print(f"x4 K2 28->48 ({H}x{W}, wide instance): fp32 {layer['ms']:.4f} ms queued, bound "
+          f"{layer['bound_ms']:.4f} ms (3xTF32, {layer['bound_by']}) -> "
+          f"{100 * layer['bound_ms'] / layer['ms']:.1f}%; bf16 {layer['bf16_ms']:.4f} ms, bound "
+          f"{layer['bf16_bound_ms']:.4f} ms ({layer['bf16_bound_by']}) -> "
+          f"{100 * layer['bf16_bound_ms'] / layer['bf16_ms']:.1f}%; cuDNN (TF32 off) "
+          f"{layer['library_ms']:.4f} ms, bf16 {layer['library_bf16_ms']:.4f} ms; plain "
+          f"{layer['plain_ms']:.3f} ms")
+    print(f"x4 K2 layer-by-layer stack, one {H}x{W} frame (7 launches): fp32 {stack['ms']:.4f} "
+          f"ms queued, {stack['one_call_ms']:.4f} ms between two events; bf16 "
+          f"{stack['bf16_ms']:.4f} ms; bound fp32 {stack['bound_ms']:.4f} ms (3xTF32, sum of the "
+          f"layers', mostly {stack['bound_by']}) -> {100 * stack['bound_ms'] / stack['ms']:.1f}%, "
+          f"bf16 {stack['bf16_bound_ms']:.4f} ms; cuDNN stack (TF32 off) "
+          f"{stack['library_ms']:.4f} ms, bf16 {stack['library_bf16_ms']:.4f} ms")
+    return {"k1": out, "k2_layer_28_48": layer, "k2_stack": stack}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import numpy as np
@@ -1984,7 +2250,7 @@ def main() -> int:
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import conv3x3 as k2
     from repro_torch.kernels import tilted_fusion as ttf
-    from repro_torch.models.abpn import init_abpn
+    from repro_torch.models.abpn import init_abpn, layers_from_numpy
 
     dev = torch.device("cuda")
     kcall = ttf.tilted_fusion_call
@@ -2025,7 +2291,8 @@ def main() -> int:
             # (..._kernelIfLi32EE...), K2's <dtype, taps folded into K>
             # (..._kernelIfLb1EE...)
             # (the name's own length prefix, not the namespace's, precedes it)
-            m = re.search(r"\d+((?:tilted_fusion|pack_weights|conv3x3)\w*?_kernel)"
+            m = re.search(r"\d+((?:tilted_fusion|pack_weights|pack_slices|pack_wide|conv3x3)"
+                          r"\w*?_kernel)"
                           r"I(f|13__nv_bfloat16)(?:Li(\d+)E)?(?:Lb([01])E)?E", line)
             if m:
                 label = m.group(1) + " <" + (
@@ -2052,8 +2319,10 @@ def main() -> int:
         for kind, ci_ in (("folded", 3), ("per tap", 28)):
             k2_occ[f"{prec}/{kind}"] = dict(blocks_per_sm=k2.blocks_per_sm(dev, dt, ci_),
                                             smem_bytes=k2.smem_bytes(dt, ci_))
-    print(f"  conv3x3 persistent CTAs ({k2.TILE_ROWS}x{k2.TILE_COLS} output tiles; taps folded "
-          f"into K at Ci <= 3): " + ", ".join(
+        k2_occ[f"{prec}/wide"] = k2.wide_occupancy(dev, dt)  # Ci or Co past 32
+    print(f"  conv3x3 ({k2.TILE_ROWS}x{k2.TILE_COLS} output tiles; persistent CTAs at Ci, Co <= "
+          f"32, taps folded into K at Ci <= 3; wide: a CTA a (tile, 32 outputs) pair): "
+          + ", ".join(
               f"<{k}> {v['smem_bytes']} B shared memory, {v['blocks_per_sm']} CTAs per SM"
               for k, v in k2_occ.items()))
 
@@ -2114,6 +2383,31 @@ def main() -> int:
             require(torch.equal(got, one), f"K1 {prec} {name}: auto plan vs one segment")
             print(f"  segments 1, 2, 3, {auto} (auto), {K}: bit-identical")
 
+    # K1 at every channel width the Pallas kernel takes: [3, c, c, c] stacks
+    # over three 61-row bands of 37 columns (three row blocks a step), each
+    # width on its instance (8, 24 and 40 padded to 16, 32 and 48)
+    t0 = time.perf_counter()
+    small = torch.rand((3, 61, 37, 3), generator=gen).to(dev)
+    small_bounds = torch.tensor([[2, 58], [0, 61], [5, 9]], dtype=torch.int32, device=dev)
+    for c in K1_WIDTHS:
+        stack_c = [l.to(device=dev) for l in layers_from_numpy(he_arrays(np, [3, c, c, c], c))]
+        for prec in ("fp32", "bf16"):
+            for name, extra in (("zero", {}), ("replicate", dict(row_policy="replicate")),
+                                ("halo bounds", dict(row_bounds=small_bounds))):
+                k1_check(torch, ttf, ops, f"[3, {c}, {c}, {c}], {name}", prec, stack_c, small,
+                         extra, 37, worst, segments=c in K1_SEGMENT_WIDTHS and name == "zero")
+    print(f"K1 widths {K1_WIDTHS} took {time.perf_counter() - t0:.1f} s")
+    # ABPN x4's design point: the 6 bands of a 360x640 frame on the Chp 48
+    # instance, the 74-row halo slabs with bounds
+    layers4 = abpn_x4_layers(np, dev)
+    slabs4, bounds4 = halo_slabs(frame, 60, len(layers4))
+    for prec in ("fp32", "bf16"):
+        for name, xb, extra in (("zero", bands, {}),
+                                ("replicate", bands, dict(row_policy="replicate")),
+                                ("halo (74-row slabs, bounds)", slabs4, dict(row_bounds=bounds4))):
+            k1_check(torch, ttf, ops, f"ABPN x4, {name}", prec, layers4, xb, extra, W, worst,
+                     segments=name == "zero")
+
     # ------------------------------------------------------------------
     phase("3b. K2 vs its plain version on the card (ABPN x3 layer shapes, 360x640)")
 
@@ -2143,6 +2437,18 @@ def main() -> int:
         # a width that is not a multiple of the tile: the last CTA reads zeros
         l = layers[2]
         k2_check("width 637", prec, k2_inputs[2][:, :637].to(dt), l.w.to(dt), l.b.to(dt), l.relu)
+        # the wide instance: ABPN x4's last layer on the features of its own
+        # stack, and 48 -> 48 and 128 -> 128 layers over the frame
+        f = frame[0].to(dt)
+        for l in layers4[:-1]:
+            f = k2call(f, l.w.to(dt), l.b.to(dt), relu=l.relu)
+        l = layers4[-1]
+        k2_check("x4 layer 6, 28->48", prec, f, l.w.to(dt), l.b.to(dt), l.relu)
+        for ci_, co_ in ((48, 48), (128, 128)):
+            (wa, ba, _), = he_arrays(np, [ci_, co_], ci_ + co_)
+            xw = torch.rand((H, W, ci_), generator=gen).to(dev, dt)
+            k2_check(f"{ci_}->{co_}", prec, xw, torch.from_numpy(wa).to(dev, dt),
+                     torch.from_numpy(ba).to(dev, dt), True)
 
     # ------------------------------------------------------------------
     phase("4. main path: SRServer.open('abpn_x3', backend='kernel') serving")
@@ -2193,6 +2499,8 @@ def main() -> int:
     main_launches = kcall.launches
     print(f"main path K1 launches: {main_launches}")
     require(main_launches > 0, "the main path never launched K1")
+    # the slice's path: ABPN x4 (Chp 48) at full width, 360x640 -> 1440x2560
+    x4_path, x4_launches = serve_x4(torch, np, engine, dev, layers4, kcall)
 
     # ------------------------------------------------------------------
     phase("4a. plan_cost: the served configurations' FLOPs and bytes beside their bound")
@@ -2230,6 +2538,32 @@ def main() -> int:
     layerwise_launches = k2call.launches
     print(f"layer-by-layer path K2 launches: {layerwise_launches}")
     require(layerwise_launches > 0, "the layer-by-layer path never launched K2")
+    # ABPN x4 layer by layer: its last layer (28 -> 48) on K2's wide instance
+    k2call.launches = 0
+    per_layerwise4 = {}
+    for prec in ("fp32", "bf16"):
+        before = k2call.launches
+        plan = engine.make_plan(layers4, (H, W, 3), backend="reference", precision=prec,
+                                scale=X4_SCALE)
+        prepared = engine.prepare_layers(layers4, prec)
+        x = lw_frames[:1].to(engine.compute_dtype_for(prec))
+        f = x[0]
+        for l in prepared:
+            f = ops.conv3x3(f, l.w, l.b, relu=l.relu)
+        hr = engine.sr_epilogue(plan, x, f[None], lw_frames.dtype)
+        launched = k2call.launches - before
+        want = engine.run(plan, layers4, lw_frames[:1], device=dev)
+        require(tuple(hr.shape) == (1, H * X4_SCALE, W * X4_SCALE, 3),
+                f"x4 layerwise {prec}: HR shape")
+        require(bool(torch.isfinite(hr).all()), f"x4 layerwise {prec}: non-finite HR output")
+        err = (hr.float() - want.float()).abs().max().item()
+        per_layerwise4[prec] = {"launches": launched, "max_abs_err": err}
+        print(f"x4 layer by layer [{prec}]: K2 launches {launched} (7 per frame, the last on the "
+              f"wide instance), HR vs reference backend max_abs_err={err:.3e} (tol {TOL[prec]:g})")
+        require(launched == 7, f"x4 layerwise {prec}: K2 launches {launched}")
+        require(err <= TOL[prec], f"x4 layerwise {prec}: HR output vs reference backend")
+    layerwise4_launches = k2call.launches
+    print(f"x4 layer-by-layer path K2 launches: {layerwise4_launches}")
 
     # ------------------------------------------------------------------
     phase("4c. temporal delta path: server.stream(clip, delta=True), partial-band K1 dispatches")
@@ -3152,6 +3486,11 @@ def main() -> int:
         print(f"K1, {label} (B={slots}, fp32, zero): {ms:.4f} ms queued, S={plan_b.segments}, "
               f"{plan_b.ctas} CTAs; bound {bms:.4f} ms ({bby}) -> {100 * bms / ms:.1f}% of bound")
 
+    # ABPN x4 (Chp 48): K1's and K2's wide instances
+    t0 = time.perf_counter()
+    x4 = x4_times(torch, engine, ops, ttf, k2, dev, layers4, peaks, gen)
+    print(f"x4 times took {time.perf_counter() - t0:.1f} s")
+
     # ------------------------------------------------------------------
     phase("6. kernels")
     t8 = timings[8]
@@ -3160,7 +3499,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/tilted_fusion.cu",
         "replaces": "src/repro/kernels/tilted_fusion.py:208",
-        "launches": main_launches + delta_launches + autotune_launches + sharded_launches,
+        "launches": (main_launches + x4_launches + delta_launches + autotune_launches
+                     + sharded_launches),
         "max_abs_err": worst["fp32"],
         "max_abs_err_bf16": worst["bf16"],
         "ms": t8["k1"]["ms"],
@@ -3200,12 +3540,17 @@ def main() -> int:
                        "full_frame_ms": full_frame_ms, "frame_ms": delta_times,
                        "k1_bands": k1_bands},
         "sharded_path": sharded_path,
+        "x4": {"shape": f"ABPN x4 (Chp 48, the wide instance), {H}x{W} frames, zero",
+               "path": x4_path, "launches": x4_launches, "batch1": x4["k1"][1],
+               "batch8": x4["k1"][8], "ms": x4["k1"][8]["ms"],
+               "plain_ms": x4["k1"][1]["plain_ms"], "bound_ms": x4["k1"][8]["bound_ms"],
+               "bound_by": x4["k1"][8]["bound_by"], "library_ms": x4["k1"][8]["library_ms"]},
     }, {
         "name": "conv3x3",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/conv3x3.cu",
         "replaces": "src/repro/kernels/conv3x3.py:28",
-        "launches": layerwise_launches,
+        "launches": layerwise_launches + layerwise4_launches,
         "max_abs_err": k2_worst["fp32"],
         "max_abs_err_bf16": k2_worst["bf16"],
         "ms": stack["ms"],
@@ -3229,6 +3574,13 @@ def main() -> int:
         "bytes_per_frame": stack["bytes"],
         "per_layer_shape": k2_shapes,
         "main_path": per_layerwise,
+        "x4": {"shape": f"ABPN x4 over one {H}x{W} frame, 7 launches (the last, 28->48, on "
+                        f"the wide instance)", "path": per_layerwise4,
+               "launches": layerwise4_launches, "layer_28_48": x4["k2_layer_28_48"],
+               "stack": x4["k2_stack"], "ms": x4["k2_stack"]["ms"],
+               "plain_ms": x4["k2_layer_28_48"]["plain_ms"],
+               "bound_ms": x4["k2_stack"]["bound_ms"], "bound_by": x4["k2_stack"]["bound_by"],
+               "library_ms": x4["k2_stack"]["library_ms"]},
     }]
     print("kernels: " + json.dumps({k["name"]: {"launches": k["launches"], "replaces": k["replaces"]}
                                     for k in kernels}))

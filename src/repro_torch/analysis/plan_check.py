@@ -108,7 +108,8 @@ def _default_channels(plan) -> List[int]:
     estimate (hidden width = the pixel-shuffle output width)."""
     abpn = core_analysis.ABPN_CHANNELS
     if plan.num_layers == len(abpn) - 1 and plan.in_channels == abpn[0]:
-        return list(abpn)
+        # ABPN's last layer has in_channels * scale^2 outputs (x4: 48)
+        return list(abpn[:-1]) + [plan.in_channels * plan.scale * plan.scale]
     hidden = max(plan.in_channels * plan.scale * plan.scale, plan.in_channels)
     return [plan.in_channels] + [hidden] * plan.num_layers
 
@@ -270,19 +271,37 @@ def _check_schedule(plan, findings: List[Finding], where: str) -> None:
 
 
 def _check_shared_memory(plan, report: dict, findings: List[Finding], where: str) -> None:
-    """The hard rules of the ``kernel`` backend: K1's shared memory fits one
-    CTA, and a 3-row window of the plan's tile width fits K1's window."""
-    from repro_torch.kernels.tilted_fusion import MAX_TILE_COLS, WINDOW_PIXELS
+    """The hard rules of the ``kernel`` backend: an instance of K1 covers
+    the stack's channels (Chp at most 128), its shared memory fits one
+    CTA, and a 3-row window of the plan's tile width fits the instance's
+    window."""
+    from repro_torch.kernels.tilted_fusion import SUPPORTED_CHP
 
-    if plan.tile_cols > MAX_TILE_COLS:
+    instance = report["instance"]
+    if instance is None:
         findings.append(Finding(
             checker="plan",
             rule="on_chip_budget",
             severity="error",
             message=(
-                f"tilted_fusion takes tile_cols <= {MAX_TILE_COLS}: a row block's "
-                f"{WINDOW_PIXELS}-pixel window holds no 3 x {plan.tile_cols + 2} window "
-                f"of tile_cols={plan.tile_cols}; the launch would fail"
+                f"tilted_fusion has no instance for Chp {report['packed_chp']}: its "
+                f"instances are Chp {', '.join(map(str, SUPPORTED_CHP))}, and a stack "
+                f"wider than {SUPPORTED_CHP[-1]} channels is not launched; the launch would fail"
+            ),
+            where=where,
+        ))
+        return
+    widest = report["max_tile_cols"]
+    if plan.tile_cols > widest:
+        findings.append(Finding(
+            checker="plan",
+            rule="on_chip_budget",
+            severity="error",
+            message=(
+                f"tilted_fusion <{plan.precision}, chp {instance}> takes tile_cols <= "
+                f"{widest}: a row block's {report['window_pixels']}-pixel window holds no "
+                f"3 x {plan.tile_cols + 2} window of tile_cols={plan.tile_cols}; the launch "
+                "would fail"
             ),
             where=where,
         ))
@@ -293,7 +312,7 @@ def _check_shared_memory(plan, report: dict, findings: List[Finding], where: str
             rule="on_chip_budget",
             severity="error",
             message=(
-                f"tilted_fusion <{plan.precision}, chp {report['chp']}> needs "
+                f"tilted_fusion <{plan.precision}, chp {instance}> needs "
                 f"{per_cta} B of shared memory per CTA — over the H100's "
                 f"{SMEM_PER_BLOCK_BYTES} B limit of one CTA; the launch would fail"
             ),

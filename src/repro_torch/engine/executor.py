@@ -504,9 +504,10 @@ def plan_cost_terms(
       one ``torch.empty`` that makes it is taken out again).
     * ``k1`` — one dict a K1 launch of the call:
       :func:`~repro_torch.kernels.tilted_fusion.launch_cost` for the
-      segment plan K1 runs it with on ``device`` (the card's; on the CPU
-      the plain version's, ``plain=True``), plus that ``plan``.  Empty off
-      the ``kernel`` backend.
+      segment plan K1 runs it with on ``device`` (the card's, at the Chp of
+      the instance it launches; on the CPU the plain version's at the
+      packed Chp, ``plain=True``), plus that ``plan``.  Empty off the
+      ``kernel`` backend.
     * ``weight_bytes_resident`` — ``stack.nbytes()``.
     * ``cost`` — their sum, :func:`plan_cost`'s six keys.
 
@@ -528,10 +529,12 @@ def plan_cost_terms(
     k1 = []
     for launch in launches:
         segments = launch.plan(dev)
+        cpu = dev.type == "cpu"
         cost = ttf.launch_cost(segments, band_rows=launch.band_rows, tile_cols=launch.tile_cols,
-                               c0p=launch.c0p, chp=launch.chp, num_layers=launch.num_layers,
+                               c0p=launch.c0p, chp=launch.chp if cpu else launch.instance_chp,
+                               num_layers=launch.num_layers,
                                dtype=launch.dtype, bounds=launch.bounds,
-                               replicate=launch.replicate, plain=dev.type == "cpu")
+                               replicate=launch.replicate, plain=cpu)
         k1.append(dict(cost, plan=segments))
     glue_bytes = traced.bytes_accessed - sum(launch.out_bytes for launch in launches)
     flops = traced.flops + sum(k["flops"] for k in k1)

@@ -12,10 +12,13 @@ a round trip through device memory.
 
 * :func:`conv3x3_call` — the wrapper.  A CUDA tensor launches the kernel
   (or raises); a CPU tensor runs :func:`conv3x3_plain`.  There is no other
-  path.  ``conv3x3_call.launches`` counts kernel launches.  On the card the
-  kernel runs persistent CTAs over ``TILE_ROWS x TILE_COLS`` output tiles
-  on the tensor cores (bf16 products; fp32 through 3xTF32), with at most
-  :func:`blocks_per_sm` CTAs on each SM (:func:`launch_grid`).
+  path.  ``conv3x3_call.launches`` counts kernel launches.  On the card a
+  layer of Ci, Co <= 32 runs persistent CTAs over ``TILE_ROWS x TILE_COLS``
+  output tiles on the tensor cores (bf16 products; fp32 through 3xTF32),
+  with at most :func:`blocks_per_sm` CTAs on each SM (:func:`launch_grid`);
+  a wider one (:func:`is_wide`, Ci and Co up to :data:`MAX_CHANNELS`) one
+  CTA a (tile, n-group of 32 outputs) pair, Ci in k-chunks of 32, weights
+  packed once a launch into a workspace the wrapper allocates.
 * :func:`conv3x3_plain` — the plain PyTorch version of the TPU kernel's
   dataflow: zero padding out to the column-tile grid, the ``(R+2, C+2, Ci)``
   slab of every C-column tile, 9 shifted fp32 products in the order dy then
@@ -38,6 +41,8 @@ __all__ = [
     "conv3x3_plain",
     "SUPPORTED_DTYPES",
     "MAX_CHANNELS",
+    "NARROW_CHANNELS",
+    "is_wide",
     "TILE_ROWS",
     "TILE_COLS",
     "blocks_per_sm",
@@ -46,7 +51,8 @@ __all__ = [
 ]
 
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)  # storage dtypes on the card
-MAX_CHANNELS = 32  # Ci and Co the kernel takes (kMaxChannels in the source)
+MAX_CHANNELS = 128  # Ci and Co the kernel takes (kWideMaxChannels in the source)
+NARROW_CHANNELS = 32  # up to here in both, the persistent instances (kMaxChannels)
 TILE_ROWS, TILE_COLS = 8, 32  # a CTA's output tile on the card (kTileRows, kTileCols)
 _DTYPE_CODE = {dt: i for i, dt in enumerate(SUPPORTED_DTYPES)}  # the launcher's dtype argument
 
@@ -127,6 +133,12 @@ def _lib() -> ctypes.CDLL:
         lib.conv3x3_blocks_per_sm.restype = ci
         lib.conv3x3_smem_bytes.argtypes = [ci, ci, ctypes.POINTER(ci)]
         lib.conv3x3_smem_bytes.restype = ci
+        lib.conv3x3_wide_launch.argtypes = [ci] + [vp] * 5 + [ci] * 5 + [vp]
+        lib.conv3x3_wide_launch.restype = ci
+        lib.conv3x3_wide_workspace_bytes.argtypes = [ci, ci, ci]
+        lib.conv3x3_wide_workspace_bytes.restype = ci
+        lib.conv3x3_wide_occupancy.argtypes = [ci, ctypes.POINTER(ci), ctypes.POINTER(ci)]
+        lib.conv3x3_wide_occupancy.restype = ci
         lib.conv3x3_error_string.argtypes = [ci]
         lib.conv3x3_error_string.restype = ctypes.c_char_p
         _lib_handle = lib
@@ -143,6 +155,25 @@ def _dtype_code(dtype):
     if dtype not in SUPPORTED_DTYPES:
         raise ValueError(f"the kernel stores float32 or bfloat16, not {dtype}")
     return _DTYPE_CODE[dtype]
+
+
+def is_wide(ci: int, co: int) -> bool:
+    """Whether a ``ci -> co`` layer runs the wide instance (Ci or Co above
+    :data:`NARROW_CHANNELS`): one CTA a (tile, n-group of 32 outputs) pair,
+    Ci in k-chunks of 32.  The others run the persistent instances, taps
+    folded into K at Ci <= 3."""
+    return int(ci) > NARROW_CHANNELS or int(co) > NARROW_CHANNELS
+
+
+def wide_occupancy(device, dtype) -> dict:
+    """``blocks_per_sm`` and ``smem_bytes`` of the wide instance of
+    ``dtype`` on a CUDA ``device`` (builds the kernel on first use)."""
+    lib = _lib()
+    blocks, nbytes = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(torch.device(device)):
+        _check_error(lib, lib.conv3x3_wide_occupancy(_dtype_code(dtype), ctypes.byref(blocks),
+                                                     ctypes.byref(nbytes)), "occupancy query")
+    return {"blocks_per_sm": blocks.value, "smem_bytes": nbytes.value}
 
 
 @functools.lru_cache(maxsize=None)
@@ -181,13 +212,28 @@ def smem_bytes(dtype, ci: int) -> int:
 
 
 def launch_grid(x: torch.Tensor) -> tuple:
-    """``(tiles, ctas)`` of a launch on the CUDA ``(R, W, Ci)`` tensor
-    ``x``: the ``TILE_ROWS x TILE_COLS`` output tiles, and the persistent
-    CTAs that walk them, at most the SM count times :func:`blocks_per_sm`."""
+    """``(tiles, ctas)`` of a launch of the persistent instances (Ci, Co <=
+    32) on the CUDA ``(R, W, Ci)`` tensor ``x``: the ``TILE_ROWS x
+    TILE_COLS`` output tiles, and the persistent CTAs that walk them, at
+    most the SM count times :func:`blocks_per_sm`."""
     R, W, ci = x.shape
     tiles = -(-R // TILE_ROWS) * -(-W // TILE_COLS)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     return tiles, min(tiles, sms * blocks_per_sm(x.device, x.dtype, ci))
+
+
+def _launch_wide(code, xc, wc, bc, out, relu):
+    R, W, ci = xc.shape
+    co = wc.shape[3]
+    lib = _lib()
+    ws = torch.empty((lib.conv3x3_wide_workspace_bytes(code, ci, co),), dtype=torch.uint8,
+                     device=xc.device)
+    with torch.cuda.device(xc.device):
+        stream = torch.cuda.current_stream(xc.device).cuda_stream
+        err = lib.conv3x3_wide_launch(code, xc.data_ptr(), wc.data_ptr(), bc.data_ptr(),
+                                      out.data_ptr(), ws.data_ptr(), R, W, ci, co,
+                                      int(bool(relu)), stream)
+    _check_error(lib, err, "kernel launch")
 
 
 def _launch_kernel(x, w, b, *, relu):
@@ -201,6 +247,10 @@ def _launch_kernel(x, w, b, *, relu):
     xc, wc, bc = x.contiguous(), w.contiguous(), b.contiguous()
     out = torch.empty((R, W, co), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
+        return out
+    if is_wide(ci, co):
+        _launch_wide(code, xc, wc, bc, out, relu)
+        conv3x3_call.launches += 1
         return out
     _, ctas = launch_grid(xc)
     lib = _lib()

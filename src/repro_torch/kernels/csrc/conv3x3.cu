@@ -71,7 +71,10 @@
 // Shared memory per CTA and resident CTAs per SM (their registers bound
 // the folded ones): fp32 per tap 204,544 B, 1; bf16 per tap 89,344 B, 2;
 // fp32 folded 51,968 B, 2; bf16 folded 24,000 B, 3.
-// Limits: Ci, Co <= 32 (the window row and B fragments are sized for 32).
+// Limits: Ci, Co <= 32 for these persistent instances (the window row and
+// B fragments are sized for 32).  A wider layer (Ci or Co up to 128, ABPN
+// x4's 28 -> 48 among them) runs the wide instance below: n-groups of 32
+// outputs on a second grid axis and Ci in k-chunks of 32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -519,6 +522,224 @@ conv3x3_kernel(Params p) {
   cp_async_wait_all();
 }
 
+// ---------------------------------------------------------------------------
+// Wide layers: Ci or Co above 32 (both at most 128)
+// ---------------------------------------------------------------------------
+// One CTA a (tile, n-group) pair: blockIdx.x walks the same 8 x 32 output
+// tiles, blockIdx.y the n-groups of 32 outputs.  Ci is cut into k-chunks of
+// 32 channels; for each chunk the CTA copies the tile's (10, 34, 32) window
+// of the chunk and the chunk's weights for its n-group (pre-packed once a
+// launch by pack_wide_kernel, in the B-fragment layout build_weights gives
+// the per-tap instance) into shared memory, waits for both, and runs the
+// chunk's 9 taps x k-steps on the tensor cores: each (chunk, tap)'s k-steps
+// into a partial from zero (3xTF32 terms in fp32), added to one fp32
+// accumulator carried across taps and chunks.  Then the bias, the ReLU and
+// one rounding, stored from the fragments.  Neither the
+// window nor the weights are double-buffered: a first design that is right
+// (fp32: 122,688 B, one CTA an SM; bf16: 64,064 B, three).
+constexpr int kWideMaxChannels = 128;  // Ci, Co limit of the wide instance (MAX_CHANNELS)
+constexpr int kWideThreads = 256;      // 8 warps x 2 fragments, as the per-tap instance
+
+template <typename T> struct Wide {
+  static constexpr int kPixWords = Mma<T>::kPixWords;  // a chunk's 32 channels, padded
+  static constexpr int kWindowBytes = kWinPix * kPixWords * 4;
+  static constexpr int kWeightBytes = 9 * Mma<T>::kSteps * Mma<T>::kBQuads * 32 * 16;
+  static constexpr int kSmemBytes = kWeightBytes + kWindowBytes;
+  static constexpr int kMinBlocks = sizeof(T) == 4 ? 1 : 2;
+};
+
+// Packed weights of a wide launch: for n-group grp and k-chunk c a block of
+// Wide<T>::kWeightBytes, blocks in (grp, c) order; inside it, as
+// build_weights lays out the per-tap instance's (with k = 32 c + the chunk's
+// k and n = 32 grp + the group's n; zero past Ci or Co).
+template <typename T>
+__global__ void pack_wide_kernel(Params p, uint32_t* __restrict__ packed, int chunks,
+                                 int groups) {
+  constexpr int kS = Mma<T>::kSteps, kQ = Mma<T>::kBQuads;
+  const size_t total = (size_t)groups * chunks * 9 * kS * kQ * 32 * 4;
+  const T* w = static_cast<const T*>(p.w);
+  auto weight = [&](int t, int k, int n) -> T {
+    return k < p.ci && n < p.co ? w[((size_t)t * p.ci + k) * p.co + n] : from_f<T>(0.f);
+  };
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int e = (int)(i & 3), lane = (int)((i >> 2) & 31);
+    size_t rest = i >> 7;
+    const int q = (int)(rest % kQ); rest /= kQ;
+    const int s = (int)(rest % kS); rest /= kS;
+    const int t = (int)(rest % 9); rest /= 9;
+    const int c = (int)(rest % chunks), grp = (int)(rest / chunks);
+    const int g = lane >> 2, tig = lane & 3, u = 4 * q + e;
+    uint32_t v;
+    if constexpr (sizeof(T) == 4) {  // q < 2 hi words, q >= 2 lo words
+      const int uu = u & 7, n = 32 * grp + 8 * (uu >> 1) + g;
+      const int k = 32 * c + 8 * s + tig + 4 * (uu & 1);
+      uint32_t hi, lo;
+      tf32_split(__float_as_uint(to_f(weight(t, k, n))), hi, lo);
+      v = u < 8 ? hi : lo;
+    } else {
+      const int n = 32 * grp + 8 * (u >> 1) + g, k = 32 * c + 16 * s + 2 * tig + 8 * (u & 1);
+      const T lo = weight(t, k, n), hi = weight(t, k + 1, n);
+      v = (uint32_t)*reinterpret_cast<const uint16_t*>(&lo) |
+          ((uint32_t)*reinterpret_cast<const uint16_t*>(&hi) << 16);
+    }
+    packed[i] = v;
+  }
+}
+
+// Issue the copies of k-chunk c of a tile's window into `win` (window rows
+// r0-1 .. r0+kTileRows, columns c0-1 .. c0+kTileCols): the chunk's 32
+// channels of every pixel in copies of G bytes, zero outside the map and
+// past Ci (cp.async's zero fill; plain 2-byte loads where G = 2).
+template <typename T, int G>
+__device__ void load_wide_window(const Params& p, char* win, int r0, int c0, int c) {
+  constexpr int kPer = 32 * (int)sizeof(T) / G;  // copies a pixel's chunk
+  const char* x = static_cast<const char*>(p.x);
+  const int pixel_bytes = p.ci * (int)sizeof(T);
+  const uint32_t base = smem_addr(win);
+  for (int i = threadIdx.x; i < kWinPix * kPer; i += kWideThreads) {
+    const int pix = i / kPer, gi = i - pix * kPer;
+    const int row = pix / kWinCols, col = pix - row * kWinCols;
+    const int gr = r0 - 1 + row, gc = c0 - 1 + col;
+    const int ch = 32 * c + gi * G / (int)sizeof(T);  // the copy's first channel
+    const bool in = gr >= 0 && gr < p.R && gc >= 0 && gc < p.W && ch < p.ci;
+    const char* src = in ? x + (size_t)(gr * p.W + gc) * pixel_bytes + ch * sizeof(T) : x;
+    const int dst = pix * Wide<T>::kPixWords * 4 + gi * G;
+    if constexpr (G >= 4) {
+      cp_async<G>(base + dst, src, in ? G : 0);
+    } else {
+      *reinterpret_cast<uint16_t*>(win + dst) = in ? *reinterpret_cast<const uint16_t*>(src) : 0;
+    }
+  }
+}
+
+template <typename T>
+__device__ void load_wide_window_any(const Params& p, char* win, int r0, int c0, int c) {
+  switch (p.gran) {
+    case 16: load_wide_window<T, 16>(p, win, r0, c0, c); break;
+    case 8: load_wide_window<T, 8>(p, win, r0, c0, c); break;
+    case 4: load_wide_window<T, 4>(p, win, r0, c0, c); break;
+    default: load_wide_window<T, 2>(p, win, r0, c0, c); break;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads, Wide<T>::kMinBlocks)
+conv3x3_wide_kernel(Params p, const uint4* __restrict__ packed, int chunks) {
+  using Wd = Wide<T>;
+  constexpr int kS = Mma<T>::kSteps, kQ = Mma<T>::kBQuads, kPW = Wd::kPixWords;
+  constexpr int kF = 2;
+  constexpr bool kF32 = sizeof(T) == 4;
+  extern __shared__ uint4 smem[];
+  const uint4* wsm = smem;
+  char* win = reinterpret_cast<char*>(smem) + Wd::kWeightBytes;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int wrow = warp * kF / 2, wcol = 16 * (warp * kF % 2);
+  const int tile = blockIdx.x, grp = blockIdx.y;
+  const int r0 = tile / p.tiles_c * kTileRows, c0 = tile % p.tiles_c * kTileCols;
+  const int lane_off = ((lane & 7) + 8 * ((lane >> 3) & 1)) * kPW * 4 + 16 * (lane >> 4);
+  const uint32_t win_addr = smem_addr(win);
+
+  float acc[kF][4][4];
+#pragma unroll
+  for (int f = 0; f < kF; ++f)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[f][j][c] = 0.f;
+
+  for (int c = 0; c < chunks; ++c) {
+    if (c > 0) __syncthreads();  // the last chunk's window and weights are read
+    load_wide_window_any<T>(p, win, r0, c0, c);
+    const uint4* src = packed + ((size_t)grp * chunks + c) * (Wd::kWeightBytes / 16);
+    const uint32_t wdst = smem_addr(smem);
+    for (int i = tid; i < Wd::kWeightBytes / 16; i += kWideThreads)
+      cp_async<16>(wdst + 16 * i, src + i, 16);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+#pragma unroll 1
+    for (int dy = 0; dy < 3; ++dy) {
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        const int t = dy * 3 + dx;
+        // the tap's k-steps from zero, then one fp32 add: the tensor cores
+        // do not round their fp32 accumulation to nearest, and one chained
+        // accumulator over the 432 3xTF32 MMAs of a 128 -> 128 element
+        // drifted 1.3e-4 from the plain sum on an H100, past K2's fp32
+        // tolerance
+        float part[kF][4][4];
+#pragma unroll
+        for (int f = 0; f < kF; ++f)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) part[f][j][e] = 0.f;
+#pragma unroll
+        for (int s = 0; s < kS; ++s) {
+          uint32_t bw[4 * kQ];
+#pragma unroll
+          for (int q = 0; q < kQ; ++q) {
+            const uint4 v = wsm[((t * kS + s) * kQ + q) * 32 + lane];
+            bw[4 * q] = v.x; bw[4 * q + 1] = v.y; bw[4 * q + 2] = v.z; bw[4 * q + 3] = v.w;
+          }
+#pragma unroll
+          for (int f = 0; f < kF; ++f) {
+            const int pix0 = (wrow + dy) * kWinCols + wcol + 16 * f + dx;
+            uint32_t a[4];
+            ldmatrix_x4(a, win_addr + pix0 * kPW * 4 + 32 * s + lane_off);
+            if constexpr (kF32) {
+              uint32_t ah[4], al[4];
+#pragma unroll
+              for (int e = 0; e < 4; ++e) tf32_split(a[e], ah[e], al[e]);
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                mma_tf32(part[f][j], al, bw[2 * j], bw[2 * j + 1]);
+                mma_tf32(part[f][j], ah, bw[8 + 2 * j], bw[8 + 2 * j + 1]);
+                mma_tf32(part[f][j], ah, bw[2 * j], bw[2 * j + 1]);
+              }
+            } else {
+#pragma unroll
+              for (int j = 0; j < 4; ++j) mma_bf16(part[f][j], a, bw[2 * j], bw[2 * j + 1]);
+            }
+          }
+        }
+#pragma unroll
+        for (int f = 0; f < kF; ++f)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[f][j][e] += part[f][j][e];
+      }
+    }
+  }
+
+  // Epilogue: accumulator e of n block j holds pixel 16 f + g + 8 (e >> 1)
+  // of the warp's tile row, output channel 32 grp + 8 j + 2 tig + (e & 1).
+  const int row = r0 + wrow;
+  if (row >= p.R) return;
+  const T* bsrc = static_cast<const T*>(p.bias);
+  T* out = static_cast<T*>(p.out);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int co = 32 * grp + 8 * j + 2 * tig + (e & 1);
+      if (co >= p.co) continue;
+      const float bias = to_f(bsrc[co]);
+#pragma unroll
+      for (int f = 0; f < kF; ++f) {
+        const int col = c0 + wcol + 16 * f + g + 8 * (e >> 1);
+        if (col >= p.W) continue;
+        float y = acc[f][j][e] + bias;
+        if (p.relu) y = fmaxf(y, 0.f);
+        out[((size_t)row * p.W + col) * p.co + co] = from_f<T>(y);
+      }
+    }
+}
+
 using KernelFn = void (*)(Params);
 
 struct Instance {
@@ -596,6 +817,76 @@ int conv3x3_smem_bytes(int dtype, int ci, int* bytes) {
   if (e != cudaSuccess) return (int)e;
   *bytes = k.smem;
   return 0;
+}
+
+// The wide instance (Ci or Co above 32, both at most 128): bytes of the
+// packed weights a launch needs in `ws`.
+int conv3x3_wide_workspace_bytes(int dtype, int ci, int co) {
+  const int chunks = (ci + 31) / 32, groups = (co + 31) / 32;
+  const int block = dtype == 0 ? Wide<float>::kWeightBytes : Wide<__nv_bfloat16>::kWeightBytes;
+  return groups * chunks * block;
+}
+
+// Pack the weights into ws, then launch one CTA a (tile, n-group) pair on
+// `stream`; returns the launch's CUDA error code (0 = ok).  Does not
+// synchronise or allocate.
+int conv3x3_wide_launch(int dtype, const void* x, const void* w, const void* bias, void* out,
+                        void* ws, int R, int W, int ci, int co, int relu, void* stream) {
+  if (R <= 0 || W <= 0) return 0;
+  if (ci < 1 || co < 1 || ci > kWideMaxChannels || co > kWideMaxChannels ||
+      (dtype != 0 && dtype != 1) || reinterpret_cast<uintptr_t>(ws) % 16)
+    return (int)cudaErrorInvalidValue;
+  Params p;
+  p.x = x; p.w = w; p.bias = bias; p.out = out;
+  p.R = R; p.W = W; p.ci = ci; p.co = co; p.relu = relu;
+  p.tiles_c = (W + kTileCols - 1) / kTileCols;
+  p.tiles = (R + kTileRows - 1) / kTileRows * p.tiles_c;
+  p.gran = copy_granule(x, ci * (dtype == 0 ? 4 : 2));
+  const int chunks = (ci + 31) / 32, groups = (co + 31) / 32;
+  const int words = conv3x3_wide_workspace_bytes(dtype, ci, co) / 4;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const dim3 grid(p.tiles, groups);
+  void* args[] = {&p, &ws, const_cast<int*>(&chunks)};
+  cudaError_t e;
+  if (dtype == 0) {
+    pack_wide_kernel<float><<<(words + 255) / 256, 256, 0, s>>>(p, static_cast<uint32_t*>(ws),
+                                                                chunks, groups);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    const void* fn = reinterpret_cast<const void*>(conv3x3_wide_kernel<float>);
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Wide<float>::kSmemBytes);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaLaunchKernel(fn, grid, dim3(kWideThreads), args, Wide<float>::kSmemBytes, s);
+  }
+  pack_wide_kernel<__nv_bfloat16><<<(words + 255) / 256, 256, 0, s>>>(
+      p, static_cast<uint32_t*>(ws), chunks, groups);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  const void* fn = reinterpret_cast<const void*>(conv3x3_wide_kernel<__nv_bfloat16>);
+  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           Wide<__nv_bfloat16>::kSmemBytes);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaLaunchKernel(fn, grid, dim3(kWideThreads), args,
+                               Wide<__nv_bfloat16>::kSmemBytes, s);
+}
+
+// Resident CTAs per SM and dynamic shared memory of the wide instance of
+// `dtype`, written to *blocks and *bytes; returns the CUDA error code.
+int conv3x3_wide_occupancy(int dtype, int* blocks, int* bytes) {
+  const void* fn;
+  int smem;
+  if (dtype == 0) {
+    fn = reinterpret_cast<const void*>(conv3x3_wide_kernel<float>);
+    smem = Wide<float>::kSmemBytes;
+  } else if (dtype == 1) {
+    fn = reinterpret_cast<const void*>(conv3x3_wide_kernel<__nv_bfloat16>);
+    smem = Wide<__nv_bfloat16>::kSmemBytes;
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  *bytes = smem;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, kWideThreads, smem);
 }
 
 const char* conv3x3_error_string(int code) {

@@ -82,8 +82,27 @@
 //     to the storage dtype; a layer's output goes to the next slab (and its
 //     last two columns to the queue), the last layer's to `out`, with the
 //     anchor read from the input stream (add_anchor).
+//   * widths: instances for Chp 16, 32, 48, 64, 96 and 128 (K1_INSTANCES;
+//     the wrapper pads a stack to the next, tilted_fusion.py::launch_chp).
+//     The above is the "narrow" design of Chp 16 and 32.  A whole layer's
+//     pre-split stage and all Chp accumulators of a warp do not fit wider
+//     (a fp32 Chp 128 stage is 295 KB; Chp fp32 accumulators a thread), so
+//     the "wide" instances (tilted_fusion_wide_kernel) cut the outputs into
+//     n-groups of kNG <= 32 (a warp's accumulators stay at the narrow
+//     count), and a stage holds one slice, the B fragments of one (tap,
+//     n-group), 32 KB at fp32 Chp 128, double-buffered by cp.async behind
+//     the MMAs and pre-split once a launch by pack_slices_kernel.  A row
+//     block's window (320 pixels, one buffer: 160 KB at fp32 Chp 128) is
+//     copied once, then every n-group runs its 9 taps and stores its
+//     channels.  The arithmetic is the narrow design's: every element sums
+//     tap, k-step, term in the same order, so segments stay bit-identical
+//     and a stack padded with zero channels gives the narrow instance's
+//     result bit for bit.  fp32 Chp 48: 84,992 B of shared memory; Chp 128:
+//     229,376 B; bf16 Chp 48 38,912 B.
 // Left for later work: wgmma and TMA, layer 0's taps folded into K in fp32,
-// slabs resident in shared memory across layers.
+// slabs resident in shared memory across layers; on the wide instances,
+// slices of more than one tap where shared memory allows, and a window
+// double-buffered behind the MMAs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -113,27 +132,43 @@ struct Params {
   int rows_blk;        // output rows of a full row block
 };
 
-// What each <dtype, Chp> instance holds.
+// What each <dtype, Chp> instance holds.  Chp <= 32 ("narrow"): a warp
+// computes all Chp outputs, and a stage holds a whole layer.  Chp > 32
+// ("wide"): the outputs are cut into n-groups of kNG <= 32 (so a warp's
+// accumulators stay at the narrow count), and a stage holds one slice, the
+// B fragments of one (tap, n-group) of a layer.
 template <typename T, int CHP> struct Cfg {
   static constexpr bool kF32 = sizeof(T) == 4;
-  static constexpr int kNB = CHP / 8;                  // n8 blocks of the outputs
+  static constexpr bool kWide = CHP > 32;
+  // outputs of an n-group: 32 where Chp is a multiple of it, else 24 (fp32)
+  // or 16 (bf16, whose B words a lane must come in whole uint4)
+  static constexpr int kNG = !kWide ? CHP : CHP % 32 == 0 ? 32 : kF32 ? 24 : 16;
+  static constexpr int kGroups = CHP / kNG;
+  static constexpr int kNB = kNG / 8;                  // n8 blocks of an n-group's outputs
   static constexpr int kK = kF32 ? 8 : 16;             // the MMA's k
   static constexpr int kKS = CHP / kK;                 // k-steps a tap, layers >= 1
   static constexpr int kWords = kF32 ? 4 * kNB : 2 * kNB;  // B words a lane, (tap, k-step)
   static constexpr int kQuads = kWords / 4;
   static constexpr int kChunks = CHP * (int)sizeof(T) / 16;       // 16-byte copies a pixel
-  // A window pixel: 128 bytes of data (fp32 Chp 32) are stored as they are,
-  // their 16-byte chunks swizzled (chunk ^ pixel % 8); narrower pixels are
-  // padded by 16 bytes.  Either way the 8 rows of an ldmatrix matrix, 8
+  // A window pixel: a whole number of 128 bytes of data (fp32 Chp 32, 64,
+  // 96, 128; bf16 64, 128) is stored as it is, its 16-byte chunks swizzled
+  // (chunk ^ pixel % 8); other pixels are padded by 16 bytes to an odd
+  // number of chunks.  Either way the 8 rows of an ldmatrix matrix, 8
   // neighbouring pixels, fall on distinct banks.
-  static constexpr bool kSwizzle = kChunks == 8;
-  static constexpr int kPixBytes = kSwizzle ? 128 : 16 * kChunks + 16;
-  static constexpr int kStageBytes = CHP * 4 + 9 * kKS * kQuads * 32 * 16;  // bias + B
+  static constexpr bool kSwizzle = kChunks % 8 == 0;
+  static constexpr int kPixBytes = kSwizzle ? 16 * kChunks : 16 * kChunks + 16;
+  static constexpr int kWinPix = ::kWinPix;
+  static constexpr int kStageBytes = CHP * 4 + 9 * kKS * kQuads * 32 * 16;  // bias + B (narrow)
+  static constexpr int kSliceBytes = kKS * kQuads * 32 * 16;  // one (tap, n-group) (wide)
   static constexpr int kWinBytes = kWinPix * kPixBytes;
-  static constexpr int kSmemBytes = 2 * kStageBytes + 2 * kWinBytes;
+  // narrow: two stages and two windows; wide: two slices and one window
+  static constexpr int kSmemBytes =
+      kWide ? 2 * kSliceBytes + kWinBytes : 2 * kStageBytes + 2 * kWinBytes;
   // fp32 Chp 32 takes 229,632 B of shared memory: one CTA an SM, all registers
   static constexpr int kMinBlocks = kF32 ? 1 : 2;
   static_assert(kWords % 4 == 0, "B words come in uint4");
+  static_assert(CHP % kNG == 0 && kNG % 8 == 0 && CHP % kK == 0, "whole n-groups and k-steps");
+  static_assert(kSmemBytes <= 232448, "one CTA's shared memory");
 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -247,9 +282,28 @@ __host__ __device__ inline size_t stage_offset(int l, int ks0) {  // in words
                       (size_t)(l - 1) * stage_words<T, CHP>(Cfg<T, CHP>::kKS);
 }
 
+// Wide instances pack slices instead of stages: per layer l, kGroups x 9
+// slices in (n-group, tap) order, each ks_l k-steps of kQuads uint4 a lane
+// in the same layout as a stage's tap (with n = kNG * group + 8 jb + g), and
+// no bias (the epilogue reads it from the launch's bias).
+template <typename T, int CHP>
+__host__ __device__ inline size_t slice_words(int ks) {
+  return (size_t)ks * Cfg<T, CHP>::kQuads * 32 * 4;
+}
+
+template <typename T, int CHP>
+__host__ __device__ inline size_t slice_offset(int l, int grp, int t, int ks0) {  // in words
+  using G = Cfg<T, CHP>;
+  const size_t layer0 = G::kGroups * 9 * slice_words<T, CHP>(ks0);
+  const size_t head = l == 0 ? 0 : layer0 + (size_t)(l - 1) * G::kGroups * 9 *
+                                                slice_words<T, CHP>(G::kKS);
+  return head + (size_t)(grp * 9 + t) * slice_words<T, CHP>(l == 0 ? ks0 : G::kKS);
+}
+
 template <typename T, int CHP>
 __host__ __device__ inline size_t packed_bytes(int L, int ks0) {
-  return 4 * stage_offset<T, CHP>(L, ks0);
+  if constexpr (Cfg<T, CHP>::kWide) return 4 * slice_offset<T, CHP>(L, 0, 0, ks0);
+  else return 4 * stage_offset<T, CHP>(L, ks0);
 }
 
 template <typename T, int CHP>
@@ -284,6 +338,42 @@ __global__ void pack_weights_kernel(const T* __restrict__ w, const T* __restrict
         const uint16_t* wb = reinterpret_cast<const uint16_t*>(wt);
         v = (uint32_t)wb[k * CHP + n] | ((uint32_t)wb[(k + 1) * CHP + n] << 16);
       }
+    }
+    packed[i] = v;
+  }
+}
+
+// The wide instances' slices (see slice_offset); the words of a k-step are
+// laid out as pack_weights_kernel lays out a stage's.
+template <typename T, int CHP>
+__global__ void pack_slices_kernel(const T* __restrict__ w, uint32_t* __restrict__ packed,
+                                   int L, int ks0) {
+  using G = Cfg<T, CHP>;
+  const size_t layer0 = slice_offset<T, CHP>(1, 0, 0, ks0);
+  const size_t layer = G::kGroups * 9 * slice_words<T, CHP>(G::kKS);
+  const size_t total = slice_offset<T, CHP>(L, 0, 0, ks0);
+  constexpr int kStepWords = G::kQuads * 32 * 4;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int l = i < layer0 ? 0 : 1 + (int)((i - layer0) / layer);
+    const size_t o = i < layer0 ? i : (i - layer0) % layer;
+    const int ks = l == 0 ? ks0 : G::kKS;
+    const int word = (int)(o % kStepWords), gts = (int)(o / kStepWords);
+    const int s = gts % ks, gt = gts / ks, t = gt % 9, grp = gt / 9;
+    const int e = word & 3, lane = (word >> 2) & 31, q = word >> 7;
+    const int g = lane >> 2, tig = lane & 3, u = 4 * q + e;
+    const T* wt = w + ((size_t)l * 9 + t) * CHP * CHP;  // (Chp, Chp) of tap t
+    uint32_t v;
+    if constexpr (G::kF32) {
+      const int half = u / (2 * G::kNB), v2 = u % (2 * G::kNB);
+      const int n = G::kNG * grp + 8 * (v2 >> 1) + g, k = 8 * s + tig + 4 * (v2 & 1);
+      uint32_t hi, lo;
+      tf32_split(__float_as_uint(to_f(wt[k * CHP + n])), hi, lo);
+      v = half ? lo : hi;
+    } else {
+      const int n = G::kNG * grp + 8 * (u >> 1) + g, k = 16 * s + 2 * tig + 8 * (u & 1);
+      const uint16_t* wb = reinterpret_cast<const uint16_t*>(wt);
+      v = (uint32_t)wb[k * CHP + n] | ((uint32_t)wb[(k + 1) * CHP + n] << 16);
     }
     packed[i] = v;
   }
@@ -671,6 +761,327 @@ tilted_fusion_kernel(Params p) {
   cp_async_wait<0>();
 }
 
+// ---------------------------------------------------------------------------
+// The wide instances (Chp > 32)
+// ---------------------------------------------------------------------------
+// A row block's window for a wide instance: as load_window, with chunk
+// counts that need not be powers of 2 (layer 0 copies the 2 ks0 chunks of its
+// padded k, c0p channels then zeros; the others all kChunks of a pixel).
+template <typename T, int CHP>
+__device__ void load_window_wide(const Params& p, const WindowSrc& src, bool layer0, int k,
+                                 int r0, int rows, const FastDiv& sc, char* win) {
+  using G = Cfg<T, CHP>;
+  const int C = p.C, SC = C + 2, R = p.R;
+  const int chunks = layer0 ? 2 * p.ks0 : G::kChunks;
+  const FastDiv cd(chunks);
+  const int data_bytes = layer0 ? p.c0p * (int)sizeof(T) : CHP * (int)sizeof(T);
+  const int total = (rows + 2) * SC * chunks;
+  const uint32_t base = smem_addr(win);
+  for (int i = threadIdx.x; i < total; i += kThreads) {
+    const int pix = cd.div(i), ch = i - pix * chunks;
+    const int wr = sc.div(pix), wc = pix - wr * SC;
+    int rr = r0 - 1 + wr;
+    bool ok = ch * 16 < data_bytes;
+    if (rr < 0 || rr >= R) {
+      if (p.replicate) rr = rr < 0 ? 0 : R - 1;
+      else ok = false;
+    }
+    const char* s = src.x;
+    if (layer0) {
+      const int a = k * C - 1 + wc;
+      if (a < 0) ok = false;
+      else if (a == 0) s = src.first + (size_t)rr * data_bytes;
+      else s = src.x + ((size_t)rr * p.K * C + a - 1) * data_bytes;
+    } else {
+      s = wc < 2 ? src.qin + ((size_t)rr * 2 + wc) * data_bytes
+                 : src.slab + ((size_t)rr * C + wc - 2) * data_bytes;
+    }
+    cp_async16(base + win_off<T, CHP>(pix, ch), ok ? s + ch * 16 : src.x, ok ? 16 : 0);
+  }
+}
+
+// Copy slice (l, grp, t) of the packed weights into shared memory (cp.async,
+// not committed).
+template <typename T, int CHP>
+__device__ __forceinline__ void load_slice(const Params& p, int l, int grp, int t, char* dst) {
+  const int ks = l == 0 ? p.ks0 : Cfg<T, CHP>::kKS;
+  const char* src = static_cast<const char*>(p.ws) + 4 * slice_offset<T, CHP>(l, grp, t, p.ks0);
+  const int n16 = (int)(slice_words<T, CHP>(ks) / 4);
+  const uint32_t base = smem_addr(dst);
+  for (int i = threadIdx.x; i < n16; i += kThreads) cp_async16(base + 16 * i, src + 16 * i, 16);
+}
+
+// One tap of one n-group over this warp's NF fragments: KS k-steps (0: st.ks,
+// layer 0) from `slice`, A by ldmatrix from the window at offset tpix.  fp32
+// into acc; bf16 into a partial that starts at zero and is then added to acc
+// in fp32, as block_mma sums them.
+template <typename T, int CHP, int NF, int KS>
+__device__ __forceinline__ void wide_tap(const char* slice, uint32_t win_addr,
+                                         const int (&wpix)[2], int tpix, int ks_rt,
+                                         float (&acc)[2][Cfg<T, CHP>::kNB][4]) {
+  using G = Cfg<T, CHP>;
+  const int lane = threadIdx.x & 31, khalf = lane >> 4;
+  const uint4* bsm = reinterpret_cast<const uint4*>(slice);
+  const int ks = KS > 0 ? KS : ks_rt;
+  float part[NF][G::kNB][4];
+#pragma unroll
+  for (int f = 0; f < NF; ++f)
+#pragma unroll
+    for (int jb = 0; jb < G::kNB; ++jb)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) part[f][jb][c] = G::kF32 ? acc[f][jb][c] : 0.f;
+  auto kstep = [&](int s) {
+    uint32_t bw[G::kWords];
+#pragma unroll
+    for (int q = 0; q < G::kQuads; ++q) {
+      const uint4 v = bsm[(s * G::kQuads + q) * 32 + lane];
+      bw[4 * q] = v.x; bw[4 * q + 1] = v.y; bw[4 * q + 2] = v.z; bw[4 * q + 3] = v.w;
+    }
+    uint32_t a[NF][4];
+#pragma unroll
+    for (int f = 0; f < NF; ++f)
+      ldmatrix_x4(a[f], win_addr + win_off<T, CHP>(wpix[f] + tpix, 2 * s + khalf));
+    if constexpr (G::kF32) {
+      uint32_t ah[NF][4], al[NF][4];
+#pragma unroll
+      for (int f = 0; f < NF; ++f)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) tf32_split(a[f][c], ah[f][c], al[f][c]);
+      constexpr int LO = 2 * G::kNB;  // the lo words of B
+#pragma unroll
+      for (int f = 0; f < NF; ++f)
+#pragma unroll
+        for (int jb = 0; jb < G::kNB; ++jb)
+          mma_tf32(part[f][jb], al[f], bw[2 * jb], bw[2 * jb + 1]);
+#pragma unroll
+      for (int f = 0; f < NF; ++f)
+#pragma unroll
+        for (int jb = 0; jb < G::kNB; ++jb)
+          mma_tf32(part[f][jb], ah[f], bw[LO + 2 * jb], bw[LO + 2 * jb + 1]);
+#pragma unroll
+      for (int f = 0; f < NF; ++f)
+#pragma unroll
+        for (int jb = 0; jb < G::kNB; ++jb)
+          mma_tf32(part[f][jb], ah[f], bw[2 * jb], bw[2 * jb + 1]);
+    } else {
+#pragma unroll
+      for (int f = 0; f < NF; ++f)
+#pragma unroll
+        for (int jb = 0; jb < G::kNB; ++jb)
+          mma_bf16(part[f][jb], a[f], bw[2 * jb], bw[2 * jb + 1]);
+    }
+  };
+  if constexpr (KS > 0) {
+#pragma unroll
+    for (int s = 0; s < KS; ++s) kstep(s);
+  } else {
+#pragma unroll 1
+    for (int s = 0; s < ks; ++s) kstep(s);
+  }
+#pragma unroll
+  for (int f = 0; f < NF; ++f)
+#pragma unroll
+    for (int jb = 0; jb < G::kNB; ++jb)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        acc[f][jb][c] = G::kF32 ? part[f][jb][c] : acc[f][jb][c] + part[f][jb][c];
+}
+
+// The epilogue of n-group grp over this warp's NF fragments, as block_mma's:
+// bias (read from the launch's bias), ReLU, the masks, one rounding, and the
+// stores of this group's kNG channels.
+template <typename T, int CHP, int NF>
+__device__ __forceinline__ void wide_epilogue(const Params& p, const Step& st, int f0, int grp,
+                                              const float (&acc)[2][Cfg<T, CHP>::kNB][4],
+                                              T* nxt, T* qout, T* out, const T* x,
+                                              const T* first) {
+  using G = Cfg<T, CHP>;
+  const int lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
+  const int C = p.C, KC = p.K * C, odd = tig & 1;
+  const T* bias = static_cast<const T*>(p.bias) + (size_t)st.l * CHP;
+#pragma unroll
+  for (int f = 0; f < NF; ++f) {
+    bool keep[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int px = 16 * (f0 + f * kWarps) + g + 8 * h;
+      const int rb = px / C, j = px - rb * C, r = st.r0 + rb;
+      const int acol = st.k * C - st.l + j;
+      keep[h] = px < st.npix && acol >= 0 && acol < p.W &&
+                (!st.mask_rows || (r >= st.lo && r < st.hi));
+    }
+    const int px = 16 * (f0 + f * kWarps) + g + 8 * odd;
+    const int rb = px / C, j = px - rb * C, r = st.r0 + rb;
+    const int acol = st.k * C - st.l + j;
+#pragma unroll
+    for (int jb = 0; jb < G::kNB; ++jb) {
+      const int co = G::kNG * grp + 8 * jb + 2 * tig;
+      const float b0 = to_f(bias[co]), b1 = to_f(bias[co + 1]);
+      float y[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float v = acc[f][jb][c] + (c & 1 ? b1 : b0);
+        if (st.relu) v = fmaxf(v, 0.f);
+        y[c] = to_f(from_f<T>(keep[c >> 1] ? v : 0.f));
+      }
+      const float s0 = odd ? y[0] : y[2], s1 = odd ? y[1] : y[3];
+      const float t0 = __shfl_xor_sync(0xffffffffu, s0, 1);
+      const float t1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+      T v[4];
+      if (odd) {
+        v[0] = from_f<T>(t0); v[1] = from_f<T>(t1);
+        v[2] = from_f<T>(y[2]); v[3] = from_f<T>(y[3]);
+      } else {
+        v[0] = from_f<T>(y[0]); v[1] = from_f<T>(y[1]);
+        v[2] = from_f<T>(t0); v[3] = from_f<T>(t1);
+      }
+      if (px >= st.npix) continue;
+      const int c4 = co - 2 * odd;
+      if (!st.last) {
+        store4(nxt + ((size_t)rb * C + j) * CHP + c4, v);
+        if (j >= C - 2) store4(qout + ((size_t)r * 2 + j - (C - 2)) * CHP + c4, v);
+      } else {
+        if (p.add_anchor && acol >= 0 && acol < p.W) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (c4 + e < p.in_ch * p.repeats) {
+              const int c = (c4 + e) / p.repeats;
+              const T a = acol == 0 ? first[r * p.c0p + c]
+                                    : x[((size_t)r * KC + acol - 1) * p.c0p + c];
+              v[e] = from_f<T>(to_f(v[e]) + to_f(a));
+            }
+          }
+        }
+        store4(out + ((size_t)r * KC + st.k * C + j) * CHP + c4, v);
+      }
+    }
+  }
+}
+
+template <typename T, int CHP>
+__global__ void __launch_bounds__(kThreads, Cfg<T, CHP>::kMinBlocks)
+tilted_fusion_wide_kernel(Params p) {
+  using G = Cfg<T, CHP>;
+  extern __shared__ uint4 smem[];
+  char* slices = reinterpret_cast<char*>(smem);  // 2 x kSliceBytes
+  char* win = slices + 2 * G::kSliceBytes;       // kWinBytes
+  const uint32_t win_addr = smem_addr(win);
+
+  const int cta = blockIdx.x;  // band * S + segment
+  const int band = cta / p.S, seg = cta % p.S;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int R = p.R, K = p.K, C = p.C, L = p.L;
+  const int KC = K * C;
+  const int k0 = (int)((long long)seg * K / p.S);
+  const int k1 = (int)((long long)(seg + 1) * K / p.S);
+  const int kw = k0 >= p.warm ? k0 - p.warm : 0;
+
+  T* ws = reinterpret_cast<T*>(static_cast<char*>(p.ws) + packed_bytes<T, CHP>(L, p.ks0)) +
+          (size_t)cta * workspace_elems(CHP, R, C, L);
+  T* slab[2] = {ws, ws + slab_elems(CHP, R, C)};
+  T* queue = ws + 2 * slab_elems(CHP, R, C);  // (2, L-1, R, 2, CHP)
+  const size_t qslot = (size_t)R * 2 * CHP, qpar = queue_slot_elems(CHP, R, L);
+  const T* x = static_cast<const T*>(p.x) + (size_t)band * R * KC * p.c0p;
+  const T* first = static_cast<const T*>(p.first) + (size_t)band * R * p.c0p;
+  T* out = static_cast<T*>(p.out) + (size_t)band * R * KC * CHP;
+
+  Step st;
+  st.mask_rows = p.bounds != nullptr;
+  st.lo = st.mask_rows ? p.bounds[2 * band] : 0;
+  st.hi = st.mask_rows ? p.bounds[2 * band + 1] : R;
+
+  {
+    uint4* q = reinterpret_cast<uint4*>(queue + (kw & 1) * qpar);
+    const int n16 = (int)(qpar * sizeof(T) / 16);
+    for (int i = tid; i < n16; i += kThreads) q[i] = make_uint4(0, 0, 0, 0);
+  }
+  load_slice<T, CHP>(p, 0, 0, 0, slices);
+  cp_async_commit();
+
+  const int nblk = (R + p.rows_blk - 1) / p.rows_blk;
+  const FastDiv sc(C + 2);
+  int n = 0;  // slices consumed: slice n sits in stage n & 1
+  for (int k = kw; k < k1; ++k) {
+    const int nl = k < k0 ? L - 1 : L;
+    for (int l = 0; l < nl; ++l) {
+      const bool has_next = !(l == nl - 1 && k == k1 - 1);
+      st.k = k; st.l = l; st.last = l == L - 1; st.relu = (p.relu_mask >> l) & 1;
+      st.ks = l == 0 ? p.ks0 : G::kKS;
+      WindowSrc src;
+      src.x = reinterpret_cast<const char*>(x);
+      src.first = reinterpret_cast<const char*>(first);
+      src.qin = l > 0 ? reinterpret_cast<const char*>(queue + (k & 1) * qpar + (l - 1) * qslot)
+                      : nullptr;
+      src.slab = l > 0 ? reinterpret_cast<const char*>(slab[(l - 1) & 1]) : nullptr;
+      T* nxt = slab[l & 1];
+      T* qout = st.last ? nullptr : queue + ((k + 1) & 1) * qpar + l * qslot;
+      for (int b = 0; b < nblk; ++b) {
+        st.r0 = b * p.rows_blk;
+        const int rows = min(p.rows_blk, R - st.r0);
+        st.npix = rows * C;
+        // the layer of the slice that follows this block's last one: this
+        // layer's again, the next step's, or none
+        const int nxt_l = b + 1 < nblk ? l : has_next ? (l + 1 < nl ? l + 1 : 0) : -1;
+        // the window is free and the last epilogue's stores are visible
+        __syncthreads();
+        load_window_wide<T, CHP>(p, src, l == 0, k, st.r0, rows, sc, win);
+        cp_async_commit();
+        const int nf = (st.npix + 15) / 16;
+        const int mine = (warp < nf) + (warp + kWarps < nf);  // fragments of this warp
+        // this lane's ldmatrix row per fragment, as block_mma's
+        int wpix[2];
+#pragma unroll
+        for (int f = 0; f < 2; ++f) {
+          int px = 16 * (warp + f * kWarps) + (tid & 7) + 8 * ((tid >> 3) & 1);
+          px = px < st.npix ? px : st.npix - 1;
+          const int r = px / C, j = px - r * C;
+          wpix[f] = r * (C + 2) + j;
+        }
+        T* nxt_b = nxt + (size_t)st.r0 * C * CHP;
+        // Every n-group runs its 9 taps, one slice each, then stores its
+        // channels.  Each tap copies the next slice (the next tap, group,
+        // block or step) into the other stage while it computes.  The
+        // barriers are outside the branches on this warp's fragments.
+        for (int grp = 0; grp < G::kGroups; ++grp) {
+          float acc[2][G::kNB][4];
+#pragma unroll
+          for (int f = 0; f < 2; ++f)
+#pragma unroll
+            for (int jb = 0; jb < G::kNB; ++jb)
+#pragma unroll
+              for (int c = 0; c < 4; ++c) acc[f][jb][c] = 0.f;
+#pragma unroll 1
+          for (int t = 0; t < 9; ++t, ++n) {
+            // the stage the next slice goes to was last read by slice n - 1
+            // (at a block's first slice, the block's barrier ordered that)
+            if (grp > 0 || t > 0) __syncthreads();
+            char* next = slices + ((n + 1) & 1) * G::kSliceBytes;
+            if (t < 8) load_slice<T, CHP>(p, l, grp, t + 1, next);
+            else if (grp + 1 < G::kGroups) load_slice<T, CHP>(p, l, grp + 1, 0, next);
+            else if (nxt_l >= 0) load_slice<T, CHP>(p, nxt_l, 0, 0, next);
+            cp_async_commit();
+            cp_async_wait<1>();  // slice n (and the block's window) landed
+            __syncthreads();
+            const char* slice = slices + (n & 1) * G::kSliceBytes;
+            const int tpix = (t / 3) * (C + 2) + t % 3;
+            if (mine == 2) {
+              if (l > 0) wide_tap<T, CHP, 2, G::kKS>(slice, win_addr, wpix, tpix, st.ks, acc);
+              else wide_tap<T, CHP, 2, 0>(slice, win_addr, wpix, tpix, st.ks, acc);
+            } else if (mine == 1) {
+              if (l > 0) wide_tap<T, CHP, 1, G::kKS>(slice, win_addr, wpix, tpix, st.ks, acc);
+              else wide_tap<T, CHP, 1, 0>(slice, win_addr, wpix, tpix, st.ks, acc);
+            }
+          }
+          if (mine == 2) wide_epilogue<T, CHP, 2>(p, st, warp, grp, acc, nxt_b, qout, out, x, first);
+          else if (mine == 1)
+            wide_epilogue<T, CHP, 1>(p, st, warp, grp, acc, nxt_b, qout, out, x, first);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
 using KernelFn = void (*)(Params);
 
 struct Instance {
@@ -679,18 +1090,24 @@ struct Instance {
 };
 
 template <typename T, int CHP> Instance make_instance() {
-  return {tilted_fusion_kernel<T, CHP>, Cfg<T, CHP>::kSmemBytes};
+  if constexpr (Cfg<T, CHP>::kWide)
+    return {tilted_fusion_wide_kernel<T, CHP>, Cfg<T, CHP>::kSmemBytes};
+  else
+    return {tilted_fusion_kernel<T, CHP>, Cfg<T, CHP>::kSmemBytes};
 }
 
+// The instances built, for the padded widths the wrapper launches
+// (tilted_fusion.py SUPPORTED_CHP; launch_chp pads a stack up to the next
+// one): Chp 16 and 32 narrow, 48, 64, 96 and 128 wide.
+#define K1_INSTANCES(X) X(16) X(32) X(48) X(64) X(96) X(128)
+
 // The <dtype, Chp> instance (dtype 0 = float32, 1 = bfloat16), or fn null.
-// Instances exist for the padded widths something launches: 32 (ABPN x3)
-// and 16 (the narrow stack of the card tests).  Add one when a model needs
-// it.
 Instance instance(int dtype, int chp) {
-  if (dtype == 0 && chp == 16) return make_instance<float, 16>();
-  if (dtype == 0 && chp == 32) return make_instance<float, 32>();
-  if (dtype == 1 && chp == 16) return make_instance<__nv_bfloat16, 16>();
-  if (dtype == 1 && chp == 32) return make_instance<__nv_bfloat16, 32>();
+#define K1_INSTANCE(N)                                                  \
+  if (dtype == 0 && chp == N) return make_instance<float, N>();         \
+  if (dtype == 1 && chp == N) return make_instance<__nv_bfloat16, N>();
+  K1_INSTANCES(K1_INSTANCE)
+#undef K1_INSTANCE
   return {nullptr, 0};
 }
 
@@ -710,19 +1127,24 @@ int block_rows(int C) {
 
 template <typename T, int CHP>
 cudaError_t launch_pack(const Params& p, cudaStream_t stream) {
-  const size_t words = stage_offset<T, CHP>(p.L, p.ks0);
+  const size_t words = packed_bytes<T, CHP>(p.L, p.ks0) / 4;
   const int grid = (int)((words + kThreads - 1) / kThreads);
-  pack_weights_kernel<T, CHP><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(p.w), static_cast<const T*>(p.bias), static_cast<uint32_t*>(p.ws),
-      p.L, p.ks0);
+  if constexpr (Cfg<T, CHP>::kWide)
+    pack_slices_kernel<T, CHP><<<grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(p.w), static_cast<uint32_t*>(p.ws), p.L, p.ks0);
+  else
+    pack_weights_kernel<T, CHP><<<grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(p.w), static_cast<const T*>(p.bias),
+        static_cast<uint32_t*>(p.ws), p.L, p.ks0);
   return cudaGetLastError();
 }
 
 cudaError_t pack(int dtype, int chp, const Params& p, cudaStream_t stream) {
-  if (dtype == 0 && chp == 16) return launch_pack<float, 16>(p, stream);
-  if (dtype == 0 && chp == 32) return launch_pack<float, 32>(p, stream);
-  if (dtype == 1 && chp == 16) return launch_pack<__nv_bfloat16, 16>(p, stream);
-  if (dtype == 1 && chp == 32) return launch_pack<__nv_bfloat16, 32>(p, stream);
+#define K1_PACK(N)                                                              \
+  if (dtype == 0 && chp == N) return launch_pack<float, N>(p, stream);          \
+  if (dtype == 1 && chp == N) return launch_pack<__nv_bfloat16, N>(p, stream);
+  K1_INSTANCES(K1_PACK)
+#undef K1_PACK
   return cudaErrorInvalidValue;
 }
 

@@ -21,6 +21,9 @@ anchor added to the last layer, and the output tilted by L-1 columns.
   loop, with the overlap queue and residual ring held as the TPU kernel
   holds them and rounding at the same points.  It is the CPU path and the
   oracle the kernel is held against on the card.
+* :func:`launch_chp` — the built instance a stack packed to Chp channels
+  runs on (:data:`SUPPORTED_CHP`: 16, 32 narrow; 48, 64, 96, 128 wide);
+  the wrapper zero-pads the weights to it and cuts the result back.
 * :func:`segment_plan` / :func:`launch_plan` — how many column segments
   each band's sweep is cut into, so that many CTAs sweep one band at once.
   A segment restarted at tile ``k0`` first re-runs :func:`warmup_tiles`
@@ -70,12 +73,20 @@ __all__ = [
     "THREADS",
     "MAX_TILE_COLS",
     "SUPPORTED_CHP",
+    "launch_chp",
+    "n_group",
+    "window_pixels",
+    "max_tile_cols",
 ]
 
 THREADS = 256  # CTA size (kThreads in the source)
 BLOCK_PIXELS = 256  # output pixels of a row block: 8 warps x 2 m16 fragments (kBlockPix)
 WINDOW_PIXELS = 320  # a row block's input window in shared memory: (30 + 2) x (8 + 2) (kWinPix)
-SUPPORTED_CHP = (16, 32)  # template instances of the kernel (launch_chp)
+# The template instances of the kernel (K1_INSTANCES in the source): Chp 16
+# and 32 are "narrow" (a warp computes all Chp outputs, a weight stage holds
+# a layer), the others "wide" (outputs in n-groups of at most 32, a stage
+# holds one (tap, n-group) slice).  launch_chp pads a stack up to the next.
+SUPPORTED_CHP = (16, 32, 48, 64, 96, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -91,15 +102,62 @@ def _mma_k(dtype) -> int:
     return 16 if dtype == torch.bfloat16 else 8
 
 
-def block_rows(tile_cols: int) -> int:
+def launch_chp(chp: int, dtype=torch.float32) -> int:
+    """The Chp of the instance a stack packed to ``chp`` channels launches:
+    the smallest of :data:`SUPPORTED_CHP` at or above ``chp`` rounded up to
+    8 (8 -> 16, 24 -> 32, 40 -> 48, 56 -> 64, 72..96 -> 96, 104..128 ->
+    128).  The wrapper zero-pads the weights and bias to it; the padded
+    channels carry exact zeros.  The same instances exist for every dtype.
+    Raises ``ValueError`` above 128."""
+    want = round_up_channels(chp)
+    for c in SUPPORTED_CHP:
+        if c >= want:
+            return c
+    raise ValueError(f"padded channel count {chp} exceeds the kernel's widest instance, "
+                     f"{SUPPORTED_CHP[-1]}")
+
+
+def _wide(chp: int) -> bool:
+    return int(chp) > 32
+
+
+def n_group(chp: int, dtype=torch.float32) -> int:
+    """Outputs a warp computes at once (``kNG``): all Chp on a narrow
+    instance; on a wide one 32 where Chp is a multiple of 32, else 24 in
+    fp32 and 16 in bf16."""
+    chp = int(chp)
+    if not _wide(chp):
+        return chp
+    return 32 if chp % 32 == 0 else (16 if dtype == torch.bfloat16 else 24)
+
+
+def window_pixels(chp: int, dtype=torch.float32) -> int:
+    """Pixels of a row block's input window in shared memory (``kWinPix``)
+    of the ``<dtype, chp>`` instance.  Every instance has
+    :data:`WINDOW_PIXELS`: a wide one holds one window, not two, so even a
+    fp32 Chp 128 pixel of 512 bytes fits 320 of them beside its two weight
+    slices."""
+    return WINDOW_PIXELS
+
+
+def block_rows(tile_cols: int, chp: int = 32, dtype=torch.float32) -> int:
     """Output rows of a full row block (``block_rows`` in the source): at
     most :data:`BLOCK_PIXELS` pixels, with the (rows + 2) x (C + 2) window
-    inside :data:`WINDOW_PIXELS`; 0 where a tile is too wide for it."""
+    inside the instance's :func:`window_pixels`; 0 where a tile is too
+    wide for it."""
     C = int(tile_cols)
-    return max(0, min(BLOCK_PIXELS // C, WINDOW_PIXELS // (C + 2) - 2))
+    return max(0, min(BLOCK_PIXELS // C, window_pixels(chp, dtype) // (C + 2) - 2))
 
 
-MAX_TILE_COLS = max(c for c in range(2, WINDOW_PIXELS) if block_rows(c) >= 1)  # 104
+def max_tile_cols(chp: int, dtype=torch.float32) -> int:
+    """The widest ``tile_cols`` the ``<dtype, chp>`` instance takes: a
+    3-row window of it fits :func:`window_pixels` (104 for every instance,
+    so every one takes ``SRPlan``'s default of 8)."""
+    # block_rows(C) >= 1 takes C <= BLOCK_PIXELS and (C + 2) * 3 <= the window
+    return min(BLOCK_PIXELS, window_pixels(chp, dtype) // 3 - 2)
+
+
+MAX_TILE_COLS = max_tile_cols(32)  # 104, the Chp <= 32 instances'
 
 
 def _row_blocks(band_rows: int, tile_cols: int) -> List[int]:
@@ -108,13 +166,25 @@ def _row_blocks(band_rows: int, tile_cols: int) -> List[int]:
     return [min(nr, R - r0) for r0 in range(0, R, nr)]
 
 
+def _lane_words(nout: int, dtype) -> int:
+    """B words a lane holds for one (tap, k-step) over ``nout`` outputs
+    (fp32: hi and lo words of 2 registers per n8 block; bf16: 2 registers
+    of bf16 pairs)."""
+    return (4 if dtype != torch.bfloat16 else 2) * (int(nout) // 8)
+
+
 def _stage_words(chp: int, ksteps: int, dtype) -> int:
-    """32-bit words of one layer's packed stage: the bias as fp32, then the
-    B fragments of 9 taps x ``ksteps`` k-steps for 32 lanes (fp32: hi and
-    lo words of 2 registers per n8 block; bf16: 2 registers of bf16
-    pairs)."""
-    per_lane = (4 if dtype != torch.bfloat16 else 2) * (chp // 8)
-    return chp + 9 * ksteps * 32 * per_lane
+    """32-bit words of one layer's packed stage of a narrow instance: the
+    bias as fp32, then the B fragments of 9 taps x ``ksteps`` k-steps for
+    32 lanes."""
+    return chp + 9 * ksteps * 32 * _lane_words(chp, dtype)
+
+
+def _slice_words(chp: int, ksteps: int, dtype) -> int:
+    """32-bit words of one (tap, n-group) slice of a wide instance: the B
+    fragments of ``ksteps`` k-steps over the group's outputs for 32 lanes
+    (the bias is read from the launch's own)."""
+    return ksteps * 32 * _lane_words(n_group(chp, dtype), dtype)
 
 
 def _ksteps(cin: int, dtype) -> int:
@@ -122,22 +192,38 @@ def _ksteps(cin: int, dtype) -> int:
 
 
 def packed_weight_bytes(num_layers: int, chp: int, c0p: int, dtype) -> int:
-    """Bytes of the packed weight stages at the head of a launch's workspace
-    (``packed_bytes`` in the source): layer 0 with ``ceil(c0p / k)`` k-steps
-    a tap, every other layer with ``Chp / k``."""
-    return 4 * (_stage_words(chp, _ksteps(c0p, dtype), dtype)
-                + (int(num_layers) - 1) * _stage_words(chp, _ksteps(chp, dtype), dtype))
+    """Bytes of the packed weights at the head of a launch's workspace
+    (``packed_bytes`` in the source) for the instance of width ``chp``:
+    layer 0 with ``ceil(c0p / k)`` k-steps a tap, every other layer with
+    ``Chp / k``; a stage a layer on a narrow instance, 9 slices an n-group
+    on a wide one."""
+    ks0, ks = _ksteps(c0p, dtype), _ksteps(chp, dtype)
+    if _wide(chp):
+        slices = 9 * (int(chp) // n_group(chp, dtype))
+        return 4 * slices * (_slice_words(chp, ks0, dtype)
+                             + (int(num_layers) - 1) * _slice_words(chp, ks, dtype))
+    return 4 * (_stage_words(chp, ks0, dtype) + (int(num_layers) - 1) * _stage_words(chp, ks, dtype))
+
+
+def _pixel_bytes(chp: int, dtype) -> int:
+    """A window pixel: a whole number of 128 data bytes stored as they are
+    (swizzled), other pixels padded by 16 bytes."""
+    data = int(chp) * dtype.itemsize
+    return data if data % 128 == 0 else data + 16
 
 
 def shared_bytes(chp: int, dtype=torch.float32) -> int:
     """Dynamic shared memory of one CTA of the ``<dtype, chp>`` instance
-    (``kSmemBytes``): two weight stages and two windows of
-    :data:`WINDOW_PIXELS` pixels of ``chp`` channels (128 bytes of data
-    stored as they are, swizzled; narrower pixels padded by 16 bytes).  It
-    does not depend on R."""
-    stage = 4 * _stage_words(chp, _ksteps(chp, dtype), dtype)
-    pixel = chp * dtype.itemsize
-    return 2 * stage + 2 * WINDOW_PIXELS * (pixel if pixel == 128 else pixel + 16)
+    (``kSmemBytes``): on a narrow one (Chp <= 32) two weight stages and two
+    windows, on a wide one two (tap, n-group) slices and one window, of
+    :func:`window_pixels` pixels of ``chp`` channels.  It does not depend
+    on R.  The formula holds for any multiple of 8; only
+    :data:`SUPPORTED_CHP` are built."""
+    ks = _ksteps(chp, dtype)
+    win = window_pixels(chp, dtype) * _pixel_bytes(chp, dtype)
+    if _wide(chp):
+        return 2 * 4 * _slice_words(chp, ks, dtype) + win
+    return 2 * 4 * _stage_words(chp, ks, dtype) + 2 * win
 
 
 def workspace_shapes(num_layers: int, band_rows: int, tile_cols: int, chp: int):
@@ -177,10 +263,16 @@ def kernel_buffers(*, channels, band_rows: int, tile_cols: int, chp: int = None,
     * ``ctas`` / ``launch_workspace_elements`` — the CTAs of the launch and
       their workspace, ``bands * segments * workspace_elements``; the
       wrapper allocates ``packed_weight_bytes`` more, once a launch.
+    * ``chp`` — the Chp of the instance the card launches for this stack
+      (:func:`launch_chp` of the packed width ``packed_chp``), which sizes
+      everything below; ``instance`` is the same, or ``None`` where no
+      instance covers the stack (above Chp 128), and then ``chp`` is the
+      packed width and nothing launches.
     * ``shared_bytes`` — dynamic shared memory per CTA for ``dtype``
-      (:func:`shared_bytes`): two weight stages and two input windows of
-      ``window_elements`` (``WINDOW_PIXELS * Chp``) each.  It does not
-      depend on R.
+      (:func:`shared_bytes`): two weight stages (narrow) or slices (wide)
+      and the input windows of ``window_elements`` (``window_pixels *
+      Chp``) each.  It does not depend on R.  ``max_tile_cols`` is the
+      widest tile the instance takes.
     * ``stream_in_per_column`` / ``stream_out_per_column`` — the input
       stream read, and the tilted output written, per band column.
     * ``weights`` / ``bias`` — the packed stack, read from device memory.
@@ -191,7 +283,9 @@ def kernel_buffers(*, channels, band_rows: int, tile_cols: int, chp: int = None,
         raise ValueError(f"channels {channels!r} must list F_0..F_L, L >= 1")
     R, C = int(band_rows), int(tile_cols)
     chmax = max(channels)
-    chp = int(chp) if chp else round_up_channels(chmax)
+    packed_chp = round_up_channels(chp if chp else chmax)
+    instance = launch_chp(packed_chp, dtype) if packed_chp <= SUPPORTED_CHP[-1] else None
+    chp = instance or packed_chp
     c0p = round_up_channels(channels[0])
     slabs, overlap = workspace_shapes(L, R, C, chp)
     buffers = {
@@ -217,6 +311,8 @@ def kernel_buffers(*, channels, band_rows: int, tile_cols: int, chp: int = None,
         "band_rows": R,
         "tile_cols": C,
         "chp": chp,
+        "packed_chp": packed_chp,
+        "instance": instance,
         "c0p": c0p,
         "threads": THREADS,
         "buffers": buffers,
@@ -224,7 +320,9 @@ def kernel_buffers(*, channels, band_rows: int, tile_cols: int, chp: int = None,
         "ctas": ctas,
         "launch_workspace_elements": ctas * per_cta,
         "packed_weight_bytes": packed_weight_bytes(L, chp, c0p, dtype),
-        "window_elements": WINDOW_PIXELS * chp,
+        "window_pixels": window_pixels(chp, dtype),
+        "window_elements": window_pixels(chp, dtype) * chp,
+        "max_tile_cols": max_tile_cols(chp, dtype),
         "shared_bytes": shared_bytes(chp, dtype),
     }
 
@@ -359,12 +457,13 @@ def launch_cost(plan: SegmentPlan, *, band_rows: int, tile_cols: int, c0p: int, 
       the tilted output.
     * ``workspace_bytes`` (b) — every other byte the launch reads or
       writes in device memory: the packed weight stages written once and
-      read at every (tile, layer) step; per CTA its row bounds and the
-      queue's start state; per step and row block the window's copies (the
-      stream for layer 0, the slab and the carried columns for the others;
-      rows outside the band are zero-filled under ``zero`` and read again,
-      clamped, under ``replicate``); per carried layer the slab and the
-      queue's two columns stored.  Each element counts once per pass,
+      read at every (tile, layer) step (a wide instance: every row block
+      copies its 9 slices an n-group and reads the bias); per CTA its row
+      bounds and the queue's start state; per step and row block the
+      window's copies (the stream for layer 0, the slab and the carried
+      columns for the others; rows outside the band are zero-filled under
+      ``zero`` and read again, clamped, under ``replicate``); per carried
+      layer the slab and the queue's two columns stored.  Each element counts once per pass,
       whatever the loads a thread issues; L2 hits are not subtracted.  The
       anchor's reads (``add_anchor``, which the serving path never sets)
       are not counted.
@@ -387,8 +486,15 @@ def launch_cost(plan: SegmentPlan, *, band_rows: int, tile_cols: int, c0p: int, 
     # replicate
     blocks = len(_row_blocks(R, C))
     win_rows = R + 2 * blocks - (0 if replicate else 2)
-    stage0 = 4 * _stage_words(chp, ks0, dtype)
-    stage = 4 * _stage_words(chp, ks, dtype)
+    if _wide(chp):
+        # every row block copies the layer's 9 slices an n-group, and its
+        # epilogues read the layer's bias
+        slices = blocks * 9 * (chp // n_group(chp, dtype))
+        stage0 = slices * 4 * _slice_words(chp, ks0, dtype) + blocks * chp * esize
+        stage = slices * 4 * _slice_words(chp, ks, dtype) + blocks * chp * esize
+    else:
+        stage0 = 4 * _stage_words(chp, ks0, dtype)
+        stage = 4 * _stage_words(chp, ks, dtype)
     # bytes of one tile's layers 0..n-1 beyond the output: the stage, the
     # window (layer 0: C + 2 stream columns of c0p, C + 1 at tile 0, whose
     # column -1 is zero-filled; the others: the carried 2 and the slab's C
@@ -622,16 +728,15 @@ def _blocks_per_sm(device_index: int, dtype_code: int, chp: int) -> int:
 
 
 def blocks_per_sm(device, dtype, chp: int) -> int:
-    """Resident CTAs per SM of the kernel's ``<dtype, chp>`` instance on a
-    CUDA ``device``, from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
-    (builds the kernel on first use)."""
+    """Resident CTAs per SM on a CUDA ``device`` of the instance a stack of
+    ``chp`` padded channels launches (:func:`launch_chp`), from
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (builds the kernel on
+    first use)."""
     device = torch.device(device)
     if dtype not in _DTYPE_CODE:
         raise ValueError(f"the kernel computes in float32 or bfloat16, not {dtype}")
-    if chp not in SUPPORTED_CHP:
-        raise ValueError(f"padded channel count {chp} not in the kernel's {SUPPORTED_CHP}")
     index = device.index if device.index is not None else torch.cuda.current_device()
-    return _blocks_per_sm(index, _DTYPE_CODE[dtype], int(chp))
+    return _blocks_per_sm(index, _DTYPE_CODE[dtype], launch_chp(chp, dtype))
 
 
 def _plan_on(device: torch.device, bands: int, tiles: int, tile_cols: int, num_layers: int,
@@ -666,31 +771,35 @@ def _launch_kernel(x_stream, first_col, w, b, *, width, tile_cols, relu_flags,
         raise ValueError(f"the kernel computes in float32 or bfloat16, not {cdt}")
     B, R, KC, c0p = x_stream.shape
     L, chp = w.shape[0], w.shape[3]
-    if chp not in SUPPORTED_CHP:
-        raise ValueError(
-            f"padded channel count {chp} not in the kernel's {SUPPORTED_CHP}"
-        )
+    lc = launch_chp(chp, cdt)  # the instance: Chp padded up to the next built width
     if L > 31:
         raise ValueError(f"{L} layers exceed the kernel's 31-bit ReLU mask")
     tensors = [x_stream, first_col, w, b] + ([row_bounds] if row_bounds is not None else [])
     if any(t.device != dev for t in tensors):
         raise ValueError("all kernel inputs must be on the same CUDA device")
     C = tile_cols
-    if C > MAX_TILE_COLS:
-        raise ValueError(f"tile_cols={C} exceeds the kernel's {MAX_TILE_COLS}: a row block's "
-                         f"window of {WINDOW_PIXELS} pixels holds no 3-row window")
+    if C > max_tile_cols(lc, cdt):
+        raise ValueError(f"tile_cols={C} exceeds the <{cdt}, chp {lc}> instance's "
+                         f"{max_tile_cols(lc, cdt)}: a row block's window of "
+                         f"{window_pixels(lc, cdt)} pixels holds no 3-row window")
     # the window's 16-byte copies need 16-byte aligned stream and first column
     x, first = (_aligned(t.to(cdt).contiguous()) for t in (x_stream, first_col))
-    wc = w.to(cdt).contiguous()
-    bc = b.to(cdt).contiguous()
+    # zero weights and bias out to the instance's width: its extra channels
+    # are exact zeros through every layer, and are cut from the result (a
+    # stack packed to an instance's width is passed as it is, not copied)
+    pad = lc - chp
+    wc, bc = w.to(cdt), b.to(cdt)
+    if pad:
+        wc, bc = F.pad(wc, (0, pad, 0, pad)), F.pad(bc, (0, pad))
+    wc, bc = wc.contiguous(), bc.contiguous()
     bounds = None if row_bounds is None else row_bounds.to(torch.int32).contiguous()
     lib = _lib()
     plan = launch_plan(x, wc, tile_cols=C, segments=segments, compute_dtype=cdt)
-    # the packed weight stages, then one workspace a CTA (both whole 16-byte runs)
-    ws_elems = sum(_elems(s) for s in workspace_shapes(L, R, C, chp))
-    head = packed_weight_bytes(L, chp, c0p, cdt) // cdt.itemsize
+    # the packed weights, then one workspace a CTA (both whole 16-byte runs)
+    ws_elems = sum(_elems(s) for s in workspace_shapes(L, R, C, lc))
+    head = packed_weight_bytes(L, lc, c0p, cdt) // cdt.itemsize
     workspace = torch.empty((head + plan.ctas * ws_elems,), dtype=cdt, device=dev)
-    out = torch.empty((B, R, KC, chp), dtype=cdt, device=dev)
+    out = torch.empty((B, R, KC, lc), dtype=cdt, device=dev)
     relu_mask = sum(1 << i for i, r in enumerate(relu_flags) if r)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -698,13 +807,13 @@ def _launch_kernel(x_stream, first_col, w, b, *, width, tile_cols, relu_flags,
             _DTYPE_CODE[cdt], x.data_ptr(), first.data_ptr(), wc.data_ptr(),
             bc.data_ptr(), None if bounds is None else bounds.data_ptr(),
             out.data_ptr(), workspace.data_ptr(),
-            B, R, KC // C, C, c0p, chp, L, int(width),
+            B, R, KC // C, C, c0p, lc, L, int(width),
             relu_mask, int(bool(add_anchor)), int(in_channels), int(anchor_repeats),
             int(row_policy == "replicate"), plan.segments, plan.warmup, stream,
         )
     _check_error(lib, err, "kernel launch")
     tilted_fusion_call.launches += 1
-    return out
+    return out if pad == 0 else out[..., :chp]
 
 
 class Launch(NamedTuple):
@@ -722,6 +831,13 @@ class Launch(NamedTuple):
     bounds: bool  # row bounds given (halo slabs)
     segments: Optional[int]  # as the caller forced it; None for the automatic plan
     replicate: bool = False  # row_policy "replicate"
+    launch_chp: Optional[int] = None  # the instance's Chp where the card pads past chp
+
+    @property
+    def instance_chp(self) -> int:
+        """The Chp the card's kernel runs at: :func:`launch_chp` of
+        ``chp``, which a :func:`launch_cost` of the card counts."""
+        return self.launch_chp or self.chp
 
     @property
     def out_bytes(self) -> int:
@@ -761,13 +877,15 @@ def _meta_call(x_stream, w, *, tile_cols, row_bounds, row_policy, cdt,
     nothing computed and no launch counted."""
     B, R, KC, c0p = x_stream.shape
     L, chp = w.shape[0], w.shape[3]
+    lc = launch_chp(chp, cdt)  # raises where the card has no instance
     out = torch.empty((B, R, KC, chp), dtype=cdt, device="meta")
     launches = _RECORDER.get()
     if launches is not None:
         launches.append(Launch(bands=B, band_rows=R, tiles=KC // tile_cols,
                                tile_cols=tile_cols, c0p=c0p, chp=chp, num_layers=L, dtype=cdt,
                                bounds=row_bounds is not None, segments=segments,
-                               replicate=row_policy == "replicate"))
+                               replicate=row_policy == "replicate",
+                               launch_chp=lc if lc != chp else None))
     return out
 
 

@@ -61,14 +61,31 @@ def cuda():
     return torch.device("cuda")
 
 
-def _stack(seed, channels):
+def _stack(seed, channels, scale=0.2):
+    """Seeded layers; ``scale=None`` takes He's ``sqrt(2 / (9 Ci))``, which
+    keeps the features of a wide stack near 1 (0.2 grows them ~7x a layer
+    at 128 channels, past what bf16 holds to 5e-2)."""
     rng = np.random.default_rng(seed)
     return layers_from_numpy([
-        ((rng.normal(size=(3, 3, channels[i], channels[i + 1])) * 0.2).astype(np.float32),
+        ((rng.normal(size=(3, 3, channels[i], channels[i + 1]))
+          * (scale or (2.0 / (9 * channels[i])) ** 0.5)).astype(np.float32),
          (rng.normal(size=(channels[i + 1],)) * 0.1).astype(np.float32),
          i < len(channels) - 2)
         for i in range(len(channels) - 1)
     ])
+
+
+# K1's stacks by the instance they launch: Chp 8 and 24 pad to the 16 and
+# 32 instances, 40 to 48; 48 (ABPN x4's width), 64, 96 and 128 are wide
+# instances as packed.  The narrow ones keep their 0.2 weights, the wide
+# ones take He's scale.
+K1_STACKS = {
+    "chp16": ([3, 12, 12, 12], 0.2), "chp32": ([3, 28, 28, 27], 0.2),
+    "chp8": ([3, 8, 8, 6], 0.2), "chp24": ([3, 20, 24, 18], 0.2),
+    "chp40": ([3, 40, 36, 40], None), "chp48": ([3, 28, 28, 48], None),
+    "chp64": ([3, 64, 60, 64], None), "chp96": ([3, 96, 80, 90], None),
+    "chp128": ([3, 128, 128, 120], None),
+}
 
 
 @pytest.mark.parametrize("dtype,spread", [(torch.float32, "unit"), (torch.bfloat16, "unit"),
@@ -76,12 +93,13 @@ def _stack(seed, channels):
                          ids=["fp32", "bf16", "fp32_wide"])
 @pytest.mark.parametrize("rows", [20, 61])
 @pytest.mark.parametrize("policy", ["zero", "replicate", "halo_bounds"])
-@pytest.mark.parametrize("channels", [[3, 12, 12, 12], [3, 28, 28, 27]], ids=["chp16", "chp32"])
-def test_kernel_matches_plain(cuda, channels, policy, rows, dtype, spread):
+@pytest.mark.parametrize("stack", list(K1_STACKS))
+def test_kernel_matches_plain(cuda, stack, policy, rows, dtype, spread):
     """``wide``: pixels from 1e-3 to 10 of their unit value, where single
     TF32 misses 5e-4 and 3xTF32 holds it (tests/test_torch_k1_tensor_cores.py
-    emulates both on these inputs)."""
-    layers = [l.to(dtype=dtype) for l in _stack(1, channels)]
+    emulates both on these inputs).  61 rows are three row blocks."""
+    channels, scale = K1_STACKS[stack]
+    layers = [l.to(dtype=dtype) for l in _stack(1, channels, scale)]
     packed = ops.pack_stack(layers, dtype=dtype)
     gen = torch.Generator().manual_seed(2)
     xb = torch.rand((3, rows, 37, 3), generator=gen)
@@ -93,7 +111,7 @@ def test_kernel_matches_plain(cuda, channels, policy, rows, dtype, spread):
     if policy == "halo_bounds":
         bounds = torch.tensor([[2, rows - 3], [0, rows], [5, 9]], dtype=torch.int32)
     kw = dict(width=37, tile_cols=4, relu_flags=list(packed.relu), add_anchor=True,
-              in_channels=3, anchor_repeats=4 if channels[-1] == 12 else 9,
+              in_channels=3, anchor_repeats=4 if channels[-1] == 12 else min(9, channels[-1] // 3),
               row_policy="replicate" if policy == "replicate" else "zero")
     want = ttf.tilted_fusion_plain(xs, first, packed.w, packed.b, row_bounds=bounds, **kw)
     launches = ttf.tilted_fusion_call.launches
@@ -165,8 +183,54 @@ def test_plan_cost_counts_k1_on_the_card_as_the_plain_version_at_c0p(cuda, polic
     assert k1["flops"] == traced.flops - padding
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_tilted_chp_128_lane_padding(cuda, dtype):
+    """Card twin of ``tests/test_kernels.py::test_tilted_chp_128_lane_padding``:
+    a [3, 28, 28, 27] stack packed to Chp 128 runs the widest instance and
+    gives the plain version's result at that test's tolerances (fp32; bf16
+    at 5e-2), and the Chp 32 instance's bit for bit: the extra channels
+    are zeros, whose k-steps add exact zeros to each element's sum."""
+    layers = [l.to(device=cuda, dtype=dtype) for l in _stack(6, [3, 28, 28, 27])]
+    img = torch.rand((30, 32, 3), generator=torch.Generator().manual_seed(7)).to(cuda, dtype)
+    launches = ttf.tilted_fusion_call.launches
+    got = ops.tilted_fused_stack(img, layers, band_rows=30, tile_cols=8, chp=128)
+    narrow = ops.tilted_fused_stack(img, layers, band_rows=30, tile_cols=8)
+    torch.cuda.synchronize()
+    assert ttf.tilted_fusion_call.launches == launches + 2
+    want = ops.tilted_fused_stack(img.cpu(), [l.to(device="cpu") for l in layers],
+                                  band_rows=30, tile_cols=8, chp=128)
+    tol = dict(atol=2e-5, rtol=1e-5) if dtype == torch.float32 else dict(atol=5e-2, rtol=0)
+    np.testing.assert_allclose(got.cpu().float().numpy(), want.float().numpy(), **tol)
+    assert torch.equal(got, narrow)
+
+
+def _property_cases(n=8, seed=11):
+    """Seeded draws over the ranges of ``test_tilted_fused_property``:
+    (width 6-40, tile 2-8, depth 1-4, ch 1-8, bands 1-2, rows 4-10)."""
+    rng = np.random.default_rng(seed)
+    return [tuple(int(v) for v in (rng.integers(6, 41), rng.integers(2, 9), rng.integers(1, 5),
+                                   rng.integers(1, 9), rng.integers(1, 3), rng.integers(4, 11)))
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("width,tile,depth,ch,bands,rows", _property_cases())
+def test_tilted_fused_property(cuda, width, tile, depth, ch, bands, rows):
+    """Card twin of ``tests/test_kernels.py::test_tilted_fused_property``
+    (``ch`` 1-8: Chp 8, launched on the Chp 16 instance): the kernel
+    against the plain version at that test's tolerances."""
+    layers = _stack(depth * 7 + ch, [3] + [ch] * depth)
+    img = torch.rand((bands * rows, width, 3), generator=torch.Generator().manual_seed(11))
+    want = ops.tilted_fused_stack(img, layers, band_rows=rows, tile_cols=tile)
+    launches = ttf.tilted_fusion_call.launches
+    got = ops.tilted_fused_stack(img.to(cuda), [l.to(device=cuda) for l in layers],
+                                 band_rows=rows, tile_cols=tile)
+    torch.cuda.synchronize()
+    assert ttf.tilted_fusion_call.launches == launches + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=3e-5, rtol=1e-4)
+
+
 def test_kernel_rejects_what_it_does_not_take(cuda):
-    layers = _stack(3, [3, 40, 12])  # chp 40: no kernel instance
+    layers = _stack(3, [3, 136, 12])  # chp 136: no kernel instance (the widest is 128)
     packed = ops.pack_stack([l.to(device=cuda) for l in layers])
     xs, first = ops.band_streams(torch.rand((1, 8, 16, 3), device=cuda), 4, 2)
     packed12 = ops.pack_stack([l.to(device=cuda) for l in _stack(3, [3, 12, 12])])
@@ -176,7 +240,7 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
                                relu_flags=[True, False], add_anchor=False, in_channels=3,
                                segments=0)
     assert ttf.tilted_fusion_call.launches == launches
-    with pytest.raises(ValueError, match="padded channel count"):
+    with pytest.raises(ValueError, match="widest instance"):
         ttf.tilted_fusion_call(xs, first, packed.w, packed.b, width=16, tile_cols=4,
                                relu_flags=[True, False], add_anchor=False, in_channels=3)
     wide = ttf.MAX_TILE_COLS + 1  # no 3-row window of this width fits shared memory
@@ -279,6 +343,23 @@ def test_k2_grid_and_ragged_maps(cuda, shape, co, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape,co", [
+    ((360, 640, 28), 48),   # ABPN x4's last layer, one frame
+    ((60, 640, 48), 48),    # two k-chunks, two n-groups (the second half full)
+    ((37, 101, 128), 128),  # the widest: four k-chunks, four n-groups, ragged
+    ((19, 50, 5), 40),      # odd Ci, Co past 32 (bf16: plain loads)
+    ((21, 33, 40), 27),     # Ci past 32, Co within: one n-group
+    ((9, 70, 3), 33),       # Ci <= 3 with Co past 32: the wide instance, taps not folded
+])
+def test_k2_wide_layers(cuda, shape, co, dtype):
+    """K2 past 32 channels: the wide instance (n-groups of 32 outputs,
+    Ci in k-chunks of 32) against the plain version."""
+    x, w, b = _k2_inputs(11, shape, co, dtype)
+    assert tk2.is_wide(shape[2], co)
+    _k2_check(cuda, x, w, b, tile_cols=8, relu=co != 27)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 def test_k2_unaligned_input(cuda, dtype):
     # an input one element past an aligned address: the window copies fall
     # back to a narrower granule and the result does not change
@@ -296,9 +377,9 @@ def test_k2_rejects_what_it_does_not_take(cuda):
     launches = tk2.conv3x3_call.launches
     with pytest.raises(ValueError, match="one device"):
         tk2.conv3x3_call(x, w.cpu(), b)
-    with pytest.raises(ValueError, match="limit of 32"):
-        wide = torch.zeros((3, 3, 4, 33), device=cuda)
-        tk2.conv3x3_call(x, wide, torch.zeros(33, device=cuda))
+    with pytest.raises(ValueError, match="limit of 128"):
+        wide = torch.zeros((3, 3, 4, 129), device=cuda)
+        tk2.conv3x3_call(x, wide, torch.zeros(129, device=cuda))
     with pytest.raises(ValueError, match="tile_cols"):
         tk2.conv3x3_call(x, w, b, tile_cols=0)
     with pytest.raises(ValueError, match="float32 or bfloat16"):

@@ -77,6 +77,31 @@ def test_run_matches_jax(backend, policy, precision):
     np.testing.assert_allclose(to_np(t), to_np(j), atol=TOL[precision], rtol=0)
 
 
+# ABPN x4's shape cut to 3 layers of 8 features: 48 outputs, so K1 runs at
+# Chp 48 (a wide instance on the card) and the anchor repeats 16 times
+ARRAYS_X4 = [(w * (2.0 / (9 * w.shape[2])) ** 0.5 / 0.2, b, r)
+             for w, b, r in np_stack(2, [3, 8, 8, 48])]
+JLAYERS_X4 = [JConvLayer(w=jnp.asarray(w), b=jnp.asarray(b), relu=r) for w, b, r in ARRAYS_X4]
+TLAYERS_X4 = layers_from_numpy(ARRAYS_X4)
+
+
+@pytest.mark.parametrize("policy", ["zero", "halo", "replicate"])
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "int8"])
+def test_run_at_scale_4_matches_jax(policy, precision):
+    """``engine.run`` on the kernel backend at ``scale=4`` (Chp 48) against
+    the JAX package's on the same weights: (1, 20, 16) LR -> (80, 64) HR."""
+    frames = FRAMES[:1, :20, :16]
+    kw = dict(band_rows=10, tile_cols=4, scale=4, vertical_policy=policy,
+              precision=precision, backend="kernel")
+    jp = jengine.make_plan(JLAYERS_X4, frames.shape[1:], **kw)
+    tp = tengine.make_plan(TLAYERS_X4, frames.shape[1:], **kw)
+    j = jengine.run(jp, JLAYERS_X4, jnp.asarray(frames))
+    t = tengine.run(tp, TLAYERS_X4, frames, device="cpu")
+    assert tuple(t.shape) == tuple(j.shape) == (1, 80, 64, 3)
+    assert tengine.prepare_stack(tp, TLAYERS_X4).packed.chp == 48
+    np.testing.assert_allclose(to_np(t), to_np(j), atol=TOL[precision], rtol=0)
+
+
 def test_run_needs_cuda_or_an_explicit_cpu():
     plan = tengine.make_plan(TLAYERS, FRAMES.shape[1:], band_rows=20, tile_cols=4, scale=2)
     if torch.cuda.is_available():

@@ -43,6 +43,9 @@ TDT = {"fp32": torch.float32, "bf16": torch.bfloat16}
 JDT = {"fp32": jnp.float32, "bf16": jnp.bfloat16}
 CHANNELS = ABPNConfig().channels  # 3, 28 x6, 27: L = 7, Chp 32, c0p 8
 L, C, BAND_ROWS, WIDTH = len(CHANNELS) - 1, 8, 12, 64
+# the wide instances' stacks: three layers to Chp 48 (ABPN x4's width, two
+# n-groups of 24 in fp32, three of 16 in bf16) and to Chp 128 (four of 32)
+WIDE = {"x3": CHANNELS, "chp48": [3, 40, 44, 48], "chp128": [3, 128, 120, 128]}
 
 
 def _round(a, precision):
@@ -50,36 +53,38 @@ def _round(a, precision):
     return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(TDT[precision]).float().numpy()
 
 
-def abpn_stack(seed, precision):
+def abpn_stack(seed, precision, channels=CHANNELS):
     rng = np.random.default_rng(seed)
-    arrays = [((rng.normal(size=(3, 3, CHANNELS[i], CHANNELS[i + 1]))
-                * (2.0 / (9 * CHANNELS[i])) ** 0.5).astype(np.float32),
-               (rng.normal(size=(CHANNELS[i + 1],)) * 0.1).astype(np.float32),
-               i < L - 1)
-              for i in range(L)]
+    n = len(channels) - 1
+    arrays = [((rng.normal(size=(3, 3, channels[i], channels[i + 1]))
+                * (2.0 / (9 * channels[i])) ** 0.5).astype(np.float32),
+               (rng.normal(size=(channels[i + 1],)) * 0.1).astype(np.float32),
+               i < n - 1)
+              for i in range(n)]
     arrays = [(_round(w, precision), _round(b, precision), r) for w, b, r in arrays]
     return tops.pack_stack(layers_from_numpy(arrays, dtype=TDT[precision]), dtype=TDT[precision])
 
 
-def k1_inputs(seed, precision, policy, spread="unit"):
-    """Two bands of 12 x 64 (``halo``: two 26-row slabs with bounds) of a
-    24 x 64 frame made with numpy, and their K1 arguments."""
+def k1_inputs(seed, precision, policy, spread="unit", layers=L, width=WIDTH, rows=BAND_ROWS):
+    """Two bands of ``rows`` x ``width`` (``halo``: two slabs of rows + 2 L
+    rows with bounds) of a frame made with numpy, and their K1
+    arguments."""
     rng = np.random.default_rng(seed)
-    frame = rng.uniform(size=(1, 2 * BAND_ROWS, WIDTH, 3)).astype(np.float32)
+    frame = rng.uniform(size=(1, 2 * rows, width, 3)).astype(np.float32)
     if spread == "wide":  # pixels from 1e-3 to 10 of their unit value
         frame *= (10.0 ** rng.uniform(-3, 1, size=frame.shape)).astype(np.float32)
     frame = torch.from_numpy(_round(frame, precision)).to(TDT[precision])
     bounds = None
     if policy == "halo":
-        bands, bounds = halo_slabs(frame, BAND_ROWS, L)
+        bands, bounds = halo_slabs(frame, rows, layers)
     else:
-        bands = frame.reshape(2, BAND_ROWS, WIDTH, 3)
-    xs, first = tops.band_streams(bands, C, L)
+        bands = frame.reshape(2, rows, width, 3)
+    xs, first = tops.band_streams(bands, C, layers)
     return xs, first, bounds
 
 
-def _kw(packed, policy):
-    return dict(width=WIDTH, tile_cols=C, relu_flags=list(packed.relu), add_anchor=False,
+def _kw(packed, policy, width=WIDTH):
+    return dict(width=width, tile_cols=C, relu_flags=list(packed.relu), add_anchor=False,
                 in_channels=3, row_policy="replicate" if policy == "replicate" else "zero")
 
 
@@ -98,7 +103,11 @@ def _mma_sum(acc, a, b, precision, terms):
 def emulate_k1(xs, first, w, b, *, width, tile_cols, relu_flags, row_policy="zero",
                row_bounds=None, precision="fp32", terms=3, segments=1, **_):
     """The CUDA kernel's loops and arithmetic in numpy -> tilted
-    ``(B, R, K*C, Chp)`` float32 (values of the storage dtype)."""
+    ``(B, R, K*C, Chp)`` float32 (values of the storage dtype).  ``w`` is
+    packed to the instance's Chp.  Each (tile, layer) step walks the row
+    blocks of the instance's window (``ttf.block_rows``) and, in each, the
+    n-groups of its outputs (``ttf.n_group``: all Chp on a narrow instance;
+    on a wide one a (tap, n-group) slice of weights at a time)."""
     x = xs.float().numpy()
     f0 = first.float().numpy()
     wn, bn = w.float().numpy(), b.float().numpy()
@@ -107,6 +116,8 @@ def emulate_k1(xs, first, w, b, *, width, tile_cols, relu_flags, row_policy="zer
     Cn, K = tile_cols, KC // tile_cols
     kk = 16 if precision == "bf16" else 8
     k0pad = -(-c0p // kk) * kk
+    nr = ttf.block_rows(Cn, chp, TDT[precision])  # rows of a row block
+    ng = ttf.n_group(chp, TDT[precision])  # outputs of an n-group
     plan = ttf.segment_plan(B, K, Cn, Lw, sms=1, segments=segments)
     out = np.zeros((B, R, KC, chp), np.float32)
     rows = np.arange(R)
@@ -134,18 +145,28 @@ def emulate_k1(xs, first, w, b, *, width, tile_cols, relu_flags, row_policy="zer
                         win = np.concatenate([win[:1], win, win[-1:]], axis=0)
                     else:
                         win = np.pad(win, ((1, 1), (0, 0), (0, 0)))
-                    acc = np.zeros((R * Cn, chp), np.float32)
-                    for dy in range(3):
-                        for dx in range(3):
-                            A = win[dy:dy + R, dx:dx + Cn].reshape(R * Cn, kdim)
-                            # bf16: the tap's k-steps from zero, then one fp32 add
-                            part = acc if precision == "fp32" else np.zeros_like(acc)
-                            for s in range(kdim // kk):
-                                part = _mma_sum(part, A[:, kk * s:kk * (s + 1)],
-                                                wn[l, dy, dx, kk * s:kk * (s + 1)], precision,
-                                                terms)
-                            acc = part if precision == "fp32" else acc + part
-                    y = (acc + bn[l]).reshape(R, Cn, chp)
+                    # row blocks of the instance's window, each copied once;
+                    # per n-group (all Chp on a narrow instance) one slice of
+                    # weights a tap
+                    acc = np.zeros((R, Cn, chp), np.float32)
+                    for r0 in range(0, R, nr):
+                        rb = min(nr, R - r0)
+                        blk = win[r0:r0 + rb + 2]  # the block's (rows + 2) x (C + 2) window
+                        for g0 in range(0, chp, ng):
+                            gacc = np.zeros((rb * Cn, ng), np.float32)
+                            for dy in range(3):
+                                for dx in range(3):
+                                    A = blk[dy:dy + rb, dx:dx + Cn].reshape(rb * Cn, kdim)
+                                    wt = wn[l, dy, dx, :, g0:g0 + ng]  # the (tap, group) slice
+                                    # bf16: the tap's k-steps from zero, then one fp32 add
+                                    part = gacc if precision == "fp32" else np.zeros_like(gacc)
+                                    for s in range(kdim // kk):
+                                        part = _mma_sum(part, A[:, kk * s:kk * (s + 1)],
+                                                        wt[kk * s:kk * (s + 1)], precision,
+                                                        terms)
+                                    gacc = part if precision == "fp32" else gacc + part
+                            acc[r0:r0 + rb, :, g0:g0 + ng] = gacc.reshape(rb, Cn, ng)
+                    y = acc + bn[l]
                     if relu_flags[l]:
                         y = np.maximum(y, np.float32(0))
                     acol = k * Cn - l + np.arange(Cn)
@@ -159,28 +180,35 @@ def emulate_k1(xs, first, w, b, *, width, tile_cols, relu_flags, row_policy="zer
     return out
 
 
-def _jax_k1(xs, first, packed, bounds, policy, precision):
+def _jax_k1(xs, first, packed, bounds, policy, precision, width=WIDTH):
     jd = JDT[precision]
     return np.asarray(jtf.tilted_fusion_call(
         jnp.asarray(xs.float().numpy(), jd), jnp.asarray(first.float().numpy(), jd),
         jnp.asarray(packed.w.float().numpy(), jd), jnp.asarray(packed.b.float().numpy(), jd),
         row_bounds=None if bounds is None else jnp.asarray(bounds.numpy()), interpret=True,
-        **_kw(packed, policy)), np.float32)
+        **_kw(packed, policy, width)), np.float32)
 
 
 @pytest.mark.parametrize("precision", ["fp32", "bf16"])
 @pytest.mark.parametrize("policy", ["zero", "replicate", "halo"])
-def test_emulated_datapath_matches_pallas_and_plain(policy, precision):
-    """ABPN x3 at full width over two bands: the emulated kernel against the
-    Pallas kernel in interpret mode and against ``tilted_fusion_plain``,
-    and bit-identical across segment counts."""
-    packed = abpn_stack(3, precision)
-    xs, first, bounds = k1_inputs(4, precision, policy)
-    kw = _kw(packed, policy)
+@pytest.mark.parametrize("stack", sorted(WIDE))
+def test_emulated_datapath_matches_pallas_and_plain(stack, policy, precision):
+    """Over two bands: ABPN x3 at full width (a narrow instance, Chp 32),
+    and three-layer stacks on the wide instances (Chp 48 and 128, on
+    32-row bands of 16 columns: two row blocks a step): the emulated kernel
+    against the Pallas kernel in interpret mode and against
+    ``tilted_fusion_plain``, and bit-identical across segment counts."""
+    channels = WIDE[stack]
+    layers = len(channels) - 1
+    width, rows = (WIDTH, BAND_ROWS) if stack == "x3" else (16, 32)
+    packed = abpn_stack(3, precision, channels)
+    assert packed.chp == ttf.launch_chp(max(channels))  # packed to the instance
+    xs, first, bounds = k1_inputs(4, precision, policy, layers=layers, width=width, rows=rows)
+    kw = _kw(packed, policy, width)
     got = emulate_k1(xs, first, packed.w, packed.b, row_bounds=bounds, precision=precision,
                      **kw)
     assert np.isfinite(got).all() and np.abs(got).max() > 0.1
-    want = _jax_k1(xs, first, packed, bounds, policy, precision)
+    want = _jax_k1(xs, first, packed, bounds, policy, precision, width)
     plain = ttf.tilted_fusion_plain(xs, first, packed.w, packed.b, row_bounds=bounds,
                                     **kw).float().numpy()
     np.testing.assert_allclose(got, want, atol=TOL[precision], rtol=0)

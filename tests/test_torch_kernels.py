@@ -25,6 +25,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels import tilted_fusion as jtf
 
+from repro_torch.analysis.plan_check import SMEM_PER_BLOCK_BYTES
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import tilted_fusion as ttf
@@ -217,3 +218,104 @@ def test_kernel_buffers_launch_total():
     assert kb["launch_workspace_elements"] == 6 * 41 * per_cta
     one = ttf.kernel_buffers(channels=ch, band_rows=60, tile_cols=8)
     assert one["ctas"] == 1 and one["launch_workspace_elements"] == per_cta
+
+
+# ----------------------------------------------------------------------
+# Channel widths: every Chp the Pallas kernel takes (8..128)
+# ----------------------------------------------------------------------
+def test_tilted_chp_128_lane_padding():
+    """Twin of ``tests/test_kernels.py::test_tilted_chp_128_lane_padding``:
+    the stack packed to Chp 128 (the widest instance on the card) gives
+    the Pallas kernel's result and the reference's, at that test's
+    tolerances."""
+    jl, tl = both_stacks(6, [3, 28, 28, 27])
+    img = np.random.default_rng(7).uniform(size=(30, 32, 3)).astype(np.float32)
+    j = jops.tilted_fused_stack(jnp.asarray(img), jl, band_rows=30, tile_cols=8, chp=128,
+                                interpret=True)
+    t = tops.tilted_fused_stack(torch.from_numpy(img), tl, band_rows=30, tile_cols=8, chp=128)
+    want = jref.tilted_fused_stack_ref(jnp.asarray(img), jl, band_rows=30)
+    np.testing.assert_allclose(t.numpy(), np.asarray(want), atol=2e-5, rtol=1e-5)
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=2e-5, rtol=1e-5)
+    assert ttf.launch_chp(128) == 128  # the card launches the stack as packed
+
+
+def _property_cases(n=8, seed=11):
+    """Seeded draws over the ranges of ``test_tilted_fused_property``:
+    (width 6-40, tile 2-8, depth 1-4, ch 1-8, bands 1-2, rows 4-10)."""
+    rng = np.random.default_rng(seed)
+    return [tuple(int(v) for v in (rng.integers(6, 41), rng.integers(2, 9), rng.integers(1, 5),
+                                   rng.integers(1, 9), rng.integers(1, 3), rng.integers(4, 11)))
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("width,tile,depth,ch,bands,rows", _property_cases())
+def test_tilted_fused_property(width, tile, depth, ch, bands, rows):
+    """Twin of ``tests/test_kernels.py::test_tilted_fused_property`` (``ch``
+    1-8, so Chp 8, which the card pads to its Chp 16 instance): the port
+    against the Pallas kernel and the reference at that test's
+    tolerances."""
+    jl, tl = both_stacks(depth * 7 + ch, [3] + [ch] * depth)
+    img = np.random.default_rng(11).uniform(size=(bands * rows, width, 3)).astype(np.float32)
+    j = jops.tilted_fused_stack(jnp.asarray(img), jl, band_rows=rows, tile_cols=tile,
+                                interpret=True)
+    t = tops.tilted_fused_stack(torch.from_numpy(img), tl, band_rows=rows, tile_cols=tile)
+    want = jref.tilted_fused_stack_ref(jnp.asarray(img), jl, band_rows=rows)
+    np.testing.assert_allclose(t.numpy(), np.asarray(want), atol=3e-5, rtol=1e-4)
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=3e-5, rtol=1e-4)
+    assert ttf.launch_chp(tops.pack_stack(tl).chp) == 16
+
+
+@pytest.mark.parametrize("chp", range(8, 129, 8))
+def test_launch_chp_pads_to_the_next_instance(chp):
+    """Every multiple of 8 the Pallas kernel takes launches the smallest
+    built instance at or above it; every instance fits one CTA's shared
+    memory in both dtypes and takes ``tile_cols`` 8."""
+    inst = ttf.launch_chp(chp)
+    assert inst in ttf.SUPPORTED_CHP and inst >= chp
+    assert all(c < chp for c in ttf.SUPPORTED_CHP if c < inst)
+    assert ttf.launch_chp(chp - 7) == inst  # any count that rounds up to chp
+    for dtype in (torch.float32, torch.bfloat16):
+        assert ttf.launch_chp(chp, dtype) == inst
+        assert ttf.shared_bytes(inst, dtype) <= SMEM_PER_BLOCK_BYTES == 232_448
+        assert ttf.max_tile_cols(inst, dtype) >= 8 and ttf.block_rows(8, inst, dtype) >= 1
+        assert inst % ttf.n_group(inst, dtype) == 0 and ttf.n_group(inst, dtype) <= 32
+    with pytest.raises(ValueError, match="widest instance"):
+        ttf.launch_chp(chp + 128)
+
+
+def test_wrapper_pads_to_the_instance_and_records_it():
+    """On ``meta`` tensors a Chp 8 stack is recorded with the Chp 16
+    instance the card runs, and its result keeps the packed width."""
+    x = torch.empty((2, 6, 16, 8), device="meta")
+    first = torch.empty((2, 6, 1, 8), device="meta")
+    w, b = torch.empty((2, 3, 3, 8, 8), device="meta"), torch.empty((2, 8), device="meta")
+    with ttf.record_launches() as launches:
+        out = ttf.tilted_fusion_call(x, first, w, b, width=14, tile_cols=4,
+                                     relu_flags=[True, False], add_anchor=False, in_channels=3)
+    assert tuple(out.shape) == (2, 6, 16, 8)
+    (launch,) = launches
+    assert launch.chp == 8 and launch.launch_chp == launch.instance_chp == 16
+    with pytest.raises(ValueError, match="widest instance"):
+        ttf.tilted_fusion_call(x, first, torch.empty((2, 3, 3, 136, 136), device="meta"),
+                               torch.empty((2, 136), device="meta"), width=14, tile_cols=4,
+                               relu_flags=[True, False], add_anchor=False, in_channels=3)
+
+
+@pytest.mark.parametrize("ci,co", [(28, 48), (48, 48), (128, 128)])
+def test_conv3x3_wide_plain_matches_pallas_kernel(ci, co):
+    """K2 past 32 channels (ABPN x4's 28 -> 48, and the widest, 128 ->
+    128): the plain version against the Pallas ``conv3x3_call`` in
+    interpret mode at the JAX package's K2 tolerances."""
+    from repro.kernels.conv3x3 import conv3x3_call as jconv3x3_call
+    from repro_torch.kernels import conv3x3 as tk2
+
+    rng = np.random.default_rng(ci + co)
+    x = rng.uniform(size=(10, 20, ci)).astype(np.float32)
+    w = (rng.normal(size=(3, 3, ci, co)) * (2.0 / (9 * ci)) ** 0.5).astype(np.float32)
+    b = (rng.normal(size=(co,)) * 0.1).astype(np.float32)
+    j = jconv3x3_call(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), tile_cols=8, relu=True,
+                      interpret=True)
+    t = tk2.conv3x3_call(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b),
+                         tile_cols=8, relu=True)
+    assert tk2.is_wide(ci, co) and max(ci, co) <= tk2.MAX_CHANNELS
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=2e-5, rtol=1e-5)

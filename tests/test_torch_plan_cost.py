@@ -127,6 +127,35 @@ def test_plan_cost_is_the_sum_of_its_terms():
     assert terms["glue"]["hbm_bytes"] > 0 and k1["workspace_bytes"] > 0
 
 
+def test_plan_cost_counts_the_instance_a_chp8_stack_launches(monkeypatch):
+    """A [3, 8, 8, 3] stack (scale 1) packs to Chp 8, which the card runs on
+    its Chp 16 instance: ``plan_cost``'s K1 term on the card counts
+    ``launch_cost`` at Chp 16, on the CPU the plain version's at Chp 8.
+    The card's segment plan is replaced by one SM's, so that the count is
+    made here: 4 bands of 5 tiles, 96 pixels a tile in 6 m16 fragments,
+    layer 0's 8 input channels one fp32 k-step, 16 outputs a layer."""
+    rng = np.random.default_rng(5)
+    layers = layers_from_numpy([
+        ((rng.normal(size=(3, 3, ci, co)) * 0.2).astype(np.float32),
+         (rng.normal(size=(co,)) * 0.1).astype(np.float32), i < 2)
+        for i, (ci, co) in enumerate([(3, 8), (8, 8), (8, 3)])])
+    plan = tengine.make_plan(layers, LR, band_rows=BAND_ROWS, tile_cols=TILE_COLS, scale=1,
+                             backend="kernel")
+    one_sm = ttf.segment_plan(2 * BATCH, 5, TILE_COLS, 3, sms=1)
+    monkeypatch.setattr(ttf.Launch, "plan", lambda self, device: one_sm)
+    (card,) = tengine.plan_cost_terms(plan, layers, BATCH, device="cuda")["k1"]
+    (cpu,) = tengine.plan_cost_terms(plan, layers, BATCH, device="cpu")["k1"]
+    common = dict(band_rows=BAND_ROWS, tile_cols=TILE_COLS, c0p=8, num_layers=3,
+                  dtype=torch.float32)
+    assert card == dict(ttf.launch_cost(one_sm, chp=16, **common), plan=one_sm)
+    assert cpu == dict(ttf.launch_cost(one_sm, chp=8, plain=True, **common), plan=one_sm)
+    assert card["flops"] == 4 * 5 * 2 * 96 * 9 * 16 * (8 + 16 + 16) == 22_118_400
+    assert cpu["flops"] == 4 * 5 * 2 * 96 * 9 * 8 * (3 * 8)
+    # the tilted result is the instance's 16 channels on the card
+    assert card["io_bytes"] - cpu["io_bytes"] == 4 * (4 * BAND_ROWS * 5 * TILE_COLS * 8
+                                                      + 3 * (9 * (16 ** 2 - 8 ** 2) + 8))
+
+
 # ----------------------------------------------------------------------
 # launch_cost
 # ----------------------------------------------------------------------

@@ -179,18 +179,24 @@ def test_budget_past_design_point_warns_on_both_banded_backends():
 
 @pytest.mark.parametrize("channels,over", [
     ([3, 32, 32, 27], False),  # 229,632 B a CTA: fits (one CTA an SM is occupancy only)
-    ([3, 64, 64, 27], True),  # 2 x 295,168 + 2 x 320 x 272 B a CTA
-    ([3, 40, 40, 27], True),  # 2 x 115,360 + 2 x 320 x 176 = 343,360 B a CTA
+    ([3, 64, 64, 27], False),  # the wide Chp 64 instance: 2 x 16,384 + 320 x 256 B a CTA
+    ([3, 40, 40, 27], False),  # padded to the Chp 48 instance: 2 x 9,216 + 320 x 208 B
+    ([3, 136, 136, 27], True),  # no instance above Chp 128
 ])
 def test_shared_memory_past_the_h100_is_an_error_on_the_kernel_backend(channels, over):
+    """Every instance of K1 fits one CTA's shared memory (the source
+    asserts it); a stack no instance covers is the error a launch would
+    raise."""
     plan = SRPlan(height=360, width=64, num_layers=3, backend="kernel")
     errs = errors(plan.verify(channels=channels))
+    report = plan_check.plan_buffer_report(plan, channels)
     if not over:
         assert errs == []
+        assert report["shared_bytes"] <= plan_check.SMEM_PER_BLOCK_BYTES
         return
     assert rules(errs) == ["on_chip_budget"]
     msg = errs[0].message
-    assert "tilted_fusion" in msg and str(plan_check.SMEM_PER_BLOCK_BYTES) in msg
+    assert "tilted_fusion" in msg and "136" in msg and report["instance"] is None
     # the tilted backend runs no Hopper kernel: its budget rule stays advisory
     tilted = dataclasses.replace(plan, backend="tilted")
     assert errors(tilted.verify(channels=channels)) == []
@@ -223,6 +229,47 @@ def test_plan_buffer_report_reads_k1():
     bf16 = plan_check.plan_buffer_report(SRPlan(height=360, width=640, backend="kernel",
                                                 precision="bf16"))
     assert bf16["shared_bytes"] == 2 * 4 * (32 + 9 * 2 * 32 * 8) + 2 * 320 * 80 == 88_320
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("width,instance", [(8, 16), (24, 32), (48, 48), (128, 128)])
+def test_verify_is_clean_where_an_instance_launches(width, instance, precision):
+    """A stack of ``width`` channels verifies clean on the kernel backend at
+    the default ``tile_cols`` 8: the report names the instance the
+    wrapper pads it to, whose shared memory fits one CTA."""
+    plan = SRPlan(height=360, width=640, num_layers=3, backend="kernel", precision=precision)
+    channels = [3, width, width, width]
+    assert plan.tile_cols == 8
+    assert errors(plan.verify(channels=channels)) == []
+    report = plan_check.plan_buffer_report(plan, channels)
+    assert report["instance"] == report["chp"] == instance == ttf.launch_chp(width)
+    assert report["packed_chp"] == width
+    assert report["shared_bytes"] == ttf.shared_bytes(instance, ttf_dtype(precision))
+    assert report["shared_bytes"] <= plan_check.SMEM_PER_BLOCK_BYTES
+    assert report["max_tile_cols"] >= plan.tile_cols
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_verify_reports_a_width_no_instance_covers(precision):
+    """Chp 136 has no instance: an ``on_chip_budget`` error, where before
+    the report's shared memory alone decided."""
+    plan = SRPlan(height=360, width=640, num_layers=3, backend="kernel", precision=precision)
+    errs = errors(plan.verify(channels=[3, 136, 136, 27]))
+    assert rules(errs) == ["on_chip_budget"] and "Chp 136" in errs[0].message
+    tilted = dataclasses.replace(plan, backend="tilted")
+    assert errors(tilted.verify(channels=[3, 136, 136, 27])) == []
+
+
+def test_verify_reads_abpn_x4_from_the_plan():
+    """Without channels, an ABPN-shaped plan at scale 4 is checked at its
+    48 outputs: the Chp 48 instance."""
+    plan = SRPlan(height=360, width=640, backend="kernel", scale=4)
+    report = plan_check.plan_buffer_report(plan)
+    assert report["chp"] == 48 and errors(plan.verify()) == []
+
+
+def ttf_dtype(precision):
+    return torch.bfloat16 if precision == "bf16" else torch.float32
 
 
 @pytest.mark.parametrize("band_rows", [12, 60])
@@ -318,12 +365,13 @@ def test_degenerate_plans_counted_and_warned():
 
 
 def test_strict_session_rejects_illegal_plan_before_build():
-    """A stack too wide for K1's shared memory per CTA (hidden width 60 ->
-    Chp 64: 294,912 B) is refused before anything is prepared or built."""
+    """A stack wider than any instance of K1 (hidden width 130 -> Chp 136;
+    the widest instance is Chp 128) is refused before anything is prepared
+    or built."""
     rng = np.random.default_rng(0)
     wide = layers_from_numpy([
-        (rng.normal(size=(3, 3, 5, 60)).astype(np.float32), np.zeros(60, np.float32), True),
-        (rng.normal(size=(3, 3, 60, 45)).astype(np.float32), np.zeros(45, np.float32), False),
+        (rng.normal(size=(3, 3, 5, 130)).astype(np.float32), np.zeros(130, np.float32), True),
+        (rng.normal(size=(3, 3, 130, 45)).astype(np.float32), np.zeros(45, np.float32), False),
     ])
     s = engine.SRSession(wide, backend="kernel", strict=True, autotune="off", device="cpu")
     with pytest.raises(PlanVerificationError, match="on_chip_budget"):
