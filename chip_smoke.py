@@ -14,8 +14,8 @@ each of their parts to the end and then fail with every failure listed):
    with nvcc (one process per source, started together) and prints each
    template instance's registers, stack, shared and local memory, and K1's
    and K2's dynamic shared memory per CTA and resident CTAs per SM for each
-   instance (K1: Chp 16 and 32 narrow, 48, 64, 96 and 128 wide; K2: the
-   persistent instances and the wide one);
+   instance (K1: Chp 16 and 32 narrow, the Chp 32 mixed one, 48, 64, 96
+   and 128 wide; K2: the persistent instances and the wide one);
 3. K1 vs plain — K1 against ``tilted_fusion_plain`` on the card at the
    design point (the 6 bands of a 360x640 frame under zero and replicate,
    the 74-row halo slabs with bounds, the anchor) in fp32 (max abs diff
@@ -25,10 +25,16 @@ each of their parts to the end and then fail with every failure listed):
    Then K1 at every width the Pallas kernel takes: [3, c, c, c] stacks for
    c = 8, 16, 24, 32, 40, 48, 64, 96, 128 (8, 24 and 40 padded to the 16,
    32 and 48 instances) over three 61x37 bands under zero, replicate and
-   row bounds, segments bit-identical at 48 and 128; and at ABPN x4's
-   design point (7 layers, 28 features, 48 outputs: Chp 48) over the 6
-   bands of a 360x640 frame under zero, replicate and halo, segments
-   bit-identical under zero; same tolerances;
+   row bounds, segments bit-identical at 48 and 128; the mixed launch
+   (``hidden_channels``: the hidden layers on the Chp 32 instance, the last
+   layer in output groups of 32) on [3, 28, 28, out] stacks for out = 40,
+   48, 64, 96, 128 over the same bands, each also ``torch.equal`` to the
+   Chp-out instance on the same packed stack, segments bit-identical at 48
+   and 128; and at ABPN x4's design point (7 layers, 28 features, 48
+   outputs) on the mixed launch over the 6 bands of a 360x640 frame under
+   zero, replicate, halo and zero with the anchor (3 x 16 channels),
+   ``torch.equal`` to the Chp 48 instance, segments bit-identical under
+   zero; same tolerances;
 3b. K2 vs plain — K2 against ``conv3x3_plain`` on the card at the seven
    ABPN x3 layer shapes over one 360x640 frame (the stack of phase 3, each
    layer fed the previous layer's features) and at a width that is not a
@@ -50,7 +56,8 @@ each of their parts to the end and then fail with every failure listed):
    backend="kernel")`` (360x640 -> 1440x2560) for the same seven
    configurations, a 2-frame request and a frame alone (bit-identical to
    its batch twin), held to the ``tilted`` backend on the card at the same
-   tolerances, K1's counter zeroed just before and moved;
+   tolerances, K1's counter zeroed just before and moved; its prepared
+   stack must make the mixed launch (hidden Chp 32, 48 outputs);
 4b. layer-by-layer path — ABPN x3 over two 360x640 frames as 7
    ``ops.conv3x3`` launches per frame plus ``engine.sr_epilogue``, fp32 and
    bf16, held against ``engine.run`` on the ``reference`` backend (TF32
@@ -260,9 +267,11 @@ each of their parts to the end and then fail with every failure listed):
    per frame of a full re-upscale, and of a delta frame with 0, 1 and 6
    dirty bands split into digest, dispatch and splice; K1 at 1, 3 and 4 (3
    real + 1 padded) bands beside its bound for that work.  ABPN x4: K1 at
-   1 and 8 frames, fp32 and bf16, one launch and queued, beside the cuDNN
-   conv stack at the same widths (TF32 off), the 3xTF32 and bf16 bounds of
-   the unpadded work and the FLOPs K1 executes (``engine.plan_cost``); K2's
+   1 and 8 frames, fp32 and bf16, one launch and queued, on the mixed
+   launch the serving path makes and on the wide Chp 48 instance (the same
+   packed stack), beside the cuDNN conv stack at the same widths (TF32 off,
+   and bf16), the 3xTF32 and bf16 bounds of the unpadded work and the FLOPs
+   each path executes (``engine.plan_cost``, ``launch_cost``); K2's
    28 -> 48 layer and the 7-launch x4 stack a frame beside their bounds
    and cuDNN;
 6. the kernels line, then the card's name and power limit, then the result.
@@ -1990,6 +1999,9 @@ def served_plan_costs(torch, engine, dev, layers, peaks):
 X4_SCALE = 4
 K1_WIDTHS = (8, 16, 24, 32, 40, 48, 64, 96, 128)  # phase 3: every instance, and padding to one
 K1_SEGMENT_WIDTHS = (48, 128)  # phase 3: segments bit-identical on these wide instances
+# phase 3: mixed launches, [3, 28, 28, out] stacks (hidden Chp 32; 40 and 48
+# are output groups of 32 + 16, 64..128 of 32)
+K1_MIXED_OUTPUTS = (40, 48, 64, 96, 128)
 
 
 def he_arrays(np, channels, seed):
@@ -2012,11 +2024,15 @@ def abpn_x4_layers(np, dev):
     return layers_from_numpy(he_arrays(np, ABPNConfig(scale=X4_SCALE).channels, 40), device=dev)
 
 
-def k1_check(torch, ttf, ops, label, prec, layers, xb, extra, width, worst, segments=False):
+def k1_check(torch, ttf, ops, label, prec, layers, xb, extra, width, worst, segments=False,
+             mixed=False):
     """K1 against its plain version on the card for the stack ``layers`` in
     precision ``prec`` over the band batch ``xb`` (tile 8); with
     ``segments`` also bit-identical for segments 1, 2, 3, the automatic
-    plan and K.  Records the max abs error in ``worst``."""
+    plan and K.  ``mixed``: the launch the serving path makes
+    (``hidden_channels`` from ``pack_stack``), which must be a mixed one
+    (hidden Chp 32) and equal the Chp instance's on the same packed stack
+    bit for bit.  Records the max abs error in ``worst``."""
     dt = torch.bfloat16 if prec == "bf16" else torch.float32
     packed = ops.pack_stack([l.to(dtype=dt) for l in layers], dtype=dt)
     L, tile_cols = len(layers), 8
@@ -2025,6 +2041,11 @@ def k1_check(torch, ttf, ops, label, prec, layers, xb, extra, width, worst, segm
               in_channels=3, add_anchor=False)
     kw.update(extra)
     call = ttf.tilted_fusion_call
+    inst = ttf.launch_chp(packed.chp, dt)
+    if mixed:
+        kw["hidden_channels"] = packed.hidden_channels
+        hid = ttf.hidden_chp(packed.chp, packed.hidden_channels, xs.shape[3], dt)
+        require(hid == 32 < inst, f"K1 {label}: not a mixed launch (hidden Chp {hid})")
     got = call(xs, first, packed.w, packed.b, **kw)
     torch.cuda.synchronize()
     want = ttf.tilted_fusion_plain(xs, first, packed.w, packed.b, **kw)
@@ -2032,14 +2053,21 @@ def k1_check(torch, ttf, ops, label, prec, layers, xb, extra, width, worst, segm
     require(bool(torch.isfinite(got.float()).all()), f"K1 {label} {prec}: non-finite output")
     err = (got.float() - want.float()).abs().max().item()
     worst[prec] = max(worst.get(prec, 0.0), err)
-    inst = ttf.launch_chp(packed.chp, dt)
-    print(f"K1 vs plain [{prec}, {label}, Chp {packed.chp} on the Chp {inst} instance, "
+    where = f"the mixed launch (hidden Chp 32, {inst} outputs)" if mixed else \
+        f"the Chp {inst} instance"
+    print(f"K1 vs plain [{prec}, {label}, Chp {packed.chp} on {where}, "
           f"B={xs.shape[0]} R={xs.shape[1]}]: max_abs_err={err:.3e} (tol {TOL[prec]:g})")
     require(err <= TOL[prec], f"K1 vs plain {prec} {label}")
+    if mixed:
+        wide = call(xs, first, packed.w, packed.b, **{**kw, "hidden_channels": None})
+        require(torch.equal(got, wide), f"K1 {prec} {label}: mixed launch vs the Chp {inst} "
+                                        "instance on the same stack")
+        print(f"  torch.equal to the Chp {inst} instance on the same packed stack: yes")
     if segments:
         K = xs.shape[2] // tile_cols
         one = call(xs, first, packed.w, packed.b, segments=1, **kw)
-        auto = ttf.launch_plan(xs, packed.w, tile_cols=tile_cols, compute_dtype=dt).segments
+        auto = ttf.launch_plan(xs, packed.w, tile_cols=tile_cols, compute_dtype=dt,
+                               hidden_channels=kw.get("hidden_channels")).segments
         for segs in (2, 3, None, K):
             require(torch.equal(call(xs, first, packed.w, packed.b, segments=segs, **kw), one),
                     f"K1 {prec} {label}: segments={segs} changed the output")
@@ -2052,8 +2080,12 @@ def serve_x4(torch, np, engine, dev, layers4, kcall):
     layers=<ABPN x4>, backend="kernel")`` for every served configuration
     serves a 2-frame 360x640 request and one frame alone (which must equal
     its batch twin bit for bit); each HR result against the ``tilted``
-    backend on the card, TF32 off.  K1's counter is zeroed just before
-    and read just after.  Returns (per_config, launches)."""
+    backend on the card, TF32 off.  The prepared stack records 28 hidden
+    channels, so every K1 launch is the mixed one (hidden Chp 32, 48
+    outputs).  K1's counter is zeroed just before and read just after.
+    Returns (per_config, launches)."""
+    from repro_torch.kernels import tilted_fusion as ttf
+
     rng = np.random.default_rng(41)
     req = rng.uniform(size=(2, H, W, 3)).astype(np.float32)
     kcall.launches = 0
@@ -2062,6 +2094,12 @@ def serve_x4(torch, np, engine, dev, layers4, kcall):
         before = kcall.launches
         server = engine.SRServer.open("abpn_x3", scale=X4_SCALE, layers=layers4,
                                       backend="kernel", precision=prec, vertical_policy=policy)
+        kplan = engine.make_plan(layers4, (H, W, 3), backend="kernel", precision=prec,
+                                 vertical_policy=policy, band_rows=engine.derive_band_rows(H),
+                                 scale=X4_SCALE)
+        packed = engine.prepare_stack(kplan, layers4).packed
+        require(ttf.hidden_chp(packed.chp, packed.hidden_channels, 8) == 32,
+                f"x4 {prec}/{policy}: the served stack does not make the mixed launch")
         hr = server.submit(req).result()
         alone = server.submit(req[1]).result()
         server.close()
@@ -2079,7 +2117,8 @@ def serve_x4(torch, np, engine, dev, layers4, kcall):
         err = (hr.float() - want.float()).abs().max().item()
         per_config[f"{prec}/{policy}"] = {"launches": launched, "max_abs_err": err}
         print(f"x4 server [{prec}, {policy}]: {H}x{W} -> {H * X4_SCALE}x{W * X4_SCALE}, K1 "
-              f"launches {launched}, HR vs tilted backend max_abs_err={err:.3e} "
+              f"launches {launched} (mixed: hidden Chp 32, {packed.chp} outputs), HR vs "
+              f"tilted backend max_abs_err={err:.3e} "
               f"(tol {TOL[prec]:g}); batch-independent bit-exact: yes")
         require(err <= TOL[prec], f"x4 {prec}/{policy}: server output vs tilted backend")
     launches = kcall.launches
@@ -2090,10 +2129,13 @@ def serve_x4(torch, np, engine, dev, layers4, kcall):
 
 def x4_times(torch, engine, ops, ttf, k2, dev, layers4, peaks, gen):
     """Phase 5 at ABPN x4: K1 at 1 and 8 frames of 360x640, fp32 and bf16,
-    one launch between two events and queued behind a sleep, beside the
-    cuDNN conv stack at the same widths (TF32 off), the 3xTF32 and bf16
-    bounds of the unpadded work, and the FLOPs K1 executes
-    (``engine.plan_cost``); K2's 28 -> 48 layer and its 7-launch stack a
+    on the mixed launch the serving path makes (hidden Chp 32, 48 outputs)
+    and on the wide Chp 48 instance (the same packed stack without
+    ``hidden_channels``), one launch between two events and queued behind a
+    sleep, beside the cuDNN conv stack at the same widths (TF32 off), the
+    3xTF32 and bf16 bounds of the unpadded work, and the FLOPs each path
+    executes (``engine.plan_cost`` for the mixed one, ``launch_cost`` of
+    the wide one's plan); K2's 28 -> 48 layer and its 7-launch stack a
     frame beside their bounds and cuDNN."""
     from repro_torch.core.fusion import exact_fp32
 
@@ -2122,11 +2164,10 @@ def x4_times(torch, engine, ops, ttf, k2, dev, layers4, peaks, gen):
         kw = dict(width=W, tile_cols=C, relu_flags=relu, in_channels=3, add_anchor=False)
         kcall = ttf.tilted_fusion_call
 
-        def k1_fp32():
-            return kcall(xs, first, packed.w, packed.b, **kw)
-
-        def k1_bf16():
-            return kcall(xs16, first16, packed16.w, packed16.b, **kw)
+        def k1(prec, mixed):
+            x_, f_, pk = (xs, first, packed) if prec == "fp32" else (xs16, first16, packed16)
+            hc = pk.hidden_channels if mixed else None
+            return lambda: kcall(x_, f_, pk.w, pk.b, hidden_channels=hc, **kw)
 
         nchw = xb.permute(0, 3, 1, 2).contiguous()
         nchw16 = nchw.to(torch.bfloat16)
@@ -2135,29 +2176,44 @@ def x4_times(torch, engine, ops, ttf, k2, dev, layers4, peaks, gen):
         nbytes = 4 * (n * H * W * (layers4[0].ci + layers4[-1].co) + wbytes)
         tc_ms, tc_by = bound(3 * flops, nbytes, peaks["tf32"], peaks["bytes"])
         bf_ms, bf_by = bound(flops, nbytes // 2, peaks["bf16"], peaks["bytes"])
-        executed = {}
-        for prec in ("fp32", "bf16"):
+        executed, wide_executed = {}, {}
+        for prec, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
             plan = engine.make_plan(layers4, (H, W, 3), backend="kernel", precision=prec,
                                     vertical_policy="zero", band_rows=60, scale=X4_SCALE)
-            (k1,) = engine.plan_cost_terms(plan, layers4, n)["k1"]
-            executed[prec] = dict(flops=k1["flops"], segments=k1["plan"].segments,
-                                  ctas=k1["plan"].ctas)
+            (cost,) = engine.plan_cost_terms(plan, layers4, n)["k1"]
+            executed[prec] = dict(flops=cost["flops"], segments=cost["plan"].segments,
+                                  ctas=cost["plan"].ctas)
+            wplan = ttf.launch_plan(xs, packed.w, tile_cols=C, compute_dtype=dt)
+            wcost = ttf.launch_cost(wplan, band_rows=60, tile_cols=C, c0p=xs.shape[3],
+                                    chp=packed.chp, num_layers=L, dtype=dt)
+            wide_executed[prec] = dict(flops=wcost["flops"], segments=wplan.segments,
+                                       ctas=wplan.ctas)
         row = dict(
-            ms=time_ms(torch, k1_fp32, reps=10), device_ms=device_ms(torch, k1_fp32, calls=5),
-            bf16_ms=time_ms(torch, k1_bf16, reps=10),
-            bf16_device_ms=device_ms(torch, k1_bf16, calls=5),
+            ms=time_ms(torch, k1("fp32", True), reps=10),
+            device_ms=device_ms(torch, k1("fp32", True), calls=5),
+            bf16_ms=time_ms(torch, k1("bf16", True), reps=10),
+            bf16_device_ms=device_ms(torch, k1("bf16", True), calls=5),
+            wide_ms=time_ms(torch, k1("fp32", False), reps=10),
+            wide_device_ms=device_ms(torch, k1("fp32", False), calls=5),
+            wide_bf16_ms=time_ms(torch, k1("bf16", False), reps=10),
+            wide_bf16_device_ms=device_ms(torch, k1("bf16", False), calls=5),
             library_ms=time_ms(torch, lambda: cudnn(nchw, oihw), reps=10),
             library_device_ms=device_ms(torch, lambda: cudnn(nchw, oihw), calls=5),
             library_bf16_device_ms=device_ms(torch, lambda: cudnn(nchw16, oihw16), calls=5),
             bound_ms=tc_ms, bound_by=tc_by, bf16_bound_ms=bf_ms, bf16_bound_by=bf_by,
-            flops=flops, bytes=nbytes, executed=executed, bands=xs.shape[0])
+            flops=flops, bytes=nbytes, executed=executed, wide_executed=wide_executed,
+            bands=xs.shape[0])
         if n == 1:
             row["plain_ms"] = time_ms(torch, lambda: ttf.tilted_fusion_plain(
                 xs, first, packed.w, packed.b, **kw), reps=3)
         out[n] = row
-        print(f"x4 batch {n} ({xs.shape[0]} bands of 60x{W}, zero): K1 fp32 {row['ms']:.3f} ms "
-              f"one launch, {row['device_ms']:.3f} ms queued; bf16 {row['bf16_ms']:.3f} / "
-              f"{row['bf16_device_ms']:.3f} ms; cuDNN conv stack (TF32 off) "
+        print(f"x4 batch {n} ({xs.shape[0]} bands of 60x{W}, zero): K1 mixed fp32 "
+              f"{row['ms']:.3f} ms one launch, {row['device_ms']:.3f} ms queued; bf16 "
+              f"{row['bf16_ms']:.3f} / {row['bf16_device_ms']:.3f} ms; the wide Chp 48 instance "
+              f"fp32 {row['wide_ms']:.3f} / {row['wide_device_ms']:.3f} ms, bf16 "
+              f"{row['wide_bf16_ms']:.3f} / {row['wide_bf16_device_ms']:.3f} ms, executing "
+              f"{wide_executed['fp32']['flops'] / 1e9:.2f} / "
+              f"{wide_executed['bf16']['flops'] / 1e9:.2f} GFLOP; cuDNN conv stack (TF32 off) "
               f"{row['library_ms']:.3f} ms one call, {row['library_device_ms']:.3f} ms queued, "
               f"bf16 {row['library_bf16_device_ms']:.3f} ms queued; bound 3xTF32 {tc_ms:.3f} ms "
               f"({tc_by}) -> {100 * tc_ms / row['device_ms']:.1f}% queued, bf16 {bf_ms:.3f} ms "
@@ -2288,17 +2344,20 @@ def main() -> int:
         label, shown = None, 0
         for line in usage.stdout.splitlines():
             # K1's instances (and its weight packing's) are <dtype, Chp>
-            # (..._kernelIfLi32EE...), K2's <dtype, taps folded into K>
+            # (..._kernelIfLi32EE...; the narrow kernel <dtype, Chp, mixed>,
+            # ..._kernelIfLi32ELb1EE...), K2's <dtype, taps folded into K>
             # (..._kernelIfLb1EE...)
             # (the name's own length prefix, not the namespace's, precedes it)
             m = re.search(r"\d+((?:tilted_fusion|pack_weights|pack_slices|pack_wide|conv3x3)"
                           r"\w*?_kernel)"
                           r"I(f|13__nv_bfloat16)(?:Li(\d+)E)?(?:Lb([01])E)?E", line)
             if m:
+                flags = ({"1": ", mixed", "0": ""} if m.group(3) else
+                         {"1": ", folded", "0": ", per tap"})
                 label = m.group(1) + " <" + (
                     "fp32" if m.group(2) == "f" else "bf16") + (
                     f", chp {m.group(3)}" if m.group(3) else "") + (
-                    {"1": ", folded", "0": ", per tap"}[m.group(4)] if m.group(4) else "") + ">"
+                    flags[m.group(4)] if m.group(4) else "") + ">"
             res = re.search(r"REG:\d+ STACK:\d+ SHARED:\d+ LOCAL:\d+", line)
             if res and label:
                 print(f"  {name} {label}: {res.group(0)}")
@@ -2312,6 +2371,9 @@ def main() -> int:
         for chp_ in ttf.SUPPORTED_CHP:
             k1_blocks[f"{prec}/chp{chp_}"] = ttf.blocks_per_sm(dev, dt, chp_)
             k1_smem[f"{prec}/chp{chp_}"] = ttf.shared_bytes(chp_, dt)
+        # a mixed launch: the hidden layers at Chp 32, ABPN x4's 48 outputs
+        k1_blocks[f"{prec}/chp32->48"] = ttf.blocks_per_sm(dev, dt, 48, hidden_chp=32)
+        k1_smem[f"{prec}/chp32->48"] = ttf.shared_bytes(48, dt, hidden_chp=32)
     print(f"  tilted_fusion ({ttf.THREADS} threads, {sms} SMs): " + ", ".join(
         f"<{k}> {k1_smem[k]} B shared memory, {v} CTAs per SM" for k, v in k1_blocks.items()))
     k2_occ = {}
@@ -2397,16 +2459,31 @@ def main() -> int:
                 k1_check(torch, ttf, ops, f"[3, {c}, {c}, {c}], {name}", prec, stack_c, small,
                          extra, 37, worst, segments=c in K1_SEGMENT_WIDTHS and name == "zero")
     print(f"K1 widths {K1_WIDTHS} took {time.perf_counter() - t0:.1f} s")
-    # ABPN x4's design point: the 6 bands of a 360x640 frame on the Chp 48
-    # instance, the 74-row halo slabs with bounds
+    # mixed launches: 28 hidden channels, the last layer's outputs in groups
+    t0 = time.perf_counter()
+    for out_ in K1_MIXED_OUTPUTS:
+        stack_m = [l.to(device=dev) for l in layers_from_numpy(he_arrays(np, [3, 28, 28, out_],
+                                                                         out_ + 1))]
+        for prec in ("fp32", "bf16"):
+            for name, extra in (("zero", {}), ("replicate", dict(row_policy="replicate")),
+                                ("halo bounds", dict(row_bounds=small_bounds))):
+                k1_check(torch, ttf, ops, f"[3, 28, 28, {out_}], {name}", prec, stack_m, small,
+                         extra, 37, worst, mixed=True,
+                         segments=out_ in K1_SEGMENT_WIDTHS and name == "zero")
+    print(f"K1 mixed outputs {K1_MIXED_OUTPUTS} took {time.perf_counter() - t0:.1f} s")
+    # ABPN x4's design point on the mixed launch the serving path makes: the
+    # 6 bands of a 360x640 frame, the 74-row halo slabs with bounds, the
+    # anchor over all 48 outputs (3 channels x 16)
     layers4 = abpn_x4_layers(np, dev)
     slabs4, bounds4 = halo_slabs(frame, 60, len(layers4))
     for prec in ("fp32", "bf16"):
         for name, xb, extra in (("zero", bands, {}),
                                 ("replicate", bands, dict(row_policy="replicate")),
-                                ("halo (74-row slabs, bounds)", slabs4, dict(row_bounds=bounds4))):
+                                ("halo (74-row slabs, bounds)", slabs4, dict(row_bounds=bounds4)),
+                                ("zero + anchor", bands,
+                                 dict(add_anchor=True, anchor_repeats=X4_SCALE * X4_SCALE))):
             k1_check(torch, ttf, ops, f"ABPN x4, {name}", prec, layers4, xb, extra, W, worst,
-                     segments=name == "zero")
+                     segments=name == "zero", mixed=True)
 
     # ------------------------------------------------------------------
     phase("3b. K2 vs its plain version on the card (ABPN x3 layer shapes, 360x640)")
@@ -3192,17 +3269,19 @@ def main() -> int:
         nchw = xb.permute(0, 3, 1, 2).contiguous()
         oihw = [(l.w.permute(3, 2, 0, 1).contiguous(), l.b) for l in layers]
 
-        def cudnn_stack():
-            f = nchw
+        def cudnn_stack(f=nchw, stack=oihw):
             with exact_fp32():
-                for (w_, b_), r in zip(oihw, relu):
+                for (w_, b_), r in zip(stack, relu):
                     f = torch.nn.functional.conv2d(f, w_, b_, padding=1)
                     f = torch.relu(f) if r else f
             return f
 
-        # the yardstick timed both ways, as K1
+        # the yardstick timed both ways, as K1, and in bf16 queued
         lib_ms = time_ms(torch, cudnn_stack, reps=10)
         lib_device_ms = device_ms(torch, cudnn_stack, calls=5)
+        nchw16 = nchw.to(torch.bfloat16)
+        oihw16 = [(w_.to(torch.bfloat16), b_.to(torch.bfloat16)) for w_, b_ in oihw]
+        lib_bf16_device_ms = device_ms(torch, lambda: cudnn_stack(nchw16, oihw16), calls=5)
         # The bound counts the function's own work: the unpadded stack over
         # the n*H*W pixels (2 FLOP per MAC), the frames read and the last
         # layer's features written once, and the weights read once.
@@ -3229,7 +3308,7 @@ def main() -> int:
         # products per fp32 product): what a tensor-core K1 would be held to
         bound_tc_ms, bound_tc_by = bound(3 * flops, nbytes, peaks["tf32"], peak_bw)
         timings[n] = dict(k1=k1, plain_ms=plain_ms, lib_ms=lib_ms, lib_device_ms=lib_device_ms,
-                          bound_ms=bound_ms, bound_by=bound_by, bound_tc_ms=bound_tc_ms,
+                          lib_bf16_device_ms=lib_bf16_device_ms, bound_ms=bound_ms, bound_by=bound_by, bound_tc_ms=bound_tc_ms,
                           bound_tc_by=bound_tc_by, flops=flops, bytes=nbytes,
                           bands=B, segments=plan.segments, ctas=plan.ctas,
                           sweep_ms={k: v["ms"] for k, v in sweep.items()},
@@ -3242,7 +3321,8 @@ def main() -> int:
               f"the host (cached per shape). bf16 plan: {k1['bf16_ms']:.3f} ms one launch, "
               f"{k1['bf16_device_ms']:.3f} ms queued, host {k1['bf16_host_ms']:.3f} ms. "
               f"plain {plain_ms:.3f} ms, cuDNN conv stack (library_ms) {lib_ms:.3f} ms one "
-              f"call, {lib_device_ms:.3f} ms queued; bound {bound_ms:.3f} ms ({bound_by}: "
+              f"call, {lib_device_ms:.3f} ms queued, bf16 {lib_bf16_device_ms:.3f} ms queued; "
+              f"bound {bound_ms:.3f} ms ({bound_by}: "
               f"{flops / 1e9:.2f} GFLOP of ABPN, {nbytes / 1e6:.1f} MB moved; "
               f"{peak_flops / 1e12:.0f} TFLOP/s, {peak_bw / 1e12:.2f} TB/s) -> "
               f"{100 * bound_ms / k1['ms']:.1f}% of bound one launch, "
@@ -3519,6 +3599,7 @@ def main() -> int:
         "search_ms": t8["k1"]["search_ms"],
         "profiler_ms": t8["k1"]["profiler_ms"],
         "library_device_ms": t8["lib_device_ms"],
+        "library_bf16_device_ms": t8["lib_bf16_device_ms"],
         "bf16_ms": t8["k1"]["bf16_ms"],
         "bf16_device_ms": t8["k1"]["bf16_device_ms"],
         "segments": t8["segments"],
@@ -3527,6 +3608,7 @@ def main() -> int:
         "batch1": {"segments": timings[1]["segments"], "ctas": timings[1]["ctas"],
                    **timings[1]["k1"], "library_ms": timings[1]["lib_ms"],
                    "library_device_ms": timings[1]["lib_device_ms"],
+                   "library_bf16_device_ms": timings[1]["lib_bf16_device_ms"],
                    "bound_ms": timings[1]["bound_tc_ms"],
                    "bound_cuda_core_ms": timings[1]["bound_ms"]},
         "segment_sweep_device_ms": {n: timings[n]["sweep_ms"] for n in (1, 8)},
@@ -3540,9 +3622,12 @@ def main() -> int:
                        "full_frame_ms": full_frame_ms, "frame_ms": delta_times,
                        "k1_bands": k1_bands},
         "sharded_path": sharded_path,
-        "x4": {"shape": f"ABPN x4 (Chp 48, the wide instance), {H}x{W} frames, zero",
+        "x4": {"shape": f"ABPN x4 (hidden Chp 32, 48 outputs: the mixed launch), {H}x{W} "
+                        "frames, zero; wide_*: the same stack on the Chp 48 instance",
                "path": x4_path, "launches": x4_launches, "batch1": x4["k1"][1],
                "batch8": x4["k1"][8], "ms": x4["k1"][8]["ms"],
+               "device_ms": x4["k1"][8]["device_ms"],
+               "wide_device_ms": x4["k1"][8]["wide_device_ms"],
                "plain_ms": x4["k1"][1]["plain_ms"], "bound_ms": x4["k1"][8]["bound_ms"],
                "bound_by": x4["k1"][8]["bound_by"], "library_ms": x4["k1"][8]["library_ms"]},
     }, {

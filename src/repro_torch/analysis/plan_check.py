@@ -117,8 +117,9 @@ def _default_channels(plan) -> List[int]:
 def _k1_table2_elements(report: dict) -> int:
     """K1's per-CTA working set in elements: the two ping-pong slabs and the
     overlap queue (its workspace), and in shared memory the two weight
-    stages and the two input windows."""
-    chp = report["chp"]
+    stages and the two input windows, all at the hidden width (a mixed
+    launch's last layer stages one output group of at most 32 at a time)."""
+    chp = report["hidden_chp"]
     return report["workspace_elements"] + 2 * 9 * chp * chp + 2 * report["window_elements"]
 
 
@@ -274,11 +275,10 @@ def _check_shared_memory(plan, report: dict, findings: List[Finding], where: str
     """The hard rules of the ``kernel`` backend: an instance of K1 covers
     the stack's channels (Chp at most 128), its shared memory fits one
     CTA, and a 3-row window of the plan's tile width fits the instance's
-    window."""
+    window.  A mixed launch runs on its hidden width's instance."""
     from repro_torch.kernels.tilted_fusion import SUPPORTED_CHP
 
-    instance = report["instance"]
-    if instance is None:
+    if report["instance"] is None:
         findings.append(Finding(
             checker="plan",
             rule="on_chip_budget",
@@ -291,6 +291,9 @@ def _check_shared_memory(plan, report: dict, findings: List[Finding], where: str
             where=where,
         ))
         return
+    instance = report["hidden_chp"]
+    if instance != report["chp"]:
+        instance = f"{instance} -> {report['chp']} outputs"
     widest = report["max_tile_cols"]
     if plan.tile_cols > widest:
         findings.append(Finding(

@@ -505,8 +505,9 @@ def plan_cost_terms(
     * ``k1`` — one dict a K1 launch of the call:
       :func:`~repro_torch.kernels.tilted_fusion.launch_cost` for the
       segment plan K1 runs it with on ``device`` (the card's, at the Chp of
-      the instance it launches; on the CPU the plain version's at the
-      packed Chp, ``plain=True``), plus that ``plan``.  Empty off the
+      the instance it launches, a mixed launch's hidden layers at theirs;
+      on the CPU the plain version's at the packed Chp, ``plain=True``),
+      plus that ``plan``.  Empty off the
       ``kernel`` backend.
     * ``weight_bytes_resident`` — ``stack.nbytes()``.
     * ``cost`` — their sum, :func:`plan_cost`'s six keys.
@@ -534,7 +535,8 @@ def plan_cost_terms(
                                c0p=launch.c0p, chp=launch.chp if cpu else launch.instance_chp,
                                num_layers=launch.num_layers,
                                dtype=launch.dtype, bounds=launch.bounds,
-                               replicate=launch.replicate, plain=cpu)
+                               replicate=launch.replicate, plain=cpu,
+                               hidden_chp=None if cpu else launch.hidden_chp)
         k1.append(dict(cost, plan=segments))
     glue_bytes = traced.bytes_accessed - sum(launch.out_bytes for launch in launches)
     flops = traced.flops + sum(k["flops"] for k in k1)

@@ -99,6 +99,24 @@
 //     and a stack padded with zero channels gives the narrow instance's
 //     result bit for bit.  fp32 Chp 48: 84,992 B of shared memory; Chp 128:
 //     229,376 B; bf16 Chp 48 38,912 B.
+//   * mixed widths: a stack whose feature maps F_0..F_{L-1} fit 32 channels
+//     but whose last layer has more outputs (ABPN x4: 3 -> 28 x6 -> 48) runs
+//     on the narrow Chp 32 instance with the output width out_ch (48, 64,
+//     96 or 128) given at launch.  Its step pipeline is one of (layer,
+//     output group) steps: layers 0..L-2 one step each at Chp 32, exactly
+//     as a narrow launch; layer L-1 ceil(out_ch / 32) steps, output group g
+//     (32 outputs, the last 16 where out_ch = 48) with a stage of its own B
+//     fragments and bias.  Group-outer: each group step walks the row
+//     blocks and copies their hidden-width windows again (one more layer's
+//     window copies a tile at x4), so no stage is larger than a Chp 32
+//     layer's and shared memory, occupancy and the segment plan are the
+//     narrow instance's.  The slabs and the queue hold 32 channels, so the
+//     workspace is the narrow one's.  A group's epilogue stores its channels
+//     at offset 32 g of `out` (pitch out_ch) and adds the anchor to those of
+//     them it covers.  Each output element sums tap, k-step, term as the
+//     Chp = out_ch wide instance does, which only adds exact zeros past 32
+//     channels: on the same packed stack the two give the same bits.  A
+//     narrow launch is the case out_ch = Chp, one group.
 // Left for later work: wgmma and TMA, layer 0's taps folded into K in fp32,
 // slabs resident in shared memory across layers; on the wide instances,
 // slices of more than one tap where shared memory allows, and a window
@@ -119,11 +137,12 @@ constexpr int kWinPix = 320;                      // window pixels: (30 + 2) x (
 struct Params {
   const void* x;       // (B, R, K*C, c0p) fresh input stream, compute dtype
   const void* first;   // (B, R, 1, c0p) first input column of each band
-  const void* w;       // (L, 3, 3, Chp, Chp) packed weights, compute dtype
-  const void* bias;    // (L, Chp), compute dtype
+  const void* w;       // (L, 3, 3, out_ch, out_ch) packed weights, compute dtype
+  const void* bias;    // (L, out_ch), compute dtype
   const int* bounds;   // (B, 2) valid [lo, hi) rows, or null
-  void* out;           // (B, R, K*C, Chp), compute dtype
+  void* out;           // (B, R, K*C, out_ch), compute dtype
   void* ws;            // packed weight stages, then B*S per-CTA workspaces
+  int out_ch;          // the last layer's outputs: Chp, or more on a mixed launch
   int R, K, C, c0p, L, W;
   int S, warm;         // segments per band, warm-up tiles of a restarted one
   int relu_mask, add_anchor, in_ch, repeats, replicate;
@@ -170,6 +189,25 @@ template <typename T, int CHP> struct Cfg {
   static_assert(CHP % kNG == 0 && kNG % 8 == 0 && CHP % kK == 0, "whole n-groups and k-steps");
   static_assert(kSmemBytes <= 232448, "one CTA's shared memory");
 };
+
+// What a lane holds of the B fragments over NG outputs, for one (tap,
+// k-step): a narrow instance's step computes NG = Chp outputs, or a last
+// layer's output group of NG = 32 or 16.
+template <typename T, int NG> struct Grp {
+  static constexpr int kNB = NG / 8;                              // n8 blocks
+  static constexpr int kWords = sizeof(T) == 4 ? 4 * kNB : 2 * kNB;
+  static constexpr int kQuads = kWords / 4;
+  static_assert(NG % 16 == 0, "B words come in uint4");
+};
+
+// The last layer's output groups on a narrow instance: kGroup outputs each,
+// the last one the rest (16 where out_ch = 48).  A narrow launch of Chp
+// outputs is one group of Chp.
+constexpr int kGroup = 32;
+__host__ __device__ inline int out_groups(int out_ch) { return (out_ch + kGroup - 1) / kGroup; }
+__host__ __device__ inline int group_width(int out_ch, int grp) {
+  return out_ch - kGroup * grp < kGroup ? out_ch - kGroup * grp : kGroup;
+}
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -258,28 +296,48 @@ __device__ __forceinline__ void store4(__nv_bfloat16* d, const __nv_bfloat16 (&v
 }
 
 // ---------------------------------------------------------------------------
-// Packed weights: per layer l, a stage of `stage_words(l)` 32-bit words,
-// laid out as it sits in shared memory: the bias as fp32 (Chp words), then
-// the B fragments.  uint4 number q of lane `lane` for tap t and k-step s sits
-// at ((t * ks_l + s) * kQuads + q) * 32 + lane, so a warp's 128-bit loads
-// are conflict-free.  A lane's words u = 4q + e hold, for g = lane / 4 and
-// tig = lane % 4:
-// fp32: u < 2 kNB the hi words, then the lo words; within each half n block
-//       jb = (u mod 2 kNB) / 2 and register r = u % 2 hold
-//       B[8s + tig + 4r][8 jb + g];
-// bf16: jb = u / 2, r = u % 2 hold B[k][8 jb + g] (low half) and
-//       B[k + 1][8 jb + g] with k = 16s + 2 tig + 8r.
+// Packed weights of a narrow instance: per step i of an own tile (layers
+// 0..L-2, then the last layer's output groups), a stage of
+// `step_stage_words(i)` 32-bit words, laid out as it sits in shared memory:
+// the bias of the step's ng outputs as fp32 (ng words), then the B
+// fragments.  uint4 number q of lane `lane` for tap t and k-step s sits at
+// ((t * ks_l + s) * quads + q) * 32 + lane, so a warp's 128-bit loads are
+// conflict-free.  A lane's words u = 4q + e hold, for g = lane / 4, tig =
+// lane % 4, nb = ng / 8 and the step's first output n0 (32 x its group):
+// fp32: u < 2 nb the hi words, then the lo words; within each half n block
+//       jb = (u mod 2 nb) / 2 and register r = u % 2 hold
+//       B[8s + tig + 4r][n0 + 8 jb + g];
+// bf16: jb = u / 2, r = u % 2 hold B[k][n0 + 8 jb + g] (low half) and
+//       B[k + 1][n0 + 8 jb + g] with k = 16s + 2 tig + 8r.
 // ---------------------------------------------------------------------------
-template <typename T, int CHP>
-__host__ __device__ inline int stage_words(int ks) {
-  return CHP + 9 * ks * Cfg<T, CHP>::kQuads * 32 * 4;
+template <typename T>
+__host__ __device__ inline int stage_words(int ng, int ks) {
+  return ng + 9 * ks * ((sizeof(T) == 4 ? 4 : 2) * (ng / 8) / 4) * 32 * 4;
 }
 
+// Step i of an own tile runs layer min(i, L - 1); steps L - 1 on are the
+// last layer's output groups.
 template <typename T, int CHP>
-__host__ __device__ inline size_t stage_offset(int l, int ks0) {  // in words
-  return l == 0 ? 0
-                : (size_t)stage_words<T, CHP>(ks0) +
-                      (size_t)(l - 1) * stage_words<T, CHP>(Cfg<T, CHP>::kKS);
+__host__ __device__ inline int step_stage_words(int i, int L, int ks0, int out_ch) {
+  const int l = i < L - 1 ? i : L - 1;
+  return stage_words<T>(i < L - 1 ? CHP : group_width(out_ch, i - l),
+                        l == 0 ? ks0 : Cfg<T, CHP>::kKS);
+}
+
+// Every stage but the last is Chp wide (a hidden layer, or an output group
+// of kGroup = Chp on a mixed launch), with ks0 k-steps at layer 0.
+template <typename T, int CHP>
+__host__ __device__ inline size_t stage_offset(int i, int L, int ks0) {  // words
+  const size_t w0 = stage_words<T>(CHP, ks0), w = stage_words<T>(CHP, Cfg<T, CHP>::kKS);
+  return i == 0 ? 0 : L == 1 ? i * w0 : w0 + (i - 1) * w;
+}
+
+// Words of all the stages, the last one (a mixed launch's 16-output group)
+// at its own width.
+template <typename T, int CHP>
+__host__ __device__ inline size_t packed_words(int L, int ks0, int out_ch) {
+  const int last = L - 2 + out_groups(out_ch);
+  return stage_offset<T, CHP>(last, L, ks0) + step_stage_words<T, CHP>(last, L, ks0, out_ch);
 }
 
 // Wide instances pack slices instead of stages: per layer l, kGroups x 9
@@ -301,42 +359,50 @@ __host__ __device__ inline size_t slice_offset(int l, int grp, int t, int ks0) {
 }
 
 template <typename T, int CHP>
-__host__ __device__ inline size_t packed_bytes(int L, int ks0) {
+__host__ __device__ inline size_t packed_bytes(int L, int ks0, int out_ch) {
   if constexpr (Cfg<T, CHP>::kWide) return 4 * slice_offset<T, CHP>(L, 0, 0, ks0);
-  else return 4 * stage_offset<T, CHP>(L, ks0);
+  else return 4 * packed_words<T, CHP>(L, ks0, out_ch);
 }
 
+// A narrow instance's stages (see stage_words) from w (L, 3, 3, out_ch,
+// out_ch) and bias (L, out_ch): the hidden layers read their Chp x Chp
+// blocks, the last layer its Chp x out_ch block, nothing else.
 template <typename T, int CHP>
 __global__ void pack_weights_kernel(const T* __restrict__ w, const T* __restrict__ bias,
-                                    uint32_t* __restrict__ packed, int L, int ks0) {
+                                    uint32_t* __restrict__ packed, int L, int ks0, int out_ch) {
   using G = Cfg<T, CHP>;
-  const size_t total = stage_offset<T, CHP>(L, ks0);
+  const int steps = L - 1 + out_groups(out_ch);
+  const size_t total = packed_words<T, CHP>(L, ks0, out_ch);
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < total;
        i += (size_t)gridDim.x * blockDim.x) {
-    int l = 0;
-    while (l + 1 < L && stage_offset<T, CHP>(l + 1, ks0) <= i) ++l;
-    const int ks = l == 0 ? ks0 : G::kKS;
-    const int o = (int)(i - stage_offset<T, CHP>(l, ks0));
+    int step = 0;
+    while (step + 1 < steps && stage_offset<T, CHP>(step + 1, L, ks0) <= i) ++step;
+    const size_t base = stage_offset<T, CHP>(step, L, ks0);  // the stage's first word
+    const int l = step < L - 1 ? step : L - 1, grp = step - l;
+    const int ng = step < L - 1 ? CHP : group_width(out_ch, grp), n0 = kGroup * grp;
+    const int ks = l == 0 ? ks0 : G::kKS, nb = ng / 8;
+    const int quads = (G::kF32 ? 4 : 2) * nb / 4;
+    const int o = (int)(i - base);
     uint32_t v;
-    if (o < CHP) {
-      v = __float_as_uint(to_f(bias[l * CHP + o]));
+    if (o < ng) {
+      v = __float_as_uint(to_f(bias[l * out_ch + n0 + o]));
     } else {
-      const int word = o - CHP;
+      const int word = o - ng;
       const int e = word & 3, lane = (word >> 2) & 31, tsq = word >> 7;
-      const int q = tsq % G::kQuads, ts = tsq / G::kQuads;
+      const int q = tsq % quads, ts = tsq / quads;
       const int t = ts / ks, s = ts % ks;
       const int g = lane >> 2, tig = lane & 3, u = 4 * q + e;
-      const T* wt = w + ((size_t)l * 9 + t) * CHP * CHP;  // (Chp, Chp) of tap t
+      const T* wt = w + ((size_t)l * 9 + t) * out_ch * out_ch;  // (out_ch, out_ch) of tap t
       if constexpr (G::kF32) {
-        const int half = u / (2 * G::kNB), v2 = u % (2 * G::kNB);
-        const int n = 8 * (v2 >> 1) + g, k = 8 * s + tig + 4 * (v2 & 1);
+        const int half = u / (2 * nb), v2 = u % (2 * nb);
+        const int n = n0 + 8 * (v2 >> 1) + g, k = 8 * s + tig + 4 * (v2 & 1);
         uint32_t hi, lo;
-        tf32_split(__float_as_uint(to_f(wt[k * CHP + n])), hi, lo);
+        tf32_split(__float_as_uint(to_f(wt[k * out_ch + n])), hi, lo);
         v = half ? lo : hi;
       } else {
-        const int n = 8 * (u >> 1) + g, k = 16 * s + 2 * tig + 8 * (u & 1);
+        const int n = n0 + 8 * (u >> 1) + g, k = 16 * s + 2 * tig + 8 * (u & 1);
         const uint16_t* wb = reinterpret_cast<const uint16_t*>(wt);
-        v = (uint32_t)wb[k * CHP + n] | ((uint32_t)wb[(k + 1) * CHP + n] << 16);
+        v = (uint32_t)wb[k * out_ch + n] | ((uint32_t)wb[(k + 1) * out_ch + n] << 16);
       }
     }
     packed[i] = v;
@@ -394,12 +460,15 @@ __host__ __device__ inline size_t workspace_elems(int chp, int R, int C, int L) 
   return 2 * slab_elems(chp, R, C) + 2 * queue_slot_elems(chp, R, L);
 }
 
-// Copy one layer's packed stage into shared memory (cp.async, not committed).
-template <typename T, int CHP>
-__device__ __forceinline__ void load_stage(const Params& p, int l, char* stage) {
-  const int ks = l == 0 ? p.ks0 : Cfg<T, CHP>::kKS;
-  const char* src = static_cast<const char*>(p.ws) + 4 * stage_offset<T, CHP>(l, p.ks0);
-  const int n16 = stage_words<T, CHP>(ks) / 4;
+// Copy the packed stage of step i into shared memory (cp.async, not
+// committed).
+template <typename T, int CHP, bool MIXED>
+__device__ __forceinline__ void load_stage(const Params& p, int i, char* stage) {
+  // a narrow launch has one step a layer: stage_offset with L > i
+  const char* src = static_cast<const char*>(p.ws) +
+                    4 * stage_offset<T, CHP>(i, MIXED ? p.L : i + 1, p.ks0);
+  const int n16 = (MIXED ? step_stage_words<T, CHP>(i, p.L, p.ks0, p.out_ch)
+                         : stage_words<T>(CHP, i == 0 ? p.ks0 : Cfg<T, CHP>::kKS)) / 4;
   const uint32_t dst = smem_addr(stage);
   for (int i = threadIdx.x; i < n16; i += kThreads) cp_async16(dst + 16 * i, src + 16 * i, 16);
 }
@@ -449,25 +518,30 @@ __device__ void load_window(const Params& p, const WindowSrc& src, bool layer0, 
   }
 }
 
-// One row block of one (tile, layer) step: this warp's NF fragments (block
-// fragments f0, f0 + kWarps), all Chp outputs, then the epilogue.  KS > 0:
-// KS k-steps a tap, known when compiling (layers >= 1); 0: st.ks (layer 0).
+// One row block of one step: this warp's NF fragments (block fragments f0,
+// f0 + kWarps), the step's NG outputs (all Chp of a hidden layer, or one
+// output group of the last layer), then the epilogue.  KS > 0: KS k-steps a
+// tap, known when compiling (layers >= 1); 0: st.ks (layer 0).  MIXED: the
+// last layer's `out` has out_ch channels, this group's from st.n0 on (else
+// Chp, from 0).
 struct Step {
   int k, l, last, relu;  // tile, layer; last layer; ReLU on
+  int n0;                // the step's first output channel (32 x its output group)
   int r0, npix;          // the block's first row and its output pixels
   int lo, hi, mask_rows;
   int ks;                // k-steps a tap
 };
 
-template <typename T, int CHP, int NF, int KS>
+template <typename T, int CHP, bool MIXED, int NG, int NF, int KS>
 __device__ __forceinline__ void block_mma(const Params& p, const Step& st, const char* stage,
                                           const char* win, int f0, T* nxt, T* qout, T* out,
                                           const T* x, const T* first) {
   using G = Cfg<T, CHP>;
+  using N = Grp<T, NG>;
   const int lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
   const int C = p.C, SC = C + 2;
   const uint32_t win_addr = smem_addr(win);
-  const uint4* bsm = reinterpret_cast<const uint4*>(stage + CHP * 4);
+  const uint4* bsm = reinterpret_cast<const uint4*>(stage + NG * 4);
   // this lane's ldmatrix row, per fragment: row m = (lane & 7) + 8 ((lane
   // >> 3) & 1) of the fragment, window pixel wpix for tap (0, 0), chunk
   // 2s + (lane >> 4) of k-step s; a pixel past the block reads the last one
@@ -480,21 +554,21 @@ __device__ __forceinline__ void block_mma(const Params& p, const Step& st, const
     wpix[f] = r * SC + j;
   }
   const int khalf = lane >> 4;
-  float acc[NF][G::kNB][4];
+  float acc[NF][N::kNB][4];
 #pragma unroll
   for (int f = 0; f < NF; ++f)
 #pragma unroll
-    for (int jb = 0; jb < G::kNB; ++jb)
+    for (int jb = 0; jb < N::kNB; ++jb)
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[f][jb][c] = 0.f;
 
   // one k-step s of tap t: B from the stage, A by ldmatrix, the MMAs into d
   const int ks = KS > 0 ? KS : st.ks;
-  auto kstep = [&](int t, int tpix, int s, float (&d)[NF][G::kNB][4]) {
-    uint32_t bw[G::kWords];
+  auto kstep = [&](int t, int tpix, int s, float (&d)[NF][N::kNB][4]) {
+    uint32_t bw[N::kWords];
 #pragma unroll
-    for (int q = 0; q < G::kQuads; ++q) {
-      const uint4 v = bsm[((t * ks + s) * G::kQuads + q) * 32 + lane];
+    for (int q = 0; q < N::kQuads; ++q) {
+      const uint4 v = bsm[((t * ks + s) * N::kQuads + q) * 32 + lane];
       bw[4 * q] = v.x; bw[4 * q + 1] = v.y; bw[4 * q + 2] = v.z; bw[4 * q + 3] = v.w;
     }
     uint32_t a[NF][4];
@@ -507,27 +581,27 @@ __device__ __forceinline__ void block_mma(const Params& p, const Step& st, const
       for (int f = 0; f < NF; ++f)
 #pragma unroll
         for (int c = 0; c < 4; ++c) tf32_split(a[f][c], ah[f][c], al[f][c]);
-      constexpr int LO = 2 * G::kNB;  // the lo words of B
+      constexpr int LO = 2 * N::kNB;  // the lo words of B
 #pragma unroll
       for (int f = 0; f < NF; ++f)
 #pragma unroll
-        for (int jb = 0; jb < G::kNB; ++jb)
+        for (int jb = 0; jb < N::kNB; ++jb)
           mma_tf32(d[f][jb], al[f], bw[2 * jb], bw[2 * jb + 1]);
 #pragma unroll
       for (int f = 0; f < NF; ++f)
 #pragma unroll
-        for (int jb = 0; jb < G::kNB; ++jb)
+        for (int jb = 0; jb < N::kNB; ++jb)
           mma_tf32(d[f][jb], ah[f], bw[LO + 2 * jb], bw[LO + 2 * jb + 1]);
 #pragma unroll
       for (int f = 0; f < NF; ++f)
 #pragma unroll
-        for (int jb = 0; jb < G::kNB; ++jb)
+        for (int jb = 0; jb < N::kNB; ++jb)
           mma_tf32(d[f][jb], ah[f], bw[2 * jb], bw[2 * jb + 1]);
     } else {
 #pragma unroll
       for (int f = 0; f < NF; ++f)
 #pragma unroll
-        for (int jb = 0; jb < G::kNB; ++jb)
+        for (int jb = 0; jb < N::kNB; ++jb)
           mma_bf16(d[f][jb], a[f], bw[2 * jb], bw[2 * jb + 1]);
     }
   };
@@ -547,11 +621,11 @@ __device__ __forceinline__ void block_mma(const Params& p, const Step& st, const
         for (int s = 0; s < ks; ++s) kstep(t, tpix, s, acc);
       }
     } else {
-      float part[NF][G::kNB][4];
+      float part[NF][N::kNB][4];
 #pragma unroll
       for (int f = 0; f < NF; ++f)
 #pragma unroll
-        for (int jb = 0; jb < G::kNB; ++jb)
+        for (int jb = 0; jb < N::kNB; ++jb)
 #pragma unroll
           for (int c = 0; c < 4; ++c) part[f][jb][c] = 0.f;
       if constexpr (KS > 0) {
@@ -564,7 +638,7 @@ __device__ __forceinline__ void block_mma(const Params& p, const Step& st, const
 #pragma unroll
       for (int f = 0; f < NF; ++f)
 #pragma unroll
-        for (int jb = 0; jb < G::kNB; ++jb)
+        for (int jb = 0; jb < N::kNB; ++jb)
 #pragma unroll
           for (int c = 0; c < 4; ++c) acc[f][jb][c] += part[f][jb][c];
     }
@@ -601,7 +675,7 @@ __device__ __forceinline__ void block_mma(const Params& p, const Step& st, const
     const int rb = px / C, j = px - rb * C, r = st.r0 + rb;
     const int acol = st.k * C - st.l + j;
 #pragma unroll
-    for (int jb = 0; jb < G::kNB; ++jb) {
+    for (int jb = 0; jb < N::kNB; ++jb) {
       const int co = 8 * jb + 2 * tig;
       const float2 bv = *reinterpret_cast<const float2*>(bsh + co);
       float y[4];
@@ -630,24 +704,47 @@ __device__ __forceinline__ void block_mma(const Params& p, const Step& st, const
         if (j >= C - 2)  // F_{l+1}'s last two columns: tile k+1's carried ones
           store4(qout + ((size_t)r * 2 + j - (C - 2)) * CHP + c4, v);
       } else {
+        const int co4 = MIXED ? st.n0 + c4 : c4;  // a group's channels start at n0
         if (p.add_anchor && acol >= 0 && acol < p.W) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            if (c4 + e < p.in_ch * p.repeats) {
-              const int c = (c4 + e) / p.repeats;
+            if (co4 + e < p.in_ch * p.repeats) {
+              const int c = (co4 + e) / p.repeats;
               const T a = acol == 0 ? first[r * p.c0p + c]
                                     : x[((size_t)r * KC + acol - 1) * p.c0p + c];
               v[e] = from_f<T>(to_f(v[e]) + to_f(a));
             }
           }
         }
-        store4(out + ((size_t)r * KC + st.k * C + j) * CHP + c4, v);
+        store4(out + ((size_t)r * KC + st.k * C + j) * (MIXED ? p.out_ch : CHP) + co4, v);
       }
     }
   }
 }
 
-template <typename T, int CHP>
+// One row block of a step over the step's NG outputs, in this warp's one or
+// two fragments (none where the block has fewer).
+template <typename T, int CHP, bool MIXED, int NG>
+__device__ __forceinline__ void run_block(const Params& p, const Step& st, const char* stage,
+                                          const char* win, int warp, int nf, T* nxt, T* qout,
+                                          T* out, const T* x, const T* first) {
+  constexpr int KS = Cfg<T, CHP>::kKS;
+  if (warp + kWarps < nf) {
+    if (st.l > 0)
+      block_mma<T, CHP, MIXED, NG, 2, KS>(p, st, stage, win, warp, nxt, qout, out, x, first);
+    else
+      block_mma<T, CHP, MIXED, NG, 2, 0>(p, st, stage, win, warp, nxt, qout, out, x, first);
+  } else if (warp < nf) {
+    if (st.l > 0)
+      block_mma<T, CHP, MIXED, NG, 1, KS>(p, st, stage, win, warp, nxt, qout, out, x, first);
+    else
+      block_mma<T, CHP, MIXED, NG, 1, 0>(p, st, stage, win, warp, nxt, qout, out, x, first);
+  }
+}
+
+// MIXED: a mixed launch (Chp 32, out_ch > 32 outputs in output groups);
+// else every step computes Chp outputs and the last layer is one step.
+template <typename T, int CHP, bool MIXED>
 __global__ void __launch_bounds__(kThreads, Cfg<T, CHP>::kMinBlocks)
 tilted_fusion_kernel(Params p) {
   using G = Cfg<T, CHP>;
@@ -665,19 +762,21 @@ tilted_fusion_kernel(Params p) {
   const int k1 = (int)((long long)(seg + 1) * K / p.S);
   const int kw = k0 >= p.warm ? k0 - p.warm : 0;
 
-  T* ws = reinterpret_cast<T*>(static_cast<char*>(p.ws) + packed_bytes<T, CHP>(L, p.ks0)) +
+  T* ws = reinterpret_cast<T*>(static_cast<char*>(p.ws) +
+                               packed_bytes<T, CHP>(L, p.ks0, MIXED ? p.out_ch : CHP)) +
           (size_t)cta * workspace_elems(CHP, R, C, L);
   T* slab[2] = {ws, ws + slab_elems(CHP, R, C)};
   T* queue = ws + 2 * slab_elems(CHP, R, C);  // (2, L-1, R, 2, CHP)
   const size_t qslot = (size_t)R * 2 * CHP, qpar = queue_slot_elems(CHP, R, L);
   const T* x = static_cast<const T*>(p.x) + (size_t)band * R * KC * p.c0p;
   const T* first = static_cast<const T*>(p.first) + (size_t)band * R * p.c0p;
-  T* out = static_cast<T*>(p.out) + (size_t)band * R * KC * CHP;
+  T* out = static_cast<T*>(p.out) + (size_t)band * R * KC * (MIXED ? p.out_ch : CHP);
 
   Step st;
   st.mask_rows = p.bounds != nullptr;
   st.lo = st.mask_rows ? p.bounds[2 * band] : 0;
   st.hi = st.mask_rows ? p.bounds[2 * band + 1] : R;
+  if constexpr (MIXED) st.n0 = 0;
 
   // Start of the sweep at tile kw: every carried column of F_1..F_{L-1}
   // zero (F_0 is read from the stream).  For kw = 0 that is the band start.
@@ -686,20 +785,23 @@ tilted_fusion_kernel(Params p) {
     const int n16 = (int)(qpar * sizeof(T) / 16);
     for (int i = tid; i < n16; i += kThreads) q[i] = make_uint4(0, 0, 0, 0);
   }
-  load_stage<T, CHP>(p, 0, stages);
+  load_stage<T, CHP, MIXED>(p, 0, stages);
   cp_async_commit();
 
   const int nblk = (R + p.rows_blk - 1) / p.rows_blk;
   const FastDiv sc(C + 2);
-  int step = 0;  // (k, l) counter: layer weights of step s sit in stage s & 1
+  int step = 0;  // steps run: the weights of step s sit in stage s & 1
   for (int k = kw; k < k1; ++k) {
-    // A warm-up tile (k < k0) runs layers 0..L-2 only: layer L-1's output
-    // is not carried, and a warm-up tile stores nothing.
-    const int nl = k < k0 ? L - 1 : L;
-    for (int l = 0; l < nl; ++l, ++step) {
+    // Steps i of tile k: layer min(i, L - 1), the last layer once an output
+    // group.  A warm-up tile (k < k0) runs layers 0..L-2 only: layer L-1's
+    // output is not carried, and a warm-up tile stores nothing.
+    const int ns = k < k0 ? L - 1 : MIXED ? L - 1 + out_groups(p.out_ch) : L;
+    for (int i = 0; i < ns; ++i, ++step) {
+      const int l = MIXED && i > L - 1 ? L - 1 : i;
       const char* stage = stages + (step & 1) * G::kStageBytes;
-      const bool has_next = !(l == nl - 1 && k == k1 - 1);
+      const bool has_next = !(i == ns - 1 && k == k1 - 1);
       st.k = k; st.l = l; st.last = l == L - 1; st.relu = (p.relu_mask >> l) & 1;
+      if constexpr (MIXED) st.n0 = kGroup * (i - l);
       st.ks = l == 0 ? p.ks0 : G::kKS;
       WindowSrc src;
       src.x = reinterpret_cast<const char*>(x);
@@ -722,8 +824,8 @@ tilted_fusion_kernel(Params p) {
           load_window<T, CHP>(p, src, l == 0, k, 0, min(p.rows_blk, R), sc, wins);
           cp_async_commit();
           if (has_next)  // the next step's weights, a step ahead
-            load_stage<T, CHP>(p, l + 1 < nl ? l + 1 : 0,
-                               stages + ((step + 1) & 1) * G::kStageBytes);
+            load_stage<T, CHP, MIXED>(p, i + 1 < ns ? i + 1 : 0,
+                                      stages + ((step + 1) & 1) * G::kStageBytes);
           cp_async_commit();
         }
         const bool ahead = b + 1 < nblk;
@@ -744,17 +846,15 @@ tilted_fusion_kernel(Params p) {
         const char* win = wins + (b & 1) * G::kWinBytes;
         const int nf = (st.npix + 15) / 16;
         T* nxt_b = nxt + (size_t)st.r0 * C * CHP;
-        if (warp + kWarps < nf) {
-          if (l > 0)
-            block_mma<T, CHP, 2, G::kKS>(p, st, stage, win, warp, nxt_b, qout, out, x, first);
-          else
-            block_mma<T, CHP, 2, 0>(p, st, stage, win, warp, nxt_b, qout, out, x, first);
-        } else if (warp < nf) {
-          if (l > 0)
-            block_mma<T, CHP, 1, G::kKS>(p, st, stage, win, warp, nxt_b, qout, out, x, first);
-          else
-            block_mma<T, CHP, 1, 0>(p, st, stage, win, warp, nxt_b, qout, out, x, first);
+        // a hidden layer's step, or an output group of 32, computes Chp
+        // outputs; only a mixed launch's last group of 16 fewer
+        if constexpr (MIXED) {
+          if (st.last && group_width(p.out_ch, i - l) < CHP) {
+            run_block<T, CHP, true, 16>(p, st, stage, win, warp, nf, nxt_b, qout, out, x, first);
+            continue;
+          }
         }
+        run_block<T, CHP, MIXED, CHP>(p, st, stage, win, warp, nf, nxt_b, qout, out, x, first);
       }
     }
   }
@@ -976,7 +1076,8 @@ tilted_fusion_wide_kernel(Params p) {
   const int k1 = (int)((long long)(seg + 1) * K / p.S);
   const int kw = k0 >= p.warm ? k0 - p.warm : 0;
 
-  T* ws = reinterpret_cast<T*>(static_cast<char*>(p.ws) + packed_bytes<T, CHP>(L, p.ks0)) +
+  T* ws = reinterpret_cast<T*>(static_cast<char*>(p.ws) +
+                               packed_bytes<T, CHP>(L, p.ks0, p.out_ch)) +
           (size_t)cta * workspace_elems(CHP, R, C, L);
   T* slab[2] = {ws, ws + slab_elems(CHP, R, C)};
   T* queue = ws + 2 * slab_elems(CHP, R, C);  // (2, L-1, R, 2, CHP)
@@ -1093,7 +1194,7 @@ template <typename T, int CHP> Instance make_instance() {
   if constexpr (Cfg<T, CHP>::kWide)
     return {tilted_fusion_wide_kernel<T, CHP>, Cfg<T, CHP>::kSmemBytes};
   else
-    return {tilted_fusion_kernel<T, CHP>, Cfg<T, CHP>::kSmemBytes};
+    return {tilted_fusion_kernel<T, CHP, false>, Cfg<T, CHP>::kSmemBytes};
 }
 
 // The instances built, for the padded widths the wrapper launches
@@ -1101,8 +1202,15 @@ template <typename T, int CHP> Instance make_instance() {
 // one): Chp 16 and 32 narrow, 48, 64, 96 and 128 wide.
 #define K1_INSTANCES(X) X(16) X(32) X(48) X(64) X(96) X(128)
 
-// The <dtype, Chp> instance (dtype 0 = float32, 1 = bfloat16), or fn null.
-Instance instance(int dtype, int chp) {
+// The <dtype, Chp> instance (dtype 0 = float32, 1 = bfloat16) of out_ch
+// outputs, or fn null: a mixed launch (out_ch past Chp 32) has one of its
+// own, the narrow kernel with output groups.
+Instance instance(int dtype, int chp, int out_ch) {
+  if (out_ch != chp) {
+    if (chp != 32) return {nullptr, 0};
+    if (dtype == 0) return {tilted_fusion_kernel<float, 32, true>, Cfg<float, 32>::kSmemBytes};
+    return {tilted_fusion_kernel<__nv_bfloat16, 32, true>, Cfg<__nv_bfloat16, 32>::kSmemBytes};
+  }
 #define K1_INSTANCE(N)                                                  \
   if (dtype == 0 && chp == N) return make_instance<float, N>();         \
   if (dtype == 1 && chp == N) return make_instance<__nv_bfloat16, N>();
@@ -1111,9 +1219,10 @@ Instance instance(int dtype, int chp) {
   return {nullptr, 0};
 }
 
-// The <dtype, chp> instance in *k, allowed the shared memory it takes.
-cudaError_t prepare(int dtype, int chp, Instance* k) {
-  *k = instance(dtype, chp);
+// The <dtype, chp> instance of out_ch outputs in *k, allowed the shared
+// memory it takes.
+cudaError_t prepare(int dtype, int chp, int out_ch, Instance* k) {
+  *k = instance(dtype, chp, out_ch);
   if (!k->fn) return cudaErrorInvalidValue;
   return cudaFuncSetAttribute(k->fn, cudaFuncAttributeMaxDynamicSharedMemorySize, k->smem);
 }
@@ -1127,7 +1236,7 @@ int block_rows(int C) {
 
 template <typename T, int CHP>
 cudaError_t launch_pack(const Params& p, cudaStream_t stream) {
-  const size_t words = packed_bytes<T, CHP>(p.L, p.ks0) / 4;
+  const size_t words = packed_bytes<T, CHP>(p.L, p.ks0, p.out_ch) / 4;
   const int grid = (int)((words + kThreads - 1) / kThreads);
   if constexpr (Cfg<T, CHP>::kWide)
     pack_slices_kernel<T, CHP><<<grid, kThreads, 0, stream>>>(
@@ -1135,7 +1244,7 @@ cudaError_t launch_pack(const Params& p, cudaStream_t stream) {
   else
     pack_weights_kernel<T, CHP><<<grid, kThreads, 0, stream>>>(
         static_cast<const T*>(p.w), static_cast<const T*>(p.bias),
-        static_cast<uint32_t*>(p.ws), p.L, p.ks0);
+        static_cast<uint32_t*>(p.ws), p.L, p.ks0, p.out_ch);
   return cudaGetLastError();
 }
 
@@ -1156,20 +1265,25 @@ extern "C" {
 // band, `warm` warm-up tiles for a restarted segment; ws holds the packed
 // stages and then B*S workspaces, tilted_fusion.py::workspace_bytes);
 // returns the launch's CUDA error code (0 = ok).  dtype: 0 = float32,
-// 1 = bfloat16.  Does not synchronise or allocate.
+// 1 = bfloat16.  chp is the instance; out_ch the last layer's outputs and
+// the pitch of w, bias and out: chp, or on a mixed launch of the Chp 32
+// instance 48, 64, 96 or 128 (any multiple of 16 from 48 to 128).  Does not
+// synchronise or allocate.
 int tilted_fusion_launch(int dtype, const void* x, const void* first, const void* w,
                          const void* bias, const void* bounds, void* out, void* ws,
-                         int B, int R, int K, int C, int c0p, int chp, int L, int W,
+                         int B, int R, int K, int C, int c0p, int chp, int out_ch, int L, int W,
                          int relu_mask, int add_anchor, int in_ch, int repeats,
                          int replicate, int S, int warm, void* stream) {
   if (B == 0) return 0;
   if (S < 1 || S > K || warm < 0 || L < 1 || c0p < 1 || c0p > chp || c0p % 8 || C < 2 ||
       block_rows(C) < 1)
     return (int)cudaErrorInvalidValue;
+  if (out_ch != chp && !(chp == 32 && out_ch > 32 && out_ch <= 128 && out_ch % 16 == 0))
+    return (int)cudaErrorInvalidValue;
   Params p;
   p.x = x; p.first = first; p.w = w; p.bias = bias;
   p.bounds = reinterpret_cast<const int*>(bounds);
-  p.out = out; p.ws = ws;
+  p.out = out; p.ws = ws; p.out_ch = out_ch;
   p.R = R; p.K = K; p.C = C; p.c0p = c0p; p.L = L; p.W = W;
   p.S = S; p.warm = warm;
   p.relu_mask = relu_mask; p.add_anchor = add_anchor; p.in_ch = in_ch;
@@ -1180,7 +1294,7 @@ int tilted_fusion_launch(int dtype, const void* x, const void* first, const void
   while ((1 << p.shift0) * 16 < p.ks0 * kk * (dtype == 0 ? 4 : 2)) ++p.shift0;
   p.rows_blk = block_rows(C);
   Instance k;
-  cudaError_t e = prepare(dtype, chp, &k);
+  cudaError_t e = prepare(dtype, chp, out_ch, &k);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   e = pack(dtype, chp, p, s);
@@ -1190,12 +1304,13 @@ int tilted_fusion_launch(int dtype, const void* x, const void* first, const void
                                args, k.smem, s);
 }
 
-// Resident CTAs per SM of the <dtype, chp> instance on the current device
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor at 256 threads and its
-// shared memory), written to *blocks; returns the CUDA error code.
-int tilted_fusion_blocks_per_sm(int dtype, int chp, int* blocks) {
+// Resident CTAs per SM of the <dtype, chp> instance of out_ch outputs on
+// the current device (cudaOccupancyMaxActiveBlocksPerMultiprocessor at 256
+// threads and its shared memory), written to *blocks; returns the CUDA
+// error code.
+int tilted_fusion_blocks_per_sm(int dtype, int chp, int out_ch, int* blocks) {
   Instance k;
-  cudaError_t e = prepare(dtype, chp, &k);
+  cudaError_t e = prepare(dtype, chp, out_ch, &k);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k.fn, kThreads, k.smem);
 }

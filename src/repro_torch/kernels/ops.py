@@ -62,15 +62,19 @@ def pack_layers(layers: Sequence[ConvLayer], chp: Optional[int] = None, dtype=No
 @dataclasses.dataclass
 class PackedLayers:
     """A conv stack in the kernel's packed storage form, plus its static
-    facts (channel pad, ReLU flags, real output channels).  Packed once per
-    weight stack (``engine.executor.prepare_stack``) and reused by every
-    launch."""
+    facts (channel pad, ReLU flags, real output channels, the widest hidden
+    feature map).  Packed once per weight stack
+    (``engine.executor.prepare_stack``) and reused by every launch."""
 
     w: torch.Tensor  # (L, 3, 3, Chp, Chp)
     b: torch.Tensor  # (L, Chp)
     chp: int
     relu: Tuple[bool, ...]
     out_channels: int  # Ch_L of the real (unpadded) stack
+    # the widest of F_1..F_{L-1} (the input's for L = 1), from the layers'
+    # shapes; K1 runs a stack whose hidden maps fit 32 channels on its
+    # narrow instance even where Chp is wider.  None: Chp
+    hidden_channels: Optional[int] = None
 
     @property
     def num_layers(self) -> int:
@@ -89,6 +93,7 @@ def pack_stack(
         chp=chp,
         relu=tuple(bool(l.relu) for l in layers),
         out_channels=layers[-1].co,
+        hidden_channels=max(l.co for l in layers[:-1]) if len(layers) > 1 else layers[0].ci,
     )
 
 
@@ -140,6 +145,7 @@ def _tilted_fused_bands(
         row_policy=row_policy,
         row_bounds=row_bounds,
         compute_dtype=compute_dtype,
+        hidden_channels=packed.hidden_channels,
     )
     # Undo the tilt: tile k's block holds F_L columns [k*C - (L-1), ...+C).
     return out[:, :, L - 1 : L - 1 + W, :co_l]

@@ -24,6 +24,11 @@ anchor added to the last layer, and the output tilted by L-1 columns.
 * :func:`launch_chp` — the built instance a stack packed to Chp channels
   runs on (:data:`SUPPORTED_CHP`: 16, 32 narrow; 48, 64, 96, 128 wide);
   the wrapper zero-pads the weights to it and cuts the result back.
+* :func:`hidden_chp` — a mixed launch: where the caller says the feature
+  maps F_0..F_{L-1} fit 32 channels (``hidden_channels``) and only the
+  last layer is wider, the narrow Chp 32 instance runs the hidden layers
+  and the last layer in output groups of at most 32 (ABPN x4: 28 hidden
+  channels, 48 outputs), on the same packed stack.
 * :func:`segment_plan` / :func:`launch_plan` — how many column segments
   each band's sweep is cut into, so that many CTAs sweep one band at once.
   A segment restarted at tile ``k0`` first re-runs :func:`warmup_tiles`
@@ -74,6 +79,8 @@ __all__ = [
     "MAX_TILE_COLS",
     "SUPPORTED_CHP",
     "launch_chp",
+    "hidden_chp",
+    "output_groups",
     "n_group",
     "window_pixels",
     "max_tile_cols",
@@ -87,6 +94,10 @@ WINDOW_PIXELS = 320  # a row block's input window in shared memory: (30 + 2) x (
 # a layer), the others "wide" (outputs in n-groups of at most 32, a stage
 # holds one (tap, n-group) slice).  launch_chp pads a stack up to the next.
 SUPPORTED_CHP = (16, 32, 48, 64, 96, 128)
+# A mixed launch runs its hidden layers on the Chp 32 instance and its last
+# layer in output groups of OUT_GROUP (kGroup in the source).
+MIXED_HIDDEN_CHP = 32
+OUT_GROUP = 32
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -115,6 +126,30 @@ def launch_chp(chp: int, dtype=torch.float32) -> int:
             return c
     raise ValueError(f"padded channel count {chp} exceeds the kernel's widest instance, "
                      f"{SUPPORTED_CHP[-1]}")
+
+
+def hidden_chp(chp: int, hidden_channels: Optional[int] = None, c0p: int = 0,
+               dtype=torch.float32) -> Optional[int]:
+    """The Chp the hidden layers of a launch run at where it is mixed, else
+    ``None``.  A stack packed to ``chp`` channels whose feature maps F_0..F_{L-1}
+    have at most ``max(hidden_channels, c0p)`` channels is mixed where those
+    pad to at most 32 (:func:`launch_chp`; 16 or fewer pad to 32 as well)
+    and ``chp`` pads past 32: it runs on the Chp 32 instance, its last layer
+    in :func:`output_groups`.  ``hidden_channels=None`` means Chp: every
+    layer at the instance of ``chp``, narrow or wide."""
+    lc = launch_chp(chp, dtype)
+    if hidden_channels is None:
+        return None
+    hid = launch_chp(max(int(hidden_channels), int(c0p)), dtype)
+    return MIXED_HIDDEN_CHP if hid <= MIXED_HIDDEN_CHP < lc else None
+
+
+def output_groups(out_ch: int) -> List[int]:
+    """The outputs of each step of a mixed launch's last layer: groups of
+    :data:`OUT_GROUP`, the last one the rest (48 -> [32, 16]).  The
+    source's ``group_width``."""
+    out_ch = int(out_ch)
+    return [min(OUT_GROUP, out_ch - g) for g in range(0, out_ch, OUT_GROUP)]
 
 
 def _wide(chp: int) -> bool:
@@ -173,11 +208,12 @@ def _lane_words(nout: int, dtype) -> int:
     return (4 if dtype != torch.bfloat16 else 2) * (int(nout) // 8)
 
 
-def _stage_words(chp: int, ksteps: int, dtype) -> int:
-    """32-bit words of one layer's packed stage of a narrow instance: the
-    bias as fp32, then the B fragments of 9 taps x ``ksteps`` k-steps for
+def _stage_words(nout: int, ksteps: int, dtype) -> int:
+    """32-bit words of one step's packed stage of a narrow instance over
+    ``nout`` outputs (a layer's Chp, or a mixed last layer's output group):
+    the bias as fp32, then the B fragments of 9 taps x ``ksteps`` k-steps for
     32 lanes."""
-    return chp + 9 * ksteps * 32 * _lane_words(chp, dtype)
+    return nout + 9 * ksteps * 32 * _lane_words(nout, dtype)
 
 
 def _slice_words(chp: int, ksteps: int, dtype) -> int:
@@ -191,13 +227,22 @@ def _ksteps(cin: int, dtype) -> int:
     return -(-int(cin) // _mma_k(dtype))
 
 
-def packed_weight_bytes(num_layers: int, chp: int, c0p: int, dtype) -> int:
+def packed_weight_bytes(num_layers: int, chp: int, c0p: int, dtype,
+                        hidden_chp: Optional[int] = None) -> int:
     """Bytes of the packed weights at the head of a launch's workspace
     (``packed_bytes`` in the source) for the instance of width ``chp``:
     layer 0 with ``ceil(c0p / k)`` k-steps a tap, every other layer with
     ``Chp / k``; a stage a layer on a narrow instance, 9 slices an n-group
-    on a wide one."""
-    ks0, ks = _ksteps(c0p, dtype), _ksteps(chp, dtype)
+    on a wide one.  A mixed launch (``hidden_chp``, :func:`hidden_chp`): a
+    stage a hidden layer at ``hidden_chp``, and a stage each of the last
+    layer's :func:`output_groups` of ``chp`` outputs, k-steps of
+    ``hidden_chp``."""
+    ks0, ks = _ksteps(c0p, dtype), _ksteps(hidden_chp or chp, dtype)
+    L = int(num_layers)
+    if hidden_chp:
+        words = sum(_stage_words(hidden_chp, ks0 if l == 0 else ks, dtype) for l in range(L - 1))
+        words += sum(_stage_words(n, ks0 if L == 1 else ks, dtype) for n in output_groups(chp))
+        return 4 * words
     if _wide(chp):
         slices = 9 * (int(chp) // n_group(chp, dtype))
         return 4 * slices * (_slice_words(chp, ks0, dtype)
@@ -212,13 +257,16 @@ def _pixel_bytes(chp: int, dtype) -> int:
     return data if data % 128 == 0 else data + 16
 
 
-def shared_bytes(chp: int, dtype=torch.float32) -> int:
+def shared_bytes(chp: int, dtype=torch.float32, hidden_chp: Optional[int] = None) -> int:
     """Dynamic shared memory of one CTA of the ``<dtype, chp>`` instance
     (``kSmemBytes``): on a narrow one (Chp <= 32) two weight stages and two
     windows, on a wide one two (tap, n-group) slices and one window, of
     :func:`window_pixels` pixels of ``chp`` channels.  It does not depend
     on R.  The formula holds for any multiple of 8; only
-    :data:`SUPPORTED_CHP` are built."""
+    :data:`SUPPORTED_CHP` are built.  A mixed launch (``hidden_chp``) runs
+    on the ``hidden_chp`` instance: its stages and windows."""
+    if hidden_chp:
+        return shared_bytes(hidden_chp, dtype)
     ks = _ksteps(chp, dtype)
     win = window_pixels(chp, dtype) * _pixel_bytes(chp, dtype)
     if _wide(chp):
@@ -268,11 +316,17 @@ def kernel_buffers(*, channels, band_rows: int, tile_cols: int, chp: int = None,
       everything below; ``instance`` is the same, or ``None`` where no
       instance covers the stack (above Chp 128), and then ``chp`` is the
       packed width and nothing launches.
+    * ``hidden_chp`` — the Chp of the slabs, the queue, the windows and
+      the weight stages: ``chp``, or 32 where the launch is mixed
+      (:func:`hidden_chp` of the feature maps F_0..F_{L-1},
+      ``max(channels[:-1])``; ABPN x4's 28 hidden channels and 48 outputs).
+      The serving path launches so (``ops.pack_stack`` records the hidden
+      width).
     * ``shared_bytes`` — dynamic shared memory per CTA for ``dtype``
       (:func:`shared_bytes`): two weight stages (narrow) or slices (wide)
       and the input windows of ``window_elements`` (``window_pixels *
-      Chp``) each.  It does not depend on R.  ``max_tile_cols`` is the
-      widest tile the instance takes.
+      hidden_chp``) each.  It does not depend on R.  ``max_tile_cols`` is
+      the widest tile the instance takes.
     * ``stream_in_per_column`` / ``stream_out_per_column`` — the input
       stream read, and the tilted output written, per band column.
     * ``weights`` / ``bias`` — the packed stack, read from device memory.
@@ -287,7 +341,9 @@ def kernel_buffers(*, channels, band_rows: int, tile_cols: int, chp: int = None,
     instance = launch_chp(packed_chp, dtype) if packed_chp <= SUPPORTED_CHP[-1] else None
     chp = instance or packed_chp
     c0p = round_up_channels(channels[0])
-    slabs, overlap = workspace_shapes(L, R, C, chp)
+    mixed = hidden_chp(chp, max(channels[:-1]), c0p, dtype) if instance else None
+    hid = mixed or chp
+    slabs, overlap = workspace_shapes(L, R, C, hid)
     buffers = {
         "slabs": {"shape": slabs, "elements": _elems(slabs)},
         "overlap": {
@@ -311,6 +367,7 @@ def kernel_buffers(*, channels, band_rows: int, tile_cols: int, chp: int = None,
         "band_rows": R,
         "tile_cols": C,
         "chp": chp,
+        "hidden_chp": hid,
         "packed_chp": packed_chp,
         "instance": instance,
         "c0p": c0p,
@@ -319,11 +376,11 @@ def kernel_buffers(*, channels, band_rows: int, tile_cols: int, chp: int = None,
         "workspace_elements": per_cta,
         "ctas": ctas,
         "launch_workspace_elements": ctas * per_cta,
-        "packed_weight_bytes": packed_weight_bytes(L, chp, c0p, dtype),
-        "window_pixels": window_pixels(chp, dtype),
-        "window_elements": window_pixels(chp, dtype) * chp,
-        "max_tile_cols": max_tile_cols(chp, dtype),
-        "shared_bytes": shared_bytes(chp, dtype),
+        "packed_weight_bytes": packed_weight_bytes(L, chp, c0p, dtype, hidden_chp=mixed),
+        "window_pixels": window_pixels(hid, dtype),
+        "window_elements": window_pixels(hid, dtype) * hid,
+        "max_tile_cols": max_tile_cols(hid, dtype),
+        "shared_bytes": shared_bytes(chp, dtype, hidden_chp=mixed),
     }
 
 
@@ -436,29 +493,37 @@ def _mma_pixels(band_rows: int, tile_cols: int) -> int:
 
 def launch_cost(plan: SegmentPlan, *, band_rows: int, tile_cols: int, c0p: int, chp: int,
                 num_layers: int, dtype, bounds: bool = False, replicate: bool = False,
-                plain: bool = False) -> dict:
+                plain: bool = False, hidden_chp: Optional[int] = None) -> dict:
     """The FLOPs and device-memory bytes of one launch over ``plan``, as
     ``csrc/tilted_fusion.cu`` issues them.  ``plain=True`` counts the FLOPs
     as :func:`tilted_fusion_plain` executes them; its bytes stay the
     kernel's below, which is not what the plain version's eager loop
-    issues.
+    issues.  ``hidden_chp`` counts a mixed launch (:func:`hidden_chp`): its
+    hidden layers at ``hidden_chp``, its last layer's ``chp`` outputs from
+    ``hidden_chp`` inputs, one step an output group; the plain version
+    ignores it.
 
     * ``flops`` — 2 per multiply-add the MMAs execute, as fp32-equivalent
       products (3xTF32 runs three TF32 products for each; a bound takes the
       TF32 rate over 3): every executed tile of every CTA, own tiles layers
       0..L-1, warm-up tiles ``[kw, k0)`` layers 0..L-2.  Each layer covers
       the tile's pixels in whole m16 fragments per row block
-      (``ceil(R / 2) * 2`` rows at C = 8) for all ``chp`` outputs; layer 0
-      reads ``c0p`` channels padded to the MMA's k (8 in fp32, 16 in
-      bf16), the others ``chp``.  The plain version pads layer 0 to
+      (``ceil(R / 2) * 2`` rows at C = 8) for all its outputs (``chp``; a
+      mixed launch's hidden layers ``hidden_chp``); layer 0 reads ``c0p``
+      channels padded to the MMA's k (8 in fp32, 16 in bf16), the others
+      ``chp`` (mixed: ``hidden_chp``).  The plain version pads layer 0 to
       ``chp`` channels and runs exactly ``R`` rows.
     * ``io_bytes`` (a) — the arguments and the result once each: the input
       stream, the first column, weights, bias, the row bounds (int32) and
-      the tilted output.
+      the tilted output.  A mixed launch's weights are the blocks its
+      packing reads, each hidden layer's ``hidden_chp`` square and the last
+      layer's ``hidden_chp x chp``, not the zeros around them.
     * ``workspace_bytes`` (b) — every other byte the launch reads or
       writes in device memory: the packed weight stages written once and
-      read at every (tile, layer) step (a wide instance: every row block
-      copies its 9 slices an n-group and reads the bias); per CTA its row
+      read at every (tile, step) (a wide instance: every row block
+      copies its 9 slices an n-group and reads the bias; a mixed launch's
+      last layer is one step an output group, each with its own stage and
+      its windows copied again); per CTA its row
       bounds and the queue's start state; per step and row block the
       window's copies (the stream for layer 0, the slab and the carried
       columns for the others; rows outside the band are zero-filled under
@@ -472,39 +537,52 @@ def launch_cost(plan: SegmentPlan, *, band_rows: int, tile_cols: int, c0p: int, 
     ``warmup_tiles`` the warm-up ones among them, over every band.
     """
     R, C, L, chp, c0p = int(band_rows), int(tile_cols), int(num_layers), int(chp), int(c0p)
+    mixed = int(hidden_chp) if hidden_chp and not plain else None
+    hid = mixed or chp  # the width of the feature maps F_1..F_{L-1} and of K
     esize = dtype.itemsize
     kk = _mma_k(dtype)
-    ks0, ks = _ksteps(c0p, dtype), _ksteps(chp, dtype)
-    cin = [chp if plain else ks0 * kk] + [chp] * (L - 1)  # K of each layer's products
+    ks0, ks = _ksteps(c0p, dtype), _ksteps(hid, dtype)
+    cin = [chp if plain else ks0 * kk] + [hid] * (L - 1)  # K of each layer's products
+    cout = [hid] * (L - 1) + [chp]  # N of each layer's products
     pixels = R * C if plain else _mma_pixels(R, C)
 
     def tile_flops(layers):
-        return 2 * pixels * 9 * chp * sum(cin[:layers])
+        return 2 * pixels * 9 * sum(cin[l] * cout[l] for l in range(layers))
 
     # a step's window rows, summed over its row blocks: each block reads its
     # rows and one more above and below, those outside [0, R) only under
     # replicate
     blocks = len(_row_blocks(R, C))
     win_rows = R + 2 * blocks - (0 if replicate else 2)
-    if _wide(chp):
+    if _wide(chp) and not mixed:
         # every row block copies the layer's 9 slices an n-group, and its
         # epilogues read the layer's bias
         slices = blocks * 9 * (chp // n_group(chp, dtype))
         stage0 = slices * 4 * _slice_words(chp, ks0, dtype) + blocks * chp * esize
         stage = slices * 4 * _slice_words(chp, ks, dtype) + blocks * chp * esize
+
+        def stage_bytes(l, nout):
+            return stage0 if l == 0 else stage
     else:
-        stage0 = 4 * _stage_words(chp, ks0, dtype)
-        stage = 4 * _stage_words(chp, ks, dtype)
-    # bytes of one tile's layers 0..n-1 beyond the output: the stage, the
+        def stage_bytes(l, nout):
+            return 4 * _stage_words(nout, ks0 if l == 0 else ks, dtype)
+    # the steps of an own tile as (layer, outputs): one a layer, a mixed
+    # launch's last layer one an output group; a warm-up tile runs the
+    # first L - 1
+    steps = [(l, hid) for l in range(L - 1)] + [(L - 1, n) for n in (
+        output_groups(chp) if mixed else [chp])]
+
+    # bytes of one tile's steps beyond the output: each step's stage and
     # window (layer 0: C + 2 stream columns of c0p, C + 1 at tile 0, whose
     # column -1 is zero-filled; the others: the carried 2 and the slab's C
-    # of chp) and, for a carried layer, its slab and queue columns stored
-    carried_out = R * (C + 2) * chp * esize
+    # of hid) and, for a carried layer, its slab and queue columns stored
+    carried_out = R * (C + 2) * hid * esize
 
     def tile_bytes(k, layers):
-        cols0 = C + 1 if k == 0 else C + 2
-        out = stage0 + win_rows * cols0 * c0p * esize
-        out += (layers - 1) * (stage + win_rows * (C + 2) * chp * esize)
+        out = 0
+        for l, nout in steps[:L - 1] if layers < L else steps:
+            cols, width = ((C + 1 if k == 0 else C + 2), c0p) if l == 0 else (C + 2, hid)
+            out += stage_bytes(l, nout) + win_rows * cols * width * esize
         return out + min(layers, L - 1) * carried_out
 
     flops = tiles = warm_tiles = issued = 0
@@ -513,17 +591,18 @@ def launch_cost(plan: SegmentPlan, *, band_rows: int, tile_cols: int, c0p: int, 
         flops += own * tile_flops(L) + warm * tile_flops(L - 1)
         tiles += own + warm
         warm_tiles += warm
-        issued += (L - 1) * R * 2 * chp * esize  # the queue's start state
+        issued += (L - 1) * R * 2 * hid * esize  # the queue's start state
         issued += sum(tile_bytes(k, L if k >= k0 else L - 1) for k in range(kw, k1))
     B, K = plan.bands, plan.tiles
     stream = B * R * K * C
-    weights = L * (9 * chp * chp + chp) * esize
+    weights = sum(9 * a * b + b for a, b in zip([hid] * L, cout)) * esize if mixed else \
+        L * (9 * chp * chp + chp) * esize
     io_bytes = (stream * c0p + B * R * c0p + stream * chp) * esize + weights
     if bounds:
         io_bytes += 4 * 2 * B
     # the packing kernel reads the weights and bias once and writes the stages
     issued = (B * issued + stream * chp * esize + weights
-              + packed_weight_bytes(L, chp, c0p, dtype)
+              + packed_weight_bytes(L, chp, c0p, dtype, hidden_chp=mixed)
               + (4 * 2 * B * plan.segments if bounds else 0))
     return {
         "flops": B * flops,
@@ -580,6 +659,7 @@ def tilted_fusion_plain(
     compute_dtype=None,
     out_dtype=None,
     segments: Optional[int] = None,
+    hidden_channels: Optional[int] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of K1: same arguments, same tilted
     ``(B, R, K*C, Chp)`` result.
@@ -595,11 +675,13 @@ def tilted_fusion_plain(
     columns, zeroed deeper queue slots and warm-up tiles that run layers
     0..L-2 and store nothing.  The result is the same for every count.
     ``None`` is the plan for one SM — a sequential loop is one — which is
-    one segment.
+    one segment.  ``hidden_channels`` is checked and not used: the whole
+    padded stack, whose extra channels are zeros, is the same function.
     """
     _check_args(x_stream, first_col, w, b, tile_cols, relu_flags, add_anchor,
                 in_channels, anchor_repeats, row_policy, row_bounds)
     _check_segments(segments)
+    _check_hidden_channels(hidden_channels, w.shape[3])
     B, R, KC, c0p = x_stream.shape
     L, chp = w.shape[0], w.shape[3]
     C, W = tile_cols, width
@@ -664,6 +746,14 @@ def tilted_fusion_plain(
 # ----------------------------------------------------------------------
 # The wrapper
 # ----------------------------------------------------------------------
+def _check_hidden_channels(hidden_channels, chp: int) -> None:
+    if hidden_channels is not None and (
+            isinstance(hidden_channels, bool) or not isinstance(hidden_channels, numbers.Integral)
+            or not 1 <= hidden_channels <= chp):
+        raise ValueError(f"hidden_channels must be None (Chp) or an integer in [1, Chp = {chp}], "
+                         f"not {hidden_channels!r}")
+
+
 def _check_args(x_stream, first_col, w, b, tile_cols, relu_flags, add_anchor,
                 in_channels, anchor_repeats, row_policy, row_bounds):
     if x_stream.ndim != 4 or first_col.ndim != 4 or w.ndim != 5 or b.ndim != 2:
@@ -699,9 +789,9 @@ def _lib() -> ctypes.CDLL:
     if _lib_handle is None:
         lib = _build.load("tilted_fusion")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.tilted_fusion_launch.argtypes = [ci] + [vp] * 7 + [ci] * 15 + [vp]
+        lib.tilted_fusion_launch.argtypes = [ci] + [vp] * 7 + [ci] * 16 + [vp]
         lib.tilted_fusion_launch.restype = ci
-        lib.tilted_fusion_blocks_per_sm.argtypes = [ci, ci, ctypes.POINTER(ci)]
+        lib.tilted_fusion_blocks_per_sm.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
         lib.tilted_fusion_blocks_per_sm.restype = ci
         lib.tilted_fusion_error_string.argtypes = [ci]
         lib.tilted_fusion_error_string.restype = ctypes.c_char_p
@@ -716,46 +806,54 @@ def _check_error(lib, err: int, what: str) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def _blocks_per_sm(device_index: int, dtype_code: int, chp: int) -> int:
+def _blocks_per_sm(device_index: int, dtype_code: int, chp: int, out_ch: int) -> int:
     lib = _lib()
     blocks = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        _check_error(lib, lib.tilted_fusion_blocks_per_sm(dtype_code, chp, ctypes.byref(blocks)),
+        _check_error(lib, lib.tilted_fusion_blocks_per_sm(dtype_code, chp, out_ch,
+                                                          ctypes.byref(blocks)),
                      "occupancy query")
     if blocks.value < 1:
-        raise RuntimeError(f"the <{dtype_code}, chp {chp}> kernel fits no CTA on an SM")
+        raise RuntimeError(f"the <{dtype_code}, chp {chp} -> {out_ch}> kernel fits no CTA on an SM")
     return blocks.value
 
 
-def blocks_per_sm(device, dtype, chp: int) -> int:
+def blocks_per_sm(device, dtype, chp: int, hidden_chp: Optional[int] = None) -> int:
     """Resident CTAs per SM on a CUDA ``device`` of the instance a stack of
-    ``chp`` padded channels launches (:func:`launch_chp`), from
+    ``chp`` padded channels launches (:func:`launch_chp`; a mixed launch's
+    ``hidden_chp`` instance), from
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (builds the kernel on
     first use)."""
     device = torch.device(device)
     if dtype not in _DTYPE_CODE:
         raise ValueError(f"the kernel computes in float32 or bfloat16, not {dtype}")
     index = device.index if device.index is not None else torch.cuda.current_device()
-    return _blocks_per_sm(index, _DTYPE_CODE[dtype], launch_chp(chp, dtype))
+    out_ch = launch_chp(chp, dtype)
+    return _blocks_per_sm(index, _DTYPE_CODE[dtype], hidden_chp or out_ch, out_ch)
 
 
 def _plan_on(device: torch.device, bands: int, tiles: int, tile_cols: int, num_layers: int,
-             dtype, chp: int, segments: Optional[int]) -> SegmentPlan:
+             dtype, chp: int, segments: Optional[int],
+             hidden_chp: Optional[int] = None) -> SegmentPlan:
     sms, per_sm = 1, 1
     if device.type == "cuda":
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        per_sm = blocks_per_sm(device, dtype, chp)
+        per_sm = blocks_per_sm(device, dtype, chp, hidden_chp)
     return segment_plan(bands, tiles, tile_cols, num_layers, sms, per_sm, segments=segments)
 
 
 def launch_plan(x_stream: torch.Tensor, w: torch.Tensor, *, tile_cols: int,
-                segments: Optional[int] = None, compute_dtype=None) -> SegmentPlan:
+                segments: Optional[int] = None, compute_dtype=None,
+                hidden_channels: Optional[int] = None) -> SegmentPlan:
     """The :class:`SegmentPlan` of a launch on these inputs: on a CUDA
-    tensor, for the card's SMs with :func:`blocks_per_sm` CTAs each; on the
-    CPU (the plain version's sequential loop), for one SM of one."""
-    B, _, KC, _ = x_stream.shape
-    return _plan_on(x_stream.device, B, KC // tile_cols, tile_cols, w.shape[0],
-                    compute_dtype or x_stream.dtype, w.shape[3], segments)
+    tensor, for the card's SMs with :func:`blocks_per_sm` CTAs each of the
+    instance that launches (``hidden_channels`` as
+    :func:`tilted_fusion_call` takes it); on the CPU (the plain version's
+    sequential loop), for one SM of one."""
+    B, _, KC, c0p = x_stream.shape
+    dtype = compute_dtype or x_stream.dtype
+    return _plan_on(x_stream.device, B, KC // tile_cols, tile_cols, w.shape[0], dtype,
+                    w.shape[3], segments, hidden_chp(w.shape[3], hidden_channels, c0p, dtype))
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -765,28 +863,31 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 def _launch_kernel(x_stream, first_col, w, b, *, width, tile_cols, relu_flags,
                    add_anchor, in_channels, anchor_repeats, row_policy,
-                   row_bounds, cdt, segments):
+                   row_bounds, cdt, segments, hidden_channels):
     dev = x_stream.device
     if cdt not in _DTYPE_CODE:
         raise ValueError(f"the kernel computes in float32 or bfloat16, not {cdt}")
     B, R, KC, c0p = x_stream.shape
     L, chp = w.shape[0], w.shape[3]
-    lc = launch_chp(chp, cdt)  # the instance: Chp padded up to the next built width
+    lc = launch_chp(chp, cdt)  # the outputs: Chp padded up to the next built width
+    hid = hidden_chp(chp, hidden_channels, c0p, cdt)
+    inst = hid or lc  # the instance: a mixed launch runs on its hidden width's
     if L > 31:
         raise ValueError(f"{L} layers exceed the kernel's 31-bit ReLU mask")
     tensors = [x_stream, first_col, w, b] + ([row_bounds] if row_bounds is not None else [])
     if any(t.device != dev for t in tensors):
         raise ValueError("all kernel inputs must be on the same CUDA device")
     C = tile_cols
-    if C > max_tile_cols(lc, cdt):
-        raise ValueError(f"tile_cols={C} exceeds the <{cdt}, chp {lc}> instance's "
-                         f"{max_tile_cols(lc, cdt)}: a row block's window of "
-                         f"{window_pixels(lc, cdt)} pixels holds no 3-row window")
+    if C > max_tile_cols(inst, cdt):
+        raise ValueError(f"tile_cols={C} exceeds the <{cdt}, chp {inst}> instance's "
+                         f"{max_tile_cols(inst, cdt)}: a row block's window of "
+                         f"{window_pixels(inst, cdt)} pixels holds no 3-row window")
     # the window's 16-byte copies need 16-byte aligned stream and first column
     x, first = (_aligned(t.to(cdt).contiguous()) for t in (x_stream, first_col))
     # zero weights and bias out to the instance's width: its extra channels
     # are exact zeros through every layer, and are cut from the result (a
-    # stack packed to an instance's width is passed as it is, not copied)
+    # stack packed to an instance's width is passed as it is, not copied;
+    # a mixed launch's packing reads the blocks it needs from it)
     pad = lc - chp
     wc, bc = w.to(cdt), b.to(cdt)
     if pad:
@@ -794,10 +895,11 @@ def _launch_kernel(x_stream, first_col, w, b, *, width, tile_cols, relu_flags,
     wc, bc = wc.contiguous(), bc.contiguous()
     bounds = None if row_bounds is None else row_bounds.to(torch.int32).contiguous()
     lib = _lib()
-    plan = launch_plan(x, wc, tile_cols=C, segments=segments, compute_dtype=cdt)
+    plan = launch_plan(x, wc, tile_cols=C, segments=segments, compute_dtype=cdt,
+                       hidden_channels=hidden_channels)
     # the packed weights, then one workspace a CTA (both whole 16-byte runs)
-    ws_elems = sum(_elems(s) for s in workspace_shapes(L, R, C, lc))
-    head = packed_weight_bytes(L, lc, c0p, cdt) // cdt.itemsize
+    ws_elems = sum(_elems(s) for s in workspace_shapes(L, R, C, inst))
+    head = packed_weight_bytes(L, lc, c0p, cdt, hidden_chp=hid) // cdt.itemsize
     workspace = torch.empty((head + plan.ctas * ws_elems,), dtype=cdt, device=dev)
     out = torch.empty((B, R, KC, lc), dtype=cdt, device=dev)
     relu_mask = sum(1 << i for i, r in enumerate(relu_flags) if r)
@@ -807,7 +909,7 @@ def _launch_kernel(x_stream, first_col, w, b, *, width, tile_cols, relu_flags,
             _DTYPE_CODE[cdt], x.data_ptr(), first.data_ptr(), wc.data_ptr(),
             bc.data_ptr(), None if bounds is None else bounds.data_ptr(),
             out.data_ptr(), workspace.data_ptr(),
-            B, R, KC // C, C, c0p, lc, L, int(width),
+            B, R, KC // C, C, c0p, inst, lc, L, int(width),
             relu_mask, int(bool(add_anchor)), int(in_channels), int(anchor_repeats),
             int(row_policy == "replicate"), plan.segments, plan.warmup, stream,
         )
@@ -832,11 +934,13 @@ class Launch(NamedTuple):
     segments: Optional[int]  # as the caller forced it; None for the automatic plan
     replicate: bool = False  # row_policy "replicate"
     launch_chp: Optional[int] = None  # the instance's Chp where the card pads past chp
+    hidden_chp: Optional[int] = None  # the hidden layers' Chp where the launch is mixed
 
     @property
     def instance_chp(self) -> int:
-        """The Chp the card's kernel runs at: :func:`launch_chp` of
-        ``chp``, which a :func:`launch_cost` of the card counts."""
+        """The Chp of the card's output: :func:`launch_chp` of ``chp``,
+        which a :func:`launch_cost` of the card counts (with
+        ``hidden_chp`` for a mixed launch)."""
         return self.launch_chp or self.chp
 
     @property
@@ -851,7 +955,7 @@ class Launch(NamedTuple):
         the built kernel's CTAs per SM (building it raises where it fails),
         or on the CPU the plain version's one SM of one."""
         return _plan_on(torch.device(device), self.bands, self.tiles, self.tile_cols,
-                        self.num_layers, self.dtype, self.chp, self.segments)
+                        self.num_layers, self.dtype, self.chp, self.segments, self.hidden_chp)
 
 
 _RECORDER: contextvars.ContextVar = contextvars.ContextVar("tilted_fusion_launches",
@@ -872,7 +976,7 @@ def record_launches():
 
 
 def _meta_call(x_stream, w, *, tile_cols, row_bounds, row_policy, cdt,
-               segments) -> torch.Tensor:
+               segments, hidden_channels) -> torch.Tensor:
     """The result of a launch on ``meta`` tensors: its shape and dtype,
     nothing computed and no launch counted."""
     B, R, KC, c0p = x_stream.shape
@@ -885,7 +989,8 @@ def _meta_call(x_stream, w, *, tile_cols, row_bounds, row_policy, cdt,
                                tile_cols=tile_cols, c0p=c0p, chp=chp, num_layers=L, dtype=cdt,
                                bounds=row_bounds is not None, segments=segments,
                                replicate=row_policy == "replicate",
-                               launch_chp=lc if lc != chp else None))
+                               launch_chp=lc if lc != chp else None,
+                               hidden_chp=hidden_chp(chp, hidden_channels, c0p, cdt)))
     return out
 
 
@@ -906,6 +1011,7 @@ def tilted_fusion_call(
     compute_dtype=None,
     out_dtype=None,
     segments: Optional[int] = None,
+    hidden_channels: Optional[int] = None,
 ) -> torch.Tensor:
     """K1 over a flat batch of bands -> tilted ``(B, R, K*C, Chp)``.
 
@@ -920,16 +1026,26 @@ def tilted_fusion_call(
     one CTA each (:func:`segment_plan`); ``None`` takes the plan that fills
     the card (:func:`launch_plan`).  The output does not depend on it.
 
+    ``hidden_channels`` is the widest of the feature maps F_1..F_{L-1}
+    (``ops.pack_stack`` records it from the layers' shapes); ``None`` means
+    Chp.  Where F_0..F_{L-1} fit 32 channels and Chp does not, the card runs
+    the mixed launch (:func:`hidden_chp`); the result is the same, bit for
+    bit, as the Chp instance's on the same packed stack.  The plain version
+    computes the whole padded stack, which is the same function.  It must
+    lie in ``[1, Chp]``: a value narrower than the real feature maps would
+    drop channels, so pass what ``pack_stack`` computed.
+
     A tensor on the CPU runs :func:`tilted_fusion_plain`; a CUDA tensor
     launches the kernel on the current stream (no synchronisation) or
     raises; a ``meta`` tensor gives the result's shape and dtype and
     nothing else (:func:`record_launches`).
     """
     _check_segments(segments)
+    _check_hidden_channels(hidden_channels, w.shape[-1])
     args = dict(width=width, tile_cols=tile_cols, relu_flags=list(relu_flags),
                 add_anchor=add_anchor, in_channels=in_channels,
                 anchor_repeats=anchor_repeats, row_policy=row_policy,
-                row_bounds=row_bounds, segments=segments)
+                row_bounds=row_bounds, segments=segments, hidden_channels=hidden_channels)
     if x_stream.device.type == "cpu":
         return tilted_fusion_plain(x_stream, first_col, w, b, compute_dtype=compute_dtype,
                                    out_dtype=out_dtype, **args)
@@ -940,7 +1056,8 @@ def tilted_fusion_call(
     cdt = compute_dtype or x_stream.dtype
     if x_stream.device.type == "meta":
         out = _meta_call(x_stream, w, tile_cols=tile_cols, row_bounds=row_bounds,
-                         row_policy=row_policy, cdt=cdt, segments=segments)
+                         row_policy=row_policy, cdt=cdt, segments=segments,
+                         hidden_channels=hidden_channels)
     else:
         out = _launch_kernel(x_stream, first_col, w, b, cdt=cdt, **args)
     out_dtype = out_dtype or x_stream.dtype

@@ -131,6 +131,94 @@ def test_kernel_matches_plain(cuda, stack, policy, rows, dtype, spread):
     assert torch.equal(got, one)
 
 
+# A mixed launch: 28 hidden channels (the Chp 32 instance), the last layer's
+# outputs in groups of 32 (40 and 48 pad to 48: 32 + 16).  ABPN x4 is 48.
+MIXED_OUTPUTS = (40, 48, 64, 96, 128)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("policy", ["zero", "replicate", "halo_bounds"])
+@pytest.mark.parametrize("out", MIXED_OUTPUTS)
+def test_mixed_launch_matches_plain_and_the_wide_instance(cuda, out, policy, dtype):
+    """[3, 28, 28, out] stacks with ``hidden_channels`` (the serving
+    path's call): the mixed launch against the plain version, bit for bit
+    the Chp ``out`` instance on the same packed stack (``hidden_channels=
+    None``), and the same for every segment count; the anchor covers every
+    output group (``out // 3`` repeats)."""
+    layers = [l.to(dtype=dtype) for l in _stack(4, [3, 28, 28, out], None)]
+    packed = ops.pack_stack(layers, dtype=dtype)
+    assert packed.hidden_channels == 28
+    assert ttf.hidden_chp(packed.chp, 28, 8, dtype) == 32 < ttf.launch_chp(packed.chp)
+    gen = torch.Generator().manual_seed(5)
+    xb = torch.rand((3, 61, 37, 3), generator=gen).to(dtype)
+    xs, first = ops.band_streams(xb, 4, len(layers))
+    bounds = None
+    if policy == "halo_bounds":
+        bounds = torch.tensor([[2, 58], [0, 61], [5, 9]], dtype=torch.int32)
+    kw = dict(width=37, tile_cols=4, relu_flags=list(packed.relu), add_anchor=True,
+              in_channels=3, anchor_repeats=out // 3,
+              row_policy="replicate" if policy == "replicate" else "zero")
+    want = ttf.tilted_fusion_plain(xs, first, packed.w, packed.b, row_bounds=bounds, **kw)
+    args = (xs.to(cuda), first.to(cuda), packed.w.to(cuda), packed.b.to(cuda))
+    kw["row_bounds"] = None if bounds is None else bounds.to(cuda)
+    launches = ttf.tilted_fusion_call.launches
+    got = ttf.tilted_fusion_call(*args, hidden_channels=28, **kw)
+    torch.cuda.synchronize()
+    assert ttf.tilted_fusion_call.launches == launches + 1
+    assert got.dtype == dtype and got.shape == want.shape
+    np.testing.assert_allclose(got.cpu().float().numpy(), want.float().numpy(),
+                               atol=TOL[dtype], rtol=0)
+    assert torch.equal(got, ttf.tilted_fusion_call(*args, **kw))  # the wide instance
+    K = xs.shape[2] // 4
+    for segments in (1, 2, 3, K):
+        assert torch.equal(ttf.tilted_fusion_call(*args, hidden_channels=28, segments=segments,
+                                                  **kw), got), segments
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("out", [48, 96])
+def test_mixed_launch_of_one_layer(cuda, out, dtype):
+    """A single 3 -> ``out`` layer: ``pack_stack`` records its input width
+    as the hidden one, so layer 0 is the last layer and runs in output
+    groups from the input stream; against plain and the Chp ``out``
+    instance."""
+    layers = [l.to(dtype=dtype) for l in _stack(9, [3, out], None)]
+    packed = ops.pack_stack(layers, dtype=dtype)
+    assert packed.hidden_channels == 3 and ttf.hidden_chp(packed.chp, 3, 8, dtype) == 32
+    xb = torch.rand((2, 33, 29, 3), generator=torch.Generator().manual_seed(10))
+    xs, first = ops.band_streams(xb.to(dtype), 8, 1)
+    kw = dict(width=29, tile_cols=8, relu_flags=[False], add_anchor=True, in_channels=3,
+              anchor_repeats=out // 3)
+    want = ttf.tilted_fusion_plain(xs, first, packed.w, packed.b, **kw)
+    args = (xs.to(cuda), first.to(cuda), packed.w.to(cuda), packed.b.to(cuda))
+    got = ttf.tilted_fusion_call(*args, hidden_channels=3, **kw)
+    np.testing.assert_allclose(got.cpu().float().numpy(), want.float().numpy(),
+                               atol=TOL[dtype], rtol=0)
+    assert torch.equal(got, ttf.tilted_fusion_call(*args, **kw))
+    assert torch.equal(got, ttf.tilted_fusion_call(*args, hidden_channels=3, segments=2, **kw))
+
+
+def test_mixed_launch_plans_on_the_narrow_instance(cuda):
+    """ABPN x4's launch at one 360x640 frame: the segment plan and the
+    ``plan_cost`` count of the card take the Chp 32 instance's CTAs per SM
+    and count the hidden layers at 32 channels."""
+    from repro_torch.models.abpn import ABPNConfig
+
+    layers = [l.to(device=cuda) for l in _stack(8, ABPNConfig(scale=4).channels, None)]
+    packed = ops.pack_stack(layers)
+    xs, first = ops.band_streams(torch.rand((6, 60, 640, 3), device=cuda), 8, 7)
+    plan = ttf.launch_plan(xs, packed.w, tile_cols=8, hidden_channels=packed.hidden_channels)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    want = ttf.segment_plan(6, 81, 8, 7, sms, ttf.blocks_per_sm(cuda, torch.float32, 32))
+    assert plan == want
+    sr = engine.make_plan(layers, (360, 640, 3), backend="kernel", band_rows=60, scale=4)
+    (k1,) = engine.plan_cost_terms(sr, layers, 1)["k1"]
+    assert k1["plan"] == plan
+    assert k1["flops"] == ttf.launch_cost(plan, band_rows=60, tile_cols=8, c0p=8, chp=48,
+                                          num_layers=7, dtype=torch.float32,
+                                          hidden_chp=32)["flops"]
+
+
 def test_auto_plan_fills_the_card_at_one_frame(cuda):
     """One 360x640 frame of ABPN x3: 6 bands of 81 tiles."""
     layers = [l.to(device=cuda) for l in init_abpn(torch.Generator().manual_seed(0))]

@@ -17,7 +17,10 @@ products summed exactly and rounded once into the fp32 accumulator; bf16
 products (exact in fp32) summed the same way, k-steps of 16 with layer 0's
 channels padded to 16, into a partial that starts at zero for each tap and
 is then added to the accumulator in fp32.  Then the bias in fp32, the ReLU, the phantom-column
-and row-bound masks, one rounding to the storage dtype.
+and row-bound masks, one rounding to the storage dtype.  A mixed launch
+(ABPN x4's shape: hidden feature maps of 28 channels, 48 outputs) runs its
+hidden layers at Chp 32 and its last layer in output groups of 32 + 16,
+each group its own pass over the row blocks.
 
 Tolerances (max abs diff): 5e-4 fp32, 5e-2 bf16, the README support
 matrix's, against both the Pallas kernel and ``tilted_fusion_plain``.
@@ -44,8 +47,10 @@ JDT = {"fp32": jnp.float32, "bf16": jnp.bfloat16}
 CHANNELS = ABPNConfig().channels  # 3, 28 x6, 27: L = 7, Chp 32, c0p 8
 L, C, BAND_ROWS, WIDTH = len(CHANNELS) - 1, 8, 12, 64
 # the wide instances' stacks: three layers to Chp 48 (ABPN x4's width, two
-# n-groups of 24 in fp32, three of 16 in bf16) and to Chp 128 (four of 32)
-WIDE = {"x3": CHANNELS, "chp48": [3, 40, 44, 48], "chp128": [3, 128, 120, 128]}
+# n-groups of 24 in fp32, three of 16 in bf16) and to Chp 128 (four of 32);
+# "x4", ABPN x4's shape cut to three layers, runs the mixed launch
+WIDE = {"x3": CHANNELS, "chp48": [3, 40, 44, 48], "chp128": [3, 128, 120, 128],
+        "x4": [3, 28, 28, 48]}
 
 
 def _round(a, precision):
@@ -101,22 +106,27 @@ def _mma_sum(acc, a, b, precision, terms):
 
 
 def emulate_k1(xs, first, w, b, *, width, tile_cols, relu_flags, row_policy="zero",
-               row_bounds=None, precision="fp32", terms=3, segments=1, **_):
+               row_bounds=None, precision="fp32", terms=3, segments=1, hidden=None, **_):
     """The CUDA kernel's loops and arithmetic in numpy -> tilted
     ``(B, R, K*C, Chp)`` float32 (values of the storage dtype).  ``w`` is
     packed to the instance's Chp.  Each (tile, layer) step walks the row
     blocks of the instance's window (``ttf.block_rows``) and, in each, the
     n-groups of its outputs (``ttf.n_group``: all Chp on a narrow instance;
-    on a wide one a (tap, n-group) slice of weights at a time)."""
+    on a wide one a (tap, n-group) slice of weights at a time).  ``hidden``
+    (``ttf.hidden_chp``) emulates a mixed launch: the feature maps, the
+    queue and the layers' K at ``hidden`` channels (the first ``hidden`` of
+    the packed stack's), and the last layer one step an output group
+    (``ttf.output_groups``), each walking every row block."""
     x = xs.float().numpy()
     f0 = first.float().numpy()
     wn, bn = w.float().numpy(), b.float().numpy()
     B, R, KC, c0p = x.shape
     Lw, chp = wn.shape[0], wn.shape[3]
+    hid = hidden or chp  # the hidden feature maps' channels
     Cn, K = tile_cols, KC // tile_cols
     kk = 16 if precision == "bf16" else 8
     k0pad = -(-c0p // kk) * kk
-    nr = ttf.block_rows(Cn, chp, TDT[precision])  # rows of a row block
+    nr = ttf.block_rows(Cn, hid, TDT[precision])  # rows of a row block
     ng = ttf.n_group(chp, TDT[precision])  # outputs of an n-group
     plan = ttf.segment_plan(B, K, Cn, Lw, sms=1, segments=segments)
     out = np.zeros((B, R, KC, chp), np.float32)
@@ -127,7 +137,7 @@ def emulate_k1(xs, first, w, b, *, width, tile_cols, relu_flags, row_policy="zer
                                                     int(row_bounds[band, 1]))
         row_ok = ((rows >= lo) & (rows < hi))[:, None, None]
         for kw, k0, k1 in plan.ranges():
-            queue = np.zeros((2, Lw - 1, R, 2, chp), np.float32)  # parity kw & 1 zeroed
+            queue = np.zeros((2, Lw - 1, R, 2, hid), np.float32)  # parity kw & 1 zeroed
             slab = [None, None]
             for k in range(kw, k1):
                 for l in range(Lw if k >= k0 else Lw - 1):
@@ -140,33 +150,44 @@ def emulate_k1(xs, first, w, b, *, width, tile_cols, relu_flags, row_policy="zer
                         kdim = k0pad
                     else:
                         win = np.concatenate([queue[k & 1, l - 1], slab[(l - 1) & 1]], axis=1)
-                        kdim = chp
+                        kdim = hid
                     if row_policy == "replicate":
                         win = np.concatenate([win[:1], win, win[-1:]], axis=0)
                     else:
                         win = np.pad(win, ((1, 1), (0, 0), (0, 0)))
-                    # row blocks of the instance's window, each copied once;
-                    # per n-group (all Chp on a narrow instance) one slice of
-                    # weights a tap
-                    acc = np.zeros((R, Cn, chp), np.float32)
-                    for r0 in range(0, R, nr):
+                    # (row block, outputs) in the kernel's order: the row
+                    # blocks of the instance's window and in each the
+                    # n-groups (all Chp on a narrow instance; a wide one's
+                    # (tap, n-group) slice of weights at a time); a mixed
+                    # launch's last layer an output group at a time, each
+                    # over every row block
+                    nout = chp if l == Lw - 1 else hid
+                    rows0 = range(0, R, nr)
+                    if hidden and l == Lw - 1:
+                        parts, g0 = [], 0
+                        for gw in ttf.output_groups(chp):
+                            parts += [(r0, g0, gw) for r0 in rows0]
+                            g0 += gw
+                    else:  # a mixed launch's hidden layers are narrow: one group
+                        gw = nout if hidden else ng
+                        parts = [(r0, g0, gw) for r0 in rows0 for g0 in range(0, nout, gw)]
+                    acc = np.zeros((R, Cn, nout), np.float32)
+                    for r0, g0, gw in parts:
                         rb = min(nr, R - r0)
                         blk = win[r0:r0 + rb + 2]  # the block's (rows + 2) x (C + 2) window
-                        for g0 in range(0, chp, ng):
-                            gacc = np.zeros((rb * Cn, ng), np.float32)
-                            for dy in range(3):
-                                for dx in range(3):
-                                    A = blk[dy:dy + rb, dx:dx + Cn].reshape(rb * Cn, kdim)
-                                    wt = wn[l, dy, dx, :, g0:g0 + ng]  # the (tap, group) slice
-                                    # bf16: the tap's k-steps from zero, then one fp32 add
-                                    part = gacc if precision == "fp32" else np.zeros_like(gacc)
-                                    for s in range(kdim // kk):
-                                        part = _mma_sum(part, A[:, kk * s:kk * (s + 1)],
-                                                        wt[kk * s:kk * (s + 1)], precision,
-                                                        terms)
-                                    gacc = part if precision == "fp32" else gacc + part
-                            acc[r0:r0 + rb, :, g0:g0 + ng] = gacc.reshape(rb, Cn, ng)
-                    y = acc + bn[l]
+                        gacc = np.zeros((rb * Cn, gw), np.float32)
+                        for dy in range(3):
+                            for dx in range(3):
+                                A = blk[dy:dy + rb, dx:dx + Cn].reshape(rb * Cn, kdim)
+                                wt = wn[l, dy, dx, :, g0:g0 + gw]  # the (tap, group) slice
+                                # bf16: the tap's k-steps from zero, then one fp32 add
+                                part = gacc if precision == "fp32" else np.zeros_like(gacc)
+                                for s in range(kdim // kk):
+                                    part = _mma_sum(part, A[:, kk * s:kk * (s + 1)],
+                                                    wt[kk * s:kk * (s + 1)], precision, terms)
+                                gacc = part if precision == "fp32" else gacc + part
+                        acc[r0:r0 + rb, :, g0:g0 + gw] = gacc.reshape(rb, Cn, gw)
+                    y = acc + bn[l, :nout]
                     if relu_flags[l]:
                         y = np.maximum(y, np.float32(0))
                     acol = k * Cn - l + np.arange(Cn)
@@ -194,19 +215,25 @@ def _jax_k1(xs, first, packed, bounds, policy, precision, width=WIDTH):
 @pytest.mark.parametrize("stack", sorted(WIDE))
 def test_emulated_datapath_matches_pallas_and_plain(stack, policy, precision):
     """Over two bands: ABPN x3 at full width (a narrow instance, Chp 32),
-    and three-layer stacks on the wide instances (Chp 48 and 128, on
-    32-row bands of 16 columns: two row blocks a step): the emulated kernel
-    against the Pallas kernel in interpret mode and against
-    ``tilted_fusion_plain``, and bit-identical across segment counts."""
+    three-layer stacks on the wide instances (Chp 48 and 128, on 32-row
+    bands of 16 columns: two row blocks a step) and ABPN x4's shape on the
+    mixed launch (28 hidden channels at Chp 32, 48 outputs in groups of 32
+    and 16, same bands): the emulated kernel against the Pallas kernel in
+    interpret mode and against ``tilted_fusion_plain``, and bit-identical
+    across segment counts; the mixed launch also bit-identical to the Chp 48
+    instance on the same packed stack, whose extra k-steps add exact
+    zeros."""
     channels = WIDE[stack]
     layers = len(channels) - 1
     width, rows = (WIDTH, BAND_ROWS) if stack == "x3" else (16, 32)
     packed = abpn_stack(3, precision, channels)
     assert packed.chp == ttf.launch_chp(max(channels))  # packed to the instance
+    hidden = ttf.hidden_chp(packed.chp, packed.hidden_channels, 8, TDT[precision])
+    assert hidden == (32 if stack == "x4" else None)
     xs, first, bounds = k1_inputs(4, precision, policy, layers=layers, width=width, rows=rows)
     kw = _kw(packed, policy, width)
     got = emulate_k1(xs, first, packed.w, packed.b, row_bounds=bounds, precision=precision,
-                     **kw)
+                     hidden=hidden, **kw)
     assert np.isfinite(got).all() and np.abs(got).max() > 0.1
     want = _jax_k1(xs, first, packed, bounds, policy, precision, width)
     plain = ttf.tilted_fusion_plain(xs, first, packed.w, packed.b, row_bounds=bounds,
@@ -215,8 +242,12 @@ def test_emulated_datapath_matches_pallas_and_plain(stack, policy, precision):
     np.testing.assert_allclose(got, plain, atol=TOL[precision], rtol=0)
     # each output element sums in one order wherever its tile falls
     three = emulate_k1(xs, first, packed.w, packed.b, row_bounds=bounds, precision=precision,
-                       segments=3, **kw)
+                       segments=3, hidden=hidden, **kw)
     np.testing.assert_array_equal(three, got)
+    if hidden:
+        wide = emulate_k1(xs, first, packed.w, packed.b, row_bounds=bounds,
+                          precision=precision, **kw)
+        np.testing.assert_array_equal(wide, got)
 
 
 @pytest.mark.parametrize("spread", ["unit", "wide"])
@@ -266,3 +297,50 @@ def test_wrapper_shapes_the_launch_as_the_kernel_does():
         kb = ttf.kernel_buffers(channels=CHANNELS, band_rows=R, tile_cols=C,
                                 dtype=torch.bfloat16)
         assert kb["shared_bytes"] == 88_320 and kb["packed_weight_bytes"] == bf16
+    # a mixed launch (ABPN x4: 28 hidden channels, 48 outputs) packs x3's
+    # stages and one more, the last layer's 16-output group (fp32: 2 n8
+    # blocks of hi and lo words; bf16: 2 of pairs), and runs on the Chp 32
+    # instance's shared memory
+    x4 = ABPNConfig(scale=4).channels
+    for dt, words16, x3 in ((torch.float32, 16 + 9 * 4 * 32 * 8, fp32),
+                            (torch.bfloat16, 16 + 9 * 2 * 32 * 4, bf16)):
+        mixed = ttf.packed_weight_bytes(7, 48, 8, dt, hidden_chp=32)
+        assert mixed == x3 + 4 * words16 and mixed % 16 == 0
+        assert ttf.shared_bytes(48, dt, hidden_chp=32) == ttf.shared_bytes(32, dt)
+        assert ttf.shared_bytes(48, dt) < ttf.shared_bytes(32, dt)  # the wide instance's own
+        kb = ttf.kernel_buffers(channels=x4, band_rows=60, tile_cols=C, dtype=dt)
+        assert (kb["chp"], kb["hidden_chp"]) == (48, 32)
+        assert kb["packed_weight_bytes"] == mixed
+        assert kb["shared_bytes"] == (229_632 if dt == torch.float32 else 88_320)
+        assert kb["buffers"]["slabs"]["shape"] == (2, 60, C, 32)
+        assert kb["buffers"]["overlap"]["shape"] == (2, 6, 60, 2, 32)
+        assert kb["buffers"]["stream_out_per_column"]["shape"] == (60, 1, 48)
+    assert ttf.output_groups(48) == [32, 16] and ttf.output_groups(128) == [32] * 4
+
+
+@pytest.mark.parametrize("hidden", [0, -1, 49, 2.5, True, "28"])
+def test_wrapper_rejects_a_hidden_width_outside_the_stack(hidden):
+    """``hidden_channels`` must be None or an integer in [1, Chp]: on the
+    CPU as on the card, before anything runs."""
+    packed = abpn_stack(3, "fp32", [3, 28, 28, 48])
+    xs, first, _ = k1_inputs(4, "fp32", "zero", layers=3, width=16, rows=4)
+    with pytest.raises(ValueError, match="hidden_channels"):
+        ttf.tilted_fusion_call(xs, first, packed.w, packed.b, hidden_channels=hidden,
+                               **_kw(packed, "zero", 16))
+
+
+def test_wrapper_on_the_cpu_computes_the_whole_stack_whatever_the_hidden_width():
+    """The plain version ignores ``hidden_channels`` (its zero channels are
+    the same function), and 1..Chp all pass the check; which launch the card
+    makes of each (``ttf.hidden_chp``): mixed where F_0..F_{L-1} pad to 32
+    and the stack is wider."""
+    packed = abpn_stack(3, "fp32", [3, 28, 28, 48])
+    xs, first, _ = k1_inputs(4, "fp32", "zero", layers=3, width=16, rows=4)
+    kw = _kw(packed, "zero", 16)
+    want = ttf.tilted_fusion_call(xs, first, packed.w, packed.b, **kw)
+    for hidden in (1, 28, 32, 48):
+        got = ttf.tilted_fusion_call(xs, first, packed.w, packed.b, hidden_channels=hidden, **kw)
+        assert torch.equal(got, want), hidden
+    assert [ttf.hidden_chp(48, h, 8) for h in (None, 1, 16, 28, 32, 33, 48)] == \
+        [None, 32, 32, 32, 32, None, None]
+    assert ttf.hidden_chp(32, 28, 8) is None and ttf.hidden_chp(128, 28, 40) is None

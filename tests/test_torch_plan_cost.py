@@ -156,6 +156,52 @@ def test_plan_cost_counts_the_instance_a_chp8_stack_launches(monkeypatch):
                                                       + 3 * (9 * (16 ** 2 - 8 ** 2) + 8))
 
 
+def _x4_layers():
+    """ABPN x4's shape (3 -> 28 x6 -> 48) with seeded weights."""
+    from repro_torch.models.abpn import ABPNConfig
+
+    rng = np.random.default_rng(6)
+    ch = ABPNConfig(scale=4).channels
+    return layers_from_numpy([
+        ((rng.normal(size=(3, 3, ch[i], ch[i + 1])) * 0.1).astype(np.float32),
+         (rng.normal(size=(ch[i + 1],)) * 0.1).astype(np.float32), i < len(ch) - 2)
+        for i in range(len(ch) - 1)])
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_plan_cost_counts_abpn_x4_at_the_hidden_width(precision, monkeypatch):
+    """ABPN x4 on the card is a mixed launch: its hidden layers at Chp 32
+    and its last layer's 48 outputs from 32 channels, 9 x (8 x 32 + 5 x 32
+    x 32 + 32 x 48) = 62,208 multiply-adds a pixel that the MMAs cover
+    (``_mma_pixels``), on every tile of the plan (one SM's, so no warm-up
+    tile: 4 bands of 5).  bf16 reads layer 0's 8 channels in a k-step of
+    16.  The wide Chp 48 instance would execute 127,872 (fp32); the CPU's
+    plain version pads everything to 48."""
+    layers = _x4_layers()
+    plan = tengine.make_plan(layers, LR, band_rows=BAND_ROWS, tile_cols=TILE_COLS, scale=4,
+                             backend="kernel", precision=precision)
+    one_sm = ttf.segment_plan(2 * BATCH, 5, TILE_COLS, L, sms=1)
+    assert one_sm.segments == 1  # no segment restarts, so no warm-up tile
+    monkeypatch.setattr(ttf.Launch, "plan", lambda self, device: one_sm)
+    (card,) = tengine.plan_cost_terms(plan, layers, BATCH, device="cuda")["k1"]
+    (cpu,) = tengine.plan_cost_terms(plan, layers, BATCH, device="cpu")["k1"]
+    k0 = 16 if precision == "bf16" else C0P
+    macs = 9 * (k0 * 32 + 5 * 32 * 32 + 32 * 48)
+    assert 9 * (8 * 32 + 5 * 32 * 32 + 32 * 48) == 62_208
+    tiles = one_sm.bands * one_sm.tiles
+    assert card["flops"] == 2 * macs * ttf._mma_pixels(BAND_ROWS, TILE_COLS) * tiles
+    assert cpu["flops"] == 2 * 9 * 48 * 48 * L * BAND_ROWS * TILE_COLS * tiles
+    dtype = torch.bfloat16 if precision == "bf16" else torch.float32
+    wide = ttf.launch_cost(one_sm, band_rows=BAND_ROWS, tile_cols=TILE_COLS, c0p=C0P, chp=48,
+                           num_layers=L, dtype=dtype)
+    assert wide["flops"] == 2 * 9 * 48 * (k0 + 6 * 48) * ttf._mma_pixels(BAND_ROWS, TILE_COLS) \
+        * tiles
+    assert 9 * 48 * (8 + 6 * 48) == 127_872
+    # the same output: (a) differs by the weight blocks the packing reads
+    assert wide["io_bytes"] - card["io_bytes"] == dtype.itemsize * 9 * (
+        6 * 48 * 48 + 48 * 48 - 6 * 32 * 32 - 32 * 48) + dtype.itemsize * 6 * (48 - 32)
+
+
 # ----------------------------------------------------------------------
 # launch_cost
 # ----------------------------------------------------------------------
@@ -245,45 +291,51 @@ def test_launch_cost_io_bytes_are_the_wrapper_tensors(dtype, bounds):
     assert got["io_bytes"] == sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _walk_the_source(plan, R, C, c0p, chp, L, dtype, bounds, replicate):
+def _walk_the_source(plan, R, C, c0p, chp, L, dtype, bounds, replicate, hidden=None):
     """Bytes one launch reads and writes beyond (a), walking
     ``csrc/tilted_fusion.cu`` loop by loop: the packing kernel, then per CTA
-    its bounds, the queue's start state, and per (tile, layer) step its
-    weight stage, each row block's window copies (pixel by pixel) and the
-    carried layers' stores.  Each loop over a buffer touches each element
-    once."""
+    its bounds, the queue's start state, and per (tile, step) its weight
+    stage, each row block's window copies (pixel by pixel) and the carried
+    layers' stores.  A step is a layer, or on a mixed launch (``hidden``
+    channels in the hidden layers) one of the last layer's output groups of
+    32 (``group_width``), which walks the row blocks again.  Each loop over
+    a buffer touches each element once."""
     es = dtype.itemsize
     k = 8 if dtype == torch.float32 else 16
-    ks0, ks = -(-c0p // k), chp // k
-    lane_words = (4 if dtype == torch.float32 else 2) * (chp // 8)
+    hid = hidden or chp
+    ks0, ks = -(-c0p // k), hid // k
 
-    def stage(ksteps):  # bias as fp32, then the B fragments of 32 lanes
-        return 4 * (chp + 9 * ksteps * 32 * lane_words)
+    def stage(nout, ksteps):  # bias as fp32, then the B fragments of 32 lanes
+        return 4 * (nout + 9 * ksteps * 32 * (4 if dtype == torch.float32 else 2) * (nout // 8))
 
+    groups = [min(32, chp - g) for g in range(0, chp, 32)] if hidden else [chp]
+    steps = [(l, hid) for l in range(L - 1)] + [(L - 1, n) for n in groups]
+    # what the packing reads: each layer's (K, N) block, and its bias
+    weights = (L - 1) * (9 * hid * hid + hid) + 9 * hid * chp + chp
     nr = min(256 // C, 320 // (C + 2) - 2)
-    total = L * (9 * chp * chp + chp) * es + stage(ks0) + (L - 1) * stage(ks)  # packing
+    total = weights * es + sum(stage(n, ks0 if l == 0 else ks) for l, n in steps)  # packing
     for _ in range(plan.bands):
         for kw, k0, k1 in plan.ranges():
             total += 8 if bounds else 0
-            total += (L - 1) * R * 2 * chp * es  # one parity of the queue zeroed
+            total += (L - 1) * R * 2 * hid * es  # one parity of the queue zeroed
             for kt in range(kw, k1):
-                for l in range(L - 1 if kt < k0 else L):
-                    total += stage(ks0 if l == 0 else ks)
+                for l, nout in steps if kt >= k0 else steps[:L - 1]:
+                    total += stage(nout, ks0 if l == 0 else ks)
                     for r0 in range(0, R, nr):
                         for wr in range(min(nr, R - r0) + 2):
                             if not 0 <= r0 - 1 + wr < R and not replicate:
                                 continue  # zero-filled
                             for wc in range(C + 2):
                                 if l > 0:
-                                    total += chp * es  # carried columns, then the slab
+                                    total += hid * es  # carried columns, then the slab
                                 elif kt * C - 1 + wc >= 0:
                                     total += c0p * es  # the first column or the stream
                     if l < L - 1:
-                        total += R * C * chp * es + R * 2 * chp * es  # slab, queue stored
+                        total += R * C * hid * es + R * 2 * hid * es  # slab, queue stored
     # (a) once: stream, first column, weights, bias and bounds (the output
     # is (a) alone)
     K = plan.tiles
-    total -= plan.bands * R * (K * C * c0p + c0p) * es + L * (9 * chp * chp + chp) * es
+    total -= plan.bands * R * (K * C * c0p + c0p) * es + weights * es
     return total - (8 * plan.bands if bounds else 0)
 
 
@@ -298,6 +350,26 @@ def test_launch_cost_workspace_bytes_walk_the_kernels_loops(segments, bounds):
             got = ttf.launch_cost(plan, band_rows=R, tile_cols=C, c0p=C0P, chp=CHP,
                                   num_layers=L, dtype=dtype, bounds=bounds, replicate=replicate)
             assert got["workspace_bytes"] == want, (dtype, R, C, replicate)
+
+
+@pytest.mark.parametrize("out", [48, 64, 128])
+@pytest.mark.parametrize("segments", [1, 3])
+def test_launch_cost_of_a_mixed_launch_walks_the_kernels_loops(segments, out):
+    """A mixed launch (hidden Chp 32, ``out`` outputs in groups of 32 and
+    16): part (b) as the walk of its loops finds it, and part (a) with the
+    weight blocks its packing reads."""
+    plan = ttf.segment_plan(3, 7, TILE_COLS, L, sms=8, segments=segments)
+    for dtype in (torch.float32, torch.bfloat16):
+        for R, C, replicate, bounds in ((13, TILE_COLS, False, True), (61, TILE_COLS, True, False),
+                                        (9, 3, True, True)):
+            want = _walk_the_source(plan, R, C, C0P, out, L, dtype, bounds, replicate, hidden=32)
+            got = ttf.launch_cost(plan, band_rows=R, tile_cols=C, c0p=C0P, chp=out, num_layers=L,
+                                  dtype=dtype, bounds=bounds, replicate=replicate, hidden_chp=32)
+            assert got["workspace_bytes"] == want, (dtype, R, C, replicate)
+            stream = 3 * R * 7 * C
+            weights = 6 * (9 * 32 * 32 + 32) + 9 * 32 * out + out
+            assert got["io_bytes"] == dtype.itemsize * (
+                stream * (C0P + out) + 3 * R * C0P + weights) + (8 * 3 if bounds else 0)
 
 
 def test_the_wrapper_on_meta_tensors_records_and_launches_nothing():

@@ -262,10 +262,15 @@ def test_verify_reports_a_width_no_instance_covers(precision):
 
 def test_verify_reads_abpn_x4_from_the_plan():
     """Without channels, an ABPN-shaped plan at scale 4 is checked at its
-    48 outputs: the Chp 48 instance."""
+    48 outputs and its 28 hidden channels: the mixed launch, on the Chp 32
+    instance's shared memory and workspace."""
     plan = SRPlan(height=360, width=640, backend="kernel", scale=4)
     report = plan_check.plan_buffer_report(plan)
     assert report["chp"] == 48 and errors(plan.verify()) == []
+    assert report["hidden_chp"] == 32 and report["shared_bytes"] == 229_632
+    assert report["window_elements"] == 320 * 32
+    assert report["table2_elements"] == (report["workspace_elements"] + 2 * 9 * 32 * 32
+                                         + 2 * 320 * 32)
 
 
 def ttf_dtype(precision):

@@ -16,8 +16,12 @@ bands of 60 rows a frame, ``zero``, tile 8) it times
 five launches queued behind a ~20 ms device sleep between two CUDA events,
 the median of ``--rounds`` rounds, as ``chip_smoke.py``'s ``device_ms``.
 The weights are ``init_abpn`` from seed 0 (x3) and seeded He weights
-(x4).  It prints the card's name and power limit, one line a shape, and
-one JSON line.
+(x4).  ABPN x4 is timed on both of its paths where the tree has them: the
+wide Chp 48 instance (``x4-wide``, the call without ``hidden_channels``)
+and the mixed launch the serving path makes (``x4-mixed``: the hidden
+layers on the Chp 32 instance, ``hidden_channels`` from ``pack_stack``).
+It prints the card's name and power limit, one line a shape, and one JSON
+line.
 
 Exits 2 without a CUDA device.
 """
@@ -70,17 +74,21 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}; src: {os.path.abspath(args.src)}")
     dev = torch.device("cuda")
-    stacks = {"x3": init_abpn(torch.Generator().manual_seed(0), device=dev)}
+    x3 = init_abpn(torch.Generator().manual_seed(0), device=dev)
+    stacks = {"x3": (x3, False)}
     if 48 in getattr(ttf, "SUPPORTED_CHP", ()):
         ch = ABPNConfig(scale=4).channels
         rng = np.random.default_rng(40)
-        stacks["x4"] = layers_from_numpy(
+        x4 = layers_from_numpy(
             [((rng.normal(size=(3, 3, ch[i], ch[i + 1])) * (2.0 / (9 * ch[i])) ** 0.5)
               .astype(np.float32), (rng.normal(size=(ch[i + 1],)) * 0.1).astype(np.float32),
               i < len(ch) - 2) for i in range(len(ch) - 1)], device=dev)
+        stacks["x4-wide"] = (x4, False)
+        if hasattr(ttf, "hidden_chp"):
+            stacks["x4-mixed"] = (x4, True)
     gen = torch.Generator().manual_seed(1)
     out = {"card": card, "src": os.path.abspath(args.src)}
-    for name, layers in stacks.items():
+    for name, (layers, mixed) in stacks.items():
         L = len(layers)
         for n in (1, 8):
             xb = torch.rand((n * 6, 60, 640, 3), generator=gen).to(dev)
@@ -88,6 +96,8 @@ def main(argv=None) -> int:
                       in_channels=3, add_anchor=False)
             for prec, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
                 packed = ops.pack_stack([l.to(dtype=dt) for l in layers], dtype=dt)
+                if mixed:
+                    kw["hidden_channels"] = packed.hidden_channels
                 xs, first = ops.band_streams(xb.to(dt), 8, L)
                 ms = device_ms(torch, lambda: ttf.tilted_fusion_call(
                     xs, first, packed.w, packed.b, **kw), rounds=args.rounds)
