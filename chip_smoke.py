@@ -58,6 +58,20 @@ each of their parts to the end and then fail with every failure listed):
    its batch twin), held to the ``tilted`` backend on the card at the same
    tolerances, K1's counter zeroed just before and moved; its prepared
    stack must make the mixed launch (hidden Chp 32, 48 outputs);
+4w. wide path — ``SRServer.open("abpn_x3", layers=<ABPN x3 at F = 64 and
+   128 feature channels (``ABPNConfig(feature_channels=F)``, seeded He
+   weights through ``layers_from_numpy``)>, backend="kernel")`` serving
+   360x640 -> 1080x1920 in fp32, bf16 and int8 under zero and fp32 under
+   halo: a 2-frame request and a frame alone (bit-identical to its batch
+   twin), held to the ``tilted`` backend on the card at phase 4's
+   tolerances, K1's counter zeroed just before and moved; its prepared
+   stack must launch the wide Chp F instance (hidden channels F, no mixed
+   launch).  Then K1 on each stack at 1 and 8 frames, fp32 and bf16, one
+   launch between two events and queued behind a sleep, beside cuDNN's
+   conv stack on the same layers (TF32 off), the bound of the stack's
+   useful work (3xTF32 or bf16 tensor-core peak, bytes), the FLOPs and
+   bytes ``launch_cost`` counts for the launch's plan, and the plain
+   version's time at one frame;
 4b. layer-by-layer path — ABPN x3 over two 360x640 frames as 7
    ``ops.conv3x3`` launches per frame plus ``engine.sr_epilogue``, fp32 and
    bf16, held against ``engine.run`` on the ``reference`` backend (TF32
@@ -229,7 +243,8 @@ each of their parts to the end and then fail with every failure listed):
    runs, then the phase fails listing each failure; a
    ``dryrun_and_roofline: {...}`` JSON line;
 4a. plan_cost — ``engine.plan_cost`` on the card for phase 4's seven
-   served configurations at 1 and 8 frames of 360x640: per frame its FLOPs
+   served configurations and phase 4w's four at F = 64 (the wide Chp 64
+   instance), at 1 and 8 frames of 360x640: per frame its FLOPs
    and device-memory bytes (the glue's eager operators, K1's arguments and
    result (a) and its workspace, weight stages and windows (b)), the bound
    ``max(K1's FLOPs at its precision's tensor-core rate (TF32 / 3 for fp32
@@ -291,6 +306,10 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(0, os.path.join(ROOT, "tools"))
+
+import _stacks  # noqa: E402
+from _stacks import he_arrays  # noqa: E402
 
 H, W, SCALE = 360, 640, 3  # the paper's design point: 360x640 -> 1080x1920
 TOL = {"fp32": 5e-4, "int8": 5e-4, "bf16": 5e-2}
@@ -1913,7 +1932,7 @@ def k1_flops_per_s(peaks, prec):
     return peaks["bf16"] if prec == "bf16" else peaks["tf32"] / 3
 
 
-def served_plan_costs(torch, engine, dev, layers, peaks):
+def served_plan_costs(torch, engine, dev, layers, peaks, configs=SERVED, label="x3"):
     """Phase 4a: each served configuration's ``plan_cost`` per frame, K1's
     arguments and result (a) and the rest of its traffic (b) apart, its
     bound, and the executor's queued device time; bound / measured must
@@ -1932,7 +1951,7 @@ def served_plan_costs(torch, engine, dev, layers, peaks):
     gen = torch.Generator().manual_seed(5)
     frames = {n: torch.rand((n, H, W, 3), generator=gen).to(dev) for n in (1, 8)}
     out = {}
-    for prec, policy in SERVED:
+    for prec, policy in configs:
         plan = engine.make_plan(layers, (H, W, 3), backend="kernel", precision=prec,
                                 vertical_policy=policy, band_rows=engine.derive_band_rows(H),
                                 scale=SCALE)
@@ -1967,7 +1986,7 @@ def served_plan_costs(torch, engine, dev, layers, peaks):
                        reduction_a=1 - k1["io_bytes"] / n / k2_bytes,
                        reduction_ab=1 - k1["bytes"] / n / k2_bytes)
             out[f"{prec}/{policy}/{n}"] = row
-            print(f"plan_cost [{prec}, {policy}, {n} frame{'s' if n > 1 else ''}]: per frame "
+            print(f"plan_cost [{label}, {prec}, {policy}, {n} frame{'s' if n > 1 else ''}]: per frame "
                   f"{row['flops_per_frame'] / 1e9:.3f} GFLOP, {row['hbm_bytes_per_frame'] / 1e6:.1f}"
                   f" MB = glue {row['glue_bytes_per_frame'] / 1e6:.1f} + K1 (a) "
                   f"{row['k1_io_bytes_per_frame'] / 1e6:.2f} + (b) "
@@ -1981,13 +2000,13 @@ def served_plan_costs(torch, engine, dev, layers, peaks):
                   f"{k1['bytes'] / n / k2_bytes:.2f}x the path's bytes); the paper's "
                   f"dram_reduction() {100 * paper:.1f}%")
             require(share <= PLAN_COST_SHARE_MAX,
-                    f"plan_cost {prec}/{policy} at {n}: bound/measured {share:.3f} > "
+                    f"plan_cost {label} {prec}/{policy} at {n}: bound/measured {share:.3f} > "
                     f"{PLAN_COST_SHARE_MAX}, the count is below the work")
     seconds = time.perf_counter() - t0
-    print(f"phase 4a took {seconds:.1f} s, K1 launches {ttf.tilted_fusion_call.launches} "
-          f"(timing only; not a path of the kernels line)")
+    print(f"phase 4a ({label}) took {seconds:.1f} s, K1 launches "
+          f"{ttf.tilted_fusion_call.launches} (timing only; not a path of the kernels line)")
     # counts and models beside the measured device_ms, so not in the kernels line
-    print("plan_cost: " + json.dumps({"configs": out, "seconds": seconds,
+    print("plan_cost: " + json.dumps({"stack": label, "configs": out, "seconds": seconds,
                                       "timing_launches": ttf.tilted_fusion_call.launches,
                                       "paper_reduction": paper}))
 
@@ -2002,17 +2021,6 @@ K1_SEGMENT_WIDTHS = (48, 128)  # phase 3: segments bit-identical on these wide i
 # phase 3: mixed launches, [3, 28, 28, out] stacks (hidden Chp 32; 40 and 48
 # are output groups of 32 + 16, 64..128 of 32)
 K1_MIXED_OUTPUTS = (40, 48, 64, 96, 128)
-
-
-def he_arrays(np, channels, seed):
-    """Seeded (w, b, relu) arrays of a conv stack: He-initialised weights
-    (``sqrt(2 / (9 Ci))``, as ``init_abpn``) and non-zero biases."""
-    rng = np.random.default_rng(seed)
-    return [((rng.normal(size=(3, 3, channels[i], channels[i + 1]))
-              * (2.0 / (9 * channels[i])) ** 0.5).astype(np.float32),
-             (rng.normal(size=(channels[i + 1],)) * 0.1).astype(np.float32),
-             i < len(channels) - 2)
-            for i in range(len(channels) - 1)]
 
 
 def abpn_x4_layers(np, dev):
@@ -2282,6 +2290,138 @@ def x4_times(torch, engine, ops, ttf, k2, dev, layers4, peaks, gen):
           f"bf16 {stack['bf16_bound_ms']:.4f} ms; cuDNN stack (TF32 off) "
           f"{stack['library_ms']:.4f} ms, bf16 {stack['library_bf16_ms']:.4f} ms")
     return {"k1": out, "k2_layer_28_48": layer, "k2_stack": stack}
+
+
+# ----------------------------------------------------------------------
+# ABPN x3 at wider feature maps: K1's wide instances on the serving path
+# ----------------------------------------------------------------------
+WIDE_FEATURES = (64, 128)  # ABPNConfig(feature_channels=F): Chp 64 and 128
+WIDE_SERVED = (("fp32", "zero"), ("bf16", "zero"), ("int8", "zero"), ("fp32", "halo"))
+
+
+def abpn_wide_layers(np, dev, features):
+    """ABPN x3 at ``features`` feature channels (``ABPNConfig(
+    feature_channels=F)``: 3 -> F x6 -> 27, 7 layers) from seeded He
+    weights (seed 60 + F) through ``models.abpn.layers_from_numpy``."""
+    from repro_torch.models.abpn import ABPNConfig, layers_from_numpy
+
+    ch = ABPNConfig(feature_channels=features).channels
+    return layers_from_numpy(he_arrays(np, ch, 60 + features), device=dev)
+
+
+def serve_wide(torch, np, engine, dev, stacks, kcall):
+    """Phase 4w: ``SRServer.open("abpn_x3", layers=<ABPN x3 at F>,
+    backend="kernel")`` for F in WIDE_FEATURES and every configuration of
+    WIDE_SERVED serves a 2-frame 360x640 request and one frame alone (which
+    must equal its batch twin bit for bit), each HR result against the
+    ``tilted`` backend on the card (TF32 off).  The prepared stack must make
+    the wide Chp F launch (hidden channels F, no mixed launch).  K1's
+    counter is zeroed just before and read just after.  Returns
+    (per_config, launches)."""
+    from repro_torch.kernels import tilted_fusion as ttf
+
+    rng = np.random.default_rng(42)
+    req = rng.uniform(size=(2, H, W, 3)).astype(np.float32)
+    kcall.launches = 0
+    per_config = {}
+    for f, layers_f in stacks.items():
+        for prec, policy in WIDE_SERVED:
+            before = kcall.launches
+            server = engine.SRServer.open("abpn_x3", layers=layers_f, backend="kernel",
+                                          precision=prec, vertical_policy=policy)
+            kplan = engine.make_plan(layers_f, (H, W, 3), backend="kernel", precision=prec,
+                                     vertical_policy=policy,
+                                     band_rows=engine.derive_band_rows(H), scale=SCALE)
+            packed = engine.prepare_stack(kplan, layers_f).packed
+            dt = torch.bfloat16 if prec == "bf16" else torch.float32
+            require(packed.chp == ttf.launch_chp(packed.chp, dt) == f
+                    and packed.hidden_channels == f
+                    and ttf.hidden_chp(packed.chp, packed.hidden_channels, 8, dt) is None,
+                    f"F={f} {prec}/{policy}: the served stack does not make the wide Chp {f} "
+                    f"launch (Chp {packed.chp}, hidden {packed.hidden_channels})")
+            hr = server.submit(req).result()
+            alone = server.submit(req[1]).result()
+            server.close()
+            launched = kcall.launches - before
+            require(launched > 0, f"F={f} {prec}/{policy}: K1 was never launched")
+            require(tuple(hr.shape) == (2, H * SCALE, W * SCALE, 3),
+                    f"F={f} {prec}/{policy}: HR shape {tuple(hr.shape)}")
+            require(bool(torch.isfinite(hr).all()), f"F={f} {prec}/{policy}: non-finite HR")
+            require(torch.equal(alone, hr[1]),
+                    f"F={f} {prec}/{policy}: a frame served alone must equal it in a batch")
+            plan = engine.make_plan(layers_f, (H, W, 3), backend="tilted", precision=prec,
+                                    vertical_policy=policy,
+                                    band_rows=engine.derive_band_rows(H), scale=SCALE)
+            want = engine.run(plan, layers_f, req, device=dev)
+            err = (hr.float() - want.float()).abs().max().item()
+            per_config[f"F{f}/{prec}/{policy}"] = {"launches": launched, "max_abs_err": err}
+            print(f"wide server [F={f}, {prec}, {policy}]: {H}x{W} -> {H * SCALE}x{W * SCALE}, "
+                  f"K1 launches {launched} (the wide Chp {packed.chp} instance, schedule "
+                  f"{tuple(ttf.wide_schedule(packed.chp, dt))}), HR vs tilted backend "
+                  f"max_abs_err={err:.3e} (tol {TOL[prec]:g}); batch-independent bit-exact: yes")
+            require(err <= TOL[prec], f"F={f} {prec}/{policy}: server output vs tilted backend")
+    launches = kcall.launches
+    print(f"wide path K1 launches: {launches}")
+    require(launches > 0, "the wide path never launched K1")
+    return per_config, launches
+
+
+def wide_times(torch, ops, ttf, dev, stacks, peaks, gen):
+    """Phase 4w's times: K1 on each wide stack at 1 and 8 frames of 360x640
+    (6 bands of 60 rows a frame, ``zero``, tile 8), fp32 and bf16, one
+    launch between two events and launches queued behind a sleep, beside
+    cuDNN's conv stack on the same layers (TF32 off; bf16 in bf16), the
+    bounds of the stack's useful work (3xTF32 at the TF32 peak, bf16 at
+    its peak, bytes at the memory rate) and the FLOPs the launch executes
+    (``launch_cost`` of its plan); the plain version's time at one frame."""
+    out = {}
+    for f, layers_f in stacks.items():
+        L, C = len(layers_f), 8
+        for n in (1, 8):
+            frames = torch.rand((n, H, W, 3), generator=gen).to(dev)
+            xb = frames.reshape(n * H // 60, 60, W, 3)
+            nchw = xb.permute(0, 3, 1, 2).contiguous()
+            kw = dict(width=W, tile_cols=C, relu_flags=[l.relu for l in layers_f],
+                      in_channels=3, add_anchor=False)
+            row = {}
+            for prec, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+                packed = ops.pack_stack([l.to(dtype=dt) for l in layers_f], dtype=dt)
+                xs, first = ops.band_streams(xb.to(dt), C, L)
+                nx, cudnn = nchw.to(dt), _stacks.cudnn_stack(torch, layers_f, dt)
+
+                def k1():
+                    return ttf.tilted_fusion_call(xs, first, packed.w, packed.b, **kw)
+
+                plan = ttf.launch_plan(xs, packed.w, tile_cols=C, compute_dtype=dt)
+                cost = ttf.launch_cost(plan, band_rows=60, tile_cols=C, c0p=xs.shape[3],
+                                       chp=packed.chp, num_layers=L, dtype=dt)
+                useful = _stacks.useful_bound(layers_f, n * H * W, prec, dt.itemsize, peaks)
+                flops, b_ms, b_by = useful["flops"], useful["bound_ms"], useful["bound_by"]
+                row["flops"] = flops
+                cell = dict(ms=time_ms(torch, k1, reps=5), device_ms=device_ms(torch, k1, calls=5),
+                            library_ms=time_ms(torch, lambda: cudnn(nx), reps=5),
+                            library_device_ms=device_ms(torch, lambda: cudnn(nx), calls=5),
+                            bound_ms=b_ms, bound_by=b_by, bytes_bound_ms=useful["bytes_bound_ms"],
+                            executed_flops=cost["flops"], moved_bytes=cost["bytes"],
+                            segments=plan.segments, ctas=plan.ctas)
+                if n == 1 and prec == "fp32":
+                    cell["plain_ms"] = time_ms(torch, lambda: ttf.tilted_fusion_plain(
+                        xs, first, packed.w, packed.b, **kw), reps=1)
+                row[prec] = cell
+                print(f"wide K1 F={f} {prec}, {n} frame{'s' if n > 1 else ''} ({xs.shape[0]} "
+                      f"bands, S={plan.segments}): {cell['ms']:.3f} ms one launch, "
+                      f"{cell['device_ms']:.3f} ms queued; cuDNN stack "
+                      f"{cell['library_ms']:.3f} / {cell['library_device_ms']:.3f} ms "
+                      f"({cell['library_device_ms'] / cell['device_ms']:.2f}x K1's queued time); "
+                      f"bound {b_ms:.3f} ms ({b_by}; bytes {cell['bytes_bound_ms']:.4f}) -> "
+                      f"{100 * b_ms / cell['device_ms']:.1f}%; {flops / 1e9:.2f} GFLOP of the "
+                      f"stack, K1 executes {cost['flops'] / 1e9:.2f} "
+                      f"({cost['flops'] / 1e9 / cell['device_ms']:.1f} TFLOP/s) and moves "
+                      f"{cost['bytes'] / 1e6:.1f} MB"
+                      + (f"; plain {cell['plain_ms']:.1f} ms" if "plain_ms" in cell else ""),
+                      flush=True)
+            out[f"F{f}/{n}"] = row
+    return out
 
 
 def main() -> int:
@@ -2580,8 +2720,18 @@ def main() -> int:
     x4_path, x4_launches = serve_x4(torch, np, engine, dev, layers4, kcall)
 
     # ------------------------------------------------------------------
+    phase("4w. wide feature maps: SRServer.open('abpn_x3', layers=<ABPN x3 at F = 64, 128>) "
+          "on K1's wide instances")
+    wide_stacks = {f: abpn_wide_layers(np, dev, f) for f in WIDE_FEATURES}
+    wide_path, wide_launches = serve_wide(torch, np, engine, dev, wide_stacks, kcall)
+    t0 = time.perf_counter()
+    wide = wide_times(torch, ops, ttf, dev, wide_stacks, peaks, gen)
+    print(f"wide times took {time.perf_counter() - t0:.1f} s")
+
+    # ------------------------------------------------------------------
     phase("4a. plan_cost: the served configurations' FLOPs and bytes beside their bound")
     served_plan_costs(torch, engine, dev, layers, peaks)
+    served_plan_costs(torch, engine, dev, wide_stacks[64], peaks, WIDE_SERVED, "F=64")
 
     # ------------------------------------------------------------------
     phase("4b. layer-by-layer path: ABPN x3 as 7 ops.conv3x3 launches per frame")
@@ -3579,8 +3729,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/tilted_fusion.cu",
         "replaces": "src/repro/kernels/tilted_fusion.py:208",
-        "launches": (main_launches + x4_launches + delta_launches + autotune_launches
-                     + sharded_launches),
+        "launches": (main_launches + x4_launches + wide_launches + delta_launches
+                     + autotune_launches + sharded_launches),
         "max_abs_err": worst["fp32"],
         "max_abs_err_bf16": worst["bf16"],
         "ms": t8["k1"]["ms"],
@@ -3630,6 +3780,16 @@ def main() -> int:
                "wide_device_ms": x4["k1"][8]["wide_device_ms"],
                "plain_ms": x4["k1"][1]["plain_ms"], "bound_ms": x4["k1"][8]["bound_ms"],
                "bound_by": x4["k1"][8]["bound_by"], "library_ms": x4["k1"][8]["library_ms"]},
+        "wide": {"shape": f"ABPN x3 at F = {', '.join(map(str, WIDE_FEATURES))} feature "
+                          f"channels (the wide Chp F instances), {H}x{W} frames, zero; "
+                          "times per F and frame count, fp32 and bf16",
+                 "path": wide_path, "launches": wide_launches, "times": wide,
+                 "ms": wide["F128/8"]["fp32"]["ms"],
+                 "device_ms": wide["F128/8"]["fp32"]["device_ms"],
+                 "plain_ms": wide["F128/1"]["fp32"]["plain_ms"],
+                 "bound_ms": wide["F128/8"]["fp32"]["bound_ms"],
+                 "bound_by": wide["F128/8"]["fp32"]["bound_by"],
+                 "library_ms": wide["F128/8"]["fp32"]["library_ms"]},
     }, {
         "name": "conv3x3",
         "route": "cuda",

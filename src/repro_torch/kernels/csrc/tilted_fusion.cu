@@ -88,17 +88,32 @@
 //     pre-split stage and all Chp accumulators of a warp do not fit wider
 //     (a fp32 Chp 128 stage is 295 KB; Chp fp32 accumulators a thread), so
 //     the "wide" instances (tilted_fusion_wide_kernel) cut the outputs into
-//     n-groups of kNG <= 32 (a warp's accumulators stay at the narrow
-//     count), and a stage holds one slice, the B fragments of one (tap,
-//     n-group), 32 KB at fp32 Chp 128, double-buffered by cp.async behind
-//     the MMAs and pre-split once a launch by pack_slices_kernel.  A row
-//     block's window (320 pixels, one buffer: 160 KB at fp32 Chp 128) is
-//     copied once, then every n-group runs its 9 taps and stores its
-//     channels.  The arithmetic is the narrow design's: every element sums
-//     tap, k-step, term in the same order, so segments stay bit-identical
-//     and a stack padded with zero channels gives the narrow instance's
-//     result bit for bit.  fp32 Chp 48: 84,992 B of shared memory; Chp 128:
-//     229,376 B; bf16 Chp 48 38,912 B.
+//     n-groups of kNG and stream a layer's B fragments through two slices
+//     of shared memory, double-buffered by cp.async behind the MMAs and
+//     pre-split once a launch by pack_slices_kernel.  Per instance a
+//     schedule (wide_sched, chosen on the card by tools/k1_ablation.py
+//     --wide) sets what bounds it there.  Its tensor-core work is
+//     shared-memory fed: a warp's k-step loads its A fragments (and splits
+//     them into TF32 hi and lo) and B's hi and lo words for its kNG
+//     outputs, so a larger n-group cuts the loads and splits an MMA: fp32
+//     computes 48, 64 or 96 outputs a pass (Chp 64: A loaded and split once
+//     a tap and k-step, not twice), and where a whole tap's outputs would
+//     not fit beside the window (Chp 96, 128) a slice holds half a tap's
+//     k-steps.  Slices of a tap row (3 taps) where they fit cut the
+//     barrier pairs of an n-group from 9 to 3 (bf16, fp32 Chp 48).  bf16
+//     up to Chp 64 fits 2 CTAs an SM at 128 registers; fp32 at 128
+//     registers spills and runs slower than one CTA.  A row block's window
+//     (320 pixels) is copied once, then every n-group runs its 9 taps and
+//     stores its channels.  A second window, copied behind the MMAs
+//     (tools/k1_ablation.py --wide two_windows: fp32 Chp 48 and 64, bf16
+//     at every width), was slower or level within about 2 % noise (a
+//     step's first block reads the step before it, so only later blocks
+//     can be overlapped).  The
+//     arithmetic is the narrow design's: every element sums tap, k-step,
+//     term in the same order whatever the schedule, so segments stay
+//     bit-identical and a stack padded with zero channels gives the narrow
+//     instance's result bit for bit.  Shared memory: fp32 Chp 48 177,152
+//     B, Chp 128 229,376 B; bf16 Chp 48 63,488 B.
 //   * mixed widths: a stack whose feature maps F_0..F_{L-1} fit 32 channels
 //     but whose last layer has more outputs (ABPN x4: 3 -> 28 x6 -> 48) runs
 //     on the narrow Chp 32 instance with the output width out_ch (48, 64,
@@ -119,8 +134,8 @@
 //     narrow launch is the case out_ch = Chp, one group.
 // Left for later work: wgmma and TMA, layer 0's taps folded into K in fp32,
 // slabs resident in shared memory across layers; on the wide instances,
-// slices of more than one tap where shared memory allows, and a window
-// double-buffered behind the MMAs.
+// fewer shared-memory bytes an MMA (wgmma's B from shared memory, or warps
+// that split the n-groups of one pixel tile).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -151,17 +166,40 @@ struct Params {
   int rows_blk;        // output rows of a full row block
 };
 
+// The schedule of a wide <dtype, Chp> instance (tilted_fusion.py::
+// wide_schedule mirrors it, line for line): ng outputs a warp computes in
+// one pass over a row block (an n-group; every output of a layer where ng
+// = Chp), taps of one weight slice (1, 3 or 9 consecutive taps of one
+// n-group), halves (2: a one-tap slice holds half the tap's k-steps, fp32
+// only) and resident CTAs an SM it is compiled for (__launch_bounds__).
+// Shared memory decides what fits: two slices and the window within
+// 232,448 B, and with 2 CTAs an SM within half the SM's 233,472 B less 1
+// KB a CTA; registers decide the CTAs.
+struct WideSched {
+  int ng, taps, halves, ctas;
+};
+__host__ __device__ constexpr WideSched wide_sched(bool f32, int chp) {
+  if (f32 && chp == 48) return {48, 3, 1, 1};
+  if (f32 && chp == 64) return {64, 1, 1, 1};
+  if (f32 && chp == 96) return {96, 1, 2, 1};
+  if (f32 && chp == 128) return {64, 1, 2, 1};
+  if (!f32 && chp == 48) return {48, 3, 1, 2};
+  if (!f32 && chp == 64) return {32, 3, 1, 2};
+  if (!f32 && chp == 96) return {48, 3, 1, 1};
+  if (!f32 && chp == 128) return {64, 3, 1, 1};
+  return {chp, 9, 1, f32 ? 1 : 2};  // a narrow instance: not read
+}
+
 // What each <dtype, Chp> instance holds.  Chp <= 32 ("narrow"): a warp
 // computes all Chp outputs, and a stage holds a whole layer.  Chp > 32
-// ("wide"): the outputs are cut into n-groups of kNG <= 32 (so a warp's
-// accumulators stay at the narrow count), and a stage holds one slice, the
-// B fragments of one (tap, n-group) of a layer.
+// ("wide"): the outputs are cut into n-groups of kNG (wide_sched), and a
+// stage holds one slice, the B fragments of kTaps taps of one n-group of a
+// layer.
 template <typename T, int CHP> struct Cfg {
   static constexpr bool kF32 = sizeof(T) == 4;
   static constexpr bool kWide = CHP > 32;
-  // outputs of an n-group: 32 where Chp is a multiple of it, else 24 (fp32)
-  // or 16 (bf16, whose B words a lane must come in whole uint4)
-  static constexpr int kNG = !kWide ? CHP : CHP % 32 == 0 ? 32 : kF32 ? 24 : 16;
+  static constexpr WideSched kSched = wide_sched(kF32, CHP);
+  static constexpr int kNG = !kWide ? CHP : kSched.ng;  // outputs of an n-group
   static constexpr int kGroups = CHP / kNG;
   static constexpr int kNB = kNG / 8;                  // n8 blocks of an n-group's outputs
   static constexpr int kK = kF32 ? 8 : 16;             // the MMA's k
@@ -178,16 +216,23 @@ template <typename T, int CHP> struct Cfg {
   static constexpr int kPixBytes = kSwizzle ? 16 * kChunks : 16 * kChunks + 16;
   static constexpr int kWinPix = ::kWinPix;
   static constexpr int kStageBytes = CHP * 4 + 9 * kKS * kQuads * 32 * 16;  // bias + B (narrow)
-  static constexpr int kSliceBytes = kKS * kQuads * 32 * 16;  // one (tap, n-group) (wide)
+  static constexpr int kTaps = kWide ? kSched.taps : 9;      // taps of a slice (wide)
+  static constexpr int kHalves = kWide ? kSched.halves : 1;  // slices a tap (wide)
+  // kTaps x (tap, n-group), or half a tap's k-steps
+  static constexpr int kSliceBytes = kTaps * (kKS / kHalves) * kQuads * 32 * 16;
   static constexpr int kWinBytes = kWinPix * kPixBytes;
   // narrow: two stages and two windows; wide: two slices and one window
   static constexpr int kSmemBytes =
       kWide ? 2 * kSliceBytes + kWinBytes : 2 * kStageBytes + 2 * kWinBytes;
   // fp32 Chp 32 takes 229,632 B of shared memory: one CTA an SM, all registers
-  static constexpr int kMinBlocks = kF32 ? 1 : 2;
+  static constexpr int kMinBlocks = kWide ? kSched.ctas : kF32 ? 1 : 2;
   static_assert(kWords % 4 == 0, "B words come in uint4");
   static_assert(CHP % kNG == 0 && kNG % 8 == 0 && CHP % kK == 0, "whole n-groups and k-steps");
+  static_assert(9 % kTaps == 0, "whole slices");
+  static_assert(kHalves == 1 || (kHalves == 2 && kTaps == 1 && kF32 && kKS % 2 == 0),
+                "half-tap slices: fp32 (no per-tap bf16 partial across slices), even k-steps");
   static_assert(kSmemBytes <= 232448, "one CTA's shared memory");
+  static_assert(kMinBlocks * (kSmemBytes + 1024) <= 233472, "the CTAs an SM it is built for");
 };
 
 // What a lane holds of the B fragments over NG outputs, for one (tap,
@@ -900,29 +945,49 @@ __device__ void load_window_wide(const Params& p, const WindowSrc& src, bool lay
   }
 }
 
-// Copy slice (l, grp, t) of the packed weights into shared memory (cp.async,
-// not committed).
+// The k-steps [s0, s0 + n) of piece h of a tap of ks k-steps: the whole tap
+// (one piece), or one of its two halves.
 template <typename T, int CHP>
-__device__ __forceinline__ void load_slice(const Params& p, int l, int grp, int t, char* dst) {
-  const int ks = l == 0 ? p.ks0 : Cfg<T, CHP>::kKS;
-  const char* src = static_cast<const char*>(p.ws) + 4 * slice_offset<T, CHP>(l, grp, t, p.ks0);
-  const int n16 = (int)(slice_words<T, CHP>(ks) / 4);
+__device__ __forceinline__ int piece_steps(int ks, int h, int& s0) {
+  if (Cfg<T, CHP>::kHalves == 1) {
+    s0 = 0;
+    return ks;
+  }
+  const int half = (ks + 1) / 2;
+  s0 = h * half;
+  return min(ks, s0 + half) - s0;
+}
+
+// Copy slice j of layer l's n-group grp into shared memory (cp.async, not
+// committed): taps t..t + kTaps - 1 (t = kTaps * j), which lie one after
+// another in the packed weights, or piece j % 2 of tap j / 2.
+template <typename T, int CHP>
+__device__ __forceinline__ void load_slice(const Params& p, int l, int grp, int j, char* dst) {
+  using G = Cfg<T, CHP>;
+  const int ks = l == 0 ? p.ks0 : G::kKS;
+  int s0;
+  const int n = piece_steps<T, CHP>(ks, j % G::kHalves, s0);
+  const char* src = static_cast<const char*>(p.ws) +
+                    4 * (slice_offset<T, CHP>(l, grp, j / G::kHalves * G::kTaps, p.ks0) +
+                         (size_t)s0 * G::kQuads * 32 * 4);
+  const int n16 = (G::kHalves == 1 ? G::kTaps * ks : n) * G::kQuads * 32;
   const uint32_t base = smem_addr(dst);
   for (int i = threadIdx.x; i < n16; i += kThreads) cp_async16(base + 16 * i, src + 16 * i, 16);
 }
 
-// One tap of one n-group over this warp's NF fragments: KS k-steps (0: st.ks,
-// layer 0) from `slice`, A by ldmatrix from the window at offset tpix.  fp32
-// into acc; bf16 into a partial that starts at zero and is then added to acc
-// in fp32, as block_mma sums them.
+// K-steps s0 .. s0 + n - 1 of one tap of one n-group over this warp's NF
+// fragments (n = KS where KS > 0, layers >= 1; else n_rt, layer 0): B from
+// `slice`, which holds them from its start, A by ldmatrix from the window at
+// offset tpix.  fp32 into acc; bf16 (whole taps, s0 = 0) into a partial that
+// starts at zero and is then added to acc in fp32, as block_mma sums them.
 template <typename T, int CHP, int NF, int KS>
 __device__ __forceinline__ void wide_tap(const char* slice, uint32_t win_addr,
-                                         const int (&wpix)[2], int tpix, int ks_rt,
+                                         const int (&wpix)[2], int tpix, int s0, int n_rt,
                                          float (&acc)[2][Cfg<T, CHP>::kNB][4]) {
   using G = Cfg<T, CHP>;
   const int lane = threadIdx.x & 31, khalf = lane >> 4;
   const uint4* bsm = reinterpret_cast<const uint4*>(slice);
-  const int ks = KS > 0 ? KS : ks_rt;
+  const int n = KS > 0 ? KS : n_rt;
   float part[NF][G::kNB][4];
 #pragma unroll
   for (int f = 0; f < NF; ++f)
@@ -930,17 +995,17 @@ __device__ __forceinline__ void wide_tap(const char* slice, uint32_t win_addr,
     for (int jb = 0; jb < G::kNB; ++jb)
 #pragma unroll
       for (int c = 0; c < 4; ++c) part[f][jb][c] = G::kF32 ? acc[f][jb][c] : 0.f;
-  auto kstep = [&](int s) {
+  auto kstep = [&](int i) {
     uint32_t bw[G::kWords];
 #pragma unroll
     for (int q = 0; q < G::kQuads; ++q) {
-      const uint4 v = bsm[(s * G::kQuads + q) * 32 + lane];
+      const uint4 v = bsm[(i * G::kQuads + q) * 32 + lane];
       bw[4 * q] = v.x; bw[4 * q + 1] = v.y; bw[4 * q + 2] = v.z; bw[4 * q + 3] = v.w;
     }
     uint32_t a[NF][4];
 #pragma unroll
     for (int f = 0; f < NF; ++f)
-      ldmatrix_x4(a[f], win_addr + win_off<T, CHP>(wpix[f] + tpix, 2 * s + khalf));
+      ldmatrix_x4(a[f], win_addr + win_off<T, CHP>(wpix[f] + tpix, 2 * (s0 + i) + khalf));
     if constexpr (G::kF32) {
       uint32_t ah[NF][4], al[NF][4];
 #pragma unroll
@@ -973,10 +1038,10 @@ __device__ __forceinline__ void wide_tap(const char* slice, uint32_t win_addr,
   };
   if constexpr (KS > 0) {
 #pragma unroll
-    for (int s = 0; s < KS; ++s) kstep(s);
+    for (int i = 0; i < KS; ++i) kstep(i);
   } else {
 #pragma unroll 1
-    for (int s = 0; s < ks; ++s) kstep(s);
+    for (int i = 0; i < n; ++i) kstep(i);
   }
 #pragma unroll
   for (int f = 0; f < NF; ++f)
@@ -1062,6 +1127,8 @@ template <typename T, int CHP>
 __global__ void __launch_bounds__(kThreads, Cfg<T, CHP>::kMinBlocks)
 tilted_fusion_wide_kernel(Params p) {
   using G = Cfg<T, CHP>;
+  constexpr int kSlices = 9 / G::kTaps * G::kHalves;  // slices of an n-group
+  constexpr int KP = G::kKS / G::kHalves;               // k-steps of a piece, layers >= 1
   extern __shared__ uint4 smem[];
   char* slices = reinterpret_cast<char*>(smem);  // 2 x kSliceBytes
   char* win = slices + 2 * G::kSliceBytes;       // kWinBytes
@@ -1116,6 +1183,9 @@ tilted_fusion_wide_kernel(Params p) {
       src.slab = l > 0 ? reinterpret_cast<const char*>(slab[(l - 1) & 1]) : nullptr;
       T* nxt = slab[l & 1];
       T* qout = st.last ? nullptr : queue + ((k + 1) & 1) * qpar + l * qslot;
+      // a tap's B fragments in a slice of whole taps: ks k-steps of kQuads
+      // uint4 a lane
+      const int tap_bytes = st.ks * G::kQuads * 32 * 16;
       for (int b = 0; b < nblk; ++b) {
         st.r0 = b * p.rows_blk;
         const int rows = min(p.rows_blk, R - st.r0);
@@ -1139,10 +1209,11 @@ tilted_fusion_wide_kernel(Params p) {
           wpix[f] = r * (C + 2) + j;
         }
         T* nxt_b = nxt + (size_t)st.r0 * C * CHP;
-        // Every n-group runs its 9 taps, one slice each, then stores its
-        // channels.  Each tap copies the next slice (the next tap, group,
-        // block or step) into the other stage while it computes.  The
-        // barriers are outside the branches on this warp's fragments.
+        // Every n-group runs its 9 taps, kTaps a slice (or half a tap),
+        // then stores its channels.  Each slice copies the next one (the
+        // next taps, group, block or step) into the other stage while it
+        // computes.  The barriers are outside the branches on this warp's
+        // fragments.
         for (int grp = 0; grp < G::kGroups; ++grp) {
           float acc[2][G::kNB][4];
 #pragma unroll
@@ -1152,25 +1223,32 @@ tilted_fusion_wide_kernel(Params p) {
 #pragma unroll
               for (int c = 0; c < 4; ++c) acc[f][jb][c] = 0.f;
 #pragma unroll 1
-          for (int t = 0; t < 9; ++t, ++n) {
+          for (int j = 0; j < kSlices; ++j, ++n) {
             // the stage the next slice goes to was last read by slice n - 1
             // (at a block's first slice, the block's barrier ordered that)
-            if (grp > 0 || t > 0) __syncthreads();
+            if (grp > 0 || j > 0) __syncthreads();
             char* next = slices + ((n + 1) & 1) * G::kSliceBytes;
-            if (t < 8) load_slice<T, CHP>(p, l, grp, t + 1, next);
+            if (j + 1 < kSlices) load_slice<T, CHP>(p, l, grp, j + 1, next);
             else if (grp + 1 < G::kGroups) load_slice<T, CHP>(p, l, grp + 1, 0, next);
             else if (nxt_l >= 0) load_slice<T, CHP>(p, nxt_l, 0, 0, next);
             cp_async_commit();
             cp_async_wait<1>();  // slice n (and the block's window) landed
             __syncthreads();
             const char* slice = slices + (n & 1) * G::kSliceBytes;
-            const int tpix = (t / 3) * (C + 2) + t % 3;
-            if (mine == 2) {
-              if (l > 0) wide_tap<T, CHP, 2, G::kKS>(slice, win_addr, wpix, tpix, st.ks, acc);
-              else wide_tap<T, CHP, 2, 0>(slice, win_addr, wpix, tpix, st.ks, acc);
-            } else if (mine == 1) {
-              if (l > 0) wide_tap<T, CHP, 1, G::kKS>(slice, win_addr, wpix, tpix, st.ks, acc);
-              else wide_tap<T, CHP, 1, 0>(slice, win_addr, wpix, tpix, st.ks, acc);
+            int s0;  // the slice's k-steps of each of its taps: [s0, s0 + steps)
+            const int steps = piece_steps<T, CHP>(st.ks, j % G::kHalves, s0);
+#pragma unroll 1
+            for (int i = 0; i < G::kTaps; ++i) {
+              const int t = j / G::kHalves * G::kTaps + i;
+              const int tpix = (t / 3) * (C + 2) + t % 3;
+              const char* tb = slice + i * tap_bytes;
+              if (mine == 2) {
+                if (l > 0) wide_tap<T, CHP, 2, KP>(tb, win_addr, wpix, tpix, s0, steps, acc);
+                else wide_tap<T, CHP, 2, 0>(tb, win_addr, wpix, tpix, s0, steps, acc);
+              } else if (mine == 1) {
+                if (l > 0) wide_tap<T, CHP, 1, KP>(tb, win_addr, wpix, tpix, s0, steps, acc);
+                else wide_tap<T, CHP, 1, 0>(tb, win_addr, wpix, tpix, s0, steps, acc);
+              }
             }
           }
           if (mine == 2) wide_epilogue<T, CHP, 2>(p, st, warp, grp, acc, nxt_b, qout, out, x, first);

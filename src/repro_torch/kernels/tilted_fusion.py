@@ -50,6 +50,7 @@ import contextvars
 import ctypes
 import functools
 import numbers
+import re
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -82,6 +83,8 @@ __all__ = [
     "hidden_chp",
     "output_groups",
     "n_group",
+    "WideSchedule",
+    "wide_schedule",
     "window_pixels",
     "max_tile_cols",
 ]
@@ -91,8 +94,9 @@ BLOCK_PIXELS = 256  # output pixels of a row block: 8 warps x 2 m16 fragments (k
 WINDOW_PIXELS = 320  # a row block's input window in shared memory: (30 + 2) x (8 + 2) (kWinPix)
 # The template instances of the kernel (K1_INSTANCES in the source): Chp 16
 # and 32 are "narrow" (a warp computes all Chp outputs, a weight stage holds
-# a layer), the others "wide" (outputs in n-groups of at most 32, a stage
-# holds one (tap, n-group) slice).  launch_chp pads a stack up to the next.
+# a layer), the others "wide" (outputs in n-groups, a stage holds a slice
+# of one n-group's taps: wide_schedule).  launch_chp pads a stack up to the
+# next.
 SUPPORTED_CHP = (16, 32, 48, 64, 96, 128)
 # A mixed launch runs its hidden layers on the Chp 32 instance and its last
 # layer in output groups of OUT_GROUP (kGroup in the source).
@@ -156,22 +160,55 @@ def _wide(chp: int) -> bool:
     return int(chp) > 32
 
 
+class WideSchedule(NamedTuple):
+    """How a wide instance (Chp > 32) walks a layer: the source's
+    ``WideSched``."""
+
+    ng: int  # outputs a warp computes in one pass over a row block (an n-group)
+    taps: int  # taps of one weight slice (1, 3 or 9), copied together
+    halves: int  # 2: a one-tap slice holds half the tap's k-steps (fp32)
+    ctas: int  # resident CTAs an SM the instance is compiled for
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_schedules() -> dict:
+    """(dtype, Chp) -> :class:`WideSchedule` of every wide instance, read
+    from ``wide_sched`` in the CUDA source, the one table the kernel and
+    this accounting share (chosen on the card by ``tools/k1_ablation.py
+    --wide``, PERF.md)."""
+    text = (_build.CSRC / "tilted_fusion.cu").read_text()
+    rows = re.findall(r"if \((!?)f32 && chp == (\d+)\) return \{([\d, ]+)\};", text)
+    return {(torch.bfloat16 if neg else torch.float32, int(chp)):
+            WideSchedule(*(int(v) for v in fields.split(","))) for neg, chp, fields in rows}
+
+
+def wide_schedule(chp: int, dtype=torch.float32) -> Optional[WideSchedule]:
+    """The :class:`WideSchedule` of the ``<dtype, chp>`` instance, or
+    ``None`` on a narrow one (Chp <= 32: a warp computes all Chp outputs,
+    a stage holds a whole layer).  Raises ``ValueError`` on a wide width
+    no instance is built for."""
+    if not _wide(chp):
+        return None
+    key = (torch.bfloat16 if dtype == torch.bfloat16 else torch.float32, int(chp))
+    try:
+        return _wide_schedules()[key]
+    except KeyError:
+        raise ValueError(f"no wide instance of the kernel is built for Chp {chp} "
+                         f"(instances: {SUPPORTED_CHP})") from None
+
+
 def n_group(chp: int, dtype=torch.float32) -> int:
     """Outputs a warp computes at once (``kNG``): all Chp on a narrow
-    instance; on a wide one 32 where Chp is a multiple of 32, else 24 in
-    fp32 and 16 in bf16."""
-    chp = int(chp)
-    if not _wide(chp):
-        return chp
-    return 32 if chp % 32 == 0 else (16 if dtype == torch.bfloat16 else 24)
+    instance; on a wide one its :func:`wide_schedule`'s ``ng``."""
+    sched = wide_schedule(chp, dtype)
+    return sched.ng if sched else int(chp)
 
 
 def window_pixels(chp: int, dtype=torch.float32) -> int:
-    """Pixels of a row block's input window in shared memory (``kWinPix``)
-    of the ``<dtype, chp>`` instance.  Every instance has
-    :data:`WINDOW_PIXELS`: a wide one holds one window, not two, so even a
-    fp32 Chp 128 pixel of 512 bytes fits 320 of them beside its two weight
-    slices."""
+    """Pixels of one row block's input window in shared memory
+    (``kWinPix``) of the ``<dtype, chp>`` instance: :data:`WINDOW_PIXELS`
+    on every instance (a narrow one holds two such windows, a wide one
+    one)."""
     return WINDOW_PIXELS
 
 
@@ -260,17 +297,19 @@ def _pixel_bytes(chp: int, dtype) -> int:
 def shared_bytes(chp: int, dtype=torch.float32, hidden_chp: Optional[int] = None) -> int:
     """Dynamic shared memory of one CTA of the ``<dtype, chp>`` instance
     (``kSmemBytes``): on a narrow one (Chp <= 32) two weight stages and two
-    windows, on a wide one two (tap, n-group) slices and one window, of
+    windows, on a wide one two slices (each :func:`wide_schedule`'s
+    ``taps`` (tap, n-group) slices, or half of one) and one window, of
     :func:`window_pixels` pixels of ``chp`` channels.  It does not depend
-    on R.  The formula holds for any multiple of 8; only
-    :data:`SUPPORTED_CHP` are built.  A mixed launch (``hidden_chp``) runs
+    on R.  A mixed launch (``hidden_chp``) runs
     on the ``hidden_chp`` instance: its stages and windows."""
     if hidden_chp:
         return shared_bytes(hidden_chp, dtype)
     ks = _ksteps(chp, dtype)
     win = window_pixels(chp, dtype) * _pixel_bytes(chp, dtype)
-    if _wide(chp):
-        return 2 * 4 * _slice_words(chp, ks, dtype) + win
+    sched = wide_schedule(chp, dtype)
+    if sched:
+        steps = sched.taps * -(-ks // sched.halves)  # k-steps of a slice
+        return 2 * 4 * _slice_words(chp, steps, dtype) + win
     return 2 * 4 * _stage_words(chp, ks, dtype) + 2 * win
 
 
@@ -315,7 +354,8 @@ def kernel_buffers(*, channels, band_rows: int, tile_cols: int, chp: int = None,
       (:func:`launch_chp` of the packed width ``packed_chp``), which sizes
       everything below; ``instance`` is the same, or ``None`` where no
       instance covers the stack (above Chp 128), and then ``chp`` is the
-      packed width and nothing launches.
+      packed width, nothing launches and ``packed_weight_bytes`` and
+      ``shared_bytes``, an instance's own, are ``None``.
     * ``hidden_chp`` — the Chp of the slabs, the queue, the windows and
       the weight stages: ``chp``, or 32 where the launch is mixed
       (:func:`hidden_chp` of the feature maps F_0..F_{L-1},
@@ -376,11 +416,13 @@ def kernel_buffers(*, channels, band_rows: int, tile_cols: int, chp: int = None,
         "workspace_elements": per_cta,
         "ctas": ctas,
         "launch_workspace_elements": ctas * per_cta,
-        "packed_weight_bytes": packed_weight_bytes(L, chp, c0p, dtype, hidden_chp=mixed),
+        # an instance's own: none where no instance covers the stack
+        "packed_weight_bytes": (packed_weight_bytes(L, chp, c0p, dtype, hidden_chp=mixed)
+                                if instance else None),
         "window_pixels": window_pixels(hid, dtype),
         "window_elements": window_pixels(hid, dtype) * hid,
         "max_tile_cols": max_tile_cols(hid, dtype),
-        "shared_bytes": shared_bytes(chp, dtype, hidden_chp=mixed),
+        "shared_bytes": shared_bytes(chp, dtype, hidden_chp=mixed) if instance else None,
     }
 
 
@@ -521,8 +563,9 @@ def launch_cost(plan: SegmentPlan, *, band_rows: int, tile_cols: int, c0p: int, 
     * ``workspace_bytes`` (b) — every other byte the launch reads or
       writes in device memory: the packed weight stages written once and
       read at every (tile, step) (a wide instance: every row block
-      copies its 9 slices an n-group and reads the bias; a mixed launch's
-      last layer is one step an output group, each with its own stage and
+      copies each n-group's 9 taps of B in slices of its schedule's
+      ``taps`` (:func:`wide_schedule`) and reads the bias; a mixed
+      launch's last layer is one step an output group, each with its own stage and
       its windows copied again); per CTA its row
       bounds and the queue's start state; per step and row block the
       window's copies (the stream for layer 0, the slab and the carried
@@ -555,8 +598,8 @@ def launch_cost(plan: SegmentPlan, *, band_rows: int, tile_cols: int, c0p: int, 
     blocks = len(_row_blocks(R, C))
     win_rows = R + 2 * blocks - (0 if replicate else 2)
     if _wide(chp) and not mixed:
-        # every row block copies the layer's 9 slices an n-group, and its
-        # epilogues read the layer's bias
+        # every row block copies each n-group's 9 taps of B (whatever the
+        # slices they come in), and its epilogues read the layer's bias
         slices = blocks * 9 * (chp // n_group(chp, dtype))
         stage0 = slices * 4 * _slice_words(chp, ks0, dtype) + blocks * chp * esize
         stage = slices * 4 * _slice_words(chp, ks, dtype) + blocks * chp * esize

@@ -363,6 +363,85 @@ def test_server_on_the_card_matches_the_cpu(cuda, precision):
 
 
 # ----------------------------------------------------------------------
+# K1's wide instances on ABPN x3's shape at wider feature maps
+# ----------------------------------------------------------------------
+def _abpn_at(features, seed):
+    """ABPN x3 with ``features`` feature channels (3 -> F x6 -> 27), He
+    weights."""
+    return _stack(seed, [3] + [features] * 6 + [27], None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("features", [48, 64, 96, 128])
+def test_wide_instance_on_abpn_shaped_stacks_matches_plain(cuda, features, dtype):
+    """The wide Chp F instance (its ``wide_schedule``: n-groups, slices of
+    taps or half a tap) on ABPN x3 at F features over two 61-row bands
+    (three row blocks a step) of 40 columns, ``zero``: within the
+    tolerance of the plain version, and bit-identical across segments."""
+    layers = [l.to(dtype=dtype) for l in _abpn_at(features, features)]
+    packed = ops.pack_stack(layers, dtype=dtype)
+    assert packed.chp == features and ttf.launch_chp(features, dtype) == features
+    xb = torch.rand((2, 61, 40, 3), generator=torch.Generator().manual_seed(features)).to(dtype)
+    xs, first = ops.band_streams(xb, 8, 7)
+    kw = dict(width=40, tile_cols=8, relu_flags=list(packed.relu), add_anchor=False,
+              in_channels=3, hidden_channels=packed.hidden_channels)
+    want = ttf.tilted_fusion_plain(xs, first, packed.w, packed.b, **kw)
+    args = (xs.to(cuda), first.to(cuda), packed.w.to(cuda), packed.b.to(cuda))
+    got = ttf.tilted_fusion_call(*args, **kw)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().float().numpy(), want.float().numpy(),
+                               atol=TOL[dtype], rtol=0)
+    for segments in (1, 3):
+        assert torch.equal(ttf.tilted_fusion_call(*args, segments=segments, **kw), got)
+
+
+def test_wide_instances_hold_the_ctas_their_schedule_claims(cuda):
+    """Every wide instance fits as many resident CTAs an SM as its
+    ``wide_schedule`` is compiled for (two where it claims two: its shared
+    memory and its registers both fit), and the segment plan reads them."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for chp in (48, 64, 96, 128):
+            sched = ttf.wide_schedule(chp, dtype)
+            assert ttf.blocks_per_sm(cuda, dtype, chp) == sched.ctas, (dtype, chp)
+    xs = torch.zeros((6, 60, 640, 8), device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros((7, 3, 3, 64, 64), device=cuda, dtype=torch.bfloat16)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = ttf.launch_plan(xs, w, tile_cols=8)
+    assert plan == ttf.segment_plan(6, 80, 8, 7, sms, ttf.wide_schedule(64, torch.bfloat16).ctas)
+
+
+@pytest.mark.parametrize("precision,policy", [("fp32", "zero"), ("bf16", "zero"),
+                                              ("int8", "zero"), ("fp32", "halo")])
+def test_server_at_64_features_matches_tilted_on_the_card(cuda, precision, policy):
+    """``SRServer.open("abpn_x3", layers=<ABPN x3 at 64 features>,
+    backend="kernel")`` on the card: K1's wide Chp 64 instance (the
+    prepared stack makes no mixed launch) serving two 60 x 64 frames, held
+    to the ``tilted`` backend on the card; a frame served alone equals its
+    batch twin."""
+    layers = _abpn_at(64, 9)
+    frames = np.random.default_rng(5).uniform(size=(2, 60, 64, 3)).astype(np.float32)
+    plan = engine.make_plan(layers, (60, 64, 3), backend="kernel", precision=precision,
+                            vertical_policy=policy, band_rows=30)
+    packed = engine.prepare_stack(plan, layers).packed
+    dt = torch.bfloat16 if precision == "bf16" else torch.float32
+    assert packed.chp == 64 and ttf.hidden_chp(64, packed.hidden_channels, 8, dt) is None
+    server = engine.SRServer.open("abpn_x3", backend="kernel", precision=precision,
+                                  vertical_policy=policy, layers=layers, device=cuda,
+                                  band_rows=30)
+    before = ttf.tilted_fusion_call.launches
+    hr = server.submit(frames).result()
+    alone = server.submit(frames[1]).result()
+    server.close()
+    assert ttf.tilted_fusion_call.launches > before
+    assert torch.equal(alone, hr[1])
+    tplan = engine.make_plan(layers, (60, 64, 3), backend="tilted", precision=precision,
+                             vertical_policy=policy, band_rows=30)
+    want = engine.run(tplan, layers, frames, device=cuda)
+    np.testing.assert_allclose(hr.float().cpu().numpy(), want.float().cpu().numpy(),
+                               atol=5e-2 if precision == "bf16" else 5e-4, rtol=0)
+
+
+# ----------------------------------------------------------------------
 # K2: conv3x3 on the card vs conv3x3_plain
 # ----------------------------------------------------------------------
 def _k2_inputs(seed, shape, co, dtype):

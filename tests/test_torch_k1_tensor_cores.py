@@ -17,7 +17,9 @@ products summed exactly and rounded once into the fp32 accumulator; bf16
 products (exact in fp32) summed the same way, k-steps of 16 with layer 0's
 channels padded to 16, into a partial that starts at zero for each tap and
 is then added to the accumulator in fp32.  Then the bias in fp32, the ReLU, the phantom-column
-and row-bound masks, one rounding to the storage dtype.  A mixed launch
+and row-bound masks, one rounding to the storage dtype.  A wide instance
+walks its schedule (``ttf.wide_schedule``): per row block each n-group, and
+in each the weight slices of ``taps`` taps (or half a tap).  A mixed launch
 (ABPN x4's shape: hidden feature maps of 28 channels, 48 outputs) runs its
 hidden layers at Chp 32 and its last layer in output groups of 32 + 16,
 each group its own pass over the row blocks.
@@ -26,11 +28,16 @@ Tolerances (max abs diff): 5e-4 fp32, 5e-2 bf16, the README support
 matrix's, against both the Pallas kernel and ``tilted_fusion_plain``.
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.core.fusion import ConvLayer as JConvLayer
+from repro.kernels import ops as jops
 from repro.kernels import tilted_fusion as jtf
 
 from repro_torch.core.fusion import halo_slabs
@@ -46,11 +53,13 @@ TDT = {"fp32": torch.float32, "bf16": torch.bfloat16}
 JDT = {"fp32": jnp.float32, "bf16": jnp.bfloat16}
 CHANNELS = ABPNConfig().channels  # 3, 28 x6, 27: L = 7, Chp 32, c0p 8
 L, C, BAND_ROWS, WIDTH = len(CHANNELS) - 1, 8, 12, 64
-# the wide instances' stacks: three layers to Chp 48 (ABPN x4's width, two
-# n-groups of 24 in fp32, three of 16 in bf16) and to Chp 128 (four of 32);
-# "x4", ABPN x4's shape cut to three layers, runs the mixed launch
+# the wide instances' stacks: three layers to Chp 48 (ABPN x4's width, one
+# n-group of 48, slices of three taps) and to Chp 128 (two n-groups of 64;
+# fp32 slices of half a tap); "abpn64", ABPN x3 at 64 feature channels cut
+# to four layers (one n-group of 64 in fp32, two of 32 in bf16); "x4", ABPN
+# x4's shape cut to three layers, runs the mixed launch
 WIDE = {"x3": CHANNELS, "chp48": [3, 40, 44, 48], "chp128": [3, 128, 120, 128],
-        "x4": [3, 28, 28, 48]}
+        "abpn64": [3, 64, 64, 64, 27], "x4": [3, 28, 28, 48]}
 
 
 def _round(a, precision):
@@ -58,7 +67,10 @@ def _round(a, precision):
     return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(TDT[precision]).float().numpy()
 
 
-def abpn_stack(seed, precision, channels=CHANNELS):
+def he_arrays(seed, precision, channels):
+    """He weights and non-zero biases, ``(w, b, relu)`` a layer, rounded to
+    the precision's dtype, drawn from ``seed`` (or a numpy ``Generator``,
+    which goes on from where they end)."""
     rng = np.random.default_rng(seed)
     n = len(channels) - 1
     arrays = [((rng.normal(size=(3, 3, channels[i], channels[i + 1]))
@@ -66,7 +78,11 @@ def abpn_stack(seed, precision, channels=CHANNELS):
                (rng.normal(size=(channels[i + 1],)) * 0.1).astype(np.float32),
                i < n - 1)
               for i in range(n)]
-    arrays = [(_round(w, precision), _round(b, precision), r) for w, b, r in arrays]
+    return [(_round(w, precision), _round(b, precision), r) for w, b, r in arrays]
+
+
+def abpn_stack(seed, precision, channels=CHANNELS):
+    arrays = he_arrays(seed, precision, channels)
     return tops.pack_stack(layers_from_numpy(arrays, dtype=TDT[precision]), dtype=TDT[precision])
 
 
@@ -111,12 +127,14 @@ def emulate_k1(xs, first, w, b, *, width, tile_cols, relu_flags, row_policy="zer
     ``(B, R, K*C, Chp)`` float32 (values of the storage dtype).  ``w`` is
     packed to the instance's Chp.  Each (tile, layer) step walks the row
     blocks of the instance's window (``ttf.block_rows``) and, in each, the
-    n-groups of its outputs (``ttf.n_group``: all Chp on a narrow instance;
-    on a wide one a (tap, n-group) slice of weights at a time).  ``hidden``
-    (``ttf.hidden_chp``) emulates a mixed launch: the feature maps, the
-    queue and the layers' K at ``hidden`` channels (the first ``hidden`` of
-    the packed stack's), and the last layer one step an output group
-    (``ttf.output_groups``), each walking every row block."""
+    n-groups of its outputs (``ttf.n_group``: all Chp on a narrow instance)
+    and in each n-group its weight slices (a narrow instance's stage holds
+    all 9 taps; a wide one's slice ``ttf.wide_schedule(...).taps``
+    consecutive taps, or half a tap's k-steps), tap by tap and k-step by
+    k-step.  ``hidden`` (``ttf.hidden_chp``) emulates a mixed launch: the
+    feature maps, the queue and the layers' K at ``hidden`` channels (the
+    first ``hidden`` of the packed stack's), and the last layer one step an
+    output group (``ttf.output_groups``), each walking every row block."""
     x = xs.float().numpy()
     f0 = first.float().numpy()
     wn, bn = w.float().numpy(), b.float().numpy()
@@ -128,6 +146,9 @@ def emulate_k1(xs, first, w, b, *, width, tile_cols, relu_flags, row_policy="zer
     k0pad = -(-c0p // kk) * kk
     nr = ttf.block_rows(Cn, hid, TDT[precision])  # rows of a row block
     ng = ttf.n_group(chp, TDT[precision])  # outputs of an n-group
+    sched = None if hidden else ttf.wide_schedule(chp, TDT[precision])
+    taps = sched.taps if sched else 9  # taps of one weight slice (a narrow stage: all 9)
+    halves = sched.halves if sched else 1  # slices a tap
     plan = ttf.segment_plan(B, K, Cn, Lw, sms=1, segments=segments)
     out = np.zeros((B, R, KC, chp), np.float32)
     rows = np.arange(R)
@@ -176,13 +197,17 @@ def emulate_k1(xs, first, w, b, *, width, tile_cols, relu_flags, row_policy="zer
                         rb = min(nr, R - r0)
                         blk = win[r0:r0 + rb + 2]  # the block's (rows + 2) x (C + 2) window
                         gacc = np.zeros((rb * Cn, gw), np.float32)
-                        for dy in range(3):
-                            for dx in range(3):
+                        nk = kdim // kk  # k-steps a tap
+                        for j in range(9 // taps * halves):  # one weight slice (stage)
+                            h, piece = j % halves, -(-nk // halves)
+                            for t in range(j // halves * taps, j // halves * taps + taps):
+                                dy, dx = divmod(t, 3)
                                 A = blk[dy:dy + rb, dx:dx + Cn].reshape(rb * Cn, kdim)
-                                wt = wn[l, dy, dx, :, g0:g0 + gw]  # the (tap, group) slice
-                                # bf16: the tap's k-steps from zero, then one fp32 add
+                                wt = wn[l, dy, dx, :, g0:g0 + gw]  # the (tap, group) B
+                                # bf16 (whole taps): the tap's k-steps from
+                                # zero, then one fp32 add
                                 part = gacc if precision == "fp32" else np.zeros_like(gacc)
-                                for s in range(kdim // kk):
+                                for s in range(h * piece, min(nk, (h + 1) * piece)):
                                     part = _mma_sum(part, A[:, kk * s:kk * (s + 1)],
                                                     wt[kk * s:kk * (s + 1)], precision, terms)
                                 gacc = part if precision == "fp32" else gacc + part
@@ -215,8 +240,9 @@ def _jax_k1(xs, first, packed, bounds, policy, precision, width=WIDTH):
 @pytest.mark.parametrize("stack", sorted(WIDE))
 def test_emulated_datapath_matches_pallas_and_plain(stack, policy, precision):
     """Over two bands: ABPN x3 at full width (a narrow instance, Chp 32),
-    three-layer stacks on the wide instances (Chp 48 and 128, on 32-row
-    bands of 16 columns: two row blocks a step) and ABPN x4's shape on the
+    three-layer stacks on the wide instances (Chp 48 and 128) and ABPN x3's
+    shape at 64 features cut to four layers (Chp 64), on 32-row bands of 16
+    columns: two row blocks a step, and ABPN x4's shape on the
     mixed launch (28 hidden channels at Chp 32, 48 outputs in groups of 32
     and 16, same bands): the emulated kernel against the Pallas kernel in
     interpret mode and against ``tilted_fusion_plain``, and bit-identical
@@ -307,7 +333,8 @@ def test_wrapper_shapes_the_launch_as_the_kernel_does():
         mixed = ttf.packed_weight_bytes(7, 48, 8, dt, hidden_chp=32)
         assert mixed == x3 + 4 * words16 and mixed % 16 == 0
         assert ttf.shared_bytes(48, dt, hidden_chp=32) == ttf.shared_bytes(32, dt)
-        assert ttf.shared_bytes(48, dt) < ttf.shared_bytes(32, dt)  # the wide instance's own
+        # the wide instance's own: two slices and its window
+        assert ttf.shared_bytes(48, dt) == (177_152 if dt == torch.float32 else 63_488)
         kb = ttf.kernel_buffers(channels=x4, band_rows=60, tile_cols=C, dtype=dt)
         assert (kb["chp"], kb["hidden_chp"]) == (48, 32)
         assert kb["packed_weight_bytes"] == mixed
@@ -344,3 +371,93 @@ def test_wrapper_on_the_cpu_computes_the_whole_stack_whatever_the_hidden_width()
     assert [ttf.hidden_chp(48, h, 8) for h in (None, 1, 16, 28, 32, 33, 48)] == \
         [None, 32, 32, 32, 32, None, None]
     assert ttf.hidden_chp(32, 28, 8) is None and ttf.hidden_chp(128, 28, 40) is None
+
+
+def test_wide_schedules_are_the_sources():
+    """``ttf.wide_schedule`` is ``wide_sched`` in the CUDA source line for
+    line, for every built wide instance in both dtypes (it sizes the
+    packed weights the wrapper allocates and the shared memory the
+    accounting reports); a narrow width has none, and a wide width no
+    instance is built for raises."""
+    src = (Path(ttf.__file__).parent / "csrc" / "tilted_fusion.cu").read_text()
+    table = {}
+    for neg, chp, fields in re.findall(
+            r"  if \((!?)f32 && chp == (\d+)\) return \{([\d, ]+)\};", src):
+        dt = torch.bfloat16 if neg else torch.float32
+        table[(dt, int(chp))] = ttf.WideSchedule(*(int(v) for v in fields.split(",")))
+    wide = [c for c in ttf.SUPPORTED_CHP if c > 32]
+    assert set(table) == {(dt, c) for dt in TDT.values() for c in wide}
+    for (dt, chp), sched in table.items():
+        assert ttf.wide_schedule(chp, dt) == sched, (dt, chp)
+    assert ttf.wide_schedule(32) is None and ttf.wide_schedule(16, torch.bfloat16) is None
+    for chp in (40, 136):
+        with pytest.raises(ValueError, match=f"no wide instance .* Chp {chp}"):
+            ttf.wide_schedule(chp)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_wide_instances_shared_memory_and_packing(dtype):
+    """Each wide instance's shared memory is two slices of ``taps`` (tap,
+    n-group) B blocks (or half a tap's k-steps) and one window of 320
+    pixels, within one CTA's 232,448 B and, where the schedule claims two
+    CTAs an SM, half the SM; every instance keeps 30-row blocks at tile 8
+    and tiles up to 104 columns; the packed weights do not depend on the
+    schedule."""
+    esize, k = dtype.itemsize, 16 if dtype == torch.bfloat16 else 8
+    for chp in (48, 64, 96, 128):
+        sched = ttf.wide_schedule(chp, dtype)
+        words = (2 if dtype == torch.bfloat16 else 4) * sched.ng // 8  # a lane's, a k-step
+        slice_bytes = sched.taps * (chp // k // sched.halves) * 32 * words * 4
+        pix = chp * esize if chp * esize % 128 == 0 else chp * esize + 16
+        want = 2 * slice_bytes + 320 * pix
+        assert ttf.shared_bytes(chp, dtype) == want <= 232_448
+        assert sched.ctas * (want + 1024) <= 233_472
+        assert sched.halves == 1 or (sched.taps == 1 and dtype == torch.float32)
+        assert ttf.window_pixels(chp, dtype) == 320 and ttf.block_rows(8, chp, dtype) == 30
+        assert ttf.max_tile_cols(chp, dtype) == 104
+        packed = ttf.packed_weight_bytes(7, chp, 8, dtype)
+        ks0 = -(-8 // k)
+        assert packed == 9 * (chp // sched.ng) * 32 * words * 4 * (ks0 + 6 * chp // k)
+    if dtype == torch.float32:
+        assert {c: ttf.shared_bytes(c) for c in (48, 64, 96, 128)} == {
+            48: 177_152, 64: 147_456, 96: 196_608, 128: 229_376}
+    else:
+        assert {c: ttf.shared_bytes(c, dtype) for c in (48, 64, 96, 128)} == {
+            48: 63_488, 64: 65_536, 96: 121_856, 128: 180_224}
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("policy", ["zero", "halo"])
+def test_abpn_shaped_wide_stack_matches_pallas_and_plain(policy, precision, monkeypatch):
+    """ABPN x3's shape at 64 feature channels ([3, 64, 64, 64, 27], Chp
+    64) over two 32-row bands of a 64 x 16 image through the port's
+    ``ops.tilted_fused_stack(..., chp=64)``, with K1 the emulated kernel
+    (the wide instance's schedule), against the JAX package's
+    ``ops.tilted_fused_stack(..., chp=64)`` in interpret mode and against
+    the port's plain path."""
+    rng = np.random.default_rng(64)
+    arrays = he_arrays(rng, precision, [3, 64, 64, 64, 27])
+    tl = layers_from_numpy(arrays, dtype=TDT[precision])
+    jl = [JConvLayer(w=jnp.asarray(w, JDT[precision]), b=jnp.asarray(b, JDT[precision]), relu=r)
+          for w, b, r in arrays]
+    img = _round(rng.uniform(size=(64, 16, 3)).astype(np.float32), precision)
+    kw = dict(band_rows=32, tile_cols=C, chp=64, vertical_policy=policy)
+    want = np.asarray(jops.tilted_fused_stack(jnp.asarray(img, JDT[precision]), jl,
+                                              interpret=True, **kw), np.float32)
+    timg = torch.from_numpy(img).to(TDT[precision])
+    plain = tops.tilted_fused_stack(timg, tl, **kw).float().numpy()
+    calls = []
+
+    def emulated(xs, first, w, b, *, compute_dtype=None, hidden_channels=None, **args):
+        assert w.shape[-1] == 64 and ttf.launch_chp(64, xs.dtype) == 64
+        assert ttf.hidden_chp(64, hidden_channels, xs.shape[3], xs.dtype) is None  # wide
+        calls.append(xs.shape)
+        out = emulate_k1(xs, first, w, b, precision=precision, **args)
+        return torch.from_numpy(out).to(xs.dtype)
+
+    monkeypatch.setattr(ttf, "tilted_fusion_call", emulated)
+    got = tops.tilted_fused_stack(timg, tl, **kw).float().numpy()
+    assert len(calls) == 1 and got.shape == (64, 16, 27)
+    assert np.isfinite(got).all() and np.abs(got).max() > 0.1
+    np.testing.assert_allclose(got, want, atol=TOL[precision], rtol=0)
+    np.testing.assert_allclose(got, plain, atol=TOL[precision], rtol=0)

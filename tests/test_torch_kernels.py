@@ -269,7 +269,9 @@ def test_tilted_fused_property(width, tile, depth, ch, bands, rows):
 def test_launch_chp_pads_to_the_next_instance(chp):
     """Every multiple of 8 the Pallas kernel takes launches the smallest
     built instance at or above it; every instance fits one CTA's shared
-    memory in both dtypes and takes ``tile_cols`` 8."""
+    memory in both dtypes (half the SM where its schedule claims two CTAs
+    an SM) and takes ``tile_cols`` 8; a wide instance's n-group divides its
+    width and holds at most 96 outputs."""
     inst = ttf.launch_chp(chp)
     assert inst in ttf.SUPPORTED_CHP and inst >= chp
     assert all(c < chp for c in ttf.SUPPORTED_CHP if c < inst)
@@ -278,7 +280,11 @@ def test_launch_chp_pads_to_the_next_instance(chp):
         assert ttf.launch_chp(chp, dtype) == inst
         assert ttf.shared_bytes(inst, dtype) <= SMEM_PER_BLOCK_BYTES == 232_448
         assert ttf.max_tile_cols(inst, dtype) >= 8 and ttf.block_rows(8, inst, dtype) >= 1
-        assert inst % ttf.n_group(inst, dtype) == 0 and ttf.n_group(inst, dtype) <= 32
+        assert inst % ttf.n_group(inst, dtype) == 0 and ttf.n_group(inst, dtype) <= 96
+        sched = ttf.wide_schedule(inst, dtype)
+        if sched:
+            assert sched.ng == ttf.n_group(inst, dtype) and 9 % sched.taps == 0
+            assert sched.ctas * (ttf.shared_bytes(inst, dtype) + 1024) <= 233_472
     with pytest.raises(ValueError, match="widest instance"):
         ttf.launch_chp(chp + 128)
 

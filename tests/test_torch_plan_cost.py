@@ -372,6 +372,71 @@ def test_launch_cost_of_a_mixed_launch_walks_the_kernels_loops(segments, out):
                 stream * (C0P + out) + 3 * R * C0P + weights) + (8 * 3 if bounds else 0)
 
 
+def _walk_the_wide_source(plan, R, C, c0p, chp, L, dtype, bounds, replicate):
+    """Part (b) of a launch of a wide instance, walking
+    ``tilted_fusion_wide_kernel`` loop by loop: the packing (the weights
+    read, the slices written), then per CTA its bounds and the queue's
+    start state, and per (tile, layer) step and row block the window's
+    copies (pixel by pixel), every n-group's weight slices of ``taps``
+    (tap, n-group) B blocks each, or of half a tap's k-steps, the bias the
+    block's epilogues read, and the carried layers' stores."""
+    es = dtype.itemsize
+    k = 8 if dtype == torch.float32 else 16
+    ks0, ks = -(-c0p // k), chp // k
+    sched = ttf.wide_schedule(chp, dtype)
+    words = (2 if dtype == torch.bfloat16 else 4) * sched.ng // 8  # a lane's, a k-step
+
+    def slice_bytes(ksteps, j):  # slice j: its taps' k-steps (or piece j % 2's) x 32 lanes
+        if sched.halves == 1:
+            return sched.taps * ksteps * 32 * words * 4
+        half = -(-ksteps // 2)
+        return (min(ksteps, (j % 2 + 1) * half) - j % 2 * half) * 32 * words * 4
+
+    weights = L * (9 * chp * chp + chp)
+    packed = 9 * (chp // sched.ng) * 32 * words * 4 * (ks0 + (L - 1) * ks)
+    nr = min(256 // C, 320 // (C + 2) - 2)
+    total = weights * es + packed
+    for _ in range(plan.bands):
+        for kw, k0, k1 in plan.ranges():
+            total += 8 if bounds else 0
+            total += (L - 1) * R * 2 * chp * es  # one parity of the queue zeroed
+            for kt in range(kw, k1):
+                for l in range(L if kt >= k0 else L - 1):
+                    for r0 in range(0, R, nr):
+                        for _grp in range(chp // sched.ng):
+                            for j in range(9 // sched.taps * sched.halves):
+                                total += slice_bytes(ks0 if l == 0 else ks, j)
+                        total += chp * es  # the bias
+                        for wr in range(min(nr, R - r0) + 2):
+                            if not 0 <= r0 - 1 + wr < R and not replicate:
+                                continue  # zero-filled
+                            for wc in range(C + 2):
+                                if l > 0:
+                                    total += chp * es
+                                elif kt * C - 1 + wc >= 0:
+                                    total += c0p * es
+                    if l < L - 1:
+                        total += R * C * chp * es + R * 2 * chp * es  # slab, queue stored
+    K = plan.tiles
+    total -= plan.bands * R * (K * C * c0p + c0p) * es + weights * es
+    return total - (8 * plan.bands if bounds else 0)
+
+
+@pytest.mark.parametrize("chp", [48, 64, 96, 128])
+@pytest.mark.parametrize("segments", [1, 3])
+def test_launch_cost_of_a_wide_launch_walks_the_kernels_loops(segments, chp):
+    """A wide instance's part (b), as the walk of its loops finds it, for
+    its own schedule (n-groups, taps or half a tap a slice)."""
+    plan = ttf.segment_plan(2, 5, TILE_COLS, 4, sms=8, segments=segments)
+    for dtype in (torch.float32, torch.bfloat16):
+        for R, C, replicate, bounds in ((13, TILE_COLS, False, True), (61, TILE_COLS, True, False),
+                                        (9, 3, True, True)):
+            want = _walk_the_wide_source(plan, R, C, C0P, chp, 4, dtype, bounds, replicate)
+            got = ttf.launch_cost(plan, band_rows=R, tile_cols=C, c0p=C0P, chp=chp, num_layers=4,
+                                  dtype=dtype, bounds=bounds, replicate=replicate)
+            assert got["workspace_bytes"] == want, (dtype, R, C, replicate)
+
+
 def test_the_wrapper_on_meta_tensors_records_and_launches_nothing():
     args, kw = _meta_args(4, BAND_ROWS, 5, dtype=torch.bfloat16, bounds=True)
     before = ttf.tilted_fusion_call.launches

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""K1's device time at the ABPN x3 design point (and, where the tree has the
-wide instances, at ABPN x4) on one CUDA card, for one source tree.
+"""K1's device time on one CUDA card, for one source tree: ABPN x3, ABPN x4
+(where the tree has the wide instances) and ABPN x3 at wider feature maps,
+each beside cuDNN's conv stack on the same layers.
 
 Run from the root of a checkout, on a machine with an NVIDIA card and nvcc:
 
@@ -15,13 +16,27 @@ bands of 60 rows a frame, ``zero``, tile 8) it times
 ``tilted_fusion_call`` with its automatic segment plan in fp32 and bf16:
 five launches queued behind a ~20 ms device sleep between two CUDA events,
 the median of ``--rounds`` rounds, as ``chip_smoke.py``'s ``device_ms``.
-The weights are ``init_abpn`` from seed 0 (x3) and seeded He weights
-(x4).  ABPN x4 is timed on both of its paths where the tree has them: the
-wide Chp 48 instance (``x4-wide``, the call without ``hidden_channels``)
-and the mixed launch the serving path makes (``x4-mixed``: the hidden
-layers on the Chp 32 instance, ``hidden_channels`` from ``pack_stack``).
-It prints the card's name and power limit, one line a shape, and one JSON
-line.
+
+The stacks:
+
+* ``x3`` -- ``init_abpn`` from seed 0 (Chp 32, the narrow instance);
+* ``x4-wide`` / ``x4-mixed`` -- ABPN x4 from seeded He weights, on the wide
+  Chp 48 instance (the call without ``hidden_channels``) and on the mixed
+  launch the serving path makes (``hidden_channels`` from ``pack_stack``),
+  where the tree has them;
+* ``x3-F48``, ``x3-F64``, ``x3-F96``, ``x3-F128`` -- ABPN x3 with
+  ``ABPNConfig(feature_channels=F)`` (3 -> F x6 -> 27), seeded He weights
+  through ``models.abpn.layers_from_numpy``, on the wide Chp F instance;
+  F = 48 and 96 at one frame only.
+
+Beside each: cuDNN's conv stack on the same layers (NCHW ``conv2d`` + ReLU,
+TF32 off, bf16 for bf16, the weights cast before timing), timed the same
+way; the bounds of the stack's useful work (fp32 as 3xTF32 at the TF32
+peak, bf16 at the bf16 peak, and the bytes of the input, the output and the
+weights at the memory rate, the published H100 SXM rates; ``tools/_stacks.py``
+has these and the seeded He weights); and ``launch_cost``'s executed GFLOP and bytes
+for the launch's own segment plan, as the tree counts them.  It prints the
+card's name and power limit, one line a cell, and one JSON line.
 
 Exits 2 without a CUDA device.
 """
@@ -33,7 +48,12 @@ import statistics
 import subprocess
 import sys
 
+from _stacks import cudnn_stack, he_arrays, useful_bound
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# H100 SXM, dense (NVIDIA's data sheet): TF32 and bf16 tensor cores, HBM3
+PEAKS = {"tf32": 495e12, "bf16": 989e12, "bytes": 3.35e12}
+WIDE_F = {48: (1,), 64: (1, 8), 96: (1,), 128: (1, 8)}  # feature widths -> frame counts
 
 
 def device_ms(torch, fn, calls=5, rounds=5):
@@ -74,24 +94,26 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}; src: {os.path.abspath(args.src)}")
     dev = torch.device("cuda")
-    x3 = init_abpn(torch.Generator().manual_seed(0), device=dev)
-    stacks = {"x3": (x3, False)}
-    if 48 in getattr(ttf, "SUPPORTED_CHP", ()):
-        ch = ABPNConfig(scale=4).channels
-        rng = np.random.default_rng(40)
-        x4 = layers_from_numpy(
-            [((rng.normal(size=(3, 3, ch[i], ch[i + 1])) * (2.0 / (9 * ch[i])) ** 0.5)
-              .astype(np.float32), (rng.normal(size=(ch[i + 1],)) * 0.1).astype(np.float32),
-              i < len(ch) - 2) for i in range(len(ch) - 1)], device=dev)
-        stacks["x4-wide"] = (x4, False)
+    # name -> (layers, mixed, frame counts)
+    stacks = {"x3": (init_abpn(torch.Generator().manual_seed(0), device=dev), False, (1, 8))}
+    wide = 48 in getattr(ttf, "SUPPORTED_CHP", ())
+    if wide:
+        x4 = layers_from_numpy(he_arrays(np, ABPNConfig(scale=4).channels, 40), device=dev)
+        stacks["x4-wide"] = (x4, False, (1, 8))
         if hasattr(ttf, "hidden_chp"):
-            stacks["x4-mixed"] = (x4, True)
+            stacks["x4-mixed"] = (x4, True, (1, 8))
+        for f, counts in WIDE_F.items():
+            ch = ABPNConfig(feature_channels=f).channels
+            stacks[f"x3-F{f}"] = (layers_from_numpy(he_arrays(np, ch, 60 + f), device=dev),
+                                  False, counts)
     gen = torch.Generator().manual_seed(1)
     out = {"card": card, "src": os.path.abspath(args.src)}
-    for name, (layers, mixed) in stacks.items():
+    for name, (layers, mixed, counts) in stacks.items():
         L = len(layers)
-        for n in (1, 8):
+        cudnn = {dt: cudnn_stack(torch, layers, dt) for dt in (torch.float32, torch.bfloat16)}
+        for n in counts:
             xb = torch.rand((n * 6, 60, 640, 3), generator=gen).to(dev)
+            nchw = xb.permute(0, 3, 1, 2).contiguous()
             kw = dict(width=640, tile_cols=8, relu_flags=[l.relu for l in layers],
                       in_channels=3, add_anchor=False)
             for prec, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
@@ -101,8 +123,36 @@ def main(argv=None) -> int:
                 xs, first = ops.band_streams(xb.to(dt), 8, L)
                 ms = device_ms(torch, lambda: ttf.tilted_fusion_call(
                     xs, first, packed.w, packed.b, **kw), rounds=args.rounds)
-                out[f"{name}/{prec}/{n}"] = ms
-                print(f"K1 {name} {prec} {n} frame{'s' if n > 1 else ''}: {ms:.4f} ms queued")
+                nx = nchw.to(dt)
+                lib_ms = device_ms(torch, lambda: cudnn[dt](nx), rounds=args.rounds)
+                useful = useful_bound(layers, n * 360 * 640, prec, dt.itemsize, PEAKS)
+                flops, bytes_ms = useful["flops"], useful["bytes_bound_ms"]
+                cell = dict(ms=ms, cudnn_ms=lib_ms, gflop=flops / 1e9,
+                            bound_ms=useful["bound_ms"], bound_by=useful["bound_by"],
+                            bytes_bound_ms=bytes_ms)
+                plan = ttf.launch_plan(xs, packed.w, tile_cols=8, compute_dtype=dt,
+                                       hidden_channels=kw.get("hidden_channels"))
+                if hasattr(ttf, "launch_cost"):
+                    extra = {}
+                    if mixed:
+                        extra["hidden_chp"] = ttf.hidden_chp(packed.chp, packed.hidden_channels,
+                                                             xs.shape[3], dt)
+                    cost = ttf.launch_cost(plan, band_rows=60, tile_cols=8, c0p=xs.shape[3],
+                                           chp=ttf.launch_chp(packed.chp, dt), num_layers=L,
+                                           dtype=dt, **extra)
+                    cell.update(executed_gflop=cost["flops"] / 1e9,
+                                executed_mb=cost["bytes"] / 1e6)
+                cell.update(segments=plan.segments, ctas=plan.ctas)
+                out[f"{name}/{prec}/{n}"] = cell
+                print(f"K1 {name} {prec} {n} frame{'s' if n > 1 else ''}: {ms:.4f} ms queued "
+                      f"(S={plan.segments}); cuDNN stack {lib_ms:.4f} ms "
+                      f"({lib_ms / ms:.2f}x K1's time); bound {cell['bound_ms']:.4f} ms "
+                      f"({cell['bound_by']}; bytes {bytes_ms:.4f}) -> "
+                      f"{100 * cell['bound_ms'] / ms:.1f}%; {flops / 1e9:.2f} GFLOP of the "
+                      f"stack" + (f", K1 executes {cell['executed_gflop']:.2f} GFLOP "
+                                  f"({cell['executed_gflop'] / ms:.1f} TFLOP/s) and moves "
+                                  f"{cell['executed_mb']:.1f} MB" if "executed_gflop" in cell
+                                  else ""), flush=True)
     print(json.dumps(out))
     return 0
 
