@@ -15,7 +15,9 @@ each of their parts to the end and then fail with every failure listed):
    template instance's registers, stack, shared and local memory, and K1's
    and K2's dynamic shared memory per CTA and resident CTAs per SM for each
    instance (K1: Chp 16 and 32 narrow, the Chp 32 mixed one, 48, 64, 96
-   and 128 wide; K2: the persistent instances and the wide one);
+   and 128 wide; K2: the persistent instances, and the wide one at each
+   wide layer shape of the card's paths with its plan, its shared memory
+   held to ``conv3x3.wide_plan``'s);
 3. K1 vs plain — K1 against ``tilted_fusion_plain`` on the card at the
    design point (the 6 bands of a 360x640 frame under zero and replicate,
    the 74-row halo slabs with bounds, the anchor) in fp32 (max abs diff
@@ -42,7 +44,10 @@ each of their parts to the end and then fail with every failure listed):
    to the fp32 tolerance) and bf16 (<= 2e-2 + 2e-2 |want|, the JAX
    package's K2 tolerances); and on the wide instance at ABPN x4's last
    layer (28 -> 48, on its stack's features), 48 -> 48 and 128 -> 128
-   over the frame, same tolerances;
+   over the frame, and at ABPN x3 with 64 and 128 feature channels on the
+   features of its own stack (phase 4w's weights): the first layer (3 -> F,
+   taps folded), the first hidden layer (F -> F) and the last (F -> 27),
+   same tolerances;
 4. main path — ``SRServer.open("abpn_x3", backend="kernel", precision=p,
    layers=...)`` at full ABPN x3 width (the stack of phase 3) serves a 4-frame
    360x640 request, two 2-frame requests that coalesce into one dispatch,
@@ -77,7 +82,11 @@ each of their parts to the end and then fail with every failure listed):
    bf16, held against ``engine.run`` on the ``reference`` backend (TF32
    off) at 5e-4 / 5e-2; K2's launch counter, zeroed just before, must have
    moved; then ABPN x4 over one frame the same way (its last layer on K2's
-   wide instance), 7 launches, K2's counter zeroed just before;
+   wide instance), 7 launches, K2's counter zeroed just before; then ABPN
+   x3 at 64 and 128 feature channels (phase 4w's stacks) over one frame,
+   fp32 and bf16, every layer on K2's wide instance (``is_wide``), 7
+   launches a run, K2's counter zeroed just before, held to the
+   ``reference`` backend at 5e-4 / 5e-2;
 4c. temporal delta path — K1 against its plain version at the delta path's
    shapes (one dirty band; three halo bands padded to four slots, the pad's
    bounds (0, 0)), each real band bit-identical to the same band of the
@@ -288,7 +297,10 @@ each of their parts to the end and then fail with every failure listed):
    and bf16), the 3xTF32 and bf16 bounds of the unpadded work and the FLOPs
    each path executes (``engine.plan_cost``, ``launch_cost``); K2's
    28 -> 48 layer and the 7-launch x4 stack a frame beside their bounds
-   and cuDNN;
+   and cuDNN; K2's 7-launch stacks of ABPN x3 at 64 and 128 feature
+   channels a frame, fp32 and bf16, queued and one call, beside cuDNN's
+   stack (TF32 off, bf16 weights cast before timing), the bound of the
+   stack's useful work and the plain version (fp32);
 6. the kernels line, then the card's name and power limit, then the result.
 
 Exits 2 and prints no result when no CUDA device is present.
@@ -2296,6 +2308,9 @@ def x4_times(torch, engine, ops, ttf, k2, dev, layers4, peaks, gen):
 # ABPN x3 at wider feature maps: K1's wide instances on the serving path
 # ----------------------------------------------------------------------
 WIDE_FEATURES = (64, 128)  # ABPNConfig(feature_channels=F): Chp 64 and 128
+# K2's wide layer shapes on the card's paths: ABPN x4's last layer, and ABPN
+# x3 at F = 64 and 128 run layer by layer
+K2_WIDE_SHAPES = ((28, 48), (3, 64), (64, 64), (64, 27), (3, 128), (128, 128), (128, 27))
 WIDE_SERVED = (("fp32", "zero"), ("bf16", "zero"), ("int8", "zero"), ("fp32", "halo"))
 
 
@@ -2424,6 +2439,92 @@ def wide_times(torch, ops, ttf, dev, stacks, peaks, gen):
     return out
 
 
+def wide_layerwise(torch, engine, ops, k2, dev, stacks, frames):
+    """Phase 4b at wider feature maps: ABPN x3 at each F of WIDE_FEATURES
+    over one 360x640 frame as 7 ``ops.conv3x3`` launches, every one on K2's
+    wide instance, plus ``engine.sr_epilogue``, in fp32 and bf16, held to
+    ``engine.run`` on the ``reference`` backend (TF32 off) at TOL.  K2's
+    counter is zeroed just before and must move by exactly 7 a run.
+    Returns (per_config, launches)."""
+    kcall = k2.conv3x3_call
+    kcall.launches = 0
+    per_config = {}
+    for f, layers_f in stacks.items():
+        for prec in ("fp32", "bf16"):
+            plan = engine.make_plan(layers_f, (H, W, 3), backend="reference", precision=prec,
+                                    scale=SCALE)
+            prepared = engine.prepare_layers(layers_f, prec)
+            require(all(k2.is_wide(l.ci, l.co) for l in prepared),
+                    f"F={f}: a layer of the stack is not on K2's wide instance")
+            x = frames[:1].to(engine.compute_dtype_for(prec))
+            before = kcall.launches
+            feat = x[0]
+            for l in prepared:
+                feat = ops.conv3x3(feat, l.w, l.b, relu=l.relu)
+            hr = engine.sr_epilogue(plan, x, feat[None], frames.dtype)
+            launched = kcall.launches - before
+            want = engine.run(plan, layers_f, frames[:1], device=dev)
+            require(tuple(hr.shape) == (1, H * SCALE, W * SCALE, 3),
+                    f"wide layerwise F={f} {prec}: HR shape")
+            require(bool(torch.isfinite(hr).all()), f"wide layerwise F={f} {prec}: non-finite HR")
+            err = (hr.float() - want.float()).abs().max().item()
+            per_config[f"F{f}/{prec}"] = {"launches": launched, "max_abs_err": err}
+            print(f"wide layer by layer [F={f}, {prec}]: K2 launches {launched} (7, all on the "
+                  f"wide instance), HR vs reference backend max_abs_err={err:.3e} "
+                  f"(tol {TOL[prec]:g})")
+            require(launched == 7, f"wide layerwise F={f} {prec}: K2 launches {launched}")
+            require(err <= TOL[prec], f"wide layerwise F={f} {prec}: HR vs reference backend")
+    launches = kcall.launches
+    print(f"wide layer-by-layer path K2 launches: {launches}")
+    return per_config, launches
+
+
+def wide_k2_times(torch, k2, stacks, peaks, frame):
+    """Phase 5 at wider feature maps: K2's 7-launch stack over one 360x640
+    frame on each wide stack, fp32 and bf16, queued behind a sleep and one
+    frame between two events, beside cuDNN's stack on the same layers (TF32
+    off, bf16 weights cast before timing), the bound of the stack's useful
+    work (3xTF32 or bf16 tensor-core peak, bytes) and the plain version's
+    time (fp32)."""
+    out = {}
+    for f, layers_f in stacks.items():
+        row = {}
+        for prec, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            ls = [l.to(dtype=dt) for l in layers_f]
+            x = frame.to(dt)
+            nchw = x.permute(2, 0, 1)[None].contiguous()
+            cudnn = _stacks.cudnn_stack(torch, layers_f, dt)
+
+            def run(x=x, ls=ls):
+                for l in ls:
+                    x = k2.conv3x3_call(x, l.w, l.b, relu=l.relu)
+                return x
+
+            useful = _stacks.useful_bound(layers_f, H * W, prec, dt.itemsize, peaks)
+            cell = dict(ms=device_ms(torch, run, calls=5), one_call_ms=time_ms(torch, run, reps=5),
+                        library_ms=device_ms(torch, lambda: cudnn(nchw), calls=5),
+                        bound_ms=useful["bound_ms"], bound_by=useful["bound_by"],
+                        bytes_bound_ms=useful["bytes_bound_ms"], flops=useful["flops"])
+            if prec == "fp32":
+                def plain(x=x, ls=ls):
+                    for l in ls:
+                        x = k2.conv3x3_plain(x, l.w, l.b, relu=l.relu)
+                    return x
+
+                cell["plain_ms"] = time_ms(torch, plain, reps=1)
+            row[prec] = cell
+            print(f"wide K2 stack F={f} {prec}, one {H}x{W} frame (7 launches): {cell['ms']:.4f} "
+                  f"ms queued, {cell['one_call_ms']:.4f} ms between two events; cuDNN stack "
+                  f"{cell['library_ms']:.4f} ms queued ({cell['library_ms'] / cell['ms']:.2f}x "
+                  f"K2's time); bound {cell['bound_ms']:.4f} ms ({cell['bound_by']}; bytes "
+                  f"{cell['bytes_bound_ms']:.4f}) -> {100 * cell['bound_ms'] / cell['ms']:.1f}%; "
+                  f"{cell['flops'] / 1e9:.2f} GFLOP"
+                  + (f"; plain {cell['plain_ms']:.1f} ms" if "plain_ms" in cell else ""),
+                  flush=True)
+        out[f"F{f}"] = row
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import numpy as np
@@ -2492,11 +2593,12 @@ def main() -> int:
                           r"\w*?_kernel)"
                           r"I(f|13__nv_bfloat16)(?:Li(\d+)E)?(?:Lb([01])E)?E", line)
             if m:
-                flags = ({"1": ", mixed", "0": ""} if m.group(3) else
+                k2_wide = m.group(1) in ("conv3x3_wide_kernel", "pack_wide_kernel")
+                flags = ({"1": ", mixed", "0": ""} if m.group(3) and not k2_wide else
                          {"1": ", folded", "0": ", per tap"})
                 label = m.group(1) + " <" + (
                     "fp32" if m.group(2) == "f" else "bf16") + (
-                    f", chp {m.group(3)}" if m.group(3) else "") + (
+                    f", {'N' if k2_wide else 'chp'} {m.group(3)}" if m.group(3) else "") + (
                     flags[m.group(4)] if m.group(4) else "") + ">"
             res = re.search(r"REG:\d+ STACK:\d+ SHARED:\d+ LOCAL:\d+", line)
             if res and label:
@@ -2521,11 +2623,23 @@ def main() -> int:
         for kind, ci_ in (("folded", 3), ("per tap", 28)):
             k2_occ[f"{prec}/{kind}"] = dict(blocks_per_sm=k2.blocks_per_sm(dev, dt, ci_),
                                             smem_bytes=k2.smem_bytes(dt, ci_))
-        k2_occ[f"{prec}/wide"] = k2.wide_occupancy(dev, dt)  # Ci or Co past 32
+        for ci_, co_ in K2_WIDE_SHAPES:  # Ci or Co past 32: the wide instance
+            plan_ = k2.wide_plan(ci_, co_, dt)
+            occ = k2.wide_occupancy(dev, dt, ci_, co_)
+            require(occ["smem_bytes"] == plan_["smem_bytes"] and occ["blocks_per_sm"] >= 1,
+                    f"K2 wide {prec} {ci_}->{co_}: built {occ}, planned {plan_['smem_bytes']} B")
+            k2_occ[f"{prec}/wide {ci_}->{co_}"] = dict(occ, **{k: plan_[k] for k in (
+                "n", "fold", "og", "mb", "nh", "pp", "tp", "rows", "stages")})
     print(f"  conv3x3 ({k2.TILE_ROWS}x{k2.TILE_COLS} output tiles; persistent CTAs at Ci, Co <= "
-          f"32, taps folded into K at Ci <= 3; wide: a CTA a (tile, 32 outputs) pair): "
+          f"32, taps folded into K at Ci <= 3; wide: persistent CTAs of two warpgroups on wgmma, "
+          f"N outputs, og output split, mb m64 blocks, nh pieces, pp in flight, tp taps a step, "
+          f"rows a tile, a slice ring of stages): "
           + ", ".join(
               f"<{k}> {v['smem_bytes']} B shared memory, {v['blocks_per_sm']} CTAs per SM"
+              + (f" (N {v['n']}, og {v['og']}, mb {v['mb']}, nh {v['nh']}, pp {v['pp']}, "
+                 f"tp {v['tp']}, rows {v['rows']}, stages {v['stages']}"
+                 f"{', folded' if v['fold'] else ''})"
+                 if "n" in v else "")
               for k, v in k2_occ.items()))
 
     # ------------------------------------------------------------------
@@ -2627,6 +2741,7 @@ def main() -> int:
 
     # ------------------------------------------------------------------
     phase("3b. K2 vs its plain version on the card (ABPN x3 layer shapes, 360x640)")
+    wide_stacks = {f: abpn_wide_layers(np, dev, f) for f in WIDE_FEATURES}
 
     def k2_check(label, prec, x, w_, b_, relu_, tile_cols=8):
         got = k2call(x, w_, b_, tile_cols=tile_cols, relu=relu_)
@@ -2666,6 +2781,18 @@ def main() -> int:
             xw = torch.rand((H, W, ci_), generator=gen).to(dev, dt)
             k2_check(f"{ci_}->{co_}", prec, xw, torch.from_numpy(wa).to(dev, dt),
                      torch.from_numpy(ba).to(dev, dt), True)
+        # ABPN x3 at F = 64 and 128 on its own features: the first layer
+        # (3 -> F, taps folded), the first hidden layer (F -> F) and the last
+        # (F -> 27), the layers between run through K2
+        for f_, layers_f in wide_stacks.items():
+            ls = [l.to(dtype=dt) for l in layers_f]
+            feat = frame[0].to(dt)
+            for i, l in enumerate(ls):
+                if i in (0, 1, len(ls) - 1):
+                    feat = k2_check(f"x3 F={f_} layer {i}, {l.ci}->{l.co}", prec, feat, l.w, l.b,
+                                    l.relu)
+                else:
+                    feat = k2call(feat, l.w, l.b, relu=l.relu)
 
     # ------------------------------------------------------------------
     phase("4. main path: SRServer.open('abpn_x3', backend='kernel') serving")
@@ -2722,7 +2849,6 @@ def main() -> int:
     # ------------------------------------------------------------------
     phase("4w. wide feature maps: SRServer.open('abpn_x3', layers=<ABPN x3 at F = 64, 128>) "
           "on K1's wide instances")
-    wide_stacks = {f: abpn_wide_layers(np, dev, f) for f in WIDE_FEATURES}
     wide_path, wide_launches = serve_wide(torch, np, engine, dev, wide_stacks, kcall)
     t0 = time.perf_counter()
     wide = wide_times(torch, ops, ttf, dev, wide_stacks, peaks, gen)
@@ -2791,6 +2917,9 @@ def main() -> int:
         require(err <= TOL[prec], f"x4 layerwise {prec}: HR output vs reference backend")
     layerwise4_launches = k2call.launches
     print(f"x4 layer-by-layer path K2 launches: {layerwise4_launches}")
+    # ABPN x3 at F = 64 and 128 layer by layer: every layer on K2's wide instance
+    wide_layerwise_path, wide_layerwise_launches = wide_layerwise(
+        torch, engine, ops, k2, dev, wide_stacks, lw_frames)
 
     # ------------------------------------------------------------------
     phase("4c. temporal delta path: server.stream(clip, delta=True), partial-band K1 dispatches")
@@ -3720,6 +3849,10 @@ def main() -> int:
     t0 = time.perf_counter()
     x4 = x4_times(torch, engine, ops, ttf, k2, dev, layers4, peaks, gen)
     print(f"x4 times took {time.perf_counter() - t0:.1f} s")
+    # ABPN x3 at F = 64 and 128 layer by layer: K2's wide instance
+    t0 = time.perf_counter()
+    wide_k2 = wide_k2_times(torch, k2, wide_stacks, peaks, frame32)
+    print(f"wide K2 times took {time.perf_counter() - t0:.1f} s")
 
     # ------------------------------------------------------------------
     phase("6. kernels")
@@ -3795,7 +3928,7 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/conv3x3.cu",
         "replaces": "src/repro/kernels/conv3x3.py:28",
-        "launches": layerwise_launches + layerwise4_launches,
+        "launches": layerwise_launches + layerwise4_launches + wide_layerwise_launches,
         "max_abs_err": k2_worst["fp32"],
         "max_abs_err_bf16": k2_worst["bf16"],
         "ms": stack["ms"],
@@ -3826,6 +3959,15 @@ def main() -> int:
                "plain_ms": x4["k2_layer_28_48"]["plain_ms"],
                "bound_ms": x4["k2_stack"]["bound_ms"], "bound_by": x4["k2_stack"]["bound_by"],
                "library_ms": x4["k2_stack"]["library_ms"]},
+        "wide": {"shape": f"ABPN x3 at F = {', '.join(map(str, WIDE_FEATURES))} feature "
+                          f"channels over one {H}x{W} frame, 7 launches of the wide instance; "
+                          "times per F, fp32 and bf16",
+                 "path": wide_layerwise_path, "launches": wide_layerwise_launches,
+                 "times": wide_k2, "ms": wide_k2["F128"]["fp32"]["ms"],
+                 "plain_ms": wide_k2["F128"]["fp32"]["plain_ms"],
+                 "bound_ms": wide_k2["F128"]["fp32"]["bound_ms"],
+                 "bound_by": wide_k2["F128"]["fp32"]["bound_by"],
+                 "library_ms": wide_k2["F128"]["fp32"]["library_ms"]},
     }]
     print("kernels: " + json.dumps({k["name"]: {"launches": k["launches"], "replaces": k["replaces"]}
                                     for k in kernels}))

@@ -16,9 +16,13 @@ a round trip through device memory.
   layer of Ci, Co <= 32 runs persistent CTAs over ``TILE_ROWS x TILE_COLS``
   output tiles on the tensor cores (bf16 products; fp32 through 3xTF32),
   with at most :func:`blocks_per_sm` CTAs on each SM (:func:`launch_grid`);
-  a wider one (:func:`is_wide`, Ci and Co up to :data:`MAX_CHANNELS`) one
-  CTA a (tile, n-group of 32 outputs) pair, Ci in k-chunks of 32, weights
-  packed once a launch into a workspace the wrapper allocates.
+  a wider one (:func:`is_wide`, Ci and Co up to :data:`MAX_CHANNELS`) runs
+  the wide instance: persistent CTAs of two warpgroups, every tile with all
+  its outputs on ``wgmma``, Ci in k-chunks of 32, each (chunk, tap) with its
+  own slice of weights, packed once a launch into a workspace the wrapper
+  allocates and streamed through shared memory behind the MMAs one step
+  (one, three or nine taps) at a time (:func:`wide_plan`,
+  :func:`wide_copies`).
 * :func:`conv3x3_plain` — the plain PyTorch version of the TPU kernel's
   dataflow: zero padding out to the column-tile grid, the ``(R+2, C+2, Ci)``
   slab of every C-column tile, 9 shifted fp32 products in the order dy then
@@ -30,6 +34,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import re
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
@@ -43,6 +49,9 @@ __all__ = [
     "MAX_CHANNELS",
     "NARROW_CHANNELS",
     "is_wide",
+    "wide_plan",
+    "wide_copies",
+    "wide_occupancy",
     "TILE_ROWS",
     "TILE_COLS",
     "blocks_per_sm",
@@ -133,11 +142,12 @@ def _lib() -> ctypes.CDLL:
         lib.conv3x3_blocks_per_sm.restype = ci
         lib.conv3x3_smem_bytes.argtypes = [ci, ci, ctypes.POINTER(ci)]
         lib.conv3x3_smem_bytes.restype = ci
-        lib.conv3x3_wide_launch.argtypes = [ci] + [vp] * 5 + [ci] * 5 + [vp]
+        lib.conv3x3_wide_launch.argtypes = [ci] + [vp] * 5 + [ci] * 6 + [vp]
         lib.conv3x3_wide_launch.restype = ci
         lib.conv3x3_wide_workspace_bytes.argtypes = [ci, ci, ci]
         lib.conv3x3_wide_workspace_bytes.restype = ci
-        lib.conv3x3_wide_occupancy.argtypes = [ci, ctypes.POINTER(ci), ctypes.POINTER(ci)]
+        lib.conv3x3_wide_occupancy.argtypes = [ci, ci, ci, ctypes.POINTER(ci),
+                                               ctypes.POINTER(ci)]
         lib.conv3x3_wide_occupancy.restype = ci
         lib.conv3x3_error_string.argtypes = [ci]
         lib.conv3x3_error_string.restype = ctypes.c_char_p
@@ -159,21 +169,108 @@ def _dtype_code(dtype):
 
 def is_wide(ci: int, co: int) -> bool:
     """Whether a ``ci -> co`` layer runs the wide instance (Ci or Co above
-    :data:`NARROW_CHANNELS`): one CTA a (tile, n-group of 32 outputs) pair,
-    Ci in k-chunks of 32.  The others run the persistent instances, taps
-    folded into K at Ci <= 3."""
+    :data:`NARROW_CHANNELS`; :func:`wide_plan`).  The others run the
+    persistent instances, taps folded into K at Ci <= 3."""
     return int(ci) > NARROW_CHANNELS or int(co) > NARROW_CHANNELS
 
 
-def wide_occupancy(device, dtype) -> dict:
-    """``blocks_per_sm`` and ``smem_bytes`` of the wide instance of
-    ``dtype`` on a CUDA ``device`` (builds the kernel on first use)."""
+_SOURCE = Path(__file__).resolve().parent / "csrc" / "conv3x3.cu"
+FOLD_MAX_CI = 3  # taps folded into K up to here (kFoldMaxCi)
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_table() -> tuple:
+    """The wide instances' plan as the CUDA source states it: ``({(element
+    bytes, N): (og, mb, nh, pp, tp)}, ring bytes, most stages)`` from
+    ``kWidePlan``, ``kWideRingBytes`` and ``kWideMaxStages``."""
+    src = _SOURCE.read_text()
+    body = re.search(r"kWidePlan\[\] = \{(.*?)\};", src, re.S).group(1)
+    rows = {(int(r[0]), int(r[1])): tuple(map(int, r[2:])) for r in re.findall(
+        r"\{\s*" + r",\s*".join([r"(\d+)"] * 7) + r"\s*\}", body)}
+    ring = int(re.search(r"kWideRingBytes = (\d+);", src).group(1))
+    stages = int(re.search(r"kWideMaxStages = (\d+);", src).group(1))
+    return rows, ring, stages
+
+
+def wide_plan(ci: int, co: int, dtype) -> dict:
+    """The wide instance a ``ci -> co`` layer of ``dtype`` storage runs on,
+    as ``csrc/conv3x3.cu`` builds it (its ``WideCfg``; a card test holds
+    ``smem_bytes`` to the built kernel's): ``n`` (Co padded to 32, 48, 64,
+    96 or 128), ``fold`` (taps folded into K, Ci <= 3), ``og`` (1: the two
+    warpgroups split the tile's pixels; 2: its outputs), ``mb`` (m64 blocks
+    a warpgroup), ``nh`` (the pieces a block's outputs are computed in),
+    ``pp`` (the pieces in flight, each with its partial sums), ``tp`` (the
+    taps a step), ``rows`` (tile rows of 32 columns), ``chunks`` and
+    ``steps`` (tp taps of a chunk each, one when folded), ``stages`` (the
+    slice ring, a step's slices a stage), ``resident`` (every slice stays
+    in the ring), and the bytes of a tap's ``slice``, a ``window`` and the
+    CTA's ``smem_bytes``."""
+    if not is_wide(ci, co):
+        raise ValueError(f"a {ci} -> {co} layer runs the persistent instances")
+    table, ring, max_stages = _wide_table()
+    esize = torch.empty((), dtype=dtype).element_size()
+    n = next(w for w in (32, 48, 64, 96, 128) if co <= w)
+    og, mb, nh, pp, tp = table[esize, n]
+    fold = int(ci) <= FOLD_MAX_CI
+    tp = 1 if fold else tp
+    rows = 2 * mb * (2 // og)
+    window = (rows + 2) * (TILE_COLS + 2) * (esize if fold else (36 if esize == 4 else 20)) * 4
+    slice_bytes = 32 * n * (8 if esize == 4 else 2)  # a tap's
+    stages = 1 if fold else max(3, min(max_stages, ring // (tp * slice_bytes)))
+    runs = (8 // og) * (16 * n * esize + 16)  # a warp's (og = 1) or a pair's staging
+    barriers = -(-16 * stages // 16) * 16  # a full and an empty mbarrier a stage
+    chunks = 1 if fold else -(-int(ci) // 32)
+    steps = 1 if fold else 9 // tp * chunks
+    return dict(n=n, fold=fold, og=og, mb=mb, nh=nh, pp=pp, tp=tp, rows=rows, chunks=chunks,
+                steps=steps, stages=stages, resident=steps <= stages, slice=slice_bytes,
+                window=window,
+                smem_bytes=stages * tp * slice_bytes + 2 * window + runs + 4 * n + barriers)
+
+
+def wide_copies(ci: int, co: int, R: int, W: int, dtype, sms: int = 132) -> dict:
+    """What a wide launch over an ``(R, W)`` map copies into shared memory:
+    ``cta_chunks`` (the (tile, k-chunk) windows, each copied once),
+    ``window_bytes`` (their copies: a pixel's 32 channels of the chunk, or
+    its Ci when folded), ``weight_bytes`` (a slice a step of every tile, or
+    every slice once a CTA where they stay resident; ``sms`` CTAs) and
+    ``smem_bytes`` (the two)."""
+    plan = wide_plan(ci, co, dtype)
+    esize = torch.empty((), dtype=dtype).element_size()
+    tiles = -(-int(R) // plan["rows"]) * -(-int(W) // TILE_COLS)
+    pixel = (int(ci) if plan["fold"] else 32) * esize
+    windows = tiles * plan["chunks"] * (plan["rows"] + 2) * (TILE_COLS + 2) * pixel
+    ctas = min(tiles, int(sms))
+    weights = ((ctas if plan["resident"] else tiles) * plan["steps"] * plan["tp"]
+               * plan["slice"])
+    return dict(cta_chunks=tiles * plan["chunks"], window_bytes=windows, weight_bytes=weights,
+                smem_bytes=windows + weights)
+
+
+def wide_occupancy(device, dtype, ci: int = 128, co: int = 128) -> dict:
+    """``blocks_per_sm`` and ``smem_bytes`` of the wide instance a ``ci ->
+    co`` layer of ``dtype`` runs on, on a CUDA ``device`` (builds the kernel
+    on first use)."""
     lib = _lib()
     blocks, nbytes = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(torch.device(device)):
-        _check_error(lib, lib.conv3x3_wide_occupancy(_dtype_code(dtype), ctypes.byref(blocks),
-                                                     ctypes.byref(nbytes)), "occupancy query")
+        _check_error(lib, lib.conv3x3_wide_occupancy(_dtype_code(dtype), int(ci), int(co),
+                                                     ctypes.byref(blocks), ctypes.byref(nbytes)),
+                     "occupancy query")
     return {"blocks_per_sm": blocks.value, "smem_bytes": nbytes.value}
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_ctas(device_index: int, dtype_code: int, ci: int, co: int) -> int:
+    lib = _lib()
+    blocks, nbytes = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        _check_error(lib, lib.conv3x3_wide_occupancy(dtype_code, ci, co, ctypes.byref(blocks),
+                                                     ctypes.byref(nbytes)), "occupancy query")
+        sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    if blocks.value < 1:
+        raise RuntimeError(f"the wide conv3x3 kernel (dtype code {dtype_code}, {ci} -> {co}) "
+                           "fits no CTA on an SM")
+    return sms * blocks.value
 
 
 @functools.lru_cache(maxsize=None)
@@ -226,13 +323,15 @@ def _launch_wide(code, xc, wc, bc, out, relu):
     R, W, ci = xc.shape
     co = wc.shape[3]
     lib = _lib()
+    index = xc.device.index if xc.device.index is not None else torch.cuda.current_device()
+    ctas = _wide_ctas(index, code, ci, co)
     ws = torch.empty((lib.conv3x3_wide_workspace_bytes(code, ci, co),), dtype=torch.uint8,
                      device=xc.device)
     with torch.cuda.device(xc.device):
         stream = torch.cuda.current_stream(xc.device).cuda_stream
         err = lib.conv3x3_wide_launch(code, xc.data_ptr(), wc.data_ptr(), bc.data_ptr(),
                                       out.data_ptr(), ws.data_ptr(), R, W, ci, co,
-                                      int(bool(relu)), stream)
+                                      int(bool(relu)), ctas, stream)
     _check_error(lib, err, "kernel launch")
 
 

@@ -15,9 +15,12 @@ Tolerances:
   support matrix's fp32 bound.
 
 ``tests/test_torch_cuda.py`` holds the CUDA kernel against its plain
-version on the card.  Here, :func:`conv3x3_3xtf32` emulates the kernel's
-fp32 arithmetic on the tensor cores (3xTF32) in numpy, to show that it
-holds the fp32 tolerance where single TF32 does not.
+version on the card.  Here, :func:`conv3x3_3xtf32` emulates the persistent
+instances' fp32 arithmetic on the tensor cores (3xTF32) in numpy, to show
+that it holds the fp32 tolerance where single TF32 does not, and
+:func:`conv3x3_wide_3xtf32` the wide instance's (Ci or Co past 32): a
+partial sum from zero for each (k-chunk of 32 channels, tap), added to one
+fp32 accumulator, the taps folded into K at Ci <= 3.
 """
 
 import jax.numpy as jnp
@@ -177,11 +180,109 @@ def test_3xtf32_holds_the_fp32_tolerance(ci, co, relu):
     assert err1.max() > 10 * err3.max()
 
 
+def conv3x3_wide_3xtf32(x, w, b, *, relu, terms=3):
+    """The wide instance's fp32 path in numpy.  Ci is cut into k-chunks of
+    32 channels (zero past Ci) and each (chunk, tap) is one pass of K = 32;
+    with Ci <= 3 the 9 taps fold into one pass (k = tap * Ci + ci, zero past
+    9 * Ci).  A pass runs k-steps of 8 as ``wgmma`` m64nNk8: each operand
+    split into ``hi = tf32(v)`` and ``lo = tf32(v - hi)``, each MMA's
+    products summed exactly and rounded once, in the order lo*hi, hi*lo,
+    hi*hi, into a partial sum that starts from zero; the partial is then
+    added to the one fp32 accumulator.  ``terms=1`` is single TF32."""
+    R, W, ci = x.shape
+    co = w.shape[3]
+    xp = np.pad(x, ((1, 1), (1, 1), (0, 0)))
+    shifted = [xp[dy:dy + R, dx:dx + W].reshape(R * W, ci) for dy in range(3) for dx in range(3)]
+    if ci <= tk2.FOLD_MAX_CI:
+        passes = [(np.concatenate(shifted, axis=1), w.reshape(9 * ci, co))]
+    else:
+        passes = [(a[:, c:c + 32], w[t // 3, t % 3, c:c + 32])
+                  for c in range(0, ci, 32) for t, a in enumerate(shifted)]
+    acc = np.zeros((R * W, co), np.float32)
+    for a, bmat in passes:
+        a = np.pad(a, ((0, 0), (0, 32 - a.shape[1])))
+        bmat = np.pad(bmat, ((0, 32 - bmat.shape[0]), (0, 0)))
+        part = np.zeros_like(acc)
+        for s in range(4):
+            (ah, al), (bh, bl) = tf32_split(a[:, 8 * s:8 * s + 8]), tf32_split(bmat[8 * s:8 * s + 8])
+            products = [(al, bh), (ah, bl), (ah, bh)] if terms == 3 else [(ah, bh)]
+            for pa, pb in products:
+                part = (part + pa.astype(np.float64) @ pb.astype(np.float64)).astype(np.float32)
+        acc = acc + part
+    out = acc + b
+    if relu:
+        out = np.maximum(out, np.float32(0))
+    return out.reshape(R, W, co)
+
+
+@pytest.mark.parametrize("ci,co,relu", [(3, 64, True), (64, 64, True), (128, 128, True),
+                                        (128, 27, False)],
+                         ids=["3to64", "64to64", "128to128", "128to27"])
+def test_wide_3xtf32_holds_the_fp32_tolerance(ci, co, relu):
+    """The wide instance's arithmetic (ABPN x3 at 64 and 128 feature
+    channels: the folded first layer, the hidden layers, the last) holds
+    K2's fp32 tolerance against the plain version; single TF32 misses it."""
+    rng = np.random.default_rng(13)
+    x = rng.uniform(size=(6, 11, ci)).astype(np.float32)
+    w = (rng.normal(size=(3, 3, ci, co)) * (2.0 / (9 * ci)) ** 0.5).astype(np.float32)
+    b = (rng.normal(size=(co,)) * 0.1).astype(np.float32)
+    assert tk2.is_wide(ci, co)
+    want = tk2.conv3x3_plain(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b),
+                             relu=relu).numpy()
+    bound = FP32["atol"] + FP32["rtol"] * np.abs(want)
+    err3 = np.abs(conv3x3_wide_3xtf32(x, w, b, relu=relu) - want)
+    err1 = np.abs(conv3x3_wide_3xtf32(x, w, b, relu=relu, terms=1) - want)
+    assert (err3 <= bound).all(), f"3xTF32 max err {err3.max():.3e}"
+    assert not (err1 <= bound).all(), f"single TF32 max err {err1.max():.3e}"
+
+
+# ----------------------------------------------------------------------
+# The wide instance's plan and what it copies, as the CUDA source builds it
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("ci,co", [(28, 48), (3, 64), (64, 64), (64, 27), (3, 128), (96, 96),
+                                   (128, 128), (128, 27), (40, 33)])
+def test_wide_plan_fits_an_sm(ci, co, dtype):
+    """Every wide layer shape gets an instance whose shared memory fits an
+    H100 SM (232,448 bytes a block), whose tile is whole 8-row blocks of 32
+    columns and whose warpgroups hold all of N between them."""
+    plan = tk2.wide_plan(ci, co, dtype)
+    assert plan["n"] >= co and plan["n"] in (32, 48, 64, 96, 128)
+    assert plan["fold"] == (ci <= 3)
+    assert plan["smem_bytes"] <= 232448
+    assert plan["rows"] % 8 == 0 and plan["rows"] == 2 * plan["mb"] * (2 // plan["og"])
+    assert plan["steps"] == (1 if plan["fold"] else 9 // plan["tp"] * -(-ci // 32))
+    assert plan["stages"] >= (1 if plan["fold"] else 2)
+    assert 1 <= plan["pp"] <= min(4, plan["mb"] * plan["nh"])
+    assert (plan["n"] // plan["og"]) % (16 * plan["nh"]) == 0
+
+
+def test_wide_plan_rejects_narrow_layers():
+    with pytest.raises(ValueError, match="persistent"):
+        tk2.wide_plan(28, 28, torch.float32)
+
+
+def test_wide_copies_at_128_to_128():
+    """A 128 -> 128 layer over one 360x640 frame: the windows are copied
+    once a (tile, k-chunk), not once a (tile, k-chunk, 32 outputs), and
+    every tile copies all 36 of its slices (the weights of all outputs)."""
+    plan = tk2.wide_plan(128, 128, torch.float32)
+    tiles = -(-360 // plan["rows"]) * 20
+    got = tk2.wide_copies(128, 128, 360, 640, torch.float32)
+    assert got["cta_chunks"] == tiles * 4
+    assert got["window_bytes"] == tiles * 4 * (plan["rows"] + 2) * 34 * 32 * 4
+    assert got["weight_bytes"] == tiles * plan["steps"] * plan["tp"] * 32 * 128 * 8
+    assert got["smem_bytes"] == got["window_bytes"] + got["weight_bytes"]
+    # folded: one slice a CTA, resident
+    folded = tk2.wide_copies(3, 64, 360, 640, torch.bfloat16, sms=132)
+    assert folded["weight_bytes"] == 132 * 32 * 64 * 2
+
+
 # ----------------------------------------------------------------------
 # The slice: ABPN x3 layer by layer through K2, at 24x32
 # ----------------------------------------------------------------------
-def abpn_arrays(seed):
-    ch = ABPNConfig().channels  # 3, 28 x6, 27
+def abpn_arrays(seed, features=28):
+    ch = ABPNConfig(feature_channels=features).channels  # 3, F x6, 27
     rng = np.random.default_rng(seed)
     return [((rng.normal(size=(3, 3, ch[i], ch[i + 1])) * (2.0 / (9 * ch[i])) ** 0.5)
              .astype(np.float32),
@@ -190,8 +291,13 @@ def abpn_arrays(seed):
             for i in range(len(ch) - 1)]
 
 
-def test_layerwise_abpn_matches_jax():
-    arrays = abpn_arrays(5)
+@pytest.mark.parametrize("features", [28, 64], ids=["F28", "F64"])
+def test_layerwise_abpn_matches_jax(features):
+    """ABPN x3 layer by layer (F = 28: the persistent instances on the
+    card; F = 64: every layer on the wide one), held to the JAX package's
+    ``ops.conv3x3`` in interpret mode, its conv-stack reference and its
+    reference backend's HR frame."""
+    arrays = abpn_arrays(5, features)
     jl = [JConvLayer(w=jnp.asarray(w), b=jnp.asarray(b), relu=r) for w, b, r in arrays]
     tl = layers_from_numpy(arrays)
     lr = np.random.default_rng(6).uniform(size=(24, 32, 3)).astype(np.float32)

@@ -516,11 +516,18 @@ def test_k2_grid_and_ragged_maps(cuda, shape, co, dtype):
     ((37, 101, 128), 128),  # the widest: four k-chunks, four n-groups, ragged
     ((19, 50, 5), 40),      # odd Ci, Co past 32 (bf16: plain loads)
     ((21, 33, 40), 27),     # Ci past 32, Co within: one n-group
-    ((9, 70, 3), 33),       # Ci <= 3 with Co past 32: the wide instance, taps not folded
+    ((9, 70, 3), 33),       # Ci <= 3 with Co past 32: the wide instance, taps folded into K
+    ((44, 72, 3), 64),      # ABPN x3 at F = 64: the first layer (folded), ragged W
+    ((30, 70, 3), 128),     # F = 128's first layer: split outputs, folded
+    ((44, 100, 64), 64),    # F = 64's hidden layers: two k-chunks, all outputs a warpgroup
+    ((44, 100, 64), 27),    # F = 64's last layer: N = 32
+    ((26, 70, 96), 96),     # three k-chunks, split outputs, ragged R and W
+    ((37, 101, 128), 27),   # F = 128's last layer: four k-chunks, N = 32
 ])
 def test_k2_wide_layers(cuda, shape, co, dtype):
-    """K2 past 32 channels: the wide instance (n-groups of 32 outputs,
-    Ci in k-chunks of 32) against the plain version."""
+    """K2 past 32 channels: the wide instance (persistent CTAs, a tile's
+    outputs in one CTA, Ci in k-chunks of 32, the taps folded into K at
+    Ci <= 3) against the plain version."""
     x, w, b = _k2_inputs(11, shape, co, dtype)
     assert tk2.is_wide(shape[2], co)
     _k2_check(cuda, x, w, b, tile_cols=8, relu=co != 27)
@@ -529,14 +536,67 @@ def test_k2_wide_layers(cuda, shape, co, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 def test_k2_unaligned_input(cuda, dtype):
     # an input one element past an aligned address: the window copies fall
-    # back to a narrower granule and the result does not change
-    x, w, b = _k2_inputs(10, (24, 70, 28), 28, dtype)
-    flat = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)
-    shifted = flat[1:].view(x.shape)
-    shifted.copy_(x.to(cuda))
-    want = tk2.conv3x3_call(x.to(cuda), w.to(cuda), b.to(cuda))
-    assert torch.equal(tk2.conv3x3_call(shifted, w.to(cuda), b.to(cuda)), want)
-    _k2_check(cuda, x, w, b, tile_cols=8, relu=True)
+    # back to a narrower granule and the result does not change, on the
+    # persistent instances and on the wide one
+    for shape, co in (((24, 70, 28), 28), ((20, 70, 64), 64)):
+        x, w, b = _k2_inputs(10, shape, co, dtype)
+        flat = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)
+        shifted = flat[1:].view(x.shape)
+        shifted.copy_(x.to(cuda))
+        want = tk2.conv3x3_call(x.to(cuda), w.to(cuda), b.to(cuda))
+        assert torch.equal(tk2.conv3x3_call(shifted, w.to(cuda), b.to(cuda)), want)
+        _k2_check(cuda, x, w, b, tile_cols=8, relu=True)
+
+
+SM_SHARED_BYTES = 233472  # an H100 SM's shared memory, 1 KB of it reserved a CTA
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("ci,co", [(3, 64), (3, 128), (28, 48), (64, 64), (64, 27), (96, 96),
+                                   (128, 128), (128, 27)])
+def test_k2_wide_occupancy(cuda, ci, co, dtype):
+    """The built wide instance takes the shared memory ``wide_plan`` counts,
+    and as many CTAs an SM as the design claims: one where its shared
+    memory leaves room for one, at most what shared memory allows
+    elsewhere."""
+    occ = tk2.wide_occupancy(cuda, dtype, ci, co)
+    plan = tk2.wide_plan(ci, co, dtype)
+    assert occ["smem_bytes"] == plan["smem_bytes"]
+    fit = SM_SHARED_BYTES // (plan["smem_bytes"] + 1024)
+    assert 1 <= occ["blocks_per_sm"] <= fit
+    if fit == 1:
+        assert occ["blocks_per_sm"] == 1
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_k2_wide_stack_layer_by_layer(cuda, precision):
+    """ABPN x3 at F = 64 (3 -> 64 x6 -> 27) layer by layer: 7 launches of
+    K2's wide instance over a 44x72 frame, the HR frame held against the
+    reference backend on the card (TF32 off)."""
+    from repro_torch.models.abpn import ABPNConfig
+
+    ch = ABPNConfig(feature_channels=64).channels
+    rng = np.random.default_rng(64)
+    layers = layers_from_numpy(
+        [((rng.normal(size=(3, 3, ch[i], ch[i + 1])) * (2.0 / (9 * ch[i])) ** 0.5)
+          .astype(np.float32), (rng.normal(size=(ch[i + 1],)) * 0.1).astype(np.float32),
+          i < len(ch) - 2) for i in range(len(ch) - 1)], device=cuda)
+    lr = torch.from_numpy(rng.uniform(size=(1, 44, 72, 3)).astype(np.float32)).to(cuda)
+    plan = engine.make_plan(layers, (44, 72, 3), backend="reference", precision=precision,
+                            scale=3)
+    x = lr.to(engine.compute_dtype_for(precision))
+    launches = tk2.conv3x3_call.launches
+    f = x[0]
+    for l in engine.prepare_layers(layers, precision):
+        assert tk2.is_wide(l.ci, l.co)
+        f = ops.conv3x3(f, l.w, l.b, relu=l.relu)
+    hr = engine.sr_epilogue(plan, x, f[None], lr.dtype)
+    torch.cuda.synchronize()
+    assert tk2.conv3x3_call.launches == launches + 7
+    want = engine.run(plan, layers, lr, device=cuda)
+    assert tuple(hr.shape) == (1, 132, 216, 3)
+    np.testing.assert_allclose(hr.float().cpu().numpy(), want.float().cpu().numpy(),
+                               atol=TOL[x.dtype], rtol=0)
 
 
 def test_k2_rejects_what_it_does_not_take(cuda):

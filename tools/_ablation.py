@@ -76,6 +76,8 @@ def build(src_path, out_dir, variants, entry, label):
                 usage.append(f"{inst} {m.group(1)} registers, {spilled} B spilled")
                 inst = None
         print(f"{name}: {', '.join(usage)}", flush=True)
+        for line in sorted({l.strip() for l in out.splitlines() if "arning" in l}):
+            print(f"{name}: {line}", flush=True)
         libs[name] = lib
     return libs
 
