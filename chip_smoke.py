@@ -2044,6 +2044,51 @@ def abpn_x4_layers(np, dev):
     return layers_from_numpy(he_arrays(np, ABPNConfig(scale=X4_SCALE).channels, 40), device=dev)
 
 
+K1_ROUTE_ROWS = (20, 60, 61, 74, 86, 360)  # phase 2: band heights, each route's
+
+
+def k1_route_check(torch, np, ttf, ops, dev):
+    """Phase 2: the narrow launch (ABPN x3's stack) and the mixed one (ABPN
+    x4's) at band heights of 20 to 360 rows, fp32 and bf16, on the card.
+    Each launch takes the route the wrapper picks (``ttf.route``: the
+    feature maps in shared memory up to ABPN's 74-row halo slabs, in
+    device-memory slabs for an 86-row halo slab of 72-row bands and for the
+    one-band fallback), as the launch records it, and holds to the plain
+    version.  Returns each launch's route, shared memory and error."""
+    from repro_torch.models.abpn import ABPNConfig, layers_from_numpy
+
+    stacks = {"x3": layers_from_numpy(he_arrays(np, ABPNConfig().channels, 3), device=dev),
+              "x4-mixed": abpn_x4_layers(np, dev)}
+    gen = torch.Generator().manual_seed(86)
+    routes = {}
+    for prec, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        for label, layers in stacks.items():
+            packed = ops.pack_stack([l.to(dtype=dt) for l in layers], dtype=dt)
+            for rows in K1_ROUTE_ROWS:
+                bands, width = (1, 40) if rows == 360 else (2, 48)
+                xb = torch.rand((bands, rows, width, 3), generator=gen).to(dev, dt)
+                xs, first = ops.band_streams(xb, 8, len(layers))
+                kw = dict(width=width, tile_cols=8, relu_flags=[l.relu for l in layers],
+                          in_channels=3, add_anchor=False,
+                          hidden_channels=packed.hidden_channels)
+                hid = ttf.hidden_chp(packed.chp, packed.hidden_channels, xs.shape[3], dt)
+                rt = ttf.route(rows, 8, packed.chp, dt, hid)
+                where = f"K1 {prec} {label} R={rows}"
+                require(rt.onchip == (rows <= 74), f"{where}: {rt}")
+                got = ttf.tilted_fusion_call(xs, first, packed.w, packed.b, **kw)
+                torch.cuda.synchronize()
+                last = ttf.tilted_fusion_call.last_launch
+                require((last["route"], last["shared_bytes"]) == (rt.name, rt.shared_bytes),
+                        f"{where}: launched {last}, the wrapper's route is {rt}")
+                want = ttf.tilted_fusion_plain(xs, first, packed.w, packed.b, **kw)
+                err = (got.float() - want.float()).abs().max().item()
+                require(err <= TOL[prec], f"{where}: max abs err {err:.3e} vs plain")
+                routes[f"{prec}/{label}/R{rows}"] = dict(route=rt.name,
+                                                         shared_bytes=rt.shared_bytes,
+                                                         max_abs_err=err)
+    return routes
+
+
 def k1_check(torch, ttf, ops, label, prec, layers, xb, extra, width, worst, segments=False,
              mixed=False):
     """K1 against its plain version on the card for the stack ``layers`` in
@@ -2585,12 +2630,13 @@ def main() -> int:
         label, shown = None, 0
         for line in usage.stdout.splitlines():
             # K1's instances (and its weight packing's) are <dtype, Chp>
-            # (..._kernelIfLi32EE...; the narrow kernel <dtype, Chp, mixed>,
-            # ..._kernelIfLi32ELb1EE...), K2's <dtype, taps folded into K>
-            # (..._kernelIfLb1EE...)
+            # (..._kernelIfLi32EE...; the narrow kernels <dtype, Chp, mixed>,
+            # ..._kernelIfLi32ELb1EE... and, on the on-chip route,
+            # ..._kernel_onchipIfLi32ELb1EE...), K2's <dtype, taps folded
+            # into K> (..._kernelIfLb1EE...)
             # (the name's own length prefix, not the namespace's, precedes it)
             m = re.search(r"\d+((?:tilted_fusion|pack_weights|pack_slices|pack_wide|conv3x3)"
-                          r"\w*?_kernel)"
+                          r"\w*?_kernel(?:_onchip)?)"
                           r"I(f|13__nv_bfloat16)(?:Li(\d+)E)?(?:Lb([01])E)?E", line)
             if m:
                 k2_wide = m.group(1) in ("conv3x3_wide_kernel", "pack_wide_kernel")
@@ -2608,16 +2654,30 @@ def main() -> int:
             print(f"  cuobjdump (exit {usage.returncode}) reported no resource usage: "
                   f"{(usage.stdout + usage.stderr).strip()[:300]!r}")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # K1 at 60-row bands: the narrow and mixed launches on their on-chip
+    # route (the feature maps in shared memory), the wide instances; and
+    # the narrow instances' device-memory route (taller bands)
     k1_blocks, k1_smem = {}, {}
     for prec, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         for chp_ in ttf.SUPPORTED_CHP:
-            k1_blocks[f"{prec}/chp{chp_}"] = ttf.blocks_per_sm(dev, dt, chp_)
-            k1_smem[f"{prec}/chp{chp_}"] = ttf.shared_bytes(chp_, dt)
+            k1_blocks[f"{prec}/chp{chp_}"] = ttf.blocks_per_sm(dev, dt, chp_, band_rows=60)
+            k1_smem[f"{prec}/chp{chp_}"] = ttf.shared_bytes(chp_, dt, band_rows=60)
         # a mixed launch: the hidden layers at Chp 32, ABPN x4's 48 outputs
-        k1_blocks[f"{prec}/chp32->48"] = ttf.blocks_per_sm(dev, dt, 48, hidden_chp=32)
-        k1_smem[f"{prec}/chp32->48"] = ttf.shared_bytes(48, dt, hidden_chp=32)
-    print(f"  tilted_fusion ({ttf.THREADS} threads, {sms} SMs): " + ", ".join(
+        k1_blocks[f"{prec}/chp32->48"] = ttf.blocks_per_sm(dev, dt, 48, hidden_chp=32,
+                                                           band_rows=60)
+        k1_smem[f"{prec}/chp32->48"] = ttf.shared_bytes(48, dt, hidden_chp=32, band_rows=60)
+        for chp_ in (16, 32):
+            k1_blocks[f"{prec}/chp{chp_} device route"] = ttf.blocks_per_sm(dev, dt, chp_)
+            k1_smem[f"{prec}/chp{chp_} device route"] = ttf.shared_bytes(chp_, dt)
+    print(f"  tilted_fusion ({ttf.THREADS} threads, {sms} SMs; 60-row bands): " + ", ".join(
         f"<{k}> {k1_smem[k]} B shared memory, {v} CTAs per SM" for k, v in k1_blocks.items()))
+    # the route each band height takes, launched: the feature maps on chip
+    # at ABPN's 60- and 74-row bands, in device memory for taller bands
+    k1_routes = k1_route_check(torch, np, ttf, ops, dev)
+    print("  tilted_fusion routes (feature maps on chip or in device memory), each launch "
+          "against its plain version: " + ", ".join(
+              f"<{k}> {v['route']} ({v['shared_bytes']} B, err {v['max_abs_err']:.2e})"
+              for k, v in k1_routes.items()))
     k2_occ = {}
     for prec, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         for kind, ci_ in (("folded", 3), ("per tap", 28)):
@@ -3489,7 +3549,7 @@ def main() -> int:
         # and the kernel's own duration in torch.profiler.
         k1 = dict(ms=time_ms(torch, k1_fp32, reps=10), device_ms=device_ms(torch, k1_fp32, calls=5),
                   host_ms=host_ms(torch, k1_fp32),
-                  profiler_ms=profiler_kernel_ms(torch, k1_fp32, "tilted_fusion_kernel"),
+                  profiler_ms=profiler_kernel_ms(torch, k1_fp32, "tilted_fusion_kernel_onchip"),
                   bf16_ms=time_ms(torch, k1_bf16, reps=10),
                   bf16_device_ms=device_ms(torch, k1_bf16, calls=5),
                   bf16_host_ms=host_ms(torch, k1_bf16))
@@ -3561,6 +3621,19 @@ def main() -> int:
         nchw16 = nchw.to(torch.bfloat16)
         oihw16 = [(w_.to(torch.bfloat16), b_.to(torch.bfloat16)) for w_, b_ in oihw]
         lib_bf16_device_ms = device_ms(torch, lambda: cudnn_stack(nchw16, oihw16), calls=5)
+        # the unfused yardstick: K2's 7-launch stack over the same n frames,
+        # a launch a layer and a frame, queued the same way
+        layers16_ = [l.to(dtype=torch.bfloat16) for l in layers]
+
+        def k2_frames(dt, stack):
+            for i in range(n):
+                f = frames[i].to(dt)
+                for l in stack:
+                    f = k2call(f, l.w, l.b, relu=l.relu)
+
+        k2_stack_device_ms = device_ms(torch, lambda: k2_frames(torch.float32, layers), calls=5)
+        k2_stack_bf16_device_ms = device_ms(torch, lambda: k2_frames(torch.bfloat16, layers16_),
+                                            calls=5)
         # The bound counts the function's own work: the unpadded stack over
         # the n*H*W pixels (2 FLOP per MAC), the frames read and the last
         # layer's features written once, and the weights read once.
@@ -3587,7 +3660,10 @@ def main() -> int:
         # products per fp32 product): what a tensor-core K1 would be held to
         bound_tc_ms, bound_tc_by = bound(3 * flops, nbytes, peaks["tf32"], peak_bw)
         timings[n] = dict(k1=k1, plain_ms=plain_ms, lib_ms=lib_ms, lib_device_ms=lib_device_ms,
-                          lib_bf16_device_ms=lib_bf16_device_ms, bound_ms=bound_ms, bound_by=bound_by, bound_tc_ms=bound_tc_ms,
+                          lib_bf16_device_ms=lib_bf16_device_ms,
+                          k2_stack_device_ms=k2_stack_device_ms,
+                          k2_stack_bf16_device_ms=k2_stack_bf16_device_ms,
+                          bound_ms=bound_ms, bound_by=bound_by, bound_tc_ms=bound_tc_ms,
                           bound_tc_by=bound_tc_by, flops=flops, bytes=nbytes,
                           bands=B, segments=plan.segments, ctas=plan.ctas,
                           sweep_ms={k: v["ms"] for k, v in sweep.items()},
@@ -3601,6 +3677,10 @@ def main() -> int:
               f"{k1['bf16_device_ms']:.3f} ms queued, host {k1['bf16_host_ms']:.3f} ms. "
               f"plain {plain_ms:.3f} ms, cuDNN conv stack (library_ms) {lib_ms:.3f} ms one "
               f"call, {lib_device_ms:.3f} ms queued, bf16 {lib_bf16_device_ms:.3f} ms queued; "
+              f"K2's 7-launch stack over the {n} frame{'s' if n > 1 else ''} "
+              f"{k2_stack_device_ms:.3f} ms queued ({k2_stack_device_ms / k1['device_ms']:.2f}x "
+              f"K1's time), bf16 {k2_stack_bf16_device_ms:.3f} ms "
+              f"({k2_stack_bf16_device_ms / k1['bf16_device_ms']:.2f}x); "
               f"bound {bound_ms:.3f} ms ({bound_by}: "
               f"{flops / 1e9:.2f} GFLOP of ABPN, {nbytes / 1e6:.1f} MB moved; "
               f"{peak_flops / 1e12:.0f} TFLOP/s, {peak_bw / 1e12:.2f} TB/s) -> "
@@ -3883,6 +3963,11 @@ def main() -> int:
         "profiler_ms": t8["k1"]["profiler_ms"],
         "library_device_ms": t8["lib_device_ms"],
         "library_bf16_device_ms": t8["lib_bf16_device_ms"],
+        "k2_stack_device_ms": t8["k2_stack_device_ms"],
+        "k2_stack_bf16_device_ms": t8["k2_stack_bf16_device_ms"],
+        "feature_maps": "in shared memory (the on-chip route) at 60- and 74-row bands; in "
+                        "device-memory slabs on bands past 76 rows (fp32) or 75 (bf16)",
+        "routes": k1_routes,
         "bf16_ms": t8["k1"]["bf16_ms"],
         "bf16_device_ms": t8["k1"]["bf16_device_ms"],
         "segments": t8["segments"],
@@ -3892,6 +3977,8 @@ def main() -> int:
                    **timings[1]["k1"], "library_ms": timings[1]["lib_ms"],
                    "library_device_ms": timings[1]["lib_device_ms"],
                    "library_bf16_device_ms": timings[1]["lib_bf16_device_ms"],
+                   "k2_stack_device_ms": timings[1]["k2_stack_device_ms"],
+                   "k2_stack_bf16_device_ms": timings[1]["k2_stack_bf16_device_ms"],
                    "bound_ms": timings[1]["bound_tc_ms"],
                    "bound_cuda_core_ms": timings[1]["bound_ms"]},
         "segment_sweep_device_ms": {n: timings[n]["sweep_ms"] for n in (1, 8)},

@@ -22,22 +22,27 @@ Invariant families, each reported as :class:`Finding`\\ s:
   - On the ``kernel`` backend, an **error** when K1's shared memory per
     CTA exceeds :data:`SMEM_PER_BLOCK_BYTES` (227 KB, the H100's opt-in
     limit of one CTA): the launch would fail.  K1
-    (``kernels.tilted_fusion.kernel_buffers``) holds two stages of one
-    layer's packed weights (fp32 as TF32 hi and lo words) and two input
-    windows of 320 pixels: 229,632 bytes at Chp = 32 in fp32 and int8,
-    88,320 in bf16; its slabs and overlap queue are per-CTA workspace in
-    device memory, so R does not enter.  The reference instead makes a past-budget R an error,
-    because its Pallas kernel's VMEM scratch grows with R; on the card
-    nothing on chip does.  Fewer resident CTAs per SM than the build's
+    (``kernels.tilted_fusion.kernel_buffers``) keeps a tile's two feature
+    maps in shared memory where they fit (its on-chip route: ABPN's 60-
+    and 74-row bands; 190,624 bytes at Chp = 32, R = 60 in fp32 and int8,
+    95,392 in bf16), beside one stage of one layer's packed weights, and
+    its overlap queue in device memory.  A taller band takes
+    the device-memory route, whose slabs are per-CTA workspace in device
+    memory and whose shared memory (two stages and two input windows of
+    320 pixels: 229,632 bytes at Chp = 32 in fp32, 78,080 in bf16) does
+    not depend on R.  So R picks the route and never fails the launch.
+    The reference instead makes a past-budget R an error, because its
+    Pallas kernel's VMEM scratch grows with R.  Fewer resident CTAs per SM than the build's
     ``__launch_bounds__`` ask for would only lower occupancy, so it is no
     error.  K2 is not checked: no banded plan launches it, and its shared
     memory depends only on the precision (at most 204,544 B, fp32 per tap).
   - On both banded backends, a **warning** when K1's per-CTA working set
-    in the paper's units (one byte an element: the two ping-pong slabs,
-    the overlap queue, the two shared-memory weight stages and the two
-    input windows) exceeds
+    in the paper's units (one byte an element: the two ping-pong maps or
+    slabs, the overlap queue, the shared-memory weight stages and, on the
+    device-memory route, the two input windows) exceeds
     Table II's 102.36 KB by more than :data:`BUDGET_TOLERANCE`.  Advisory:
-    the slabs and the queue live in device memory (cached in L1/L2), not
+    the queue (and on the device-memory route the slabs) live in device
+    memory (cached in L1/L2), not
     in a fixed SRAM.  So a ``kernel`` plan at ``band_rows=120`` warns and
     does not fail.
 
@@ -115,12 +120,19 @@ def _default_channels(plan) -> List[int]:
 
 
 def _k1_table2_elements(report: dict) -> int:
-    """K1's per-CTA working set in elements: the two ping-pong slabs and the
-    overlap queue (its workspace), and in shared memory the two weight
-    stages and the two input windows, all at the hidden width (a mixed
-    launch's last layer stages one output group of at most 32 at a time)."""
+    """K1's per-CTA working set in elements: the two ping-pong maps (in
+    shared memory on the on-chip route, with their carried columns) or
+    slabs (in device memory) and the overlap queue, and in shared memory
+    the weight stages (one on the on-chip route, else two) and, on the
+    device-memory route, the two input windows, all at the hidden
+    width (a mixed launch's last layer stages one output group of at most
+    32 at a time)."""
     chp = report["hidden_chp"]
-    return report["workspace_elements"] + 2 * 9 * chp * chp + 2 * report["window_elements"]
+    buffers = report["buffers"]
+    onchip = report["route"] == "onchip"
+    stages = 1 if onchip else 2
+    return (buffers["slabs"]["elements"] + buffers["overlap"]["elements"]
+            + stages * 9 * chp * chp + (0 if onchip else 2 * report["window_elements"]))
 
 
 def plan_buffer_report(plan, channels: Optional[Sequence[int]] = None) -> dict:
@@ -345,8 +357,10 @@ def _check_budget(plan, findings: List[Finding], where: str,
                 f"band_rows={plan.band_rows} — over the {budget:.2f} KB "
                 f"Table II budget by more than the documented "
                 f"{BUDGET_TOLERANCE:.0%} padding tolerance "
-                f"(limit {limit:.2f} KB); advisory: its slabs and overlap "
-                "queue live in device memory"
+                f"(limit {limit:.2f} KB); advisory: "
+                + ("its feature maps live in shared memory and its overlap queue in "
+                   "device memory" if report["route"] == "onchip" else
+                   "its slabs and overlap queue live in device memory")
             ),
             where=where,
         ))
@@ -406,8 +420,10 @@ def table2_crosscheck(
       the anchor columns from the input stream, which stays in device
       memory, so there is no buffer to count.
     * ``kernel_padded_total_kb`` — K1's per-CTA working set: the two
-      ping-pong slabs and the overlap queue at padded channels, plus the
-      two shared-memory weight stages and the two input windows;
+      ping-pong maps (or slabs) and the overlap queue at padded channels,
+      plus the shared-memory weight stages and, on the device-memory route,
+      the two input windows (93.70 KB at the design point in fp32, where
+      the maps stay on chip);
       ``budget_ratio`` = that over the
       Table II total, bounded by ``1 + BUDGET_TOLERANCE`` at the design
       point.

@@ -33,6 +33,9 @@ anchor added to the last layer, and the output tilted by L-1 columns.
   each band's sweep is cut into, so that many CTAs sweep one band at once.
   A segment restarted at tile ``k0`` first re-runs :func:`warmup_tiles`
   tiles before it, so the output is bit-identical for every segment count.
+* :func:`route` — where a narrow launch keeps a tile's feature maps: in
+  shared memory (the on-chip route, every band whose two maps fit: ABPN's
+  60- and 74-row bands) or in device-memory slabs (taller bands).
 * :func:`kernel_buffers` — the Hopper kernel's own workspace and shared
   memory, per CTA and per launch (:func:`workspace_shapes`,
   :func:`packed_weight_bytes`, :func:`shared_bytes`).
@@ -67,6 +70,9 @@ __all__ = [
     "shared_bytes",
     "block_rows",
     "kernel_buffers",
+    "Route",
+    "route",
+    "onchip_shared_bytes",
     "SegmentPlan",
     "SHARED_SM_TILE_COST",
     "warmup_tiles",
@@ -239,18 +245,21 @@ def _row_blocks(band_rows: int, tile_cols: int) -> List[int]:
 
 
 def _lane_words(nout: int, dtype) -> int:
-    """B words a lane holds for one (tap, k-step) over ``nout`` outputs
-    (fp32: hi and lo words of 2 registers per n8 block; bf16: 2 registers
-    of bf16 pairs)."""
+    """B words a lane holds for one (tap, k-step) of a wide slice over
+    ``nout`` outputs (fp32: hi and lo words of 2 registers per n8 block;
+    bf16: 2 registers of bf16 pairs)."""
     return (4 if dtype != torch.bfloat16 else 2) * (int(nout) // 8)
 
 
-def _stage_words(nout: int, ksteps: int, dtype) -> int:
+def _stage_words(nout: int, ksteps: int, dtype, onchip: bool = True) -> int:
     """32-bit words of one step's packed stage of a narrow instance over
     ``nout`` outputs (a layer's Chp, or a mixed last layer's output group):
     the bias as fp32, then the B fragments of 9 taps x ``ksteps`` k-steps for
-    32 lanes."""
-    return nout + 9 * ksteps * 32 * _lane_words(nout, dtype)
+    32 lanes, 2 words a lane an n8 block on the on-chip route (fp32
+    unsplit: the MMAs split it into TF32 hi and lo at use; bf16 pairs), and
+    on the device-memory route fp32 pre-split, 4 words (:func:`_lane_words`)."""
+    lane = 2 * (int(nout) // 8) if onchip else _lane_words(nout, dtype)
+    return nout + 9 * ksteps * 32 * lane
 
 
 def _slice_words(chp: int, ksteps: int, dtype) -> int:
@@ -265,7 +274,7 @@ def _ksteps(cin: int, dtype) -> int:
 
 
 def packed_weight_bytes(num_layers: int, chp: int, c0p: int, dtype,
-                        hidden_chp: Optional[int] = None) -> int:
+                        hidden_chp: Optional[int] = None, onchip: bool = True) -> int:
     """Bytes of the packed weights at the head of a launch's workspace
     (``packed_bytes`` in the source) for the instance of width ``chp``:
     layer 0 with ``ceil(c0p / k)`` k-steps a tap, every other layer with
@@ -273,35 +282,94 @@ def packed_weight_bytes(num_layers: int, chp: int, c0p: int, dtype,
     on a wide one.  A mixed launch (``hidden_chp``, :func:`hidden_chp`): a
     stage a hidden layer at ``hidden_chp``, and a stage each of the last
     layer's :func:`output_groups` of ``chp`` outputs, k-steps of
-    ``hidden_chp``."""
+    ``hidden_chp``.  A narrow instance's stages hold fp32 B unsplit on the
+    on-chip route (``onchip``) and pre-split on the device-memory route
+    (:func:`route`)."""
     ks0, ks = _ksteps(c0p, dtype), _ksteps(hidden_chp or chp, dtype)
     L = int(num_layers)
     if hidden_chp:
-        words = sum(_stage_words(hidden_chp, ks0 if l == 0 else ks, dtype) for l in range(L - 1))
-        words += sum(_stage_words(n, ks0 if L == 1 else ks, dtype) for n in output_groups(chp))
+        words = sum(_stage_words(hidden_chp, ks0 if l == 0 else ks, dtype, onchip)
+                    for l in range(L - 1))
+        words += sum(_stage_words(n, ks0 if L == 1 else ks, dtype, onchip)
+                     for n in output_groups(chp))
         return 4 * words
     if _wide(chp):
         slices = 9 * (int(chp) // n_group(chp, dtype))
         return 4 * slices * (_slice_words(chp, ks0, dtype)
                              + (int(num_layers) - 1) * _slice_words(chp, ks, dtype))
-    return 4 * (_stage_words(chp, ks0, dtype) + (int(num_layers) - 1) * _stage_words(chp, ks, dtype))
+    return 4 * (_stage_words(chp, ks0, dtype, onchip)
+                + (int(num_layers) - 1) * _stage_words(chp, ks, dtype, onchip))
 
 
 def _pixel_bytes(chp: int, dtype) -> int:
-    """A window pixel: a whole number of 128 data bytes stored as they are
-    (swizzled), other pixels padded by 16 bytes."""
+    """A window (or map) pixel: a whole number of 128 data bytes, or 64,
+    stored as they are (swizzled), other pixels padded by 16 bytes."""
     data = int(chp) * dtype.itemsize
-    return data if data % 128 == 0 else data + 16
+    return data if data % 128 == 0 or data == 64 else data + 16
 
 
-def shared_bytes(chp: int, dtype=torch.float32, hidden_chp: Optional[int] = None) -> int:
-    """Dynamic shared memory of one CTA of the ``<dtype, chp>`` instance
-    (``kSmemBytes``): on a narrow one (Chp <= 32) two weight stages and two
-    windows, on a wide one two slices (each :func:`wide_schedule`'s
-    ``taps`` (tap, n-group) slices, or half of one) and one window, of
-    :func:`window_pixels` pixels of ``chp`` channels.  It does not depend
-    on R.  A mixed launch (``hidden_chp``) runs
-    on the ``hidden_chp`` instance: its stages and windows."""
+SMEM_PER_CTA = 232_448  # the most dynamic shared memory one CTA takes (sm_90)
+SMEM_PER_SM = 233_472  # an SM's, of which 1 KB a resident CTA is reserved
+
+
+class Route(NamedTuple):
+    """Where a launch keeps a tile's feature maps (:func:`route`)."""
+
+    onchip: bool  # in shared memory (the on-chip route), else in device-memory slabs
+    shared_bytes: int  # dynamic shared memory of one CTA
+
+    @property
+    def name(self) -> str:
+        return "onchip" if self.onchip else "device"
+
+
+def onchip_shared_bytes(band_rows: int, tile_cols: int, chp: int, dtype) -> int:
+    """Shared memory of the on-chip route of the narrow ``<dtype, chp>``
+    instance (``onchip_smem`` in the source): two maps of R x (C + 2)
+    pixels, each rounded up to 128 bytes, one weight stage, and 32 bytes
+    (16 zero bytes the MMAs read above and below a band under ``zero``, the
+    stage's mbarrier)."""
+    maps = -(-int(band_rows) * (int(tile_cols) + 2) * _pixel_bytes(chp, dtype) // 128) * 128
+    return 2 * maps + 4 * _stage_words(chp, _ksteps(chp, dtype), dtype) + 32
+
+
+def route(band_rows: Optional[int], tile_cols: int, chp: int, dtype=torch.float32,
+          hidden_chp: Optional[int] = None) -> Route:
+    """The route a launch of the instance of ``chp`` padded channels (a
+    mixed launch's: ``hidden_chp``'s) takes for bands of ``band_rows`` rows
+    and tiles of ``tile_cols`` columns.  The wrapper picks it here and
+    passes it to the launch, which checks that it fits (``onchip_fits`` in
+    the source) and fails where it does not.
+
+    A narrow instance keeps a tile's two feature maps in shared memory where
+    they fit beside a weight stage; the budget is one CTA's 232,448 B in
+    fp32 (one CTA an SM) and half an SM less 1 KB in bf16 (two): at tile 8
+    up to 76 rows in fp32 and 75 in bf16.  Taller bands (the planner's
+    one-band fallback) take the device-memory route, whose slabs, windows
+    and shared memory do not depend on R; so do the wide instances.
+    ``band_rows=None`` asks for the device-memory route."""
+    inst = hidden_chp or launch_chp(chp, dtype)
+    if not _wide(inst) and band_rows is not None and 1 <= int(band_rows) <= 1024:
+        budget = SMEM_PER_CTA if dtype != torch.bfloat16 else SMEM_PER_SM // 2 - 1024
+        smem = onchip_shared_bytes(band_rows, tile_cols, inst, dtype)
+        if smem <= budget:
+            return Route(True, smem)
+    return Route(False, shared_bytes(inst, dtype))
+
+
+def shared_bytes(chp: int, dtype=torch.float32, hidden_chp: Optional[int] = None,
+                 band_rows: Optional[int] = None, tile_cols: int = 8) -> int:
+    """Dynamic shared memory of one CTA of the ``<dtype, chp>`` instance.
+    With ``band_rows``, that of the :func:`route` a launch over bands of
+    that height takes.  Without, the device-memory route's (``kSmemBytes``,
+    which does not depend on R): on a narrow instance (Chp <= 32) two
+    pre-split weight stages and two windows, on a wide one two slices (each
+    :func:`wide_schedule`'s ``taps`` (tap, n-group) slices, or half of one)
+    and one window, of :func:`window_pixels` pixels of ``chp`` channels.  A
+    mixed launch (``hidden_chp``) runs on the ``hidden_chp`` instance: its
+    stages and windows, or maps."""
+    if band_rows is not None:
+        return route(band_rows, tile_cols, chp, dtype, hidden_chp).shared_bytes
     if hidden_chp:
         return shared_bytes(hidden_chp, dtype)
     ks = _ksteps(chp, dtype)
@@ -310,24 +378,28 @@ def shared_bytes(chp: int, dtype=torch.float32, hidden_chp: Optional[int] = None
     if sched:
         steps = sched.taps * -(-ks // sched.halves)  # k-steps of a slice
         return 2 * 4 * _slice_words(chp, steps, dtype) + win
-    return 2 * 4 * _stage_words(chp, ks, dtype) + 2 * win
+    return 2 * 4 * _stage_words(chp, ks, dtype, onchip=False) + 2 * win
 
 
-def workspace_shapes(num_layers: int, band_rows: int, tile_cols: int, chp: int):
+def workspace_shapes(num_layers: int, band_rows: int, tile_cols: int, chp: int,
+                     onchip: bool = False):
     """The per-CTA device-memory workspace of the kernel — ``(slabs,
     overlap_queue)``: two pixel-major ping-pong slabs ``(2, R, C, Chp)``
-    (a layer's C fresh output columns) and the overlap queue ``(2, L-1, R,
-    2, Chp)``, double-buffered by tile parity, for F_1..F_{L-1} (F_0's
-    carried columns are read from the input stream) — as plain tuples.
-    The wrapper allocates exactly this per CTA, after the packed weights
-    (:func:`packed_weight_bytes`); the kernel's ``workspace_elems`` indexes
-    it."""
-    slabs = (2, band_rows, tile_cols, chp)
+    (a layer's C fresh output columns; ``None`` on the on-chip route, whose
+    maps live in shared memory) and the overlap queue ``(2, L-1, R, 2,
+    Chp)``, double-buffered by tile parity, for F_1..F_{L-1} (F_0's carried
+    columns are read from the input stream) — as plain tuples.  The
+    wrapper allocates exactly this per CTA, after the packed weights
+    (:func:`packed_weight_bytes`); the kernel's ``workspace_elems`` (or
+    ``onchip_workspace_elems``) indexes it."""
+    slabs = None if onchip else (2, band_rows, tile_cols, chp)
     overlap = (2, num_layers - 1, band_rows, 2, chp)
     return slabs, overlap
 
 
 def _elems(shape) -> int:
+    if shape is None:
+        return 0
     n = 1
     for d in shape:
         n *= int(d)
@@ -340,13 +412,24 @@ def kernel_buffers(*, channels, band_rows: int, tile_cols: int, chp: int = None,
     ELEMENTS of the compute dtype unless a key says bytes, and the workspace
     of a launch of ``bands`` x ``segments`` CTAs.
 
-    * ``slabs`` / ``overlap`` (summed in ``workspace_elements``) — device
-      memory the wrapper allocates per CTA (:func:`workspace_shapes`).
-      ``overlap``'s ``logical_elements`` is the algorithm's queue, L slots
-      of 2 columns (the kernel reads F_0's slot from the input stream and
-      keeps two parities of the others).  The TPU kernel's residual ring
-      has no counterpart: the anchor is read from the input stream, which
-      stays in device memory.
+    * ``route`` — where the tile's feature maps live (:func:`route`):
+      ``"onchip"``, in shared memory (every band whose two maps fit beside
+      a weight stage: ABPN's 60- and 74-row bands, at tile 8 up to 76 rows
+      in fp32 and 75 in bf16), or ``"device"``, in slabs in device memory
+      (taller bands, and the wide instances).
+    * ``slabs`` — the two ping-pong feature maps (R, C fresh columns, Chp;
+      ``memory`` says where): in shared memory on the on-chip route (as
+      ``maps``, R x (C + 2) pixels with the carried columns), in device
+      memory on the other.
+    * ``overlap`` — the overlap queue, in device memory on both routes.
+      ``slabs`` (where in device memory) and ``overlap`` are summed in
+      ``workspace_elements``, what the wrapper allocates per CTA
+      (:func:`workspace_shapes`); ``device_slab_elements`` is the slabs'
+      share of it.  ``overlap``'s ``logical_elements`` is the algorithm's
+      queue, L slots of 2 columns (the kernel reads F_0's slot from the
+      input stream and keeps two parities of the others).  The TPU
+      kernel's residual ring has no counterpart: the anchor is read from
+      the input stream, which stays in device memory.
     * ``ctas`` / ``launch_workspace_elements`` — the CTAs of the launch and
       their workspace, ``bands * segments * workspace_elements``; the
       wrapper allocates ``packed_weight_bytes`` more, once a launch.
@@ -362,11 +445,13 @@ def kernel_buffers(*, channels, band_rows: int, tile_cols: int, chp: int = None,
       ``max(channels[:-1])``; ABPN x4's 28 hidden channels and 48 outputs).
       The serving path launches so (``ops.pack_stack`` records the hidden
       width).
-    * ``shared_bytes`` — dynamic shared memory per CTA for ``dtype``
-      (:func:`shared_bytes`): two weight stages (narrow) or slices (wide)
-      and the input windows of ``window_elements`` (``window_pixels *
-      hidden_chp``) each.  It does not depend on R.  ``max_tile_cols`` is
-      the widest tile the instance takes.
+    * ``shared_bytes`` — dynamic shared memory per CTA for ``dtype`` on the
+      route (:func:`shared_bytes`): on the on-chip route the two maps and
+      the stage (:func:`onchip_shared_bytes`); on the device-memory one
+      two weight stages (narrow) or slices (wide) and the input windows of
+      ``window_elements`` (``window_pixels * hidden_chp``) each, which do
+      not depend on R.  ``max_tile_cols`` is the widest tile the instance
+      takes.
     * ``stream_in_per_column`` / ``stream_out_per_column`` — the input
       stream read, and the tilted output written, per band column.
     * ``weights`` / ``bias`` — the packed stack, read from device memory.
@@ -383,9 +468,13 @@ def kernel_buffers(*, channels, band_rows: int, tile_cols: int, chp: int = None,
     c0p = round_up_channels(channels[0])
     mixed = hidden_chp(chp, max(channels[:-1]), c0p, dtype) if instance else None
     hid = mixed or chp
-    slabs, overlap = workspace_shapes(L, R, C, hid)
+    rt = route(R, C, chp, dtype, mixed) if instance else None
+    onchip = bool(rt and rt.onchip)
+    slabs, overlap = workspace_shapes(L, R, C, hid, onchip=onchip)
+    maps = (2, R, C + 2, hid) if onchip else (2, R, C, hid)
     buffers = {
-        "slabs": {"shape": slabs, "elements": _elems(slabs)},
+        "slabs": {"shape": maps, "elements": _elems(maps),
+                  "memory": "shared" if onchip else "device"},
         "overlap": {
             "shape": overlap,
             "elements": _elems(overlap),
@@ -400,7 +489,7 @@ def kernel_buffers(*, channels, band_rows: int, tile_cols: int, chp: int = None,
         },
         "bias": {"shape": (L, chp), "elements": L * chp, "logical_elements": sum(channels[1:])},
     }
-    per_cta = buffers["slabs"]["elements"] + buffers["overlap"]["elements"]
+    per_cta = _elems(slabs) + buffers["overlap"]["elements"]
     ctas = int(bands) * int(segments)
     return {
         "num_layers": L,
@@ -410,19 +499,21 @@ def kernel_buffers(*, channels, band_rows: int, tile_cols: int, chp: int = None,
         "hidden_chp": hid,
         "packed_chp": packed_chp,
         "instance": instance,
+        "route": rt.name if rt else None,
         "c0p": c0p,
         "threads": THREADS,
         "buffers": buffers,
         "workspace_elements": per_cta,
+        "device_slab_elements": _elems(slabs),
         "ctas": ctas,
         "launch_workspace_elements": ctas * per_cta,
         # an instance's own: none where no instance covers the stack
-        "packed_weight_bytes": (packed_weight_bytes(L, chp, c0p, dtype, hidden_chp=mixed)
-                                if instance else None),
+        "packed_weight_bytes": (packed_weight_bytes(L, chp, c0p, dtype, hidden_chp=mixed,
+                                                    onchip=onchip) if instance else None),
         "window_pixels": window_pixels(hid, dtype),
         "window_elements": window_pixels(hid, dtype) * hid,
         "max_tile_cols": max_tile_cols(hid, dtype),
-        "shared_bytes": shared_bytes(chp, dtype, hidden_chp=mixed) if instance else None,
+        "shared_bytes": rt.shared_bytes if rt else None,
     }
 
 
@@ -525,11 +616,14 @@ def segment_plan(bands: int, tiles: int, tile_cols: int, num_layers: int, sms: i
 # ----------------------------------------------------------------------
 # What a launch issues
 # ----------------------------------------------------------------------
-def _mma_pixels(band_rows: int, tile_cols: int) -> int:
-    """Output pixels a tile's MMAs cover: each row block's pixels rounded
-    up to whole m16 fragments (two rows at C = 8, so an odd R runs one more
-    row)."""
+def _mma_pixels(band_rows: int, tile_cols: int, onchip: bool = False) -> int:
+    """Output pixels a tile's MMAs cover: on the device-memory route each
+    row block's pixels rounded up to whole m16 fragments (two rows at C =
+    8, so an odd R runs one more row); on the on-chip route the tile's R x
+    C pixels, in blocks of 256, rounded up once."""
     C = int(tile_cols)
+    if onchip:
+        return -(-int(band_rows) * C // 16) * 16
     return sum(-(-rows * C // 16) * 16 for rows in _row_blocks(band_rows, C))
 
 
@@ -565,16 +659,23 @@ def launch_cost(plan: SegmentPlan, *, band_rows: int, tile_cols: int, c0p: int, 
       read at every (tile, step) (a wide instance: every row block
       copies each n-group's 9 taps of B in slices of its schedule's
       ``taps`` (:func:`wide_schedule`) and reads the bias; a mixed
-      launch's last layer is one step an output group, each with its own stage and
-      its windows copied again); per CTA its row
-      bounds and the queue's start state; per step and row block the
-      window's copies (the stream for layer 0, the slab and the carried
-      columns for the others; rows outside the band are zero-filled under
-      ``zero`` and read again, clamped, under ``replicate``); per carried
-      layer the slab and the queue's two columns stored.  Each element counts once per pass,
-      whatever the loads a thread issues; L2 hits are not subtracted.  The
-      anchor's reads (``add_anchor``, which the serving path never sets)
-      are not counted.
+      launch's last layer is one step an output group, each with its own
+      stage).
+      On the on-chip route (:func:`route`): per CTA its row
+      bounds; per tile F_0's R x (C + 2) stream columns (C + 1 at tile 0)
+      and, for each layer after the first that the tile runs, the two
+      carried columns from the queue (zero-filled, not read, at a sweep's
+      first tile); per carried layer the queue's two columns stored.  On
+      the device-memory route: per CTA its row bounds and the queue's start
+      state; per step and row block the window's copies (the stream for
+      layer 0, the slab and the carried columns for the others, a mixed
+      launch's output groups each again; rows outside the band are
+      zero-filled under ``zero`` and read again, clamped, under
+      ``replicate``); per carried layer the slab and the queue's two
+      columns stored.  Each element counts once per pass, whatever the
+      loads a thread issues; L2 hits are not subtracted.  The anchor's
+      reads (``add_anchor``, which the serving path never sets) are not
+      counted.
 
     ``bytes`` is (a) + (b).  ``tiles`` counts executed tiles and
     ``warmup_tiles`` the warm-up ones among them, over every band.
@@ -587,7 +688,8 @@ def launch_cost(plan: SegmentPlan, *, band_rows: int, tile_cols: int, c0p: int, 
     ks0, ks = _ksteps(c0p, dtype), _ksteps(hid, dtype)
     cin = [chp if plain else ks0 * kk] + [hid] * (L - 1)  # K of each layer's products
     cout = [hid] * (L - 1) + [chp]  # N of each layer's products
-    pixels = R * C if plain else _mma_pixels(R, C)
+    onchip = route(R, C, chp, dtype, mixed).onchip
+    pixels = R * C if plain else _mma_pixels(R, C, onchip)
 
     def tile_flops(layers):
         return 2 * pixels * 9 * sum(cin[l] * cout[l] for l in range(layers))
@@ -608,7 +710,7 @@ def launch_cost(plan: SegmentPlan, *, band_rows: int, tile_cols: int, c0p: int, 
             return stage0 if l == 0 else stage
     else:
         def stage_bytes(l, nout):
-            return 4 * _stage_words(nout, ks0 if l == 0 else ks, dtype)
+            return 4 * _stage_words(nout, ks0 if l == 0 else ks, dtype, onchip)
     # the steps of an own tile as (layer, outputs): one a layer, a mixed
     # launch's last layer one an output group; a warm-up tile runs the
     # first L - 1
@@ -620,12 +722,19 @@ def launch_cost(plan: SegmentPlan, *, band_rows: int, tile_cols: int, c0p: int, 
     # column -1 is zero-filled; the others: the carried 2 and the slab's C
     # of hid) and, for a carried layer, its slab and queue columns stored
     carried_out = R * (C + 2) * hid * esize
+    carried = R * 2 * hid * esize  # the queue's two columns of a layer
 
-    def tile_bytes(k, layers):
+    def tile_bytes(k, layers, kw):
         out = 0
         for l, nout in steps[:L - 1] if layers < L else steps:
-            cols, width = ((C + 1 if k == 0 else C + 2), c0p) if l == 0 else (C + 2, hid)
-            out += stage_bytes(l, nout) + win_rows * cols * width * esize
+            out += stage_bytes(l, nout)
+            if onchip:  # F_0 from the stream; the maps stay in shared memory
+                out += R * (C + 1 if k == 0 else C + 2) * c0p * esize if l == 0 else 0
+            else:
+                cols, width = ((C + 1 if k == 0 else C + 2), c0p) if l == 0 else (C + 2, hid)
+                out += win_rows * cols * width * esize
+        if onchip:  # layers 1..layers-1's carried columns read, layers 0..L-2's stored
+            return out + max(layers - 1, 0) * carried * (k != kw) + min(layers, L - 1) * carried
         return out + min(layers, L - 1) * carried_out
 
     flops = tiles = warm_tiles = issued = 0
@@ -634,8 +743,9 @@ def launch_cost(plan: SegmentPlan, *, band_rows: int, tile_cols: int, c0p: int, 
         flops += own * tile_flops(L) + warm * tile_flops(L - 1)
         tiles += own + warm
         warm_tiles += warm
-        issued += (L - 1) * R * 2 * hid * esize  # the queue's start state
-        issued += sum(tile_bytes(k, L if k >= k0 else L - 1) for k in range(kw, k1))
+        if not onchip:
+            issued += (L - 1) * R * 2 * hid * esize  # the queue's start state
+        issued += sum(tile_bytes(k, L if k >= k0 else L - 1, kw) for k in range(kw, k1))
     B, K = plan.bands, plan.tiles
     stream = B * R * K * C
     weights = sum(9 * a * b + b for a, b in zip([hid] * L, cout)) * esize if mixed else \
@@ -645,7 +755,7 @@ def launch_cost(plan: SegmentPlan, *, band_rows: int, tile_cols: int, c0p: int, 
         io_bytes += 4 * 2 * B
     # the packing kernel reads the weights and bias once and writes the stages
     issued = (B * issued + stream * chp * esize + weights
-              + packed_weight_bytes(L, chp, c0p, dtype, hidden_chp=mixed)
+              + packed_weight_bytes(L, chp, c0p, dtype, hidden_chp=mixed, onchip=onchip)
               + (4 * 2 * B * plan.segments if bounds else 0))
     return {
         "flops": B * flops,
@@ -832,9 +942,9 @@ def _lib() -> ctypes.CDLL:
     if _lib_handle is None:
         lib = _build.load("tilted_fusion")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.tilted_fusion_launch.argtypes = [ci] + [vp] * 7 + [ci] * 16 + [vp]
+        lib.tilted_fusion_launch.argtypes = [ci] + [vp] * 7 + [ci] * 17 + [vp]
         lib.tilted_fusion_launch.restype = ci
-        lib.tilted_fusion_blocks_per_sm.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
+        lib.tilted_fusion_blocks_per_sm.argtypes = [ci] * 6 + [ctypes.POINTER(ci)]
         lib.tilted_fusion_blocks_per_sm.restype = ci
         lib.tilted_fusion_error_string.argtypes = [ci]
         lib.tilted_fusion_error_string.restype = ctypes.c_char_p
@@ -849,22 +959,26 @@ def _check_error(lib, err: int, what: str) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def _blocks_per_sm(device_index: int, dtype_code: int, chp: int, out_ch: int) -> int:
+def _blocks_per_sm(device_index: int, dtype_code: int, chp: int, out_ch: int, R: int,
+                   C: int, onchip: bool) -> int:
     lib = _lib()
     blocks = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        _check_error(lib, lib.tilted_fusion_blocks_per_sm(dtype_code, chp, out_ch,
-                                                          ctypes.byref(blocks)),
+        _check_error(lib, lib.tilted_fusion_blocks_per_sm(dtype_code, chp, out_ch, R, C,
+                                                          int(onchip), ctypes.byref(blocks)),
                      "occupancy query")
     if blocks.value < 1:
         raise RuntimeError(f"the <{dtype_code}, chp {chp} -> {out_ch}> kernel fits no CTA on an SM")
     return blocks.value
 
 
-def blocks_per_sm(device, dtype, chp: int, hidden_chp: Optional[int] = None) -> int:
+def blocks_per_sm(device, dtype, chp: int, hidden_chp: Optional[int] = None,
+                  band_rows: Optional[int] = None, tile_cols: int = 8) -> int:
     """Resident CTAs per SM on a CUDA ``device`` of the instance a stack of
     ``chp`` padded channels launches (:func:`launch_chp`; a mixed launch's
-    ``hidden_chp`` instance), from
+    ``hidden_chp`` instance), on the :func:`route` a launch over bands of
+    ``band_rows`` rows and tiles of ``tile_cols`` columns takes (``None``:
+    the device-memory route), from
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (builds the kernel on
     first use)."""
     device = torch.device(device)
@@ -872,16 +986,18 @@ def blocks_per_sm(device, dtype, chp: int, hidden_chp: Optional[int] = None) -> 
         raise ValueError(f"the kernel computes in float32 or bfloat16, not {dtype}")
     index = device.index if device.index is not None else torch.cuda.current_device()
     out_ch = launch_chp(chp, dtype)
-    return _blocks_per_sm(index, _DTYPE_CODE[dtype], hidden_chp or out_ch, out_ch)
+    rt = route(band_rows, tile_cols, chp, dtype, hidden_chp)
+    return _blocks_per_sm(index, _DTYPE_CODE[dtype], hidden_chp or out_ch, out_ch,
+                          int(band_rows or 0), int(tile_cols), rt.onchip)
 
 
 def _plan_on(device: torch.device, bands: int, tiles: int, tile_cols: int, num_layers: int,
              dtype, chp: int, segments: Optional[int],
-             hidden_chp: Optional[int] = None) -> SegmentPlan:
+             hidden_chp: Optional[int] = None, band_rows: Optional[int] = None) -> SegmentPlan:
     sms, per_sm = 1, 1
     if device.type == "cuda":
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        per_sm = blocks_per_sm(device, dtype, chp, hidden_chp)
+        per_sm = blocks_per_sm(device, dtype, chp, hidden_chp, band_rows, tile_cols)
     return segment_plan(bands, tiles, tile_cols, num_layers, sms, per_sm, segments=segments)
 
 
@@ -893,10 +1009,10 @@ def launch_plan(x_stream: torch.Tensor, w: torch.Tensor, *, tile_cols: int,
     instance that launches (``hidden_channels`` as
     :func:`tilted_fusion_call` takes it); on the CPU (the plain version's
     sequential loop), for one SM of one."""
-    B, _, KC, c0p = x_stream.shape
+    B, R, KC, c0p = x_stream.shape
     dtype = compute_dtype or x_stream.dtype
     return _plan_on(x_stream.device, B, KC // tile_cols, tile_cols, w.shape[0], dtype,
-                    w.shape[3], segments, hidden_chp(w.shape[3], hidden_channels, c0p, dtype))
+                    w.shape[3], segments, hidden_chp(w.shape[3], hidden_channels, c0p, dtype), R)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -940,10 +1056,14 @@ def _launch_kernel(x_stream, first_col, w, b, *, width, tile_cols, relu_flags,
     lib = _lib()
     plan = launch_plan(x, wc, tile_cols=C, segments=segments, compute_dtype=cdt,
                        hidden_channels=hidden_channels)
-    # the packed weights, then one workspace a CTA (both whole 16-byte runs)
-    ws_elems = sum(_elems(s) for s in workspace_shapes(L, R, C, inst))
-    head = packed_weight_bytes(L, lc, c0p, cdt, hidden_chp=hid) // cdt.itemsize
+    # the packed weights, then one workspace a CTA (both whole 16-byte runs):
+    # the route's, no slabs where the maps stay in shared memory
+    rt = route(R, C, lc, cdt, hid)
+    ws_elems = sum(_elems(s) for s in workspace_shapes(L, R, C, inst, onchip=rt.onchip))
+    head = packed_weight_bytes(L, lc, c0p, cdt, hidden_chp=hid, onchip=rt.onchip) // cdt.itemsize
     workspace = torch.empty((head + plan.ctas * ws_elems,), dtype=cdt, device=dev)
+    tilted_fusion_call.last_launch = {"route": rt.name, "shared_bytes": rt.shared_bytes,
+                                      "workspace_bytes": workspace.numel() * cdt.itemsize}
     out = torch.empty((B, R, KC, lc), dtype=cdt, device=dev)
     relu_mask = sum(1 << i for i, r in enumerate(relu_flags) if r)
     with torch.cuda.device(dev):
@@ -954,7 +1074,7 @@ def _launch_kernel(x_stream, first_col, w, b, *, width, tile_cols, relu_flags,
             out.data_ptr(), workspace.data_ptr(),
             B, R, KC // C, C, c0p, inst, lc, L, int(width),
             relu_mask, int(bool(add_anchor)), int(in_channels), int(anchor_repeats),
-            int(row_policy == "replicate"), plan.segments, plan.warmup, stream,
+            int(row_policy == "replicate"), plan.segments, plan.warmup, int(rt.onchip), stream,
         )
     _check_error(lib, err, "kernel launch")
     tilted_fusion_call.launches += 1
@@ -998,7 +1118,14 @@ class Launch(NamedTuple):
         the built kernel's CTAs per SM (building it raises where it fails),
         or on the CPU the plain version's one SM of one."""
         return _plan_on(torch.device(device), self.bands, self.tiles, self.tile_cols,
-                        self.num_layers, self.dtype, self.chp, self.segments, self.hidden_chp)
+                        self.num_layers, self.dtype, self.chp, self.segments, self.hidden_chp,
+                        self.band_rows)
+
+    @property
+    def route(self) -> Route:
+        """The :class:`Route` the card takes for this launch: where its
+        feature maps live (:func:`route`)."""
+        return route(self.band_rows, self.tile_cols, self.chp, self.dtype, self.hidden_chp)
 
 
 _RECORDER: contextvars.ContextVar = contextvars.ContextVar("tilted_fusion_launches",
@@ -1108,3 +1235,6 @@ def tilted_fusion_call(
 
 
 tilted_fusion_call.launches = 0  # kernel launches since import (or reset)
+# the last launch's route and what it took: {"route", "shared_bytes",
+# "workspace_bytes"}, or None before the first
+tilted_fusion_call.last_launch = None

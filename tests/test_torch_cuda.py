@@ -198,6 +198,66 @@ def test_mixed_launch_of_one_layer(cuda, out, dtype):
     assert torch.equal(got, ttf.tilted_fusion_call(*args, hidden_channels=3, segments=2, **kw))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("stack", ["x3", "x4"])
+@pytest.mark.parametrize("rows", [20, 60, 61, 74, 86, 360])
+def test_k1_route_by_band_height(cuda, rows, stack, dtype, monkeypatch):
+    """The narrow launch (ABPN x3's shape) and the mixed one (ABPN x4's) at
+    band heights of 20, 60, 61 and 74 rows keep a tile's feature maps in
+    shared memory (the on-chip route) and allocate no slab in device
+    memory, only the overlap queue; an 86-row halo slab (72-row bands) and
+    a one-band 360-row fallback take the device-memory route.  The launch
+    takes the route the wrapper picks (``ttf.route``, which
+    ``kernel_buffers`` reports); each launch holds to the plain version,
+    under ``halo`` row bounds too, and every segment count gives the same
+    bits.  A launch told to keep maps on chip that do not fit fails."""
+    from repro_torch.models.abpn import ABPNConfig
+
+    channels = ABPNConfig(scale=4 if stack == "x4" else 3).channels
+    layers = [l.to(dtype=dtype) for l in _stack(12, channels, None)]
+    packed = ops.pack_stack(layers, dtype=dtype)
+    hid = ttf.hidden_chp(packed.chp, packed.hidden_channels, 8, dtype)
+    assert hid == (32 if stack == "x4" else None)
+    rt = ttf.route(rows, 8, packed.chp, dtype, hid)
+    assert rt.onchip == (rows <= 74)
+    kb = ttf.kernel_buffers(channels=channels, band_rows=rows, tile_cols=8, dtype=dtype)
+    assert (kb["route"], kb["shared_bytes"]) == (rt.name, rt.shared_bytes)
+    assert (kb["device_slab_elements"] == 0) == rt.onchip
+    bands, width = (1, 40) if rows == 360 else (2, 48)
+    xb = torch.rand((bands, rows, width, 3), generator=torch.Generator().manual_seed(rows))
+    xs, first = ops.band_streams(xb.to(dtype), 8, len(layers))
+    bounds = torch.tensor([[3, rows - 2]] * bands, dtype=torch.int32)
+    kw = dict(width=width, tile_cols=8, relu_flags=list(packed.relu), add_anchor=False,
+              in_channels=3, hidden_channels=packed.hidden_channels)
+    args = (xs.to(cuda), first.to(cuda), packed.w.to(cuda), packed.b.to(cuda))
+    for row_bounds in (None, bounds):
+        want = ttf.tilted_fusion_plain(xs, first, packed.w, packed.b, row_bounds=row_bounds,
+                                       **kw)
+        rb = None if row_bounds is None else row_bounds.to(cuda)
+        got = ttf.tilted_fusion_call(*args, row_bounds=rb, **kw)
+        torch.cuda.synchronize()
+        last = ttf.tilted_fusion_call.last_launch
+        assert (last["route"], last["shared_bytes"]) == (rt.name, rt.shared_bytes)
+        plan = ttf.launch_plan(args[0], args[2], tile_cols=8, compute_dtype=dtype,
+                               hidden_channels=packed.hidden_channels)
+        L, inst = len(layers), hid or packed.chp
+        queue = 2 * (L - 1) * rows * 2 * inst  # the overlap queue, per CTA
+        slabs = 0 if rt.onchip else 2 * rows * 8 * inst
+        head = ttf.packed_weight_bytes(L, ttf.launch_chp(packed.chp, dtype), 8, dtype,
+                                       hidden_chp=hid, onchip=rt.onchip)
+        assert last["workspace_bytes"] == head + plan.ctas * (queue + slabs) * dtype.itemsize
+        np.testing.assert_allclose(got.cpu().float().numpy(), want.float().numpy(),
+                                   atol=TOL[dtype], rtol=0)
+        K = xs.shape[2] // 8
+        for segments in (1, 3, K):
+            assert torch.equal(ttf.tilted_fusion_call(*args, row_bounds=rb, segments=segments,
+                                                      **kw), got), segments
+    if not rt.onchip:
+        monkeypatch.setattr(ttf, "route", lambda *a, **k: ttf.Route(True, rt.shared_bytes))
+        with pytest.raises(RuntimeError, match="cudaErrorInvalidValue|invalid argument"):
+            ttf.tilted_fusion_call(*args, **kw)
+
+
 def test_mixed_launch_plans_on_the_narrow_instance(cuda):
     """ABPN x4's launch at one 360x640 frame: the segment plan and the
     ``plan_cost`` count of the card take the Chp 32 instance's CTAs per SM

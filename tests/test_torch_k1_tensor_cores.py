@@ -4,12 +4,20 @@ the port's plain version.
 
 The CUDA kernel runs only on the card.  :func:`emulate_k1` walks its loops
 in numpy: per band and segment (``SegmentPlan.ranges``) the sweep of tiles
-with warm-up tiles that run layers 0..L-2; layer 0's window read straight
-from the input stream (``first_col ++ x_stream``, zero left of the image);
-the deeper layers' windows made of the two columns carried in the overlap
-queue, double-buffered by tile parity, and the C fresh columns of the
-ping-pong slab; rows outside the band zero (``zero``) or clamped
-(``replicate``).  The arithmetic is the MMAs': per tap (dy, dx) and k-step,
+with warm-up tiles that run layers 0..L-2.  On the narrow instances' on-chip
+route (``ttf.route``: every band height the tests use) a tile's feature
+maps stay in two shared-memory maps of R x (C + 2) pixels that the layer
+steps take in turns: F_0 copied from the input stream (``first_col ++
+x_stream``, zero left of the image) into the map the tile's layer 0 reads,
+each deeper F_l's two carried columns copied from the overlap queue
+(double-buffered by tile parity in device memory; zeros at a sweep's first
+tile) into columns 0 and 1 of the map layer l - 1 writes its C fresh
+columns into; a step's blocks are 256 consecutive pixels of the tile, and
+rows outside the band are read as zero (``zero``) or clamped
+(``replicate``).  On the device-memory route (the wide instances) the
+windows are copied a row block at a time from the input stream or from
+the carried columns and the C fresh columns of a ping-pong slab.  The
+arithmetic is the MMAs': per tap (dy, dx) and k-step,
 fp32 operands split into TF32 hi and lo (``ref.tf32_split``, as
 ``cvt.rna.tf32.f32`` rounds) and three products summed small terms first,
 lo*hi, hi*lo, hi*hi (``terms=1``: hi*hi alone, single TF32), each MMA's
@@ -152,6 +160,11 @@ def emulate_k1(xs, first, w, b, *, width, tile_cols, relu_flags, row_policy="zer
     plan = ttf.segment_plan(B, K, Cn, Lw, sms=1, segments=segments)
     out = np.zeros((B, R, KC, chp), np.float32)
     rows = np.arange(R)
+    if ttf.route(R, Cn, chp, TDT[precision], hidden).onchip:
+        return _emulate_onchip(x, f0, wn, bn, out, plan, hid, k0pad, kk, width=width,
+                               relu_flags=relu_flags, row_policy=row_policy,
+                               row_bounds=row_bounds, precision=precision, terms=terms,
+                               hidden=hidden)
     for band in range(B):
         ext = np.concatenate([f0[band], x[band]], axis=1)  # column a = input column a
         lo, hi = (0, R) if row_bounds is None else (int(row_bounds[band, 0]),
@@ -223,6 +236,82 @@ def emulate_k1(xs, first, w, b, *, width, tile_cols, relu_flags, row_policy="zer
                         queue[(k + 1) & 1, l] = y[:, Cn - 2:]
                     else:
                         out[band, :, k * Cn:(k + 1) * Cn] = y
+    return out
+
+
+def _emulate_onchip(x, f0, wn, bn, out, plan, hid, k0pad, kk, *, width, relu_flags, row_policy,
+                    row_bounds, precision, terms, hidden):
+    """:func:`emulate_k1` on the on-chip route of a narrow instance (or a
+    mixed launch): the maps, the queue and the blocks of
+    ``tilted_fusion_kernel_onchip``, the same arithmetic."""
+    B, R, KC, c0p = x.shape
+    Lw, chp = wn.shape[0], wn.shape[3]
+    Cn = KC // plan.tiles
+    rows = np.arange(R)
+    pix = np.arange(R * Cn)
+    pr, pc = pix // Cn, pix % Cn  # each pixel's row and column in the tile
+    for band in range(B):
+        ext = np.concatenate([f0[band], x[band]], axis=1)  # column a = input column a
+        lo, hi = (0, R) if row_bounds is None else (int(row_bounds[band, 0]),
+                                                    int(row_bounds[band, 1]))
+        row_ok = ((rows >= lo) & (rows < hi))[:, None, None]
+        for kw, k0, k1 in plan.ranges():
+            queue = np.zeros((2, Lw - 1, R, 2, hid), np.float32)  # in device memory
+            maps = [np.zeros((R, Cn + 2, hid), np.float32) for _ in range(2)]  # shared memory
+            base = 0  # the sweep's layer steps before tile k: F_l sits in maps[(base + l) & 1]
+            for k in range(kw, k1):
+                nl = Lw if k >= k0 else Lw - 1
+                # F_0: the stream's columns kC-1 .. kC+C into the map layer 0
+                # reads, c0p channels and zeros to k0pad (the rest not read)
+                m0 = maps[base & 1]
+                m0[:, :, :k0pad] = 0
+                for wc in range(Cn + 2):
+                    if k * Cn - 1 + wc >= 0:
+                        m0[:, wc, :c0p] = ext[:, k * Cn - 1 + wc]
+                for l in range(nl):
+                    src = maps[(base + l) & 1]
+                    if l + 1 < nl:  # the carried columns of the map this layer writes
+                        maps[(base + l + 1) & 1][:, :2] = 0 if k == kw else queue[k & 1, l]
+                    kdim = k0pad if l == 0 else hid
+                    win = src[:, :, :kdim]
+                    if row_policy == "replicate":  # the MMAs clamp the row, or read zeros
+                        win = np.concatenate([win[:1], win, win[-1:]], axis=0)
+                    else:
+                        win = np.pad(win, ((1, 1), (0, 0), (0, 0)))
+                    # a mixed launch's last layer: one step an output group
+                    groups = ttf.output_groups(chp) if hidden and l == Lw - 1 else \
+                        [chp if l == Lw - 1 else hid]
+                    nout = chp if l == Lw - 1 else hid
+                    acc = np.zeros((R * Cn, nout), np.float32)
+                    g0 = 0
+                    for gw in groups:
+                        for p0 in range(0, R * Cn, 256):  # a step's blocks of 256 pixels
+                            blk = slice(p0, min(p0 + 256, R * Cn))
+                            gacc = np.zeros((blk.stop - blk.start, gw), np.float32)
+                            for t in range(9):
+                                dy, dx = divmod(t, 3)
+                                A = win[pr[blk] + dy, pc[blk] + dx]
+                                wt = wn[l, dy, dx, :kdim, g0:g0 + gw]
+                                part = gacc if precision == "fp32" else np.zeros_like(gacc)
+                                for s in range(kdim // kk):
+                                    part = _mma_sum(part, A[:, kk * s:kk * (s + 1)],
+                                                    wt[kk * s:kk * (s + 1)], precision, terms)
+                                gacc = part if precision == "fp32" else gacc + part
+                            acc[blk, g0:g0 + gw] = gacc
+                        g0 += gw
+                    y = acc.reshape(R, Cn, nout) + bn[l, :nout]
+                    if relu_flags[l]:
+                        y = np.maximum(y, np.float32(0))
+                    acol = k * Cn - l + np.arange(Cn)
+                    keep = ((acol >= 0) & (acol < width))[None, :, None] & row_ok
+                    y = _round(np.where(keep, y, np.float32(0)), precision)
+                    if l < Lw - 1:
+                        if l + 1 < nl:
+                            maps[(base + l + 1) & 1][:, 2:] = y
+                        queue[(k + 1) & 1, l] = y[:, Cn - 2:]
+                    else:
+                        out[band, :, k * Cn:(k + 1) * Cn] = y
+                base += nl
     return out
 
 
@@ -309,26 +398,34 @@ def test_tf32_split_is_exact_in_two_words():
 
 def test_wrapper_shapes_the_launch_as_the_kernel_does():
     """What the wrapper sizes for the kernel: the workspace head holds the
-    packed stages (layer 0 at its own k-steps), the shared memory is the
-    same at every R, and a tile wider than the window's rows raises."""
+    packed stages (layer 0 at its own k-steps; on the on-chip route fp32
+    unsplit, two words a lane an n8 block like bf16's pairs, on the
+    device-memory route pre-split, four), the shared memory of the
+    device-memory route is the same at every R and the on-chip route's
+    holds the two maps, and a tile wider than the window's rows raises."""
     fp32 = ttf.packed_weight_bytes(7, 32, 8, torch.float32)
     bf16 = ttf.packed_weight_bytes(7, 32, 8, torch.bfloat16)
-    assert fp32 == 4 * ((32 + 9 * 1 * 32 * 16) + 6 * (32 + 9 * 4 * 32 * 16))
+    assert fp32 == 4 * ((32 + 9 * 1 * 32 * 8) + 6 * (32 + 9 * 4 * 32 * 8))
     assert bf16 == 4 * ((32 + 9 * 1 * 32 * 8) + 6 * (32 + 9 * 2 * 32 * 8))
     assert fp32 % 16 == 0 and bf16 % 16 == 0
+    split = ttf.packed_weight_bytes(7, 32, 8, torch.float32, onchip=False)
+    assert split == 4 * ((32 + 9 * 1 * 32 * 16) + 6 * (32 + 9 * 4 * 32 * 16))
+    assert ttf.packed_weight_bytes(7, 32, 8, torch.bfloat16, onchip=False) == bf16
     assert ttf.shared_bytes(32, torch.float32) == 229_632 < 232_448
-    assert ttf.shared_bytes(32, torch.bfloat16) == 88_320
-    assert ttf.shared_bytes(16, torch.float32) == 2 * 4 * (16 + 9 * 2 * 32 * 8) + 2 * 320 * 80
+    assert ttf.shared_bytes(32, torch.bfloat16) == 78_080
+    assert ttf.shared_bytes(16, torch.float32) == 2 * 4 * (16 + 9 * 2 * 32 * 8) + 2 * 320 * 64
     for R in (12, 60, 74, 1009):
         kb = ttf.kernel_buffers(channels=CHANNELS, band_rows=R, tile_cols=C,
                                 dtype=torch.bfloat16)
-        assert kb["shared_bytes"] == 88_320 and kb["packed_weight_bytes"] == bf16
+        rt = ttf.route(R, C, 32, torch.bfloat16)
+        assert (kb["route"], kb["shared_bytes"]) == (rt.name, rt.shared_bytes)
+        assert kb["packed_weight_bytes"] == bf16
+        assert rt.onchip == (R <= 75) and (rt.shared_bytes == 78_080) == (R > 75)
     # a mixed launch (ABPN x4: 28 hidden channels, 48 outputs) packs x3's
-    # stages and one more, the last layer's 16-output group (fp32: 2 n8
-    # blocks of hi and lo words; bf16: 2 of pairs), and runs on the Chp 32
-    # instance's shared memory
+    # stages and one more, the last layer's 16-output group (2 n8 blocks of
+    # 2 words a lane), and runs on the Chp 32 instance's shared memory
     x4 = ABPNConfig(scale=4).channels
-    for dt, words16, x3 in ((torch.float32, 16 + 9 * 4 * 32 * 8, fp32),
+    for dt, words16, x3 in ((torch.float32, 16 + 9 * 4 * 32 * 4, fp32),
                             (torch.bfloat16, 16 + 9 * 2 * 32 * 4, bf16)):
         mixed = ttf.packed_weight_bytes(7, 48, 8, dt, hidden_chp=32)
         assert mixed == x3 + 4 * words16 and mixed % 16 == 0
@@ -338,8 +435,10 @@ def test_wrapper_shapes_the_launch_as_the_kernel_does():
         kb = ttf.kernel_buffers(channels=x4, band_rows=60, tile_cols=C, dtype=dt)
         assert (kb["chp"], kb["hidden_chp"]) == (48, 32)
         assert kb["packed_weight_bytes"] == mixed
-        assert kb["shared_bytes"] == (229_632 if dt == torch.float32 else 88_320)
-        assert kb["buffers"]["slabs"]["shape"] == (2, 60, C, 32)
+        assert kb["route"] == "onchip"
+        assert kb["shared_bytes"] == (190_624 if dt == torch.float32 else 95_392)
+        assert kb["buffers"]["slabs"]["shape"] == (2, 60, C + 2, 32)
+        assert kb["buffers"]["slabs"]["memory"] == "shared"
         assert kb["buffers"]["overlap"]["shape"] == (2, 6, 60, 2, 32)
         assert kb["buffers"]["stream_out_per_column"]["shape"] == (60, 1, 48)
     assert ttf.output_groups(48) == [32, 16] and ttf.output_groups(128) == [32] * 4

@@ -197,13 +197,34 @@ def test_wrapper_rejects_bad_arguments():
 
 
 def test_kernel_buffers_bounded_in_r():
+    """Every band height launches: up to 76 rows the two maps sit in shared
+    memory beside one weight stage (ABPN's 60-row bands and 74-row halo
+    slabs), and taller bands (86-row halo slabs of 72-row bands, the
+    one-band fallback) take the device-memory route, whose slabs are
+    workspace and whose shared memory is the same for every R."""
     ch = [3, 28, 28, 28, 28, 28, 28, 27]
-    for rows in (8, 60, 61, 74, 1009):
+    routes = {8: "onchip", 60: "onchip", 61: "onchip", 74: "onchip", 76: "onchip",
+              77: "device", 86: "device", 1009: "device"}
+    for rows in (8, 60, 61, 74, 76, 77, 86, 1009):
         kb = ttf.kernel_buffers(channels=ch, band_rows=rows, tile_cols=8)
         assert kb["chp"] == 32 and kb["c0p"] == 8
-        assert kb["shared_bytes"] == 229_632  # the same for every R
-        # slabs (2, R, C, Chp) and the queue (2, L-1, R, 2, Chp)
-        assert kb["workspace_elements"] == 2 * rows * 8 * 32 + 2 * 6 * rows * 2 * 32
+        assert kb["route"] == routes[rows]
+        queue = 2 * 6 * rows * 2 * 32  # (2, L-1, R, 2, Chp), in device memory
+        stage = 4 * (32 + 9 * 4 * 32 * 8)  # bias, then fp32 B unsplit: 36,992 B
+        split = 4 * (32 + 9 * 4 * 32 * 16)  # the device-memory route's, pre-split
+        if kb["route"] == "onchip":
+            # two maps (R, C + 2, Chp) of 128-byte pixels, the stage, 32 B
+            assert kb["shared_bytes"] == 2 * rows * 10 * 128 + stage + 32 <= 232_448
+            assert kb["buffers"]["slabs"] == {"shape": (2, rows, 10, 32),
+                                              "elements": 2 * rows * 10 * 32,
+                                              "memory": "shared"}
+            assert kb["device_slab_elements"] == 0 and kb["workspace_elements"] == queue
+        else:
+            assert kb["shared_bytes"] == 2 * split + 2 * 320 * 128 == 229_632
+            assert kb["buffers"]["slabs"]["memory"] == "device"
+            assert kb["device_slab_elements"] == 2 * rows * 8 * 32
+            assert kb["workspace_elements"] == 2 * rows * 8 * 32 + queue
+        assert kb["shared_bytes"] <= 232_448
         assert kb["buffers"]["overlap"]["logical_elements"] == 7 * rows * 2 * 28
     assert ttf.kernel_buffers(channels=ch, band_rows=60, tile_cols=8)["shared_bytes"] < 227 * 1024
     assert ttf.round_up_channels(28) == jtf.round_up_channels(28) == 32
@@ -212,12 +233,16 @@ def test_kernel_buffers_bounded_in_r():
 def test_kernel_buffers_launch_total():
     ch = [3, 28, 28, 28, 28, 28, 28, 27]
     kb = ttf.kernel_buffers(channels=ch, band_rows=60, tile_cols=8, bands=6, segments=41)
-    per_cta = 2 * 60 * 8 * 32 + 2 * 6 * 60 * 2 * 32  # 76,800: ~307 KB in fp32
-    assert kb["workspace_elements"] == per_cta
+    per_cta = 2 * 6 * 60 * 2 * 32  # the queue alone, 46,080: ~184 KB in fp32
+    assert kb["route"] == "onchip" and kb["workspace_elements"] == per_cta
     assert kb["ctas"] == 6 * 41
     assert kb["launch_workspace_elements"] == 6 * 41 * per_cta
     one = ttf.kernel_buffers(channels=ch, band_rows=60, tile_cols=8)
     assert one["ctas"] == 1 and one["launch_workspace_elements"] == per_cta
+    # a one-band fallback of 360 rows keeps its slabs in device memory
+    tall = ttf.kernel_buffers(channels=ch, band_rows=360, tile_cols=8, bands=1, segments=41)
+    assert tall["route"] == "device"
+    assert tall["launch_workspace_elements"] == 41 * (2 * 360 * 8 * 32 + 2 * 6 * 360 * 2 * 32)
 
 
 # ----------------------------------------------------------------------

@@ -294,19 +294,29 @@ def test_launch_cost_io_bytes_are_the_wrapper_tensors(dtype, bounds):
 def _walk_the_source(plan, R, C, c0p, chp, L, dtype, bounds, replicate, hidden=None):
     """Bytes one launch reads and writes beyond (a), walking
     ``csrc/tilted_fusion.cu`` loop by loop: the packing kernel, then per CTA
-    its bounds, the queue's start state, and per (tile, step) its weight
-    stage, each row block's window copies (pixel by pixel) and the carried
-    layers' stores.  A step is a layer, or on a mixed launch (``hidden``
-    channels in the hidden layers) one of the last layer's output groups of
-    32 (``group_width``), which walks the row blocks again.  Each loop over
-    a buffer touches each element once."""
+    its bounds and per (tile, step) its weight stage; then, on the on-chip
+    route (``tilted_fusion_kernel_onchip``), per tile F_0's copy (pixel by
+    pixel, R rows) and per layer the next layer's carried columns copied
+    (zero-filled at a sweep's first tile) and its own two stored; on the
+    device-memory route (``tilted_fusion_kernel``), per CTA the queue's
+    start state and per step each row block's window copies (pixel by
+    pixel) and the carried layers' stores.  A step is a layer, or on a
+    mixed launch (``hidden`` channels in the hidden layers) one of the last
+    layer's output groups of 32 (``group_width``), which on the
+    device-memory route walks the row blocks again.  Each loop over a
+    buffer touches each element once."""
     es = dtype.itemsize
     k = 8 if dtype == torch.float32 else 16
     hid = hidden or chp
     ks0, ks = -(-c0p // k), hid // k
+    onchip = ttf.route(R, C, chp, dtype, hidden).onchip
 
-    def stage(nout, ksteps):  # bias as fp32, then the B fragments of 32 lanes
-        return 4 * (nout + 9 * ksteps * 32 * (4 if dtype == torch.float32 else 2) * (nout // 8))
+    # bias as fp32, then the B fragments: 2 words a lane an n8 block, on the
+    # device-memory route 4 in fp32 (pre-split)
+    words = 4 if dtype == torch.float32 and not onchip else 2
+
+    def stage(nout, ksteps):
+        return 4 * (nout + 9 * ksteps * 32 * words * (nout // 8))
 
     groups = [min(32, chp - g) for g in range(0, chp, 32)] if hidden else [chp]
     steps = [(l, hid) for l in range(L - 1)] + [(L - 1, n) for n in groups]
@@ -317,6 +327,21 @@ def _walk_the_source(plan, R, C, c0p, chp, L, dtype, bounds, replicate, hidden=N
     for _ in range(plan.bands):
         for kw, k0, k1 in plan.ranges():
             total += 8 if bounds else 0
+            if onchip:
+                for kt in range(kw, k1):
+                    nl = L if kt >= k0 else L - 1
+                    for l, nout in steps if kt >= k0 else steps[:L - 1]:
+                        total += stage(nout, ks0 if l == 0 else ks)
+                    for r in range(R):  # F_0: the stream's columns kC-1 .. kC+C
+                        for wc in range(C + 2):
+                            if kt * C - 1 + wc >= 0:
+                                total += c0p * es
+                    for l in range(nl):
+                        if l + 1 < nl and kt != kw:  # the next layer's carried columns
+                            total += R * 2 * hid * es
+                        if l < L - 1:
+                            total += R * 2 * hid * es  # this layer's, stored to the queue
+                continue
             total += (L - 1) * R * 2 * hid * es  # one parity of the queue zeroed
             for kt in range(kw, k1):
                 for l, nout in steps if kt >= k0 else steps[:L - 1]:
@@ -344,8 +369,10 @@ def _walk_the_source(plan, R, C, c0p, chp, L, dtype, bounds, replicate, hidden=N
 def test_launch_cost_workspace_bytes_walk_the_kernels_loops(segments, bounds):
     plan = ttf.segment_plan(3, 7, TILE_COLS, L, sms=8, segments=segments)
     for dtype in (torch.float32, torch.bfloat16):
+        # on chip but the last (a band too tall for its maps: the device-memory route)
         for R, C, replicate in ((13, TILE_COLS, False), (13, TILE_COLS, True),
-                                (61, TILE_COLS, False), (9, 3, True)):
+                                (61, TILE_COLS, False), (9, 3, True), (90, TILE_COLS, True)):
+            assert ttf.route(R, C, CHP, dtype).onchip == (R < 90)
             want = _walk_the_source(plan, R, C, C0P, CHP, L, dtype, bounds, replicate)
             got = ttf.launch_cost(plan, band_rows=R, tile_cols=C, c0p=C0P, chp=CHP,
                                   num_layers=L, dtype=dtype, bounds=bounds, replicate=replicate)
@@ -361,7 +388,7 @@ def test_launch_cost_of_a_mixed_launch_walks_the_kernels_loops(segments, out):
     plan = ttf.segment_plan(3, 7, TILE_COLS, L, sms=8, segments=segments)
     for dtype in (torch.float32, torch.bfloat16):
         for R, C, replicate, bounds in ((13, TILE_COLS, False, True), (61, TILE_COLS, True, False),
-                                        (9, 3, True, True)):
+                                        (9, 3, True, True), (90, TILE_COLS, False, True)):
             want = _walk_the_source(plan, R, C, C0P, out, L, dtype, bounds, replicate, hidden=32)
             got = ttf.launch_cost(plan, band_rows=R, tile_cols=C, c0p=C0P, chp=out, num_layers=L,
                                   dtype=dtype, bounds=bounds, replicate=replicate, hidden_chp=32)

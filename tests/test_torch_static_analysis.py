@@ -161,8 +161,9 @@ def test_degenerate_plan_findings_match():
 def test_budget_past_design_point_warns_on_both_banded_backends():
     """``band_rows=120`` doubles K1's per-CTA working set past Table II's
     budget: a warning on both banded backends.  The JAX package makes it
-    an error on the kernel backend (its VMEM scratch); K1's shared memory
-    is the same at every R, so the port does not."""
+    an error on the kernel backend (its VMEM scratch); K1 takes its
+    device-memory route for a band too tall for its maps, whose shared
+    memory is the same at every R, so the port does not."""
     for backend in ("kernel", "tilted"):
         plan = SRPlan(height=360, width=64, band_rows=120, backend=backend)
         findings = plan.verify()
@@ -174,11 +175,12 @@ def test_budget_past_design_point_warns_on_both_banded_backends():
                                                   backend="kernel"))
     # two fp32 stages of packed weights (bias + TF32 hi and lo words) and two
     # 320-pixel windows of 128-byte pixels: the same at every R
+    assert report["route"] == "device"
     assert report["shared_bytes"] == 2 * 4 * (32 + 9 * 4 * 32 * 16) + 2 * 320 * 128 == 229_632
 
 
 @pytest.mark.parametrize("channels,over", [
-    ([3, 32, 32, 27], False),  # 229,632 B a CTA: fits (one CTA an SM is occupancy only)
+    ([3, 32, 32, 27], False),  # 190,624 B a CTA: fits (one CTA an SM is occupancy only)
     ([3, 64, 64, 27], False),  # the wide Chp 64 instance: 2 x 16,384 + 320 x 256 B a CTA
     ([3, 40, 40, 27], False),  # padded to the Chp 48 instance: 2 x 9,216 + 320 x 208 B
     ([3, 136, 136, 27], True),  # no instance above Chp 128
@@ -220,15 +222,22 @@ def test_tile_cols_past_k1s_window_is_an_error_on_the_kernel_backend(backend):
 
 
 def test_plan_buffer_report_reads_k1():
+    """At the design point (60-row bands) K1 keeps the two maps of a tile
+    in shared memory beside one weight stage; its device workspace is the
+    overlap queue alone."""
     report = plan_check.plan_buffer_report(SRPlan(height=360, width=640, backend="kernel"))
-    assert report["shared_bytes"] == 229_632
+    assert report["route"] == "onchip"
+    assert report["shared_bytes"] == 2 * 60 * 10 * 128 + 4 * (32 + 9 * 4 * 32 * 8) + 32 \
+        == 190_624
     assert report["window_elements"] == 320 * 32
-    assert report["table2_elements"] == (report["workspace_elements"] + 2 * 9 * 32 * 32
-                                         + 2 * 320 * 32)
+    assert report["device_slab_elements"] == 0
+    assert report["table2_elements"] == (2 * 60 * 10 * 32 + report["workspace_elements"]
+                                         + 9 * 32 * 32)
     assert report["ctas"] == 6  # one CTA a band for the accounting's launch
     bf16 = plan_check.plan_buffer_report(SRPlan(height=360, width=640, backend="kernel",
                                                 precision="bf16"))
-    assert bf16["shared_bytes"] == 2 * 4 * (32 + 9 * 2 * 32 * 8) + 2 * 320 * 80 == 88_320
+    assert bf16["shared_bytes"] == 2 * 60 * 10 * 64 + 4 * (32 + 9 * 2 * 32 * 8) + 32 \
+        == 95_392
 
 
 @pytest.mark.parametrize("precision", ["fp32", "bf16"])
@@ -244,7 +253,8 @@ def test_verify_is_clean_where_an_instance_launches(width, instance, precision):
     report = plan_check.plan_buffer_report(plan, channels)
     assert report["instance"] == report["chp"] == instance == ttf.launch_chp(width)
     assert report["packed_chp"] == width
-    assert report["shared_bytes"] == ttf.shared_bytes(instance, ttf_dtype(precision))
+    assert report["shared_bytes"] == ttf.shared_bytes(instance, ttf_dtype(precision),
+                                                      band_rows=plan.band_rows)
     assert report["shared_bytes"] <= plan_check.SMEM_PER_BLOCK_BYTES
     assert report["max_tile_cols"] >= plan.tile_cols
 
@@ -267,10 +277,10 @@ def test_verify_reads_abpn_x4_from_the_plan():
     plan = SRPlan(height=360, width=640, backend="kernel", scale=4)
     report = plan_check.plan_buffer_report(plan)
     assert report["chp"] == 48 and errors(plan.verify()) == []
-    assert report["hidden_chp"] == 32 and report["shared_bytes"] == 229_632
-    assert report["window_elements"] == 320 * 32
-    assert report["table2_elements"] == (report["workspace_elements"] + 2 * 9 * 32 * 32
-                                         + 2 * 320 * 32)
+    assert report["hidden_chp"] == 32 and report["shared_bytes"] == 190_624
+    assert report["route"] == "onchip" and report["window_elements"] == 320 * 32
+    assert report["table2_elements"] == (2 * 60 * 10 * 32 + report["workspace_elements"]
+                                         + 9 * 32 * 32)
 
 
 def ttf_dtype(precision):

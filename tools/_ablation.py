@@ -125,8 +125,12 @@ def use_k1_library(path):
 
 
 K1_SRC = os.path.join(ROOT, "src/repro_torch/kernels/csrc/tilted_fusion.cu")
-K1_ENTRY = r"tilted_fusion_kernelI(f|13__nv_bfloat16)Li(\d+)E"
+# the narrow kernels: the on-chip route's (wgmma, or mma.sync) and the
+# device-memory route's
+K1_ENTRY = r"tilted_fusion_(wgmma_)?kernel(_onchip)?I(f|13__nv_bfloat16)Li(\d+)ELb([01])E"
 
 
 def k1_label(m):
-    return f"<{'fp32' if m.group(1) == 'f' else 'bf16'}, chp {m.group(2)}>"
+    route = "on chip, wgmma" if m.group(1) else "on chip" if m.group(2) else "device"
+    return (f"<{'fp32' if m.group(3) == 'f' else 'bf16'}, chp {m.group(4)}"
+            f"{', mixed' if m.group(5) == '1' else ''}> {route}")

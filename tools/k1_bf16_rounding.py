@@ -43,7 +43,7 @@ from _ablation import K1_ENTRY, K1_SRC, ROOT, build, device_ms, edits, k1_label,
 OUT = f"{ROOT}/build/k1_bf16_rounding"
 VARIANTS = {
     "shipped": edits(),
-    "chained": edits(("kstep(t, tpix, s, part);", "kstep(t, tpix, s, acc);"),
+    "chained": edits(("kstep(dy, dx, s, part);", "kstep(dy, dx, s, acc);"),
                      ("acc[f][jb][c] += part[f][jb][c];", "(void)part[f][jb][c];")),
 }
 

@@ -5,7 +5,8 @@ each beside cuDNN's conv stack on the same layers.
 
 Run from the root of a checkout, on a machine with an NVIDIA card and nvcc:
 
-    python3 tools/k1_times.py [--src PATH] [--rounds 5]
+    python3 tools/k1_times.py [--src PATH] [--rounds 5] [--stacks x3 x4-mixed ...] [--out FILE]
+                              [--band-rows R ...]
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed
 (default: this checkout's); its kernels build into that tree's own
@@ -31,17 +32,30 @@ The stacks:
 
 Beside each: cuDNN's conv stack on the same layers (NCHW ``conv2d`` + ReLU,
 TF32 off, bf16 for bf16, the weights cast before timing), timed the same
-way; the bounds of the stack's useful work (fp32 as 3xTF32 at the TF32
-peak, bf16 at the bf16 peak, and the bytes of the input, the output and the
-weights at the memory rate, the published H100 SXM rates; ``tools/_stacks.py``
-has these and the seeded He weights); and ``launch_cost``'s executed GFLOP and bytes
-for the launch's own segment plan, as the tree counts them.  It prints the
-card's name and power limit, one line a cell, and one JSON line.
+way; for ``x3`` and ``x4-mixed``, K2's layer-by-layer stack on the same
+layers and frames (``conv3x3_call`` once a layer and a 360x640 frame, each
+layer fed the one before: the unfused path), timed the same way; the
+bounds of the stack's useful work (fp32 as 3xTF32 at the TF32 peak, bf16
+at the bf16 peak, and the bytes of the input, the output and the weights
+at the memory rate, the published H100 SXM rates; ``tools/_stacks.py`` has
+these and the seeded He weights); and ``launch_cost``'s executed GFLOP and
+bytes for the launch's own segment plan, as the tree counts them: (a), the
+arguments and the result, and (b), the workspace's.  It prints the card's
+name and power limit, one line a cell, and one JSON line (also written to
+``--out``).
+
+``--band-rows R ...`` (default 60, the cells above) times K1 alone at any
+other R, on bands of R rows, ceil(360 / R) of them a frame (86: the shape
+of the five halo slabs of 72-row bands that the tuner tries; 360: the
+one-band fallback), with the launch's own segment plan and
+``launch_cost``'s (b): the heights past the on-chip route's, where a launch
+keeps its feature maps in device memory.
 
 Exits 2 without a CUDA device.
 """
 
 import argparse
+import itertools
 import json
 import os
 import statistics
@@ -54,6 +68,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # H100 SXM, dense (NVIDIA's data sheet): TF32 and bf16 tensor cores, HBM3
 PEAKS = {"tf32": 495e12, "bf16": 989e12, "bytes": 3.35e12}
 WIDE_F = {48: (1,), 64: (1, 8), 96: (1,), 128: (1, 8)}  # feature widths -> frame counts
+K2_STACKS = ("x3", "x4-mixed")  # the stacks timed layer by layer through K2 as well
 
 
 def device_ms(torch, fn, calls=5, rounds=5):
@@ -76,6 +91,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     ap.add_argument("--rounds", type=int, default=5)
+    ap.add_argument("--stacks", nargs="*", default=None,
+                    help="time only these stacks (default: all the tree has)")
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--band-rows", type=int, nargs="+", default=[60])
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.src))
 
@@ -85,6 +104,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
+    from repro_torch.kernels import conv3x3 as k2
     from repro_torch.kernels import ops
     from repro_torch.kernels import tilted_fusion as ttf
     from repro_torch.models.abpn import ABPNConfig, init_abpn, layers_from_numpy
@@ -106,13 +126,16 @@ def main(argv=None) -> int:
             ch = ABPNConfig(feature_channels=f).channels
             stacks[f"x3-F{f}"] = (layers_from_numpy(he_arrays(np, ch, 60 + f), device=dev),
                                   False, counts)
+    if args.stacks:
+        stacks = {k: v for k, v in stacks.items() if k in args.stacks}
     gen = torch.Generator().manual_seed(1)
     out = {"card": card, "src": os.path.abspath(args.src)}
-    for name, (layers, mixed, counts) in stacks.items():
+    for R, (name, (layers, mixed, counts)) in itertools.product(args.band_rows, stacks.items()):
+        per_frame = -(-360 // R)  # bands of R rows a frame
         L = len(layers)
         cudnn = {dt: cudnn_stack(torch, layers, dt) for dt in (torch.float32, torch.bfloat16)}
         for n in counts:
-            xb = torch.rand((n * 6, 60, 640, 3), generator=gen).to(dev)
+            xb = torch.rand((n * per_frame, R, 640, 3), generator=gen).to(dev)
             nchw = xb.permute(0, 3, 1, 2).contiguous()
             kw = dict(width=640, tile_cols=8, relu_flags=[l.relu for l in layers],
                       in_channels=3, add_anchor=False)
@@ -123,6 +146,24 @@ def main(argv=None) -> int:
                 xs, first = ops.band_streams(xb.to(dt), 8, L)
                 ms = device_ms(torch, lambda: ttf.tilted_fusion_call(
                     xs, first, packed.w, packed.b, **kw), rounds=args.rounds)
+                if R != 60:  # K1 alone, at this band height
+                    plan = ttf.launch_plan(xs, packed.w, tile_cols=8, compute_dtype=dt,
+                                           hidden_channels=kw.get("hidden_channels"))
+                    hid = (ttf.hidden_chp(packed.chp, packed.hidden_channels, xs.shape[3], dt)
+                           if mixed else None)
+                    cost = ttf.launch_cost(plan, band_rows=R, tile_cols=8, c0p=xs.shape[3],
+                                           chp=ttf.launch_chp(packed.chp, dt), num_layers=L,
+                                           dtype=dt, **({"hidden_chp": hid} if mixed else {}))
+                    route = getattr(ttf.tilted_fusion_call, "last_launch", None)
+                    cell = dict(ms=ms, segments=plan.segments, ctas=plan.ctas,
+                                workspace_mb=cost["workspace_bytes"] / 1e6,
+                                route=route["route"] if route else "device")
+                    out[f"{name}/{prec}/{n}/R{R}"] = cell
+                    print(f"K1 {name} {prec} {n} frame{'s' if n > 1 else ''}, "
+                          f"{xb.shape[0]} bands of {R} rows: {ms:.4f} ms queued "
+                          f"(S={plan.segments}, {cell['route']} route, (b) "
+                          f"{cell['workspace_mb']:.1f} MB)", flush=True)
+                    continue
                 nx = nchw.to(dt)
                 lib_ms = device_ms(torch, lambda: cudnn[dt](nx), rounds=args.rounds)
                 useful = useful_bound(layers, n * 360 * 640, prec, dt.itemsize, PEAKS)
@@ -130,6 +171,16 @@ def main(argv=None) -> int:
                 cell = dict(ms=ms, cudnn_ms=lib_ms, gflop=flops / 1e9,
                             bound_ms=useful["bound_ms"], bound_by=useful["bound_by"],
                             bytes_bound_ms=bytes_ms)
+                if name in K2_STACKS:
+                    ls = [l.to(dtype=dt) for l in layers]
+                    frames = [xb[6 * i:6 * i + 6].reshape(360, 640, 3).to(dt) for i in range(n)]
+
+                    def k2_stack(frames=frames, ls=ls):
+                        for x in frames:
+                            for l in ls:
+                                x = k2.conv3x3_call(x, l.w, l.b, relu=l.relu)
+
+                    cell["k2_stack_ms"] = device_ms(torch, k2_stack, rounds=args.rounds)
                 plan = ttf.launch_plan(xs, packed.w, tile_cols=8, compute_dtype=dt,
                                        hidden_channels=kw.get("hidden_channels"))
                 if hasattr(ttf, "launch_cost"):
@@ -141,19 +192,30 @@ def main(argv=None) -> int:
                                            chp=ttf.launch_chp(packed.chp, dt), num_layers=L,
                                            dtype=dt, **extra)
                     cell.update(executed_gflop=cost["flops"] / 1e9,
-                                executed_mb=cost["bytes"] / 1e6)
+                                executed_mb=cost["bytes"] / 1e6,
+                                io_mb=cost["io_bytes"] / 1e6,
+                                workspace_mb=cost["workspace_bytes"] / 1e6)
                 cell.update(segments=plan.segments, ctas=plan.ctas)
                 out[f"{name}/{prec}/{n}"] = cell
                 print(f"K1 {name} {prec} {n} frame{'s' if n > 1 else ''}: {ms:.4f} ms queued "
                       f"(S={plan.segments}); cuDNN stack {lib_ms:.4f} ms "
-                      f"({lib_ms / ms:.2f}x K1's time); bound {cell['bound_ms']:.4f} ms "
+                      f"({lib_ms / ms:.2f}x K1's time); "
+                      + (f"K2 stack {cell['k2_stack_ms']:.4f} ms ({cell['k2_stack_ms'] / ms:.2f}x "
+                         f"K1's time); " if "k2_stack_ms" in cell else "")
+                      + f"bound {cell['bound_ms']:.4f} ms "
                       f"({cell['bound_by']}; bytes {bytes_ms:.4f}) -> "
                       f"{100 * cell['bound_ms'] / ms:.1f}%; {flops / 1e9:.2f} GFLOP of the "
                       f"stack" + (f", K1 executes {cell['executed_gflop']:.2f} GFLOP "
                                   f"({cell['executed_gflop'] / ms:.1f} TFLOP/s) and moves "
-                                  f"{cell['executed_mb']:.1f} MB" if "executed_gflop" in cell
+                                  f"{cell['executed_mb']:.1f} MB ((a) {cell['io_mb']:.1f}, (b) "
+                                  f"{cell['workspace_mb']:.1f})" if "executed_gflop" in cell
                                   else ""), flush=True)
-    print(json.dumps(out))
+    line = json.dumps(out)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as fh:
+            fh.write(line + "\n")
+    print(line)
     return 0
 
 
