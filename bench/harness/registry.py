@@ -1,0 +1,103 @@
+"""Find the benchmark's parts by name: cells, configurations, traffic mixes
+and metric readers.
+
+``BENCHMARK.json`` at the root of the checkout names every part; each part
+lives in a file of its own under ``bench/``:
+
+* a configuration: the file its entry names (``bench/configs/<name>.json``);
+* a traffic mix: ``bench/traffic/<name>.json``, read by the one general
+  generator in :mod:`harness.traffic`;
+* a metric: ``bench/metrics/<name>.py`` if that file exists, else
+  ``bench/metrics/<stem>.py`` where ``<stem>`` is the name up to its first
+  dot (``k1_roofline.vod`` -> ``k1_roofline.py``).  The module defines
+  ``read(run)``, which returns a number or ``None`` where the run holds
+  nothing to read.
+
+Adding a part is adding its file and its entry; no file here changes.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+from pathlib import Path
+from typing import Callable, List, Optional
+
+BENCH = Path(__file__).resolve().parents[1]  # bench/
+REPO = BENCH.parent
+
+
+def load_benchmark(repo: Path = REPO) -> dict:
+    with open(Path(repo) / "BENCHMARK.json") as f:
+        return json.load(f)
+
+
+def _named(entries: list, name: str, what: str) -> dict:
+    for e in entries:
+        if e["name"] == name:
+            return e
+    raise KeyError(f"no {what} named {name!r} in BENCHMARK.json "
+                   f"(have {sorted(e['name'] for e in entries)})")
+
+
+def workload(bench: dict, name: str) -> dict:
+    return _named(bench["workloads"], name, "workload")
+
+
+def config(bench: dict, name: str, repo: Path = REPO) -> dict:
+    entry = _named(bench["configs"], name, "configuration")
+    with open(Path(repo) / entry["file"]) as f:
+        cfg = json.load(f)
+    cfg.setdefault("name", name)
+    return cfg
+
+
+def traffic(name: str, bench_dir: Path = BENCH) -> dict:
+    with open(Path(bench_dir) / "traffic" / f"{name}.json") as f:
+        tr = json.load(f)
+    tr.setdefault("name", name)
+    return tr
+
+
+def reports(metric: dict, cell: str, bench: dict) -> bool:
+    """Whether ``cell`` reports ``metric``: the cells its ``workloads`` key
+    lists, else (a per-layer metric) every cell that reports the end-to-end
+    metric it ``moves``, else (an end-to-end metric) every cell."""
+    if "workloads" in metric:
+        return cell in metric["workloads"]
+    if "moves" in metric:
+        return reports(_named(bench["end_to_end"], metric["moves"], "end-to-end metric"),
+                       cell, bench)
+    return True
+
+
+def metrics_for(bench: dict, cell: str, trace: bool) -> List[dict]:
+    """The metrics a run of ``cell`` prints: its end-to-end metrics, or with
+    ``trace`` its per-layer ones."""
+    return [m for m in bench["per_layer" if trace else "end_to_end"] if reports(m, cell, bench)]
+
+
+def reader(name: str, bench_dir: Path = BENCH) -> Callable:
+    """The ``read(run)`` function of metric ``name``."""
+    metrics = Path(bench_dir) / "metrics"
+    path = metrics / f"{name}.py"
+    if not path.exists():
+        path = metrics / f"{name.split('.')[0]}.py"
+    if not path.exists():
+        raise KeyError(f"no reader for metric {name!r} under {metrics}")
+    spec = importlib.util.spec_from_file_location(f"bench_metric_{path.stem.replace('.', '_')}",
+                                                  path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.read
+
+
+def read_metrics(entries: List[dict], run, bench_dir: Path = BENCH) -> dict:
+    """``{name: {"value", "unit"}}`` for every entry whose reader finds a
+    number; a reader that returns ``None`` leaves its metric out."""
+    out = {}
+    for m in entries:
+        value: Optional[float] = reader(m["name"], bench_dir)(run)
+        if value is not None:
+            out[m["name"]] = {"value": float(value), "unit": m["unit"]}
+    return out
