@@ -260,16 +260,13 @@ def audit_session(session, *, compiled: bool = True) -> List[Finding]:
     return findings
 
 
-_LAUNCH_MARK = "repro_torch::server_launch"
-
-
 def audit_server(server, submit) -> List[Finding]:
     """Audit an :class:`~repro_torch.engine.server.SRServer`'s launch path
     on the card.  ``submit()`` queues a request on ``server`` (host frames,
     as a client sends them) and returns its future.  It runs once to warm
-    the plan, executor and kernels, then once under ``torch.profiler`` with
-    every ``SRServer._launch`` in a span of its own.  A synchronizing
-    runtime call inside a launch is ``host_callback``: the launch holds the
+    the plan, executor and kernels, then once under ``torch.profiler``,
+    which records every launch in the server's own ``sr.dispatch`` span.  A
+    synchronizing runtime call inside a launch is ``host_callback``: the launch holds the
     server lock, so each dispatch would wait for the one before it and the
     session's ``pipeline_depth`` would buy nothing.  The completion's event
     wait runs outside the launch, with the lock released, and does not
@@ -278,7 +275,7 @@ def audit_server(server, submit) -> List[Finding]:
     nothing is asynchronous and nothing is found."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.engine.executor import SYNC_CALLS
 
@@ -286,24 +283,14 @@ def audit_server(server, submit) -> List[Finding]:
                    for s in server._sessions.values())
     for _ in range(replicas):  # warm: plan, executor, kernel build
         submit().result()
-    launch = server._launch
-
-    def traced(d):
-        with record_function(_LAUNCH_MARK):
-            launch(d)
-
-    server._launch = traced
-    try:
-        activities = [ProfilerActivity.CPU]
-        if torch.cuda.is_available():
-            activities.append(ProfilerActivity.CUDA)
-        with profile(activities=activities) as prof:
-            submit().result()
-    finally:
-        del server._launch
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        submit().result()
     events = list(prof.events())
     spans = [(e.time_range.start, e.time_range.end) for e in events
-             if e.name == _LAUNCH_MARK and e.device_type == DeviceType.CPU]
+             if e.name == "sr.dispatch" and e.device_type == DeviceType.CPU]
     if not spans:
         raise RuntimeError("the profiler recorded no server launch")
     syncs = sorted({e.name for e in events

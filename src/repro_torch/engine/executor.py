@@ -37,6 +37,7 @@ from repro_torch.core.fusion import (
 )
 from repro_torch.core.quant import dequantize_layers, quantize_layers
 from repro_torch.engine.plan import SRPlan
+from repro_torch.engine.spans import SPAN_PREFIX, active_clock, mark, span
 from repro_torch.models.abpn import depth_to_space, make_anchor
 
 __all__ = [
@@ -174,6 +175,7 @@ def _features_kernel(plan: SRPlan, layers, frames: torch.Tensor, packed=None) ->
         vertical_policy=plan.vertical_policy,
         compute_dtype=frames.dtype,
         packed=packed,
+        clock=active_clock(),
     )
 
 
@@ -185,23 +187,34 @@ _BACKENDS = {
 
 def sr_features(plan: SRPlan, layers, frames: torch.Tensor, packed=None) -> torch.Tensor:
     """Run the plan's conv-stack backend over a frame batch (no epilogue).
-    ``layers`` are assumed already numerics-prepared."""
+    ``layers`` are assumed already numerics-prepared.  The server's stage
+    clock (``engine.spans``) is marked where the stages begin: the kernel
+    backend's ``marshal`` (K1's input streams) and ``k1`` (its launch); a
+    plain backend's whole work is ``k1``."""
     if plan.backend == "kernel":
         return _features_kernel(plan, layers, frames, packed)
+    mark("k1")
     return _BACKENDS[plan.backend](plan, layers, frames)
 
 
 def _execute_stack(plan: SRPlan, stack: PreparedStack, frames: torch.Tensor) -> torch.Tensor:
     """The per-batch computation over an already-prepared weight stack:
-    the conv datapath + epilogue, nothing else."""
+    the conv datapath + epilogue, nothing else.  The server's stage clock
+    is marked where each stage begins (:func:`sr_features`; ``epilogue``)
+    and where the epilogue ends."""
     if frames.ndim != 4:
         raise ValueError(
             f"expected a frame batch (N, H, W, C), got shape {tuple(frames.shape)}"
         )
     in_dtype = frames.dtype
     x = frames.to(compute_dtype_for(plan.precision))
-    feats = sr_features(plan, stack.layers, x, packed=stack.packed)
-    return sr_epilogue(plan, x, feats, in_dtype)
+    with span("sr.k1"):
+        feats = sr_features(plan, stack.layers, x, packed=stack.packed)
+    with span("sr.epilogue"):
+        mark("epilogue")
+        hr = sr_epilogue(plan, x, feats, in_dtype)
+        mark(None)
+    return hr
 
 
 def sr_epilogue(plan: SRPlan, x: torch.Tensor, feats: torch.Tensor, in_dtype) -> torch.Tensor:
@@ -306,11 +319,13 @@ def _execute_band_stack(plan: SRPlan, stack: PreparedStack, slabs: torch.Tensor,
         )
     in_dtype = slabs.dtype
     x = slabs.to(compute_dtype_for(plan.precision))
-    feats = _band_features(plan, stack, x, bounds)
+    with span("sr.k1"):
+        feats = _band_features(plan, stack, x, bounds)
     if plan.vertical_policy == "halo":
         L = plan.num_layers
         x = x[:, L : L + plan.band_rows]  # each slab's own (anchor) rows
-    return sr_epilogue(plan, x, feats, in_dtype)
+    with span("sr.epilogue"):
+        return sr_epilogue(plan, x, feats, in_dtype)
 
 
 def build_band_executor(
@@ -402,9 +417,11 @@ def _profile_call(fn, device: torch.device) -> dict:
         if len(marks) != 1:
             raise RuntimeError(f"the profiler recorded {len(marks)} spans of the call, not 1")
         lo, hi = marks[0].time_range.start, marks[0].time_range.end
-        # the call's own span is projected onto the device as well: not a kernel
+        # spans (the call's own, the executor's) are projected onto the
+        # device as well: not kernels
         device_events = [e.name for e in events
-                         if e.device_type == DeviceType.CUDA and e.name != _CALL_MARK]
+                         if e.device_type == DeviceType.CUDA and e.name != _CALL_MARK
+                         and not e.name.startswith(SPAN_PREFIX)]
         if device_events:
             break
     else:

@@ -113,6 +113,10 @@ class SchedRequest:
     # admission timestamp (time.monotonic()) — end-to-end latency anchor
     # for the server's degrade policy
     admitted_at: float = 0.0
+    # time.perf_counter() seconds: the submit call began; the dispatch of
+    # its first frames launched (the session's queue-wait and latency)
+    submitted_at: float = 0.0
+    dispatched_at: float = 0.0
     # partial-band request (temporal delta serving): the band indices the
     # ``n`` slab rows of ``flat`` correspond to.  None = whole frames.
     # Band requests use a "bands"-suffixed key, so the coalescer never

@@ -44,6 +44,19 @@ after the launch is what a completion waits on — with the server lock
 released, so other threads' submits are admitted (and coalesce)
 meanwhile.  ``SRFuture.result()`` drives the drain; no background thread
 exists.
+
+Under ``torch.profiler`` each stage runs in a span of its own
+(:func:`~repro_torch.engine.spans.span`): ``sr.submit`` (holding
+``sr.pin`` and the admission's ``sr.lock_wait``), ``sr.dispatch``
+(``sr.assemble``, then ``sr.execute`` with the executor's ``sr.k1`` and
+``sr.epilogue``), ``sr.wait``, ``sr.finalize`` (``sr.join``), and the
+drain's own ``sr.lock_wait``.  Whether or not a profiler records, the
+session counts what these stages took (``SRSession.stats()``): each
+request's queue wait and latency, the submit path's pins and lock waits,
+and the device time of each dispatch's upload, K1's input marshalling, K1
+and epilogue and of each request's join, timed by CUDA events the server
+reads only after it has waited for the dispatch (or, for a join, once its
+events have completed).
 """
 
 from __future__ import annotations
@@ -66,6 +79,7 @@ from repro_torch.engine.scheduler import (
     SchedRequest,
 )
 from repro_torch.engine.session import SRSession
+from repro_torch.engine.spans import StageClock, span
 from repro_torch.runtime.resilience import EMAMeanVar
 
 __all__ = [
@@ -302,16 +316,18 @@ class SRFuture:
 
 class _Inflight:
     """One launched dispatch: the HR tensor, the event recorded after its
-    launch (None on the CPU, where the call returns when done) and its
-    timing."""
+    launch (None on the CPU, where the call returns when done), its
+    timing and the clock of its device stages (None where none is kept)."""
 
-    __slots__ = ("dispatch", "hr", "event", "t0")
+    __slots__ = ("dispatch", "hr", "event", "t0", "clock")
 
-    def __init__(self, dispatch: Dispatch, hr, event, t0: float):
+    def __init__(self, dispatch: Dispatch, hr, event, t0: float,
+                 clock: Optional[StageClock]):
         self.dispatch = dispatch
         self.hr = hr
         self.event = event
         self.t0 = t0
+        self.clock = clock
 
 
 class SRServer:
@@ -528,6 +544,17 @@ class SRServer:
         return self.submit(frames, model=self._name_for(session),
                            priority=priority, deadline=deadline, timeout=timeout)
 
+    def _counted(self, body, *args, model: Optional[str], **kwargs) -> SRFuture:
+        """Run a submit path, ``body(t_submit, *args, model=model,
+        **kwargs)``, in the ``sr.submit`` span, and count the call's time in
+        its session's ``submit_max_ms`` (a call that raises queues no
+        request)."""
+        t0 = time.perf_counter()
+        with span("sr.submit"):
+            fut = body(t0, *args, model=model, **kwargs)
+        self.session(model)._submit_ms.append((time.perf_counter() - t0) * 1e3)
+        return fut
+
     def submit(self, frames, *, model: Optional[str] = None,
                priority: int = 0, deadline: Optional[float] = None,
                timeout: Optional[float] = None) -> SRFuture:
@@ -547,6 +574,12 @@ class SRServer:
         never dispatches.  Once frames are in flight the request runs to
         completion.
         """
+        return self._counted(self._submit_frames, frames, model=model,
+                             priority=priority, deadline=deadline, timeout=timeout)
+
+    def _submit_frames(self, t_submit: float, frames, *, model: Optional[str],
+                       priority: int, deadline: Optional[float],
+                       timeout: Optional[float]) -> SRFuture:
         if self._closed:
             raise RuntimeError("server is closed")
         if deadline is not None and timeout is not None:
@@ -601,6 +634,7 @@ class SRServer:
             ndim=ndim,
             lead=lead,
             deadline=deadline,
+            submitted_at=t_submit,
         )
         fut._request = req
         self._admit(req)
@@ -626,6 +660,11 @@ class SRServer:
         bit-exactness with a full re-upscale, and a mid-clip downcast would
         poison the output cache.
         """
+        return self._counted(self._submit_bands, slabs, bands, plan=plan, model=model,
+                             priority=priority)
+
+    def _submit_bands(self, t_submit: float, slabs, bands, *, plan, model: Optional[str],
+                      priority: int) -> SRFuture:
         if self._closed:
             raise RuntimeError("server is closed")
         from repro_torch.engine.temporal.band_diff import band_input_rows
@@ -664,6 +703,7 @@ class SRServer:
             ndim=4,  # identity assembly: the future gets the raw stack
             lead=None,
             bands=bands,
+            submitted_at=t_submit,
         )
         fut._request = req
         self._admit(req)
@@ -675,9 +715,14 @@ class SRServer:
         the submitting thread (outside the server lock): its dispatches then
         upload it asynchronously.  From pageable memory torch would
         synchronize the stream after the copy, inside the launch, under the
-        lock, so each dispatch would wait for the one before it."""
-        if session.device.type == "cuda" and flat.device.type == "cpu" and not flat.is_pinned():
-            return flat.pin_memory()
+        lock, so each dispatch would wait for the one before it.  Each copy
+        is counted in the session's ``pin_*`` stats."""
+        with span("sr.pin"):
+            if session.device.type == "cuda" and flat.device.type == "cpu" and not flat.is_pinned():
+                t0 = time.perf_counter()
+                flat = flat.pin_memory()
+                session._pins.append(((time.perf_counter() - t0) * 1e3, flat.nbytes,
+                                      int(flat.shape[0])))
         return flat
 
     def cancel(self, fut: SRFuture) -> bool:
@@ -722,7 +767,9 @@ class SRServer:
         while True:
             err: Optional[BaseException] = None
             admitted = done = False
-            with self._lock:
+            waited = self._acquire()
+            try:
+                req.session._note_lock_wait("submit", waited)
                 # expire due work first: a stale queue must not block or
                 # shed live traffic a deadline already freed
                 self._expire_locked(time.monotonic())
@@ -774,6 +821,8 @@ class SRServer:
                         "queue full but no work to drain — inconsistent scheduler state"
                     )
                 finished = self._take_finished()
+            finally:
+                self._lock.release()
             self._run_finished(finished)
             if err is not None:
                 raise err
@@ -781,6 +830,14 @@ class SRServer:
                 return
             # block policy: make space by draining (outside the lock)
             self._step()
+
+    def _acquire(self) -> float:
+        """Take the server lock (in an ``sr.lock_wait`` span); returns the
+        milliseconds waited for it.  The caller releases it."""
+        t0 = time.perf_counter()
+        with span("sr.lock_wait"):
+            self._lock.acquire()
+        return (time.perf_counter() - t0) * 1e3
 
     def _enqueue(self, req: SchedRequest) -> None:
         req.seq = self._sched.next_seq()
@@ -820,15 +877,21 @@ class SRServer:
         is nothing left to do."""
         inf = None
         progress = True
-        with self._cv:
+        waited = self._acquire()
+        try:
+            # the turn's wait is charged to the session it serves
+            charged = self._sessions[self._default]
             # expired work never reaches a build, nor inflates the bucket
             self._expire_locked(time.monotonic())
             bucket_fn = self._degrade.bucket_cap if self._degrade is not None else None
             d = self._sched.next_dispatch(self._session_ready, bucket_fn)
             if d is not None:
-                self._launch(d)  # a launch FAILURE finishes futures
+                charged = d.session
+                with span("sr.dispatch"):
+                    self._launch(d)  # a launch FAILURE finishes futures
             elif self._inflight:
                 inf = self._inflight.popleft()
+                charged = inf.dispatch.session
                 self._completing += 1
             elif self._completing:
                 self._cv.wait()
@@ -836,23 +899,32 @@ class SRServer:
                 # nothing to launch or complete: progress only if expiry
                 # just finished futures
                 progress = bool(self._just_finished)
+            charged._note_lock_wait("drain", waited)
             finished = self._take_finished()
+        finally:
+            self._lock.release()
         self._run_finished(finished)
         if inf is None:
             return progress
         error: Optional[BaseException] = None
-        try:
-            if inf.event is not None:
-                inf.event.synchronize()  # off-lock device wait
-        except Exception as e:  # deferred device-side failure
-            error = e
-        with self._cv:
+        with span("sr.wait"):
             try:
-                self._finalize_complete(inf, error)
+                if inf.event is not None:
+                    inf.event.synchronize()  # off-lock device wait
+            except Exception as e:  # deferred device-side failure
+                error = e
+        waited = self._acquire()
+        try:
+            inf.dispatch.session._note_lock_wait("drain", waited)
+            try:
+                with span("sr.finalize"):
+                    self._finalize_complete(inf, error)
             finally:
                 self._completing -= 1
                 self._cv.notify_all()
             finished = self._take_finished()
+        finally:
+            self._lock.release()
         self._run_finished(finished)
         return True
 
@@ -867,6 +939,10 @@ class SRServer:
 
     def _launch(self, d: Dispatch) -> None:
         session: SRSession = d.session
+        t_launch = time.perf_counter()
+        for t in d.tickets:
+            if t.start == 0:  # the request's first frames leave the queue
+                t.request.dispatched_at = t_launch
         try:
             with self.device_stream(session):
                 dtype = d.tickets[0].request.flat.dtype
@@ -886,15 +962,22 @@ class SRServer:
                 home = self._home(d)
                 away = home != session.device  # a replica on another GPU
                 stream = self._streams.get(home if away else id(session))
+                # only the single-device executor marks K1 and its epilogue
+                # (engine.executor._execute_stack, on the clock made active)
+                clock = (StageClock(home) if d.band_subset is None and entry.replica is None
+                         else None)
                 with torch.cuda.stream(stream) if away else contextlib.nullcontext():
-                    if d.band_subset is not None:
-                        slab, bounds = self._assemble_bands(d)
-                        t0 = time.perf_counter()
-                        hr = entry.fn(slab, bounds)  # asynchronous on CUDA
-                    else:
-                        slab = self._assemble(d)
-                        t0 = time.perf_counter()
-                        hr = entry.fn(slab)  # asynchronous on CUDA
+                    with span("sr.assemble"):
+                        if clock is not None:
+                            clock.mark("upload")
+                        if d.band_subset is not None:
+                            args = self._assemble_bands(d)
+                        else:
+                            args = (self._assemble(d),)
+                    timed = clock.active() if clock is not None else contextlib.nullcontext()
+                    t0 = time.perf_counter()
+                    with span("sr.execute"), timed:
+                        hr = entry.fn(*args)  # asynchronous on CUDA
                     event = None
                     if stream is not None:
                         event = torch.cuda.Event()
@@ -915,7 +998,7 @@ class SRServer:
         self._session_inflight[sid] = count + 1
         session._peak_inflight = max(session._peak_inflight, count + 1)
         self._inflight_frames += d.real
-        self._inflight.append(_Inflight(d, hr, event, t0))
+        self._inflight.append(_Inflight(d, hr, event, t0, clock))
 
     @staticmethod
     def _home(d: Dispatch) -> torch.device:
@@ -976,6 +1059,9 @@ class SRServer:
             self._fail_dispatch(d, error)
             return
         session._complete_ms.append((now - inf.t0) * 1e3)
+        if inf.clock is not None:
+            session._note_stages(inf.clock, d.real)
+        session._read_joins()
         if d.band_subset is None:
             session._frames += d.real
         else:
@@ -999,7 +1085,15 @@ class SRServer:
 
     def _finish_request(self, req: SchedRequest) -> None:
         pieces = [p for _, p in sorted(req.pieces, key=lambda sp: sp[0])]
-        out = pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=0)
+        if len(pieces) == 1:
+            out = pieces[0]
+        else:
+            with span("sr.join"):
+                clock = StageClock(pieces[0].device)
+                clock.mark("join")
+                out = torch.cat(pieces, dim=0)
+                clock.mark(None)
+            req.session._note_join(clock, req.n)
         req.pieces = []
         if req.ndim == 3:
             out = out[0]
@@ -1007,6 +1101,9 @@ class SRServer:
             out = out.reshape(*req.lead, *req.plan.hr_shape)
         req.future._finish(result=out)
         self._just_finished.append(req.future)
+        ready = time.perf_counter()
+        req.session._request_ms.append(((req.dispatched_at - req.submitted_at) * 1e3,
+                                        (ready - req.submitted_at) * 1e3))
         if self._degrade is not None and req.admitted_at:
             # end-to-end latency (admission -> resolution) sees queue delay,
             # which is what overload inflates

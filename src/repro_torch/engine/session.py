@@ -40,8 +40,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 import time
-from collections import OrderedDict
+from collections import OrderedDict, deque
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -60,6 +61,7 @@ from repro_torch.engine.plan import (
     SRPlan,
     check_layer_channels,
 )
+from repro_torch.engine.spans import StageClock
 
 __all__ = [
     "SRSession",
@@ -86,6 +88,10 @@ _CANONICAL = {
     torch.int64: torch.int32,
     torch.complex128: torch.complex64,
 }
+
+
+# the device stages whose milliseconds and frames SRSession.stats() reports
+STAGES = ("upload", "marshal", "k1", "epilogue", "join")
 
 
 class StreamStats(dict):
@@ -363,6 +369,22 @@ class SRSession:
         self._span_s = 0.0
         self._frames = 0
         self._peak_inflight = 0
+        # the server's counters of its own stages (reported by stats(), see
+        # _serving_stats): per finished request (queue wait, latency) ms;
+        # per submit call its ms; per pin (ms, bytes, frames); per lock kind
+        # [total, max] ms waited; per device stage its ms and the frames it
+        # covered, and the joins whose events are not read yet.  Lists are
+        # appended off the server lock (one append is atomic); the sums are
+        # kept under it, the joins under their own.
+        self._request_ms: List[Tuple[float, float]] = []
+        self._submit_ms: List[float] = []
+        self._pins: List[Tuple[float, int, int]] = []
+        self._lock_wait_ms: Dict[str, List[float]] = {"submit": [0.0, 0.0],
+                                                      "drain": [0.0, 0.0]}
+        self._stage_ms: Dict[str, float] = dict.fromkeys(STAGES, 0.0)
+        self._stage_frames: Dict[str, int] = dict.fromkeys(STAGES, 0)
+        self._joins: deque = deque()
+        self._joins_lock = threading.Lock()
         # temporal delta serving: partial-band dispatch counters (bumped by
         # the server at completion), the per-frame reuse accounting
         # DeltaSession keeps, and the output cache (made on first use)
@@ -963,7 +985,8 @@ class SRSession:
 
     def stats(self, **extra) -> StreamStats:
         """Steady-state serving stats (warm-up and weight prep excluded),
-        with a ``temporal`` section once delta frames were served."""
+        with the server's own counters (:meth:`_serving_stats`) and a
+        ``temporal`` section once delta frames were served."""
         if self._temporal_counts["frames"] and "temporal" not in extra:
             extra["temporal"] = self.temporal_stats()
         return latency_stats(
@@ -972,8 +995,94 @@ class SRSession:
             dispatch_ms=self._dispatch_ms,
             total_s=self._span_s,
             peak_inflight=self._peak_inflight,
+            **self._serving_stats(),
             **extra,
         )
+
+    # ------------------------------------------------------------------
+    # The server's counters of its own stages
+    # ------------------------------------------------------------------
+    def _note_lock_wait(self, kind: str, ms: float) -> None:
+        """Fold one wait for the server lock (``"submit"``: admission,
+        ``"drain"``: a drain turn); called holding that lock."""
+        total = self._lock_wait_ms[kind]
+        total[0] += ms
+        total[1] = max(total[1], ms)
+
+    def _note_stages(self, clock: StageClock, frames: int) -> None:
+        """Fold a completed dispatch's device ms by stage; called holding
+        the server lock."""
+        for stage, ms in clock.stage_ms().items():
+            self._stage_ms[stage] += ms
+            self._stage_frames[stage] += frames
+
+    def _note_join(self, clock: StageClock, frames: int) -> None:
+        """Queue a request's join, read once its events have completed (at
+        a later completion or at :meth:`stats`)."""
+        with self._joins_lock:
+            self._joins.append((clock, frames))
+
+    def _read_joins(self) -> None:
+        """Fold the queued joins that have completed (never waits)."""
+        with self._joins_lock:
+            while self._joins and self._joins[0][0].done():
+                clock, frames = self._joins.popleft()
+                self._stage_ms["join"] += clock.stage_ms()["join"]
+                self._stage_frames["join"] += frames
+
+    def _serving_stats(self) -> dict:
+        """The server's counters of its own stages, since the last
+        :meth:`reset_stats`:
+
+        * ``requests`` finished, and over them ``queue_wait_{p50,p90,max}_ms``
+          (submit to the launch of its first frames) and
+          ``latency_{p50,p90,mean}_ms`` (submit to its result ready);
+        * ``submits`` (``SRServer.submit``/``submit_bands`` calls) and
+          ``submit_max_ms``, the longest;
+        * ``pins`` (host frames copied into pinned memory), ``pin_ms``,
+          ``pin_max_ms``, ``pin_bytes``, ``pin_frames``;
+        * ``lock_wait_{submit,drain}_ms`` and ``..._max_ms``: waits for the
+          server lock at admission and in drain turns (a turn that launched
+          or completed nothing charges the server's default session);
+        * ``{upload,marshal,k1,epilogue,join}_device_ms`` and
+          ``..._frames``: device time of each stage of the single-device
+          frame path and the real frames it covered.  Upload is what a
+          dispatch runs before its features (copies to the card, ``cat``,
+          zero pad, the cast to the compute dtype); marshal, on the kernel
+          backend, K1's input streams (``ops.band_streams``, a ``halo``
+          crop); K1 the launch (a plain backend's whole ``sr_features``);
+          the epilogue ``sr_epilogue``; join the ``cat`` of a request's
+          pieces.  On the CPU, host time.
+        """
+        self._read_joins()
+        req = np.asarray(self._request_ms, np.float64).reshape(-1, 2)
+        wait, lat = req[:, 0], req[:, 1]
+        submits = list(self._submit_ms)
+        pins = np.asarray(self._pins, np.float64).reshape(-1, 3)
+        some = req.size > 0
+        out = {
+            "requests": int(req.shape[0]),
+            "queue_wait_p50_ms": float(np.percentile(wait, 50)) if some else 0.0,
+            "queue_wait_p90_ms": float(np.percentile(wait, 90)) if some else 0.0,
+            "queue_wait_max_ms": float(wait.max()) if some else 0.0,
+            "latency_p50_ms": float(np.percentile(lat, 50)) if some else 0.0,
+            "latency_p90_ms": float(np.percentile(lat, 90)) if some else 0.0,
+            "latency_mean_ms": float(lat.mean()) if some else 0.0,
+            "submits": len(submits),
+            "submit_max_ms": max(submits, default=0.0),
+            "pins": int(pins.shape[0]),
+            "pin_ms": float(pins[:, 0].sum()),
+            "pin_max_ms": float(pins[:, 0].max()) if pins.size else 0.0,
+            "pin_bytes": int(pins[:, 1].sum()),
+            "pin_frames": int(pins[:, 2].sum()),
+        }
+        for kind, (total, longest) in self._lock_wait_ms.items():
+            out[f"lock_wait_{kind}_ms"] = total
+            out[f"lock_wait_{kind}_max_ms"] = longest
+        for stage in STAGES:
+            out[f"{stage}_device_ms"] = self._stage_ms[stage]
+            out[f"{stage}_frames"] = self._stage_frames[stage]
+        return out
 
     def sharding_stats(self) -> Optional[dict]:
         """Mesh routing stats (replica dispatch balance, per-replica
@@ -1040,3 +1149,13 @@ class SRSession:
         self._band_dispatches = 0
         for k in self._temporal_counts:
             self._temporal_counts[k] = 0
+        self._request_ms.clear()
+        self._submit_ms.clear()
+        self._pins.clear()
+        for total in self._lock_wait_ms.values():
+            total[:] = [0.0, 0.0]
+        for stage in STAGES:
+            self._stage_ms[stage] = 0.0
+            self._stage_frames[stage] = 0
+        with self._joins_lock:
+            self._joins.clear()

@@ -120,17 +120,22 @@ def _tilted_fused_bands(
     row_policy: str = "zero",
     row_bounds: Optional[torch.Tensor] = None,
     compute_dtype=None,
+    clock=None,
 ) -> torch.Tensor:
     """Run K1 over a flat batch of bands -> (B, R, W, ChL).
 
     Every band is independent (the kernel resets its overlap queue per
     band), so bands from different frames share one launch — the whole
-    frame batch is ONE kernel launch.
+    frame batch is ONE kernel launch.  ``clock`` (a stage clock,
+    ``engine.spans.StageClock``) is marked ``k1`` at the launch and
+    ``marshal`` after it.
     """
     B, R, W, C0 = xb.shape
     C, L = tile_cols, packed.num_layers
     co_l = packed.out_channels
     xs, first_col = band_streams(xb, tile_cols, L)
+    if clock is not None:
+        clock.mark("k1")
     out = _tilted.tilted_fusion_call(
         xs,
         first_col,
@@ -147,6 +152,8 @@ def _tilted_fused_bands(
         compute_dtype=compute_dtype,
         hidden_channels=packed.hidden_channels,
     )
+    if clock is not None:
+        clock.mark("marshal")
     # Undo the tilt: tile k's block holds F_L columns [k*C - (L-1), ...+C).
     return out[:, :, L - 1 : L - 1 + W, :co_l]
 
@@ -192,6 +199,7 @@ def tilted_fused_frames(
     vertical_policy: str = "zero",
     compute_dtype=None,
     packed: Optional[PackedLayers] = None,
+    clock=None,
 ) -> torch.Tensor:
     """Tilted layer fusion of a batch of frames (N, H, W, C0) -> (N, H, W, ChL).
 
@@ -201,7 +209,10 @@ def tilted_fused_frames(
     slabs with per-band valid-row bounds and crops the recompute margin.
     ``compute_dtype`` is the kernel's feature-map dtype (default: the
     input's; accumulation is fp32).  ``packed`` supplies a pre-packed stack
-    (:func:`pack_stack`); when given, ``layers`` is ignored.
+    (:func:`pack_stack`); when given, ``layers`` is ignored.  ``clock`` (a
+    stage clock, ``engine.spans.StageClock``) is marked ``marshal`` where
+    the input's marshalling into K1's streams begins, ``k1`` at the launch
+    and ``marshal`` again after it (the margin's crop).
     """
     N, H, W, C0 = frames.shape
     R = band_rows
@@ -216,6 +227,8 @@ def tilted_fused_frames(
             raise ValueError("pass either layers or packed")
         packed = pack_stack(layers, chp, dtype=compute_dtype)
     L = packed.num_layers
+    if clock is not None:
+        clock.mark("marshal")
     if vertical_policy == "halo":
         slabs, bounds = halo_slabs(frames, R, L)
         out = _tilted_fused_bands(
@@ -227,6 +240,7 @@ def tilted_fused_frames(
             row_policy="zero",
             row_bounds=bounds,
             compute_dtype=compute_dtype,
+            clock=clock,
         )
         out = out[:, L : L + R]  # crop the recompute margin
     else:
@@ -238,6 +252,7 @@ def tilted_fused_frames(
             anchor_repeats=anchor_repeats,
             row_policy=vertical_policy,
             compute_dtype=compute_dtype,
+            clock=clock,
         )
     return out.reshape(N, H, W, out.shape[-1])
 

@@ -497,6 +497,21 @@ def test_profile_call_retries_a_window_with_no_device_event(monkeypatch):
         executor._profile_call(lambda: None, torch.device("cpu"))
 
 
+def test_profile_call_leaves_the_executors_spans_out_of_its_kernels(monkeypatch):
+    """The executor's ``sr.*`` spans are drawn on the device timeline too;
+    they are no kernels, and a window holding only them holds no device
+    activity."""
+    from repro_torch.engine import executor
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    mark = _event(executor._CALL_MARK, "CPU")
+    spans = [_event("sr.k1", "CUDA"), _event("sr.epilogue", "CUDA")]
+    fake = _FakeWindow([[mark, *spans], [mark, *spans, _event("k1_kernel", "CUDA")]])
+    monkeypatch.setattr(torch.profiler, "profile", fake)
+    out = executor._profile_call(lambda: None, torch.device("cpu"))
+    assert out["kernels"] == ["k1_kernel"] and out["memcpy"] == []
+
+
 def test_audit_catches_quant_round_in_the_call(monkeypatch):
     s = session(precision="int8")
     s.upscale(np.zeros(LR, np.float32))
