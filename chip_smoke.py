@@ -48,27 +48,39 @@ each of their parts to the end and then fail with every failure listed):
    features of its own stack (phase 4w's weights): the first layer (3 -> F,
    taps folded), the first hidden layer (F -> F) and the last (F -> 27),
    same tolerances;
+3c. the epilogue — ``kernels.epilogue.sr_epilogue_call`` against
+   ``sr_epilogue_plain`` on K1's output view (the serving path's
+   ``sr_features``) for ABPN x3 fp32, int8, bf16 and x4 bf16, fp32 at 1 and
+   8 frames of 360x640, the clip on and off, fp32 and bf16 HR frames, each
+   ``torch.equal``, the launch counter one a call; at 8 frames of x3 fp32 and
+   x4 bf16 the kernel's and the chain's device time beside the byte bound;
 4. main path — ``SRServer.open("abpn_x3", backend="kernel", precision=p,
    layers=...)`` at full ABPN x3 width (the stack of phase 3) serves a 4-frame
    360x640 request, two 2-frame requests that coalesce into one dispatch,
    and a 180x320 frame, for fp32/bf16/int8 under zero and halo and fp32
    under replicate; every HR result is held against the package's
-   ``tilted`` backend on the card (TF32 off) at 5e-4 (fp32, int8) / 5e-2
-   (bf16), a frame served alone must equal the same frame served in the
-   batch bit for bit, and K1's launch counter, zeroed just before, must
-   have moved.  Then the slice's path: ``SRServer.open("abpn_x3",
+   ``tilted`` backend on the card (TF32 off) with the plain epilogue chain
+   (``plain_epilogue_run``) at 5e-4 (fp32, int8) / 5e-2 (bf16), a frame
+   served alone must equal the same frame served in the batch bit for bit,
+   and K1's launch counter, zeroed just before, must have moved; the
+   epilogue kernel's counter, zeroed beside it, must rise by at least one a
+   dispatch, and the session's ``epilogue_kernel_frames`` equal its
+   ``epilogue_frames`` (``served_epilogue``; the kernels line's
+   ``sr_epilogue`` launches are these, phase 3c's its
+   ``checked_launches``).  Then the slice's path: ``SRServer.open("abpn_x3",
    scale=4, layers=<ABPN x4 from models.abpn.layers_from_numpy>,
    backend="kernel")`` (360x640 -> 1440x2560) for the same seven
    configurations, a 2-frame request and a frame alone (bit-identical to
-   its batch twin), held to the ``tilted`` backend on the card at the same
-   tolerances, K1's counter zeroed just before and moved; its prepared
-   stack must make the mixed launch (hidden Chp 32, 48 outputs);
+   its batch twin), held to the ``tilted`` backend on the card with the
+   plain epilogue at the same tolerances, K1's counter zeroed just before
+   and moved, the epilogue kernel's checked as above; its prepared stack
+   must make the mixed launch (hidden Chp 32, 48 outputs);
 4w. wide path — ``SRServer.open("abpn_x3", layers=<ABPN x3 at F = 64 and
    128 feature channels (``ABPNConfig(feature_channels=F)``, seeded He
    weights through ``layers_from_numpy``)>, backend="kernel")`` serving
    360x640 -> 1080x1920 in fp32, bf16 and int8 under zero and fp32 under
    halo: a 2-frame request and a frame alone (bit-identical to its batch
-   twin), held to the ``tilted`` backend on the card at phase 4's
+   twin), held to the ``tilted`` backend on the card (plain epilogue) at phase 4's
    tolerances, K1's counter zeroed just before and moved; its prepared
    stack must launch the wide Chp F instance (hidden channels F, no mixed
    launch).  Then K1 on each stack at 1 and 8 frames, fp32 and bf16, one
@@ -2024,6 +2036,102 @@ def served_plan_costs(torch, engine, dev, layers, peaks, configs=SERVED, label="
 
 
 # ----------------------------------------------------------------------
+# Phase 3c: ABPN's epilogue as one kernel (kernels.epilogue), bit for bit the
+# plain chain, on K1's output view as the serving path hands it over.
+# ----------------------------------------------------------------------
+EPILOGUE_CASES = (("x3", 3, "fp32"), ("x3", 3, "int8"), ("x3", 3, "bf16"),
+                  ("x4", 4, "bf16"), ("x4", 4, "fp32"))
+
+
+def epilogue_check(torch, np, engine, dev, layers, layers4, frame, peaks):
+    """Each of EPILOGUE_CASES at 1 and 8 frames of 360x640 (``zero``, 60-row
+    bands): K1's features through the serving path's ``sr_features``, then
+    ``sr_epilogue_call`` against ``sr_epilogue_plain`` with the clip on and
+    off into fp32 and bf16 HR frames, ``torch.equal`` each; the launch
+    counter moves by one a call.  At 8 frames of x3 fp32 and x4 bf16, the
+    kernel's and the plain chain's device time beside the byte bound
+    (``_stacks.epilogue_bytes``: each pixel's record of Chp channels, the LR
+    input and the fp32 HR frame, once each, at ``peaks["bytes"]``).  Returns
+    the kernels line's entry fields (``checked_launches``: this phase's
+    launches)."""
+    from repro_torch.kernels import epilogue
+
+    ecall = epilogue.sr_epilogue_call
+    ecall.launches = 0
+    checked, times = 0, {}
+    for name, scale, prec in EPILOGUE_CASES:
+        ls = layers if name == "x3" else layers4
+        plan = engine.make_plan(ls, (H, W, 3), backend="kernel", precision=prec, scale=scale)
+        stack = engine.prepare_stack(plan, ls)
+        for n in (1, 8):
+            x = frame.expand(n, -1, -1, -1).contiguous().to(engine.compute_dtype_for(prec))
+            feats = engine.sr_features(plan, stack.layers, x, packed=stack.packed)
+            require(not feats.is_contiguous(), f"epilogue {name} {prec}: K1's view is a copy")
+            for clip in (True, False):
+                for out in (torch.float32, torch.bfloat16):
+                    before = ecall.launches
+                    got = ecall(feats, x, scale=scale, clip=clip, out_dtype=out)
+                    want = epilogue.sr_epilogue_plain(feats, x, scale=scale, clip=clip,
+                                                      out_dtype=out)
+                    torch.cuda.synchronize()
+                    require(ecall.launches == before + 1, f"epilogue {name} {prec}: launches")
+                    require(torch.equal(got, want),
+                            f"epilogue {name} {prec} {n} frames clip={clip} {out}: not equal "
+                            f"(max diff {(got.float() - want.float()).abs().max().item():.3e})")
+                    checked += 1
+            if n == 8 and (name, prec) in (("x3", "fp32"), ("x4", "bf16")):
+                kw = dict(scale=scale, clip=True, out_dtype=torch.float32)
+                nbytes = _stacks.epilogue_bytes(n, H, W, feats.stride(2), 3, scale,
+                                                feats.element_size(), 4)
+                cell = dict(
+                    ms=device_ms(torch, lambda: ecall(feats, x, **kw)),
+                    plain_ms=device_ms(torch, lambda: epilogue.sr_epilogue_plain(feats, x, **kw)),
+                    bound_ms=1e3 * nbytes / peaks["bytes"], chp=feats.stride(2))
+                times[f"{name}/{prec}"] = cell
+                print(f"epilogue {name} {prec}, 8 frames (Chp {cell['chp']}): kernel "
+                      f"{cell['ms']:.4f} ms, plain chain {cell['plain_ms']:.4f} ms, bound "
+                      f"{cell['bound_ms']:.4f} ms (bytes) -> {100 * cell['bound_ms'] / cell['ms']:.1f}%")
+    print(f"epilogue kernel vs plain chain: {checked} cases torch.equal (x3 fp32/int8/bf16, x4 "
+          f"bf16/fp32; 1 and 8 frames; clip on and off; fp32 and bf16 out); "
+          f"{ecall.launches} launches")
+    return dict(checked_launches=ecall.launches, checked=checked, times=times)
+
+
+def plain_epilogue_run(engine, plan, layers, frames, dev):
+    """``engine.run`` with the executor's epilogue the plain chain
+    (``sr_epilogue_plain``) in place of its kernel, and the kernel's counter
+    required still: phase 4's reference, so that served frames, whose
+    epilogue is the kernel, are held to a reference whose epilogue is not."""
+    from repro_torch.engine import executor
+    from repro_torch.kernels import epilogue
+
+    kernel, before = executor.sr_epilogue, epilogue.sr_epilogue_call.launches
+    executor.sr_epilogue = lambda plan, x, feats, in_dtype: epilogue.sr_epilogue_plain(
+        feats, x, scale=plan.scale, clip=plan.clip, out_dtype=in_dtype)
+    try:
+        out = engine.run(plan, layers, frames, device=dev)
+    finally:
+        executor.sr_epilogue = kernel
+    require(epilogue.sr_epilogue_call.launches == before, "the reference ran the epilogue kernel")
+    return out
+
+
+def served_epilogue(server, launched, dispatches, label):
+    """Phase 4's check that a served configuration's frames all took the
+    epilogue kernel: its launches (``launched``, counted around the server's
+    life) at least one a dispatch, and the session's ``epilogue_kernel_frames``
+    equal to its ``epilogue_frames``.  Returns the session's counts."""
+    st = server.session().stats()
+    require(launched >= dispatches > 0,
+            f"{label}: {launched} epilogue kernel launches for {dispatches} dispatches")
+    require(st["epilogue_kernel_frames"] == st["epilogue_frames"] > 0,
+            f"{label}: {st['epilogue_kernel_frames']} of {st['epilogue_frames']} frames took "
+            f"the epilogue kernel")
+    return {"epilogue_launches": launched, "epilogue_frames": st["epilogue_frames"],
+            "epilogue_kernel_frames": st["epilogue_kernel_frames"]}
+
+
+# ----------------------------------------------------------------------
 # ABPN x4: the same 7-layer stack with 48 outputs (Chp 48), which K1 runs on
 # a wide instance and K2's last layer (28 -> 48) on its wide instance.
 # ----------------------------------------------------------------------
@@ -2151,12 +2259,15 @@ def serve_x4(torch, np, engine, dev, layers4, kcall):
     Returns (per_config, launches)."""
     from repro_torch.kernels import tilted_fusion as ttf
 
+    from repro_torch.kernels import epilogue
+
     rng = np.random.default_rng(41)
     req = rng.uniform(size=(2, H, W, 3)).astype(np.float32)
     kcall.launches = 0
+    ecall = epilogue.sr_epilogue_call
     per_config = {}
     for prec, policy in SERVED:
-        before = kcall.launches
+        before, ebefore = kcall.launches, ecall.launches
         server = engine.SRServer.open("abpn_x3", scale=X4_SCALE, layers=layers4,
                                       backend="kernel", precision=prec, vertical_policy=policy)
         kplan = engine.make_plan(layers4, (H, W, 3), backend="kernel", precision=prec,
@@ -2167,6 +2278,9 @@ def serve_x4(torch, np, engine, dev, layers4, kcall):
                 f"x4 {prec}/{policy}: the served stack does not make the mixed launch")
         hr = server.submit(req).result()
         alone = server.submit(req[1]).result()
+        epi_served = served_epilogue(server, ecall.launches - ebefore,
+                                     server.scheduler_stats()["dispatches"],
+                                     f"x4 {prec}/{policy}")
         server.close()
         launched = kcall.launches - before
         require(launched > 0, f"x4 {prec}/{policy}: K1 was never launched")
@@ -2178,12 +2292,13 @@ def serve_x4(torch, np, engine, dev, layers4, kcall):
         plan = engine.make_plan(layers4, (H, W, 3), backend="tilted", precision=prec,
                                 vertical_policy=policy, band_rows=engine.derive_band_rows(H),
                                 scale=X4_SCALE)
-        want = engine.run(plan, layers4, req, device=dev)
+        want = plain_epilogue_run(engine, plan, layers4, req, dev)
         err = (hr.float() - want.float()).abs().max().item()
-        per_config[f"{prec}/{policy}"] = {"launches": launched, "max_abs_err": err}
+        per_config[f"{prec}/{policy}"] = {"launches": launched, "max_abs_err": err, **epi_served}
         print(f"x4 server [{prec}, {policy}]: {H}x{W} -> {H * X4_SCALE}x{W * X4_SCALE}, K1 "
-              f"launches {launched} (mixed: hidden Chp 32, {packed.chp} outputs), HR vs "
-              f"tilted backend max_abs_err={err:.3e} "
+              f"launches {launched} (mixed: hidden Chp 32, {packed.chp} outputs), epilogue "
+              f"kernel launches {epi_served['epilogue_launches']}, HR vs "
+              f"tilted backend (plain epilogue) max_abs_err={err:.3e} "
               f"(tol {TOL[prec]:g}); batch-independent bit-exact: yes")
         require(err <= TOL[prec], f"x4 {prec}/{policy}: server output vs tilted backend")
     launches = kcall.launches
@@ -2412,7 +2527,7 @@ def serve_wide(torch, np, engine, dev, stacks, kcall):
             plan = engine.make_plan(layers_f, (H, W, 3), backend="tilted", precision=prec,
                                     vertical_policy=policy,
                                     band_rows=engine.derive_band_rows(H), scale=SCALE)
-            want = engine.run(plan, layers_f, req, device=dev)
+            want = plain_epilogue_run(engine, plan, layers_f, req, dev)
             err = (hr.float() - want.float()).abs().max().item()
             per_config[f"F{f}/{prec}/{policy}"] = {"launches": launched, "max_abs_err": err}
             print(f"wide server [F={f}, {prec}, {policy}]: {H}x{W} -> {H * SCALE}x{W * SCALE}, "
@@ -2589,7 +2704,7 @@ def main() -> int:
 
     from repro_torch import engine
     from repro_torch.core.fusion import ConvLayer, conv_stack_reference, exact_fp32, halo_slabs
-    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import _build, epilogue, ops
     from repro_torch.kernels import conv3x3 as k2
     from repro_torch.kernels import tilted_fusion as ttf
     from repro_torch.models.abpn import init_abpn, layers_from_numpy
@@ -2638,7 +2753,13 @@ def main() -> int:
             m = re.search(r"\d+((?:tilted_fusion|pack_weights|pack_slices|pack_wide|conv3x3)"
                           r"\w*?_kernel(?:_onchip)?)"
                           r"I(f|13__nv_bfloat16)(?:Li(\d+)E)?(?:Lb([01])E)?E", line)
-            if m:
+            # the epilogue's <compute dtype, HR dtype>
+            e = re.search(r"\d+(sr_epilogue_kernel)I(f|13__nv_bfloat16)(f|13__nv_bfloat16|6__half)E",
+                          line)
+            if e:
+                names = {"f": "fp32", "13__nv_bfloat16": "bf16", "6__half": "fp16"}
+                label = f"{e.group(1)} <{names[e.group(2)]}, {names[e.group(3)]} out>"
+            elif m:
                 k2_wide = m.group(1) in ("conv3x3_wide_kernel", "pack_wide_kernel")
                 flags = ({"1": ", mixed", "0": ""} if m.group(3) and not k2_wide else
                          {"1": ", folded", "0": ", per tap"})
@@ -2855,15 +2976,21 @@ def main() -> int:
                     feat = k2call(feat, l.w, l.b, relu=l.relu)
 
     # ------------------------------------------------------------------
+    phase("3c. the epilogue kernel vs its plain version on the card (K1's output view)")
+    epi = epilogue_check(torch, np, engine, dev, layers, layers4, frame, peaks)
+
+    # ------------------------------------------------------------------
     phase("4. main path: SRServer.open('abpn_x3', backend='kernel') serving")
     rng = np.random.default_rng(2)
     req4 = rng.uniform(size=(4, H, W, 3)).astype(np.float32)
     pair = [rng.uniform(size=(2, H, W, 3)).astype(np.float32) for _ in range(2)]
     small = rng.uniform(size=(H // 2, W // 2, 3)).astype(np.float32)
     kcall.launches = 0  # count the main path's launches only
+    ecall = epilogue.sr_epilogue_call
+    ecall.launches = 0  # the epilogue kernel's too
     per_config = {}
     for prec, policy in SERVED:
-        before = kcall.launches
+        before, ebefore = kcall.launches, ecall.launches
         server = engine.SRServer.open("abpn_x3", backend="kernel", precision=prec,
                                       vertical_policy=policy, layers=layers)
         hr4 = server.submit(req4).result()
@@ -2879,6 +3006,8 @@ def main() -> int:
         require(torch.equal(alone, hr4[0]),
                 f"{prec}/{policy}: a frame served alone must equal it served in a batch")
         dispatches = server.scheduler_stats()["dispatches"]
+        epi_served = served_epilogue(server, ecall.launches - ebefore, dispatches,
+                                     f"{prec}/{policy}")
         server.close()
         launched = kcall.launches - before
         require(launched > 0, f"{prec}/{policy}: K1 was never launched")
@@ -2889,19 +3018,23 @@ def main() -> int:
             plan = engine.make_plan(layers, lr.shape[1:], backend="tilted", precision=prec,
                                     vertical_policy=policy, band_rows=engine.derive_band_rows(
                                         lr.shape[1]), scale=SCALE)
-            want = engine.run(plan, layers, lr, device=dev)
+            want = plain_epilogue_run(engine, plan, layers, lr, dev)
             require(tuple(hr.shape) == (lr.shape[0], lr.shape[1] * SCALE, lr.shape[2] * SCALE, 3),
                     f"{prec}/{policy}: HR shape {tuple(hr.shape)}")
             require(bool(torch.isfinite(hr).all()), f"{prec}/{policy}: non-finite HR output")
             errs.append((hr.float() - want.float()).abs().max().item())
         err = max(errs)
-        per_config[f"{prec}/{policy}"] = {"launches": launched, "max_abs_err": err}
-        print(f"server [{prec}, {policy}]: K1 launches {launched}, dispatches "
-              f"{dispatches}, HR vs tilted backend max_abs_err={err:.3e} "
-              f"(tol {TOL[prec]:g}); batch-independent bit-exact: yes")
+        per_config[f"{prec}/{policy}"] = {"launches": launched, "max_abs_err": err, **epi_served}
+        print(f"server [{prec}, {policy}]: K1 launches {launched}, epilogue kernel launches "
+              f"{epi_served['epilogue_launches']} ({epi_served['epilogue_kernel_frames']} of "
+              f"{epi_served['epilogue_frames']} frames), dispatches {dispatches}, HR vs tilted "
+              f"backend (plain epilogue) max_abs_err={err:.3e} (tol {TOL[prec]:g}); "
+              f"batch-independent bit-exact: yes")
         require(err <= TOL[prec], f"{prec}/{policy}: server output vs tilted backend")
     main_launches = kcall.launches
-    print(f"main path K1 launches: {main_launches}")
+    main_epilogue_launches = sum(c["epilogue_launches"] for c in per_config.values())
+    print(f"main path K1 launches: {main_launches}, epilogue kernel launches "
+          f"{main_epilogue_launches}")
     require(main_launches > 0, "the main path never launched K1")
     # the slice's path: ABPN x4 (Chp 48) at full width, 360x640 -> 1440x2560
     x4_path, x4_launches = serve_x4(torch, np, engine, dev, layers4, kcall)
@@ -4055,6 +4188,23 @@ def main() -> int:
                  "bound_ms": wide_k2["F128"]["fp32"]["bound_ms"],
                  "bound_by": wide_k2["F128"]["fp32"]["bound_by"],
                  "library_ms": wide_k2["F128"]["fp32"]["library_ms"]},
+    }, {
+        "name": "sr_epilogue",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/sr_epilogue.cu",
+        "replaces": None,
+        "launches": main_epilogue_launches + sum(c["epilogue_launches"]
+                                                 for c in x4_path.values()),
+        "checked_launches": epi["checked_launches"],
+        "checked": epi["checked"],
+        "max_abs_err": 0.0,
+        "ms": epi["times"]["x3/fp32"]["ms"],
+        "plain_ms": epi["times"]["x3/fp32"]["plain_ms"],
+        "bound_ms": epi["times"]["x3/fp32"]["bound_ms"],
+        "bound_by": "bytes",
+        "shape": f"ABPN x3's HR frame from K1's output view (Chp 32), 8 frames {H}x{W}, fp32",
+        "timing": "calls queued behind a device sleep",
+        "x4": epi["times"]["x4/bf16"],
     }]
     print("kernels: " + json.dumps({k["name"]: {"launches": k["launches"], "replaces": k["replaces"]}
                                     for k in kernels}))

@@ -75,7 +75,7 @@ MATMUL_OPS = frozenset({"aten.convolution", "aten.mm", "aten.bmm", "aten.addmm",
                         "aten.baddbmm", "aten.matmul"})
 
 # Names of the Hopper kernels in the profiler's trace.
-_KERNEL_NAMES = ("tilted_fusion_kernel", "conv3x3_kernel")
+_KERNEL_NAMES = ("tilted_fusion_kernel", "conv3x3_kernel", "sr_epilogue_kernel")
 
 
 def audit_ops(ops, *, precision: Optional[str] = None, where: str = "") -> List[Finding]:

@@ -8,8 +8,9 @@
   (one CTA per band), so a batch of frames is ONE kernel launch
   (``kernels.ops.tilted_fused_frames``).
 
-All backends share the anchor + pixel-shuffle epilogue and the plan's
-numerics policy (fp32 / bf16 / int8 dequant-on-read weights).
+All backends share the anchor + pixel-shuffle epilogue (one hand-written
+kernel on the card, ``kernels.epilogue``) and the plan's numerics policy
+(fp32 / bf16 / int8 dequant-on-read weights).
 
 Weight preparation has two homes: :func:`prepare_stack` builds a
 device-resident :class:`PreparedStack` ONCE per weight stack and
@@ -38,7 +39,7 @@ from repro_torch.core.fusion import (
 from repro_torch.core.quant import dequantize_layers, quantize_layers
 from repro_torch.engine.plan import SRPlan
 from repro_torch.engine.spans import SPAN_PREFIX, active_clock, mark, span
-from repro_torch.models.abpn import depth_to_space, make_anchor
+from repro_torch.kernels.epilogue import sr_epilogue_call
 
 __all__ = [
     "OutputSpec",
@@ -218,16 +219,16 @@ def _execute_stack(plan: SRPlan, stack: PreparedStack, frames: torch.Tensor) -> 
 
 
 def sr_epilogue(plan: SRPlan, x: torch.Tensor, feats: torch.Tensor, in_dtype) -> torch.Tensor:
-    """ABPN's residual epilogue: anchor add, pixel shuffle, clip, cast.
+    """ABPN's residual epilogue: anchor add, pixel shuffle, clip, cast
+    (``kernels.epilogue.sr_epilogue_call``: one hand-written kernel on the
+    card, which notes itself on the active stage clock; the plain chain on
+    the CPU).
 
     Row-block local: ``depth_to_space`` maps LR row ``y`` to HR rows
     ``[y*s, y*s+s)``.
     """
-    out = feats + make_anchor(x, plan.scale)
-    hr = depth_to_space(out, plan.scale)
-    if plan.clip:
-        hr = torch.clamp(hr, 0.0, 1.0)
-    return hr.to(in_dtype)
+    return sr_epilogue_call(feats, x, scale=plan.scale, clip=plan.clip, out_dtype=in_dtype,
+                            clock=active_clock())
 
 
 def _execute(plan: SRPlan, layers, frames: torch.Tensor) -> torch.Tensor:

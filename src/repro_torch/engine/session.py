@@ -383,6 +383,7 @@ class SRSession:
                                                       "drain": [0.0, 0.0]}
         self._stage_ms: Dict[str, float] = dict.fromkeys(STAGES, 0.0)
         self._stage_frames: Dict[str, int] = dict.fromkeys(STAGES, 0)
+        self._epilogue_kernel_frames = 0
         self._joins: deque = deque()
         self._joins_lock = threading.Lock()
         # temporal delta serving: partial-band dispatch counters (bumped by
@@ -1015,6 +1016,8 @@ class SRSession:
         for stage, ms in clock.stage_ms().items():
             self._stage_ms[stage] += ms
             self._stage_frames[stage] += frames
+        if "epilogue" in clock.kernels:
+            self._epilogue_kernel_frames += frames
 
     def _note_join(self, clock: StageClock, frames: int) -> None:
         """Queue a request's join, read once its events have completed (at
@@ -1053,6 +1056,9 @@ class SRSession:
           crop); K1 the launch (a plain backend's whole ``sr_features``);
           the epilogue ``sr_epilogue``; join the ``cat`` of a request's
           pieces.  On the CPU, host time.
+        * ``epilogue_kernel_frames``: of ``epilogue_frames``, those whose
+          epilogue ran as the hand-written kernel (``kernels.epilogue``;
+          on the card, all of them).
         """
         self._read_joins()
         req = np.asarray(self._request_ms, np.float64).reshape(-1, 2)
@@ -1082,6 +1088,7 @@ class SRSession:
         for stage in STAGES:
             out[f"{stage}_device_ms"] = self._stage_ms[stage]
             out[f"{stage}_frames"] = self._stage_frames[stage]
+        out["epilogue_kernel_frames"] = self._epilogue_kernel_frames
         return out
 
     def sharding_stats(self) -> Optional[dict]:
@@ -1157,5 +1164,6 @@ class SRSession:
         for stage in STAGES:
             self._stage_ms[stage] = 0.0
             self._stage_frames[stage] = 0
+        self._epilogue_kernel_frames = 0
         with self._joins_lock:
             self._joins.clear()

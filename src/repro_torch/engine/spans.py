@@ -15,7 +15,10 @@
   stands in.  The server makes a dispatch's clock :meth:`StageClock.active`
   around the executor call, and the executor marks its stages with
   :func:`mark` (a context variable, so the executor's functions keep their
-  signatures: callers that wrap or replace them stay unchanged).
+  signatures: callers that wrap or replace them stay unchanged).  A
+  hand-written kernel handed the clock notes its stage in
+  :attr:`StageClock.kernels` when it launches (the session counts those
+  frames too).
 
 Whether a profiler records is read from the flag torch sets when any
 profiler starts or stops (``torch.autograd.profiler._is_profiler_enabled``).
@@ -29,7 +32,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Set, Tuple
 
 import torch
 from torch.autograd import profiler as _profiler
@@ -62,13 +65,16 @@ class StageClock:
     open on the clock, if any, and opens ``stage`` (``None``: none); once
     :meth:`done`, :meth:`stage_ms` sums each stage's intervals.  On the
     card a mark is a timing event recorded on the device's current stream
-    (the stream the stages' work is issued on)."""
+    (the stream the stages' work is issued on).  ``kernels`` holds the
+    stages whose work a hand-written kernel ran (the kernel's wrapper adds
+    its stage when it launches)."""
 
-    __slots__ = ("_device", "_marks")
+    __slots__ = ("_device", "_marks", "kernels")
 
     def __init__(self, device: torch.device):
         self._device = device if device.type == "cuda" else None
         self._marks: List[Tuple[Optional[str], object]] = []
+        self.kernels: Set[str] = set()
 
     def mark(self, stage: Optional[str]) -> None:
         if self._device is None:

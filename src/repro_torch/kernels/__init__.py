@@ -10,6 +10,10 @@ kernels/
                           baseline datapath (CUDA C++)
   conv3x3.py            — its wrapper, launch counter and plain PyTorch
                           version
+  csrc/sr_epilogue.cu   — ABPN's epilogue (anchor add, pixel shuffle, clip,
+                          cast) in one pass over K1's output (CUDA C++)
+  epilogue.py           — its wrapper, launch counter and plain PyTorch
+                          version (the chain it replaces)
   _build.py             — nvcc build on first use + ctypes loading
   ops.py                — public wrappers (channel padding, stream layout,
                           untilt; ``conv3x3``)

@@ -34,7 +34,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 # kernel name -> source file under csrc/
-SOURCES: Dict[str, str] = {"tilted_fusion": "tilted_fusion.cu", "conv3x3": "conv3x3.cu"}
+SOURCES: Dict[str, str] = {"tilted_fusion": "tilted_fusion.cu", "conv3x3": "conv3x3.cu",
+                           "sr_epilogue": "sr_epilogue.cu"}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _log: List[Tuple[str, bool]] = []  # (kernel, compiled by nvcc) per first load, in order

@@ -39,7 +39,7 @@ from repro_torch import engine
 from repro_torch.kernels import conv3x3 as tk2
 from repro_torch.kernels import ops
 from repro_torch.kernels import tilted_fusion as ttf
-from repro_torch.models.abpn import init_abpn, layers_from_numpy
+from repro_torch.models.abpn import ABPNConfig, init_abpn, layers_from_numpy
 
 TOL = {torch.float32: 5e-4, torch.bfloat16: 5e-2}
 K2_TOL = {torch.float32: dict(atol=2e-5, rtol=1e-5), torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
@@ -1103,3 +1103,255 @@ def test_int8_ef_allreduce_on_card_streams_matches_the_cpu(cuda):
         assert float((diff > 0).float().mean()) <= 0.01, key
         for a, b in zip(got_e, want_e):
             assert float((pick(a).cpu() - pick(b)).abs().max()) <= 4 * quantum * 1.001, key
+
+
+# ----------------------------------------------------------------------
+# ABPN's epilogue (kernels.epilogue): the kernel against the plain chain
+# ----------------------------------------------------------------------
+def _k1_features(cuda, scale, precision, frames, shape=(360, 640), policy="zero", seed=21):
+    """K1's output on the card as the serving path hands it to the
+    epilogue (the strided view of Chp channels a pixel), with the LR input
+    in the compute dtype; He weights, so a good share of HR values clip."""
+    layers = [l.to(device=cuda)
+              for l in _stack(seed + scale, ABPNConfig(scale=scale).channels, None)]
+    plan = engine.make_plan(layers, (*shape, 3), backend="kernel", band_rows=60,
+                            precision=precision, scale=scale, vertical_policy=policy)
+    stack = engine.prepare_stack(plan, layers)
+    rng = np.random.default_rng(seed)
+    lr = torch.from_numpy(rng.uniform(size=(frames, *shape, 3)).astype(np.float32)).to(cuda)
+    x = lr.to(engine.compute_dtype_for(precision))
+    feats = engine.sr_features(plan, stack.layers, x, packed=stack.packed)
+    return plan, stack, x, feats
+
+
+def _assert_epilogue_equal(feats, x, scale):
+    from repro_torch.kernels import epilogue
+
+    for clip in (True, False):
+        for out in (torch.float32, torch.bfloat16):
+            got = epilogue.sr_epilogue_call(feats, x, scale=scale, clip=clip, out_dtype=out)
+            want = epilogue.sr_epilogue_plain(feats, x, scale=scale, clip=clip, out_dtype=out)
+            torch.cuda.synchronize()
+            assert got.dtype == want.dtype and got.shape == want.shape
+            assert got.is_contiguous()
+            assert torch.equal(got, want), (clip, out)
+
+
+@pytest.mark.parametrize("scale,precision,frames,chp", [
+    (3, "fp32", 1, 32), (3, "fp32", 128, 32), (3, "bf16", 1, 32), (3, "int8", 1, 32),
+    (4, "bf16", 1, 48), (4, "bf16", 128, 48), (4, "fp32", 1, 48), (2, "fp32", 1, 32),
+    (2, "bf16", 1, 32),
+], ids=["x3-fp32-1", "x3-fp32-128", "x3-bf16-1", "x3-int8-1", "x4-bf16-1", "x4-bf16-128",
+        "x4-fp32-1", "x2-fp32-1", "x2-bf16-1"])
+def test_epilogue_kernel_equals_plain_on_k1_features(cuda, scale, precision, frames, chp):
+    """The kernel's HR frame is ``torch.equal`` to the plain chain's on K1's
+    own output view (ABPN x3 at Chp 32, x4's mixed launch at 48), clip on
+    and off, fp32 and bf16 out, at one frame and a full 128-frame dispatch.
+    ABPN x2 reads 12 of its view's 32 channels a pixel, element by element
+    (a span of whole records would read 2.7x the bytes)."""
+    _, _, x, feats = _k1_features(cuda, scale, precision, frames)
+    assert feats.stride(2) == chp and not feats.is_contiguous()
+    _assert_epilogue_equal(feats, x, scale)
+
+
+@pytest.mark.parametrize("width", [37, 61])
+def test_epilogue_kernel_at_a_width_off_the_vector(cuda, width):
+    """HR rows of ``width * 9`` elements, no multiple of a 16-byte vector:
+    every row starts at another offset from 16 bytes, and the feature
+    spans of K1's view as well."""
+    _, _, x, feats = _k1_features(cuda, 3, "fp32", 2, shape=(60, width))
+    _assert_epilogue_equal(feats, x, 3)
+    _, _, x, feats = _k1_features(cuda, 3, "bf16", 2, shape=(60, width))
+    _assert_epilogue_equal(feats, x, 3)
+
+
+def test_epilogue_kernel_reads_any_layout(cuda):
+    """A features tensor with channels not contiguous (channels-first,
+    permuted) takes the element-by-element reads, and an fp16 frame the
+    third output dtype."""
+    from repro_torch.kernels import epilogue
+
+    rng = np.random.default_rng(4)
+    feats = torch.from_numpy(rng.normal(0.5, 0.6, (2, 27, 12, 20)).astype(np.float32)).to(cuda)
+    feats = feats.permute(0, 2, 3, 1)  # (2, 12, 20, 27), channel stride 240
+    x = torch.from_numpy(rng.uniform(size=(2, 12, 20, 3)).astype(np.float32)).to(cuda)
+    _assert_epilogue_equal(feats, x, 3)
+    got = epilogue.sr_epilogue_call(feats, x, scale=3, clip=True, out_dtype=torch.float16)
+    want = epilogue.sr_epilogue_plain(feats, x, scale=3, clip=True, out_dtype=torch.float16)
+    assert got.dtype == torch.float16 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_epilogue_kernel_on_halo_band_slabs(cuda, precision):
+    """The delta path's band executor under ``halo``: its LR rows are a
+    slice of each slab, and its HR bands equal the plain chain on the same
+    features."""
+    from repro_torch.core.fusion import halo_slabs
+    from repro_torch.engine import executor
+    from repro_torch.kernels import epilogue
+
+    plan, stack, x, _ = _k1_features(cuda, 3, precision, 2, shape=(120, 64), policy="halo")
+    slabs, bounds = halo_slabs(x, plan.band_rows, plan.num_layers)
+    launches = epilogue.sr_epilogue_call.launches
+    got = executor.build_band_executor(plan, stack)(slabs, bounds)
+    assert epilogue.sr_epilogue_call.launches == launches + 1
+    feats = executor._band_features(plan, stack, slabs, bounds)
+    L = plan.num_layers
+    lr = slabs[:, L:L + plan.band_rows]
+    assert not lr.is_contiguous()
+    want = epilogue.sr_epilogue_plain(feats, lr, scale=3, clip=plan.clip, out_dtype=x.dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_epilogue_kernel_passes_nan_through(cuda, precision):
+    """A NaN in the features or the LR input comes out as NaN under the
+    clip, as ``torch.clamp`` passes it, and every other value is equal."""
+    from repro_torch.kernels import epilogue
+
+    _, _, x, feats = _k1_features(cuda, 3, precision, 1, shape=(60, 64))
+    feats[0, 5, 7, 4] = float("nan")  # the view writes K1's output buffer
+    x = x.clone()
+    x[0, 9, 3, 1] = float("nan")
+    got = epilogue.sr_epilogue_call(feats, x, scale=3, clip=True, out_dtype=torch.float32)
+    want = epilogue.sr_epilogue_plain(feats, x, scale=3, clip=True, out_dtype=torch.float32)
+    nan = torch.isnan(want)
+    assert int(nan.sum()) == 10  # one feature channel, and a pixel's 9 anchored outputs
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan], want[~nan])
+
+
+def test_epilogue_kernel_counts_launches_and_refuses_what_it_does_not_take(cuda):
+    from repro_torch.engine import executor
+    from repro_torch.kernels import epilogue
+
+    plan, _, x, feats = _k1_features(cuda, 3, "fp32", 1, shape=(60, 64))
+    launches = epilogue.sr_epilogue_call.launches
+    for k in range(3):
+        executor.sr_epilogue(plan, x, feats, torch.float32)
+        assert epilogue.sr_epilogue_call.launches == launches + k + 1
+    refused = [
+        (feats.double(), x.double(), torch.float32),  # compute dtype
+        (feats.half(), x.half(), torch.float32),
+        (feats, x.bfloat16(), torch.float32),  # one dtype for both
+        (feats, x.cpu(), torch.float32),  # devices
+        (feats[..., :26], x, torch.float32),  # channels
+        (feats, x[..., :2], torch.float32),
+    ]
+    launches = epilogue.sr_epilogue_call.launches
+    for f, lr, out in refused:
+        with pytest.raises(ValueError):
+            epilogue.sr_epilogue_call(f, lr, scale=3, clip=True, out_dtype=out)
+    assert epilogue.sr_epilogue_call.launches == launches
+
+
+def _plain_epilogue(monkeypatch):
+    """Make the executor's epilogue the plain chain (the tests' own
+    reference runs), so a comparison with served frames checks the
+    kernel."""
+    from repro_torch.engine import executor
+    from repro_torch.kernels import epilogue
+
+    monkeypatch.setattr(executor, "sr_epilogue", lambda plan, x, feats, in_dtype:
+                        epilogue.sr_epilogue_plain(feats, x, scale=plan.scale, clip=plan.clip,
+                                                   out_dtype=in_dtype))
+
+
+def test_served_frames_take_the_epilogue_kernel(cuda, monkeypatch):
+    """Every frame the server dispatches on the card has its epilogue run
+    by the kernel: ``epilogue_kernel_frames`` equals ``epilogue_frames``,
+    and the frames equal the executor's with the plain chain."""
+    from repro_torch.kernels import epilogue
+
+    session = engine.SRSession(init_abpn(torch.Generator().manual_seed(0)), backend="kernel",
+                               autotune="off", device=cuda, max_bucket=4)
+    server = engine.SRServer({"m": session})
+    clip = np.random.default_rng(8).uniform(size=(6, 120, 64, 3)).astype(np.float32)
+    server.submit(clip[:1]).result()  # warm
+    session.reset_stats()
+    launches = epilogue.sr_epilogue_call.launches
+    hr = server.submit(clip).result()
+    st = session.stats()
+    assert st["epilogue_frames"] == 6 and st["epilogue_kernel_frames"] == 6
+    assert epilogue.sr_epilogue_call.launches > launches
+    _plain_epilogue(monkeypatch)
+    launches = epilogue.sr_epilogue_call.launches
+    want = engine.run(session.plan_for(clip.shape[1:]), session.layers, clip, device=cuda)
+    assert epilogue.sr_epilogue_call.launches == launches
+    assert torch.equal(hr, want)
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.int8, np.int32])
+def test_integer_frames_are_served_through_the_epilogue_kernel(cuda, monkeypatch, dtype):
+    """An integer request keeps its dtype: the kernel writes the HR frame
+    in the compute dtype and the wrapper casts it, as the chain clamps and
+    then casts, so the served frames equal the plain chain's bit for bit."""
+    from repro_torch.kernels import epilogue
+
+    session = engine.SRSession(init_abpn(torch.Generator().manual_seed(0)), backend="kernel",
+                               autotune="off", device=cuda, max_bucket=4)
+    server = engine.SRServer({"m": session})
+    rng = np.random.default_rng(11)
+    clip = rng.integers(0, 2, size=(3, 120, 64, 3)).astype(dtype)  # values the clip keeps whole
+    launches = epilogue.sr_epilogue_call.launches
+    hr = server.submit(clip).result()
+    assert epilogue.sr_epilogue_call.launches > launches
+    st = session.stats()
+    assert st["epilogue_kernel_frames"] == st["epilogue_frames"] == 3
+    assert hr.dtype == torch.from_numpy(clip).dtype and tuple(hr.shape) == (3, 360, 192, 3)
+    _plain_epilogue(monkeypatch)
+    want = engine.run(session.plan_for(clip.shape[1:]), session.layers, clip, device=cuda)
+    assert want.dtype == hr.dtype and torch.equal(hr, want)
+    server.close()
+
+
+@pytest.mark.parametrize("out", [torch.uint8, torch.int8, torch.int32, torch.float64, torch.bool])
+def test_epilogue_kernel_casts_to_a_dtype_it_does_not_write(cuda, out):
+    """An HR dtype the kernel does not write is its compute-dtype output,
+    cast: ``torch.equal`` to the plain chain, one launch a call."""
+    from repro_torch.kernels import epilogue
+
+    for precision in ("fp32", "bf16"):
+        _, _, x, feats = _k1_features(cuda, 3, precision, 1, shape=(60, 64))
+        for clip in (True, False):
+            launches = epilogue.sr_epilogue_call.launches
+            got = epilogue.sr_epilogue_call(feats, x, scale=3, clip=clip, out_dtype=out)
+            want = epilogue.sr_epilogue_plain(feats, x, scale=3, clip=clip, out_dtype=out)
+            assert epilogue.sr_epilogue_call.launches == launches + 1
+            assert got.dtype == out and torch.equal(got, want), (precision, clip)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_epilogue_kernel_under_autograd_gives_the_plain_chains_gradients(cuda, precision):
+    """Autograd records the kernel (training through ``engine.run``): the
+    forward launches it, with the plain chain's bits, and the gradients
+    are the plain chain's (the features' bit for bit)."""
+    from repro_torch.kernels import epilogue
+    from repro_torch.models.abpn import apply_abpn
+
+    _, _, x, feats = _k1_features(cuda, 3, precision, 1, shape=(60, 64))
+    f, lr = feats.detach().clone().requires_grad_(), x.detach().clone().requires_grad_()
+    pf, plr = feats.detach().clone().requires_grad_(), x.detach().clone().requires_grad_()
+    launches = epilogue.sr_epilogue_call.launches
+    got = epilogue.sr_epilogue_call(f, lr, scale=3, clip=True, out_dtype=torch.float32)
+    assert got.grad_fn is not None and epilogue.sr_epilogue_call.launches == launches + 1
+    want = epilogue.sr_epilogue_plain(pf, plr, scale=3, clip=True, out_dtype=torch.float32)
+    assert torch.equal(got.detach(), want.detach())
+    grad = torch.randn(got.shape, generator=torch.Generator().manual_seed(3)).to(cuda)
+    got_f, got_x = torch.autograd.grad(got, (f, lr), grad)
+    want_f, want_x = torch.autograd.grad(want, (pf, plr), grad)
+    assert torch.equal(got_f, want_f)
+    torch.testing.assert_close(got_x, want_x)
+    # a training step's gradient through the whole executor on the card
+    from repro_torch.core.fusion import ConvLayer
+
+    layers = [ConvLayer(l.w.detach().clone().requires_grad_(),
+                        l.b.detach().clone().requires_grad_(), l.relu)
+              for l in init_abpn(torch.Generator().manual_seed(0), device=cuda)]
+    hr_lr = torch.rand((12, 16, 3), generator=torch.Generator().manual_seed(1)).to(cuda)
+    launches = epilogue.sr_epilogue_call.launches
+    hr = apply_abpn(layers, hr_lr, method="reference", device=cuda)
+    assert epilogue.sr_epilogue_call.launches == launches + 1
+    grads = torch.autograd.grad(hr.mean(), [l.w for l in layers])
+    assert all(bool(torch.isfinite(g).all()) for g in grads)

@@ -1,11 +1,15 @@
-"""What K1's timers and checks share (``chip_smoke.py``, ``tools/k1_times.py``,
+"""What the kernels' timers and checks share (``chip_smoke.py``,
+``tools/k1_times.py``, ``tools/k2_times.py``, ``tools/epilogue_times.py``,
 ``tools/k1_ablation.py``): a seeded conv stack with He weights, cuDNN's conv
-stack on the same layers, and the bound of a stack's useful work.
+stack on the same layers, the bound of a stack's useful work, the
+epilogue's byte bound, and a device timer.
 
 Not a script: ``chip_smoke.py`` and the tools import it from this directory.
 It imports nothing of the package at import time, so a tool may time
 another tree's ``repro_torch`` (``tools/k1_times.py --src``).
 """
+
+import statistics
 
 
 def he_arrays(np, channels, seed):
@@ -58,3 +62,32 @@ def useful_bound(layers, pixels, prec, itemsize, peaks):
     return dict(flops=flops, bytes=nbytes, bound_ms=max(ops_ms, bytes_ms),
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                 bytes_bound_ms=bytes_ms)
+
+
+def epilogue_bytes(frames, height, width, chp, channels, scale, itemsize, hr_itemsize):
+    """The bytes ABPN's epilogue has to move over ``frames`` LR frames of
+    ``height x width`` with ``channels`` colour channels, each once: every
+    pixel's record of the features as K1 lays it out (``chp`` elements of
+    ``itemsize`` bytes), the LR input in the same dtype, and the HR frame
+    (``scale**2`` pixels a pixel) in ``hr_itemsize``-byte elements."""
+    pixels = frames * height * width
+    return pixels * ((chp + channels) * itemsize + scale * scale * channels * hr_itemsize)
+
+
+def device_ms(torch, fn, calls=5, rounds=5):
+    """Device milliseconds a call of ``fn``: ``calls`` calls queued behind
+    a ~20 ms device sleep between two CUDA events, the median of
+    ``rounds`` rounds (one call first, to warm)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(40_000_000)  # cycles: ~20 ms at the H100's ~2 GHz
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)

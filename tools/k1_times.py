@@ -58,33 +58,16 @@ import argparse
 import itertools
 import json
 import os
-import statistics
 import subprocess
 import sys
 
-from _stacks import cudnn_stack, he_arrays, useful_bound
+from _stacks import cudnn_stack, device_ms, he_arrays, useful_bound
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # H100 SXM, dense (NVIDIA's data sheet): TF32 and bf16 tensor cores, HBM3
 PEAKS = {"tf32": 495e12, "bf16": 989e12, "bytes": 3.35e12}
 WIDE_F = {48: (1,), 64: (1, 8), 96: (1,), 128: (1, 8)}  # feature widths -> frame counts
 K2_STACKS = ("x3", "x4-mixed")  # the stacks timed layer by layer through K2 as well
-
-
-def device_ms(torch, fn, calls=5, rounds=5):
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(rounds):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(40_000_000)  # cycles: ~20 ms at the H100's ~2 GHz
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return statistics.median(times)
 
 
 def main(argv=None) -> int:

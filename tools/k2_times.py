@@ -46,11 +46,10 @@ Exits 2 without a CUDA device.
 import argparse
 import json
 import os
-import statistics
 import subprocess
 import sys
 
-from _stacks import cudnn_stack, he_arrays, useful_bound
+from _stacks import cudnn_stack, device_ms, he_arrays, useful_bound
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # H100 SXM, dense (NVIDIA's data sheet): TF32 and bf16 tensor cores, HBM3
@@ -58,22 +57,6 @@ PEAKS = {"tf32": 495e12, "bf16": 989e12, "bytes": 3.35e12}
 H, W = 360, 640
 WIDE_F = (48, 64, 96, 128)
 STACK_F = (64, 128)
-
-
-def device_ms(torch, fn, calls=5, rounds=5):
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(rounds):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(40_000_000)  # cycles: ~20 ms at the H100's ~2 GHz
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return statistics.median(times)
 
 
 def pr26_copies(ci, co, dtype_bytes):
