@@ -1,11 +1,12 @@
 """One run of one cell: set-up, the measured window, the check, the record
 the metric readers read.
 
-Set-up opens the port's ``SRServer`` on the benchmark's weights, builds and
-warms an executor for every bucket the traffic can form (powers of two up
-to the traffic's ``warm_max_bucket``), and runs the same traffic, on other
-frames, for ``warm_seconds``: that fills the host allocator's pinned blocks
-as the window will use them.  Then the window runs; with ``trace`` the
+Set-up makes the configuration's model family (``registry.family``) draw
+its weights from the seed and open the port's ``SRServer`` on them, builds
+and warms an executor for every bucket the traffic can form (powers of two
+up to the traffic's ``warm_max_bucket``), and runs the same traffic, on
+other frames, for ``warm_seconds``: that fills the host allocator's pinned
+blocks as the window will use them.  Then the window runs; with ``trace`` the
 profiler records it, the benchmark's calls into the server carry spans and
 a poller reads the scheduler's log of formed dispatches.  After the window
 the peak device memory is read (less the copies of HR frames the sample
@@ -19,11 +20,13 @@ import dataclasses
 import gc
 import threading
 import time
+from pathlib import Path
+from types import ModuleType
 from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from harness import check, clients, inputs, peaks
+from harness import check, clients, inputs, peaks, registry
 from harness import traffic as traffic_mod
 from harness.trace import Profiler, Trace
 
@@ -45,6 +48,7 @@ class RunRecord:
     session: dict  # the session's serving stats, reset at the window's start
     k1_launches: int  # tilted_fusion_call.launches moved over the window
     window_builds: int  # executors built inside the window (0 when warm-up covered it)
+    family: ModuleType  # the configuration's model family (registry.family)
     trace: Optional[Trace] = None
     buckets: Optional[List[int]] = None  # every dispatch's bucket (traced runs)
     k1_executed_flops: Optional[Dict[int, int]] = None  # per bucket, the program's count
@@ -57,7 +61,7 @@ class RunRecord:
 
     @property
     def flops_per_frame(self) -> int:
-        return inputs.abpn_flops_per_frame(self.config)
+        return self.family.flops_per_frame(self.config)
 
     @property
     def peak_flops(self) -> float:
@@ -103,20 +107,6 @@ class DispatchLog:
         return self.buckets
 
 
-def open_server(cfg: dict, layers, device, backend: Optional[str] = None):
-    """The port's server on the benchmark's weights, as the configuration
-    serves it."""
-    from repro_torch.core.fusion import ConvLayer
-    from repro_torch.engine import SRServer
-
-    serving = dict(cfg["serving"])
-    if backend is not None:
-        serving["backend"] = backend
-    stack = [ConvLayer(w=w, b=b, relu=r) for w, b, r in layers]
-    return SRServer.open(cfg["model"], layers=stack, scale=int(cfg["scale"]),
-                         device=str(device), **serving)
-
-
 def warm(server, cfg: dict, tr: dict, pool, seed: int, mark=None) -> None:
     session = server.session()
     plan = session.plan_for(inputs.lr_shape(cfg))
@@ -138,10 +128,12 @@ def _sched(server) -> Dict[str, int]:
 
 
 def run(cell: dict, cfg: dict, tr: dict, seed: int, seconds: float, traced: bool,
-        device, t_start: float, backend: Optional[str] = None) -> Tuple[RunRecord, dict, int]:
+        device, t_start: float, backend: Optional[str] = None,
+        bench_dir: Path = registry.BENCH) -> Tuple[RunRecord, dict, int]:
     """One run; returns the record, the check and the peak device bytes.
     ``t_start`` is when the process started (``time.time()`` seconds);
-    ``backend`` overrides the configuration's (a CPU test's ``tilted``)."""
+    ``backend`` overrides the configuration's (a CPU test's ``tilted``);
+    ``bench_dir`` is where the model family's file is found."""
     from repro_torch.kernels.tilted_fusion import tilted_fusion_call
 
     stages: Dict[str, float] = {}
@@ -152,11 +144,12 @@ def run(cell: dict, cfg: dict, tr: dict, seed: int, seconds: float, traced: bool
     mark("imports_and_cuda")
     traffic_mod.check(tr)
     device = torch.device(device)
+    family = registry.family(cfg, bench_dir)
     pool = inputs.make_pool(cfg, int(tr["pool_frames"]), seed)
-    layers = inputs.make_layers(cfg, seed, device)
+    weights = family.make_weights(cfg, seed, device)
     mark("inputs")
-    server = open_server(cfg, layers, device, backend)
-    del layers
+    server = family.open_server(cfg, weights, device, backend)
+    del weights
     session = server.session()
     mark("server_open")
     warm(server, cfg, tr, pool, seed, mark)
@@ -189,15 +182,15 @@ def run(cell: dict, cfg: dict, tr: dict, seed: int, seconds: float, traced: bool
         cell=cell, config=cfg, traffic=tr, traced=traced, setup_s=setup_s, window=window,
         sched={k: after[k] - before[k] for k in SCHED_KEYS}, session=dict(session.stats()),
         k1_launches=tilted_fusion_call.launches - launches,
-        window_builds=session.cache_stats()["misses"] - misses, trace=trace, buckets=buckets,
-        setup_stages=stages)
+        window_builds=session.cache_stats()["misses"] - misses, family=family, trace=trace,
+        buckets=buckets, setup_stages=stages)
     # the peak of serving: the sample's kept frames are the check's, not the
     # server's, and are held from the window's first requests to its end
     peak = 0
     if device.type == "cuda":
         peak = max(peak_warm, torch.cuda.max_memory_allocated(device) - sampler.nbytes())
-    if traced and buckets:
-        record.k1_executed_flops = k1_executed_flops(session, cfg, set(buckets), device)
+    if traced and buckets and hasattr(family, "executed_flops"):
+        record.k1_executed_flops = family.executed_flops(session, cfg, set(buckets), device)
 
     # the program's state goes before the reference runs; the sample stays
     server.close()
@@ -207,22 +200,8 @@ def run(cell: dict, cfg: dict, tr: dict, seed: int, seconds: float, traced: bool
         torch.cuda.empty_cache()
     sample = sampler.items()
     record.sampled = [(req, pos) for req, pos, _ in sample]
-    result = check.compare(sample, cfg, int(tr["pool_frames"]), seed, device)
+    result = check.compare(sample, cfg, family, int(tr["pool_frames"]), seed, device)
     failed = sum(1 for r in window.requests if not r.ok)
     sampler.clear()
     del sample
     return record, check.checks(result, failed, float(cfg["limits"]["max_abs_err"])), peak
-
-
-def k1_executed_flops(session, cfg: dict, buckets, device) -> Dict[int, int]:
-    """K1's executed FLOPs for one dispatch of each bucket, as the program
-    counts them (``engine.executor.plan_cost_terms``, i.e.
-    ``tilted_fusion.launch_cost`` at the card's segment plan)."""
-    from repro_torch.engine.executor import plan_cost_terms
-
-    plan = session.plan_for(inputs.lr_shape(cfg))
-    out = {}
-    for b in sorted(buckets):
-        terms = plan_cost_terms(plan, session.layers, b, torch.float32, device=device)
-        out[b] = sum(int(k["flops"]) for k in terms["k1"])
-    return out

@@ -3,23 +3,25 @@
 Once the window has closed and the program's state is freed, the HR frames
 that the sampled requests received (coalesced, bucket-padded dispatches
 sliced back per request, the band cut, K1 and the epilogue), at positions
-in each request drawn from the seed, are compared with the plain reference (``reference/abpn.py``, float32 with TF32 off)
-computed from the benchmark's own weights and LR frames, made again from
-the seed.  The number compared is the largest absolute difference over every
-HR value of every sampled frame (``max_abs_err``), held to the
-configuration's limit; a request that failed or never finished makes the
-run not correct, and so does a run that compared no frame.
+in each request drawn from the seed, are compared with the plain reference
+of the configuration's model family (``reference/<family>.py`` through
+``families/<family>.py``, float32 with TF32 off) computed from the
+benchmark's own weights and LR frames, made again from the seed.  The
+number compared is the largest absolute difference over every HR value of
+every sampled frame (``max_abs_err``), held to the configuration's limit;
+a request that failed or never finished makes the run not correct, and so
+does a run that compared no frame.
 """
 
 from __future__ import annotations
 
 import math
+from types import ModuleType
 from typing import List, Optional, Tuple
 
 import torch
 
 from harness import inputs
-from reference import abpn as ref
 
 # the correctness control: the reference in the nearest precision below the
 # one the configuration serves in
@@ -28,24 +30,25 @@ BLOCK_FRAMES = 8  # reference frames at a time, so that it fits beside the sampl
 
 
 def compare(sample: List[Tuple[object, List[int], Optional[torch.Tensor]]], cfg: dict,
-            pool_frames: int, seed: int, device, precision: str = "fp32") -> dict:
+            family: ModuleType, pool_frames: int, seed: int, device,
+            precision: str = "fp32") -> dict:
     """``max_abs_err`` and ``frames`` over the sampled ``(request,
     positions, hr)``, where ``hr`` holds the request's HR frames at
-    ``positions``; ``precision`` other than ``fp32`` computes the reference
-    itself in a lower precision (the correctness control) instead of
-    reading the program's frames."""
+    ``positions``; ``family`` is the configuration's model family
+    (``registry.family``); ``precision`` other than ``fp32`` computes the
+    reference itself in a lower precision (the correctness control) instead
+    of reading the program's frames."""
     device = torch.device(device)
     pool = inputs.make_pool(cfg, pool_frames, seed)
-    layers = inputs.make_layers(cfg, seed, device)
-    scale, rows = int(cfg["scale"]), int(cfg["serving"]["band_rows"])
+    weights = family.make_weights(cfg, seed, device)
     worst, frames = 0.0, 0
-    with ref.exact():
+    with family.exact():
         for req, pos, hr in sample:
             lr = torch.from_numpy(pool[[req.start + i for i in pos]]).to(device)
             for i in range(0, len(pos), BLOCK_FRAMES):
-                want = ref.abpn(lr[i:i + BLOCK_FRAMES], layers, scale, rows)
+                want = family.reference(lr[i:i + BLOCK_FRAMES], weights, cfg)
                 if precision != "fp32":
-                    part = ref.abpn(lr[i:i + BLOCK_FRAMES], layers, scale, rows, precision)
+                    part = family.reference(lr[i:i + BLOCK_FRAMES], weights, cfg, precision)
                 elif hr is None or tuple(hr.shape) != (len(pos), *want.shape[1:]):
                     worst = math.inf
                     continue

@@ -1,10 +1,23 @@
-"""Find the benchmark's parts by name: cells, configurations, traffic mixes
-and metric readers.
+"""Find the benchmark's parts by name: cells, configurations, model
+families, traffic mixes and metric readers.
 
 ``BENCHMARK.json`` at the root of the checkout names every part; each part
 lives in a file of its own under ``bench/``:
 
 * a configuration: the file its entry names (``bench/configs/<name>.json``);
+* a model family: ``bench/families/<family>.py``, where ``<family>`` is the
+  configuration's ``family`` key (``abpn``).  The module defines
+  ``make_weights(cfg, seed, device)`` (the benchmark's weights from the
+  seed, in whatever structure the family needs: the harness never looks
+  inside them), ``open_server(cfg, weights, device, backend=None)`` (the
+  port's ``SRServer`` on them), ``reference(lr, weights, cfg,
+  precision="fp32")`` and ``exact()`` (the HR frames from the family's plain
+  reference, ``bench/reference/<family>.py``, in fp32 or in the precision
+  the correctness control computes in, and the context that keeps fp32
+  exact), ``flops_per_frame(cfg)`` (the model's own work on one LR frame)
+  and, optionally, ``executed_flops(session, cfg, buckets, device)`` (the
+  program's count for one dispatch of each bucket; a traced run reads it
+  only where the family defines it);
 * a traffic mix: ``bench/traffic/<name>.json``, read by the one general
   generator in :mod:`harness.traffic`;
 * a metric: ``bench/metrics/<name>.py`` if that file exists, else
@@ -13,7 +26,11 @@ lives in a file of its own under ``bench/``:
   ``read(run)``, which returns a number or ``None`` where the run holds
   nothing to read.
 
-Adding a part is adding its file and its entry; no file here changes.
+Adding a part is adding its file and its entry; no file here changes.  A
+new model family is its configuration file (with ``family``), its
+``families/<family>.py`` and ``reference/<family>.py``, the configuration's
+entry and its cells in ``BENCHMARK.json``, and per-layer entries that reuse
+a reader by its stem (``mfu.<cell>``) or bring a reader of their own.
 """
 
 from __future__ import annotations
@@ -21,6 +38,7 @@ from __future__ import annotations
 import importlib.util
 import json
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, List, Optional
 
 BENCH = Path(__file__).resolve().parents[1]  # bench/
@@ -77,6 +95,21 @@ def metrics_for(bench: dict, cell: str, trace: bool) -> List[dict]:
     return [m for m in bench["per_layer" if trace else "end_to_end"] if reports(m, cell, bench)]
 
 
+def _load(path: Path, prefix: str) -> ModuleType:
+    spec = importlib.util.spec_from_file_location(f"{prefix}_{path.stem.replace('.', '_')}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def family(cfg: dict, bench_dir: Path = BENCH) -> ModuleType:
+    """The module of the configuration's model family."""
+    path = Path(bench_dir) / "families" / f"{cfg['family']}.py"
+    if not path.exists():
+        raise KeyError(f"no model family {cfg['family']!r}: {path} does not exist")
+    return _load(path, "bench_family")
+
+
 def reader(name: str, bench_dir: Path = BENCH) -> Callable:
     """The ``read(run)`` function of metric ``name``."""
     metrics = Path(bench_dir) / "metrics"
@@ -85,11 +118,7 @@ def reader(name: str, bench_dir: Path = BENCH) -> Callable:
         path = metrics / f"{name.split('.')[0]}.py"
     if not path.exists():
         raise KeyError(f"no reader for metric {name!r} under {metrics}")
-    spec = importlib.util.spec_from_file_location(f"bench_metric_{path.stem.replace('.', '_')}",
-                                                  path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.read
+    return _load(path, "bench_metric").read
 
 
 def read_metrics(entries: List[dict], run, bench_dir: Path = BENCH) -> dict:

@@ -54,9 +54,10 @@ def test_control_reads_above_the_limit(config):
     cfg["serving"]["band_rows"] = 30
     control = check.CONTROL[cfg["serving"]["precision"]]
     limit = float(cfg["limits"]["max_abs_err"])
+    family = registry.family(cfg)
     for seed in SEEDS:
         sample = [(clients.Request(rid=0, n=2, start=0), [0, 1], None)]
-        got = check.compare(sample, cfg, 2, seed, "cpu", precision=control)
+        got = check.compare(sample, cfg, family, 2, seed, "cpu", precision=control)
         assert got["frames"] == 2
         assert got["max_abs_err"] > limit, (seed, got, limit)
 
@@ -112,8 +113,9 @@ def test_weights_and_frames_are_made_again_alike():
     """The check makes the reference's weights and frames again from the
     seed: the same numbers the program was handed."""
     _, cfg, tr = small("x4_bf16_vod")
-    a = inputs.make_layers(cfg, 99, "cpu")
-    b = inputs.make_layers(cfg, 99, "cpu")
+    family = registry.family(cfg)
+    a = family.make_weights(cfg, 99, "cpu")
+    b = family.make_weights(cfg, 99, "cpu")
     assert all(torch.equal(x[0], y[0]) and torch.equal(x[1], y[1]) for x, y in zip(a, b))
     assert (inputs.make_pool(cfg, 4, 99) == inputs.make_pool(cfg, 4, 99)).all()
     assert all(bool((x[1] != 0).any()) for x in a)  # the bias path is checked

@@ -81,7 +81,8 @@ def _record(kind, requests, t0=0.0, t1=1.5, **kw):
     base = dict(cell={"name": "c"}, config=cfg, traffic={"kind": kind}, traced=False,
                 setup_s=7.0, window=w, sched=dict(dispatches=4, frames_dispatched=30,
                                                   slots_dispatched=40),
-                session={"p50_ms": 3.5, "batches": 4}, k1_launches=4, window_builds=0)
+                session={"p50_ms": 3.5, "batches": 4}, k1_launches=4, window_builds=0,
+                family=registry.family(cfg))
     base.update(kw)
     return RunRecord(**base)
 

@@ -5,7 +5,7 @@ port."""
 import pytest
 import torch
 
-from harness import inputs
+from harness import inputs, registry
 from reference import abpn as ref
 
 from repro_torch import engine
@@ -13,9 +13,10 @@ from repro_torch.core.fusion import ConvLayer
 from repro_torch.models.abpn import depth_to_space
 
 
-def small_cfg(scale: int) -> dict:
-    return dict(in_channels=3, feature_channels=28, num_layers=7, out_channels=3 * scale ** 2,
-                scale=scale, lr_height=60, lr_width=40,
+def small_cfg(scale: int, band_rows: int = 30) -> dict:
+    return dict(family="abpn", in_channels=3, feature_channels=28, num_layers=7,
+                out_channels=3 * scale ** 2, scale=scale, lr_height=60, lr_width=40,
+                serving=dict(band_rows=band_rows),
                 init=dict(bias_range=0.05, last_layer_std_scale=0.1))
 
 
@@ -30,9 +31,10 @@ def port(layers, frames, scale, precision="fp32", backend="tilted"):
 @pytest.mark.parametrize("scale", [3, 4])
 def test_reference_is_the_ports_tilted_backend_under_zero(scale):
     cfg = small_cfg(scale)
-    layers = inputs.make_layers(cfg, 2 ** 31 + 3, "cpu")
+    family = registry.family(cfg)
+    layers = family.make_weights(cfg, 2 ** 31 + 3, "cpu")
     frames = torch.from_numpy(inputs.make_pool(cfg, 2, 2 ** 31 + 3))
-    want = ref.abpn(frames, layers, scale, 30)
+    want = family.reference(frames, layers, cfg)
     got = port(layers, frames, scale)
     assert got.shape == want.shape == (2, 60 * scale, 40 * scale, 3)
     assert (got - want).abs().max().item() <= 1e-6
@@ -43,10 +45,11 @@ def test_reference_bands_are_not_the_whole_frame(scale):
     """Under ``zero`` each band sees zero rows at its edges: the result
     differs from one convolution over the whole frame near band edges."""
     cfg = small_cfg(scale)
-    layers = inputs.make_layers(cfg, 5, "cpu")
+    family = registry.family(cfg)
+    layers = family.make_weights(cfg, 5, "cpu")
     frames = torch.from_numpy(inputs.make_pool(cfg, 1, 5))
-    banded = ref.abpn(frames, layers, scale, 30)
-    whole = ref.abpn(frames, layers, scale, 60)
+    banded = family.reference(frames, layers, cfg)
+    whole = family.reference(frames, layers, small_cfg(scale, band_rows=60))
     assert (banded - whole).abs().max().item() > 1e-3
 
 

@@ -46,7 +46,8 @@ def _record(session):
     return RunRecord(cell={"name": "x3_fp32_vod"}, config=cfg, traffic={"kind": "closed"},
                      traced=True, setup_s=12.0, window=w,
                      sched=dict(dispatches=4, frames_dispatched=30, slots_dispatched=40),
-                     session=dict(session), k1_launches=4, window_builds=0)
+                     session=dict(session), k1_launches=4, window_builds=0,
+                     family=registry.family(cfg))
 
 
 @pytest.mark.parametrize("name", sorted(READINGS))

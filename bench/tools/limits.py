@@ -59,8 +59,8 @@ def main(argv=None) -> int:
                "correct": check.correct(checks)}
         if seed in controls:
             sample = [(req, pos, None) for req, pos in record.sampled]
-            res = check.compare(sample, cfg, int(tr["pool_frames"]), seed, device,
-                                precision=control)
+            res = check.compare(sample, cfg, record.family, int(tr["pool_frames"]), seed,
+                                device, precision=control)
             row[control] = res["max_abs_err"]
             # the control in the program's place, judged as a run is
             row[f"{control}_correct"] = check.correct(

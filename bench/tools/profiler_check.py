@@ -47,7 +47,8 @@ def main(argv=None) -> int:
     tr = dict(registry.traffic(wl["traffic"]), warm_seconds=0)
     device = torch.device("cuda", 0)
     pool = inputs.make_pool(cfg, int(tr["pool_frames"]), 3)
-    server = cell.open_server(cfg, inputs.make_layers(cfg, 3, device), device)
+    family = registry.family(cfg)
+    server = family.open_server(cfg, family.make_weights(cfg, 3, device), device)
     cell.warm(server, cfg, tr, pool, 3)
     n = traffic.frames_per_request(tr)
     torch.cuda.synchronize()
