@@ -89,6 +89,23 @@ each of their parts to the end and then fail with every failure listed):
    useful work (3xTF32 or bf16 tensor-core peak, bytes), the FLOPs and
    bytes ``launch_cost`` counts for the launch's plan, and the plain
    version's time at one frame;
+4r. RLFN x4 (``models.rlfn``, seeded weights, the card tests' biases and
+   upsampler) — K1's Chp 64 EPI instance (a leaky slope and a residual) on
+   an RLFB segment (3 layers 52 -> 52) at the benchmark cell's launch: 128
+   frames of 360x640, their 768 ``halo`` slabs of 66 rows with bounds and
+   the residual on each band's own rows, one launch, against
+   ``tilted_fusion_plain`` on the same inputs, fp32 and bf16, at phase 3's
+   tolerances; ``sr_epilogue_call(anchor=False)`` on the upsampler's 48
+   outputs at 8 frames, K1's Chp 64 output view (``zero``) and the served
+   path's cropped features (``halo``), ``torch.equal`` to
+   ``sr_epilogue_plain``, clip on and off; ``SRServer.open("rlfn_x4",
+   backend="kernel", vertical_policy="halo")`` in fp32 and bf16, warmed,
+   then with K1's and the epilogue's counters zeroed a 4-frame request and
+   two 2-frame requests that share a dispatch: 9 K1 launches and one
+   epilogue launch a dispatch (the kernels line's ``rlfn`` entries), the
+   session's ``k1_segments`` 9, and the HR frames against the benchmark's
+   plain reference (``bench/reference/rlfn.py``, fp32, TF32 off) at phase
+   4's tolerances;
 4b. layer-by-layer path — ABPN x3 over two 360x640 frames as 7
    ``ops.conv3x3`` launches per frame plus ``engine.sr_epilogue``, fp32 and
    bf16, held against ``engine.run`` on the ``reference`` backend (TF32
@@ -2132,6 +2149,189 @@ def served_epilogue(server, launched, dispatches, label):
 
 
 # ----------------------------------------------------------------------
+# RLFN x4 (models.rlfn): K1's Chp 64 EPI instance (a leaky slope and a
+# residual) at the benchmark cell's launch shape, the anchor-free epilogue,
+# and rlfn_x4 served
+# ----------------------------------------------------------------------
+RLFN_FRAMES = 128  # x4_bf16_rlfn_vod's dispatch
+
+
+def bench_rlfn_reference():
+    """``bench/reference/rlfn.py``, loaded by path (it imports no package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "bench_reference_rlfn", os.path.join(ROOT, "bench", "reference", "rlfn.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def rlfn_weights(torch, seed):
+    """``init_rlfn`` from ``seed`` with biases that are not zero and an
+    upsampler that keeps the HR frame inside [0, 1] (as the card tests)."""
+    from repro_torch.models.rlfn import init_rlfn
+
+    gen = torch.Generator().manual_seed(seed)
+    sd = init_rlfn(gen)
+    for name in sd:
+        if name.endswith(".bias"):
+            sd[name] = torch.randn(sd[name].shape, generator=gen) * 0.05
+    sd["upsampler.0.weight"] *= 0.1
+    sd["upsampler.0.bias"] += 0.5
+    return sd
+
+
+def rlfb_epi_check(torch, ops, ttf, dev, segment, kcall):
+    """K1's EPI instance on an RLFB segment (3 layers 52 -> 52, slope 0.05,
+    the block's input added after the last) at the cell's launch: 128
+    frames of 360x640 in 60-row bands, their 66-row ``halo`` slabs with
+    bounds and the residual on each band's own rows, one launch, against
+    ``tilted_fusion_plain`` on the same inputs (96 slabs a call), fp32 and
+    bf16.  Returns each dtype's launch, route and worst difference."""
+    from repro_torch.core.fusion import halo_slabs
+
+    out = {}
+    R = 60
+    for prec, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        layers = [l.to(device=dev, dtype=dt) for l in segment.layers]
+        packed = ops.pack_stack(layers, dtype=dt)
+        L, C = packed.num_layers, layers[-1].co
+        gen = torch.Generator(device=dev).manual_seed(23)
+        frames = (torch.randn((RLFN_FRAMES, H, W, C), generator=gen, device=dev) * 0.5).to(dt)
+        slabs, bounds = halo_slabs(frames, R, L)
+        xs, first = ops.band_streams(slabs, 8, L)
+        del slabs
+        res = frames.reshape(-1, R, W, C)
+        kw = dict(width=W, tile_cols=8, relu_flags=list(packed.relu), add_anchor=False,
+                  in_channels=C, hidden_channels=packed.hidden_channels, slopes=packed.slopes,
+                  residual_offset=L)
+        before = kcall.launches
+        got = kcall(xs, first, packed.w, packed.b, row_bounds=bounds, residual=res, **kw)
+        torch.cuda.synchronize()
+        launched, route = kcall.launches - before, dict(kcall.last_launch)
+        worst, step = 0.0, 96
+        for i in range(0, xs.shape[0], step):
+            want = ttf.tilted_fusion_plain(xs[i:i + step], first[i:i + step], packed.w,
+                                           packed.b, row_bounds=bounds[i:i + step],
+                                           residual=res[i:i + step], **kw)
+            worst = max(worst, (got[i:i + step].float() - want.float()).abs().max().item())
+            del want
+        require(launched == 1, f"rlfb {prec}: {launched} launches for one call")
+        require(ttf.launch_chp(packed.chp, dt) == ttf.EPI_CHP and route["route"] is not None,
+                f"rlfb {prec}: Chp {packed.chp} does not launch the EPI instance")
+        print(f"K1 EPI instance [{prec}], RLFB segment (3 x 52 -> 52, slope 0.05, residual) "
+              f"at {RLFN_FRAMES} frames: {xs.shape[0]} slabs of {xs.shape[1]} rows x {W}, "
+              f"route {route['route']}, vs tilted_fusion_plain max_abs_err={worst:.3e} "
+              f"(tol {TOL[prec]:g})")
+        require(worst <= TOL[prec], f"rlfb {prec}: K1's EPI instance vs its plain version")
+        out[prec] = {"launches": launched, "route": route["route"], "max_abs_err": worst,
+                     "slabs": int(xs.shape[0]), "slab_rows": int(xs.shape[1])}
+        del frames, xs, first, bounds, res, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def anchor_free_epilogue_check(torch, ops, ttf, epilogue, dev, segment):
+    """``sr_epilogue_call(anchor=False)`` on the upsampler's 48 outputs at 8
+    frames of 360x640 from K1 under ``zero`` (K1's output view: 48 of each
+    pixel's 64 channels) and under ``halo`` (the served path's, after the
+    margin's crop), fp32 and bf16 features, clip on
+    and off, fp32 HR: each ``torch.equal`` to ``sr_epilogue_plain``, one
+    launch a call."""
+    out = {}
+    for prec, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        layers = [l.to(device=dev, dtype=dt) for l in segment.layers]
+        gen = torch.Generator(device=dev).manual_seed(24)
+        x = (torch.randn((8, H, W, layers[0].ci), generator=gen, device=dev) * 0.5).to(dt)
+        strides = {}
+        for policy in ("zero", "halo"):
+            feats = ops.tilted_fused_frames(x, layers, band_rows=60, vertical_policy=policy,
+                                            compute_dtype=dt)
+            require(feats.shape[-1] == 48 and (policy == "halo"
+                                               or feats.stride(2) == ttf.EPI_CHP),
+                    f"anchor-free epilogue {prec}/{policy}: features {tuple(feats.shape)} "
+                    f"with pixel stride {feats.stride(2)}, not K1's Chp {ttf.EPI_CHP} view")
+            for clip in (True, False):
+                before = epilogue.sr_epilogue_call.launches
+                got = epilogue.sr_epilogue_call(feats, None, scale=X4_SCALE, clip=clip,
+                                                out_dtype=torch.float32, anchor=False)
+                want = epilogue.sr_epilogue_plain(feats, None, scale=X4_SCALE, clip=clip,
+                                                  out_dtype=torch.float32, anchor=False)
+                require(epilogue.sr_epilogue_call.launches == before + 1,
+                        f"anchor-free epilogue {prec}/{policy}: one launch a call")
+                require(torch.equal(got, want), f"anchor-free epilogue {prec}/{policy}, clip "
+                                                f"{clip}: the kernel differs from the plain chain")
+            strides[policy] = feats.stride(2)
+        out[prec] = {"frames": 8, "pixel_stride": strides, "equal": True}
+        print(f"epilogue kernel, anchor=False [{prec} features, fp32 HR], 8 frames x4 on K1's "
+              f"output, pixel strides {strides}: torch.equal to sr_epilogue_plain, clip on "
+              f"and off")
+    return out
+
+
+def serve_rlfn(torch, np, engine, epilogue, dev, model, sd, kcall):
+    """``SRServer.open("rlfn_x4", backend="kernel", vertical_policy="halo")``
+    in fp32 and bf16: a 4-frame request once to build and warm the
+    executor, then, with K1's and the epilogue's counters zeroed, the same
+    request and two 2-frame requests that share a dispatch; every dispatch
+    must launch K1 9 times (conv_1, six blocks, conv_2, the upsampler) and
+    the epilogue once, and the HR frames match the benchmark's plain
+    reference (fp32, TF32 off) at phase 4's tolerances."""
+    ref = bench_rlfn_reference()
+    rng = np.random.default_rng(25)
+    req4 = rng.uniform(size=(4, H, W, 3)).astype(np.float32)
+    with ref.exact():
+        want = ref.rlfn(torch.from_numpy(req4).to(dev), {k: v.to(dev) for k, v in sd.items()},
+                        X4_SCALE)
+    out = {}
+    for prec in ("fp32", "bf16"):
+        server = engine.SRServer.open("rlfn_x4", layers=model, backend="kernel",
+                                      precision=prec, vertical_policy="halo", band_rows=60,
+                                      device=dev, autotune="off")
+        server.submit(req4).result()  # builds and warms the 4-frame executor
+        server.session().reset_stats()
+        s0 = server.scheduler_stats()
+        kcall.launches = epilogue.sr_epilogue_call.launches = 0
+        hr = server.submit(req4).result()
+        futs = [server.submit(req4[:2]), server.submit(req4[2:])]  # one dispatch
+        pair = torch.cat([f.result() for f in futs])
+        k1, epi = kcall.launches, epilogue.sr_epilogue_call.launches
+        dispatches = server.scheduler_stats()["dispatches"] - s0["dispatches"]
+        st = server.session().stats()
+        server.close()
+        err = max((t.float() - want).abs().max().item() for t in (hr, pair))
+        print(f"server rlfn_x4 [{prec}, halo]: {dispatches} dispatches, K1 launches {k1}, "
+              f"epilogue kernel launches {epi}, k1_segments {st['k1_segments']:g}, esa frames "
+              f"{st['esa_frames']}, HR vs the plain reference max_abs_err={err:.3e} "
+              f"(tol {TOL[prec]:g})")
+        require(dispatches == 2, f"rlfn {prec}: {dispatches} dispatches, not 2")
+        require(k1 == 9 * dispatches and st["k1_segments"] == 9,
+                f"rlfn {prec}: {k1} K1 launches for {dispatches} dispatches, not 9 each")
+        require(epi == dispatches and st["epilogue_kernel_frames"] == st["epilogue_frames"] == 8,
+                f"rlfn {prec}: {epi} epilogue launches for {dispatches} dispatches")
+        require(st["esa_frames"] == 8 and st["esa_device_ms"] > 0, f"rlfn {prec}: ESA not timed")
+        require(tuple(hr.shape) == (4, H * X4_SCALE, W * X4_SCALE, 3) and err <= TOL[prec],
+                f"rlfn {prec}: served HR vs the plain reference")
+        out[prec] = {"dispatches": dispatches, "launches": k1, "epilogue_launches": epi,
+                     "k1_segments": st["k1_segments"], "max_abs_err": err}
+    return out
+
+
+def rlfn_check(torch, np, engine, ops, ttf, epilogue, dev, kcall):
+    """Phase 4r: the three checks above on RLFN x4 (``RLFNConfig()``) with
+    :func:`rlfn_weights` from seed 21."""
+    from repro_torch.models.rlfn import RLFNConfig, rlfn_model
+
+    sd = rlfn_weights(torch, 21)
+    model = rlfn_model(sd, RLFNConfig())
+    return {"epi": rlfb_epi_check(torch, ops, ttf, dev, model.stages[1], kcall),
+            "epilogue": anchor_free_epilogue_check(torch, ops, ttf, epilogue, dev,
+                                                   model.stages[-1]),
+            "served": serve_rlfn(torch, np, engine, epilogue, dev, model, sd, kcall)}
+
+
+# ----------------------------------------------------------------------
 # ABPN x4: the same 7-layer stack with 48 outputs (Chp 48), which K1 runs on
 # a wide instance and K2's last layer (28 -> 48) on its wide instance.
 # ----------------------------------------------------------------------
@@ -3046,6 +3246,16 @@ def main() -> int:
     t0 = time.perf_counter()
     wide = wide_times(torch, ops, ttf, dev, wide_stacks, peaks, gen)
     print(f"wide times took {time.perf_counter() - t0:.1f} s")
+
+    # ------------------------------------------------------------------
+    phase("4r. RLFN x4: K1's EPI instance at the cell's launch, the anchor-free epilogue, "
+          "SRServer.open('rlfn_x4') serving")
+    t0 = time.perf_counter()
+    rlfn = rlfn_check(torch, np, engine, ops, ttf, epilogue, dev, kcall)
+    rlfn_launches = sum(c["launches"] for c in rlfn["served"].values())
+    rlfn_epilogue_launches = sum(c["epilogue_launches"] for c in rlfn["served"].values())
+    print(f"rlfn served K1 launches {rlfn_launches}, epilogue kernel launches "
+          f"{rlfn_epilogue_launches}; phase took {time.perf_counter() - t0:.1f} s")
 
     # ------------------------------------------------------------------
     phase("4a. plan_cost: the served configurations' FLOPs and bytes beside their bound")
@@ -4076,7 +4286,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/tilted_fusion.cu",
         "replaces": "src/repro/kernels/tilted_fusion.py:208",
         "launches": (main_launches + x4_launches + wide_launches + delta_launches
-                     + autotune_launches + sharded_launches),
+                     + autotune_launches + sharded_launches + rlfn_launches),
         "max_abs_err": worst["fp32"],
         "max_abs_err_bf16": worst["bf16"],
         "ms": t8["k1"]["ms"],
@@ -4143,6 +4353,11 @@ def main() -> int:
                  "bound_ms": wide["F128/8"]["fp32"]["bound_ms"],
                  "bound_by": wide["F128/8"]["fp32"]["bound_by"],
                  "library_ms": wide["F128/8"]["fp32"]["library_ms"]},
+        "rlfn": {"shape": f"RLFN x4 (52 features, slope 0.05), {H}x{W} frames, halo; epi: "
+                          f"one RLFB segment at {RLFN_FRAMES} frames on the Chp 64 EPI "
+                          "instance against its plain version; path: rlfn_x4 served, 9 "
+                          "launches a dispatch", "launches": rlfn_launches,
+                 "epi": rlfn["epi"], "path": rlfn["served"]},
     }, {
         "name": "conv3x3",
         "route": "cuda",
@@ -4194,7 +4409,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/sr_epilogue.cu",
         "replaces": None,
         "launches": main_epilogue_launches + sum(c["epilogue_launches"]
-                                                 for c in x4_path.values()),
+                                                 for c in x4_path.values())
+                    + rlfn_epilogue_launches,
         "checked_launches": epi["checked_launches"],
         "checked": epi["checked"],
         "max_abs_err": 0.0,
@@ -4205,6 +4421,10 @@ def main() -> int:
         "shape": f"ABPN x3's HR frame from K1's output view (Chp 32), 8 frames {H}x{W}, fp32",
         "timing": "calls queued behind a device sleep",
         "x4": epi["times"]["x4/bf16"],
+        "rlfn": {"launches": rlfn_epilogue_launches, "anchor_free": rlfn["epilogue"],
+                 "path": {p: {"dispatches": c["dispatches"],
+                              "epilogue_launches": c["epilogue_launches"]}
+                          for p, c in rlfn["served"].items()}},
     }]
     print("kernels: " + json.dumps({k["name"]: {"launches": k["launches"], "replaces": k["replaces"]}
                                     for k in kernels}))

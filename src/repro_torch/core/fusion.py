@@ -43,11 +43,15 @@ __all__ = [
 
 @dataclasses.dataclass
 class ConvLayer:
-    """One fused 3x3 conv layer: HWIO weights, bias, ReLU flag."""
+    """One fused 3x3 conv layer: HWIO weights, bias, activation flag.
+
+    An activated layer computes ``v if v > 0 else v * slope``: ReLU at the
+    default slope 0, a leaky ReLU (RLFN's 0.05) otherwise."""
 
     w: torch.Tensor  # (3, 3, Ci, Co)
     b: torch.Tensor  # (Co,)
     relu: bool = True
+    slope: float = 0.0
 
     @property
     def ci(self) -> int:
@@ -62,6 +66,7 @@ class ConvLayer:
             w=self.w.to(device=device, dtype=dtype),
             b=self.b.to(device=device, dtype=dtype),
             relu=self.relu,
+            slope=self.slope,
         )
 
 
@@ -101,7 +106,7 @@ def _layer(f: torch.Tensor, layer: ConvLayer, padding) -> torch.Tensor:
     out = _conv2d(f, layer.w.to(f.dtype), padding)
     out = out + layer.b.to(out.dtype)
     if layer.relu:
-        out = torch.relu(out)
+        out = F.leaky_relu(out, layer.slope) if layer.slope else torch.relu(out)
     return out.to(f.dtype)
 
 

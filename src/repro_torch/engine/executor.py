@@ -12,6 +12,13 @@ All backends share the anchor + pixel-shuffle epilogue (one hand-written
 kernel on the card, ``kernels.epilogue``) and the plan's numerics policy
 (fp32 / bf16 / int8 dequant-on-read weights).
 
+Every model runs as stages in order (:func:`_execute_stack`): a
+``ConvLayer`` chain (ABPN) is one K1 segment and the anchored epilogue; a
+staged model (``core.stages.StagedModel``, RLFN) is K1 segments, each with
+the residual a later stage reads added at its last layer's store, and
+whole-frame stages (RLFN's ESA) as PyTorch ops in the compute dtype, then
+the epilogue, without the anchor where the model has none.
+
 Weight preparation has two homes: :func:`prepare_stack` builds a
 device-resident :class:`PreparedStack` ONCE per weight stack and
 :func:`build_stack_executor` binds it into the serving callable (this is
@@ -37,6 +44,7 @@ from repro_torch.core.fusion import (
     tilted_fused_bands,
 )
 from repro_torch.core.quant import dequantize_layers, quantize_layers
+from repro_torch.core.stages import Segment, StagedModel
 from repro_torch.engine.plan import SRPlan
 from repro_torch.engine.spans import SPAN_PREFIX, active_clock, mark, span
 from repro_torch.kernels.epilogue import sr_epilogue_call
@@ -93,26 +101,55 @@ def prepare_layers(layers: Sequence[ConvLayer], precision: str) -> List[ConvLaye
 
 
 @dataclasses.dataclass
-class PreparedStack:
-    """A weight stack with the plan's numerics + backend packing applied.
-
-    Built ONCE per (weight stack, precision, backend) by
-    :func:`prepare_stack`; ``packed`` is only populated for the ``kernel``
-    backend (the launch's padded storage form).
-    """
+class PreparedSegment:
+    """A K1 segment with the numerics (and, on the ``kernel`` backend, the
+    packing: the launch's padded storage form) applied, and the value its
+    residual reads (``core.stages.Segment``)."""
 
     layers: tuple  # Tuple[ConvLayer, ...], numerics applied
     packed: Optional[object]  # kernels.ops.PackedLayers | None
+    residual: Optional[int] = None
+
+
+@dataclasses.dataclass
+class PreparedStack:
+    """A model with the plan's numerics + backend packing applied.
+
+    Built ONCE per (weight stack, precision, backend) by
+    :func:`prepare_stack`.  ``stages`` in order: a ``ConvLayer`` chain's
+    one :class:`PreparedSegment`; a staged model's segments and its
+    whole-frame stages in the compute dtype.  ``anchor``: whether the
+    epilogue adds the anchor.
+    """
+
+    stages: tuple
     precision: str
     backend: str
+    anchor: bool = True
+
+    @property
+    def layers(self) -> tuple:
+        """Every segment's layers in order."""
+        return tuple(l for st in self.stages if isinstance(st, PreparedSegment)
+                     for l in st.layers)
+
+    @property
+    def packed(self):
+        """A chain's packed form (``kernel`` backend), else ``None``: the
+        band, delta and mesh paths take a chain alone."""
+        return self.stages[0].packed if len(self.stages) == 1 else None
 
     def _tensors(self):
-        for l in self.layers:
-            yield l.w
-            yield l.b
-        if self.packed is not None:
-            yield self.packed.w
-            yield self.packed.b
+        for st in self.stages:
+            if not isinstance(st, PreparedSegment):
+                yield from st.tensors()
+                continue
+            for l in st.layers:
+                yield l.w
+                yield l.b
+            if st.packed is not None:
+                yield st.packed.w
+                yield st.packed.b
 
     def nbytes(self) -> int:
         """Device bytes this stack holds (prepared + packed forms)."""
@@ -125,19 +162,30 @@ def compute_dtype_for(precision: str) -> torch.dtype:
     return torch.bfloat16 if precision == "bf16" else torch.float32
 
 
-def prepare_stack(plan: SRPlan, layers: Sequence[ConvLayer]) -> PreparedStack:
+def prepare_stack(plan: SRPlan, layers) -> PreparedStack:
     """Apply ``plan``'s numerics policy — and, for the ``kernel`` backend,
     the launch's weight pad/pack — producing a :class:`PreparedStack` on
-    the layers' device."""
-    prepared = tuple(prepare_layers(layers, plan.precision))
-    packed = None
-    if plan.backend == "kernel":
-        from repro_torch.kernels import ops
+    the layers' device.  ``layers`` is a ``ConvLayer`` chain (one segment,
+    the anchor added) or a ``core.stages.StagedModel``, whose whole-frame
+    stages are cast to the compute dtype; int8 takes a chain alone."""
+    model = (layers if isinstance(layers, StagedModel)
+             else StagedModel((Segment(tuple(layers)),), anchor=True))
+    if plan.precision == "int8" and len(model.stages) > 1:
+        raise ValueError("int8 serves a ConvLayer chain; a staged model serves in fp32 or bf16")
+    cdt = compute_dtype_for(plan.precision)
+    stages = []
+    for st in model.stages:
+        if not isinstance(st, Segment):
+            stages.append(st.to(dtype=cdt))
+            continue
+        prepared = tuple(prepare_layers(st.layers, plan.precision))
+        packed = None
+        if plan.backend == "kernel":
+            from repro_torch.kernels import ops
 
-        packed = ops.pack_stack(prepared, dtype=compute_dtype_for(plan.precision))
-    return PreparedStack(
-        layers=prepared, packed=packed, precision=plan.precision, backend=plan.backend
-    )
+            packed = ops.pack_stack(prepared, dtype=cdt)
+        stages.append(PreparedSegment(prepared, packed, st.residual))
+    return PreparedStack(tuple(stages), plan.precision, plan.backend, model.anchor)
 
 
 # ----------------------------------------------------------------------
@@ -149,7 +197,7 @@ def _features_reference(plan: SRPlan, layers, frames: torch.Tensor) -> torch.Ten
 
 def _features_tilted(plan: SRPlan, layers, frames: torch.Tensor) -> torch.Tensor:
     N, H, W, C0 = frames.shape
-    R, L = plan.band_rows, plan.num_layers
+    R, L = plan.band_rows, len(layers)
     policy = plan.vertical_policy
     if policy in ("zero", "replicate"):
         bands = frames.reshape(N * plan.num_bands, R, W, C0)
@@ -163,7 +211,8 @@ def _features_tilted(plan: SRPlan, layers, frames: torch.Tensor) -> torch.Tensor
     return out.reshape(N, H, W, out.shape[-1])
 
 
-def _features_kernel(plan: SRPlan, layers, frames: torch.Tensor, packed=None) -> torch.Tensor:
+def _features_kernel(plan: SRPlan, layers, frames: torch.Tensor, packed=None,
+                     residual=None) -> torch.Tensor:
     from repro_torch.kernels import ops
 
     # frames arrive already cast, so the compute dtype rides in on the
@@ -177,6 +226,7 @@ def _features_kernel(plan: SRPlan, layers, frames: torch.Tensor, packed=None) ->
         compute_dtype=frames.dtype,
         packed=packed,
         clock=active_clock(),
+        residual=residual,
     )
 
 
@@ -186,49 +236,77 @@ _BACKENDS = {
 }
 
 
-def sr_features(plan: SRPlan, layers, frames: torch.Tensor, packed=None) -> torch.Tensor:
+def sr_features(plan: SRPlan, layers, frames: torch.Tensor, packed=None,
+                residual=None) -> torch.Tensor:
     """Run the plan's conv-stack backend over a frame batch (no epilogue).
-    ``layers`` are assumed already numerics-prepared.  The server's stage
-    clock (``engine.spans``) is marked where the stages begin: the kernel
-    backend's ``marshal`` (K1's input streams) and ``k1`` (its launch); a
-    plain backend's whole work is ``k1``."""
+    ``layers`` are assumed already numerics-prepared.  ``residual`` (N, H,
+    W, C), a residual block's skip, is added after the last layer's
+    activation: at K1's store on the ``kernel`` backend; on the plain ones
+    in fp32, rounded to the frames' dtype as the kernel rounds it.  The
+    server's stage clock (``engine.spans``) is marked where the stages
+    begin: the kernel backend's ``marshal`` (K1's input streams) and ``k1``
+    (its launch); a plain backend's whole work is ``k1``."""
     if plan.backend == "kernel":
-        return _features_kernel(plan, layers, frames, packed)
+        return _features_kernel(plan, layers, frames, packed, residual)
     mark("k1")
-    return _BACKENDS[plan.backend](plan, layers, frames)
+    out = _BACKENDS[plan.backend](plan, layers, frames)
+    if residual is not None:
+        out = (out.float() + residual.float()).to(out.dtype)
+    return out
 
 
 def _execute_stack(plan: SRPlan, stack: PreparedStack, frames: torch.Tensor) -> torch.Tensor:
     """The per-batch computation over an already-prepared weight stack:
-    the conv datapath + epilogue, nothing else.  The server's stage clock
-    is marked where each stage begins (:func:`sr_features`; ``epilogue``)
-    and where the epilogue ends."""
+    the stack's stages in order, then the epilogue.  A K1 segment runs in
+    ``sr.k1`` (:func:`sr_features`, which marks the server's stage clock),
+    a whole-frame stage in ``sr.<name>`` and the clock's stage ``<name>``;
+    each value a residual reads (0: the frames, i: stage i - 1's output)
+    is kept until the last stage that reads it.  The clock is marked where
+    the epilogue begins and ends."""
     if frames.ndim != 4:
         raise ValueError(
             f"expected a frame batch (N, H, W, C), got shape {tuple(frames.shape)}"
         )
     in_dtype = frames.dtype
     x = frames.to(compute_dtype_for(plan.precision))
-    with span("sr.k1"):
-        feats = sr_features(plan, stack.layers, x, packed=stack.packed)
+    last_read = {st.residual: i for i, st in enumerate(stack.stages)
+                 if getattr(st, "residual", None) is not None}
+    kept = {0: x} if 0 in last_read else {}
+    v = x
+    for i, st in enumerate(stack.stages):
+        if isinstance(st, PreparedSegment):
+            # a segment without a residual calls sr_features as a chain always has
+            res = {} if st.residual is None else {"residual": kept[st.residual]}
+            if last_read.get(st.residual) == i:
+                del kept[st.residual]
+            with span("sr.k1"):
+                v = sr_features(plan, st.layers, v, packed=st.packed, **res)
+            del res
+        else:
+            with span(f"sr.{st.name}"):
+                mark(st.name)
+                v = st(v)
+        if i + 1 in last_read:
+            kept[i + 1] = v
     with span("sr.epilogue"):
         mark("epilogue")
-        hr = sr_epilogue(plan, x, feats, in_dtype)
+        hr = sr_epilogue(plan, x if stack.anchor else None, v, in_dtype)
         mark(None)
     return hr
 
 
-def sr_epilogue(plan: SRPlan, x: torch.Tensor, feats: torch.Tensor, in_dtype) -> torch.Tensor:
+def sr_epilogue(plan: SRPlan, x: Optional[torch.Tensor], feats: torch.Tensor,
+                in_dtype) -> torch.Tensor:
     """ABPN's residual epilogue: anchor add, pixel shuffle, clip, cast
     (``kernels.epilogue.sr_epilogue_call``: one hand-written kernel on the
     card, which notes itself on the active stage clock; the plain chain on
-    the CPU).
+    the CPU).  ``x`` ``None``: no anchor (RLFN).
 
     Row-block local: ``depth_to_space`` maps LR row ``y`` to HR rows
     ``[y*s, y*s+s)``.
     """
     return sr_epilogue_call(feats, x, scale=plan.scale, clip=plan.clip, out_dtype=in_dtype,
-                            clock=active_clock())
+                            clock=active_clock(), anchor=x is not None)
 
 
 def _execute(plan: SRPlan, layers, frames: torch.Tensor) -> torch.Tensor:
@@ -494,11 +572,19 @@ def executor_artifacts(
 # ----------------------------------------------------------------------
 # What one serving call costs (the roofline terms of a bucket)
 # ----------------------------------------------------------------------
+def _packed_on(packed, device):
+    if packed is None:
+        return None
+    return dataclasses.replace(packed, w=packed.w.to(device), b=packed.b.to(device))
+
+
 def _stack_on(stack: PreparedStack, device) -> PreparedStack:
-    packed = stack.packed
-    if packed is not None:
-        packed = dataclasses.replace(packed, w=packed.w.to(device), b=packed.b.to(device))
-    return dataclasses.replace(stack, layers=_on_device(stack.layers, device), packed=packed)
+    """``stack`` with every tensor on ``device``."""
+    return dataclasses.replace(stack, stages=tuple(
+        dataclasses.replace(st, layers=_on_device(st.layers, device),
+                            packed=_packed_on(st.packed, device))
+        if isinstance(st, PreparedSegment) else st.to(device=device)
+        for st in stack.stages))
 
 
 def plan_cost_terms(
@@ -554,7 +640,8 @@ def plan_cost_terms(
                                num_layers=launch.num_layers,
                                dtype=launch.dtype, bounds=launch.bounds,
                                replicate=launch.replicate, plain=cpu,
-                               hidden_chp=None if cpu else launch.hidden_chp)
+                               hidden_chp=None if cpu else launch.hidden_chp,
+                               residual_elems=launch.residual_elems)
         k1.append(dict(cost, plan=segments))
     glue_bytes = traced.bytes_accessed - sum(launch.out_bytes for launch in launches)
     flops = traced.flops + sum(k["flops"] for k in k1)

@@ -1009,15 +1009,20 @@ class SRServer:
 
     @classmethod
     def _assemble(cls, d: Dispatch) -> torch.Tensor:
-        """The bucket-sized device slab of a dispatch: the tickets' rows
+        """The device slab of a dispatch: the tickets' rows
         uploaded (asynchronously from the pinned host copy
         :meth:`_pinned_for` made; device rows stay put), concatenated on
-        the dispatch's home device (:meth:`_home`) and zero padded to the
-        bucket."""
+        the dispatch's home device (:meth:`_home`) and, where the executor
+        needs the bucket's shape, zero padded to it: a band dispatch's slots
+        and a mesh session's shards.  The single-device frame executor takes
+        any batch (K1 and the epilogue build nothing per shape), so there
+        its slab is the real rows alone and a carry's padding costs no
+        work."""
         device = cls._home(d)
         pieces = [t.request.flat[t.start:t.start + t.n].to(device, non_blocking=True)
                   for t in d.tickets]
-        if d.real < d.bucket:
+        padded = d.band_subset is not None or d.session.mesh_spec is not None
+        if d.real < d.bucket and padded:
             pieces.append(torch.zeros((d.bucket - d.real, *pieces[0].shape[1:]),
                                       dtype=pieces[0].dtype, device=device))
         return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=0)

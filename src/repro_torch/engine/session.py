@@ -1,7 +1,10 @@
 """SRSession — shape/batch/model-agnostic serving over an executor cache.
 
 * ``SRSession.open("abpn_x3", backend=..., precision=...)`` resolves the
-  model's config + weights through ``repro_torch.models.registry``.
+  model's config + weights through ``repro_torch.models.registry``.  A
+  staged model (``core.stages.StagedModel``: ``"rlfn_x4"``) serves through
+  the same entry points and plans; the delta path, mesh serving and the
+  tuning DB take a ``ConvLayer`` chain only.
 * ``session.upscale(frames)`` accepts ``(H, W, C)``, ``(T, H, W, C)`` or
   ``(B, T, H, W, C)`` input.  Per new resolution it derives the
   :class:`~repro_torch.engine.plan.SRPlan` (including a legal
@@ -48,6 +51,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.stages import StagedModel
 from repro_torch.engine.executor import (
     PreparedStack,
     build_band_executor,
@@ -91,7 +95,8 @@ _CANONICAL = {
 
 
 # the device stages whose milliseconds and frames SRSession.stats() reports
-STAGES = ("upload", "marshal", "k1", "epilogue", "join")
+# (esa: a staged model's whole-frame stages, RLFN's)
+STAGES = ("upload", "marshal", "k1", "esa", "epilogue", "join")
 
 
 class StreamStats(dict):
@@ -255,8 +260,9 @@ class SRSession:
     """One serving endpoint: fixed weights + policy, any request shape.
 
     Construct from a layer stack (the port's ``ConvLayer``\\ s — see
-    ``models.abpn.layers_from_numpy``), via :meth:`open` (model name ->
-    weights through the registry), or via :meth:`from_plan` (pin a plan).
+    ``models.abpn.layers_from_numpy`` — or a ``core.stages.StagedModel``),
+    via :meth:`open` (model name -> weights through the registry), or via
+    :meth:`from_plan` (pin a plan).
     """
 
     def __init__(
@@ -284,6 +290,11 @@ class SRSession:
         route: str = "least_loaded",
         device=None,
     ):
+        staged = layers if isinstance(layers, StagedModel) else None
+        if staged is not None:
+            if mesh is not None:
+                raise ValueError("a staged model serves on one device, not on a mesh")
+            layers = staged.conv_layers
         layers = tuple(layers)
         if not layers:
             raise ValueError("layer stack is empty")
@@ -319,7 +330,11 @@ class SRSession:
                 # executors, results): replica 0's first position
                 device = spec.mesh.devices[0]
         self.device = default_device(device)
-        self.layers = tuple(l.to(device=self.device) for l in layers)
+        # a staged model's stages on the device, and its conv layers in order
+        # (for the channel checks); None for a ConvLayer chain
+        self.staged = None if staged is None else staged.to(device=self.device)
+        self.layers = (self.staged.conv_layers if self.staged is not None
+                       else tuple(l.to(device=self.device) for l in layers))
         self.model = model
         self.backend = backend
         self.precision = precision
@@ -384,6 +399,8 @@ class SRSession:
         self._stage_ms: Dict[str, float] = dict.fromkeys(STAGES, 0.0)
         self._stage_frames: Dict[str, int] = dict.fromkeys(STAGES, 0)
         self._epilogue_kernel_frames = 0
+        # K1 launches (segments) and the dispatches whose clocks counted them
+        self._k1_segments = [0, 0]
         self._joins: deque = deque()
         self._joins_lock = threading.Lock()
         # temporal delta serving: partial-band dispatch counters (bumped by
@@ -508,7 +525,8 @@ class SRSession:
     # ------------------------------------------------------------------
     @property
     def num_layers(self) -> int:
-        return len(self.layers)
+        """The conv chain's depth; a staged model's deepest segment's."""
+        return self.staged.max_depth if self.staged is not None else len(self.layers)
 
     def plan_for(
         self,
@@ -537,7 +555,8 @@ class SRSession:
                 f"got {lr_shape}"
             )
         check_layer_channels(self.layers, lr_shape[2], self.scale)
-        tuner = self._tuner if self.band_rows is None else None
+        # a tuning DB's schedules are a ConvLayer chain's
+        tuner = self._tuner if self.band_rows is None and self.staged is None else None
         if tuner is not None:
             self._consult_tuning(lr_shape, batch_hint)
         plan = SRPlan.from_request(
@@ -715,7 +734,7 @@ class SRSession:
         rec = self._stacks.get(skey)
         if rec is None:
             t0 = time.perf_counter()
-            stack = prepare_stack(plan, self.layers)
+            stack = prepare_stack(plan, self.staged if self.staged is not None else self.layers)
             _synchronize(self.device)
             rec = _StackRecord(stack=stack, refs=0, prepare_s=time.perf_counter() - t0)
             self._stacks[skey] = rec
@@ -803,6 +822,9 @@ class SRSession:
                 "partial-band serving needs a banded backend (tilted or "
                 "kernel); the reference backend computes whole frames"
             )
+        if self.staged is not None:
+            raise ValueError("partial-band serving takes a ConvLayer chain; a staged model's "
+                             "whole-frame stages tie every band to the frame")
         from repro_torch.engine.temporal.band_diff import band_input_rows
 
         dtype = self.serving_dtype(dtype)
@@ -1018,6 +1040,8 @@ class SRSession:
             self._stage_frames[stage] += frames
         if "epilogue" in clock.kernels:
             self._epilogue_kernel_frames += frames
+        self._k1_segments[0] += clock.count("k1")
+        self._k1_segments[1] += 1
 
     def _note_join(self, clock: StageClock, frames: int) -> None:
         """Queue a request's join, read once its events have completed (at
@@ -1059,6 +1083,10 @@ class SRSession:
         * ``epilogue_kernel_frames``: of ``epilogue_frames``, those whose
           epilogue ran as the hand-written kernel (``kernels.epilogue``;
           on the card, all of them).
+        * ``k1_segments``: K1 launches a dispatch, over the dispatches timed
+          (1 for a conv chain, a staged model's segments: RLFN x4's 9); 0
+          before any.  ``esa_*`` above is a staged model's whole-frame
+          stages.
         """
         self._read_joins()
         req = np.asarray(self._request_ms, np.float64).reshape(-1, 2)
@@ -1089,6 +1117,8 @@ class SRSession:
             out[f"{stage}_device_ms"] = self._stage_ms[stage]
             out[f"{stage}_frames"] = self._stage_frames[stage]
         out["epilogue_kernel_frames"] = self._epilogue_kernel_frames
+        launches, dispatches = self._k1_segments
+        out["k1_segments"] = launches / dispatches if dispatches else 0.0
         return out
 
     def sharding_stats(self) -> Optional[dict]:
@@ -1165,5 +1195,6 @@ class SRSession:
             self._stage_ms[stage] = 0.0
             self._stage_frames[stage] = 0
         self._epilogue_kernel_frames = 0
+        self._k1_segments[:] = [0, 0]
         with self._joins_lock:
             self._joins.clear()

@@ -42,7 +42,6 @@ scatter above is how the port carries that spec out.
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 from typing import Dict, Mapping, Sequence, Union
 
 import torch
@@ -51,6 +50,7 @@ from repro_torch.core.fusion import tilted_fused_bands
 from repro_torch.distributed.partitioning import Spec, logical_to_spec, sr_rules
 from repro_torch.engine.executor import (
     PreparedStack,
+    _stack_on,
     compute_dtype_for,
     sr_epilogue,
     sr_features,
@@ -92,12 +92,7 @@ def stack_on(stack: PreparedStack, device: torch.device) -> PreparedStack:
     """``stack`` on ``device`` (the stack itself when it is already there)."""
     if stack.layers[0].w.device == device:
         return stack
-    packed = stack.packed
-    if packed is not None:
-        packed = dataclasses.replace(packed, w=packed.w.to(device), b=packed.b.to(device))
-    return dataclasses.replace(
-        stack, layers=tuple(l.to(device=device) for l in stack.layers), packed=packed
-    )
+    return _stack_on(stack, device)
 
 
 def _stream(stream):

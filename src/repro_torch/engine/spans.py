@@ -93,6 +93,10 @@ class StageClock:
         finally:
             _CLOCK.reset(token)
 
+    def count(self, stage: str) -> int:
+        """How many times ``stage`` was begun (a staged model's K1 segments)."""
+        return sum(1 for st, _ in self._marks if st == stage)
+
     def done(self) -> bool:
         """Whether every mark has completed (a query; never waits)."""
         return self._device is None or self._marks[-1][1].query()

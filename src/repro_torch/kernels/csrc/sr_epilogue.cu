@@ -17,6 +17,9 @@
 // (round to nearest even), as PyTorch's bf16 add does; then, with clip, a
 // clamp to [0, 1] that passes NaN through, as torch.clamp does; then one
 // conversion to the output dtype.  The result is bit for bit the chain's.
+// Without the anchor (a model that has none, RLFN) the add and the LR
+// input go: shuffle, clip and cast alone, a template choice, so that the
+// anchored instances keep their code.
 //
 // What bounds it on this card: bytes.  It does no arithmetic to speak of
 // (one add and a clamp an output) against one read of the features, one of
@@ -86,14 +89,14 @@ template <> __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float
 }
 template <> __device__ __forceinline__ __half narrow<__half>(float v) { return __float2half_rn(v); }
 
-template <typename TC, typename TO>
+template <typename TC, typename TO, bool ANCHOR>
 __device__ __forceinline__ TO finish(const Params& p, TC f, float lr) {
-  float v = round_to<TC>(widen<TC>(f) + lr);
+  float v = ANCHOR ? round_to<TC>(widen<TC>(f) + lr) : widen<TC>(f);
   if (p.clip && !isnan(v)) v = fminf(fmaxf(v, 0.0f), 1.0f);
   return narrow<TO>(v);
 }
 
-template <typename TC, typename TO>
+template <typename TC, typename TO, bool ANCHOR>
 __global__ void __launch_bounds__(kThreads) sr_epilogue_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int VO = kVecBytes / sizeof(TO);
@@ -120,10 +123,12 @@ __global__ void __launch_bounds__(kThreads) sr_epilogue_kernel(const Params p) {
     dst[k] = dy * p.row_cap + lead + dx * c + cc;
     chan[k] = cc;
   }
-  const TC* xg = static_cast<const TC*>(p.x) + n * p.xs[0] + (long long)y * p.xs[1];
-  for (int i = threadIdx.x; i < wc * c; i += kThreads) {
-    const int px = i / c, cc = i - px * c;
-    lr[i] = widen<TC>(xg[(long long)(px0 + px) * p.xs[2] + (long long)cc * p.xs[3]]);
+  if constexpr (ANCHOR) {
+    const TC* xg = static_cast<const TC*>(p.x) + n * p.xs[0] + (long long)y * p.xs[1];
+    for (int i = threadIdx.x; i < wc * c; i += kThreads) {
+      const int px = i / c, cc = i - px * c;
+      lr[i] = widen<TC>(xg[(long long)(px0 + px) * p.xs[2] + (long long)cc * p.xs[3]]);
+    }
   }
   __syncthreads();
 
@@ -163,7 +168,8 @@ __global__ void __launch_bounds__(kThreads) sr_epilogue_kernel(const Params p) {
         for (int i = 0; i < VI; ++i, ++j, ++k) {
           if (k == ps) { k = 0; ++px; }
           if (j >= 0 && j < len && k < cf)
-            hr[dst[k] + px * sc] = finish<TC, TO>(p, e[i], lr[px * c + chan[k]]);
+            hr[dst[k] + px * sc] =
+                finish<TC, TO, ANCHOR>(p, e[i], ANCHOR ? lr[px * c + chan[k]] : 0.f);
         }
       }
     }
@@ -171,7 +177,7 @@ __global__ void __launch_bounds__(kThreads) sr_epilogue_kernel(const Params p) {
     for (int i = threadIdx.x; i < wc * cf; i += kThreads) {
       const int px = i / cf, k = i - px * cf;
       const TC f = fg[(long long)px * p.fs[2] + (long long)k * p.fs[3]];
-      hr[dst[k] + px * sc] = finish<TC, TO>(p, f, lr[px * c + chan[k]]);
+      hr[dst[k] + px * sc] = finish<TC, TO, ANCHOR>(p, f, ANCHOR ? lr[px * c + chan[k]] : 0.f);
     }
   }
   __syncthreads();
@@ -208,8 +214,12 @@ long long smem_bytes(int cols, int c, int s, int out_bytes, int* row_cap) {
 }
 
 template <typename TC, typename TO>
-cudaError_t launch(const Params& p, long long blocks, long long smem, cudaStream_t stream) {
-  sr_epilogue_kernel<TC, TO><<<(unsigned)blocks, kThreads, (size_t)smem, stream>>>(p);
+cudaError_t launch(const Params& p, bool anchor, long long blocks, long long smem,
+                   cudaStream_t stream) {
+  if (anchor)
+    sr_epilogue_kernel<TC, TO, true><<<(unsigned)blocks, kThreads, (size_t)smem, stream>>>(p);
+  else
+    sr_epilogue_kernel<TC, TO, false><<<(unsigned)blocks, kThreads, (size_t)smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -221,11 +231,11 @@ extern "C" {
 // (0 = ok).  compute: 0 = float32, 1 = bfloat16 (features and LR input);
 // out: 0 = float32, 1 = bfloat16, 2 = float16.  strides: the features'
 // four then the LR input's four, in elements.  `out` is a contiguous
-// (n, h*s, w*s, c) tensor, 16-byte aligned.  Does not synchronise or
-// allocate.
+// (n, h*s, w*s, c) tensor, 16-byte aligned.  anchor 0: x and its strides
+// are not read.  Does not synchronise or allocate.
 int sr_epilogue_launch(int compute, int out_dtype, const void* f, const void* x, void* out,
                        const long long* strides, int n, int h, int w, int c, int s, int clip,
-                       void* stream) {
+                       int anchor, void* stream) {
   if (n <= 0 || h <= 0 || w <= 0) return 0;
   if (c < 1 || s < 1 || compute < 0 || compute > 1 || out_dtype < 0 || out_dtype > 2 ||
       reinterpret_cast<uintptr_t>(out) % kVecBytes != 0)
@@ -234,6 +244,7 @@ int sr_epilogue_launch(int compute, int out_dtype, const void* f, const void* x,
   p.f = f; p.x = x; p.out = out;
   for (int i = 0; i < 4; ++i) { p.fs[i] = strides[i]; p.xs[i] = strides[4 + i]; }
   p.h = h; p.w = w; p.c = c; p.s = s; p.cf = c * s * s; p.clip = clip;
+  const bool a = anchor != 0;
   // the widest block, at most kMaxCols, whose shared memory fits kSmemLimit
   const int out_bytes = out_dtype == 0 ? 4 : 2;
   p.cols = w < kMaxCols ? w : kMaxCols;
@@ -249,13 +260,13 @@ int sr_epilogue_launch(int compute, int out_dtype, const void* f, const void* x,
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (compute == 0) {
-    if (out_dtype == 0) return (int)launch<float, float>(p, blocks, smem, st);
-    if (out_dtype == 1) return (int)launch<float, __nv_bfloat16>(p, blocks, smem, st);
-    return (int)launch<float, __half>(p, blocks, smem, st);
+    if (out_dtype == 0) return (int)launch<float, float>(p, a, blocks, smem, st);
+    if (out_dtype == 1) return (int)launch<float, __nv_bfloat16>(p, a, blocks, smem, st);
+    return (int)launch<float, __half>(p, a, blocks, smem, st);
   }
-  if (out_dtype == 0) return (int)launch<__nv_bfloat16, float>(p, blocks, smem, st);
-  if (out_dtype == 1) return (int)launch<__nv_bfloat16, __nv_bfloat16>(p, blocks, smem, st);
-  return (int)launch<__nv_bfloat16, __half>(p, blocks, smem, st);
+  if (out_dtype == 0) return (int)launch<__nv_bfloat16, float>(p, a, blocks, smem, st);
+  if (out_dtype == 1) return (int)launch<__nv_bfloat16, __nv_bfloat16>(p, a, blocks, smem, st);
+  return (int)launch<__nv_bfloat16, __half>(p, a, blocks, smem, st);
 }
 
 const char* sr_epilogue_error_string(int code) {

@@ -107,6 +107,16 @@
 //     to the storage dtype; a layer's output goes to the next map or slab
 //     (and its last two columns to the queue), the last layer's to `out`,
 //     with the anchor read from the input stream (add_anchor).
+//   * a residual block's epilogue (EPI, the Chp 64 wide instance only:
+//     RLFN's 52-channel segments): an activated layer's leaky slope
+//     (slope[l]; 0 is ReLU) in place of ReLU, and after the last layer's
+//     activation, masks and rounding, a residual tensor res (B, res_rows, W,
+//     res_ch) added to the output pixel at band row r and column acol where
+//     res_off <= r < res_off + res_rows (under halo the band's own rows),
+//     the sum rounded to the storage dtype again, as a PyTorch add of two
+//     tensors of that dtype rounds it.  A template choice, its arguments in
+//     a block of their own (Epi, a wide kernel's second), so that every
+//     other instance compiles to the code it had.
 //   * widths: instances for Chp 16, 32, 48, 64, 96 and 128 (K1_INSTANCES;
 //     the wrapper pads a stack to the next, tilted_fusion.py::launch_chp).
 //     The above is the "narrow" design of Chp 16 and 32.  A whole layer's
@@ -184,6 +194,8 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kFrags = 2;                         // m16 fragments a warp owns in a block
 constexpr int kBlockPix = 16 * kFrags * kWarps;   // 256 output pixels a block
 constexpr int kWinPix = 320;                      // window pixels: (30 + 2) x (8 + 2)
+constexpr int kMaxLayers = 31;                    // layers a launch (the 31-bit ReLU mask)
+constexpr int kEpiChp = 64;                       // the one width built with EPI
 
 struct Params {
   const void* x;       // (B, R, K*C, c0p) fresh input stream, compute dtype
@@ -200,6 +212,14 @@ struct Params {
   int ks0;             // layer 0's k-steps a tap
   int shift0;          // log2 of layer 0's 16-byte copies a window pixel
   int rows_blk;        // output rows of a full row block (the device-memory route)
+};
+
+// A wide kernel's second argument, read by an EPI instance only (kept out of
+// Params, so that every kernel that takes Params alone compiles as before).
+struct Epi {
+  const void* res;     // (B, res_rows, W, res_ch) residual, compute dtype, or null
+  int res_rows, res_off, res_ch;
+  float slope[kMaxLayers];  // an activated layer's leaky slope (0: ReLU)
 };
 
 // The schedule of a wide <dtype, Chp> instance (tilted_fusion.py::
@@ -1428,12 +1448,14 @@ __device__ __forceinline__ void wide_tap(const char* slice, uint32_t win_addr,
 
 // The epilogue of n-group grp over this warp's NF fragments, as block_mma's:
 // bias (read from the launch's bias), ReLU, the masks, one rounding, and the
-// stores of this group's kNG channels.
-template <typename T, int CHP, int NF>
-__device__ __forceinline__ void wide_epilogue(const Params& p, const Step& st, int f0, int grp,
+// stores of this group's kNG channels.  EPI: the leaky slope in place of
+// ReLU, and the band's residual `res` added to the last layer's output.
+template <typename T, int CHP, int NF, bool EPI>
+__device__ __forceinline__ void wide_epilogue(const Params& p, const Epi& e, const Step& st,
+                                              int f0, int grp,
                                               const float (&acc)[2][Cfg<T, CHP>::kNB][4],
                                               T* nxt, T* qout, T* out, const T* x,
-                                              const T* first) {
+                                              const T* first, const T* res) {
   using G = Cfg<T, CHP>;
   const int lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
   const int C = p.C, KC = p.K * C, odd = tig & 1;
@@ -1460,7 +1482,11 @@ __device__ __forceinline__ void wide_epilogue(const Params& p, const Step& st, i
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         float v = acc[f][jb][c] + (c & 1 ? b1 : b0);
-        if (st.relu) v = fmaxf(v, 0.f);
+        if constexpr (EPI) {
+          if (st.relu) v = v > 0.f ? v : v * e.slope[st.l];
+        } else {
+          if (st.relu) v = fmaxf(v, 0.f);
+        }
         y[c] = to_f(from_f<T>(keep[c >> 1] ? v : 0.f));
       }
       const float s0 = odd ? y[0] : y[2], s1 = odd ? y[1] : y[3];
@@ -1491,15 +1517,24 @@ __device__ __forceinline__ void wide_epilogue(const Params& p, const Step& st, i
             }
           }
         }
+        if constexpr (EPI) {
+          const int rr = r - e.res_off;
+          if (res && acol >= 0 && acol < p.W && rr >= 0 && rr < e.res_rows) {
+            const T* rp = res + ((size_t)rr * p.W + acol) * e.res_ch;
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              if (c4 + i < e.res_ch) v[i] = from_f<T>(to_f(v[i]) + to_f(rp[c4 + i]));
+          }
+        }
         store4(out + ((size_t)r * KC + st.k * C + j) * CHP + c4, v);
       }
     }
   }
 }
 
-template <typename T, int CHP>
+template <typename T, int CHP, bool EPI>
 __global__ void __launch_bounds__(kThreads, Cfg<T, CHP>::kMinBlocks)
-tilted_fusion_wide_kernel(Params p) {
+tilted_fusion_wide_kernel(Params p, Epi e) {
   using G = Cfg<T, CHP>;
   constexpr int kSlices = 9 / G::kTaps * G::kHalves;  // slices of an n-group
   constexpr int KP = G::kKS / G::kHalves;               // k-steps of a piece, layers >= 1
@@ -1526,6 +1561,9 @@ tilted_fusion_wide_kernel(Params p) {
   const T* x = static_cast<const T*>(p.x) + (size_t)band * R * KC * p.c0p;
   const T* first = static_cast<const T*>(p.first) + (size_t)band * R * p.c0p;
   T* out = static_cast<T*>(p.out) + (size_t)band * R * KC * CHP;
+  const T* res = EPI && e.res ? static_cast<const T*>(e.res) +
+                                    (size_t)band * e.res_rows * p.W * e.res_ch
+                              : nullptr;
 
   Step st;
   st.mask_rows = p.bounds != nullptr;
@@ -1625,9 +1663,12 @@ tilted_fusion_wide_kernel(Params p) {
               }
             }
           }
-          if (mine == 2) wide_epilogue<T, CHP, 2>(p, st, warp, grp, acc, nxt_b, qout, out, x, first);
+          if (mine == 2)
+            wide_epilogue<T, CHP, 2, EPI>(p, e, st, warp, grp, acc, nxt_b, qout, out, x, first,
+                                          res);
           else if (mine == 1)
-            wide_epilogue<T, CHP, 1>(p, st, warp, grp, acc, nxt_b, qout, out, x, first);
+            wide_epilogue<T, CHP, 1, EPI>(p, e, st, warp, grp, acc, nxt_b, qout, out, x, first,
+                                          res);
         }
       }
     }
@@ -1635,30 +1676,38 @@ tilted_fusion_wide_kernel(Params p) {
   cp_async_wait<0>();
 }
 
-using KernelFn = void (*)(Params);
-
-// A kernel and the dynamic shared memory it takes.
+// A kernel and the dynamic shared memory it takes.  A narrow kernel takes
+// (Params), a wide one (Params, Epi).
 struct Instance {
-  KernelFn fn;
+  const void* fn;
   int smem;
 };
+
+template <typename F> Instance kernel_of(F fn, int smem) {
+  return {reinterpret_cast<const void*>(fn), smem};
+}
 
 // The narrow <T, CHP> kernel for bands of R rows and tiles of C columns on
 // the route the wrapper asks for: on chip (fn null where the maps do not
 // fit), or in device memory.
 template <typename T, int CHP, bool MIXED> Instance narrow_instance(int R, int C, bool onchip) {
-  if (!onchip) return {tilted_fusion_kernel<T, CHP, MIXED>, Cfg<T, CHP>::kSmemBytes};
+  if (!onchip) return kernel_of(tilted_fusion_kernel<T, CHP, MIXED>, Cfg<T, CHP>::kSmemBytes);
   if (!onchip_fits<T, CHP>(R, C)) return {nullptr, 0};
-  return {tilted_fusion_kernel_onchip<T, CHP, MIXED>, onchip_smem<T, CHP>(R, C)};
+  return kernel_of(tilted_fusion_kernel_onchip<T, CHP, MIXED>, onchip_smem<T, CHP>(R, C));
 }
 
-// A wide instance has one route, its slabs in device memory.
-template <typename T, int CHP> Instance make_instance(int R, int C, bool onchip) {
-  if constexpr (Cfg<T, CHP>::kWide)
-    return onchip ? Instance{nullptr, 0}
-                  : Instance{tilted_fusion_wide_kernel<T, CHP>, Cfg<T, CHP>::kSmemBytes};
-  else
-    return narrow_instance<T, CHP, false>(R, C, onchip);
+// A wide instance has one route, its slabs in device memory; EPI (a leaky
+// slope or a residual) is built at Chp kEpiChp alone.
+template <typename T, int CHP> Instance make_instance(int R, int C, bool onchip, bool epi) {
+  if constexpr (Cfg<T, CHP>::kWide) {
+    if (onchip) return Instance{nullptr, 0};
+    if (!epi) return kernel_of(tilted_fusion_wide_kernel<T, CHP, false>, Cfg<T, CHP>::kSmemBytes);
+    if constexpr (CHP == kEpiChp)
+      return kernel_of(tilted_fusion_wide_kernel<T, CHP, true>, Cfg<T, CHP>::kSmemBytes);
+    return Instance{nullptr, 0};
+  } else {
+    return epi ? Instance{nullptr, 0} : narrow_instance<T, CHP, false>(R, C, onchip);
+  }
 }
 
 // The instances built, for the padded widths the wrapper launches
@@ -1669,16 +1718,16 @@ template <typename T, int CHP> Instance make_instance(int R, int C, bool onchip)
 // The <dtype, Chp> instance (dtype 0 = float32, 1 = bfloat16) of out_ch
 // outputs for R x C tiles on the route asked for, or fn null: a mixed
 // launch (out_ch past Chp 32) has one of its own, the narrow kernel with
-// output groups.
-Instance instance(int dtype, int chp, int out_ch, int R, int C, bool onchip) {
+// output groups.  epi: the EPI instance (Chp kEpiChp alone).
+Instance instance(int dtype, int chp, int out_ch, int R, int C, bool onchip, bool epi) {
   if (out_ch != chp) {
-    if (chp != 32) return {nullptr, 0};
+    if (chp != 32 || epi) return {nullptr, 0};
     if (dtype == 0) return narrow_instance<float, 32, true>(R, C, onchip);
     return narrow_instance<__nv_bfloat16, 32, true>(R, C, onchip);
   }
 #define K1_INSTANCE(N)                                                              \
-  if (dtype == 0 && chp == N) return make_instance<float, N>(R, C, onchip);         \
-  if (dtype == 1 && chp == N) return make_instance<__nv_bfloat16, N>(R, C, onchip);
+  if (dtype == 0 && chp == N) return make_instance<float, N>(R, C, onchip, epi);    \
+  if (dtype == 1 && chp == N) return make_instance<__nv_bfloat16, N>(R, C, onchip, epi);
   K1_INSTANCES(K1_INSTANCE)
 #undef K1_INSTANCE
   return {nullptr, 0};
@@ -1687,8 +1736,9 @@ Instance instance(int dtype, int chp, int out_ch, int R, int C, bool onchip) {
 // The <dtype, chp> instance of out_ch outputs for R x C tiles on the route
 // asked for in *k, allowed the shared memory it takes; cudaErrorInvalidValue
 // where there is none (no such instance, or maps that do not fit).
-cudaError_t prepare(int dtype, int chp, int out_ch, int R, int C, bool onchip, Instance* k) {
-  *k = instance(dtype, chp, out_ch, R, C, onchip);
+cudaError_t prepare(int dtype, int chp, int out_ch, int R, int C, bool onchip, bool epi,
+                    Instance* k) {
+  *k = instance(dtype, chp, out_ch, R, C, onchip, epi);
   if (!k->fn) return cudaErrorInvalidValue;
   return cudaFuncSetAttribute(k->fn, cudaFuncAttributeMaxDynamicSharedMemorySize, k->smem);
 }
@@ -1739,16 +1789,24 @@ extern "C" {
 // instance 48, 64, 96 or 128 (any multiple of 16 from 48 to 128).  onchip:
 // the route the wrapper chose (tilted_fusion.py::route), 1 the feature maps
 // in shared memory (a narrow instance whose maps fit, else
-// cudaErrorInvalidValue), 0 in device-memory slabs.  Does not synchronise or
-// allocate.
+// cudaErrorInvalidValue), 0 in device-memory slabs.  res (B, res_rows, W,
+// res_ch), compute dtype, or null: the residual added to the last layer's
+// output at band rows [res_off, res_off + res_rows); slopes (host memory, L
+// floats) or null: each activated layer's leaky slope.  Either takes the
+// EPI instance, which only Chp 64 has (else cudaErrorInvalidValue).  Does
+// not synchronise or allocate.
 int tilted_fusion_launch(int dtype, const void* x, const void* first, const void* w,
                          const void* bias, const void* bounds, void* out, void* ws,
                          int B, int R, int K, int C, int c0p, int chp, int out_ch, int L, int W,
                          int relu_mask, int add_anchor, int in_ch, int repeats,
-                         int replicate, int S, int warm, int onchip, void* stream) {
+                         int replicate, int S, int warm, int onchip, const void* res,
+                         int res_rows, int res_off, int res_ch, const float* slopes,
+                         void* stream) {
   if (B == 0) return 0;
-  if (S < 1 || S > K || warm < 0 || L < 1 || c0p < 1 || c0p > chp || c0p % 8 || C < 2 ||
-      block_rows(C) < 1)
+  if (S < 1 || S > K || warm < 0 || L < 1 || L > kMaxLayers || c0p < 1 || c0p > chp ||
+      c0p % 8 || C < 2 || block_rows(C) < 1)
+    return (int)cudaErrorInvalidValue;
+  if (res && (res_rows < 1 || res_off < 0 || res_ch < 1 || res_ch > chp))
     return (int)cudaErrorInvalidValue;
   if (out_ch != chp && !(chp == 32 && out_ch > 32 && out_ch <= 128 && out_ch % 16 == 0))
     return (int)cudaErrorInvalidValue;
@@ -1760,31 +1818,35 @@ int tilted_fusion_launch(int dtype, const void* x, const void* first, const void
   p.S = S; p.warm = warm;
   p.relu_mask = relu_mask; p.add_anchor = add_anchor; p.in_ch = in_ch;
   p.repeats = repeats; p.replicate = replicate;
+  Epi ep;
+  ep.res = res; ep.res_rows = res_rows; ep.res_off = res_off; ep.res_ch = res_ch;
+  for (int l = 0; l < kMaxLayers; ++l) ep.slope[l] = slopes && l < L ? slopes[l] : 0.f;
+  const bool epi = res != nullptr || slopes != nullptr;
   const int kk = dtype == 0 ? 8 : 16;
   p.ks0 = (c0p + kk - 1) / kk;
   p.shift0 = 0;
   while ((1 << p.shift0) * 16 < p.ks0 * kk * (dtype == 0 ? 4 : 2)) ++p.shift0;
   p.rows_blk = block_rows(C);
   Instance k;
-  cudaError_t e = prepare(dtype, chp, out_ch, R, C, onchip != 0, &k);
+  cudaError_t e = prepare(dtype, chp, out_ch, R, C, onchip != 0, epi, &k);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   e = pack(dtype, chp, p, onchip != 0, s);
   if (e != cudaSuccess) return (int)e;
-  void* args[] = {&p};
-  return (int)cudaLaunchKernel(reinterpret_cast<const void*>(k.fn), dim3(B * S), dim3(kThreads),
-                               args, k.smem, s);
+  void* args[] = {&p, &ep};  // a narrow kernel reads the first alone
+  return (int)cudaLaunchKernel(k.fn, dim3(B * S), dim3(kThreads), args, k.smem, s);
 }
 
 // Resident CTAs per SM of the <dtype, chp> instance of out_ch outputs for
 // bands of R rows and tiles of C columns on the route `onchip` (as
 // tilted_fusion_launch takes it) on the current device
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor at 256 threads and its
-// shared memory), written to *blocks; returns the CUDA error code.
+// shared memory), written to *blocks; returns the CUDA error code.  An EPI
+// instance has its plain twin's launch bounds and shared memory.
 int tilted_fusion_blocks_per_sm(int dtype, int chp, int out_ch, int R, int C, int onchip,
                                 int* blocks) {
   Instance k;
-  cudaError_t e = prepare(dtype, chp, out_ch, R, C, onchip != 0, &k);
+  cudaError_t e = prepare(dtype, chp, out_ch, R, C, onchip != 0, false, &k);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k.fn, kThreads, k.smem);
 }

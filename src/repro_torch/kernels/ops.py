@@ -75,6 +75,8 @@ class PackedLayers:
     # shapes; K1 runs a stack whose hidden maps fit 32 channels on its
     # narrow instance even where Chp is wider.  None: Chp
     hidden_channels: Optional[int] = None
+    # each layer's leaky slope where it is activated (0: ReLU); None: all 0
+    slopes: Optional[Tuple[float, ...]] = None
 
     @property
     def num_layers(self) -> int:
@@ -87,6 +89,7 @@ def pack_stack(
     """Pack a conv stack for the kernel (``pack_layers``) and bundle the
     static facts the launch needs."""
     w, b, chp = pack_layers(layers, chp, dtype=dtype)
+    slopes = tuple(float(getattr(l, "slope", 0.0)) for l in layers)
     return PackedLayers(
         w=w,
         b=b,
@@ -94,6 +97,7 @@ def pack_stack(
         relu=tuple(bool(l.relu) for l in layers),
         out_channels=layers[-1].co,
         hidden_channels=max(l.co for l in layers[:-1]) if len(layers) > 1 else layers[0].ci,
+        slopes=slopes if any(slopes) else None,
     )
 
 
@@ -121,6 +125,8 @@ def _tilted_fused_bands(
     row_bounds: Optional[torch.Tensor] = None,
     compute_dtype=None,
     clock=None,
+    residual: Optional[torch.Tensor] = None,
+    residual_offset: int = 0,
 ) -> torch.Tensor:
     """Run K1 over a flat batch of bands -> (B, R, W, ChL).
 
@@ -128,7 +134,9 @@ def _tilted_fused_bands(
     band), so bands from different frames share one launch — the whole
     frame batch is ONE kernel launch.  ``clock`` (a stage clock,
     ``engine.spans.StageClock``) is marked ``k1`` at the launch and
-    ``marshal`` after it.
+    ``marshal`` after it.  ``residual`` (B, rows, W, Cr) is added to the
+    last layer's output at band rows ``residual_offset`` on
+    (``tilted_fusion_call``).
     """
     B, R, W, C0 = xb.shape
     C, L = tile_cols, packed.num_layers
@@ -151,6 +159,9 @@ def _tilted_fused_bands(
         row_bounds=row_bounds,
         compute_dtype=compute_dtype,
         hidden_channels=packed.hidden_channels,
+        slopes=packed.slopes,
+        residual=residual,
+        residual_offset=residual_offset,
     )
     if clock is not None:
         clock.mark("marshal")
@@ -200,6 +211,7 @@ def tilted_fused_frames(
     compute_dtype=None,
     packed: Optional[PackedLayers] = None,
     clock=None,
+    residual: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Tilted layer fusion of a batch of frames (N, H, W, C0) -> (N, H, W, ChL).
 
@@ -212,7 +224,10 @@ def tilted_fused_frames(
     (:func:`pack_stack`); when given, ``layers`` is ignored.  ``clock`` (a
     stage clock, ``engine.spans.StageClock``) is marked ``marshal`` where
     the input's marshalling into K1's streams begins, ``k1`` at the launch
-    and ``marshal`` again after it (the margin's crop).
+    and ``marshal`` again after it (the margin's crop).  ``residual``
+    ``(N, H, W, Cr)`` is added to the last layer's output after its
+    activation (a residual block's skip), each band's own rows under every
+    policy.
     """
     N, H, W, C0 = frames.shape
     R = band_rows
@@ -227,6 +242,11 @@ def tilted_fused_frames(
             raise ValueError("pass either layers or packed")
         packed = pack_stack(layers, chp, dtype=compute_dtype)
     L = packed.num_layers
+    if residual is not None:
+        if tuple(residual.shape[:3]) != (N, H, W):
+            raise ValueError(f"residual {tuple(residual.shape)} does not match the frames' "
+                             f"{(N, H, W)}")
+        residual = residual.reshape(N * (H // R), R, W, residual.shape[3])
     if clock is not None:
         clock.mark("marshal")
     if vertical_policy == "halo":
@@ -241,6 +261,8 @@ def tilted_fused_frames(
             row_bounds=bounds,
             compute_dtype=compute_dtype,
             clock=clock,
+            residual=residual,
+            residual_offset=L,  # the band's own rows of its slab
         )
         out = out[:, L : L + R]  # crop the recompute margin
     else:
@@ -253,6 +275,7 @@ def tilted_fused_frames(
             row_policy=vertical_policy,
             compute_dtype=compute_dtype,
             clock=clock,
+            residual=residual,
         )
     return out.reshape(N, H, W, out.shape[-1])
 

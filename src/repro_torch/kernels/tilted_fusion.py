@@ -12,6 +12,10 @@ columns (and, under ``row_bounds``, phantom rows) zeroed after every layer,
 each layer's output rounded to the compute dtype, the last two columns of
 every feature map carried to tile k+1 in the overlap queue, an optional
 anchor added to the last layer, and the output tilted by L-1 columns.
+Beyond the TPU kernel, for residual blocks (RLFN): an activated layer may
+take a leaky slope in place of ReLU (``slopes``), and a residual tensor may
+be added to the last layer's output (``residual``); the card builds both
+at Chp 64 alone (:data:`EPI_CHP`).
 
 * :func:`tilted_fusion_call` — the wrapper.  A CUDA tensor launches the
   kernel (or raises); a CPU tensor runs :func:`tilted_fusion_plain`; a
@@ -87,6 +91,7 @@ __all__ = [
     "SUPPORTED_CHP",
     "launch_chp",
     "hidden_chp",
+    "EPI_CHP",
     "output_groups",
     "n_group",
     "WideSchedule",
@@ -108,6 +113,9 @@ SUPPORTED_CHP = (16, 32, 48, 64, 96, 128)
 # layer in output groups of OUT_GROUP (kGroup in the source).
 MIXED_HIDDEN_CHP = 32
 OUT_GROUP = 32
+# The one width whose instance takes a leaky slope or a residual (kEpiChp in
+# the source): RLFN's 52-channel segments pad to it.
+EPI_CHP = 64
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -629,7 +637,8 @@ def _mma_pixels(band_rows: int, tile_cols: int, onchip: bool = False) -> int:
 
 def launch_cost(plan: SegmentPlan, *, band_rows: int, tile_cols: int, c0p: int, chp: int,
                 num_layers: int, dtype, bounds: bool = False, replicate: bool = False,
-                plain: bool = False, hidden_chp: Optional[int] = None) -> dict:
+                plain: bool = False, hidden_chp: Optional[int] = None,
+                residual_elems: int = 0) -> dict:
     """The FLOPs and device-memory bytes of one launch over ``plan``, as
     ``csrc/tilted_fusion.cu`` issues them.  ``plain=True`` counts the FLOPs
     as :func:`tilted_fusion_plain` executes them; its bytes stay the
@@ -650,10 +659,11 @@ def launch_cost(plan: SegmentPlan, *, band_rows: int, tile_cols: int, c0p: int, 
       ``chp`` (mixed: ``hidden_chp``).  The plain version pads layer 0 to
       ``chp`` channels and runs exactly ``R`` rows.
     * ``io_bytes`` (a) — the arguments and the result once each: the input
-      stream, the first column, weights, bias, the row bounds (int32) and
-      the tilted output.  A mixed launch's weights are the blocks its
-      packing reads, each hidden layer's ``hidden_chp`` square and the last
-      layer's ``hidden_chp x chp``, not the zeros around them.
+      stream, the first column, weights, bias, the row bounds (int32), the
+      residual (``residual_elems`` elements a band) and the tilted output.
+      A mixed launch's weights are the blocks its packing reads, each
+      hidden layer's ``hidden_chp`` square and the last layer's
+      ``hidden_chp x chp``, not the zeros around them.
     * ``workspace_bytes`` (b) — every other byte the launch reads or
       writes in device memory: the packed weight stages written once and
       read at every (tile, step) (a wide instance: every row block
@@ -753,10 +763,12 @@ def launch_cost(plan: SegmentPlan, *, band_rows: int, tile_cols: int, c0p: int, 
     io_bytes = (stream * c0p + B * R * c0p + stream * chp) * esize + weights
     if bounds:
         io_bytes += 4 * 2 * B
-    # the packing kernel reads the weights and bias once and writes the stages
+    io_bytes += B * int(residual_elems) * esize
+    # the packing kernel reads the weights and bias once and writes the
+    # stages; the last layer's stores read the residual once
     issued = (B * issued + stream * chp * esize + weights
               + packed_weight_bytes(L, chp, c0p, dtype, hidden_chp=mixed, onchip=onchip)
-              + (4 * 2 * B * plan.segments if bounds else 0))
+              + (4 * 2 * B * plan.segments if bounds else 0) + B * int(residual_elems) * esize)
     return {
         "flops": B * flops,
         "io_bytes": io_bytes,
@@ -813,6 +825,9 @@ def tilted_fusion_plain(
     out_dtype=None,
     segments: Optional[int] = None,
     hidden_channels: Optional[int] = None,
+    slopes: Optional[Sequence[float]] = None,
+    residual: Optional[torch.Tensor] = None,
+    residual_offset: int = 0,
 ) -> torch.Tensor:
     """Plain PyTorch version of K1: same arguments, same tilted
     ``(B, R, K*C, Chp)`` result.
@@ -830,9 +845,14 @@ def tilted_fusion_plain(
     ``None`` is the plan for one SM — a sequential loop is one — which is
     one segment.  ``hidden_channels`` is checked and not used: the whole
     padded stack, whose extra channels are zeros, is the same function.
+    ``slopes`` and ``residual`` as :func:`tilted_fusion_call` takes them:
+    an activated layer's output is ``v if v > 0 else v * slope``, and the
+    residual is added to the last layer's rounded output in fp32 and the
+    sum rounded again.
     """
     _check_args(x_stream, first_col, w, b, tile_cols, relu_flags, add_anchor,
-                in_channels, anchor_repeats, row_policy, row_bounds)
+                in_channels, anchor_repeats, row_policy, row_bounds, width, slopes,
+                residual, residual_offset)
     _check_segments(segments)
     _check_hidden_channels(hidden_channels, w.shape[3])
     B, R, KC, c0p = x_stream.shape
@@ -855,6 +875,14 @@ def tilted_fusion_plain(
     col_idx = torch.arange(C, device=dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     out = torch.empty((B, R, KC, chp), dtype=out_dtype, device=dev)
+    res_ext = None
+    if residual is not None:
+        # the residual at its rows of the band and, column a of the image at
+        # tilted column a + L - 1, its channels padded to Chp: zero elsewhere
+        rr, rc = residual.shape[1], residual.shape[3]
+        res_ext = torch.zeros((B, R, KC, chp), dtype=torch.float32, device=dev)
+        res_ext[:, residual_offset:residual_offset + rr, L - 1:L - 1 + W, :rc] = \
+            residual.to(cdt).float()
 
     for kw, k0, k1 in plan.ranges():
         # the state before tile kw: F_0's carried columns kw*C-1, kw*C, the
@@ -873,7 +901,8 @@ def tilted_fusion_plain(
             for l in range(L if k >= k0 else L - 1):
                 g = _conv_tile_plain(f, wf[l], bf[l], row_policy)
                 if relu_flags[l]:
-                    g = torch.clamp_min(g, 0.0)
+                    slope = float(slopes[l]) if slopes is not None else 0.0
+                    g = torch.where(g > 0, g, g * slope) if slope else torch.clamp_min(g, 0.0)
                 abs_cols = k * C - l + col_idx
                 col_ok = ((abs_cols >= 0) & (abs_cols < W))[None, None, :, None]
                 g = torch.where(col_ok, g, zero)
@@ -892,6 +921,8 @@ def tilted_fusion_plain(
                         anchor = torch.where(col_ok, anchor,
                                              torch.zeros((), dtype=cdt, device=dev))
                         g = g + anchor
+                    if res_ext is not None:
+                        g = (g.float() + res_ext[:, :, k * C : (k + 1) * C]).to(cdt)
                     out[:, :, k * C : (k + 1) * C] = g.to(out_dtype)
     return out
 
@@ -908,7 +939,8 @@ def _check_hidden_channels(hidden_channels, chp: int) -> None:
 
 
 def _check_args(x_stream, first_col, w, b, tile_cols, relu_flags, add_anchor,
-                in_channels, anchor_repeats, row_policy, row_bounds):
+                in_channels, anchor_repeats, row_policy, row_bounds, width=None, slopes=None,
+                residual=None, residual_offset=0):
     if x_stream.ndim != 4 or first_col.ndim != 4 or w.ndim != 5 or b.ndim != 2:
         raise ValueError(
             "expected x_stream (B, R, K*C, C0p), first_col (B, R, 1, C0p), "
@@ -932,6 +964,16 @@ def _check_args(x_stream, first_col, w, b, tile_cols, relu_flags, add_anchor,
         raise ValueError(f"row_policy {row_policy!r} not in ('zero', 'replicate')")
     if row_bounds is not None and tuple(row_bounds.shape) != (B, 2):
         raise ValueError(f"row_bounds shape {tuple(row_bounds.shape)} != {(B, 2)}")
+    if slopes is not None and len(slopes) != L:
+        raise ValueError(f"{len(slopes)} slopes for {L} layers")
+    if residual is not None:
+        if (residual.ndim != 4 or residual.shape[0] != B or residual.shape[2] != width
+                or not 1 <= residual.shape[3] <= chp):
+            raise ValueError(f"residual shape {tuple(residual.shape)} is not (B = {B}, rows, "
+                             f"W = {width}, at most Chp = {chp} channels)")
+        if residual_offset < 0 or residual_offset + residual.shape[1] > R:
+            raise ValueError(f"residual rows [{residual_offset}, "
+                             f"{residual_offset + residual.shape[1]}) leave the band's {R}")
 
 
 _lib_handle = None
@@ -942,7 +984,8 @@ def _lib() -> ctypes.CDLL:
     if _lib_handle is None:
         lib = _build.load("tilted_fusion")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.tilted_fusion_launch.argtypes = [ci] + [vp] * 7 + [ci] * 17 + [vp]
+        lib.tilted_fusion_launch.argtypes = ([ci] + [vp] * 7 + [ci] * 17 + [vp] + [ci] * 3
+                                             + [vp, vp])
         lib.tilted_fusion_launch.restype = ci
         lib.tilted_fusion_blocks_per_sm.argtypes = [ci] * 6 + [ctypes.POINTER(ci)]
         lib.tilted_fusion_blocks_per_sm.restype = ci
@@ -1020,9 +1063,15 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _leaky(slopes, relu_flags) -> bool:
+    """Whether an activated layer has a leaky slope (not plain ReLU)."""
+    return slopes is not None and any(r and s for s, r in zip(slopes, relu_flags))
+
+
 def _launch_kernel(x_stream, first_col, w, b, *, width, tile_cols, relu_flags,
                    add_anchor, in_channels, anchor_repeats, row_policy,
-                   row_bounds, cdt, segments, hidden_channels):
+                   row_bounds, cdt, segments, hidden_channels, slopes, residual,
+                   residual_offset):
     dev = x_stream.device
     if cdt not in _DTYPE_CODE:
         raise ValueError(f"the kernel computes in float32 or bfloat16, not {cdt}")
@@ -1033,7 +1082,12 @@ def _launch_kernel(x_stream, first_col, w, b, *, width, tile_cols, relu_flags,
     inst = hid or lc  # the instance: a mixed launch runs on its hidden width's
     if L > 31:
         raise ValueError(f"{L} layers exceed the kernel's 31-bit ReLU mask")
-    tensors = [x_stream, first_col, w, b] + ([row_bounds] if row_bounds is not None else [])
+    epi = _leaky(slopes, relu_flags) or residual is not None
+    if epi and (hid is not None or lc != EPI_CHP):
+        raise ValueError(f"a leaky slope or a residual runs on the Chp {EPI_CHP} instance alone; "
+                         f"this stack launches Chp {inst}" + (" mixed" if hid else ""))
+    tensors = [x_stream, first_col, w, b] + ([row_bounds] if row_bounds is not None else []) + (
+        [residual] if residual is not None else [])
     if any(t.device != dev for t in tensors):
         raise ValueError("all kernel inputs must be on the same CUDA device")
     C = tile_cols
@@ -1066,6 +1120,9 @@ def _launch_kernel(x_stream, first_col, w, b, *, width, tile_cols, relu_flags,
                                       "workspace_bytes": workspace.numel() * cdt.itemsize}
     out = torch.empty((B, R, KC, lc), dtype=cdt, device=dev)
     relu_mask = sum(1 << i for i, r in enumerate(relu_flags) if r)
+    res = None if residual is None else _aligned(residual.to(cdt).contiguous())
+    slope_arr = ((ctypes.c_float * L)(*(float(s) for s in slopes))
+                 if _leaky(slopes, relu_flags) else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.tilted_fusion_launch(
@@ -1074,7 +1131,11 @@ def _launch_kernel(x_stream, first_col, w, b, *, width, tile_cols, relu_flags,
             out.data_ptr(), workspace.data_ptr(),
             B, R, KC // C, C, c0p, inst, lc, L, int(width),
             relu_mask, int(bool(add_anchor)), int(in_channels), int(anchor_repeats),
-            int(row_policy == "replicate"), plan.segments, plan.warmup, int(rt.onchip), stream,
+            int(row_policy == "replicate"), plan.segments, plan.warmup, int(rt.onchip),
+            None if res is None else res.data_ptr(),
+            0 if res is None else res.shape[1], int(residual_offset),
+            0 if res is None else res.shape[3],
+            None if slope_arr is None else ctypes.cast(slope_arr, ctypes.c_void_p), stream,
         )
     _check_error(lib, err, "kernel launch")
     tilted_fusion_call.launches += 1
@@ -1098,6 +1159,7 @@ class Launch(NamedTuple):
     replicate: bool = False  # row_policy "replicate"
     launch_chp: Optional[int] = None  # the instance's Chp where the card pads past chp
     hidden_chp: Optional[int] = None  # the hidden layers' Chp where the launch is mixed
+    residual_elems: int = 0  # elements of the residual a band reads (0: none)
 
     @property
     def instance_chp(self) -> int:
@@ -1146,7 +1208,7 @@ def record_launches():
 
 
 def _meta_call(x_stream, w, *, tile_cols, row_bounds, row_policy, cdt,
-               segments, hidden_channels) -> torch.Tensor:
+               segments, hidden_channels, residual=None) -> torch.Tensor:
     """The result of a launch on ``meta`` tensors: its shape and dtype,
     nothing computed and no launch counted."""
     B, R, KC, c0p = x_stream.shape
@@ -1160,7 +1222,9 @@ def _meta_call(x_stream, w, *, tile_cols, row_bounds, row_policy, cdt,
                                bounds=row_bounds is not None, segments=segments,
                                replicate=row_policy == "replicate",
                                launch_chp=lc if lc != chp else None,
-                               hidden_chp=hidden_chp(chp, hidden_channels, c0p, cdt)))
+                               hidden_chp=hidden_chp(chp, hidden_channels, c0p, cdt),
+                               residual_elems=(0 if residual is None
+                                               else residual[0].numel())))
     return out
 
 
@@ -1182,6 +1246,9 @@ def tilted_fusion_call(
     out_dtype=None,
     segments: Optional[int] = None,
     hidden_channels: Optional[int] = None,
+    slopes: Optional[Sequence[float]] = None,
+    residual: Optional[torch.Tensor] = None,  # (B, rows, width, <= Chp)
+    residual_offset: int = 0,
 ) -> torch.Tensor:
     """K1 over a flat batch of bands -> tilted ``(B, R, K*C, Chp)``.
 
@@ -1205,6 +1272,14 @@ def tilted_fusion_call(
     lie in ``[1, Chp]``: a value narrower than the real feature maps would
     drop channels, so pass what ``pack_stack`` computed.
 
+    ``slopes`` (one a layer, or ``None``) gives an activated layer a leaky
+    slope in place of ReLU (0 is ReLU).  ``residual`` ``(B, rows, width,
+    Cr)`` is added to the last layer's output after its activation, at
+    band rows ``[residual_offset, residual_offset + rows)`` and the image's
+    columns, channels ``[0, Cr)``: the rounded output plus the residual in
+    fp32, rounded again.  A leaky slope or a residual launches the instance
+    of :data:`EPI_CHP` channels, not mixed; any other raises on the card.
+
     A tensor on the CPU runs :func:`tilted_fusion_plain`; a CUDA tensor
     launches the kernel on the current stream (no synchronisation) or
     raises; a ``meta`` tensor gives the result's shape and dtype and
@@ -1215,19 +1290,22 @@ def tilted_fusion_call(
     args = dict(width=width, tile_cols=tile_cols, relu_flags=list(relu_flags),
                 add_anchor=add_anchor, in_channels=in_channels,
                 anchor_repeats=anchor_repeats, row_policy=row_policy,
-                row_bounds=row_bounds, segments=segments, hidden_channels=hidden_channels)
+                row_bounds=row_bounds, segments=segments, hidden_channels=hidden_channels,
+                slopes=None if slopes is None else [float(s) for s in slopes],
+                residual=residual, residual_offset=int(residual_offset))
     if x_stream.device.type == "cpu":
         return tilted_fusion_plain(x_stream, first_col, w, b, compute_dtype=compute_dtype,
                                    out_dtype=out_dtype, **args)
     if x_stream.device.type not in ("cuda", "meta"):
         raise ValueError(f"tilted_fusion_call runs on cuda, cpu or meta, not {x_stream.device}")
     _check_args(x_stream, first_col, w, b, tile_cols, relu_flags, add_anchor,
-                in_channels, anchor_repeats, row_policy, row_bounds)
+                in_channels, anchor_repeats, row_policy, row_bounds, width, slopes,
+                residual, residual_offset)
     cdt = compute_dtype or x_stream.dtype
     if x_stream.device.type == "meta":
         out = _meta_call(x_stream, w, tile_cols=tile_cols, row_bounds=row_bounds,
                          row_policy=row_policy, cdt=cdt, segments=segments,
-                         hidden_channels=hidden_channels)
+                         hidden_channels=hidden_channels, residual=residual)
     else:
         out = _launch_kernel(x_stream, first_col, w, b, cdt=cdt, **args)
     out_dtype = out_dtype or x_stream.dtype

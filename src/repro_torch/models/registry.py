@@ -13,7 +13,8 @@ The dense, vlm and moe families are ``models.lm``, ssm is
 SR side — a registered :class:`SRModelSpec` (canonical name, config, weight
 initialiser) is how ``repro_torch.engine.SRSession.open("abpn_x3")``
 resolves a model name into a servable conv stack without the caller
-touching plans or weights.
+touching plans or weights.  Two are registered: ``abpn_x3`` (a
+``ConvLayer`` chain) and ``rlfn_x4`` (a ``core.stages.StagedModel``).
 """
 
 from __future__ import annotations
@@ -22,10 +23,11 @@ import dataclasses
 import difflib
 import functools
 import types
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, Sequence, Tuple, Union
 
 from repro_torch.models import encdec, lm, mamba_lm, zamba
 from repro_torch.models.abpn import ABPNConfig, init_abpn
+from repro_torch.models.rlfn import RLFNConfig, init_rlfn, rlfn_model
 
 __all__ = [
     "get_model",
@@ -59,13 +61,13 @@ class SRModelSpec:
     """A servable SR model.
 
     ``config`` carries at least ``scale`` and ``clip`` (the session's
-    epilogue defaults); ``init(generator) -> Sequence[ConvLayer]`` produces
-    the weight stack (a trained stack can be passed to ``SRSession.open``
-    directly instead).
+    epilogue defaults); ``init(generator)`` produces the weight stack, a
+    ``Sequence[ConvLayer]`` or a ``core.stages.StagedModel`` (a trained
+    stack can be passed to ``SRSession.open`` directly instead).
     """
 
     name: str
-    config: ABPNConfig
+    config: Union[ABPNConfig, RLFNConfig]
     init: Callable[..., Sequence]
 
 
@@ -113,4 +115,17 @@ register_sr_model(
     ABPNConfig(),
     functools.partial(init_abpn, cfg=ABPNConfig()),
     aliases=("abpn-x3", "abpn"),
+)
+
+
+def _init_rlfn_model(generator, cfg: RLFNConfig = RLFNConfig()):
+    return rlfn_model(init_rlfn(generator, cfg), cfg)
+
+
+# RLFN x4 (Kong et al., CVPRW 2022): residual blocks with ESA, no anchor.
+register_sr_model(
+    "rlfn_x4",
+    RLFNConfig(),
+    functools.partial(_init_rlfn_model, cfg=RLFNConfig()),
+    aliases=("rlfn-x4", "rlfn"),
 )

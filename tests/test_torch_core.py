@@ -187,7 +187,8 @@ def test_depth_to_space_and_anchor_exact(scale):
 
 def test_abpn_config_registry_and_init():
     assert tabpn.ABPNConfig().channels == jabpn.ABPNConfig().channels
-    assert tregistry.list_sr_models() == jregistry.list_sr_models()
+    # the JAX package's models, and RLFN x4, which the port alone serves
+    assert set(tregistry.list_sr_models()) == set(jregistry.list_sr_models()) | {"rlfn_x4"}
     for name in ("abpn_x3", "abpn-x3", "abpn"):
         assert tregistry.get_sr_model(name).name == jregistry.get_sr_model(name).name
     with pytest.raises(ValueError, match="did you mean"):

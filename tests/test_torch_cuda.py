@@ -1355,3 +1355,122 @@ def test_epilogue_kernel_under_autograd_gives_the_plain_chains_gradients(cuda, p
     assert epilogue.sr_epilogue_call.launches == launches + 1
     grads = torch.autograd.grad(hr.mean(), [l.w for l in layers])
     assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+# ----------------------------------------------------------------------
+# RLFN on the card: K1's Chp 64 instance with a leaky slope and a residual,
+# the epilogue without an anchor, rlfn_x4 served
+# ----------------------------------------------------------------------
+def _rlfb_convs(seed):
+    """An RLFB's three 3x3 convs, 52 -> 52, LeakyReLU(0.05), He weights."""
+    return [dataclasses.replace(l, relu=True, slope=0.05)
+            for l in _stack(seed, [52, 52, 52, 52], None)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("policy", ["zero", "halo_bounds"])
+def test_rlfb_segment_on_the_chp64_instance_matches_plain(cuda, policy, dtype):
+    """An RLFB segment (3 layers 52 -> 52, slope 0.05, the block's input
+    added after the last activation) on the Chp 64 instance over two
+    61-row bands (three row blocks a step) of 40 columns: within the
+    tolerance of the plain version, and bit-identical across segments.
+    Under ``halo_bounds`` the residual covers the band's own rows (3..57)."""
+    layers = [l.to(dtype=dtype) for l in _rlfb_convs(11)]
+    packed = ops.pack_stack(layers, chp=64, dtype=dtype)
+    gen = torch.Generator().manual_seed(12)
+    xb = torch.rand((2, 61, 40, 52), generator=gen).to(dtype)
+    xs, first = ops.band_streams(xb, 8, 3)
+    bounds, off, rows = None, 0, 61
+    if policy == "halo_bounds":
+        bounds, off, rows = torch.tensor([[3, 61], [0, 58]], dtype=torch.int32), 3, 55
+    res = torch.rand((2, rows, 40, 52), generator=gen).to(dtype)
+    kw = dict(width=40, tile_cols=8, relu_flags=list(packed.relu), add_anchor=False,
+              in_channels=52, hidden_channels=packed.hidden_channels, slopes=packed.slopes,
+              residual_offset=off)
+    want = ttf.tilted_fusion_plain(xs, first, packed.w, packed.b, row_bounds=bounds,
+                                   residual=res, **kw)
+    args = (xs.to(cuda), first.to(cuda), packed.w.to(cuda), packed.b.to(cuda))
+    kw.update(row_bounds=None if bounds is None else bounds.to(cuda), residual=res.to(cuda))
+    got = ttf.tilted_fusion_call(*args, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    np.testing.assert_allclose(got.cpu().float().numpy(), want.float().numpy(),
+                               atol=TOL[dtype], rtol=0)
+    for segments in (1, 3):
+        assert torch.equal(ttf.tilted_fusion_call(*args, segments=segments, **kw), got)
+    # a slope or a residual on another instance is refused, not run
+    narrow = ops.pack_stack([l.to(dtype=dtype) for l in _rlfb_convs(11)], dtype=dtype)
+    with pytest.raises(ValueError, match="Chp 64 instance alone"):
+        ttf.tilted_fusion_call(xs[..., :8].to(cuda), first[..., :8].to(cuda),
+                               narrow.w[:, :, :, :16, :16].contiguous().to(cuda),
+                               narrow.b[:, :16].contiguous().to(cuda), width=40, tile_cols=8,
+                               relu_flags=[True] * 3, add_anchor=False, in_channels=8,
+                               slopes=[0.05] * 3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_epilogue_without_anchor_equals_the_chain(cuda, dtype):
+    """``anchor=False`` on K1's output view (64 channels a pixel, 48 read)
+    at x4: the kernel's HR frames are the plain chain's (shuffle, clip,
+    cast) bit for bit, for every output dtype and with and without clip."""
+    from repro_torch.kernels import epilogue
+
+    gen = torch.Generator().manual_seed(13)
+    base = (torch.rand((2, 12, 37, 64), generator=gen) * 1.4 - 0.2).to(dtype).to(cuda)
+    feats = base[..., :48]
+    for clip in (True, False):
+        for out in epilogue.OUT_DTYPES:
+            launches = epilogue.sr_epilogue_call.launches
+            got = epilogue.sr_epilogue_call(feats, None, scale=4, clip=clip, out_dtype=out,
+                                            anchor=False)
+            want = epilogue.sr_epilogue_plain(feats, None, scale=4, clip=clip, out_dtype=out,
+                                              anchor=False)
+            assert epilogue.sr_epilogue_call.launches == launches + 1
+            assert got.shape == (2, 48, 148, 3) and torch.equal(got, want), (clip, out)
+
+
+def _bench_rlfn_reference():
+    """``bench/reference/rlfn.py``, loaded by path (it imports no package)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "bench" / "reference" / "rlfn.py"
+    spec = importlib.util.spec_from_file_location("bench_reference_rlfn", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("precision,tol", [("fp32", 5e-4), ("bf16", 5e-2)])
+def test_rlfn_x4_served_on_the_card_matches_the_reference(cuda, precision, tol):
+    """``SRServer.open("rlfn_x4", backend="kernel", vertical_policy="halo")``
+    on two 360 x 640 frames (weights from the registry's seed, biases set so
+    that the HR frame is not all clipped) against the benchmark's plain
+    reference in fp32: the README's tolerances, as K1's (fp32 as 3xTF32
+    sums in another order; bf16 rounds every feature map)."""
+    from repro_torch.models.rlfn import RLFNConfig, init_rlfn, rlfn_model
+
+    ref = _bench_rlfn_reference()
+    gen = torch.Generator().manual_seed(14)
+    sd = init_rlfn(gen)
+    for name in sd:
+        if name.endswith(".bias"):
+            sd[name] = torch.randn(sd[name].shape, generator=gen) * 0.05
+    sd["upsampler.0.weight"] *= 0.1
+    sd["upsampler.0.bias"] += 0.5
+    frames = torch.rand((2, 360, 640, 3), generator=gen)
+    server = engine.SRServer.open("rlfn_x4", layers=rlfn_model(sd, RLFNConfig()),
+                                  backend="kernel", precision=precision, vertical_policy="halo",
+                                  band_rows=60, device=cuda, autotune="off")
+    hr = server.submit(frames).result()  # the first builds and warms its executor
+    server.session().reset_stats()
+    k1 = ttf.tilted_fusion_call.launches
+    again = server.submit(frames).result()
+    stats = server.session().stats()
+    server.close()
+    assert ttf.tilted_fusion_call.launches - k1 == 9  # conv_1, 6 blocks, conv_2, upsampler
+    assert stats["esa_frames"] == 2 and stats["esa_device_ms"] > 0 and torch.equal(again, hr)
+    with ref.exact():
+        want = ref.rlfn(frames.to(cuda), {k: v.to(cuda) for k, v in sd.items()}, 4)
+    err = (hr.float() - want).abs().max().item()
+    assert hr.shape == (2, 1440, 2560, 3) and err <= tol, err

@@ -28,7 +28,13 @@ The stacks:
 * ``x3-F48``, ``x3-F64``, ``x3-F96``, ``x3-F128`` -- ABPN x3 with
   ``ABPNConfig(feature_channels=F)`` (3 -> F x6 -> 27), seeded He weights
   through ``models.abpn.layers_from_numpy``, on the wide Chp F instance;
-  F = 48 and 96 at one frame only.
+  F = 48 and 96 at one frame only;
+* ``rlfb`` -- RLFN's residual-block segment as ``rlfn_x4`` serves it (where
+  the tree has it): 3 layers 52 -> 52, LeakyReLU(0.05), the block's input
+  added after the last, on the Chp 64 instance over ``halo`` slabs (6 of
+  66 rows a frame, their row bounds, the residual on each band's own 60
+  rows), at 1, 8 and 128 frames, beside cuDNN's segment (three ``conv2d``
+  and ``leaky_relu``, the add) on whole NCHW frames.
 
 Beside each: cuDNN's conv stack on the same layers (NCHW ``conv2d`` + ReLU,
 TF32 off, bf16 for bf16, the weights cast before timing), timed the same
@@ -111,6 +117,7 @@ def main(argv=None) -> int:
                                   False, counts)
     if args.stacks:
         stacks = {k: v for k, v in stacks.items() if k in args.stacks}
+    rlfb = hasattr(ttf, "EPI_CHP") and (not args.stacks or "rlfb" in args.stacks)
     gen = torch.Generator().manual_seed(1)
     out = {"card": card, "src": os.path.abspath(args.src)}
     for R, (name, (layers, mixed, counts)) in itertools.product(args.band_rows, stacks.items()):
@@ -193,6 +200,8 @@ def main(argv=None) -> int:
                                   f"{cell['executed_mb']:.1f} MB ((a) {cell['io_mb']:.1f}, (b) "
                                   f"{cell['workspace_mb']:.1f})" if "executed_gflop" in cell
                                   else ""), flush=True)
+    if rlfb:
+        _time_rlfb(torch, np, ttf, ops, layers_from_numpy, dev, args.rounds, out)
     line = json.dumps(out)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -200,6 +209,71 @@ def main(argv=None) -> int:
             fh.write(line + "\n")
     print(line)
     return 0
+
+
+def _time_rlfb(torch, np, ttf, ops, layers_from_numpy, dev, rounds, out):
+    """The ``rlfb`` cells: K1's launch as the serving path makes it for an
+    RLFB segment (``halo`` slabs, bounds, residual), and cuDNN's segment."""
+    import dataclasses
+
+    import torch.nn.functional as F
+    from repro_torch.core.fusion import exact_fp32
+
+    layers = [dataclasses.replace(l, relu=True, slope=0.05)
+              for l in layers_from_numpy(he_arrays(np, [52] * 4, 52), device=dev)]
+    L, R = len(layers), 60
+    for n in (1, 8, 128):
+        bands = 6 * n
+        bounds = torch.tensor([[L, R + 2 * L]] + [[0, R + 2 * L]] * 4 + [[0, R + L]],
+                              dtype=torch.int32, device=dev).repeat(n, 1)
+        for prec, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            torch.manual_seed(n)
+            xb = torch.rand((bands, R + 2 * L, 640, 52), device=dev).to(dt)
+            res = torch.rand((bands, R, 640, 52), device=dev).to(dt)
+            ls = [l.to(dtype=dt) for l in layers]
+            packed = ops.pack_stack(ls, chp=64, dtype=dt)
+            xs, first = ops.band_streams(xb, 8, L)
+            del xb
+            ms = device_ms(torch, lambda: ttf.tilted_fusion_call(
+                xs, first, packed.w, packed.b, width=640, tile_cols=8,
+                relu_flags=[True] * L, add_anchor=False, in_channels=52,
+                hidden_channels=packed.hidden_channels, slopes=packed.slopes, residual=res,
+                residual_offset=L, row_bounds=bounds), rounds=rounds)
+            plan = ttf.launch_plan(xs, packed.w, tile_cols=8, compute_dtype=dt,
+                                   hidden_channels=packed.hidden_channels)
+            cost = ttf.launch_cost(plan, band_rows=R + 2 * L, tile_cols=8, c0p=xs.shape[3],
+                                   chp=64, num_layers=L, dtype=dt, bounds=True,
+                                   residual_elems=R * 640 * 52)
+            del xs, first, res
+            oihw = [(l.w.permute(3, 2, 0, 1).contiguous(), l.b) for l in ls]
+            x = torch.rand((n, 52, 360, 640), device=dev).to(dt)
+
+            def segment(x=x, oihw=oihw):
+                with exact_fp32():
+                    h = x
+                    for w, b in oihw:
+                        h = F.leaky_relu(F.conv2d(h, w, b, padding=1), 0.05)
+                    return h + x
+
+            lib_ms = device_ms(torch, segment, rounds=rounds)
+            del x
+            useful = useful_bound(layers, n * 360 * 640, prec, dt.itemsize, PEAKS)
+            # the residual is read once more than a plain stack's input
+            bytes_ms = useful["bytes_bound_ms"] + 1e3 * n * 360 * 640 * 52 * dt.itemsize / \
+                PEAKS["bytes"]
+            ops_ms = useful["bound_ms"] if useful["bound_by"] == "operations" else 0.0
+            bound = max(ops_ms, bytes_ms)
+            cell = dict(ms=ms, cudnn_ms=lib_ms, gflop=useful["flops"] / 1e9, bound_ms=bound,
+                        executed_gflop=cost["flops"] / 1e9, executed_mb=cost["bytes"] / 1e6,
+                        segments=plan.segments, ctas=plan.ctas)
+            out[f"rlfb/{prec}/{n}"] = cell
+            print(f"K1 rlfb {prec} {n} frame{'s' if n > 1 else ''}: {ms:.4f} ms queued "
+                  f"(S={plan.segments}, {ms / n:.4f} ms a frame); cuDNN segment "
+                  f"{lib_ms:.4f} ms ({lib_ms / ms:.2f}x K1's time); bound {bound:.4f} ms -> "
+                  f"{100 * bound / ms:.1f}%; K1 executes {cell['executed_gflop']:.2f} GFLOP "
+                  f"({cell['executed_gflop'] / ms:.1f} TFLOP/s), moves "
+                  f"{cell['executed_mb']:.1f} MB", flush=True)
+            torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
