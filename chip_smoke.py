@@ -98,11 +98,17 @@ each of their parts to the end and then fail with every failure listed):
    tolerances; ``sr_epilogue_call(anchor=False)`` on the upsampler's 48
    outputs at 8 frames, K1's Chp 64 output view (``zero``) and the served
    path's cropped features (``halo``), ``torch.equal`` to
-   ``sr_epilogue_plain``, clip on and off; ``SRServer.open("rlfn_x4",
+   ``sr_epilogue_plain``, clip on and off; the ESA kernels
+   (``kernels.esa``) on block 1's c5 and ESA at 8 frames against
+   ``esa_plain`` (fp32 within 1e-5; bf16 no further from the fp32 chain
+   than 1.1x the bf16 chain), then timed in bf16 at 1, 8 and 128 frames
+   beside the chain and the block's bound (the kernels line's ``esa``);
+   ``SRServer.open("rlfn_x4",
    backend="kernel", vertical_policy="halo")`` in fp32 and bf16, warmed,
    then with K1's and the epilogue's counters zeroed a 4-frame request and
-   two 2-frame requests that share a dispatch: 9 K1 launches and one
-   epilogue launch a dispatch (the kernels line's ``rlfn`` entries), the
+   two 2-frame requests that share a dispatch: 9 K1 launches, one
+   epilogue launch and 24 ESA kernel launches a dispatch (the kernels
+   line's ``rlfn`` entries), the
    session's ``k1_segments`` 9, and the HR frames against the benchmark's
    plain reference (``bench/reference/rlfn.py``, fp32, TF32 off) at phase
    4's tolerances;
@@ -2154,6 +2160,9 @@ def served_epilogue(server, launched, dispatches, label):
 # and rlfn_x4 served
 # ----------------------------------------------------------------------
 RLFN_FRAMES = 128  # x4_bf16_rlfn_vod's dispatch
+ESA_PASSES = 4  # the ESA kernels' launches a block (kernels.esa.ESA_PASSES)
+# the ESA kernels in fp32 sum in another order than cuDNN (TF32 off)
+ESA_FP32_TOL = 1e-5
 
 
 def bench_rlfn_reference():
@@ -2303,23 +2312,79 @@ def serve_rlfn(torch, np, engine, epilogue, dev, model, sd, kcall):
         err = max((t.float() - want).abs().max().item() for t in (hr, pair))
         print(f"server rlfn_x4 [{prec}, halo]: {dispatches} dispatches, K1 launches {k1}, "
               f"epilogue kernel launches {epi}, k1_segments {st['k1_segments']:g}, esa frames "
-              f"{st['esa_frames']}, HR vs the plain reference max_abs_err={err:.3e} "
-              f"(tol {TOL[prec]:g})")
+              f"{st['esa_frames']}, ESA kernel launches {st['esa_launches']}, HR vs the plain "
+              f"reference max_abs_err={err:.3e} (tol {TOL[prec]:g})")
         require(dispatches == 2, f"rlfn {prec}: {dispatches} dispatches, not 2")
         require(k1 == 9 * dispatches and st["k1_segments"] == 9,
                 f"rlfn {prec}: {k1} K1 launches for {dispatches} dispatches, not 9 each")
         require(epi == dispatches and st["epilogue_kernel_frames"] == st["epilogue_frames"] == 8,
                 f"rlfn {prec}: {epi} epilogue launches for {dispatches} dispatches")
         require(st["esa_frames"] == 8 and st["esa_device_ms"] > 0, f"rlfn {prec}: ESA not timed")
+        require(st["esa_launches"] == 6 * ESA_PASSES * dispatches,
+                f"rlfn {prec}: {st['esa_launches']} ESA kernel launches for {dispatches} "
+                f"dispatches, not {6 * ESA_PASSES} each")
         require(tuple(hr.shape) == (4, H * X4_SCALE, W * X4_SCALE, 3) and err <= TOL[prec],
                 f"rlfn {prec}: served HR vs the plain reference")
         out[prec] = {"dispatches": dispatches, "launches": k1, "epilogue_launches": epi,
-                     "k1_segments": st["k1_segments"], "max_abs_err": err}
+                     "k1_segments": st["k1_segments"], "esa_launches": st["esa_launches"],
+                     "max_abs_err": err}
     return out
 
 
-def rlfn_check(torch, np, engine, ops, ttf, epilogue, dev, kcall):
-    """Phase 4r: the three checks above on RLFN x4 (``RLFNConfig()``) with
+def esa_check(torch, dev, model, peaks):
+    """The ESA kernels (``kernels.esa``) on block 1's c5 and ESA: at 8 frames
+    of 360x640 ``esa_call`` against ``esa_plain`` in fp32 (within
+    ``ESA_FP32_TOL``) and in bf16 (its largest difference from the fp32 chain
+    at most 1.1x the bf16 chain's), ``ESA_PASSES`` launches a call; then in
+    bf16 at 1, 8 and 128 frames the kernels and the chain, queued, beside
+    the block's bound (its FLOPs at the bf16 peak or each stage's input and
+    output once at the card's bandwidth, whichever is longer)."""
+    from repro_torch.kernels import esa
+
+    stage = model.stages[2]
+    pairs32 = tuple((w.to(dev), b.to(dev)) for w, b in (
+        stage.c5, stage.conv1, stage.conv_f, stage.conv2, stage.conv3, stage.conv4))
+    pairs16 = tuple((w.bfloat16(), b.bfloat16()) for w, b in pairs32)
+    gen = torch.Generator(device=dev).manual_seed(26)
+    x32 = torch.randn((8, H, W, esa.FEATURES), generator=gen, device=dev) * 0.5
+    before = esa.esa_call.launches
+    err32 = (esa.esa_call(x32, *pairs32) - esa.esa_plain(x32, *pairs32)).abs().max().item()
+    x16 = x32.bfloat16()
+    want = esa.esa_plain(x16.float(), *pairs32)
+    err16 = (esa.esa_call(x16, *pairs16).float() - want).abs().max().item()
+    chain16 = (esa.esa_plain(x16, *pairs16).float() - want).abs().max().item()
+    launched = esa.esa_call.launches - before
+    print(f"ESA kernels, block 1 at 8 frames: fp32 vs esa_plain max_abs_err={err32:.3e} (tol "
+          f"{ESA_FP32_TOL:g}); bf16 vs the fp32 chain {err16:.3e}, the bf16 chain's "
+          f"{chain16:.3e}; {launched} launches for 2 calls")
+    require(launched == 2 * ESA_PASSES, f"esa: {launched} launches for two calls")
+    require(err32 <= ESA_FP32_TOL, "esa fp32: the kernels vs esa_plain")
+    require(err16 <= 1.1 * chain16, "esa bf16: the kernels further from fp32 than the chain")
+    del x32, x16, want
+    h2, w2 = (H - 3) // 2 + 1, (W - 3) // 2 + 1
+    h3, w3 = (h2 - 7) // 3 + 1, (w2 - 7) // 3 + 1
+    f, e = esa.FEATURES, esa.ESA_CHANNELS
+    flops = 2 * (f * f + f * e + e * e + e * f) * H * W + 2 * 9 * e * e * (h2 * w2 + h3 * w3)
+    nbytes = H * W * 2 * f * 2
+    times = {}
+    for n in (1, 8, RLFN_FRAMES):
+        x = (torch.randn((n, H, W, f), generator=gen, device=dev) * 0.5).bfloat16()
+        calls = 5 if n == RLFN_FRAMES else 20
+        cell = dict(ms=device_ms(torch, lambda: esa.esa_call(x, *pairs16), calls=calls),
+                    plain_ms=device_ms(torch, lambda: esa.esa_plain(x, *pairs16), calls=calls),
+                    bound_ms=1e3 * n * max(flops / peaks["bf16"], nbytes / peaks["bytes"]))
+        times[n] = cell
+        print(f"ESA kernels bf16, {n} frame{'s' if n > 1 else ''}: {cell['ms']:.4f} ms "
+              f"({cell['ms'] / n:.4f} a frame), plain chain {cell['plain_ms']:.4f} ms, bound "
+              f"{cell['bound_ms']:.4f} ms (bytes) -> {100 * cell['bound_ms'] / cell['ms']:.1f}%")
+        del x
+        torch.cuda.empty_cache()
+    return {"fp32_max_abs_err": err32, "bf16_max_abs_err": err16, "bf16_chain_err": chain16,
+            "launches": launched, "times": times}
+
+
+def rlfn_check(torch, np, engine, ops, ttf, epilogue, dev, kcall, peaks):
+    """Phase 4r: the four checks above on RLFN x4 (``RLFNConfig()``) with
     :func:`rlfn_weights` from seed 21."""
     from repro_torch.models.rlfn import RLFNConfig, rlfn_model
 
@@ -2328,6 +2393,7 @@ def rlfn_check(torch, np, engine, ops, ttf, epilogue, dev, kcall):
     return {"epi": rlfb_epi_check(torch, ops, ttf, dev, model.stages[1], kcall),
             "epilogue": anchor_free_epilogue_check(torch, ops, ttf, epilogue, dev,
                                                    model.stages[-1]),
+            "esa": esa_check(torch, dev, model, peaks),
             "served": serve_rlfn(torch, np, engine, epilogue, dev, model, sd, kcall)}
 
 
@@ -2956,7 +3022,12 @@ def main() -> int:
             # the epilogue's <compute dtype, HR dtype>
             e = re.search(r"\d+(sr_epilogue_kernel)I(f|13__nv_bfloat16)(f|13__nv_bfloat16|6__half)E",
                           line)
-            if e:
+            # the ESA passes: <dtype> for pass B, mma (bf16) or fma (fp32) for A and C
+            a = re.search(r"\d+(esa_\w+?_kernel)(?:I(f|13__nv_bfloat16)E)?", line)
+            if a:
+                label = a.group(1) + ({"f": " <fp32>", "13__nv_bfloat16": " <bf16>"}
+                                      .get(a.group(2), ""))
+            elif e:
                 names = {"f": "fp32", "13__nv_bfloat16": "bf16", "6__half": "fp16"}
                 label = f"{e.group(1)} <{names[e.group(2)]}, {names[e.group(3)]} out>"
             elif m:
@@ -3249,13 +3320,16 @@ def main() -> int:
 
     # ------------------------------------------------------------------
     phase("4r. RLFN x4: K1's EPI instance at the cell's launch, the anchor-free epilogue, "
-          "SRServer.open('rlfn_x4') serving")
+          "the ESA kernels, SRServer.open('rlfn_x4') serving")
     t0 = time.perf_counter()
-    rlfn = rlfn_check(torch, np, engine, ops, ttf, epilogue, dev, kcall)
+    rlfn = rlfn_check(torch, np, engine, ops, ttf, epilogue, dev, kcall, peaks)
     rlfn_launches = sum(c["launches"] for c in rlfn["served"].values())
     rlfn_epilogue_launches = sum(c["epilogue_launches"] for c in rlfn["served"].values())
+    rlfn_esa_launches = rlfn["esa"]["launches"] + sum(c["esa_launches"]
+                                                      for c in rlfn["served"].values())
     print(f"rlfn served K1 launches {rlfn_launches}, epilogue kernel launches "
-          f"{rlfn_epilogue_launches}; phase took {time.perf_counter() - t0:.1f} s")
+          f"{rlfn_epilogue_launches}, ESA kernel launches checked {rlfn_esa_launches}; phase "
+          f"took {time.perf_counter() - t0:.1f} s")
 
     # ------------------------------------------------------------------
     phase("4a. plan_cost: the served configurations' FLOPs and bytes beside their bound")
@@ -4425,6 +4499,23 @@ def main() -> int:
                  "path": {p: {"dispatches": c["dispatches"],
                               "epilogue_launches": c["epilogue_launches"]}
                           for p, c in rlfn["served"].items()}},
+    }, {
+        "name": "esa",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/esa.cu",
+        "replaces": None,
+        "launches": rlfn_esa_launches,
+        "checked_launches": rlfn["esa"]["launches"],
+        "checked": True,
+        "max_abs_err": rlfn["esa"]["fp32_max_abs_err"],
+        "bf16_max_abs_err": rlfn["esa"]["bf16_max_abs_err"],
+        "ms": rlfn["esa"]["times"][RLFN_FRAMES]["ms"],
+        "plain_ms": rlfn["esa"]["times"][RLFN_FRAMES]["plain_ms"],
+        "bound_ms": rlfn["esa"]["times"][RLFN_FRAMES]["bound_ms"],
+        "bound_by": "bytes",
+        "shape": f"RLFN x4 block 1's c5 and ESA, {RLFN_FRAMES} frames {H}x{W}, bf16",
+        "timing": "calls queued behind a device sleep",
+        "times": rlfn["esa"]["times"],
     }]
     print("kernels: " + json.dumps({k["name"]: {"launches": k["launches"], "replaces": k["replaces"]}
                                     for k in kernels}))

@@ -8,7 +8,9 @@ each reading the output of the one before it:
   value (0: the model's input, i: stage i - 1's output), added to the last
   layer's output after its activation (a residual block's skip);
 * a whole-frame stage — any object with a ``name``, ``to(device, dtype)``
-  and a call ``(N, H, W, C) -> (N, H, W, C')`` in the frames' dtype, for work
+  and a call ``(x, clock=None)``, ``(N, H, W, C) -> (N, H, W, C')`` in the
+  frames' dtype (``clock``: the dispatch's stage clock, on which its
+  kernels note their launches), for work
   that ties each output pixel to the whole frame (RLFN's ESA, whose resize
   from a pooled map reaches every row), so that it cannot be cut into bands.
 

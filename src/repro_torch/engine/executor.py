@@ -285,7 +285,7 @@ def _execute_stack(plan: SRPlan, stack: PreparedStack, frames: torch.Tensor) -> 
         else:
             with span(f"sr.{st.name}"):
                 mark(st.name)
-                v = st(v)
+                v = st(v, clock=active_clock())
         if i + 1 in last_read:
             kept[i + 1] = v
     with span("sr.epilogue"):

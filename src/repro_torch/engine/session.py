@@ -399,6 +399,7 @@ class SRSession:
         self._stage_ms: Dict[str, float] = dict.fromkeys(STAGES, 0.0)
         self._stage_frames: Dict[str, int] = dict.fromkeys(STAGES, 0)
         self._epilogue_kernel_frames = 0
+        self._esa_launches = 0  # the ESA kernels' launches (kernels.esa)
         # K1 launches (segments) and the dispatches whose clocks counted them
         self._k1_segments = [0, 0]
         self._joins: deque = deque()
@@ -1040,6 +1041,7 @@ class SRSession:
             self._stage_frames[stage] += frames
         if "epilogue" in clock.kernels:
             self._epilogue_kernel_frames += frames
+        self._esa_launches += clock.launches.get("esa", 0)
         self._k1_segments[0] += clock.count("k1")
         self._k1_segments[1] += 1
 
@@ -1087,6 +1089,9 @@ class SRSession:
           (1 for a conv chain, a staged model's segments: RLFN x4's 9); 0
           before any.  ``esa_*`` above is a staged model's whole-frame
           stages.
+        * ``esa_launches``: the ESA kernels' launches (``kernels.esa``,
+          ``ESA_PASSES`` a stage: RLFN x4's six blocks launch 24 a dispatch
+          on the card; 0 on the CPU, where the plain chain runs).
         """
         self._read_joins()
         req = np.asarray(self._request_ms, np.float64).reshape(-1, 2)
@@ -1117,6 +1122,7 @@ class SRSession:
             out[f"{stage}_device_ms"] = self._stage_ms[stage]
             out[f"{stage}_frames"] = self._stage_frames[stage]
         out["epilogue_kernel_frames"] = self._epilogue_kernel_frames
+        out["esa_launches"] = self._esa_launches
         launches, dispatches = self._k1_segments
         out["k1_segments"] = launches / dispatches if dispatches else 0.0
         return out
@@ -1195,6 +1201,7 @@ class SRSession:
             self._stage_ms[stage] = 0.0
             self._stage_frames[stage] = 0
         self._epilogue_kernel_frames = 0
+        self._esa_launches = 0
         self._k1_segments[:] = [0, 0]
         with self._joins_lock:
             self._joins.clear()

@@ -67,14 +67,22 @@ class StageClock:
     card a mark is a timing event recorded on the device's current stream
     (the stream the stages' work is issued on).  ``kernels`` holds the
     stages whose work a hand-written kernel ran (the kernel's wrapper adds
-    its stage when it launches)."""
+    its stage when it launches); ``launches`` counts a stage's kernel
+    launches where its wrapper notes them (:meth:`note_launches`)."""
 
-    __slots__ = ("_device", "_marks", "kernels")
+    __slots__ = ("_device", "_marks", "kernels", "launches")
 
     def __init__(self, device: torch.device):
         self._device = device if device.type == "cuda" else None
         self._marks: List[Tuple[Optional[str], object]] = []
         self.kernels: Set[str] = set()
+        self.launches: Dict[str, int] = {}
+
+    def note_launches(self, stage: str, count: int) -> None:
+        """A hand-written kernel's wrapper launched ``count`` kernels for
+        ``stage``."""
+        self.kernels.add(stage)
+        self.launches[stage] = self.launches.get(stage, 0) + count
 
     def mark(self, stage: Optional[str]) -> None:
         if self._device is None:

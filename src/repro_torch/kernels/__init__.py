@@ -14,6 +14,10 @@ kernels/
                           cast) in one pass over K1's output (CUDA C++)
   epilogue.py           — its wrapper, launch counter and plain PyTorch
                           version (the chain it replaces)
+  csrc/esa.cu           — RLFN's block tail (c5 and ESA) in four passes over
+                          whole frames (CUDA C++)
+  esa.py                — its wrapper, launch counter and plain PyTorch
+                          version (the chain it replaces)
   _build.py             — nvcc build on first use + ctypes loading
   ops.py                — public wrappers (channel padding, stream layout,
                           untilt; ``conv3x3``)

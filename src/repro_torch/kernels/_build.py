@@ -35,7 +35,7 @@ NVCC_FLAGS = (
 )
 # kernel name -> source file under csrc/
 SOURCES: Dict[str, str] = {"tilted_fusion": "tilted_fusion.cu", "conv3x3": "conv3x3.cu",
-                           "sr_epilogue": "sr_epilogue.cu"}
+                           "sr_epilogue": "sr_epilogue.cu", "esa": "esa.cu"}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _log: List[Tuple[str, bool]] = []  # (kernel, compiled by nvcc) per first load, in order

@@ -22,7 +22,8 @@ The published model, ``RLFN(feature_channels=52, upscale=4)``::
 Every conv has a bias: 543,740 parameters.  The port serves it as stages
 (``core.stages``): the K1 segments ``[conv_1]``, ``[c1, c2, c3] +
 residual(block input)`` six times, each followed by the block's ``c5`` and
-ESA on whole frames in PyTorch ops (:class:`ESAStage`), ``[conv_2] +
+ESA on whole frames (:class:`ESAStage`: hand-written kernels on the card,
+``kernels.esa``), ``[conv_2] +
 residual(f0)`` and ``[upsampler]``, then the epilogue's shuffle and clip
 without an anchor.  Weights live in the published module's state-dict form
 (names and ``(Co, Ci, kh, kw)`` shapes, :func:`param_shapes`), so a trained
@@ -36,10 +37,10 @@ import math
 from typing import Dict, Tuple, Union
 
 import torch
-import torch.nn.functional as F
 
-from repro_torch.core.fusion import ConvLayer, exact_fp32
+from repro_torch.core.fusion import ConvLayer
 from repro_torch.core.stages import Segment, StagedModel
+from repro_torch.kernels.esa import esa_call
 
 __all__ = ["RLFNConfig", "ESAStage", "param_shapes", "param_count", "init_rlfn", "rlfn_model"]
 
@@ -109,7 +110,8 @@ def init_rlfn(generator: Union[torch.Generator, int, None] = None,
 @dataclasses.dataclass(frozen=True)
 class ESAStage:
     """An RLFB's tail on whole NHWC frames: ``u = c5(h)``, then ``u *
-    ESA(u)``, as PyTorch ops in the frames' dtype (fp32 with TF32 off).
+    ESA(u)``, in the frames' dtype (``kernels.esa.esa_call``: hand-written
+    kernels on the card, the plain PyTorch chain on the CPU and ``meta``).
     Weights are ``(w, b)`` pairs in ``(Co, Ci, kh, kw)`` layout."""
 
     c5: Tuple[torch.Tensor, torch.Tensor]
@@ -128,28 +130,11 @@ class ESAStage:
         for f in dataclasses.fields(self):
             yield from getattr(self, f.name)
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        if x.dtype == torch.float32:
-            with exact_fp32():
-                return self._apply(x)
-        return self._apply(x)
-
-    def _apply(self, x: torch.Tensor) -> torch.Tensor:
-        dt = x.dtype
-        h = x.permute(0, 3, 1, 2)  # NCHW view of the NHWC frames (channels last)
-
-        def conv(t, wb, **kw):
-            return F.conv2d(t, wb[0].to(dt), wb[1].to(dt), **kw)
-
-        u = conv(h, self.c5)
-        c1_ = conv(u, self.conv1)
-        c3 = conv(F.max_pool2d(conv(c1_, self.conv2, stride=2), kernel_size=7, stride=3),
-                  self.conv3, padding=1)
-        c3 = F.interpolate(c3, size=u.shape[2:], mode="bilinear", align_corners=False)
-        c3 += conv(c1_, self.conv_f)
-        del c1_
-        m = torch.sigmoid_(conv(c3, self.conv4))
-        return u.mul_(m).permute(0, 2, 3, 1).contiguous()
+    def __call__(self, x: torch.Tensor, clock=None) -> torch.Tensor:
+        """``clock``: the dispatch's stage clock, which counts the kernels'
+        launches."""
+        return esa_call(x.contiguous(), self.c5, self.conv1, self.conv_f, self.conv2,
+                        self.conv3, self.conv4, clock=clock)
 
 
 def _conv3x3(sd, name, relu=False, slope=0.0) -> ConvLayer:

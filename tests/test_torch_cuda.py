@@ -1474,3 +1474,125 @@ def test_rlfn_x4_served_on_the_card_matches_the_reference(cuda, precision, tol):
         want = ref.rlfn(frames.to(cuda), {k: v.to(cuda) for k, v in sd.items()}, 4)
     err = (hr.float() - want).abs().max().item()
     assert hr.shape == (2, 1440, 2560, 3) and err <= tol, err
+
+
+# ----------------------------------------------------------------------
+# RLFN's ESA kernels (kernels/esa.py, csrc/esa.cu) against the plain chain
+# ----------------------------------------------------------------------
+# fp32 runs the 1x1s and the 3x3s as FMAs in another order than cuDNN (TF32
+# off) and the same bilinear rule: a few ulps of values of order 1
+ESA_FP32_TOL = 1e-5
+
+
+def _esa_weights(seed=31):
+    """Block 1's c5 and ESA weights from ``init_rlfn`` with biases that are
+    not zero, as ``(w, b)`` pairs in ESAStage's order, fp32 on the CPU."""
+    from repro_torch.models.rlfn import init_rlfn
+
+    gen = torch.Generator().manual_seed(seed)
+    sd = init_rlfn(gen)
+    names = ("c5", "esa.conv1", "esa.conv_f", "esa.conv2", "esa.conv3", "esa.conv4")
+    return tuple((sd[f"block_1.{n}.weight"],
+                  torch.randn(sd[f"block_1.{n}.bias"].shape, generator=gen) * 0.05)
+                 for n in names)
+
+
+def _esa_frames(n, h, w, seed=32):
+    return torch.randn((n, h, w, 52), generator=torch.Generator().manual_seed(seed)) * 0.5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("n,h,w", [(1, 360, 640), (8, 360, 640), (2, 36, 48), (3, 37, 53)])
+def test_esa_kernels_match_the_chain(cuda, n, h, w, dtype):
+    """``esa_call`` on the card against ``esa_plain``: in fp32 within
+    ``ESA_FP32_TOL``; in bf16 the kernels' largest difference from the fp32
+    chain at most 1.1x the bf16 chain's.  36 x 48 and 37 x 53 are the
+    pool's smallest inputs (4 x 6 and 4 x 7 pooled) and ragged tiles; 37 x 53
+    frames leave a partial last pixel tile."""
+    from repro_torch.kernels import esa
+
+    pairs = tuple(tuple(t.to(cuda) for t in wb) for wb in _esa_weights())
+    x32 = _esa_frames(n, h, w).to(cuda)
+    x = x32.to(dtype)
+    launches = esa.esa_call.launches
+    got = esa.esa_call(x, *pairs)
+    torch.cuda.synchronize()
+    assert esa.esa_call.launches == launches + esa.ESA_PASSES
+    assert got.shape == x.shape and got.dtype == dtype and got.is_contiguous()
+    want = esa.esa_plain(x.float(), *pairs)
+    err = (got.float() - want).abs().max().item()
+    if dtype == torch.float32:
+        assert err <= ESA_FP32_TOL, err
+    else:
+        chain = (esa.esa_plain(x, *pairs).float() - want).abs().max().item()
+        assert err <= 1.1 * chain, (err, chain)
+    assert torch.equal(esa.esa_call(x, *pairs), got)  # the same bits every call
+
+
+def test_esa_kernels_refuse_what_they_do_not_take(cuda):
+    """A non-contiguous input, other widths, an unsupported dtype and a
+    frame below the pool's smallest raise; nothing is launched."""
+    from repro_torch.kernels import esa
+
+    pairs = tuple(tuple(t.to(cuda) for t in wb) for wb in _esa_weights())
+    x = _esa_frames(1, 36, 48).to(cuda)
+    launches = esa.esa_call.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        esa.esa_call(torch.cat([x, x[..., :12]], -1)[..., :52], *pairs)
+    with pytest.raises(ValueError, match="built for 52 features"):
+        esa.esa_call(x[..., :48].contiguous(),
+                     (pairs[0][0][:48, :48].contiguous(), pairs[0][1][:48]), *pairs[1:])
+    wide = (torch.cat([pairs[1][0], pairs[1][0]]), torch.cat([pairs[1][1], pairs[1][1]]))
+    with pytest.raises(ValueError, match="built for 52 features"):
+        esa.esa_call(x, pairs[0], wide, *pairs[2:])
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        esa.esa_call(x.half(), *pairs)
+    with pytest.raises(ValueError, match="at least 15 x 15"):
+        esa.esa_call(x[:, :14].contiguous(), *pairs)
+    assert esa.esa_call.launches == launches
+
+
+def test_rlfn_x4_dispatch_runs_esa_on_the_kernels(cuda, monkeypatch):
+    """A served ``rlfn_x4`` dispatch in bf16 (two 360 x 640 frames, the
+    cell's configuration) launches the ESA kernels ``ESA_PASSES`` times a
+    block, six blocks (``esa_launches``), and its HR frames are those of the
+    same server with ESA on the plain chain, within the cell's limit (0.03)."""
+    from repro_torch.kernels import esa
+    from repro_torch.models import rlfn
+
+    model = _rlfn_model(14)
+    frames = torch.rand((2, 360, 640, 3), generator=torch.Generator().manual_seed(15))
+
+    def serve():
+        server = engine.SRServer.open("rlfn_x4", layers=model, backend="kernel",
+                                      precision="bf16", vertical_policy="halo", band_rows=60,
+                                      device=cuda, autotune="off")
+        server.submit(frames).result()  # builds and warms the executor
+        server.session().reset_stats()
+        hr = server.submit(frames).result()
+        stats = server.session().stats()
+        server.close()
+        return hr, stats
+
+    hr, stats = serve()
+    assert stats["esa_launches"] == 6 * esa.ESA_PASSES and stats["esa_frames"] == 2
+    monkeypatch.setattr(rlfn, "esa_call", lambda x, *pairs, clock=None: esa.esa_plain(x, *pairs))
+    plain, plain_stats = serve()
+    assert plain_stats["esa_launches"] == 0 and plain_stats["esa_frames"] == 2
+    err = (hr.float() - plain.float()).abs().max().item()
+    assert hr.shape == (2, 1440, 2560, 3) and err <= 0.03, err
+
+
+def _rlfn_model(seed):
+    """RLFN x4 from ``init_rlfn(seed)`` with the card tests' biases and
+    upsampler (the HR frame mostly inside [0, 1])."""
+    from repro_torch.models.rlfn import RLFNConfig, init_rlfn, rlfn_model
+
+    gen = torch.Generator().manual_seed(seed)
+    sd = init_rlfn(gen)
+    for name in sd:
+        if name.endswith(".bias"):
+            sd[name] = torch.randn(sd[name].shape, generator=gen) * 0.05
+    sd["upsampler.0.weight"] *= 0.1
+    sd["upsampler.0.bias"] += 0.5
+    return rlfn_model(sd, RLFNConfig())

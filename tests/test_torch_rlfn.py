@@ -256,3 +256,113 @@ def test_staged_model_refuses_what_it_cannot_serve():
     with pytest.raises(ValueError, match="int8 serves a ConvLayer chain"):
         engine.prepare_stack(dataclasses.replace(plan, precision="int8"), model)
     assert np.isclose(RLFNConfig().slope, 0.05)
+
+
+def _chain_before(x, stage):
+    """ESA as ``ESAStage`` computed it before the kernels: the PyTorch chain
+    on the NCHW view, in the frames' dtype (fp32 with TF32 off)."""
+    dt = x.dtype
+
+    def conv(t, wb, **kw):
+        return F.conv2d(t, wb[0].to(dt), wb[1].to(dt), **kw)
+
+    with exact_fp32():
+        h = x.permute(0, 3, 1, 2)
+        u = conv(h, stage.c5)
+        c1_ = conv(u, stage.conv1)
+        c3 = conv(F.max_pool2d(conv(c1_, stage.conv2, stride=2), kernel_size=7, stride=3),
+                  stage.conv3, padding=1)
+        c3 = F.interpolate(c3, size=u.shape[2:], mode="bilinear", align_corners=False)
+        c3 += conv(c1_, stage.conv_f)
+        del c1_
+        m = torch.sigmoid_(conv(c3, stage.conv4))
+        return u.mul_(m).permute(0, 2, 3, 1).contiguous()
+
+
+def _esa_stage(dtype=torch.float32):
+    return rlfn_model(_weights(), RLFNConfig()).stages[2].to(dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_esa_stage_on_the_cpu_is_the_chain_it_was(dtype, monkeypatch):
+    """Off the card ``ESAStage`` runs ``esa_plain``, ``torch.equal`` to the
+    chain it ran before the kernels, and launches nothing."""
+    from repro_torch.kernels import esa
+
+    stage = _esa_stage(dtype)
+    x = (torch.randn((2, H, W, 52), generator=torch.Generator().manual_seed(12)) * 0.5).to(dtype)
+    calls = []
+    plain = esa.esa_plain
+    monkeypatch.setattr(esa, "esa_plain", lambda *a: calls.append(1) or plain(*a))
+    launches = esa.esa_call.launches
+    got = stage(x)
+    assert calls == [1] and esa.esa_call.launches == launches
+    assert got.dtype == dtype and got.is_contiguous() and torch.equal(got, _chain_before(x, stage))
+    # a strided view of the frames gives the same bits
+    wide = torch.cat([x, x[..., :12]], -1)[..., :52]
+    assert torch.equal(stage(wide), got)
+
+
+def test_esa_stage_on_meta_runs_the_plain_chain():
+    """On ``meta`` (``plan_cost``'s trace) the stage runs the plain chain's
+    operators and keeps the frames' shape; the wrapper still checks what it
+    is given."""
+    from repro_torch.kernels import esa
+    from repro_torch.roofline.trace_cost import trace_cost
+
+    stage = _esa_stage().to(device="meta")
+    x = torch.empty((2, H, W, 52), device="meta")
+    got = stage(x)
+    assert got.device.type == "meta" and got.shape == x.shape
+    now, before = trace_cost(stage, x), trace_cost(_chain_before, x, stage)
+    assert dataclasses.replace(now, result=None) == dataclasses.replace(before, result=None)
+    assert now.flops_by_op and now.op_count == before.op_count > 10
+    with pytest.raises(ValueError, match=r"\(N, H, W, C\) frames"):
+        esa.esa_call(x[0], stage.c5, stage.conv1, stage.conv_f, stage.conv2, stage.conv3,
+                     stage.conv4)
+
+
+def test_served_rlfn_counts_no_esa_launches_off_the_card():
+    """``esa_launches`` is 0 on the CPU, where ESA is the plain chain, and
+    ``esa_call.launches`` does not move."""
+    from repro_torch.kernels import esa
+
+    launches = esa.esa_call.launches
+    server = engine.SRServer.open("rlfn_x4", layers=rlfn_model(_weights(), RLFNConfig()),
+                                  backend="kernel", vertical_policy="halo", band_rows=R,
+                                  device="cpu", autotune="off")
+    server.submit(_frames(2).numpy()).result()
+    stats = server.session().stats()
+    server.close()
+    assert stats["esa_launches"] == 0 and stats["esa_frames"] == 2
+    assert esa.esa_call.launches == launches
+
+
+# engine.plan_cost of rlfn_x4 (the _weights() model, 36 x 48, halo at 12 rows,
+# the tilted backend) on two frames before the ESA kernels
+PLAN_COST_BEFORE = {
+    "fp32": {"batch": 2, "flops": 5902060032, "hbm_bytes": 552407628,
+             "flops_per_frame": 2951030016, "hbm_bytes_per_frame": 276203814,
+             "weight_bytes_resident": 2174960},
+    "bf16": {"batch": 2, "flops": 5902060032, "hbm_bytes": 500171484,
+             "flops_per_frame": 2951030016, "hbm_bytes_per_frame": 250085742,
+             "weight_bytes_resident": 1087480},
+}
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_plan_cost_of_rlfn_is_unchanged(precision, monkeypatch):
+    """``engine.plan_cost`` of ``rlfn_x4`` (a meta trace of the executor,
+    ESA on its plain chain) counts what it counted before the kernels, and
+    what it counts with the stage replaced by that chain."""
+    from repro_torch.models import rlfn
+
+    session = engine.SRSession(rlfn_model(_weights(), RLFNConfig()), backend="tilted",
+                               vertical_policy="halo", band_rows=R, scale=4, device="cpu",
+                               autotune="off", precision=precision)
+    plan = session.plan_for((H, W, 3))
+    now = engine.plan_cost(plan, session.staged, 2, device="cpu")
+    assert now == PLAN_COST_BEFORE[precision]
+    monkeypatch.setattr(rlfn, "esa_call", lambda x, *pairs, clock=None: _chain_before(
+        x, rlfn.ESAStage(*pairs)))
+    assert engine.plan_cost(plan, session.staged, 2, device="cpu") == now
